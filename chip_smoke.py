@@ -1,0 +1,754 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``xllm_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card (built for an H100: the kernels compile for sm_90a)
+and the CUDA toolkit (nvcc). Imports neither jax nor ``xllm_tpu``. Every
+phase raises on failure, so a non-zero exit means a phase failed:
+
+1. build: compile ``xllm_tpu_torch/csrc/*.cu`` with nvcc (all sources at
+   once) and print the card's name and power limit;
+2. kernels: each hand-written kernel of the served path against its plain
+   PyTorch version on the card, at the served shapes (qwen3-1.7B: Hq 16,
+   Hkv 8, head_dim 128, block_size 64, bf16, and f32) with padded rows,
+   chunks at q_offset > 0 (prefill attention at each chunk bucket the
+   engine phase runs: 64, 512 and 2048) and mid-page writes; then the
+   kernel, the plain version and one PyTorch library call (the yardstick,
+   never used by the port) are timed with CUDA events, queued behind a
+   device-side sleep so that the device's time is timed and not the
+   host's launch rate, rotating over cache layers so that reads come from
+   device memory and not from L2;
+3. engine: ``LLMEngine(device="cuda")`` at the full width of the
+   qwen3-1.7B config (28 layers, bf16, random weights from a seed) serves
+   two warm-up requests, then 16 greedy requests whose prompts take every
+   kernel; the launch counters are zeroed just before those 16 and read
+   just after, and also around each model pass, which must launch each
+   kernel it uses once per layer;
+4. parity: a small f32 qwen3 from one seed, served on the card (kernels)
+   and on the CPU (plain versions), must give identical greedy tokens.
+
+The line before the last is ``{"kernels": [...]}`` (errors, times, bounds
+and launch counts); the last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from xllm_tpu_torch.config import (
+    CacheConfig,
+    EngineConfig,
+    ModelConfig,
+    SchedulerConfig,
+)
+from xllm_tpu_torch.engine import LLMEngine
+from xllm_tpu_torch.framework.sampling_params import SamplingParams
+from xllm_tpu_torch.ops.cuda import _build
+from xllm_tpu_torch.ops.cuda import decode_attention as k1
+from xllm_tpu_torch.ops.cuda import kv_write as k24
+from xllm_tpu_torch.ops.cuda import prefill_attention as k3
+from xllm_tpu_torch.runtime.model_runner import ModelRunner
+from xllm_tpu_torch.weights import random_param_tree
+
+# published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
+# dense bf16 tensor-core FLOP/s
+PEAK_BYTES = 3.35e12
+PEAK_BF16 = 989e12
+# SM clock of an H100 SXM at its highest boost; torch.cuda._sleep counts
+# SM cycles, so at a lower clock the sleep only lasts longer
+SLEEP_CYCLES_PER_S = 1.98e9
+
+HQ, HKV, D, BS = 16, 8, 128, 64
+NB_MAX = 64  # block-table width at max_model_len 4096
+LAYERS = 8  # cache layers the timing loops rotate over
+# tolerances (atol, rtol), kernel vs plain version on the same card: both
+# compute in f32 and round once to the cache dtype, so they differ by the
+# f32 summation order (~1e-6) and, in bf16, by at most one bf16 ulp of the
+# result, which is at most 2^-7 |x| (8 significand bits)
+TOL = {torch.bfloat16: (1e-5, 2.0 ** -7), torch.float32: (1e-4, 0.0)}
+
+# qwen3-1.7B-class config (bench.py:36-49; Qwen3-1.7B's published
+# config.json widths)
+QWEN3_1P7B = dict(
+    model_type="qwen3",
+    dtype="bfloat16",
+    vocab_size=151936,
+    hidden_size=2048,
+    intermediate_size=6144,
+    num_hidden_layers=28,
+    num_attention_heads=16,
+    num_key_value_heads=8,
+    head_dim=128,
+    qk_norm=True,
+    tie_word_embeddings=True,
+    rope_theta=1000000.0,
+    max_position_embeddings=4096,
+)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def time_ms(fn, iters: int = 40, warmup: int = 3) -> tuple[float, bool]:
+    """Time per call of ``fn(i)`` over ``iters`` calls, with CUDA events.
+
+    The calls are queued behind a device-side sleep long enough for the
+    host to enqueue them all, so that the events time the device's work
+    and not the host's launch rate. -> (ms per call, queued): ``queued`` is
+    False when the device had already left the sleep once the host was
+    done, which happens when ``fn`` waits on the device (a host sync); the
+    time is then the serial time per call, host included."""
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(0)
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t0  # bounds one call's host time
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2 * iters * serial_s, 0.5) * SLEEP_CYCLES_PER_S))
+    start.record()
+    for i in range(iters):
+        fn(i)
+    end.record()
+    queued = not start.query()
+    end.synchronize()
+    return start.elapsed_time(end) / iters, queued
+
+
+def time_three(kernel, plain, library, plain_iters: int) -> dict:
+    """Kernel, plain version and library yardstick, each by ``time_ms``.
+    The kernel's wrapper never waits on the device, so its calls must
+    queue; a plain version may sync (boolean indexing) and is then timed
+    serially, which ``plain_queued`` records."""
+    ms, queued = time_ms(kernel)
+    assert queued, "a kernel wrapper waited on the device"
+    plain_ms, plain_queued = time_ms(plain, iters=plain_iters)
+    library_ms, library_queued = time_ms(library)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                plain_queued=plain_queued, library_queued=library_queued)
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa(q, k, v, mask, scale):
+    """The library yardstick: one PyTorch attention call over [N, H, L, D]
+    tensors, K/V with the Hkv heads (GQA)."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=scale, enable_gqa=True)
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def check_close(out: torch.Tensor, ref: torch.Tensor, what: str) -> float:
+    """Assert |out - ref| <= atol + rtol |ref| elementwise -> max abs err."""
+    atol, rtol = TOL[ref.dtype]
+    diff = (out.float() - ref.float()).abs()
+    excess = (diff - atol - rtol * ref.float().abs()).max().item()
+    err = diff.max().item()
+    assert excess <= 0, (f"{what}: max abs err {err}, over atol {atol} + rtol "
+                         f"{rtol} |ref| by {excess}")
+    return err
+
+
+def tol_text(dtype) -> str:
+    atol, rtol = TOL[dtype]
+    return f"atol {atol:g} + rtol {rtol:g} |ref|"
+
+
+def page_tables(rng, lens, nb_total):
+    """Disjoint random pages for each sequence (block 0 stays the null
+    block) -> block_tables [N, NB_MAX] int32."""
+    free = rng.permutation(np.arange(1, nb_total)).tolist()
+    bt = np.zeros((len(lens), NB_MAX), np.int32)
+    for i, n in enumerate(lens):
+        for j in range(-(-n // BS)):
+            bt[i, j] = free.pop()
+    return bt
+
+
+def i32(a, dev):
+    return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels
+# ---------------------------------------------------------------------------
+def check_decode(rng, dev, dtype, timed: bool) -> dict:
+    """K1 at B=16: 14 live rows over the served context mix, 2 padded."""
+    lens = [56, 316, 716, 2116] * 3 + [56, 316] + [0, 0]
+    b = len(lens)
+    nb = 1 + sum(-(-n // BS) for n in lens) + 8
+    bt = page_tables(rng, lens, nb)
+    slots = [bt[i, (n - 1) // BS] * BS + (n - 1) % BS if n else 0
+             for i, n in enumerate(lens)]
+    g = torch.Generator(device=dev).manual_seed(1)
+    shape = (LAYERS, nb, HKV, BS, D)
+    kc = torch.randn(shape, generator=g, device=dev).to(dtype)
+    vc = torch.randn(shape, generator=g, device=dev).to(dtype)
+    q = torch.randn(b, HQ, D, generator=g, device=dev).to(dtype)
+    kn = torch.randn(b, HKV, D, generator=g, device=dev).to(dtype)
+    vn = torch.randn(b, HKV, D, generator=g, device=dev).to(dtype)
+    sm, btt, sl = i32(slots, dev), i32(bt, dev), i32(lens, dev)
+    scale = D ** -0.5
+    layer = 3
+
+    kk, vk = kc.clone(), vc.clone()
+    out = k1.paged_decode_attention_write(q, kn, vn, kk, vk, layer, sm, btt, sl, scale)
+    kp, vp = kc.clone(), vc.clone()
+    ref = k1.paged_decode_attention_write_plain(q, kn, vn, kp, vp, layer, sm, btt, sl, scale)
+    sync()
+    err = check_close(out, ref, f"K1 {dtype}")
+    assert torch.equal(kk, kp) and torch.equal(vk, vp), f"K1 {dtype}: caches differ"
+    assert not out[-2:].float().abs().any(), "K1: padded rows must be zeros"
+    res = {"max_abs_err": err}
+    if not timed:
+        return res
+
+    el = kc.element_size()
+    ntok = sum(lens)
+    nbytes = (2 * b * HQ * D + 4 * b * HKV * D + 2 * ntok * HKV * D) * el
+    flops = 4.0 * ntok * HQ * D
+    # library yardstick: SDPA over K/V gathered into contiguous tensors
+    lmax = -(-max(lens) // BS) * BS
+    ctx = bt[:, : lmax // BS]
+    idx = i32(ctx, dev).long()
+    kg = [kc[l][idx].permute(0, 2, 1, 3, 4).reshape(b, HKV, lmax, D)
+          for l in range(LAYERS)]
+    vg = [vc[l][idx].permute(0, 2, 1, 3, 4).reshape(b, HKV, lmax, D)
+          for l in range(LAYERS)]
+    mask = (torch.arange(lmax, device=dev)[None, :] < sl[:, None].long())[:, None, None, :]
+    q4 = q[:, :, None, :]
+    res.update(time_three(
+        lambda i: k1.paged_decode_attention_write(
+            q, kn, vn, kc, vc, i % LAYERS, sm, btt, sl, scale),
+        lambda i: k1.paged_decode_attention_write_plain(
+            q, kn, vn, kc, vc, i % LAYERS, sm, btt, sl, scale),
+        lambda i: sdpa(q4, kg[i % LAYERS], vg[i % LAYERS], mask, scale),
+        plain_iters=10,
+    ))
+    res["shape"] = (f"B={b} (2 padded), seq_lens {sorted(set(lens) - {0})}, "
+                    f"Hq {HQ}, Hkv {HKV}, D {D}, bs {BS}")
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops)
+    return res
+
+
+# K1 variants beside the served shape: (head_dim, Hq, Hkv, block_size,
+# block-table width, window); the widths give 1 to 16 context splits
+DECODE_VARIANTS = [(128, 16, 8, 64, 64, 100), (64, 8, 2, 16, 40, 37),
+                   (128, 32, 4, 64, 128, 0), (128, 16, 8, 64, 64, 4096)]
+
+
+def check_decode_variants(rng, dev, dtype) -> float:
+    """K1 against its plain version with sliding windows, head_dim 64 and
+    contexts up to 8,192 tokens, three launches in a row (the split
+    counters must re-arm) -> the largest max-abs error."""
+    worst = 0.0
+    for d, hq, hkv, bs, nbmax, window in DECODE_VARIANTS:
+        lens = rng.integers(0, nbmax * bs + 1, 24)
+        lens[:3] = [1, nbmax * bs, 0]
+        nb = 1 + sum(-(-int(n) // bs) for n in lens) + 4
+        free = rng.permutation(np.arange(1, nb)).tolist()
+        bt = np.zeros((len(lens), nbmax), np.int32)
+        for i, n in enumerate(lens):
+            bt[i, : -(-int(n) // bs)] = [free.pop() for _ in range(-(-int(n) // bs))]
+        slots = [bt[i, (n - 1) // bs] * bs + (n - 1) % bs if n else 0
+                 for i, n in enumerate(lens)]
+        g = torch.Generator(device=dev).manual_seed(4)
+        kc = torch.randn(2, nb, hkv, bs, d, generator=g, device=dev).to(dtype)
+        vc = torch.randn(2, nb, hkv, bs, d, generator=g, device=dev).to(dtype)
+        q, kn, vn = (torch.randn(len(lens), h, d, generator=g, device=dev).to(dtype)
+                     for h in (hq, hkv, hkv))
+        args = (1, i32(slots, dev), i32(bt, dev), i32(lens, dev), d ** -0.5, window)
+        kk, vk = kc.clone(), vc.clone()
+        for _ in range(3):
+            out = k1.paged_decode_attention_write(q, kn, vn, kk, vk, *args)
+        kp, vp = kc.clone(), vc.clone()
+        ref = k1.paged_decode_attention_write_plain(q, kn, vn, kp, vp, *args)
+        sync()
+        what = f"K1 {dtype} d={d} hq={hq} hkv={hkv} bs={bs} ctx={nbmax * bs} window={window}"
+        err = check_close(out, ref, what)
+        assert torch.equal(kk, kp) and torch.equal(vk, vp), f"{what}: caches differ"
+        worst = max(worst, err)
+    return worst
+
+
+# prefill chunks (q_offset, ntok): two fresh prompts, the second chunk of a
+# chunked prompt (q_offset 512 > 0, bucket padding) and a padded row
+PREFILL_ROWS = [(0, 300), (0, 512), (512, 188), (0, 0)]
+PREFILL_S = 512
+# K3 at each chunk bucket the engine phase gives it, S -> rows: the
+# compute-bound 2048 bucket (the first chunk of a 2,100-token prompt and a
+# 700-token prompt), the 512 rows above, and the 64 bucket with the
+# 52-token second chunk at q_offset 2048 over the first chunk's 32 pages.
+# The first entry is the one timed into the kernels line.
+K3_SHAPES = {
+    2048: [(0, 2048), (0, 700), (0, 0)],
+    PREFILL_S: PREFILL_ROWS,
+    64: [(2048, 52), (0, 40), (0, 0)],
+}
+# short chunks for the RMW writer: page-aligned, one full page from mid-page,
+# one spanning two pages, a padded row
+RMW_ROWS = [(2048, 52), (37, 27), (100, 60), (0, 0)]
+RMW_S = 64
+
+
+def _chunk_tables(rng, rows, dev):
+    lens = [qo + n for qo, n in rows]
+    nb = 1 + sum(-(-n // BS) for n in lens) + 8
+    bt = page_tables(rng, lens, nb)
+    qo = i32([r[0] for r in rows], dev)
+    nt = i32([r[1] for r in rows], dev)
+    kvl = i32([qo_ + n if n else 0 for qo_, n in rows], dev)
+    return nb, i32(bt, dev), qo, nt, kvl
+
+
+def check_prefill(rng, dev, dtype, timed: bool) -> dict:
+    """K3 at every bucket of ``K3_SHAPES`` (chunks at q_offset > 0 and
+    padded rows) -> the first bucket's result, with every bucket's in
+    ``by_shape``."""
+    results = [check_prefill_shape(rng, dev, dtype, timed, s, rows)
+               for s, rows in K3_SHAPES.items()]
+    res = dict(results[0])
+    res["max_abs_err"] = max(r["max_abs_err"] for r in results)
+    if timed:
+        res["by_shape"] = results
+    return res
+
+
+def check_prefill_shape(rng, dev, dtype, timed: bool, s: int, rows) -> dict:
+    p = len(rows)
+    nb, btt, qo, _, kvl = _chunk_tables(rng, rows, dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    shape = (LAYERS, nb, HKV, BS, D)
+    kc = torch.randn(shape, generator=g, device=dev).to(dtype)
+    vc = torch.randn(shape, generator=g, device=dev).to(dtype)
+    q = torch.randn(p, s, HQ, D, generator=g, device=dev).to(dtype)
+    scale = D ** -0.5
+    out = k3.paged_attention_prefill_batched(q, kc, vc, 5, btt, qo, kvl, scale)
+    ref = k3.paged_attention_prefill_batched_plain(q, kc, vc, 5, btt, qo, kvl, scale)
+    sync()
+    what = f"K3 {dtype} S={s} {rows}"
+    err = check_close(out, ref, what)
+    for i, (_, n) in enumerate(rows):
+        # a padded row and the bucket padding past ntok are zeros
+        assert not out[i, n:].float().abs().any(), f"{what}: row {i} past ntok not zero"
+    res = {"max_abs_err": err}
+    if not timed:
+        return res
+
+    el = kc.element_size()
+    ntok = sum(n for _, n in rows)
+    kv_rows = sum(qo_ + n for qo_, n in rows if n)
+    pairs = sum(sum(qo_ + i + 1 for i in range(n)) for qo_, n in rows)
+    nbytes = (2 * ntok * HQ * D + 2 * kv_rows * HKV * D) * el
+    flops = 4.0 * pairs * HQ * D
+    # library yardstick: one SDPA call over K/V gathered contiguous, with the
+    # causal + kv_len mask of each chunk
+    lmax = max(qo_ + n for qo_, n in rows)
+    lmax = -(-lmax // BS) * BS
+    idx = btt[:, : lmax // BS].long()
+    kg = [kc[l][idx].permute(0, 2, 1, 3, 4).reshape(p, HKV, lmax, D)
+          for l in range(LAYERS)]
+    vg = [vc[l][idx].permute(0, 2, 1, 3, 4).reshape(p, HKV, lmax, D)
+          for l in range(LAYERS)]
+    qpos = qo.long()[:, None] + torch.arange(s, device=dev)[None, :]
+    kvi = torch.arange(lmax, device=dev)
+    mask = (kvi[None, None, :] <= qpos[:, :, None]) & (kvi[None, None, :] < kvl.long()[:, None, None])
+    mask = mask[:, None]
+    qt = q.transpose(1, 2)
+    res.update(time_three(
+        lambda i: k3.paged_attention_prefill_batched(
+            q, kc, vc, i % LAYERS, btt, qo, kvl, scale),
+        lambda i: k3.paged_attention_prefill_batched_plain(
+            q, kc, vc, i % LAYERS, btt, qo, kvl, scale),
+        lambda i: sdpa(qt, kg[i % LAYERS], vg[i % LAYERS], mask, scale),
+        plain_iters=5,
+    ))
+    res["shape"] = (f"P={p} chunks of S={s} (q_offset, ntok) {rows}, "
+                    f"Hq {HQ}, Hkv {HKV}, D {D}, bs {BS}")
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops)
+    return res
+
+
+def check_writer(rng, dev, dtype, timed: bool, rmw: bool) -> dict:
+    """K2 (head-major, page-aligned, S=512) or K4 (token-major, S=64,
+    mid-page starts)."""
+    rows, s = (RMW_ROWS, RMW_S) if rmw else (PREFILL_ROWS, PREFILL_S)
+    p = len(rows)
+    nb, btt, qo, nt, _ = _chunk_tables(rng, rows, dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    shape = (LAYERS, nb, HKV, BS, D)
+    kc = torch.randn(shape, generator=g, device=dev).to(dtype)
+    vc = torch.randn(shape, generator=g, device=dev).to(dtype)
+    src_shape = (p, s, HKV, D) if rmw else (p, HKV, s, D)
+    kn = torch.randn(src_shape, generator=g, device=dev).to(dtype)
+    vn = torch.randn(src_shape, generator=g, device=dev).to(dtype)
+    fn = k24.kv_write_rmw_batched if rmw else k24.kv_write_prefill_batched
+
+    def plain(k_all, v_all, layer):
+        kr, vr = (kn, vn) if rmw else (kn.transpose(1, 2), vn.transpose(1, 2))
+        k24.kv_write_rows_plain(kr, vr, k_all, v_all, layer, btt, qo, nt)
+
+    kk, vk = kc.clone(), vc.clone()
+    fn(kn, vn, kk, vk, 2, btt, qo, nt)
+    kp, vp = kc.clone(), vc.clone()
+    plain(kp, vp, 2)
+    sync()
+    name = "K4" if rmw else "K2"
+    assert torch.equal(kk, kp) and torch.equal(vk, vp), f"{name} {dtype}: caches differ"
+    assert not torch.equal(kk, kc), f"{name}: nothing was written"
+    res = {"max_abs_err": max_err(kk, kp)}
+    if not timed:
+        return res
+
+    el = kc.element_size()
+    ntok = sum(n for _, n in rows)
+    nbytes = 2 * 2 * ntok * HKV * D * el  # K and V rows read once, written once
+    # library yardstick: one advanced-index row assignment per cache with
+    # the row indices computed beforehand
+    pos = [(i, qo_ + j) for i, (qo_, n) in enumerate(rows) for j in range(n)]
+    bt_np = btt.cpu().numpy()
+    blk = i32([bt_np[i, ps // BS] for i, ps in pos], dev).long()
+    off = i32([ps % BS for _, ps in pos], dev).long()
+    sel = [(i, j) for i, (_, n) in enumerate(rows) for j in range(n)]
+    src_k = kn if rmw else kn.transpose(1, 2)
+    src_v = vn if rmw else vn.transpose(1, 2)
+    rk = torch.stack([src_k[i, j] for i, j in sel])  # [N, Hkv, D]
+    rv = torch.stack([src_v[i, j] for i, j in sel])
+
+    def library(i):
+        kc[i % LAYERS, blk, :, off, :] = rk
+        vc[i % LAYERS, blk, :, off, :] = rv
+
+    res.update(time_three(
+        lambda i: fn(kn, vn, kc, vc, i % LAYERS, btt, qo, nt),
+        lambda i: plain(kc, vc, i % LAYERS),
+        library,
+        plain_iters=40,
+    ))
+    res["shape"] = (f"P={p} chunks of S={s} (q_offset, ntok) {rows}, "
+                    f"{'token' if rmw else 'head'}-major, Hkv {HKV}, D {D}, bs {BS}")
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 0.0)
+    return res
+
+
+def phase_kernels(dev) -> dict:
+    rng = np.random.default_rng(0)
+    checks = {
+        k1.NAME: lambda dt, t: check_decode(rng, dev, dt, t),
+        k24.PREFILL_NAME: lambda dt, t: check_writer(rng, dev, dt, t, rmw=False),
+        k3.NAME: lambda dt, t: check_prefill(rng, dev, dt, t),
+        k24.RMW_NAME: lambda dt, t: check_writer(rng, dev, dt, t, rmw=True),
+    }
+    results = {}
+    for name, check in checks.items():
+        f32 = check(torch.float32, False)
+        res = check(torch.bfloat16, True)
+        res["max_abs_err_f32"] = f32["max_abs_err"]
+        results[name] = res
+        log(f"[kernels] {name}: bf16 err {res['max_abs_err']:.3g} "
+            f"({tol_text(torch.bfloat16)}), f32 err {f32['max_abs_err']:.3g} "
+            f"({tol_text(torch.float32)})")
+        for r in res.get("by_shape", [res]):
+            serial = {True: "", False: " (serial: it syncs)"}
+            log(f"[kernels]   {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms{serial[r['plain_queued']]}, library "
+                f"{r['library_ms']:.4f} ms{serial[r['library_queued']]}, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    for dtype in (torch.float32, torch.bfloat16):
+        err = check_decode_variants(rng, dev, dtype)
+        log(f"[kernels] {k1.NAME} variants {DECODE_VARIANTS} (head_dim, Hq, Hkv, bs, "
+            f"table width, window), {dtype}: worst err {err:.3g} ({tol_text(dtype)})")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the engine at full width
+# ---------------------------------------------------------------------------
+def engine_config(model_kw=QWEN3_1P7B, batch: int = 16) -> EngineConfig:
+    """The served configuration: split layout, block_size 64, ``batch``
+    sequences, max_model_len 4096, prefill chunks of at most 2048 tokens."""
+    return EngineConfig(
+        model=ModelConfig(**model_kw),
+        cache=CacheConfig(block_size=BS, num_blocks=1024),
+        scheduler=SchedulerConfig(
+            max_seqs_per_batch=batch,
+            max_model_len=4096,
+            max_tokens_per_chunk_for_prefill=2048,
+            prefill_token_buckets=[64, 512, 2048],
+            decode_batch_buckets=[batch],
+        ),
+        seed=0,
+    )
+
+
+def warm_up(eng: LLMEngine, rng) -> None:
+    """Two short requests: first calls load CUDA modules and pick GEMM
+    algorithms, which would otherwise land in the first measured step. A
+    600-token prompt takes K2, K3 and K1, a 40-token prompt K4."""
+    for n in (600, 40):
+        eng.add_request(prompt_token_ids=rng.integers(1, 1000, n).tolist(),
+                        sampling_params=SamplingParams(max_tokens=2, ignore_eos=True))
+    eng.generate_all()
+
+
+def count_per_pass(runner) -> list[tuple[str, dict]]:
+    """Wrap the runner's two model passes (one prefill group, one decode
+    batch) so that each appends ``(kind, launch-count delta)`` to the list
+    returned. The engine calls them through the instance, so the wrappers
+    see every pass."""
+    deltas: list[tuple[str, dict]] = []
+
+    def wrap(fn, kind):
+        def counted(*args, **kw):
+            before = dict(_build.launch_counts)
+            out = fn(*args, **kw)
+            deltas.append((kind, {k: v - before.get(k, 0)
+                                  for k, v in _build.launch_counts.items()}))
+            return out
+        return counted
+
+    runner.run_prefill_batched = wrap(runner.run_prefill_batched, "prefill")
+    runner.run_decode = wrap(runner.run_decode, "decode")
+    return deltas
+
+
+def check_passes(deltas, layers: int) -> None:
+    """Every decode pass launches K1 once per layer and nothing else; every
+    prefill pass launches K3 once per layer and one of the two writers
+    (K2 for a chunk bucket above block_size, K4 otherwise) once per layer."""
+    for i, (kind, d) in enumerate(deltas):
+        got = {k: n for k, n in d.items() if n}
+        if kind == "decode":
+            want = [{k1.NAME: layers}]
+        else:
+            want = [{k3.NAME: layers, w: layers}
+                    for w in (k24.PREFILL_NAME, k24.RMW_NAME)]
+        assert got in want, f"{kind} pass {i}: launches {got}, expected one of {want}"
+
+
+def phase_engine(model_kw=QWEN3_1P7B, device="cuda") -> tuple[dict, dict]:
+    cfg = engine_config(model_kw)
+    t0 = time.perf_counter()
+    eng = LLMEngine(cfg, device=device)
+    sync()
+    log(f"[engine] {model_kw['model_type']}, {model_kw['num_hidden_layers']} layers, "
+        f"hidden {model_kw['hidden_size']}, {model_kw['dtype']}, random weights: "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    warm_up(eng, rng)  # before the counters are zeroed
+    # 40 -> K4; 300, 700 -> K2; 2100 -> chunks of 2048 (K2) + 52 (K4, K3 at
+    # q_offset 2048 over the first chunk's 32 pages)
+    lens = [40, 300, 700, 2100] * 4
+    prompts = [rng.integers(1, cfg.model.vocab_size, n).tolist() for n in lens]
+    sp = SamplingParams(temperature=0.0, max_tokens=32, ignore_eos=True)
+
+    deltas = count_per_pass(eng.runner)
+    _build.reset_launch_counts()
+    t_submit = time.perf_counter()
+    reqs = [eng.add_request(prompt_token_ids=p, sampling_params=sp) for p in prompts]
+    first: dict[str, float] = {}
+    done: dict[str, list[int]] = {}
+    steps = 0
+    while eng.has_unfinished():
+        for ro in eng.step():
+            now = time.perf_counter()
+            if ro.outputs[0].token_ids and ro.request_id not in first:
+                first[ro.request_id] = now - t_submit
+            if ro.finished:
+                done[ro.request_id] = ro.outputs[0].token_ids
+        steps += 1
+    sync()
+    t_all = time.perf_counter() - t_submit
+    launches = dict(_build.launch_counts)
+
+    assert len(done) == len(reqs), f"{len(done)} of {len(reqs)} requests finished"
+    for r in reqs:
+        toks = done[r.request_id]
+        assert len(toks) == 32, f"{r.request_id}: {len(toks)} tokens"
+        assert all(0 <= t < cfg.model.vocab_size for t in toks)
+    assert eng.block_manager.num_used_blocks == 0, "KV blocks leaked"
+    # every model pass launches the kernels it uses once per layer
+    layers = cfg.model.num_hidden_layers
+    check_passes(deltas, layers)
+    per_pass = {}
+    for name in (k1.NAME, k24.PREFILL_NAME, k3.NAME, k24.RMW_NAME):
+        assert launches.get(name, 0) > 0, f"kernel {name} never launched: {launches}"
+        seen = sorted({d.get(name, 0) for _, d in deltas} - {0})
+        passes = sum(1 for _, d in deltas if d.get(name, 0))
+        assert seen == [layers], f"{name}: launches per model pass {seen}, not [{layers}]"
+        assert passes * layers == launches[name], (name, passes, launches[name])
+        per_pass[name] = {"launches_per_step": seen[0], "passes": passes}
+    ttft = sorted(first.values())
+    gen = 32 * len(reqs)
+    info = {
+        "requests": len(reqs),
+        "prompt_lens": sorted(set(lens)),
+        "engine_steps": steps,
+        "wall_s": t_all,
+        "ttft_s_median": ttft[len(ttft) // 2],
+        "ttft_s_max": ttft[-1],
+        "gen_tok_per_s": gen / t_all,
+        "launches": launches,
+        "per_pass": per_pass,
+    }
+    log(f"[engine] {len(reqs)} requests x 32 tokens in {steps} steps, {t_all:.2f} s; "
+        f"TTFT median {info['ttft_s_median'] * 1e3:.1f} ms, max {ttft[-1] * 1e3:.1f} ms; "
+        f"{info['gen_tok_per_s']:.1f} generated tok/s overall (eager, no CUDA graphs); "
+        f"launches {launches}; {len(deltas)} model passes, per kernel {per_pass}")
+    return launches, info
+
+
+# ---------------------------------------------------------------------------
+# phase 4: card vs CPU parity
+# ---------------------------------------------------------------------------
+def phase_parity(devices=("cuda", "cpu")) -> int:
+    cfg_kw = dict(
+        model=dict(model_type="qwen3", dtype="float32", vocab_size=1000,
+                   hidden_size=256, intermediate_size=512,
+                   num_hidden_layers=2, num_attention_heads=4,
+                   num_key_value_heads=2, head_dim=128, qk_norm=True,
+                   max_position_embeddings=256, eos_token_ids=[0]),
+        cache=dict(block_size=16, num_blocks=128),
+        scheduler=dict(max_seqs_per_batch=4, max_model_len=256,
+                       max_tokens_per_chunk_for_prefill=64,
+                       prefill_token_buckets=[16, 64],
+                       decode_batch_buckets=[2, 4]),
+    )
+
+    def make():
+        return EngineConfig(
+            model=ModelConfig(**cfg_kw["model"]),
+            cache=CacheConfig(**cfg_kw["cache"]),
+            scheduler=SchedulerConfig(**cfg_kw["scheduler"]),
+        )
+
+    tree = random_param_tree(make().model, seed=7)
+    rng = np.random.default_rng(1)
+    # 10 and 70 -> S <= bs chunks (K4); 40, 100 -> K2, 100 chunked at 64
+    prompts = [rng.integers(1, 1000, n).tolist() for n in (10, 40, 100, 70, 23, 5)]
+    sp = SamplingParams(temperature=0.0, max_tokens=16, ignore_eos=True)
+    got = {}
+    for dev in devices:
+        cfg = make()
+        runner = ModelRunner(cfg, device=dev)
+        runner.load_model(params=tree)
+        eng = LLMEngine(cfg, runner=runner)
+        ids = [eng.add_request(prompt_token_ids=p, sampling_params=sp).request_id
+               for p in prompts]
+        outs = {ro.request_id: ro.outputs[0].token_ids for ro in eng.generate_all()}
+        assert eng.block_manager.num_used_blocks == 0
+        got[dev] = [outs[i] for i in ids]
+    a, b = (got[d] for d in devices)
+    assert a == b, f"greedy tokens differ:\n{a}\n{b}"
+    log(f"[parity] f32 qwen3 (2 layers, head_dim 128, bs 16): {len(prompts)} "
+        f"requests x 16 greedy tokens identical on {' and '.join(devices)}")
+    return len(prompts)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke run "
+              "needs a CUDA card", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    # phase 1: build
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    for stem, text in sorted(_build.build_log.items()):
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"[build] {stem}: {line.strip()}")
+    card = card_line()
+    log(card)
+
+    t0 = time.perf_counter()
+    kern = phase_kernels(dev)
+    log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches, info = phase_engine()
+    log(f"[engine] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_parity()
+    log(f"[parity] done in {time.perf_counter() - t0:.1f} s")
+
+    meta = {
+        k1.NAME: (k1.TPU_KERNEL, "decode_attention.cu"),
+        k24.PREFILL_NAME: (k24.PREFILL_TPU_KERNEL, "kv_write.cu"),
+        k3.NAME: (k3.TPU_KERNEL, "prefill_attention.cu"),
+        k24.RMW_NAME: (k24.RMW_TPU_KERNEL, "kv_write.cu"),
+    }
+    rows = []
+    for name, res in kern.items():
+        tpu, src = meta[name]
+        where, func = tpu.split()
+        row = {
+            "name": name,
+            "route": "cuda",
+            "source": f"xllm_tpu_torch/csrc/{src}",
+            "replaces": where,
+            "tpu_counterpart": func,
+            "launches": launches[name],
+            # measured: launches of each model pass that launched it
+            "launches_per_step": info["per_pass"][name]["launches_per_step"],
+            "passes": info["per_pass"][name]["passes"],
+            "max_abs_err": res["max_abs_err"],
+            "max_abs_err_f32": res["max_abs_err_f32"],
+            # "ms" is the key every port slice reports; "kernel_ms" the
+            # same time under this slice's own name for it
+            "ms": res["ms"],
+            "kernel_ms": res["ms"],
+            "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"],
+            "library_ms": res["library_ms"],
+            "shape": res["shape"],
+        }
+        if "by_shape" in res:
+            row["by_shape"] = [
+                {k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}
+                for r in res["by_shape"]]
+        rows.append(row)
+    log(card)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

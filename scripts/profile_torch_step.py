@@ -1,0 +1,185 @@
+#!/usr/bin/env python3
+"""Where an engine step of the PyTorch/CUDA port spends its time, on one GPU.
+
+    python3 scripts/profile_torch_step.py [--prompt-len 512] [--steps 16]
+
+Serves the qwen3-1.7B-class config of ``chip_smoke.py`` (28 layers, bf16,
+random weights) through ``xllm_tpu_torch.engine.LLMEngine`` on the card:
+16 greedy requests of ``--prompt-len`` tokens, after two warm-up requests
+(first calls load CUDA modules and pick GEMM algorithms). Two windows are
+traced with ``torch.profiler``:
+
+- prefill: from the first step until every prompt has been computed;
+- decode: ``--steps`` steady decode steps (all 16 sequences running),
+  after a few warm-up steps.
+
+For each window it reports the host-clock time per step (between two
+``torch.cuda.synchronize()`` calls), the device busy time per step (the
+union of the kernel and copy intervals on the trace), the device idle
+share, and the device time per step by kernel group: the port's four
+hand-written kernels by name, GEMMs, and everything else. The last line
+of the output is one JSON object with those numbers and the card's name
+and power limit. Needs one CUDA card and nvcc; imports neither jax nor
+``xllm_tpu``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import chip_smoke  # noqa: E402  (the smoke run's config and helpers)
+from xllm_tpu_torch.engine import LLMEngine  # noqa: E402
+from xllm_tpu_torch.framework.sampling_params import SamplingParams  # noqa: E402
+from xllm_tpu_torch.ops.cuda import _build  # noqa: E402
+
+BATCH = 16
+# kernel-name fragments of the port's hand-written kernels (csrc/*.cu)
+OWN_KERNELS = {
+    "decode_attention_write_kernel": "K1 decode_attention_write",
+    "kv_write_rows_kernel": "K2/K4 kv_write_rows",
+    "prefill_attention_kernel": "K3 prefill_attention_batched",
+}
+GEMM_MARKS = ("gemm", "xmma", "cutlass", "cublas", "sm90_", "nvjet")
+
+
+def kernel_group(name: str) -> str:
+    for frag, label in OWN_KERNELS.items():
+        if frag in name:
+            return label
+    low = name.lower()
+    if any(m in low for m in GEMM_MARKS):
+        return "GEMM (torch.matmul)"
+    return "other"
+
+
+def device_breakdown(prof, steps: int) -> dict:
+    """Per-step device numbers from a profiler trace."""
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t0, t1 = e.time_range.start, e.time_range.end
+        spans.append((t0, t1))
+        by_name[e.name] = by_name.get(e.name, 0.0) + (t1 - t0)
+    if not spans:
+        raise RuntimeError("the profiler recorded no device activity")
+    spans.sort()
+    busy, cur0, cur1 = 0.0, *spans[0]
+    for t0, t1 in spans[1:]:
+        if t0 > cur1:
+            busy += cur1 - cur0
+            cur0, cur1 = t0, t1
+        else:
+            cur1 = max(cur1, t1)
+    busy += cur1 - cur0
+    groups: dict[str, float] = {}
+    for name, us in by_name.items():
+        g = kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    host = sorted(
+        ((e.key, e.self_cpu_time_total, e.count) for e in prof.key_averages()),
+        key=lambda kv: -kv[1],
+    )[:10]
+    return {
+        "top_host_ops_ms_per_step": [
+            [name[:60], us / 1e3 / steps, n / steps] for name, us, n in host
+        ],
+        "device_busy_ms_per_step": busy / 1e3 / steps,
+        "device_ms_per_step_by_group": {
+            g: us / 1e3 / steps for g, us in sorted(groups.items(), key=lambda kv: -kv[1])
+        },
+        "top_kernels_ms_per_step": [[n[:90], us / 1e3 / steps] for n, us in top],
+    }
+
+
+def traced(eng: LLMEngine, n_steps: int | None, until=None) -> dict:
+    """Run engine steps under the profiler: ``n_steps`` of them, or until
+    ``until()`` holds. -> host ms per step and the device breakdown."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    steps = 0
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        while (steps < n_steps) if n_steps is not None else not until():
+            eng.step()
+            steps += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = {"steps": steps, "host_ms_per_step_traced": wall / steps * 1e3,
+           "launches": dict(_build.launch_counts)}
+    out.update(device_breakdown(prof, steps))
+    out["device_idle_share"] = 1.0 - out["device_busy_ms_per_step"] / out["host_ms_per_step_traced"]
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--prompt-len", type=int, default=512)
+    ap.add_argument("--steps", type=int, default=16)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_step: needs a CUDA card", file=sys.stderr)
+        return 2
+    card = chip_smoke.card_line()
+    print(card, flush=True)
+    _build.build_all()
+    cfg = chip_smoke.engine_config(batch=BATCH)
+    eng = LLMEngine(cfg, device="cuda")
+    rng = np.random.default_rng(0)
+    chip_smoke.warm_up(eng, rng)
+    # enough tokens that every sequence still decodes through both windows
+    decode_tokens = 16 + 2 * args.steps + 4 * cfg.scheduler.overlap_depth
+    sp = SamplingParams(temperature=0.0, max_tokens=decode_tokens, ignore_eos=True)
+    reqs = [eng.add_request(prompt_token_ids=rng.integers(1, cfg.model.vocab_size,
+                                                          args.prompt_len).tolist(),
+                            sampling_params=sp)
+            for _ in range(BATCH)]
+    seqs = [r.sequences[0] for r in reqs]
+
+    prefill = traced(eng, None, until=lambda: all(
+        s.num_computed_tokens >= s.num_prompt_tokens for s in seqs))
+    prefill["prompt_tokens"] = BATCH * args.prompt_len
+    for _ in range(8):  # past the prefill-drain depth, steady decode
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        eng.step()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / args.steps * 1e3
+    decode = traced(eng, args.steps)
+    decode["host_ms_per_step_untraced"] = host_ms
+    decode["tok_per_s_untraced"] = BATCH / host_ms * 1e3
+    decode["device_idle_share_untraced"] = 1.0 - decode["device_busy_ms_per_step"] / host_ms
+    decode["context_tokens_at_end"] = sorted({int(s.num_computed_tokens) for s in seqs})
+    while eng.has_unfinished():
+        eng.step()
+    assert eng.block_manager.num_used_blocks == 0, "KV blocks leaked"
+
+    for name, res in (("prefill", prefill), ("decode", decode)):
+        print(f"[{name}] {res['steps']} steps: host {res['host_ms_per_step_traced']:.3f} ms/step "
+              f"(traced), device busy {res['device_busy_ms_per_step']:.3f} ms/step, "
+              f"idle share {res['device_idle_share']:.3f}", flush=True)
+        for g, ms in res["device_ms_per_step_by_group"].items():
+            print(f"[{name}]   device {g}: {ms:.4f} ms/step", flush=True)
+        for op, ms, n in res["top_host_ops_ms_per_step"]:
+            print(f"[{name}]   host {op}: {ms:.4f} ms/step over {n:.0f} calls", flush=True)
+    print(card, flush=True)
+    print(json.dumps({"card": card, "batch": BATCH, "prompt_len": args.prompt_len,
+                      "prefill": prefill, "decode": decode}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,149 @@
+"""The port's boundaries: what it imports, where it runs, what it refuses.
+
+- ``xllm_tpu_torch`` and ``chip_smoke.py`` import neither jax nor
+  ``xllm_tpu`` (checked in a subprocess: this test process has jax loaded
+  by ``tests/conftest.py``), and every kernel module imports without nvcc
+  or triton;
+- the entry points run on the card unless the caller asks for the CPU,
+  and never fall back to it;
+- knobs whose code is not ported yet raise ``NotImplementedError``.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from xllm_tpu_torch.config import (
+    CacheConfig,
+    EngineConfig,
+    ModelConfig,
+    SchedulerConfig,
+)
+from xllm_tpu_torch.engine import LLMEngine
+from xllm_tpu_torch.framework.sampling_params import SamplingParams
+from xllm_tpu_torch.llm import LLM
+from xllm_tpu_torch.ops.cuda import _build
+from xllm_tpu_torch.runtime.model_runner import ModelRunner
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import xllm_tpu_torch
+names = ["xllm_tpu_torch"]
+for m in pkgutil.walk_packages(xllm_tpu_torch.__path__, "xllm_tpu_torch."):
+    importlib.import_module(m.name)
+    names.append(m.name)
+import chip_smoke
+bad = sorted(n for n in sys.modules
+             if n in ("jax", "xllm_tpu", "triton")
+             or n.startswith(("jax.", "xllm_tpu.", "triton.")))
+print(json.dumps({"imported": names, "bad": bad}))
+"""
+
+
+def _tiny(**over) -> EngineConfig:
+    cfg = EngineConfig(
+        model=ModelConfig(model_type="qwen3", dtype="float32", vocab_size=64,
+                          hidden_size=32, intermediate_size=64,
+                          num_hidden_layers=1, num_attention_heads=2,
+                          num_key_value_heads=1, head_dim=16, qk_norm=True,
+                          max_position_embeddings=64),
+        cache=CacheConfig(block_size=4, num_blocks=16),
+        scheduler=SchedulerConfig(max_seqs_per_batch=2, max_model_len=64,
+                                  decode_batch_buckets=[2],
+                                  prefill_token_buckets=[8]),
+    )
+    for group, kw in over.items():
+        for k, v in kw.items():
+            setattr(getattr(cfg, group), k, v)
+    return cfg
+
+
+def test_imports_no_jax_no_reference_no_triton():
+    # PATH without any CUDA toolkit: importing must not look for nvcc
+    env = dict(os.environ, PYTHONPATH=str(ROOT), PATH="/usr/bin:/bin")
+    env.pop("XLA_FLAGS", None)
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["bad"] == []
+    for mod in ("xllm_tpu_torch.ops.cuda.decode_attention",
+                "xllm_tpu_torch.ops.cuda.kv_write",
+                "xllm_tpu_torch.ops.cuda.prefill_attention",
+                "xllm_tpu_torch.engine", "xllm_tpu_torch.llm"):
+        assert mod in out["imported"]
+
+
+def test_chip_smoke_refuses_without_a_card():
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LLMEngine(_tiny())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ModelRunner(_tiny())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LLM(config=_tiny())
+    # asked for explicitly, the CPU serves
+    eng = LLMEngine(_tiny(), device="cpu")
+    eng.add_request(prompt_token_ids=[1, 2, 3],
+                    sampling_params=SamplingParams(max_tokens=2, ignore_eos=True))
+    assert len(eng.generate_all()[0].outputs[0].token_ids) == 2
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "_build_dir", lambda: tmp_path / "kernels")
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()
+
+
+@pytest.mark.parametrize(
+    "over",
+    [
+        {"cache": {"kv_layout": "interleaved"}},
+        {"cache": {"kv_layout": "interleaved_rm"}},
+        {"cache": {"kv_cache_dtype": "int8"}},
+        {"cache": {"kv_cache_dtype": "fp8_e4m3"}},
+        {"quant": {"method": "int8"}},
+        {"speculative": {"method": "suffix"}},
+        {"parallel": {"tp_size": 2}},
+        {"parallel": {"dp_size": 2}},
+        {"parallel": {"cp_size": 2}},
+        {"model": {"model_type": "deepseek_v3"}},
+        {"model": {"model_type": "qwen3_moe", "num_experts": 4}},
+    ],
+    ids=lambda o: "-".join(f"{k}" for g in o.values() for k in g.values()),
+)
+def test_unported_knobs_raise(over):
+    with pytest.raises(NotImplementedError):
+        LLMEngine(_tiny(**over), device="cpu")
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [{"sampling_params": SamplingParams(use_beam_search=True, best_of=2)},
+     {"embed": True}, {"images": [object()]}],
+    ids=["beam", "embed", "image"],
+)
+def test_unported_requests_raise(kw):
+    eng = LLMEngine(_tiny(), device="cpu")
+    with pytest.raises(NotImplementedError):
+        eng.add_request(prompt_token_ids=[1, 2, 3], **kw)
+    with pytest.raises(NotImplementedError):
+        eng.score_prompt([1, 2, 3])
+

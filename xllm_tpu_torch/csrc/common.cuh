@@ -1,0 +1,117 @@
+// Shared helpers of the hand-written Hopper kernels (built for sm_90a by
+// xllm_tpu_torch/ops/cuda/_build.py, bound with ctypes through plain C
+// entries that return cudaGetLastError()).
+//
+// Split paged KV cache layout, all layers stacked (the JAX package's):
+//   k_cache, v_cache: [L, num_blocks, Hkv, block_size, D]
+// A token's row of one head is D contiguous elements; one (layer, block,
+// head) page is a contiguous [block_size, D] tile.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cmath>
+#include <cstddef>
+#include <cstdint>
+
+// cache dtype codes (ops/cuda/_build.py DTYPE_*)
+#define XLLM_DTYPE_F32 0
+#define XLLM_DTYPE_BF16 1
+
+namespace xllm {
+
+constexpr int kThreads = 128;  // 4 warps per block in every kernel here
+constexpr int kTile = 64;      // KV tokens per shared-memory tile
+// Rows of a K/V tile in shared memory are padded by 2 elements: threads
+// that read the same column of different rows then hit different banks
+// (odd 32-bit word stride for bf16 pairs, conflict-free 64-bit half-warps
+// for f32 pairs).
+constexpr int kPad = 2;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as torch casts
+}
+
+// two consecutive elements starting at an even index, as float2
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__host__ __device__ __forceinline__ size_t cache_row(int layer, int num_blocks,
+                                                     int hkv, int bs, int blk,
+                                                     int h, int off, int d) {
+  return ((((size_t)layer * num_blocks + blk) * hkv + h) * bs + off) * d;
+}
+
+// Loads the K and V rows of kv head `h` for positions t0 + [jlo, jhi) into
+// padded shared tiles ks/vs (row j at j * (D + kPad)). Positions map to
+// pages through the sequence's block-table row. 16-byte global loads,
+// 4-byte shared stores (padded rows are 4-byte aligned only). Plain loads,
+// not the read-only path: the decode kernel reads a row it wrote itself.
+template <typename T, int D>
+__device__ __forceinline__ void load_kv_tile(T* ks, T* vs, const T* k_cache,
+                                             const T* v_cache,
+                                             const int* bt_row, int layer,
+                                             int num_blocks, int hkv, int h,
+                                             int bs, int t0, int jlo,
+                                             int jhi) {
+  constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte load
+  constexpr int kChunks = D / kVec;
+  const int n = (jhi - jlo) * kChunks;
+  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
+    const int j = jlo + idx / kChunks;
+    const int c = idx % kChunks;
+    const int pos = t0 + j;
+    const int blk = bt_row[pos / bs];
+    const size_t src =
+        cache_row(layer, num_blocks, hkv, bs, blk, h, pos % bs, D) + c * kVec;
+    const uint4 kv = *reinterpret_cast<const uint4*>(k_cache + src);
+    const uint4 vv = *reinterpret_cast<const uint4*>(v_cache + src);
+    uint32_t* kd = reinterpret_cast<uint32_t*>(ks + j * (D + kPad) + c * kVec);
+    uint32_t* vd = reinterpret_cast<uint32_t*>(vs + j * (D + kPad) + c * kVec);
+    kd[0] = kv.x; kd[1] = kv.y; kd[2] = kv.z; kd[3] = kv.w;
+    vd[0] = vv.x; vd[1] = vv.y; vd[2] = vv.z; vd[3] = vv.w;
+  }
+}
+
+// Opts a kernel into more than the default 48 KB of dynamic shared memory.
+template <typename K>
+inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+}  // namespace xllm
+
+extern "C" const char* xllm_cuda_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

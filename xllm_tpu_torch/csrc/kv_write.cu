@@ -1,0 +1,101 @@
+// K2 + K4: batched paged KV-cache writers for prefill chunks.
+//
+// Replaces two Pallas kernels of xllm_tpu/ops/pallas/kv_write.py with one
+// row scatter behind two wrappers (ops/cuda/kv_write.py), each with its own
+// launch counter:
+//   K2 kv_write_prefill_batched_tpu: P head-major chunks [P, Hkv, S, D]
+//      from page-aligned q_offsets (the scheduler's invariant, asserted
+//      here per row);
+//   K4 kv_write_rmw_batched_tpu: P token-major chunks [P, S, Hkv, D],
+//      S <= block_size, at any alignment (they may start mid-page).
+// The TPU needed two kernels because its DMAs move whole tiles: K2 writes
+// full pages (clobbering the never-read slots of the tail page) and K4
+// reads, patches and writes back at most two pages. The card writes any
+// row directly, so one kernel serves both contracts and writes exactly the
+// ntok valid rows of each chunk (ntok = 0 marks a padded row) and nothing
+// else. The source layout reaches the kernel as element strides, so the
+// head-major view costs no transpose copy.
+//
+// What bounds it: bytes (read each new row once, write it once; no math).
+// One block per (chunk, token) copies the token's Hkv x D rows of K and V;
+// neighbouring threads move neighbouring elements of one head row, so
+// both the read and the write are coalesced.
+#include <cassert>
+
+#include "common.cuh"
+
+namespace xllm {
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    kv_write_rows_kernel(const T* __restrict__ k_src, const T* __restrict__ v_src,
+                         long long stride_p, long long stride_s,
+                         long long stride_h,  // element strides; d is unit
+                         T* k_cache, T* v_cache,  // [L, NB, Hkv, bs, D]
+                         const int* __restrict__ block_tables,  // [P, nbmax]
+                         const int* __restrict__ q_offsets,     // [P]
+                         const int* __restrict__ ntoks,         // [P]
+                         int layer, int num_blocks, int hkv, int bs, int head_dim,
+                         int nbmax, int require_aligned) {
+  const int p = blockIdx.x, j = blockIdx.y;
+  if (j >= ntoks[p]) return;  // padding of the chunk (or a padded row)
+  const int q_offset = q_offsets[p];
+  if (require_aligned) {
+    // full-page writer contract: chunks start on a page boundary
+    assert(q_offset % bs == 0);
+  }
+  const int pos = q_offset + j;
+  const int blk = block_tables[(size_t)p * nbmax + pos / bs];
+  const size_t src0 = (size_t)p * stride_p + (size_t)j * stride_s;
+  for (int i = threadIdx.x; i < hkv * head_dim; i += blockDim.x) {
+    const int h = i / head_dim, d = i % head_dim;
+    const size_t src = src0 + (size_t)h * stride_h + d;
+    const size_t dst = cache_row(layer, num_blocks, hkv, bs, blk, h, pos % bs,
+                                 head_dim) + d;
+    k_cache[dst] = k_src[src];
+    v_cache[dst] = v_src[src];
+  }
+}
+
+template <typename T>
+cudaError_t launch_rows(const void* k_src, const void* v_src, long long sp,
+                        long long ss, long long sh, void* k_cache, void* v_cache,
+                        const int* block_tables, const int* q_offsets,
+                        const int* ntoks, int p, int s, int layer, int num_blocks,
+                        int hkv, int bs, int head_dim, int nbmax,
+                        int require_aligned, cudaStream_t stream) {
+  kv_write_rows_kernel<T><<<dim3(p, s), kThreads, 0, stream>>>(
+      static_cast<const T*>(k_src), static_cast<const T*>(v_src), sp, ss, sh,
+      static_cast<T*>(k_cache), static_cast<T*>(v_cache), block_tables,
+      q_offsets, ntoks, layer, num_blocks, hkv, bs, head_dim, nbmax,
+      require_aligned);
+  return cudaGetLastError();
+}
+
+}  // namespace xllm
+
+extern "C" int xllm_kv_write_rows(int device, const void* k_src,
+                                  const void* v_src, long long stride_p,
+                                  long long stride_s, long long stride_h,
+                                  void* k_cache, void* v_cache,
+                                  const void* block_tables, const void* q_offsets,
+                                  const void* ntoks, int dtype, int p, int s,
+                                  int layer, int num_blocks, int hkv, int bs,
+                                  int head_dim, int nbmax, int require_aligned,
+                                  void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const int* bt = static_cast<const int*>(block_tables);
+  const int* qo = static_cast<const int*>(q_offsets);
+  const int* nt = static_cast<const int*>(ntoks);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == XLLM_DTYPE_BF16)
+    return (int)xllm::launch_rows<__nv_bfloat16>(
+        k_src, v_src, stride_p, stride_s, stride_h, k_cache, v_cache, bt, qo, nt,
+        p, s, layer, num_blocks, hkv, bs, head_dim, nbmax, require_aligned, st);
+  if (dtype == XLLM_DTYPE_F32)
+    return (int)xllm::launch_rows<float>(
+        k_src, v_src, stride_p, stride_s, stride_h, k_cache, v_cache, bt, qo, nt,
+        p, s, layer, num_blocks, hkv, bs, head_dim, nbmax, require_aligned, st);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,248 @@
+// K3: batched causal flash attention of prompt chunks over paged KV.
+//
+// Replaces xllm_tpu/ops/pallas/prefill_attention.py
+// paged_attention_prefill_batched_tpu (same contract: P chunks, q
+// [P, S, Hq, D] at absolute positions q_offsets + i, each attending
+// causally to its own paged K/V up to kv_lens through block_tables, GQA,
+// optional sliding window; kv_len 0 marks a padded row). Query rows past a
+// chunk's ntok = kv_len - q_offset tokens (bucket padding) and padded rows
+// come out as zeros.
+//
+// What bounds it: operations for long chunks. A 2048-token chunk does ~2 x
+// S x kv x Hq x D x 2 flops against one read of its K/V, above the card's
+// bytes-to-flops balance, so the limit is the arithmetic (short ragged
+// chunks, as in chip_smoke.py's 512-token buckets, are bound by their
+// bytes instead). This first
+// version does it with f32 FMAs on the CUDA cores (67 TFLOP/s peak, not the
+// 989 of the bf16 tensor cores): one block per (chunk, kv head, query tile)
+// holds 64 query rows (the G heads of one kv head x 64 / G positions), so
+// a K/V tile in shared memory serves every head that shares it; each
+// thread keeps 16 rows x 2 keys of scores and 16 rows x D/32 output
+// columns in registers, so every shared-memory load feeds 3-4 FMAs; the
+// walk stops at the tile's causal frontier min(kv_len, last row + 1) and
+// starts at the window's lower edge. Not yet done: mma/wgmma on bf16
+// tiles, and overlapping the next tile's load with this tile's math.
+#include "common.cuh"
+
+namespace xllm {
+
+constexpr int kRows = 64;                         // query rows per block
+constexpr int kRowsPerWarp = kRows / (kThreads / 32);  // 16
+
+template <typename T, int D>
+size_t prefill_smem_bytes() {
+  return ((size_t)kRows * D + (size_t)kRows * kTile + 3 * kRows) * sizeof(float) +
+         2 * (size_t)kTile * (D + kPad) * sizeof(T);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    prefill_attention_kernel(const T* __restrict__ q,  // [P, S, Hq, D]
+                             const T* __restrict__ k_cache,
+                             const T* __restrict__ v_cache,  // [L, NB, Hkv, bs, D]
+                             const int* __restrict__ block_tables,  // [P, nbmax]
+                             const int* __restrict__ q_offsets,     // [P]
+                             const int* __restrict__ kv_lens,       // [P]
+                             T* __restrict__ out,                   // [P, S, Hq, D]
+                             int layer, int num_blocks, int hkv, int bs,
+                             int nbmax, int seq, int group, int tq, float scale,
+                             int window) {
+  constexpr int kPairs = D / 64;  // column pairs per lane: 2 * lane + 64 * c
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);  // [kRows, D]
+  float* ps = qs + kRows * D;                   // [kRows, kTile]
+  float* ms = ps + kRows * kTile;               // [kRows]
+  float* ls = ms + kRows;
+  float* alpha_s = ls + kRows;
+  T* ks = reinterpret_cast<T*>(alpha_s + kRows);  // [kTile, D + kPad]
+  T* vs = ks + kTile * (D + kPad);
+
+  const int p = blockIdx.x, h = blockIdx.y, s0 = blockIdx.z * tq;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int hq = hkv * group;
+  const int rows = group * tq;  // row r = (head g = r / tq, position r % tq)
+  const int q_offset = q_offsets[p];
+  const int kv_len = kv_lens[p];
+  const int ntok = kv_len - q_offset;
+  // query positions of this tile that hold real tokens
+  const int nvalid = kv_len > 0 ? min(tq, min(seq, ntok) - s0) : 0;
+
+  // q and out share the [P, S, Hq, D] layout
+  auto row_off = [&](int r) -> size_t {
+    return (((size_t)p * seq + s0 + r % tq) * hq + (size_t)h * group + r / tq) * D;
+  };
+  if (nvalid <= 0) {
+    for (int i = tid; i < kRows * D; i += blockDim.x) {
+      const int r = i / D;
+      if (r < rows && s0 + r % tq < seq) out[row_off(r) + i % D] = from_float<T>(0.f);
+    }
+    return;
+  }
+  for (int i = tid; i < kRows * D; i += blockDim.x) {
+    const int r = i / D;
+    const bool live = r < rows && r % tq < nvalid;
+    qs[i] = live ? to_float(q[row_off(r) + i % D]) : 0.f;
+  }
+  for (int r = tid; r < kRows; r += blockDim.x) {
+    ms[r] = -INFINITY;
+    ls[r] = 0.f;
+  }
+
+  float2 acc[kRowsPerWarp][kPairs];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i)
+#pragma unroll
+    for (int c = 0; c < kPairs; ++c) acc[i][c] = make_float2(0.f, 0.f);
+
+  // kv positions any row of the tile may see: [lo, hi)
+  const int hi = q_offset + s0 + nvalid;
+  const int lo = window > 0 ? max(q_offset + s0 - window + 1, 0) : 0;
+  const int* bt = block_tables + (size_t)p * nbmax;
+  __syncthreads();
+
+  for (int t0 = (lo / kTile) * kTile; t0 < hi; t0 += kTile) {
+    const int jlo = max(lo - t0, 0);
+    const int jhi = min(hi - t0, kTile);
+    load_kv_tile<T, D>(ks, vs, k_cache, v_cache, bt, layer, num_blocks, hkv, h,
+                       bs, t0, jlo, jhi);
+    __syncthreads();
+
+    // scores: rows warp + 4 * i, keys lane and lane + 32
+    float sc[kRowsPerWarp][2];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) sc[i][0] = sc[i][1] = 0.f;
+    const T* k0 = ks + lane * (D + kPad);
+    const T* k1 = ks + (lane + 32) * (D + kPad);
+#pragma unroll 2
+    for (int d = 0; d < D; d += 2) {
+      const float2 a = load2(k0 + d), b = load2(k1 + d);
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        const float2 qv = *reinterpret_cast<const float2*>(qs + (warp + 4 * i) * D + d);
+        sc[i][0] = fmaf(qv.x, a.x, fmaf(qv.y, a.y, sc[i][0]));
+        sc[i][1] = fmaf(qv.x, b.x, fmaf(qv.y, b.y, sc[i][1]));
+      }
+    }
+    // mask + online softmax, one warp per row
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const int r = warp + 4 * i;
+      const bool live = r < rows && r % tq < nvalid;
+      const int pos = q_offset + s0 + r % tq;
+      float s2[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int j = lane + 32 * u, kv = t0 + j;
+        const bool ok = live && j >= jlo && j < jhi && kv <= pos &&
+                        (window <= 0 || kv > pos - window);
+        s2[u] = ok ? sc[i][u] * scale : -INFINITY;
+      }
+      const float m_old = ms[r];
+      const float m_new = fmaxf(m_old, warp_max(fmaxf(s2[0], s2[1])));
+      const bool none = m_new == -INFINITY;  // nothing visible yet
+      const float p0 = none ? 0.f : expf(s2[0] - m_new);
+      const float p1 = none ? 0.f : expf(s2[1] - m_new);
+      ps[r * kTile + lane] = p0;
+      ps[r * kTile + lane + 32] = p1;
+      const float sum = warp_sum(p0 + p1);
+      if (lane == 0) {
+        const float alpha = none ? 1.f : expf(m_old - m_new);
+        ms[r] = m_new;
+        ls[r] = ls[r] * alpha + sum;
+        alpha_s[r] = alpha;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * alpha + P V over the tile's live keys
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const float al = alpha_s[warp + 4 * i];
+#pragma unroll
+      for (int c = 0; c < kPairs; ++c) {
+        acc[i][c].x *= al;
+        acc[i][c].y *= al;
+      }
+    }
+    for (int j = jlo; j < jhi; ++j) {
+      float2 v[kPairs];
+#pragma unroll
+      for (int c = 0; c < kPairs; ++c) v[c] = load2(vs + j * (D + kPad) + 64 * c + 2 * lane);
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        const float pr = ps[(warp + 4 * i) * kTile + j];
+#pragma unroll
+        for (int c = 0; c < kPairs; ++c) {
+          acc[i][c].x = fmaf(pr, v[c].x, acc[i][c].x);
+          acc[i][c].y = fmaf(pr, v[c].y, acc[i][c].y);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int r = warp + 4 * i;
+    if (r >= rows || s0 + r % tq >= seq) continue;
+    const bool live = r % tq < nvalid;
+    const float inv = live ? 1.f / ls[r] : 0.f;
+    T* o = out + row_off(r);
+#pragma unroll
+    for (int c = 0; c < kPairs; ++c) {
+      const int col = 64 * c + 2 * lane;
+      o[col] = from_float<T>(acc[i][c].x * inv);
+      o[col + 1] = from_float<T>(acc[i][c].y * inv);
+    }
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_prefill(const void* q, const void* k_cache,
+                           const void* v_cache, const int* block_tables,
+                           const int* q_offsets, const int* kv_lens, void* out,
+                           int p, int seq, int layer, int num_blocks, int hkv,
+                           int bs, int nbmax, int group, float scale, int window,
+                           cudaStream_t stream) {
+  auto kernel = prefill_attention_kernel<T, D>;
+  const size_t smem = prefill_smem_bytes<T, D>();
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const int tq = kRows / group;
+  const dim3 grid(p, hkv, (seq + tq - 1) / tq);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_cache),
+      static_cast<const T*>(v_cache), block_tables, q_offsets, kv_lens,
+      static_cast<T*>(out), layer, num_blocks, hkv, bs, nbmax, seq, group, tq,
+      scale, window);
+  return cudaGetLastError();
+}
+
+}  // namespace xllm
+
+extern "C" int xllm_prefill_attention(int device, const void* q,
+                                      const void* k_cache, const void* v_cache,
+                                      const void* block_tables,
+                                      const void* q_offsets, const void* kv_lens,
+                                      void* out, int dtype, int head_dim, int p,
+                                      int seq, int layer, int num_blocks, int hkv,
+                                      int bs, int nbmax, int group, float scale,
+                                      int window, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  if (group < 1 || group > xllm::kRows) return (int)cudaErrorInvalidValue;
+  const int* bt = static_cast<const int*>(block_tables);
+  const int* qo = static_cast<const int*>(q_offsets);
+  const int* kl = static_cast<const int*>(kv_lens);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define XLLM_LAUNCH(T, D)                                                        \
+  return (int)xllm::launch_prefill<T, D>(q, k_cache, v_cache, bt, qo, kl, out, p, \
+                                         seq, layer, num_blocks, hkv, bs, nbmax,  \
+                                         group, scale, window, s)
+  if (dtype == XLLM_DTYPE_BF16 && head_dim == 128) XLLM_LAUNCH(__nv_bfloat16, 128);
+  if (dtype == XLLM_DTYPE_BF16 && head_dim == 64) XLLM_LAUNCH(__nv_bfloat16, 64);
+  if (dtype == XLLM_DTYPE_F32 && head_dim == 128) XLLM_LAUNCH(float, 128);
+  if (dtype == XLLM_DTYPE_F32 && head_dim == 64) XLLM_LAUNCH(float, 64);
+#undef XLLM_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}

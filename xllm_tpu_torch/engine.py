@@ -1,0 +1,412 @@
+"""LLMEngine: scheduler + block manager + model runner glue.
+
+Counterpart of ``xllm_tpu/engine.py`` ``LLMEngine`` for the dense main
+path: continuous batching with chunked, batched prefill and decode over
+the split paged KV cache.
+
+Async schedule overlap, as in the JAX engine: sampled tokens stay on the
+device in the runner's ``last_tokens`` ring and feed the next step
+directly; the host appends PLACEHOLDER tokens at dispatch and fixes them
+up ``overlap_depth`` steps later. On the card each step's tokens start a
+non-blocking copy into pinned host memory and record a CUDA event;
+``_process_pending`` waits on that event only when it needs the values.
+"""
+
+from __future__ import annotations
+
+import time
+import uuid
+from collections import deque
+from dataclasses import dataclass
+
+import torch
+
+from xllm_tpu_torch.config import EngineConfig
+from xllm_tpu_torch.framework.block_manager import BlockManager
+from xllm_tpu_torch.framework.request import (
+    FinishReason,
+    Request,
+    RequestOutput,
+    Sequence,
+    SequenceOutput,
+)
+from xllm_tpu_torch.framework.sampling_params import SamplingParams
+from xllm_tpu_torch.framework.tokenizer import IncrementalDecoder, Tokenizer
+from xllm_tpu_torch.runtime.input_builder import group_prefill_items
+from xllm_tpu_torch.runtime.model_runner import ModelRunner
+from xllm_tpu_torch.scheduler.continuous import ContinuousScheduler
+from xllm_tpu_torch.utils import get_logger
+
+logger = get_logger(__name__)
+
+
+@dataclass
+class _Pending:
+    """One dispatched step whose sampled tokens are still in flight."""
+
+    seqs: list[Sequence]
+    tokens: torch.Tensor  # int32, host (pinned) once `ready` has fired
+    logprobs: torch.Tensor  # f32
+    rows: list[int] | None = None  # seqs[j] <- tokens[rows[j]] (None = 1:1)
+    top_ids: torch.Tensor | None = None  # [N, K] alternatives (top_logprobs)
+    top_lps: torch.Tensor | None = None
+    ready: torch.cuda.Event | None = None  # None: already on the host
+
+
+def _copy_to_host_async(tensors):
+    """Start device->host copies into pinned memory. -> (host tensors,
+    event that fires when they have landed; None for CPU tensors)."""
+    if all(t is None or t.device.type == "cpu" for t in tensors):
+        return list(tensors), None
+    hosts = []
+    for t in tensors:
+        if t is None:
+            hosts.append(None)
+            continue
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        hosts.append(h)
+    ev = torch.cuda.Event()
+    ev.record()
+    return hosts, ev
+
+
+class LLMEngine:
+    def __init__(
+        self,
+        config: EngineConfig,
+        tokenizer: Tokenizer | None = None,
+        runner: ModelRunner | None = None,
+        device="cuda",
+    ) -> None:
+        self.config = config
+        self.tokenizer = tokenizer
+        if tokenizer is None and config.model.model_path:
+            try:
+                self.tokenizer = Tokenizer.from_path(config.model.model_path)
+            except Exception as e:  # tokenizer-less (token id I/O only) is fine
+                logger.warning("no tokenizer loaded: %s", e)
+
+        self.runner = runner or ModelRunner(config, device=device)
+        if not self.runner.weights_loaded:
+            self.runner.load_model()
+        if self.runner.k_cache is None:
+            self.runner.initialize_kv_cache()
+        self.block_manager = BlockManager(
+            num_blocks=self.runner.num_blocks,
+            block_size=config.cache.block_size,
+            enable_prefix_cache=config.cache.enable_prefix_cache,
+        )
+        # boundary gate for per-fixup prefix-cache registration (0 = off)
+        self._cache_gate_bs = (
+            config.cache.block_size
+            if config.cache.enable_prefix_cache else 0
+        )
+        self.scheduler = ContinuousScheduler(config.scheduler, self.block_manager)
+        self._decoders: dict[int, IncrementalDecoder] = {}
+        self._active_requests: dict[str, Request] = {}
+        # async schedule-overlap state
+        self._pending: deque[_Pending] = deque()
+        self.overlap_depth = (
+            config.scheduler.overlap_depth
+            if config.scheduler.enable_schedule_overlap
+            else 0
+        )
+        self.overlap_depth_prefill = min(
+            config.scheduler.overlap_depth_prefill, self.overlap_depth
+        )
+        self._step_no = 0
+        self._last_prefill_step = -(1 << 30)
+        self._free_slots = list(range(self.runner.max_slots - 1, -1, -1))
+
+    # ------------------------------------------------------------------
+    # request intake
+    # ------------------------------------------------------------------
+    def add_request(
+        self,
+        prompt: str | None = None,
+        prompt_token_ids: list[int] | None = None,
+        sampling_params: SamplingParams | None = None,
+        request_id: str | None = None,
+        embed: bool = False,
+        priority: int = 0,
+        offline: bool = False,
+        images: list | None = None,
+        videos: list | None = None,
+    ) -> Request:
+        if embed:
+            raise NotImplementedError("embedding requests are not ported yet")
+        if images or videos:
+            raise NotImplementedError("image and video inputs are not ported yet")
+        if prompt_token_ids is None:
+            if prompt is None or self.tokenizer is None:
+                raise ValueError("need prompt_token_ids or (prompt + tokenizer)")
+            prompt_token_ids = self.tokenizer.encode(prompt)
+        if not prompt_token_ids:
+            raise ValueError("prompt must contain at least one token")
+        max_len = self.config.scheduler.max_model_len
+        if len(prompt_token_ids) + 1 > max_len:
+            raise ValueError(
+                f"prompt length {len(prompt_token_ids)} exceeds max_model_len "
+                f"{max_len} (need room for at least one generated token)"
+            )
+        sampling_params = sampling_params or SamplingParams()
+        if sampling_params.use_beam_search:
+            raise NotImplementedError("beam search is not ported yet")
+        request_id = request_id or f"req-{uuid.uuid4().hex[:16]}"
+        req = Request(
+            request_id=request_id,
+            prompt_token_ids=prompt_token_ids,
+            sampling_params=sampling_params,
+            eos_token_ids=tuple(self.config.model.eos_token_ids),
+            max_model_len=max_len,
+            prompt=prompt or "",
+            priority=priority,
+            offline=offline,
+        )
+        self.scheduler.add_request(req)
+        self._active_requests[request_id] = req
+        if self.tokenizer is not None:
+            for seq in req.sequences:
+                self._decoders[seq.seq_id] = IncrementalDecoder(
+                    self.tokenizer, seq.num_prompt_tokens
+                )
+        return req
+
+    def score_prompt(self, prompt_token_ids: list[int]):
+        raise NotImplementedError("prompt scoring is not ported yet")
+
+    def abort_request(self, request_id: str) -> None:
+        req = self._active_requests.pop(request_id, None)
+        if req is not None:
+            self.scheduler.abort_request(req)
+            for seq in req.sequences:
+                self._release_slot(seq)
+                self._decoders.pop(seq.seq_id, None)
+
+    def has_unfinished(self) -> bool:
+        return self.scheduler.has_unfinished() or bool(self._pending)
+
+    # ------------------------------------------------------------------
+    # slot pool for the device last_tokens ring
+    # ------------------------------------------------------------------
+    def _assign_slot(self, seq: Sequence) -> None:
+        if seq.slot_id < 0:
+            if not self._free_slots:
+                raise RuntimeError(
+                    "last_tokens ring exhausted (finished sequences "
+                    "holding slots through the fixup lag); raise "
+                    "max_seqs_per_batch headroom"
+                )
+            seq.slot_id = self._free_slots.pop()
+
+    def _release_slot(self, seq: Sequence) -> None:
+        if seq.slot_id >= 0:
+            self._free_slots.append(seq.slot_id)
+            seq.slot_id = -1
+
+    def _defer(self, seqs, tokens, logprobs, rows=None, tops=(None, None)):
+        (tokens, logprobs, top_ids, top_lps), ready = _copy_to_host_async(
+            (tokens, logprobs, tops[0], tops[1])
+        )
+        self._pending.append(
+            _Pending(list(seqs), tokens, logprobs, rows, top_ids, top_lps, ready)
+        )
+
+    # ------------------------------------------------------------------
+    # the engine step
+    # ------------------------------------------------------------------
+    def step(self) -> list[RequestOutput]:
+        out = self.scheduler.schedule()
+        for req in out.preempted_requests:
+            for seq in req.sequences:
+                self._release_slot(seq)
+
+        # whole-batch prefill: one pass per (P, S) bucket group
+        batched_items: list[tuple[Sequence, int]] = []
+        for seq, n in out.prefill_items:
+            self._assign_slot(seq)
+            batched_items.append((seq, n))
+        if batched_items:
+            sc = self.config.scheduler
+            for group in group_prefill_items(
+                batched_items,
+                sc.prefill_token_buckets,
+                sc.prefill_row_buckets,
+                sc.max_tokens_per_batch,
+            ):
+                tokens, logprobs, flags, rows, tops = (
+                    self.runner.run_prefill_batched(group)
+                )
+                sampling_seqs, sample_rows = [], []
+                for i, (seq, n) in enumerate(group):
+                    seq.num_computed_tokens += n
+                    if self._cache_gate_bs:
+                        self.block_manager.cache_computed_blocks(seq)
+                    if flags[i]:
+                        seq.append_placeholder()
+                        sampling_seqs.append(seq)
+                        sample_rows.append(rows[i])
+                if sampling_seqs:
+                    self._defer(sampling_seqs, tokens, logprobs, sample_rows, tops)
+
+        decode_seqs = out.decode_seqs
+        if decode_seqs:
+            window = self.config.model.sliding_window or 0
+            for seq in decode_seqs:
+                self._assign_slot(seq)
+                if window > 0:
+                    # recycle pages that fell out of the attention window
+                    self.block_manager.release_out_of_window(seq, window)
+            tokens, logprobs, rows, tops = self.runner.run_decode(decode_seqs)
+            for seq in decode_seqs:
+                seq.num_computed_tokens += 1
+                seq.append_placeholder()
+            self._defer(decode_seqs, tokens, logprobs, rows, tops)
+
+        touched: list[Sequence] = []
+        self._step_no += 1
+        if out.prefill_items:
+            self._last_prefill_step = self._step_no
+        depth = self.overlap_depth if not out.is_empty else 0
+        if (
+            depth > self.overlap_depth_prefill
+            and self._step_no - self._last_prefill_step < self.overlap_depth
+        ):
+            # while prefills are in flight, drain shallower so first tokens
+            # do not inherit the full decode-depth lag
+            depth = self.overlap_depth_prefill
+        while len(self._pending) > depth:
+            touched.extend(self._process_pending(self._pending.popleft()))
+
+        for req in self.scheduler.free_finished():
+            for seq in req.sequences:
+                self._release_slot(seq)
+        # early-finished sequences of still-running requests (n > 1 /
+        # best_of) release their ring slots once their fixups are in
+        for req in self.scheduler.running:
+            for seq in req.sequences:
+                if (
+                    seq.is_finished
+                    and seq.slot_id >= 0
+                    and not seq.has_unfixed_tokens
+                ):
+                    self._release_slot(seq)
+        return self._build_outputs(touched)
+
+    def _process_pending(self, entry: _Pending) -> list[Sequence]:
+        """Fix up placeholders with arrived tokens; run stop logic."""
+        if entry.ready is not None:
+            entry.ready.synchronize()
+        tokens = entry.tokens.numpy()
+        logprobs = entry.logprobs.numpy()
+        top_ids = entry.top_ids.numpy() if entry.top_ids is not None else None
+        top_lps = entry.top_lps.numpy() if entry.top_lps is not None else None
+        rows = entry.rows if entry.rows is not None else range(len(entry.seqs))
+        touched = []
+        for seq, row in zip(entry.seqs, rows):
+            if seq.is_finished and not seq.has_unfixed_tokens:
+                continue  # overrun step of an already-stopped sequence
+            if top_ids is not None and seq.sampling_params.logprobs:
+                k = seq.sampling_params.logprobs
+                seq.output_top_logprobs.append(
+                    {
+                        int(t): float(lp)
+                        for t, lp in zip(top_ids[row][:k], top_lps[row][:k])
+                    }
+                )
+            self._fixup_token(seq, int(tokens[row]), float(logprobs[row]))
+            touched.append(seq)
+        return touched
+
+    def _fixup_token(self, seq: Sequence, token: int, logprob: float) -> None:
+        seq.fixup_token(token, logprob)
+        if not seq.is_finished:
+            seq.maybe_finish(token, self.config.scheduler.max_model_len)
+            dec = self._decoders.get(seq.seq_id)
+            if dec is not None:
+                delta = dec.decode_new(seq.token_ids[: seq.num_fixed_tokens])
+                if delta:
+                    seq.output_text += delta
+                    if seq.stopping.stop_strings:
+                        cut = seq.stopping.check_stop_strings(seq.output_text)
+                        if cut >= 0:
+                            seq.output_text = seq.output_text[:cut]
+                            seq.finish(FinishReason.STOP)
+        if seq.is_finished:
+            seq.trim_unfixed()
+        elif self._cache_gate_bs and (
+            min(seq.num_computed_tokens, seq.num_fixed_tokens)
+            % self._cache_gate_bs == 0
+        ):
+            # prefix-cache registration catches up from its chain cursor,
+            # so calling it only at block boundaries is exact
+            self.block_manager.cache_computed_blocks(seq)
+
+    # ------------------------------------------------------------------
+    def _build_outputs(self, touched: list[Sequence]) -> list[RequestOutput]:
+        by_req: dict[str, list[Sequence]] = {}
+        for seq in touched:
+            by_req.setdefault(seq.request_id, []).append(seq)
+        outputs = []
+        for rid in by_req:
+            req = self._active_requests.get(rid)
+            if req is None:
+                continue
+            req_done = req.is_finished and not any(
+                s.has_unfixed_tokens for s in req.sequences
+            )
+            ro = RequestOutput(
+                request_id=rid,
+                prompt=req.prompt,
+                finished=req_done,
+                outputs=[
+                    SequenceOutput(
+                        index=i,
+                        text=seq.output_text,
+                        token_ids=seq.token_ids[
+                            seq.num_prompt_tokens : seq.num_fixed_tokens
+                        ],
+                        finish_reason=(
+                            seq.finish_reason.value if seq.finish_reason else None
+                        ),
+                        logprobs=(
+                            seq.output_logprobs
+                            if seq.sampling_params.logprobs is not None
+                            else None
+                        ),
+                        top_logprobs=(
+                            seq.output_top_logprobs
+                            if seq.sampling_params.logprobs
+                            else None
+                        ),
+                    )
+                    for i, seq in enumerate(req.sequences)
+                ],
+            )
+            if req_done:
+                ro.usage = {
+                    "prompt_tokens": req.sequences[0].num_prompt_tokens,
+                    "completion_tokens": sum(
+                        s.num_generated_tokens for s in req.sequences
+                    ),
+                }
+                self._active_requests.pop(rid, None)
+                for seq in req.sequences:
+                    self._decoders.pop(seq.seq_id, None)
+            outputs.append(ro)
+        return outputs
+
+    # ------------------------------------------------------------------
+    # offline blocking generation
+    # ------------------------------------------------------------------
+    def generate_all(self, timeout_s: float = 3600.0) -> list[RequestOutput]:
+        deadline = time.time() + timeout_s
+        finals: dict[str, RequestOutput] = {}
+        while self.has_unfinished():
+            if time.time() > deadline:
+                raise TimeoutError("generate_all timed out")
+            for ro in self.step():
+                if ro.finished:
+                    finals[ro.request_id] = ro
+        return list(finals.values())

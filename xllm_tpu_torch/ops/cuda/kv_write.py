@@ -1,0 +1,158 @@
+"""K2 + K4: batched paged KV-cache writers (``csrc/kv_write.cu``).
+
+One row-scatter kernel serves two contracts through two wrappers, each
+with its own launch counter:
+
+- ``kv_write_prefill_batched`` (K2) replaces
+  ``xllm_tpu/ops/pallas/kv_write.py`` ``kv_write_prefill_batched_tpu``:
+  P head-major chunks ``[P, Hkv, S, D]`` from page-aligned ``q_offsets``;
+- ``kv_write_rmw_batched`` (K4) replaces ``kv_write_rmw_batched_tpu``:
+  P token-major chunks ``[P, S, Hkv, D]`` with ``S <= block_size`` that may
+  start mid-page.
+
+Token ``j < ntoks[p]`` of chunk ``p`` lands at position ``q_offsets[p] + j``
+of its sequence, through ``block_tables[p]``; ``ntoks[p] == 0`` marks a
+padded row. Exactly the valid rows are written, in place. (The TPU's K2
+also overwrote the never-read rest of the tail page: its DMAs move whole
+pages.) Bound on the card: bytes; see the CUDA source.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from xllm_tpu_torch.ops.cuda import _build
+
+PREFILL_NAME = "kv_write_prefill_batched"
+RMW_NAME = "kv_write_rmw_batched"
+PREFILL_TPU_KERNEL = (
+    "xllm_tpu/ops/pallas/kv_write.py:355 kv_write_prefill_batched_tpu"
+)
+RMW_TPU_KERNEL = "xllm_tpu/ops/pallas/kv_write.py:490 kv_write_rmw_batched_tpu"
+_SOURCE = "kv_write"
+
+
+def kv_write_rows_plain(
+    k_rows: torch.Tensor,  # [P, S, Hkv, D] token-major (any strides)
+    v_rows: torch.Tensor,
+    k_all: torch.Tensor,  # [L, NB, Hkv, bs, D], updated in place
+    v_all: torch.Tensor,
+    layer_idx: int,
+    block_tables: torch.Tensor,  # [P, NBmax] int32
+    q_offsets: torch.Tensor,  # [P] int32
+    ntoks: torch.Tensor,  # [P] int32 (0 = padded row)
+) -> None:
+    """Plain PyTorch version of the row scatter: writes the ``ntoks``
+    valid rows of each chunk and nothing else."""
+    p, s = k_rows.shape[:2]
+    bs = k_all.shape[3]
+    j = torch.arange(s, device=k_rows.device)
+    valid = j[None, :] < ntoks.long()[:, None]  # [P, S]
+    pos = q_offsets.long()[:, None] + j[None, :]
+    page = torch.where(valid, pos // bs, 0)
+    blk = torch.gather(block_tables.long(), 1, page)[valid]
+    off = (pos % bs)[valid]
+    layer = int(layer_idx)
+    k_all[layer, blk, :, off, :] = k_rows[valid].to(k_all.dtype)
+    v_all[layer, blk, :, off, :] = v_rows[valid].to(v_all.dtype)
+
+
+_lib = None
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = _build.load(_SOURCE)
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.xllm_kv_write_rows.argtypes = [
+            i, p, p, ll, ll, ll, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p,
+        ]
+        lib.xllm_kv_write_rows.restype = i
+        _lib = lib
+    return _lib
+
+
+def _launch(name, k_rows, v_rows, k_all, v_all, layer_idx, block_tables,
+            q_offsets, ntoks, require_aligned: bool) -> None:
+    """k_rows / v_rows: token-major views [P, S, Hkv, D] with unit stride
+    in D (a head-major input arrives as a transposed view)."""
+    p, s, hkv, d = k_rows.shape
+    nl, nb, hkv_c, bs, d_c = k_all.shape
+    dtype = _build.dtype_code(k_all.dtype)
+    if (hkv, d) != (hkv_c, d_c) or v_rows.shape != k_rows.shape:
+        raise ValueError(f"{name}: rows {tuple(k_rows.shape)} vs cache {tuple(k_all.shape)}")
+    if not (k_all.is_contiguous() and v_all.is_contiguous()):
+        raise ValueError(f"{name}: caches must be contiguous")
+    for t in (block_tables, q_offsets, ntoks):
+        if t.dtype != torch.int32 or not t.is_contiguous() or t.device != k_all.device:
+            raise ValueError(f"{name}: index arrays must be contiguous int32 on {k_all.device}")
+    k_rows = k_rows.to(k_all.dtype)
+    v_rows = v_rows.to(k_all.dtype)
+    if k_rows.stride(3) != 1 or k_rows.stride() != v_rows.stride():
+        k_rows = k_rows.contiguous()
+        v_rows = v_rows.contiguous()
+    if p == 0 or s == 0:
+        return
+    lib = _load()
+    sp, ss, sh, _ = k_rows.stride()
+    _build.count_launch(name)
+    err = lib.xllm_kv_write_rows(
+        k_all.device.index or 0, _build.ptr(k_rows), _build.ptr(v_rows),
+        sp, ss, sh, _build.ptr(k_all), _build.ptr(v_all),
+        _build.ptr(block_tables), _build.ptr(q_offsets), _build.ptr(ntoks),
+        dtype, p, s, int(layer_idx), nb, hkv, bs, d, block_tables.shape[1],
+        int(require_aligned), _build.stream_of(k_all),
+    )
+    _build.check(lib, err, name)
+
+
+def kv_write_prefill_batched(
+    kt: torch.Tensor,  # [P, Hkv, S, D] head-major new K per chunk
+    vt: torch.Tensor,
+    k_all: torch.Tensor,
+    v_all: torch.Tensor,
+    layer_idx: int,
+    block_tables: torch.Tensor,  # [P, NBmax] int32
+    q_offsets: torch.Tensor,  # [P] int32, page-aligned
+    ntoks: torch.Tensor,  # [P] int32 (0 = padded row)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2: full-page writer contract (chunk starts on a page boundary; the
+    kernel asserts it per row). -> (k_all, v_all), updated in place."""
+    k_rows, v_rows = kt.transpose(1, 2), vt.transpose(1, 2)  # views
+    if k_all.device.type == "cpu":
+        bs = k_all.shape[3]
+        assert bool(((q_offsets % bs == 0) | (ntoks == 0)).all()), (
+            "full-page writer needs page-aligned chunk starts"
+        )
+        kv_write_rows_plain(k_rows, v_rows, k_all, v_all, layer_idx,
+                            block_tables, q_offsets, ntoks)
+    else:
+        _launch(PREFILL_NAME, k_rows, v_rows, k_all, v_all, layer_idx,
+                block_tables, q_offsets, ntoks, require_aligned=True)
+    return k_all, v_all
+
+
+def kv_write_rmw_batched(
+    kt: torch.Tensor,  # [P, S, Hkv, D] token-major, S <= block_size
+    vt: torch.Tensor,
+    k_all: torch.Tensor,
+    v_all: torch.Tensor,
+    layer_idx: int,
+    block_tables: torch.Tensor,  # [P, NBmax] int32
+    q_offsets: torch.Tensor,  # [P] int32, any alignment
+    ntoks: torch.Tensor,  # [P] int32 (0 = padded row)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4: chunks of at most one page that may start mid-page.
+    -> (k_all, v_all), updated in place."""
+    if kt.shape[1] > k_all.shape[3]:
+        raise ValueError("RMW writer covers chunks of at most one page")
+    if k_all.device.type == "cpu":
+        kv_write_rows_plain(kt, vt, k_all, v_all, layer_idx, block_tables,
+                            q_offsets, ntoks)
+    else:
+        _launch(RMW_NAME, kt, vt, k_all, v_all, layer_idx, block_tables,
+                q_offsets, ntoks, require_aligned=False)
+    return k_all, v_all

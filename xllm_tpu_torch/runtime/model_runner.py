@@ -1,0 +1,343 @@
+"""Device execution: forward steps + sampling, eagerly in PyTorch.
+
+Counterpart of the subset of ``xllm_tpu/runtime/model_runner.py`` that
+serves the dense main path: ``load_model``, ``initialize_kv_cache``,
+``run_prefill_batched`` and ``run_decode``. The device-resident
+``last_tokens`` ring (each slot holds its sequence's last sampled token, so
+the next decode reads it without a host round trip) and the ``token_hist``
+ring (the sampler's penalty history) are kept. There is no jit, no warmup
+and no mesh: each step runs eagerly, and its numpy inputs reach the card in
+one non-blocking copy from pinned memory (``_upload``). The KV caches are
+updated in place.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from xllm_tpu_torch.config import EngineConfig
+from xllm_tpu_torch.framework.request import Sequence
+from xllm_tpu_torch.models.registry import create_model
+from xllm_tpu_torch.runtime.forward_params import (
+    BatchedPrefillInput,
+    DecodeInput,
+    SamplingInput,
+)
+from xllm_tpu_torch.runtime.input_builder import (
+    DecodeStepCache,
+    build_batched_prefill_input,
+    build_decode_input,
+    build_sampling_input,
+)
+from xllm_tpu_torch.runtime.sampler import gumbel_noise, sample
+from xllm_tpu_torch.utils import cdiv, get_logger
+
+logger = get_logger(__name__)
+
+_PRUNE_K = 64  # sampler candidate set (runtime/sampler.py)
+# SamplingInput fields that travel to the device with each step's inputs
+_SAMPLING_FIELDS = ("temperature", "top_k", "top_p", "repetition_penalty",
+                    "frequency_penalty", "presence_penalty", "hist_len")
+
+
+def resolve_device(device) -> torch.device:
+    """The entry points run on the card unless the caller asks for the
+    CPU; they never fall back to it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "xllm_tpu_torch runs on a CUDA device by default and "
+            "torch.cuda.is_available() is False; pass device='cpu' to run "
+            "the plain PyTorch path on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def reject_unported(config: EngineConfig) -> None:
+    """Knobs whose code paths are not ported yet raise instead of
+    degrading quietly."""
+    c = config
+    if c.cache.kv_layout != "split":
+        raise NotImplementedError(
+            f"kv_layout={c.cache.kv_layout!r}: only the split layout is ported"
+        )
+    if c.cache.kv_cache_dtype in ("int8", "fp8_e4m3") or c.quant.quantize_kv:
+        raise NotImplementedError("quantized KV caches are not ported yet")
+    if c.quant.method:
+        raise NotImplementedError(
+            f"quant.method={c.quant.method!r}: quantization is not ported yet"
+        )
+    if c.speculative.method:
+        raise NotImplementedError("speculative decoding is not ported yet")
+    p = c.parallel
+    if max(p.dp_size, p.tp_size, p.cp_size, p.ep_size, p.num_nodes) > 1:
+        raise NotImplementedError("parallelism (dp/tp/cp/ep, multi-node) is not ported yet")
+    if c.eplb.enable_eplb:
+        raise NotImplementedError("EPLB is not ported yet")
+    if c.cache.num_host_blocks > 0 or c.cache.kv_store_url:
+        raise NotImplementedError("host / global KV tiers are not ported yet")
+    if c.cache.block_backend == "native":
+        raise NotImplementedError("the native block manager is not ported yet")
+    s = c.scheduler
+    if s.policy != "continuous":
+        raise NotImplementedError(f"scheduler policy {s.policy!r} is not ported yet")
+    if s.ttft_budget_ms > 0:
+        raise NotImplementedError("latency-aware scheduling is not ported yet")
+    if s.enable_forward_interruption:
+        raise NotImplementedError("forward interruption is not ported yet")
+    if c.model.num_experts > 0 or c.model.vision or c.model.kv_lora_rank > 0:
+        raise NotImplementedError(
+            "MoE, MLA and VLM families are not ported yet"
+        )
+
+
+class ModelRunner:
+    def __init__(self, config: EngineConfig, device="cuda"):
+        reject_unported(config)
+        self.config = config
+        self.device = resolve_device(device)
+        self.model = create_model(config.model, device=self.device)
+        self.weights_loaded = False
+        self.k_cache = None
+        self.v_cache = None
+        self.num_blocks = 0
+        self.block_size = config.cache.block_size
+        self.max_blocks_per_seq = cdiv(
+            config.scheduler.max_model_len, self.block_size
+        )
+        # last_tokens ring: one slot per live sequence plus the slack for
+        # finished sequences whose fixups are still in flight; the extra
+        # trash slot absorbs padded rows
+        self.max_slots = (
+            config.scheduler.max_seqs_per_batch
+            + 2 * max(config.scheduler.overlap_depth, 1)
+        )
+        self.trash_slot = self.max_slots
+        # decode block-table column buckets (tables track live context)
+        self.nb_buckets = []
+        nb = 4
+        while nb < self.max_blocks_per_seq:
+            self.nb_buckets.append(nb)
+            nb *= 2
+        self.nb_buckets.append(self.max_blocks_per_seq)
+        # incremental decode-input assembly; a sliding window may repoint
+        # table entries at the null block without changing their count
+        self._decode_cache = (
+            None if config.model.sliding_window else DecodeStepCache()
+        )
+        # unseeded sampling rows draw their noise from this stream
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(config.seed)
+        self.last_tokens = None
+        self.token_hist = None
+
+    # ------------------------------------------------------------------
+    # init
+    # ------------------------------------------------------------------
+    def load_model(self, params: dict | None = None, seed: int | None = None) -> None:
+        """Load weights: a JAX-layout parameter tree (``weights.py``), or a
+        random init from ``seed`` (default ``config.seed``)."""
+        if params is not None:
+            from xllm_tpu_torch.weights import load_param_tree
+
+            load_param_tree(self.model, params)
+        elif self.config.model.model_path and self.config.load_format != "dummy":
+            raise NotImplementedError(
+                "loading HF safetensors is not ported yet; pass params= or "
+                "load_format='dummy'"
+            )
+        else:
+            logger.info("no model_path: initializing random weights")
+            self.model.init_random_(self.config.seed if seed is None else seed)
+        self.weights_loaded = True
+        self.last_tokens = torch.zeros(
+            self.max_slots + 1, dtype=torch.int32, device=self.device
+        )
+        hist_cols = -(-self.config.scheduler.max_model_len // 128) * 128
+        self.token_hist = torch.zeros(
+            (self.max_slots + 1, hist_cols), dtype=torch.int32, device=self.device
+        )
+
+    def initialize_kv_cache(self, num_blocks: int | None = None) -> int:
+        """Allocate the paged pool; returns num_blocks."""
+        self.num_blocks = num_blocks or self._derive_num_blocks()
+        kv_dtype = self._resolve_kv_dtype()
+        self.k_cache, self.v_cache = self.model.new_kv_cache(
+            self.num_blocks, self.block_size, kv_dtype
+        )
+        logger.info(
+            "KV cache: %d blocks x %d tokens (%s, %s)",
+            self.num_blocks, self.block_size, kv_dtype, self.device,
+        )
+        return self.num_blocks
+
+    def _resolve_kv_dtype(self) -> torch.dtype:
+        name = self.config.cache.kv_cache_dtype
+        if name in ("auto", ""):
+            return self.model.dtype
+        table = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+        if name in ("int8", "fp8_e4m3"):
+            raise NotImplementedError(f"kv_cache_dtype={name!r} is not ported yet")
+        if name not in table:
+            raise ValueError(
+                f"unsupported kv_cache_dtype {name!r}; one of {sorted(table)}"
+            )
+        return table[name]
+
+    def _derive_num_blocks(self) -> int:
+        cfg = self.config
+        if cfg.cache.num_blocks > 0:
+            return cfg.cache.num_blocks
+        per_block = self.model.kv_bytes_per_token(
+            self._resolve_kv_dtype().itemsize
+        ) * self.block_size
+        if self.device.type != "cuda":
+            logger.warning("no device memory to size from; defaulting to 512 KV blocks")
+            return 512
+        free, total = torch.cuda.mem_get_info(self.device)
+        budget = total * cfg.cache.memory_utilization - (total - free)
+        return max(int(budget // per_block), 16)
+
+    # ------------------------------------------------------------------
+    # host -> device
+    # ------------------------------------------------------------------
+    def _upload(self, arrays: dict) -> dict:
+        """numpy arrays -> device tensors of the same shapes and dtypes
+        (int32 or float32), in ONE non-blocking copy from pinned memory."""
+        if self.device.type == "cpu":
+            return {k: torch.from_numpy(np.ascontiguousarray(a)) for k, a in arrays.items()}
+        flat, meta, off = [], [], 0
+        for name, a in arrays.items():
+            a = np.ascontiguousarray(a)
+            is_float = a.dtype == np.float32
+            f = a.view(np.int32) if is_float else a.astype(np.int32, copy=False)
+            flat.append(f.ravel())
+            meta.append((name, a.shape, is_float, off, a.size))
+            off += a.size
+        host = torch.empty(off, dtype=torch.int32, pin_memory=True)
+        np.concatenate(flat, out=host.numpy())
+        dev = host.to(self.device, non_blocking=True)
+        out = {}
+        for name, shape, is_float, o, n in meta:
+            t = dev[o : o + n]
+            out[name] = (t.view(torch.float32) if is_float else t).view(shape)
+        return out
+
+    @staticmethod
+    def _sampling_arrays(fields: dict) -> dict:
+        """The per-row sampling arrays among ``fields``."""
+        return {k: fields[k] for k in _SAMPLING_FIELDS}
+
+    def _noise(self, si: SamplingInput, n: int) -> torch.Tensor | None:
+        """Gumbel noise for the sampled rows, or None when every row is
+        greedy (the sampler then never reads it)."""
+        if not np.any(si.temperature > 0):
+            return None
+        k = min(_PRUNE_K, self.config.model.vocab_size)
+        return gumbel_noise(n, k, self._gen, self.device, si.seeds, si.steps)
+
+    # ------------------------------------------------------------------
+    # public step API (host numpy in, device tensors out)
+    # ------------------------------------------------------------------
+    @property
+    def supports_batched_prefill(self) -> bool:
+        return getattr(self.model, "supports_batched_prefill", False)
+
+    @torch.inference_mode()
+    def run_prefill_batched(self, items: list[tuple[Sequence, int]]):
+        """Run P prompt chunks in one pass (asynchronous on the card).
+
+        Returns (tokens [P_pad], logprobs [P_pad], samples_flags, rows,
+        (top_ids, top_logprobs)) — device tensors for the lagged fixup; row
+        i samples a real token iff samples_flags[i].
+        """
+        sc = self.config.scheduler
+        inp_np, samples_flags, rows = build_batched_prefill_input(
+            items,
+            self.block_size,
+            sc.prefill_token_buckets,
+            sc.prefill_row_buckets,
+            self.max_blocks_per_seq,
+            self.trash_slot,
+        )
+        p_pad = inp_np.kv_lens.shape[0]
+        seqs = [seq for seq, _ in items]
+        si_np, use_penalties = build_sampling_input(seqs, p_pad, rows, self._gen)
+        dev = self._upload({**vars(inp_np), **self._sampling_arrays(vars(si_np))})
+        inp = BatchedPrefillInput(**{k: dev[k] for k in vars(inp_np)})
+        si = SamplingInput(key=self._gen, **self._sampling_arrays(dev))
+        noise = self._noise(si_np, p_pad)
+
+        model = self.model
+        hidden, _, _ = model.prefill_batched(self.k_cache, self.v_cache, inp)
+        logits = model.compute_logits(hidden[:, 0])  # [P, V]
+        # history ring: each real token at its absolute index; pad columns
+        # go to column 0 of the trash row, which no real row reads
+        th = self.token_hist
+        live = inp.hist_pos < th.shape[1]
+        hrow = torch.where(live, inp.hist_slots[:, None], self.trash_slot).long()
+        hcol = torch.where(live, inp.hist_pos, 0).long()
+        th[hrow, hcol] = inp.token_ids
+        hist = th[inp.hist_slots.long()] if use_penalties else None
+        num_top = self._num_top(seqs)
+        out = sample(logits, si, hist, num_top, self._need_lp(seqs), gumbel=noise)
+        tokens, logprobs = out[0], out[1]
+        tops = out[2:] if num_top else (None, None)
+        self.last_tokens[inp.sample_slots.long()] = tokens
+        return tokens, logprobs, samples_flags, rows, tops
+
+    @torch.inference_mode()
+    def run_decode(self, seqs: list[Sequence]):
+        """One decode token for each running sequence (asynchronous on the
+        card). Input tokens come from the last_tokens ring on the device.
+        Returns (tokens, logprobs, rows, (top_ids, top_logprobs))."""
+        sc = self.config.scheduler
+        if self._decode_cache is not None:
+            inp_np, rows, si_np, use_penalties = self._decode_cache.build(
+                seqs, self.block_size, sc.decode_batch_buckets,
+                self.max_blocks_per_seq, self.trash_slot, self.nb_buckets,
+                self._gen,
+            )
+        else:
+            inp_np, rows = build_decode_input(
+                seqs, self.block_size, sc.decode_batch_buckets,
+                self.max_blocks_per_seq, self.trash_slot, self.nb_buckets,
+            )
+            si_np, use_penalties = build_sampling_input(
+                seqs, inp_np.slot_ids.shape[0], rows, self._gen
+            )
+        b_pad = inp_np.slot_ids.shape[0]
+        dev = self._upload({**vars(inp_np), **self._sampling_arrays(vars(si_np))})
+        inp = DecodeInput(**{k: dev[k] for k in vars(inp_np)})
+        si = SamplingInput(key=self._gen, **self._sampling_arrays(dev))
+        noise = self._noise(si_np, b_pad)
+
+        slot_ids = inp.slot_ids.long()
+        token_ids = self.last_tokens[slot_ids]
+        # record each row's input token (the previous sample) so the
+        # history ring holds every position < num_tokens
+        self.token_hist[slot_ids, inp.hist_positions.long()] = token_ids
+        hidden, _, _ = self.model.decode(self.k_cache, self.v_cache, inp, token_ids)
+        logits = self.model.compute_logits(hidden)
+        hist = self.token_hist[slot_ids] if use_penalties else None
+        num_top = self._num_top(seqs)
+        out = sample(logits, si, hist, num_top, self._need_lp(seqs), gumbel=noise)
+        tokens, logprobs = out[0], out[1]
+        tops = out[2:] if num_top else (None, None)
+        self.last_tokens[slot_ids] = tokens
+        return tokens, logprobs, rows, tops
+
+    def _need_lp(self, seqs) -> bool:
+        """The exact logsumexp pass runs only when some request reports
+        logprobs."""
+        return any(seq.sampling_params.logprobs is not None for seq in seqs)
+
+    def _num_top(self, seqs) -> int:
+        """Top-logprobs width for the batch: 0 or 20 (the OpenAI cap)."""
+        want = max(
+            (seq.sampling_params.logprobs or 0) for seq in seqs
+        ) if seqs else 0
+        return 20 if want > 0 else 0

@@ -1,0 +1,97 @@
+"""Carry the JAX model's parameter tree into the port.
+
+The JAX ``DenseDecoderModel.init_params`` (and its HF loader) produce a
+nested dict: ``embed_tokens [V, D]``, ``norm [D]``, optional ``lm_head
+[D, V]``, and ``layers`` holding every per-layer tensor stacked on a
+leading L axis (``qkv_proj_w [L, D, Hkv*(G+2)*dh]`` packed group-major,
+``o_proj_w [L, Hq*dh, D]``, ...). The port's modules keep the same names
+and layouts, so the carry is a copy: layer i of each stack goes to
+``model.layers[i]``. Arrays may be numpy (bfloat16 numpy arrays included)
+or torch tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from xllm_tpu_torch.config import ModelConfig
+
+
+def as_tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16 from a JAX array
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    if not (a.flags.writeable and a.flags.c_contiguous):
+        a = np.array(a)  # a JAX array's numpy view is read-only
+    return torch.from_numpy(a)
+
+
+@torch.no_grad()
+def load_param_tree(model, tree: dict) -> None:
+    """Copy a JAX-layout parameter tree into ``model`` in place (cast to
+    the model's dtype, moved to its device)."""
+
+    def put(param: torch.Tensor, value) -> None:
+        value = as_tensor(value)
+        if tuple(value.shape) != tuple(param.shape):
+            raise ValueError(
+                f"shape {tuple(value.shape)} does not fit {tuple(param.shape)}"
+            )
+        param.copy_(value.to(device=param.device, dtype=param.dtype))
+
+    put(model.embed_tokens, tree["embed_tokens"])
+    put(model.norm, tree["norm"])
+    if "lm_head" in tree:
+        put(model.lm_head, tree["lm_head"])
+    names = {n for n, _ in model.layers[0].named_parameters()}
+    if set(tree["layers"]) != names:
+        raise ValueError(
+            f"layer tensors {sorted(tree['layers'])} != model's {sorted(names)}"
+        )
+    for name, stack in tree["layers"].items():
+        stack = as_tensor(stack)
+        for i, layer in enumerate(model.layers):
+            put(getattr(layer, name), stack[i])
+
+
+def random_param_tree(cfg: ModelConfig, seed: int) -> dict:
+    """A JAX-layout parameter tree of f32 numpy arrays from ``seed``, with
+    the shapes and init rule of the JAX ``init_params`` (norms 1, biases 0,
+    weights N(0, 0.02)); the same tree loads into either package."""
+    rng = np.random.default_rng(seed)
+    hq, hkv, dh = cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim
+    g = hq // hkv
+    L, D, I, V = (cfg.num_hidden_layers, cfg.hidden_size,
+                  cfg.intermediate_size, cfg.vocab_size)
+
+    def w(*shape):
+        return (rng.standard_normal(shape, np.float32) * 0.02).astype(np.float32)
+
+    layers = {
+        "input_layernorm": np.ones((L, D), np.float32),
+        "post_attention_layernorm": np.ones((L, D), np.float32),
+        "qkv_proj_w": w(L, D, hkv * (g + 2) * dh),
+        "o_proj_w": w(L, hq * dh, D),
+        "gate_proj_w": w(L, D, I),
+        "up_proj_w": w(L, D, I),
+        "down_proj_w": w(L, I, D),
+    }
+    if cfg.attention_bias:
+        layers["qkv_proj_b"] = np.zeros((L, hkv * (g + 2) * dh), np.float32)
+    if cfg.qk_norm:
+        layers["q_norm"] = np.ones((L, dh), np.float32)
+        layers["k_norm"] = np.ones((L, dh), np.float32)
+    if cfg.use_sandwich_norms:
+        layers["post_self_attn_layernorm"] = np.ones((L, D), np.float32)
+        layers["post_mlp_layernorm"] = np.ones((L, D), np.float32)
+    tree = {
+        "embed_tokens": w(V, D),
+        "layers": layers,
+        "norm": np.ones((D,), np.float32),
+    }
+    if not cfg.tie_word_embeddings:
+        tree["lm_head"] = w(D, V)
+    return tree
