@@ -9,24 +9,37 @@ phase raises on failure, so a non-zero exit means a phase failed:
 
 1. build: compile ``xllm_tpu_torch/csrc/*.cu`` with nvcc (all sources at
    once) and print the card's name and power limit;
-2. kernels: each hand-written kernel of the served path against its plain
-   PyTorch version on the card, at the served shapes (qwen3-1.7B: Hq 16,
-   Hkv 8, head_dim 128, block_size 64, bf16, and f32) with padded rows,
-   chunks at q_offset > 0 (prefill attention at each chunk bucket the
-   engine phase runs: 64, 512 and 2048) and mid-page writes; then the
-   kernel, the plain version and one PyTorch library call (the yardstick,
-   never used by the port) are timed with CUDA events, queued behind a
-   device-side sleep so that the device's time is timed and not the
-   host's launch rate, rotating over cache layers so that reads come from
-   device memory and not from L2;
+2. kernels: each hand-written kernel of the served paths against its plain
+   PyTorch version on the card, at the served shapes, in bf16 and f32:
+   K1-K4 at qwen3-1.7B's (Hq 16, Hkv 8, head_dim 128, block_size 64) with
+   padded rows, chunks at q_offset > 0 (prefill attention at each chunk
+   bucket the engine phase runs: 64, 512 and 2048) and mid-page writes,
+   K3 also at Qwen3-30B-A3B's group (Hq 32, Hkv 4); K10 (grouped GEMM) at
+   Qwen3-30B-A3B's expert shapes (gate_up and down, for a 16-token decode
+   step and a full chunk of each prefill bucket, routed by a random
+   router; each bf16 row tile at each shape), and with empty experts, one expert holding every row and rows outside every
+   group. Then the kernel, the plain version and one PyTorch library call
+   (the yardstick, never used by the port) are timed with CUDA events,
+   queued behind a device-side sleep so that the device's time is timed
+   and not the host's launch rate, rotating over cache layers so that
+   reads come from device memory and not from L2. The MoE block runs once
+   with the CUDA sync debug mode set to "error": nothing between its
+   router and its combine reads back to the host;
 3. engine: ``LLMEngine(device="cuda")`` at the full width of the
    qwen3-1.7B config (28 layers, bf16, random weights from a seed) serves
    two warm-up requests, then 16 greedy requests whose prompts take every
    kernel; the launch counters are zeroed just before those 16 and read
    just after, and also around each model pass, which must launch each
    kernel it uses once per layer;
-4. parity: a small f32 qwen3 from one seed, served on the card (kernels)
-   and on the CPU (plain versions), must give identical greedy tokens.
+4. MoE engine: the same at the full width and depth of Qwen3-30B-A3B
+   (48 layers, 128 experts, top-8, bf16, ~61 GB of random weights), after
+   the dense engine is freed; every MoE model pass also launches K10 twice
+   per layer;
+5. parity: small f32 qwen3, qwen3-moe and glm4-moe models (the last with
+   sigmoid routing and a non-zero router bias, a shared expert, a dense
+   first layer and partial rope), each from one seed, served on the card
+   (kernels) and on the CPU (plain versions), must give identical greedy
+   tokens.
 
 The line before the last is ``{"kernels": [...]}`` (errors, times, bounds
 and launch counts); the last line is ``{"ok": true, "device": {...}}``.
@@ -34,10 +47,12 @@ and launch counts); the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -51,7 +66,9 @@ from xllm_tpu_torch.config import (
 from xllm_tpu_torch.engine import LLMEngine
 from xllm_tpu_torch.framework.sampling_params import SamplingParams
 from xllm_tpu_torch.ops.cuda import _build
+from xllm_tpu_torch.ops import moe
 from xllm_tpu_torch.ops.cuda import decode_attention as k1
+from xllm_tpu_torch.ops.cuda import gmm as k10
 from xllm_tpu_torch.ops.cuda import kv_write as k24
 from xllm_tpu_torch.ops.cuda import prefill_attention as k3
 from xllm_tpu_torch.runtime.model_runner import ModelRunner
@@ -90,6 +107,29 @@ QWEN3_1P7B = dict(
     tie_word_embeddings=True,
     rope_theta=1000000.0,
     max_position_embeddings=4096,
+)
+# Qwen3-30B-A3B (the published config.json of Qwen/Qwen3-30B-A3B): 48
+# layers, 32 query / 4 KV heads, 128 experts of width 768, top-8 with
+# renormalised weights, untied embeddings; ~61 GB of bf16 weights, so it
+# runs at full width and depth on one 80 GB card
+QWEN3_30B_A3B = dict(
+    model_type="qwen3_moe",
+    dtype="bfloat16",
+    vocab_size=151936,
+    hidden_size=2048,
+    intermediate_size=6144,
+    num_hidden_layers=48,
+    num_attention_heads=32,
+    num_key_value_heads=4,
+    head_dim=128,
+    qk_norm=True,
+    tie_word_embeddings=False,
+    rope_theta=1000000.0,
+    max_position_embeddings=40960,
+    num_experts=128,
+    num_experts_per_tok=8,
+    moe_intermediate_size=768,
+    norm_topk_prob=True,
 )
 
 
@@ -342,19 +382,20 @@ def check_prefill(rng, dev, dtype, timed: bool) -> dict:
     return res
 
 
-def check_prefill_shape(rng, dev, dtype, timed: bool, s: int, rows) -> dict:
+def check_prefill_shape(rng, dev, dtype, timed: bool, s: int, rows,
+                        hq: int = HQ, hkv: int = HKV) -> dict:
     p = len(rows)
     nb, btt, qo, _, kvl = _chunk_tables(rng, rows, dev)
     g = torch.Generator(device=dev).manual_seed(2)
-    shape = (LAYERS, nb, HKV, BS, D)
+    shape = (LAYERS, nb, hkv, BS, D)
     kc = torch.randn(shape, generator=g, device=dev).to(dtype)
     vc = torch.randn(shape, generator=g, device=dev).to(dtype)
-    q = torch.randn(p, s, HQ, D, generator=g, device=dev).to(dtype)
+    q = torch.randn(p, s, hq, D, generator=g, device=dev).to(dtype)
     scale = D ** -0.5
     out = k3.paged_attention_prefill_batched(q, kc, vc, 5, btt, qo, kvl, scale)
     ref = k3.paged_attention_prefill_batched_plain(q, kc, vc, 5, btt, qo, kvl, scale)
     sync()
-    what = f"K3 {dtype} S={s} {rows}"
+    what = f"K3 {dtype} S={s} {rows} Hq {hq} Hkv {hkv}"
     err = check_close(out, ref, what)
     for i, (_, n) in enumerate(rows):
         # a padded row and the bucket padding past ntok are zeros
@@ -367,16 +408,16 @@ def check_prefill_shape(rng, dev, dtype, timed: bool, s: int, rows) -> dict:
     ntok = sum(n for _, n in rows)
     kv_rows = sum(qo_ + n for qo_, n in rows if n)
     pairs = sum(sum(qo_ + i + 1 for i in range(n)) for qo_, n in rows)
-    nbytes = (2 * ntok * HQ * D + 2 * kv_rows * HKV * D) * el
-    flops = 4.0 * pairs * HQ * D
+    nbytes = (2 * ntok * hq * D + 2 * kv_rows * hkv * D) * el
+    flops = 4.0 * pairs * hq * D
     # library yardstick: one SDPA call over K/V gathered contiguous, with the
     # causal + kv_len mask of each chunk
     lmax = max(qo_ + n for qo_, n in rows)
     lmax = -(-lmax // BS) * BS
     idx = btt[:, : lmax // BS].long()
-    kg = [kc[l][idx].permute(0, 2, 1, 3, 4).reshape(p, HKV, lmax, D)
+    kg = [kc[l][idx].permute(0, 2, 1, 3, 4).reshape(p, hkv, lmax, D)
           for l in range(LAYERS)]
-    vg = [vc[l][idx].permute(0, 2, 1, 3, 4).reshape(p, HKV, lmax, D)
+    vg = [vc[l][idx].permute(0, 2, 1, 3, 4).reshape(p, hkv, lmax, D)
           for l in range(LAYERS)]
     qpos = qo.long()[:, None] + torch.arange(s, device=dev)[None, :]
     kvi = torch.arange(lmax, device=dev)
@@ -392,7 +433,7 @@ def check_prefill_shape(rng, dev, dtype, timed: bool, s: int, rows) -> dict:
         plain_iters=5,
     ))
     res["shape"] = (f"P={p} chunks of S={s} (q_offset, ntok) {rows}, "
-                    f"Hq {HQ}, Hkv {HKV}, D {D}, bs {BS}")
+                    f"Hq {hq}, Hkv {hkv}, D {D}, bs {BS}")
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops)
     return res
 
@@ -459,6 +500,141 @@ def check_writer(rng, dev, dtype, timed: bool, rmw: bool) -> dict:
     return res
 
 
+# K10 at Qwen3-30B-A3B's expert shapes: (K, N) of each grouped GEMM, and
+# the tokens of a decode step (batch 16) and of a full chunk of each prefill
+# bucket the engine runs; each token brings TOPK rows
+E_MOE, TOPK = QWEN3_30B_A3B["num_experts"], QWEN3_30B_A3B["num_experts_per_tok"]
+GMM_WEIGHTS = {"gate_up": (2048, 2 * 768), "down": (768, 2048)}
+GMM_TOKENS = {"decode": 16, "prefill64": 64, "prefill512": 512, "prefill2048": 2048}
+GMM_TOL = "|out - ref| <= K 2^-24 (|lhs| @ |rhs_e|) + 1e-6"
+
+
+def check_gmm_close(out, lhs, rhs, offsets, what: str) -> float:
+    """K10 against its plain version, elementwise within K 2^-24 (|lhs| @
+    |rhs_e|) + 1e-6: both accumulate exact products in f32, in different
+    orders, so each of the K additions may round by 2^-24 of the running
+    magnitude -> max abs err."""
+    ref = k10.gmm_plain(lhs, rhs, offsets)
+    lim = k10.gmm_plain(lhs.float().abs(), rhs.float().abs(), offsets)
+    lim = lim * (lhs.shape[1] * 2.0 ** -24) + 1e-6
+    diff = (out - ref).abs()
+    worst = (diff / lim).max().item()
+    assert worst <= 1.0, f"{what}: max abs err {diff.max().item()}, {worst:.3g} x the bound"
+    return diff.max().item()
+
+
+def moe_weights(dev, g) -> dict:
+    """Random bf16 expert stacks and router of one Qwen3-30B-A3B layer."""
+    return {
+        "gate_up": (torch.randn(E_MOE, *GMM_WEIGHTS["gate_up"], generator=g,
+                                device=dev) * 0.02).bfloat16(),
+        "down": (torch.randn(E_MOE, *GMM_WEIGHTS["down"], generator=g,
+                             device=dev) * 0.02).bfloat16(),
+        "router": (torch.randn(GMM_WEIGHTS["gate_up"][0], E_MOE, generator=g,
+                               device=dev) * 0.02).bfloat16(),
+    }
+
+
+def forced_row_tile(bm: int):
+    """K10's bf16 wrapper with its row tile forced to ``bm``, to check and
+    time each build at every shape, whichever the wrapper would pick."""
+    return mock.patch.object(k10, "row_tile", lambda m, e: bm)
+
+
+def check_gmm(dev, w: dict, g) -> dict:
+    """K10 at the served shapes (decode and each prefill bucket x gate_up /
+    down): rows of random tokens sorted by the experts a random router picks
+    for them, as the MoE block sorts them; bf16 (timed, with every row tile
+    as well) and f32 (the same values) against the plain version -> the
+    decode gate_up result, with all shapes in ``by_shape``."""
+    results = []
+    worst_f32 = 0.0
+    for phase, tokens in GMM_TOKENS.items():
+        x = torch.randn(tokens, GMM_WEIGHTS["gate_up"][0], generator=g, device=dev).bfloat16()
+        _, topi = moe.route(x, w["router"], TOPK, True)
+        order, offs = moe.group_by_expert(topi, E_MOE)
+        m = order.numel()
+        lhs_of = {"gate_up": x[order // TOPK],
+                  "down": torch.randn(m, GMM_WEIGHTS["down"][0], generator=g,
+                                      device=dev).bfloat16()}
+        touched = int((offs[1:] > offs[:-1]).sum())
+        for name, (k, n) in GMM_WEIGHTS.items():
+            lhs, rhs = lhs_of[name], w[name]
+            what = f"K10 {phase} {name} M={m} K={k} N={n}"
+            err = check_gmm_close(k10.gmm(lhs, rhs, offs), lhs, rhs, offs, what)
+            lhs32, rhs32 = lhs.float(), rhs.float()
+            worst_f32 = max(worst_f32, check_gmm_close(
+                k10.gmm(lhs32, rhs32, offs), lhs32, rhs32, offs, what + " f32"))
+            del rhs32
+            # yardstick: PyTorch's grouped GEMM (its output is bf16)
+            res = {"max_abs_err": err}
+            res.update(time_three(
+                lambda i: k10.gmm(lhs, rhs, offs),
+                lambda i: k10.gmm_plain(lhs, rhs, offs),
+                lambda i: torch._grouped_mm(lhs, rhs, offs=offs[1:]),
+                plain_iters=5,
+            ))
+            res["row_tile"] = k10.row_tile(m, E_MOE)
+            res["ms_by_row_tile"] = {}
+            for bm in k10.ROW_TILES:
+                with forced_row_tile(bm):
+                    res["max_abs_err"] = max(res["max_abs_err"], check_gmm_close(
+                        k10.gmm(lhs, rhs, offs), lhs, rhs, offs, f"{what} row tile {bm}"))
+                    ms, queued = time_ms(lambda i: k10.gmm(lhs, rhs, offs))
+                assert queued, "a kernel wrapper waited on the device"
+                res["ms_by_row_tile"][str(bm)] = ms
+            res["shape"] = (f"{phase}: {tokens} tokens x top-{TOPK} -> M={m} rows over "
+                            f"{touched} of {E_MOE} experts, K {k}, N {n}, bf16, "
+                            f"row tile {res['row_tile']}")
+            nbytes = m * k * 2 + touched * k * n * 2 + m * n * 4
+            res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 2.0 * m * k * n)
+            results.append(res)
+    # every bf16 build the wrapper can pick runs at a served shape
+    assert {r["row_tile"] for r in results} == set(k10.ROW_TILES), results
+    res = dict(results[0])
+    res["max_abs_err"] = max(r["max_abs_err"] for r in results)
+    res["max_abs_err_f32"] = worst_f32
+    res["by_shape"] = results
+    return res
+
+
+def check_gmm_edges(dev, w: dict, g) -> float:
+    """K10 with empty experts and one expert holding every row, and with
+    rows outside every group at both ends (they come out as zeros), M 1000
+    (no multiple of any row tile), bf16 and f32 -> the largest max-abs
+    error."""
+    m = 1000
+    lhs = torch.randn(m, GMM_WEIGHTS["gate_up"][0], generator=g, device=dev).bfloat16()
+    one = [0] * 6 + [m] * (E_MOE - 5)  # expert 5 owns every row
+    gaps = [3] + [3 + 7 * i for i in range(1, E_MOE)] + [m - 5]
+    worst = 0.0
+    for offs in (one, gaps):
+        offs = i32(offs, dev)
+        for dt in (torch.bfloat16, torch.float32):
+            lh, rh = lhs.to(dt), w["gate_up"].to(dt)
+            out = k10.gmm(lh, rh, offs)
+            worst = max(worst, check_gmm_close(out, lh, rh, offs, f"K10 edges {dt}"))
+            lo, hi = int(offs[0]), int(offs[-1])
+            assert not out[:lo].any() and not out[hi:].any(), "K10: rows outside groups not zero"
+    return worst
+
+
+def check_moe_no_host_sync(dev, w: dict, g) -> None:
+    """One MoE block at a decode step's shape with the CUDA sync debug mode
+    set to "error": any read back to the host between the router and the
+    combine raises."""
+    x = torch.randn(16, GMM_WEIGHTS["gate_up"][0], generator=g, device=dev).bfloat16()
+    rw, gu, dn = w["router"], w["gate_up"], w["down"]
+    moe.moe_mlp(x, rw, gu, dn, TOPK, True)  # first calls (cuBLAS set-up)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = moe.moe_mlp(x, rw, gu, dn, TOPK, True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.shape == x.shape and bool(torch.isfinite(out.float()).all())
+
+
 def phase_kernels(dev) -> dict:
     rng = np.random.default_rng(0)
     checks = {
@@ -486,18 +662,42 @@ def phase_kernels(dev) -> dict:
         err = check_decode_variants(rng, dev, dtype)
         log(f"[kernels] {k1.NAME} variants {DECODE_VARIANTS} (head_dim, Hq, Hkv, bs, "
             f"table width, window), {dtype}: worst err {err:.3g} ({tol_text(dtype)})")
+        # K3 at Qwen3-30B-A3B's GQA group (G = 8)
+        err = max(check_prefill_shape(rng, dev, dtype, False, s, rows, hq=32, hkv=4)["max_abs_err"]
+                  for s, rows in K3_SHAPES.items())
+        log(f"[kernels] {k3.NAME} at Hq 32, Hkv 4, every chunk bucket, {dtype}: "
+            f"worst err {err:.3g} ({tol_text(dtype)})")
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    w = moe_weights(dev, g)
+    res = check_gmm(dev, w, g)
+    results[k10.NAME] = res
+    log(f"[kernels] {k10.NAME}: bf16 err {res['max_abs_err']:.3g}, f32 err "
+        f"{res['max_abs_err_f32']:.3g} ({GMM_TOL})")
+    for r in res["by_shape"]:
+        tiles = ", ".join(f"{bm}: {t:.4f}" for bm, t in r["ms_by_row_tile"].items())
+        log(f"[kernels]   {r['shape']}: kernel {r['ms']:.4f} ms (by row tile {tiles}), "
+            f"plain {r['plain_ms']:.4f} ms (serial: it syncs), library "
+            f"(torch._grouped_mm, bf16 out) {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    err = check_gmm_edges(dev, w, g)
+    log(f"[kernels] {k10.NAME} with empty experts, one expert holding every row, rows "
+        f"outside every group, M 1000: worst err {err:.3g} ({GMM_TOL})")
+    check_moe_no_host_sync(dev, w, g)
+    log("[kernels] MoE block at decode shape under sync debug mode 'error': no host sync")
     return results
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the engine at full width
+# phases 3 and 4: the engines at full width
 # ---------------------------------------------------------------------------
-def engine_config(model_kw=QWEN3_1P7B, batch: int = 16) -> EngineConfig:
+def engine_config(model_kw=QWEN3_1P7B, batch: int = 16,
+                  num_blocks: int = 1024) -> EngineConfig:
     """The served configuration: split layout, block_size 64, ``batch``
     sequences, max_model_len 4096, prefill chunks of at most 2048 tokens."""
     return EngineConfig(
         model=ModelConfig(**model_kw),
-        cache=CacheConfig(block_size=BS, num_blocks=1024),
+        cache=CacheConfig(block_size=BS, num_blocks=num_blocks),
         scheduler=SchedulerConfig(
             max_seqs_per_batch=batch,
             max_model_len=4096,
@@ -540,28 +740,38 @@ def count_per_pass(runner) -> list[tuple[str, dict]]:
     return deltas
 
 
-def check_passes(deltas, layers: int) -> None:
-    """Every decode pass launches K1 once per layer and nothing else; every
-    prefill pass launches K3 once per layer and one of the two writers
-    (K2 for a chunk bucket above block_size, K4 otherwise) once per layer."""
+def pass_launches(layers: int, moe_layers: int) -> dict[str, list[dict]]:
+    """The launches each model pass must make, by kind: a decode pass K1
+    once per layer; a prefill pass K3 once per layer and one of the two
+    writers (K2 for a chunk bucket above block_size, K4 otherwise) once per
+    layer; in a MoE model both also K10 twice per MoE layer (gate_up and
+    down); nothing else."""
+    extra = {k10.NAME: 2 * moe_layers} if moe_layers else {}
+    return {
+        "decode": [{k1.NAME: layers, **extra}],
+        "prefill": [{k3.NAME: layers, w: layers, **extra}
+                    for w in (k24.PREFILL_NAME, k24.RMW_NAME)],
+    }
+
+
+def check_passes(deltas, want: dict[str, list[dict]]) -> None:
     for i, (kind, d) in enumerate(deltas):
         got = {k: n for k, n in d.items() if n}
-        if kind == "decode":
-            want = [{k1.NAME: layers}]
-        else:
-            want = [{k3.NAME: layers, w: layers}
-                    for w in (k24.PREFILL_NAME, k24.RMW_NAME)]
-        assert got in want, f"{kind} pass {i}: launches {got}, expected one of {want}"
+        assert got in want[kind], (
+            f"{kind} pass {i}: launches {got}, expected one of {want[kind]}")
 
 
-def phase_engine(model_kw=QWEN3_1P7B, device="cuda") -> tuple[dict, dict]:
-    cfg = engine_config(model_kw)
+def phase_engine(model_kw=QWEN3_1P7B, num_blocks: int = 1024,
+                 tag: str = "engine") -> tuple[dict, dict]:
+    cfg = engine_config(model_kw, num_blocks=num_blocks)
     t0 = time.perf_counter()
-    eng = LLMEngine(cfg, device=device)
+    eng = LLMEngine(cfg, device="cuda")
     sync()
-    log(f"[engine] {model_kw['model_type']}, {model_kw['num_hidden_layers']} layers, "
-        f"hidden {model_kw['hidden_size']}, {model_kw['dtype']}, random weights: "
-        f"built in {time.perf_counter() - t0:.1f} s")
+    log(f"[{tag}] {model_kw['model_type']}, {model_kw['num_hidden_layers']} layers, "
+        f"hidden {model_kw['hidden_size']}, {model_kw.get('num_experts', 0)} experts, "
+        f"{model_kw['dtype']}, random weights, {num_blocks} KV blocks: built in "
+        f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
+        "allocated")
     rng = np.random.default_rng(0)
     warm_up(eng, rng)  # before the counters are zeroed
     # 40 -> K4; 300, 700 -> K2; 2100 -> chunks of 2048 (K2) + 52 (K4, K3 at
@@ -595,20 +805,25 @@ def phase_engine(model_kw=QWEN3_1P7B, device="cuda") -> tuple[dict, dict]:
         assert len(toks) == 32, f"{r.request_id}: {len(toks)} tokens"
         assert all(0 <= t < cfg.model.vocab_size for t in toks)
     assert eng.block_manager.num_used_blocks == 0, "KV blocks leaked"
-    # every model pass launches the kernels it uses once per layer
+    # every model pass launches the kernels it uses once per layer (K10
+    # twice per MoE layer)
     layers = cfg.model.num_hidden_layers
-    check_passes(deltas, layers)
+    moe_layers = (layers - cfg.model.first_k_dense_replace) if cfg.model.num_experts else 0
+    want = pass_launches(layers, moe_layers)
+    check_passes(deltas, want)
     per_pass = {}
-    for name in (k1.NAME, k24.PREFILL_NAME, k3.NAME, k24.RMW_NAME):
+    for name, per in {k: n for kind in want.values() for d in kind for k, n in d.items()}.items():
         assert launches.get(name, 0) > 0, f"kernel {name} never launched: {launches}"
         seen = sorted({d.get(name, 0) for _, d in deltas} - {0})
         passes = sum(1 for _, d in deltas if d.get(name, 0))
-        assert seen == [layers], f"{name}: launches per model pass {seen}, not [{layers}]"
-        assert passes * layers == launches[name], (name, passes, launches[name])
+        assert seen == [per], f"{name}: launches per model pass {seen}, not [{per}]"
+        assert passes * per == launches[name], (name, passes, launches[name])
         per_pass[name] = {"launches_per_step": seen[0], "passes": passes}
     ttft = sorted(first.values())
     gen = 32 * len(reqs)
     info = {
+        "model": model_kw["model_type"],
+        "layers": layers,
         "requests": len(reqs),
         "prompt_lens": sorted(set(lens)),
         "engine_steps": steps,
@@ -619,7 +834,7 @@ def phase_engine(model_kw=QWEN3_1P7B, device="cuda") -> tuple[dict, dict]:
         "launches": launches,
         "per_pass": per_pass,
     }
-    log(f"[engine] {len(reqs)} requests x 32 tokens in {steps} steps, {t_all:.2f} s; "
+    log(f"[{tag}] {len(reqs)} requests x 32 tokens in {steps} steps, {t_all:.2f} s; "
         f"TTFT median {info['ttft_s_median'] * 1e3:.1f} ms, max {ttft[-1] * 1e3:.1f} ms; "
         f"{info['gen_tok_per_s']:.1f} generated tok/s overall (eager, no CUDA graphs); "
         f"launches {launches}; {len(deltas)} model passes, per kernel {per_pass}")
@@ -627,31 +842,45 @@ def phase_engine(model_kw=QWEN3_1P7B, device="cuda") -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: card vs CPU parity
+# phase 5: card vs CPU parity
 # ---------------------------------------------------------------------------
-def phase_parity(devices=("cuda", "cpu")) -> int:
-    cfg_kw = dict(
-        model=dict(model_type="qwen3", dtype="float32", vocab_size=1000,
-                   hidden_size=256, intermediate_size=512,
-                   num_hidden_layers=2, num_attention_heads=4,
-                   num_key_value_heads=2, head_dim=128, qk_norm=True,
-                   max_position_embeddings=256, eos_token_ids=[0]),
-        cache=dict(block_size=16, num_blocks=128),
-        scheduler=dict(max_seqs_per_batch=4, max_model_len=256,
-                       max_tokens_per_chunk_for_prefill=64,
-                       prefill_token_buckets=[16, 64],
-                       decode_batch_buckets=[2, 4]),
-    )
+PARITY_DENSE = dict(model_type="qwen3", dtype="float32", vocab_size=1000,
+                    hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                    num_attention_heads=4, num_key_value_heads=2, head_dim=128,
+                    qk_norm=True, max_position_embeddings=256, eos_token_ids=[0])
+_PARITY_EXPERTS = dict(num_experts=8, num_experts_per_tok=2,
+                       moe_intermediate_size=64, norm_topk_prob=True)
+PARITY_MODELS = {
+    "qwen3": PARITY_DENSE,
+    "qwen3_moe": dict(PARITY_DENSE, model_type="qwen3_moe", **_PARITY_EXPERTS),
+    # sigmoid routing with a (non-zero) correction bias and group-limited
+    # top-k, a shared expert, a dense first layer, partial rotate-half rope
+    "glm4_moe": dict(PARITY_DENSE, model_type="glm4_moe", attention_bias=True,
+                     partial_rotary_factor=0.5, rope_interleaved=False,
+                     scoring_func="sigmoid", n_group=2, topk_group=1,
+                     routed_scaling_factor=1.5, first_k_dense_replace=1,
+                     n_shared_experts=1, **_PARITY_EXPERTS),
+}
 
+
+def phase_parity(name: str, model_kw: dict, devices=("cuda", "cpu")) -> int:
     def make():
         return EngineConfig(
-            model=ModelConfig(**cfg_kw["model"]),
-            cache=CacheConfig(**cfg_kw["cache"]),
-            scheduler=SchedulerConfig(**cfg_kw["scheduler"]),
+            model=ModelConfig(**model_kw),
+            cache=CacheConfig(block_size=16, num_blocks=128),
+            scheduler=SchedulerConfig(max_seqs_per_batch=4, max_model_len=256,
+                                      max_tokens_per_chunk_for_prefill=64,
+                                      prefill_token_buckets=[16, 64],
+                                      decode_batch_buckets=[2, 4]),
         )
 
     tree = random_param_tree(make().model, seed=7)
     rng = np.random.default_rng(1)
+    for group in tree.values():  # random_param_tree's biases are zeros
+        if isinstance(group, dict):
+            for key in ("router_bias", "qkv_proj_b"):
+                if key in group:
+                    group[key] = (rng.standard_normal(group[key].shape) * 0.5).astype(np.float32)
     # 10 and 70 -> S <= bs chunks (K4); 40, 100 -> K2, 100 chunked at 64
     prompts = [rng.integers(1, 1000, n).tolist() for n in (10, 40, 100, 70, 23, 5)]
     sp = SamplingParams(temperature=0.0, max_tokens=16, ignore_eos=True)
@@ -667,10 +896,16 @@ def phase_parity(devices=("cuda", "cpu")) -> int:
         assert eng.block_manager.num_used_blocks == 0
         got[dev] = [outs[i] for i in ids]
     a, b = (got[d] for d in devices)
-    assert a == b, f"greedy tokens differ:\n{a}\n{b}"
-    log(f"[parity] f32 qwen3 (2 layers, head_dim 128, bs 16): {len(prompts)} "
+    assert a == b, f"{name}: greedy tokens differ:\n{a}\n{b}"
+    log(f"[parity] f32 {name} (2 layers, head_dim 128, bs 16): {len(prompts)} "
         f"requests x 16 greedy tokens identical on {' and '.join(devices)}")
     return len(prompts)
+
+
+def free_device_memory() -> None:
+    """Drop what a finished phase left (engines hold reference cycles)."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -680,6 +915,9 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    # f32 references in full f32: no TF32 in matmuls or convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     # phase 1: build
     t0 = time.perf_counter()
     _build.build_all()
@@ -691,15 +929,24 @@ def main() -> int:
                 log(f"[build] {stem}: {line.strip()}")
     card = card_line()
     log(card)
+    log(f"[build] python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
     kern = phase_kernels(dev)
+    free_device_memory()
     log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches, info = phase_engine()
+    free_device_memory()
     log(f"[engine] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase_parity()
+    moe_launches, moe_info = phase_engine(QWEN3_30B_A3B, num_blocks=512, tag="moe-engine")
+    free_device_memory()
+    log(f"[moe-engine] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, model_kw in PARITY_MODELS.items():
+        phase_parity(name, model_kw)
     log(f"[parity] done in {time.perf_counter() - t0:.1f} s")
 
     meta = {
@@ -707,27 +954,30 @@ def main() -> int:
         k24.PREFILL_NAME: (k24.PREFILL_TPU_KERNEL, "kv_write.cu"),
         k3.NAME: (k3.TPU_KERNEL, "prefill_attention.cu"),
         k24.RMW_NAME: (k24.RMW_TPU_KERNEL, "kv_write.cu"),
+        k10.NAME: (k10.TPU_KERNEL, "gmm.cu"),
     }
     rows = []
     for name, res in kern.items():
         tpu, src = meta[name]
         where, func = tpu.split()
+        # each kernel's launches come from the run of its own slice's path,
+        # with the counters zeroed just before it: K1-K4 the dense engine
+        # phase, K10 the MoE engine phase
+        path_launches, path_info = (moe_launches, moe_info) if name == k10.NAME \
+            else (launches, info)
         row = {
             "name": name,
             "route": "cuda",
             "source": f"xllm_tpu_torch/csrc/{src}",
             "replaces": where,
             "tpu_counterpart": func,
-            "launches": launches[name],
+            "launches": path_launches[name],
             # measured: launches of each model pass that launched it
-            "launches_per_step": info["per_pass"][name]["launches_per_step"],
-            "passes": info["per_pass"][name]["passes"],
+            "launches_per_step": path_info["per_pass"][name]["launches_per_step"],
+            "passes": path_info["per_pass"][name]["passes"],
             "max_abs_err": res["max_abs_err"],
             "max_abs_err_f32": res["max_abs_err_f32"],
-            # "ms" is the key every port slice reports; "kernel_ms" the
-            # same time under this slice's own name for it
             "ms": res["ms"],
-            "kernel_ms": res["ms"],
             "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"],
@@ -736,8 +986,9 @@ def main() -> int:
         }
         if "by_shape" in res:
             row["by_shape"] = [
-                {k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")}
+                {k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms", "row_tile", "ms_by_row_tile")
+                 if k in r}
                 for r in res["by_shape"]]
         rows.append(row)
     log(card)

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where an engine step of the PyTorch/CUDA port spends its time, on one GPU.
 
-    python3 scripts/profile_torch_step.py [--prompt-len 512] [--steps 16]
+    python3 scripts/profile_torch_step.py [--model qwen3-1.7b|qwen3-30b-a3b]
+                                          [--prompt-len 512] [--steps 16]
 
-Serves the qwen3-1.7B-class config of ``chip_smoke.py`` (28 layers, bf16,
-random weights) through ``xllm_tpu_torch.engine.LLMEngine`` on the card:
+Serves a config of ``chip_smoke.py`` (the qwen3-1.7B-class dense model, 28
+layers, or Qwen3-30B-A3B, 48 layers with 128 experts; bf16, random
+weights) through ``xllm_tpu_torch.engine.LLMEngine`` on the card:
 16 greedy requests of ``--prompt-len`` tokens, after two warm-up requests
 (first calls load CUDA modules and pick GEMM algorithms). Two windows are
 traced with ``torch.profiler``:
@@ -16,7 +18,7 @@ traced with ``torch.profiler``:
 For each window it reports the host-clock time per step (between two
 ``torch.cuda.synchronize()`` calls), the device busy time per step (the
 union of the kernel and copy intervals on the trace), the device idle
-share, and the device time per step by kernel group: the port's four
+share, and the device time per step by kernel group: the port's
 hand-written kernels by name, GEMMs, and everything else. The last line
 of the output is one JSON object with those numbers and the card's name
 and power limit. Needs one CUDA card and nvcc; imports neither jax nor
@@ -47,6 +49,12 @@ OWN_KERNELS = {
     "decode_attention_write_kernel": "K1 decode_attention_write",
     "kv_write_rows_kernel": "K2/K4 kv_write_rows",
     "prefill_attention_kernel": "K3 prefill_attention_batched",
+    "gmm_bf16_kernel": "K10 gmm",
+}
+# --model -> (chip_smoke model config, KV blocks)
+MODELS = {
+    "qwen3-1.7b": (chip_smoke.QWEN3_1P7B, 1024),
+    "qwen3-30b-a3b": (chip_smoke.QWEN3_30B_A3B, 512),
 }
 GEMM_MARKS = ("gemm", "xmma", "cutlass", "cublas", "sm90_", "nvjet")
 
@@ -125,6 +133,7 @@ def traced(eng: LLMEngine, n_steps: int | None, until=None) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(MODELS), default="qwen3-1.7b")
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--steps", type=int, default=16)
     args = ap.parse_args()
@@ -134,7 +143,8 @@ def main() -> int:
     card = chip_smoke.card_line()
     print(card, flush=True)
     _build.build_all()
-    cfg = chip_smoke.engine_config(batch=BATCH)
+    model_kw, num_blocks = MODELS[args.model]
+    cfg = chip_smoke.engine_config(model_kw, batch=BATCH, num_blocks=num_blocks)
     eng = LLMEngine(cfg, device="cuda")
     rng = np.random.default_rng(0)
     chip_smoke.warm_up(eng, rng)
@@ -176,7 +186,8 @@ def main() -> int:
         for op, ms, n in res["top_host_ops_ms_per_step"]:
             print(f"[{name}]   host {op}: {ms:.4f} ms/step over {n:.0f} calls", flush=True)
     print(card, flush=True)
-    print(json.dumps({"card": card, "batch": BATCH, "prompt_len": args.prompt_len,
+    print(json.dumps({"card": card, "model": args.model, "batch": BATCH,
+                      "prompt_len": args.prompt_len,
                       "prefill": prefill, "decode": decode}), flush=True)
     return 0
 

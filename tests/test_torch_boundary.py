@@ -47,6 +47,10 @@ print(json.dumps({"imported": names, "bad": bad}))
 """
 
 
+_MOE = {"model_type": "qwen3_moe", "num_experts": 4, "num_experts_per_tok": 2,
+        "moe_intermediate_size": 16}
+
+
 def _tiny(**over) -> EngineConfig:
     cfg = EngineConfig(
         model=ModelConfig(model_type="qwen3", dtype="float32", vocab_size=64,
@@ -77,6 +81,8 @@ def test_imports_no_jax_no_reference_no_triton():
     for mod in ("xllm_tpu_torch.ops.cuda.decode_attention",
                 "xllm_tpu_torch.ops.cuda.kv_write",
                 "xllm_tpu_torch.ops.cuda.prefill_attention",
+                "xllm_tpu_torch.ops.cuda.gmm", "xllm_tpu_torch.ops.moe",
+                "xllm_tpu_torch.models.moe_decoder",
                 "xllm_tpu_torch.engine", "xllm_tpu_torch.llm"):
         assert mod in out["imported"]
 
@@ -97,11 +103,15 @@ def test_entry_points_default_to_cuda(monkeypatch):
         ModelRunner(_tiny())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LLM(config=_tiny())
+    # a MoE engine too
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LLMEngine(_tiny(model=_MOE))
     # asked for explicitly, the CPU serves
-    eng = LLMEngine(_tiny(), device="cpu")
-    eng.add_request(prompt_token_ids=[1, 2, 3],
-                    sampling_params=SamplingParams(max_tokens=2, ignore_eos=True))
-    assert len(eng.generate_all()[0].outputs[0].token_ids) == 2
+    for cfg in (_tiny(), _tiny(model=_MOE)):
+        eng = LLMEngine(cfg, device="cpu")
+        eng.add_request(prompt_token_ids=[1, 2, 3],
+                        sampling_params=SamplingParams(max_tokens=2, ignore_eos=True))
+        assert len(eng.generate_all()[0].outputs[0].token_ids) == 2
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -125,7 +135,12 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         {"parallel": {"dp_size": 2}},
         {"parallel": {"cp_size": 2}},
         {"model": {"model_type": "deepseek_v3"}},
-        {"model": {"model_type": "qwen3_moe", "num_experts": 4}},
+        # MoE serves on one device now; what it still lacks raises
+        pytest.param({"model": _MOE, "eplb": {"enable_eplb": True}}, id="qwen3_moe-4"),
+        {"model": _MOE, "eplb": {"redundant_experts": 2}},
+        {"model": _MOE, "parallel": {"ep_size": 2}},
+        {"model": _MOE, "quant": {"method": "fp8_e4m3"}},
+        {"model": dict(_MOE, model_type="deepseek_v3", kv_lora_rank=32)},
     ],
     ids=lambda o: "-".join(f"{k}" for g in o.values() for k in g.values()),
 )

@@ -137,3 +137,58 @@ def test_prefill_then_decode_matches_jax():
     owned = [(int(bt[r, p // BS]), p % BS) for r in range(3) for p in range(seq_lens[r])]
     _assert_caches(kt, kj, owned)
     _assert_caches(vt, vj, owned)
+
+
+def _bf16_layer(model_type, bias):
+    """One bf16 layer of each package with the same weights, and a bf16
+    input [64, 256] given to both."""
+    kw = dict(model_type=model_type, dtype="bfloat16", vocab_size=97,
+              hidden_size=256, intermediate_size=512, num_hidden_layers=1,
+              num_attention_heads=4, num_key_value_heads=2, head_dim=64,
+              qk_norm=not bias, attention_bias=bias, max_position_embeddings=128)
+    jm = JModel(JModelConfig(**kw))
+    tm = TModel(TModelConfig(**kw), device="cpu")
+    rng = np.random.default_rng(5)
+    params = jax.tree.map(np.asarray, jm.init_params(jax.random.key(1)))
+    if bias:  # the JAX init gives zeros, which would hide the rounding
+        b = params["layers"]["qkv_proj_b"]
+        params["layers"]["qkv_proj_b"] = (rng.standard_normal(b.shape) * 0.5).astype(b.dtype)
+    load_param_tree(tm, params)
+    lpj = {k: jnp.asarray(v[0]) for k, v in params["layers"].items()}
+    xj = jnp.asarray(rng.standard_normal((64, 256)), jnp.bfloat16)
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).bfloat16()
+    return jm, tm, lpj, xj, xt
+
+
+def _assert_rounds_like(got: torch.Tensor, want: jnp.ndarray) -> None:
+    """bf16 results that round at the same places as the JAX package agree
+    bit for bit, except where the f32 summation order moves a value across
+    a rounding boundary: by at most one bf16 ulp (at most 2^-7 |x|: 8
+    significand bits; 1e-5 absolute for outputs near 0, which come from
+    cancellation), in at most 1% of the elements. Rounding an f32 intermediate to bf16 one step early
+    changes over half of them."""
+    got = got.float().numpy()
+    want = np.asarray(want.astype(jnp.float32))
+    diff = np.abs(got - want)
+    what = f"max abs err {diff.max():.3g}, {(diff > 0).mean():.2%} of elements differ"
+    assert (diff <= 2.0 ** -7 * np.maximum(np.abs(got), np.abs(want)) + 1e-5).all(), what
+    assert (diff > 0).mean() <= 0.01, what
+
+
+def test_bf16_mlp_rounds_once_like_jax():
+    """gate and up stay in f32 through SiLU x up (JAX ``_linear`` returns
+    f32); the activation is rounded once, before the down projection."""
+    jm, tm, lpj, xj, xt = _bf16_layer("qwen3", bias=False)
+    _assert_rounds_like(tm._mlp(tm.layers[0], xt), jm._mlp(lpj, xj))
+
+
+def test_bf16_qkv_bias_joins_f32_product():
+    """qwen2: the qkv bias is added to the f32 product and the sum is
+    rounded once (JAX ``_attn_qkv``), not added to a bf16-rounded product."""
+    jm, tm, lpj, xj, xt = _bf16_layer("qwen2", bias=True)
+    pos = np.arange(64, dtype=np.int32)
+    inv = jnp.asarray(tm.inv_freq.numpy())
+    want = jm._attn_qkv(lpj, xj, jnp.asarray(pos), inv)
+    got = tm._attn_qkv(tm.layers[0], xt, torch.from_numpy(pos))
+    for g, w in zip(got, want):
+        _assert_rounds_like(g, w)

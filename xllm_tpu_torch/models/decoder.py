@@ -1,4 +1,4 @@
-"""Dense decoder-only transformer (llama / mistral / qwen2 / qwen3 families).
+"""Dense decoder-only transformer (llama / mistral / qwen2 / qwen3 / glm4 families).
 
 Counterpart of ``xllm_tpu/models/decoder.py`` ``DenseDecoderModel`` as an
 ``nn.Module``. Weights keep the JAX package's layout, so the HF loader
@@ -27,8 +27,15 @@ from xllm_tpu_torch.ops.attention import (
     decode_attention_write,
     prefill_attention_write_batched,
 )
+from xllm_tpu_torch.ops.linear import linear_f32
 from xllm_tpu_torch.ops.norms import rms_norm
-from xllm_tpu_torch.ops.rope import apply_rope, rope_inv_freq, rope_mscale
+from xllm_tpu_torch.ops.rope import (
+    apply_rope,
+    apply_rope_partial,
+    apply_rope_partial_interleaved_cos,
+    rope_inv_freq,
+    rope_mscale,
+)
 from xllm_tpu_torch.runtime.forward_params import BatchedPrefillInput, DecodeInput
 
 _DTYPES = {
@@ -45,9 +52,10 @@ def _param(*shape, dtype, device) -> nn.Parameter:
 
 
 class DecoderLayer(nn.Module):
-    """One layer's parameters, named as the JAX parameter tree's keys."""
+    """One layer's parameters, named as the JAX parameter tree's keys.
+    ``dense_mlp=False`` leaves out the dense MLP (a MoE layer)."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device) -> None:
+    def __init__(self, cfg: ModelConfig, dtype, device, dense_mlp: bool = True) -> None:
         super().__init__()
         hq, hkv, dh = cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim
         g = hq // hkv
@@ -57,9 +65,10 @@ class DecoderLayer(nn.Module):
         self.post_attention_layernorm = _param(d, **kw)
         self.qkv_proj_w = _param(d, hkv * (g + 2) * dh, **kw)
         self.o_proj_w = _param(hq * dh, d, **kw)
-        self.gate_proj_w = _param(d, i, **kw)
-        self.up_proj_w = _param(d, i, **kw)
-        self.down_proj_w = _param(i, d, **kw)
+        if dense_mlp:
+            self.gate_proj_w = _param(d, i, **kw)
+            self.up_proj_w = _param(d, i, **kw)
+            self.down_proj_w = _param(i, d, **kw)
         if cfg.attention_bias:
             self.qkv_proj_b = _param(hkv * (g + 2) * dh, **kw)
         if cfg.qk_norm:
@@ -76,10 +85,6 @@ class DenseDecoderModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device="cpu") -> None:
         super().__init__()
-        if cfg.partial_rotary_factor < 1.0:
-            raise NotImplementedError(
-                "partial rotary embeddings (glm4) are not ported yet"
-            )
         if cfg.num_attention_heads % cfg.num_kv_heads:
             raise ValueError("num_attention_heads must be a multiple of num_kv_heads")
         self.cfg = cfg
@@ -91,15 +96,17 @@ class DenseDecoderModel(nn.Module):
         kw = dict(dtype=self.dtype, device=self.device)
         self.embed_tokens = _param(cfg.vocab_size, cfg.hidden_size, **kw)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, self.dtype, self.device)
-            for _ in range(cfg.num_hidden_layers)
+            self._make_layer(i) for i in range(cfg.num_hidden_layers)
         )
         self.norm = _param(cfg.hidden_size, **kw)
         if not cfg.tie_word_embeddings:
             self.lm_head = _param(cfg.hidden_size, cfg.vocab_size, **kw)
+        # partial rope (glm4, glm4-moe, minimax-m2) rotates the first
+        # rotary_dim dims of each head, with frequencies of that width
+        self.rotary_dim = int(cfg.head_dim * cfg.partial_rotary_factor)
         self.register_buffer(
             "inv_freq",
-            rope_inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling).to(
+            rope_inv_freq(self.rotary_dim, cfg.rope_theta, cfg.rope_scaling).to(
                 self.device
             ),
             persistent=False,
@@ -108,18 +115,22 @@ class DenseDecoderModel(nn.Module):
     # ------------------------------------------------------------------
     # parameters
     # ------------------------------------------------------------------
+    def _make_layer(self, layer_idx: int) -> nn.Module:
+        return DecoderLayer(self.cfg, self.dtype, self.device)
+
     @torch.no_grad()
     def init_random_(self, seed: int) -> None:
         """Random init from ``seed`` (tests / synthetic runs): norms 1,
-        biases 0, every other weight N(0, 0.02) drawn in f32 and cast, as
-        the JAX ``init_params`` does (its bits differ: another RNG)."""
+        biases (the MoE router's too) 0, every other weight N(0, 0.02)
+        drawn in f32 and cast, as the JAX ``init_params`` does (its bits
+        differ: another RNG)."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         for name, p in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if leaf.endswith("norm") or leaf.endswith("layernorm"):
                 p.fill_(1.0)
-            elif leaf.endswith("_b"):
+            elif leaf.endswith(("_b", "_bias")):
                 p.zero_()
             else:
                 w = torch.randn(
@@ -157,9 +168,11 @@ class DenseDecoderModel(nn.Module):
     # forward
     # ------------------------------------------------------------------
     def _mlp(self, lp: DecoderLayer, x: torch.Tensor) -> torch.Tensor:
-        gate = torch.matmul(x, lp.gate_proj_w)
-        up = torch.matmul(x, lp.up_proj_w)
-        act = (F.silu(gate.float()) * up.float()).to(x.dtype)
+        # gate and up stay in f32 through SiLU x up; one rounding before
+        # the down projection (the JAX _linear's preferred_element_type)
+        gate = linear_f32(x, lp.gate_proj_w)
+        up = linear_f32(x, lp.up_proj_w)
+        act = (F.silu(gate) * up).to(x.dtype)
         return torch.matmul(act, lp.down_proj_w)
 
     def _attn_qkv(
@@ -169,9 +182,11 @@ class DenseDecoderModel(nn.Module):
         t = x.shape[0]
         hkv, dh = c.num_kv_heads, c.head_dim
         g = c.num_attention_heads // hkv
-        qkv = torch.matmul(x, lp.qkv_proj_w)
         if c.attention_bias:
-            qkv = qkv + lp.qkv_proj_b
+            # the bias joins the f32 product; one rounding after it
+            qkv = (linear_f32(x, lp.qkv_proj_w) + lp.qkv_proj_b).to(x.dtype)
+        else:
+            qkv = torch.matmul(x, lp.qkv_proj_w)
         # group-major fused layout: [T, hkv, g+2, dh]
         qkv = qkv.reshape(t, hkv, g + 2, dh)
         q = qkv[:, :, :g].reshape(t, c.num_attention_heads, dh)
@@ -180,7 +195,12 @@ class DenseDecoderModel(nn.Module):
         if c.qk_norm:
             q = rms_norm(q, lp.q_norm, c.rms_norm_eps)
             k = rms_norm(k, lp.k_norm, c.rms_norm_eps)
-        q, k = apply_rope(q, k, positions, self.inv_freq)
+        if c.partial_rotary_factor < 1.0:
+            partial = (apply_rope_partial_interleaved_cos if c.rope_interleaved
+                       else apply_rope_partial)
+            q, k = partial(q, k, positions, self.inv_freq, self.rotary_dim)
+        else:
+            q, k = apply_rope(q, k, positions, self.inv_freq)
         return q, k, v
 
     def _run_layers(

@@ -1,7 +1,7 @@
 """Model registry (counterpart of ``xllm_tpu/models/registry.py``).
 
-This slice serves the dense GQA families only; every other family of the
-JAX registry raises until its slice is ported.
+The dense GQA families and the GQA MoE families; every other family of
+the JAX registry raises until its slice is ported.
 """
 
 from __future__ import annotations
@@ -12,6 +12,10 @@ from xllm_tpu_torch.config import ModelConfig
 # llama architecture with optional sliding-window attention, mimo the qwen2
 # decoder layers
 DENSE_FAMILIES = ("llama", "mistral", "qwen2", "qwen3", "glm4", "mimo")
+# GQA + routed experts: qwen3-moe (softmax top-k), glm4-moe (sigmoid
+# noaux routing, shared expert, dense first layers, partial rotate-half
+# rope), minimax-m2 (sigmoid routing, partial interleaved rope)
+MOE_FAMILIES = ("qwen3_moe", "glm4_moe", "minimax_m2")
 
 
 class ModelRegistry:
@@ -38,9 +42,12 @@ class ModelRegistry:
 
 def get_model_class(model_type: str) -> type:
     from xllm_tpu_torch.models.decoder import DenseDecoderModel
+    from xllm_tpu_torch.models.moe_decoder import MoeDecoderModel
 
     for name in DENSE_FAMILIES:
         ModelRegistry._registry.setdefault(name, DenseDecoderModel)
+    for name in MOE_FAMILIES:
+        ModelRegistry._registry.setdefault(name, MoeDecoderModel)
     return ModelRegistry.get(model_type)
 
 

@@ -1,8 +1,10 @@
 """Rotary position embeddings (counterpart of ``xllm_tpu/ops/rope.py``).
 
 HF "rotate-half" convention used by the llama/qwen families, computed on the
-fly from positions. The partial and interleaved variants of the JAX module
-belong to families this slice does not serve.
+fly from positions, and the two partial variants (only the first
+``rotary_dim`` dims rotate): rotate-half on the rotary slice (glm4-moe) and
+interleaved even/odd pairs (glm4, minimax-m2). The full interleaved variant
+belongs to the MLA families, which are not ported yet.
 """
 
 from __future__ import annotations
@@ -115,3 +117,54 @@ def apply_rope(
     q_out = qf * cos2 + _rotate_half(qf) * sin2
     k_out = kf * cos2 + _rotate_half(kf) * sin2
     return q_out.to(q.dtype), k_out.to(k.dtype)
+
+
+def _angles(positions, inv_freq):
+    angles = positions[:, None].float() * inv_freq[None, :]  # [T, rd/2]
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope_partial(
+    q: torch.Tensor,  # [T, Hq, D]
+    k: torch.Tensor,  # [T, Hkv, D]
+    positions: torch.Tensor,  # [T] int
+    inv_freq: torch.Tensor,  # [rotary_dim / 2] f32
+    rotary_dim: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rotate-half rope on the first ``rotary_dim`` dims; the tail passes
+    through (HF glm4_moe)."""
+    cos, sin = _angles(positions, inv_freq)
+    cos2 = torch.cat([cos, cos], dim=-1)[:, None, :]  # [T, 1, rd]
+    sin2 = torch.cat([sin, sin], dim=-1)[:, None, :]
+
+    def rot(x):
+        xf = x.float()
+        xr, rest = xf[..., :rotary_dim], xf[..., rotary_dim:]
+        out = xr * cos2 + _rotate_half(xr) * sin2
+        return torch.cat([out, rest], dim=-1).to(x.dtype)
+
+    return rot(q), rot(k)
+
+
+def apply_rope_partial_interleaved_cos(
+    q: torch.Tensor,  # [T, Hq, D]
+    k: torch.Tensor,  # [T, Hkv, D]
+    positions: torch.Tensor,  # [T] int
+    inv_freq: torch.Tensor,  # [rotary_dim / 2] f32
+    rotary_dim: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """GLM4 convention: the first ``rotary_dim`` dims rotate in interleaved
+    (even, odd) pairs, i.e. complex-pair rotation on the rotary slice; the
+    tail passes through."""
+    cos, sin = _angles(positions, inv_freq)
+    cos, sin = cos[:, None, :], sin[:, None, :]  # [T, 1, rd/2]
+
+    def rot(x):
+        xf = x.float()
+        xr, rest = xf[..., :rotary_dim], xf[..., rotary_dim:]
+        pairs = xr.reshape(*xr.shape[:-1], -1, 2)
+        xre, xim = pairs[..., 0], pairs[..., 1]
+        out = torch.stack([xre * cos - xim * sin, xre * sin + xim * cos], dim=-1)
+        return torch.cat([out.reshape(xr.shape), rest], dim=-1).to(x.dtype)
+
+    return rot(q), rot(k)

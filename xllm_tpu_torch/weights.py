@@ -8,6 +8,14 @@ leading L axis (``qkv_proj_w [L, D, Hkv*(G+2)*dh]`` packed group-major,
 and layouts, so the carry is a copy: layer i of each stack goes to
 ``model.layers[i]``. Arrays may be numpy (bfloat16 numpy arrays included)
 or torch tensors.
+
+A MoE tree (``xllm_tpu/models/moe_decoder.py``) holds the MoE layers'
+stacks under ``layers`` (router, expert stacks, the f32 ``router_bias``
+of sigmoid routing, optional ``shared_*`` projections, and the int32 EPLB
+slot map ``expert_placement``) and the ``first_k_dense_replace`` dense
+layers under ``dense_layers``; they go to ``model.layers[n_dense:]`` and
+``model.layers[:n_dense]``. EPLB is not ported: the placement must be the
+identity, which is checked here, once, on the host.
 """
 
 from __future__ import annotations
@@ -46,21 +54,33 @@ def load_param_tree(model, tree: dict) -> None:
     put(model.norm, tree["norm"])
     if "lm_head" in tree:
         put(model.lm_head, tree["lm_head"])
-    names = {n for n, _ in model.layers[0].named_parameters()}
-    if set(tree["layers"]) != names:
-        raise ValueError(
-            f"layer tensors {sorted(tree['layers'])} != model's {sorted(names)}"
-        )
-    for name, stack in tree["layers"].items():
-        stack = as_tensor(stack)
-        for i, layer in enumerate(model.layers):
-            put(getattr(layer, name), stack[i])
+    n_dense = getattr(model, "n_dense", 0)
+    groups = {"dense_layers": model.layers[:n_dense], "layers": model.layers[n_dense:]}
+    for group, layers in groups.items():
+        if not len(layers):
+            continue
+        stacks = dict(tree[group])
+        placement = stacks.pop("expert_placement", None)
+        if placement is not None:
+            placement = np.asarray(as_tensor(placement))
+            if not (placement == np.arange(placement.shape[-1])).all():
+                raise NotImplementedError("EPLB placements are not ported yet")
+        names = {n for n, _ in layers[0].named_parameters()}
+        if set(stacks) != names:
+            raise ValueError(
+                f"{group} tensors {sorted(stacks)} != model's {sorted(names)}"
+            )
+        for name, stack in stacks.items():
+            stack = as_tensor(stack)
+            for i, layer in enumerate(layers):
+                put(getattr(layer, name), stack[i])
 
 
 def random_param_tree(cfg: ModelConfig, seed: int) -> dict:
     """A JAX-layout parameter tree of f32 numpy arrays from ``seed``, with
     the shapes and init rule of the JAX ``init_params`` (norms 1, biases 0,
-    weights N(0, 0.02)); the same tree loads into either package."""
+    weights N(0, 0.02); for a MoE config the router bias 0 and the identity
+    expert placement); the same tree loads into either package."""
     rng = np.random.default_rng(seed)
     hq, hkv, dh = cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim
     g = hq // hkv
@@ -92,6 +112,26 @@ def random_param_tree(cfg: ModelConfig, seed: int) -> dict:
         "layers": layers,
         "norm": np.ones((D,), np.float32),
     }
+    if cfg.num_experts > 0:
+        nd, E, MI = cfg.first_k_dense_replace, cfg.num_experts, cfg.moe_intermediate_size
+        if nd > 0:
+            tree["dense_layers"] = {k: v[:nd] for k, v in layers.items()}
+        moe = tree["layers"] = {
+            k: v[nd:] for k, v in layers.items()
+            if k not in ("gate_proj_w", "up_proj_w", "down_proj_w")
+        }
+        nm = L - nd
+        moe["router_w"] = w(nm, D, E)
+        if cfg.scoring_func == "sigmoid":
+            moe["router_bias"] = np.zeros((nm, E), np.float32)
+        moe["experts_gate_up"] = w(nm, E, D, 2 * MI)
+        moe["experts_down"] = w(nm, E, MI, D)
+        if cfg.n_shared_experts > 0:
+            SI = cfg.n_shared_experts * MI
+            moe["shared_gate_proj_w"] = w(nm, D, SI)
+            moe["shared_up_proj_w"] = w(nm, D, SI)
+            moe["shared_down_proj_w"] = w(nm, SI, D)
+        moe["expert_placement"] = np.tile(np.arange(E, dtype=np.int32), (nm, 1))
     if not cfg.tie_word_embeddings:
         tree["lm_head"] = w(D, V)
     return tree
