@@ -18,7 +18,13 @@ phase raises on failure, so a non-zero exit means a phase failed:
    Qwen3-30B-A3B's expert shapes (gate_up and down, for a 16-token decode
    step and a full chunk of each prefill bucket, routed by a random
    router; each bf16 row tile at each shape), and with empty experts, one expert holding every row and rows outside every
-   group. Then the kernel, the plain version and one PyTorch library call
+   group; K10 also at DeepSeek-V2-Lite's expert shapes (64 experts, top-6,
+   gate_up K 2048 / N 2816, down K 1408 / N 2048); K11a-d (latent decode,
+   latent batched prefill, the two latent writers) at DeepSeek-V2-Lite's
+   shapes (16 heads, Dk 640 of which 576 live, dv 512, block_size 64) with
+   padded rows, a 4,096-token context, a new token that opens a page, each
+   prefill bucket with a chunk at q_offset > 0 and a write across a page
+   boundary, K11a/b also at 20 and 128 heads. Then the kernel, the plain version and one PyTorch library call
    (the yardstick, never used by the port) are timed with CUDA events,
    queued behind a device-side sleep so that the device's time is timed
    and not the host's launch rate, rotating over cache layers so that
@@ -35,11 +41,18 @@ phase raises on failure, so a non-zero exit means a phase failed:
    (48 layers, 128 experts, top-8, bf16, ~61 GB of random weights), after
    the dense engine is freed; every MoE model pass also launches K10 twice
    per layer;
-5. parity: small f32 qwen3, qwen3-moe and glm4-moe models (the last with
-   sigmoid routing and a non-zero router bias, a shared expert, a dense
-   first layer and partial rope), each from one seed, served on the card
-   (kernels) and on the CPU (plain versions), must give identical greedy
-   tokens.
+5. MLA engine: the same at the full width and depth of DeepSeek-V2-Lite
+   (27 layers, MLA + 64 experts, bf16, ~31 GB of random weights); every
+   decode pass launches K11a once per layer, every prefill pass K11b and
+   one latent writer (K11c or K11d) once per layer and no K1-K4, and both
+   K10 twice per MoE layer;
+6. parity: small f32 qwen3, qwen3-moe, glm4-moe (sigmoid routing with a
+   non-zero router bias, a shared expert, a dense first layer and partial
+   rope), deepseek_v2 (q_lora_rank 0, YaRN, latent padded from 144 to 256
+   lanes), deepseek_v3 (q_lora_rank > 0, sigmoid routing in two groups) and
+   glm4_moe_lite (rotate-half rope) models, each from one seed, served on
+   the card (kernels) and on the CPU (plain versions), must give identical
+   greedy tokens.
 
 The line before the last is ``{"kernels": [...]}`` (errors, times, bounds
 and launch counts); the last line is ``{"ok": true, "device": {...}}``.
@@ -70,7 +83,9 @@ from xllm_tpu_torch.ops import moe
 from xllm_tpu_torch.ops.cuda import decode_attention as k1
 from xllm_tpu_torch.ops.cuda import gmm as k10
 from xllm_tpu_torch.ops.cuda import kv_write as k24
+from xllm_tpu_torch.ops.cuda import mla_attention as k11
 from xllm_tpu_torch.ops.cuda import prefill_attention as k3
+from xllm_tpu_torch.ops.rope import rope_mscale
 from xllm_tpu_torch.runtime.model_runner import ModelRunner
 from xllm_tpu_torch.weights import random_param_tree
 
@@ -130,6 +145,41 @@ QWEN3_30B_A3B = dict(
     num_experts_per_tok=8,
     moe_intermediate_size=768,
     norm_topk_prob=True,
+)
+# DeepSeek-V2-Lite (the published config.json of deepseek-ai/DeepSeek-V2-Lite):
+# 27 layers (the first dense), 16 heads, MLA with q_lora_rank 0,
+# kv_lora_rank 512 and 64 rope dims (latent rows of 576 lanes, 640 in the
+# cache), 64 routed experts of width 1408, top-6 softmax routing without
+# renormalisation, 2 shared experts, YaRN (factor 40); ~31.4 GB of bf16
+# weights, so it runs at full width and depth on one 80 GB card
+DEEPSEEK_V2_LITE = dict(
+    model_type="deepseek_v2",
+    dtype="bfloat16",
+    vocab_size=102400,
+    hidden_size=2048,
+    intermediate_size=10944,
+    num_hidden_layers=27,
+    num_attention_heads=16,
+    num_key_value_heads=16,
+    tie_word_embeddings=False,
+    rope_theta=10000.0,
+    rope_scaling={"type": "yarn", "factor": 40, "original_max_position_embeddings": 4096,
+                  "beta_fast": 32, "beta_slow": 1, "mscale": 0.707,
+                  "mscale_all_dim": 0.707},
+    max_position_embeddings=163840,
+    q_lora_rank=0,
+    kv_lora_rank=512,
+    qk_nope_head_dim=128,
+    qk_rope_head_dim=64,
+    v_head_dim=128,
+    num_experts=64,
+    num_experts_per_tok=6,
+    moe_intermediate_size=1408,
+    n_shared_experts=2,
+    first_k_dense_replace=1,
+    scoring_func="softmax",
+    norm_topk_prob=False,
+    routed_scaling_factor=1.0,
 )
 
 
@@ -197,7 +247,8 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 
 def sdpa(q, k, v, mask, scale):
     """The library yardstick: one PyTorch attention call over [N, H, L, D]
-    tensors, K/V with the Hkv heads (GQA)."""
+    tensors, K/V with the Hkv heads (GQA; for K11a/b one latent head, K
+    all Dk lanes and V the first dv)."""
     return torch.nn.functional.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, scale=scale, enable_gqa=True)
 
@@ -500,11 +551,18 @@ def check_writer(rng, dev, dtype, timed: bool, rmw: bool) -> dict:
     return res
 
 
-# K10 at Qwen3-30B-A3B's expert shapes: (K, N) of each grouped GEMM, and
-# the tokens of a decode step (batch 16) and of a full chunk of each prefill
-# bucket the engine runs; each token brings TOPK rows
+# K10 at each served MoE model's expert shapes: (K, N) of each grouped GEMM,
+# the experts and the top-k; the tokens of a decode step (batch 16) and of a
+# full chunk of each prefill bucket the engine runs; each token brings top-k
+# rows
+GMM_MODELS = {
+    "Qwen3-30B-A3B": dict(experts=128, topk=8,
+                          weights={"gate_up": (2048, 2 * 768), "down": (768, 2048)}),
+    "DeepSeek-V2-Lite": dict(experts=64, topk=6,
+                             weights={"gate_up": (2048, 2 * 1408), "down": (1408, 2048)}),
+}
 E_MOE, TOPK = QWEN3_30B_A3B["num_experts"], QWEN3_30B_A3B["num_experts_per_tok"]
-GMM_WEIGHTS = {"gate_up": (2048, 2 * 768), "down": (768, 2048)}
+GMM_WEIGHTS = GMM_MODELS["Qwen3-30B-A3B"]["weights"]
 GMM_TOKENS = {"decode": 16, "prefill64": 64, "prefill512": 512, "prefill2048": 2048}
 GMM_TOL = "|out - ref| <= K 2^-24 (|lhs| @ |rhs_e|) + 1e-6"
 
@@ -523,15 +581,14 @@ def check_gmm_close(out, lhs, rhs, offsets, what: str) -> float:
     return diff.max().item()
 
 
-def moe_weights(dev, g) -> dict:
-    """Random bf16 expert stacks and router of one Qwen3-30B-A3B layer."""
+def moe_weights(dev, g, spec: dict) -> dict:
+    """Random bf16 expert stacks and router of one MoE layer of ``spec``."""
+    e, (k_in, n_gu), (k_dn, n_dn) = (spec["experts"], spec["weights"]["gate_up"],
+                                     spec["weights"]["down"])
     return {
-        "gate_up": (torch.randn(E_MOE, *GMM_WEIGHTS["gate_up"], generator=g,
-                                device=dev) * 0.02).bfloat16(),
-        "down": (torch.randn(E_MOE, *GMM_WEIGHTS["down"], generator=g,
-                             device=dev) * 0.02).bfloat16(),
-        "router": (torch.randn(GMM_WEIGHTS["gate_up"][0], E_MOE, generator=g,
-                               device=dev) * 0.02).bfloat16(),
+        "gate_up": (torch.randn(e, k_in, n_gu, generator=g, device=dev) * 0.02).bfloat16(),
+        "down": (torch.randn(e, k_dn, n_dn, generator=g, device=dev) * 0.02).bfloat16(),
+        "router": (torch.randn(k_in, e, generator=g, device=dev) * 0.02).bfloat16(),
     }
 
 
@@ -541,26 +598,29 @@ def forced_row_tile(bm: int):
     return mock.patch.object(k10, "row_tile", lambda m, e: bm)
 
 
-def check_gmm(dev, w: dict, g) -> dict:
-    """K10 at the served shapes (decode and each prefill bucket x gate_up /
-    down): rows of random tokens sorted by the experts a random router picks
-    for them, as the MoE block sorts them; bf16 (timed, with every row tile
-    as well) and f32 (the same values) against the plain version -> the
-    decode gate_up result, with all shapes in ``by_shape``."""
+def check_gmm(dev, g, model: str) -> tuple[list[dict], float]:
+    """K10 at ``model``'s served shapes (decode and each prefill bucket x
+    gate_up / down): rows of random tokens sorted by the experts a random
+    router picks for them, as the MoE block sorts them; bf16 (timed, with
+    every row tile as well) and f32 (the same values) against the plain
+    version -> (one result per shape, worst f32 error)."""
+    spec = GMM_MODELS[model]
+    e, topk, weights = spec["experts"], spec["topk"], spec["weights"]
+    w = moe_weights(dev, g, spec)
     results = []
     worst_f32 = 0.0
     for phase, tokens in GMM_TOKENS.items():
-        x = torch.randn(tokens, GMM_WEIGHTS["gate_up"][0], generator=g, device=dev).bfloat16()
-        _, topi = moe.route(x, w["router"], TOPK, True)
-        order, offs = moe.group_by_expert(topi, E_MOE)
+        x = torch.randn(tokens, weights["gate_up"][0], generator=g, device=dev).bfloat16()
+        _, topi = moe.route(x, w["router"], topk, True)
+        order, offs = moe.group_by_expert(topi, e)
         m = order.numel()
-        lhs_of = {"gate_up": x[order // TOPK],
-                  "down": torch.randn(m, GMM_WEIGHTS["down"][0], generator=g,
+        lhs_of = {"gate_up": x[order // topk],
+                  "down": torch.randn(m, weights["down"][0], generator=g,
                                       device=dev).bfloat16()}
         touched = int((offs[1:] > offs[:-1]).sum())
-        for name, (k, n) in GMM_WEIGHTS.items():
+        for name, (k, n) in weights.items():
             lhs, rhs = lhs_of[name], w[name]
-            what = f"K10 {phase} {name} M={m} K={k} N={n}"
+            what = f"K10 {model} {phase} {name} M={m} K={k} N={n}"
             err = check_gmm_close(k10.gmm(lhs, rhs, offs), lhs, rhs, offs, what)
             lhs32, rhs32 = lhs.float(), rhs.float()
             worst_f32 = max(worst_f32, check_gmm_close(
@@ -574,7 +634,7 @@ def check_gmm(dev, w: dict, g) -> dict:
                 lambda i: torch._grouped_mm(lhs, rhs, offs=offs[1:]),
                 plain_iters=5,
             ))
-            res["row_tile"] = k10.row_tile(m, E_MOE)
+            res["row_tile"] = k10.row_tile(m, e)
             res["ms_by_row_tile"] = {}
             for bm in k10.ROW_TILES:
                 with forced_row_tile(bm):
@@ -583,19 +643,15 @@ def check_gmm(dev, w: dict, g) -> dict:
                     ms, queued = time_ms(lambda i: k10.gmm(lhs, rhs, offs))
                 assert queued, "a kernel wrapper waited on the device"
                 res["ms_by_row_tile"][str(bm)] = ms
-            res["shape"] = (f"{phase}: {tokens} tokens x top-{TOPK} -> M={m} rows over "
-                            f"{touched} of {E_MOE} experts, K {k}, N {n}, bf16, "
+            res["shape"] = (f"{model} {phase}: {tokens} tokens x top-{topk} -> M={m} rows "
+                            f"over {touched} of {e} experts, K {k}, N {n}, bf16, "
                             f"row tile {res['row_tile']}")
             nbytes = m * k * 2 + touched * k * n * 2 + m * n * 4
             res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 2.0 * m * k * n)
             results.append(res)
     # every bf16 build the wrapper can pick runs at a served shape
     assert {r["row_tile"] for r in results} == set(k10.ROW_TILES), results
-    res = dict(results[0])
-    res["max_abs_err"] = max(r["max_abs_err"] for r in results)
-    res["max_abs_err_f32"] = worst_f32
-    res["by_shape"] = results
-    return res
+    return results, worst_f32
 
 
 def check_gmm_edges(dev, w: dict, g) -> float:
@@ -635,6 +691,250 @@ def check_moe_no_host_sync(dev, w: dict, g) -> None:
     assert out.shape == x.shape and bool(torch.isfinite(out.float()).all())
 
 
+# K11a-d at DeepSeek-V2-Lite's latent shapes: 16 heads, rows of 576 live
+# lanes padded with zeros to 640, values the first 512 lanes
+MLA_H, MLA_DK, MLA_DV = 16, 640, 512
+MLA_DK_LIVE = 576
+MLA_SCALE = (128 + 64) ** -0.5 * rope_mscale(DEEPSEEK_V2_LITE["rope_scaling"]) ** 2
+# decode contexts: the engine phase's mix (prompts of 40 / 300 / 700 /
+# 2,100 tokens after 32 new ones), a full context of NB_MAX pages (4,096
+# tokens), a new token that opens a fresh page (577 = 9 pages + 1), and two
+# padded rows
+MLA_DECODE_LENS = [72, 332, 732, 2132] * 3 + [NB_MAX * BS, 577, 0, 0]
+MLA_TOL = ("bf16: |out - ref| <= 1e-5 + 2^-7 |ref| + 2^-7 sum_j p_j |v_j| (each side "
+           "rounds P to bf16, off by up to 2^-8 of each p_j |v_j|, and its output once, "
+           "off by up to 2^-8 |x|); f32: 1e-4; writers: byte-equal caches")
+
+
+def latent_rand(g, dev, dtype, *shape) -> torch.Tensor:
+    """Random latent rows or queries whose pad lanes (576:640) are zeros,
+    as the model pads them."""
+    x = torch.randn(*shape, generator=g, device=dev)
+    x[..., MLA_DK_LIVE:] = 0
+    return x.to(dtype)
+
+
+def pv_abs(q3, lat, limits, scale) -> torch.Tensor:
+    """sum_j p_j |v_j| with the f32 softmax of the plain version:
+    q3 [N, R, Dk], lat [N, KV, Dk], limits [N, R] -> [N, R, dv]."""
+    scores = torch.einsum("nrd,nkd->nrk", q3.float(), lat.float()) * scale
+    kv_idx = torch.arange(lat.shape[1], device=lat.device)
+    mask = kv_idx[None, None, :] < limits[..., None]
+    probs = torch.nan_to_num(torch.softmax(scores.masked_fill(~mask, float("-inf")), -1))
+    del scores
+    return torch.einsum("nrk,nkd->nrd", probs, lat[..., :MLA_DV].float().abs())
+
+
+def check_mla_close(out, ref, pv, what: str) -> float:
+    """K11a/b against the plain version within ``MLA_TOL`` -> max abs err."""
+    diff = (out.float() - ref.float()).abs()
+    if ref.dtype == torch.bfloat16:
+        lim = 1e-5 + 2.0 ** -7 * (ref.float().abs() + pv)
+    else:
+        lim = torch.full_like(diff, TOL[torch.float32][0])
+    excess = (diff - lim).max().item()
+    assert excess <= 0, f"{what}: max abs err {diff.max().item()}, over the bound by {excess}"
+    return diff.max().item()
+
+
+def sdpa_backend(call) -> str:
+    """The first SDPA backend, in PyTorch's priority order, that takes
+    ``call`` (the one its dispatcher picks)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+              SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([b]):
+                call()
+            return b.name
+        except RuntimeError:
+            continue
+    return "none"
+
+
+def check_mla_decode(rng, dev, dtype, timed: bool, h: int = MLA_H) -> dict:
+    """K11a at B=16 over ``MLA_DECODE_LENS``: the written caches byte-equal,
+    padded rows zeros."""
+    lens = MLA_DECODE_LENS
+    b = len(lens)
+    nb = 1 + sum(-(-n // BS) for n in lens) + 8
+    bt = page_tables(rng, lens, nb)
+    slots = [bt[i, (n - 1) // BS] * BS + (n - 1) % BS if n else 0 for i, n in enumerate(lens)]
+    g = torch.Generator(device=dev).manual_seed(11)
+    cache = latent_rand(g, dev, dtype, LAYERS, nb, 1, BS, MLA_DK)
+    q = latent_rand(g, dev, dtype, b, h, MLA_DK)
+    lat_new = latent_rand(g, dev, dtype, b, MLA_DK)
+    sm, btt, sl = i32(slots, dev), i32(bt, dev), i32(lens, dev)
+    layer = 3
+    ck = cache.clone()
+    out = k11.mla_decode_attention_write(q, lat_new, ck, layer, sm, btt, sl, MLA_SCALE, MLA_DV)
+    cp = cache.clone()
+    ref = k11.mla_decode_attention_write_plain(q, lat_new, cp, layer, sm, btt, sl,
+                                               MLA_SCALE, MLA_DV)
+    sync()
+    what = f"K11a {dtype} H {h}"
+    assert torch.equal(ck, cp), f"{what}: caches differ"
+    pv = pv_abs(q, k11._gather_latent(cp, layer, btt), sl.long()[:, None].expand(-1, h),
+                MLA_SCALE)
+    res = {"max_abs_err": check_mla_close(out, ref, pv, what)}
+    assert not out[-2:].float().abs().any(), f"{what}: padded rows must be zeros"
+    if not timed:
+        return res
+    el = cache.element_size()
+    ntok = sum(lens)
+    live = sum(1 for n in lens if n)
+    nbytes = (b * h * MLA_DK + 2 * live * MLA_DK + ntok * MLA_DK + b * h * MLA_DV) * el
+    flops = 2.0 * ntok * h * (MLA_DK_LIVE + MLA_DV)
+    lmax = -(-max(lens) // BS) * BS
+    idx = btt[:, : lmax // BS].long()
+    kg = [cache[l][idx].reshape(b, 1, lmax, MLA_DK) for l in range(LAYERS)]
+    vg = [k[..., :MLA_DV].contiguous() for k in kg]
+    mask = (torch.arange(lmax, device=dev)[None, :] < sl[:, None].long())[:, None, None, :]
+    q4 = q[:, :, None, :]
+    res.update(time_three(
+        lambda i: k11.mla_decode_attention_write(q, lat_new, cache, i % LAYERS, sm, btt, sl,
+                                                 MLA_SCALE, MLA_DV),
+        lambda i: k11.mla_decode_attention_write_plain(q, lat_new, cache, i % LAYERS, sm,
+                                                       btt, sl, MLA_SCALE, MLA_DV),
+        lambda i: sdpa(q4, kg[i % LAYERS], vg[i % LAYERS], mask, MLA_SCALE),
+        plain_iters=10,
+    ))
+    res["library"] = "SDPA " + sdpa_backend(lambda: sdpa(q4, kg[0], vg[0], mask, MLA_SCALE))
+    res["shape"] = (f"B={b} (2 padded), seq_lens {sorted(set(lens) - {0})}, H {h}, "
+                    f"Dk {MLA_DK} ({MLA_DK_LIVE} live), dv {MLA_DV}, bs {BS}")
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops)
+    return res
+
+
+def check_mla_prefill_shape(rng, dev, dtype, timed: bool, s: int, rows,
+                            h: int = MLA_H, trim: bool = False) -> dict:
+    """K11b over one bucket's chunks: rows past ntok and padded rows zeros.
+    ``trim``: block tables only as wide as the chunks need (the plain
+    version's scores then fit at H 128)."""
+    p = len(rows)
+    nb, btt, qo, _, kvl = _chunk_tables(rng, rows, dev)
+    if trim:
+        btt = btt[:, : -(-max(a + n for a, n in rows) // BS)].contiguous()
+    g = torch.Generator(device=dev).manual_seed(12)
+    cache = latent_rand(g, dev, dtype, LAYERS, nb, 1, BS, MLA_DK)
+    q = latent_rand(g, dev, dtype, p, s, h, MLA_DK)
+    out = k11.mla_prefill_attention_batched(q, cache, 5, btt, qo, kvl, MLA_SCALE, MLA_DV)
+    ref = k11.mla_prefill_attention_batched_plain(q, cache, 5, btt, qo, kvl, MLA_SCALE, MLA_DV)
+    sync()
+    what = f"K11b {dtype} S={s} {rows} H {h}"
+    limits = k11.prefill_row_limits(s, h, qo, kvl)
+    pv = pv_abs(q.reshape(p, s * h, MLA_DK), k11._gather_latent(cache, 5, btt), limits,
+                MLA_SCALE).reshape(out.shape)
+    res = {"max_abs_err": check_mla_close(out, ref, pv, what)}
+    del pv, ref
+    for i, (_, n) in enumerate(rows):
+        assert not out[i, n:].float().abs().any(), f"{what}: row {i} past ntok not zero"
+    if not timed:
+        return res
+    el = cache.element_size()
+    ntok = sum(n for _, n in rows)
+    kv_rows = sum(a + n for a, n in rows if n)
+    pairs = sum(sum(a + i + 1 for i in range(n)) for a, n in rows)
+    nbytes = (ntok * h * MLA_DK + kv_rows * MLA_DK + ntok * h * MLA_DV) * el
+    flops = 2.0 * pairs * h * (MLA_DK_LIVE + MLA_DV)
+    lmax = -(-max(a + n for a, n in rows) // BS) * BS
+    idx = btt[:, : lmax // BS].long()
+    kg = [cache[l][idx].reshape(p, 1, lmax, MLA_DK) for l in range(LAYERS)]
+    vg = [k[..., :MLA_DV].contiguous() for k in kg]
+    qpos = qo.long()[:, None] + torch.arange(s, device=dev)[None, :]
+    kvi = torch.arange(lmax, device=dev)
+    mask = ((kvi[None, None, :] <= qpos[:, :, None])
+            & (kvi[None, None, :] < kvl.long()[:, None, None]))[:, None]
+    qt = q.transpose(1, 2)
+    res.update(time_three(
+        lambda i: k11.mla_prefill_attention_batched(q, cache, i % LAYERS, btt, qo, kvl,
+                                                    MLA_SCALE, MLA_DV),
+        lambda i: k11.mla_prefill_attention_batched_plain(q, cache, i % LAYERS, btt, qo, kvl,
+                                                          MLA_SCALE, MLA_DV),
+        lambda i: sdpa(qt, kg[i % LAYERS], vg[i % LAYERS], mask, MLA_SCALE),
+        plain_iters=3,
+    ))
+    res["library"] = "SDPA " + sdpa_backend(lambda: sdpa(qt, kg[0], vg[0], mask, MLA_SCALE))
+    res["shape"] = (f"P={p} chunks of S={s} (q_offset, ntok) {rows}, H {h}, "
+                    f"Dk {MLA_DK} ({MLA_DK_LIVE} live), dv {MLA_DV}, bs {BS}")
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops)
+    return res
+
+
+def check_mla_prefill(rng, dev, dtype, timed: bool) -> dict:
+    """K11b at every chunk bucket of ``K3_SHAPES`` -> the 2048 bucket's
+    result, with every bucket's in ``by_shape``."""
+    results = [check_mla_prefill_shape(rng, dev, dtype, timed, s, rows)
+               for s, rows in K3_SHAPES.items()]
+    res = dict(results[0])
+    res["max_abs_err"] = max(r["max_abs_err"] for r in results)
+    if timed:
+        res["by_shape"] = results
+    return res
+
+
+def check_latent_writer(rng, dev, dtype, timed: bool, rmw: bool) -> dict:
+    """K11c (S=512, page-aligned chunks) or K11d (S=64: mid-page starts, a
+    chunk across a page boundary): caches byte-equal to the plain
+    version's."""
+    rows, s = (RMW_ROWS, RMW_S) if rmw else (PREFILL_ROWS, PREFILL_S)
+    p = len(rows)
+    nb, btt, qo, nt, _ = _chunk_tables(rng, rows, dev)
+    g = torch.Generator(device=dev).manual_seed(13)
+    cache = latent_rand(g, dev, dtype, LAYERS, nb, 1, BS, MLA_DK)
+    src = latent_rand(g, dev, dtype, p, s, MLA_DK)
+    fn = k24.latent_write_rmw_batched if rmw else k24.latent_write_prefill_batched
+    ck, cp = cache.clone(), cache.clone()
+    fn(src, ck, 2, btt, qo, nt)
+    k24.latent_write_rows_plain(src, cp, 2, btt, qo, nt)
+    sync()
+    name = "K11d" if rmw else "K11c"
+    assert torch.equal(ck, cp), f"{name} {dtype}: caches differ"
+    assert not torch.equal(ck, cache), f"{name}: nothing was written"
+    res = {"max_abs_err": max_err(ck, cp)}
+    if not timed:
+        return res
+    el = cache.element_size()
+    ntok = sum(n for _, n in rows)
+    nbytes = 2 * ntok * MLA_DK * el  # each row read once, written once
+    pos = [(i, a + j) for i, (a, n) in enumerate(rows) for j in range(n)]
+    bt_np = btt.cpu().numpy()
+    blk = i32([bt_np[i, ps // BS] for i, ps in pos], dev).long()
+    off = i32([ps % BS for _, ps in pos], dev).long()
+    sel = torch.stack([src[i, j] for i, (_, n) in enumerate(rows) for j in range(n)])
+
+    def library(i):
+        cache[i % LAYERS, blk, 0, off, :] = sel
+
+    res.update(time_three(
+        lambda i: fn(src, cache, i % LAYERS, btt, qo, nt),
+        lambda i: k24.latent_write_rows_plain(src, cache, i % LAYERS, btt, qo, nt),
+        library,
+        plain_iters=40,
+    ))
+    res["library"] = "index assign"
+    res["shape"] = (f"P={p} chunks of S={s} (q_offset, ntok) {rows}, Dk {MLA_DK}, bs {BS}")
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 0.0)
+    return res
+
+
+def check_mla_heads(rng, dev, dtype) -> float:
+    """K11a and K11b at GLM-4.7-Flash's 20 heads (every chunk bucket) and
+    DeepSeek-V3's 128 (the 64 and 512 buckets, with block tables only as
+    wide as the chunks, so that the plain version fits) -> worst error."""
+    worst = 0.0
+    for h in (20, 128):
+        worst = max(worst, check_mla_decode(rng, dev, dtype, False, h=h)["max_abs_err"])
+        for s, rows in K3_SHAPES.items():
+            if h == 128 and s == 2048:
+                continue
+            worst = max(worst, check_mla_prefill_shape(rng, dev, dtype, False, s, rows,
+                                                       h=h, trim=True)["max_abs_err"])
+            free_device_memory()
+    return worst
+
+
 def phase_kernels(dev) -> dict:
     rng = np.random.default_rng(0)
     checks = {
@@ -642,22 +942,30 @@ def phase_kernels(dev) -> dict:
         k24.PREFILL_NAME: lambda dt, t: check_writer(rng, dev, dt, t, rmw=False),
         k3.NAME: lambda dt, t: check_prefill(rng, dev, dt, t),
         k24.RMW_NAME: lambda dt, t: check_writer(rng, dev, dt, t, rmw=True),
+        k11.DECODE_NAME: lambda dt, t: check_mla_decode(rng, dev, dt, t),
+        k11.PREFILL_NAME: lambda dt, t: check_mla_prefill(rng, dev, dt, t),
+        k24.LATENT_PREFILL_NAME: lambda dt, t: check_latent_writer(rng, dev, dt, t, rmw=False),
+        k24.LATENT_RMW_NAME: lambda dt, t: check_latent_writer(rng, dev, dt, t, rmw=True),
     }
+    tol_of = {name: MLA_TOL for name in (k11.DECODE_NAME, k11.PREFILL_NAME,
+                                         k24.LATENT_PREFILL_NAME, k24.LATENT_RMW_NAME)}
     results = {}
     for name, check in checks.items():
         f32 = check(torch.float32, False)
         res = check(torch.bfloat16, True)
         res["max_abs_err_f32"] = f32["max_abs_err"]
         results[name] = res
-        log(f"[kernels] {name}: bf16 err {res['max_abs_err']:.3g} "
-            f"({tol_text(torch.bfloat16)}), f32 err {f32['max_abs_err']:.3g} "
-            f"({tol_text(torch.float32)})")
+        tol = tol_of.get(name, f"bf16 {tol_text(torch.bfloat16)}, f32 {tol_text(torch.float32)}")
+        log(f"[kernels] {name}: bf16 err {res['max_abs_err']:.3g}, f32 err "
+            f"{f32['max_abs_err']:.3g} ({tol})")
         for r in res.get("by_shape", [res]):
             serial = {True: "", False: " (serial: it syncs)"}
             log(f"[kernels]   {r['shape']}: kernel {r['ms']:.4f} ms, plain "
                 f"{r['plain_ms']:.4f} ms{serial[r['plain_queued']]}, library "
+                f"({r.get('library', 'SDPA or index assign')}) "
                 f"{r['library_ms']:.4f} ms{serial[r['library_queued']]}, bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        free_device_memory()
     for dtype in (torch.float32, torch.bfloat16):
         err = check_decode_variants(rng, dev, dtype)
         log(f"[kernels] {k1.NAME} variants {DECODE_VARIANTS} (head_dim, Hq, Hkv, bs, "
@@ -667,11 +975,22 @@ def phase_kernels(dev) -> dict:
                   for s, rows in K3_SHAPES.items())
         log(f"[kernels] {k3.NAME} at Hq 32, Hkv 4, every chunk bucket, {dtype}: "
             f"worst err {err:.3g} ({tol_text(dtype)})")
+        err = check_mla_heads(rng, dev, dtype)
+        log(f"[kernels] {k11.DECODE_NAME} and {k11.PREFILL_NAME} at H 20 (every chunk "
+            f"bucket) and H 128 (buckets 64, 512), {dtype}: worst err {err:.3g} ({MLA_TOL})")
 
     g = torch.Generator(device=dev).manual_seed(10)
-    w = moe_weights(dev, g)
-    res = check_gmm(dev, w, g)
+    by_shape, worst_f32 = [], 0.0
+    for model in GMM_MODELS:
+        shapes, f32_err = check_gmm(dev, g, model)
+        by_shape += shapes
+        worst_f32 = max(worst_f32, f32_err)
+        free_device_memory()
+    # the kernels line's K10 numbers: Qwen3-30B-A3B's decode gate_up
+    res = dict(by_shape[0], max_abs_err=max(r["max_abs_err"] for r in by_shape),
+               max_abs_err_f32=worst_f32, by_shape=by_shape)
     results[k10.NAME] = res
+    w = moe_weights(dev, g, GMM_MODELS["Qwen3-30B-A3B"])
     log(f"[kernels] {k10.NAME}: bf16 err {res['max_abs_err']:.3g}, f32 err "
         f"{res['max_abs_err_f32']:.3g} ({GMM_TOL})")
     for r in res["by_shape"]:
@@ -740,17 +1059,19 @@ def count_per_pass(runner) -> list[tuple[str, dict]]:
     return deltas
 
 
-def pass_launches(layers: int, moe_layers: int) -> dict[str, list[dict]]:
+def pass_launches(layers: int, moe_layers: int, mla: bool) -> dict[str, list[dict]]:
     """The launches each model pass must make, by kind: a decode pass K1
-    once per layer; a prefill pass K3 once per layer and one of the two
-    writers (K2 for a chunk bucket above block_size, K4 otherwise) once per
-    layer; in a MoE model both also K10 twice per MoE layer (gate_up and
-    down); nothing else."""
+    (K11a in an MLA model) once per layer; a prefill pass K3 (K11b) once per
+    layer and one of the two writers (K2 / K11c for a chunk bucket above
+    block_size, K4 / K11d otherwise) once per layer; in a MoE model both
+    also K10 twice per MoE layer (gate_up and down); nothing else."""
     extra = {k10.NAME: 2 * moe_layers} if moe_layers else {}
+    decode, prefill, writers = (
+        (k11.DECODE_NAME, k11.PREFILL_NAME, (k24.LATENT_PREFILL_NAME, k24.LATENT_RMW_NAME))
+        if mla else (k1.NAME, k3.NAME, (k24.PREFILL_NAME, k24.RMW_NAME)))
     return {
-        "decode": [{k1.NAME: layers, **extra}],
-        "prefill": [{k3.NAME: layers, w: layers, **extra}
-                    for w in (k24.PREFILL_NAME, k24.RMW_NAME)],
+        "decode": [{decode: layers, **extra}],
+        "prefill": [{prefill: layers, w: layers, **extra} for w in writers],
     }
 
 
@@ -809,7 +1130,7 @@ def phase_engine(model_kw=QWEN3_1P7B, num_blocks: int = 1024,
     # twice per MoE layer)
     layers = cfg.model.num_hidden_layers
     moe_layers = (layers - cfg.model.first_k_dense_replace) if cfg.model.num_experts else 0
-    want = pass_launches(layers, moe_layers)
+    want = pass_launches(layers, moe_layers, mla=cfg.model.kv_lora_rank > 0)
     check_passes(deltas, want)
     per_pass = {}
     for name, per in {k: n for kind in want.values() for d in kind for k, n in d.items()}.items():
@@ -861,6 +1182,26 @@ PARITY_MODELS = {
                      routed_scaling_factor=1.5, first_k_dense_replace=1,
                      n_shared_experts=1, **_PARITY_EXPERTS),
 }
+# MLA: f32 latents through K11's FMA instances (the bf16 instances run in
+# the kernel and MLA engine phases)
+_PARITY_MLA = dict(PARITY_DENSE, num_key_value_heads=4, qk_nope_head_dim=32,
+                   qk_rope_head_dim=16, v_head_dim=32, first_k_dense_replace=1,
+                   **_PARITY_EXPERTS)
+PARITY_MODELS.update({
+    # q_lora_rank 0, YaRN, two shared experts, a dense first layer; latent
+    # rows of 128 + 16 lanes, padded to 256 (dk_pad != dk)
+    "deepseek_v2": dict(_PARITY_MLA, model_type="deepseek_v2", kv_lora_rank=128,
+                        n_shared_experts=2, rope_scaling=DEEPSEEK_V2_LITE["rope_scaling"]),
+    # q_lora_rank > 0, sigmoid routing with a non-zero bias, two groups,
+    # routed_scaling_factor 2.5
+    "deepseek_v3": dict(_PARITY_MLA, model_type="deepseek_v3", q_lora_rank=64,
+                        kv_lora_rank=64, n_shared_experts=1, scoring_func="sigmoid",
+                        n_group=2, topk_group=1, routed_scaling_factor=2.5),
+    # rotate-half rope on the rope dims
+    "glm4_moe_lite": dict(_PARITY_MLA, model_type="glm4_moe_lite", q_lora_rank=64,
+                          kv_lora_rank=64, n_shared_experts=1, scoring_func="sigmoid",
+                          routed_scaling_factor=1.8),
+})
 
 
 def phase_parity(name: str, model_kw: dict, devices=("cuda", "cpu")) -> int:
@@ -897,7 +1238,7 @@ def phase_parity(name: str, model_kw: dict, devices=("cuda", "cpu")) -> int:
         got[dev] = [outs[i] for i in ids]
     a, b = (got[d] for d in devices)
     assert a == b, f"{name}: greedy tokens differ:\n{a}\n{b}"
-    log(f"[parity] f32 {name} (2 layers, head_dim 128, bs 16): {len(prompts)} "
+    log(f"[parity] f32 {name} (2 layers, bs 16): {len(prompts)} "
         f"requests x 16 greedy tokens identical on {' and '.join(devices)}")
     return len(prompts)
 
@@ -945,6 +1286,10 @@ def main() -> int:
     free_device_memory()
     log(f"[moe-engine] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    mla_launches, mla_info = phase_engine(DEEPSEEK_V2_LITE, num_blocks=512, tag="mla-engine")
+    free_device_memory()
+    log(f"[mla-engine] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     for name, model_kw in PARITY_MODELS.items():
         phase_parity(name, model_kw)
     log(f"[parity] done in {time.perf_counter() - t0:.1f} s")
@@ -955,16 +1300,22 @@ def main() -> int:
         k3.NAME: (k3.TPU_KERNEL, "prefill_attention.cu"),
         k24.RMW_NAME: (k24.RMW_TPU_KERNEL, "kv_write.cu"),
         k10.NAME: (k10.TPU_KERNEL, "gmm.cu"),
+        k11.DECODE_NAME: (k11.DECODE_TPU_KERNEL, "mla_attention.cu"),
+        k11.PREFILL_NAME: (k11.PREFILL_TPU_KERNEL, "mla_attention.cu"),
+        k24.LATENT_PREFILL_NAME: (k24.LATENT_PREFILL_TPU_KERNEL, "kv_write.cu"),
+        k24.LATENT_RMW_NAME: (k24.LATENT_RMW_TPU_KERNEL, "kv_write.cu"),
     }
+    # each kernel's launches come from the run of its own slice's path, with
+    # the counters zeroed just before it: K1-K4 the dense engine phase, K10
+    # the MoE engine phase, K11a-d the MLA engine phase
+    path_of = {k10.NAME: (moe_launches, moe_info)}
+    path_of.update({name: (mla_launches, mla_info) for name in meta
+                    if name.startswith(("mla_", "latent_"))})
     rows = []
     for name, res in kern.items():
         tpu, src = meta[name]
         where, func = tpu.split()
-        # each kernel's launches come from the run of its own slice's path,
-        # with the counters zeroed just before it: K1-K4 the dense engine
-        # phase, K10 the MoE engine phase
-        path_launches, path_info = (moe_launches, moe_info) if name == k10.NAME \
-            else (launches, info)
+        path_launches, path_info = path_of.get(name, (launches, info))
         row = {
             "name": name,
             "route": "cuda",
@@ -982,12 +1333,15 @@ def main() -> int:
             "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"],
             "library_ms": res["library_ms"],
+            "library": res.get("library", "SDPA" if "attention" in name else
+                               "torch._grouped_mm" if name == k10.NAME else "index assign"),
             "shape": res["shape"],
         }
         if "by_shape" in res:
             row["by_shape"] = [
                 {k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                   "bound_by", "library_ms", "row_tile", "ms_by_row_tile")
+                                   "bound_by", "library_ms", "library", "row_tile",
+                                   "ms_by_row_tile")
                  if k in r}
                 for r in res["by_shape"]]
         rows.append(row)

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where an engine step of the PyTorch/CUDA port spends its time, on one GPU.
 
-    python3 scripts/profile_torch_step.py [--model qwen3-1.7b|qwen3-30b-a3b]
-                                          [--prompt-len 512] [--steps 16]
+    python3 scripts/profile_torch_step.py
+        [--model qwen3-1.7b|qwen3-30b-a3b|deepseek-v2-lite]
+        [--prompt-len 512] [--steps 16]
 
 Serves a config of ``chip_smoke.py`` (the qwen3-1.7B-class dense model, 28
-layers, or Qwen3-30B-A3B, 48 layers with 128 experts; bf16, random
-weights) through ``xllm_tpu_torch.engine.LLMEngine`` on the card:
+layers; Qwen3-30B-A3B, 48 layers with 128 experts; or DeepSeek-V2-Lite, 27
+MLA layers with 64 experts; bf16, random weights) through ``xllm_tpu_torch.engine.LLMEngine`` on the card:
 16 greedy requests of ``--prompt-len`` tokens, after two warm-up requests
 (first calls load CUDA modules and pick GEMM algorithms). Two windows are
 traced with ``torch.profiler``:
@@ -50,11 +51,15 @@ OWN_KERNELS = {
     "kv_write_rows_kernel": "K2/K4 kv_write_rows",
     "prefill_attention_kernel": "K3 prefill_attention_batched",
     "gmm_bf16_kernel": "K10 gmm",
+    "mla_attention_tc_kernel<1": "K11a mla_decode_attention_write",
+    "mla_attention_tc_kernel<2": "K11b mla_prefill_attention_batched",
+    "latent_write_rows_kernel": "K11c/K11d latent_write_rows",
 }
 # --model -> (chip_smoke model config, KV blocks)
 MODELS = {
     "qwen3-1.7b": (chip_smoke.QWEN3_1P7B, 1024),
     "qwen3-30b-a3b": (chip_smoke.QWEN3_30B_A3B, 512),
+    "deepseek-v2-lite": (chip_smoke.DEEPSEEK_V2_LITE, 512),
 }
 GEMM_MARKS = ("gemm", "xmma", "cutlass", "cublas", "sm90_", "nvjet")
 

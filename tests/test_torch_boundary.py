@@ -49,6 +49,8 @@ print(json.dumps({"imported": names, "bad": bad}))
 
 _MOE = {"model_type": "qwen3_moe", "num_experts": 4, "num_experts_per_tok": 2,
         "moe_intermediate_size": 16}
+_MLA = dict(_MOE, model_type="deepseek_v3", kv_lora_rank=32, qk_nope_head_dim=16,
+            qk_rope_head_dim=16, v_head_dim=16, first_k_dense_replace=1)
 
 
 def _tiny(**over) -> EngineConfig:
@@ -83,6 +85,8 @@ def test_imports_no_jax_no_reference_no_triton():
                 "xllm_tpu_torch.ops.cuda.prefill_attention",
                 "xllm_tpu_torch.ops.cuda.gmm", "xllm_tpu_torch.ops.moe",
                 "xllm_tpu_torch.models.moe_decoder",
+                "xllm_tpu_torch.ops.cuda.mla_attention", "xllm_tpu_torch.ops.mla",
+                "xllm_tpu_torch.models.mla_decoder",
                 "xllm_tpu_torch.engine", "xllm_tpu_torch.llm"):
         assert mod in out["imported"]
 
@@ -103,11 +107,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
         ModelRunner(_tiny())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LLM(config=_tiny())
-    # a MoE engine too
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        LLMEngine(_tiny(model=_MOE))
+    # a MoE and an MLA engine too
+    for model in (_MOE, _MLA):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            LLMEngine(_tiny(model=model))
     # asked for explicitly, the CPU serves
-    for cfg in (_tiny(), _tiny(model=_MOE)):
+    for cfg in (_tiny(), _tiny(model=_MOE), _tiny(model=_MLA)):
         eng = LLMEngine(cfg, device="cpu")
         eng.add_request(prompt_token_ids=[1, 2, 3],
                         sampling_params=SamplingParams(max_tokens=2, ignore_eos=True))
@@ -134,13 +139,20 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         {"parallel": {"tp_size": 2}},
         {"parallel": {"dp_size": 2}},
         {"parallel": {"cp_size": 2}},
-        {"model": {"model_type": "deepseek_v3"}},
+        # MLA serves now; DSA (index_topk > 0), quantized and interleaved
+        # latent caches still raise
+        pytest.param({"model": dict(_MLA, model_type="deepseek_v32", index_topk=8)},
+                     id="deepseek_v3"),
+        pytest.param({"model": dict(_MLA, index_topk=8)}, id="deepseek_v3-dsa"),
+        pytest.param({"model": _MLA, "cache": {"kv_layout": "interleaved"}},
+                     id="deepseek_v3-interleaved"),
         # MoE serves on one device now; what it still lacks raises
         pytest.param({"model": _MOE, "eplb": {"enable_eplb": True}}, id="qwen3_moe-4"),
         {"model": _MOE, "eplb": {"redundant_experts": 2}},
         {"model": _MOE, "parallel": {"ep_size": 2}},
         {"model": _MOE, "quant": {"method": "fp8_e4m3"}},
-        {"model": dict(_MOE, model_type="deepseek_v3", kv_lora_rank=32)},
+        pytest.param({"model": _MLA, "cache": {"kv_cache_dtype": "int8"}},
+                     id="deepseek_v3-4-2-16-32"),
     ],
     ids=lambda o: "-".join(f"{k}" for g in o.values() for k in g.values()),
 )

@@ -1,4 +1,5 @@
-// K2 + K4: batched paged KV-cache writers for prefill chunks.
+// K2 + K4: batched paged KV-cache writers for prefill chunks (and, below,
+// K11c + K11d, their latent-cache twins for the MLA families).
 //
 // Replaces two Pallas kernels of xllm_tpu/ops/pallas/kv_write.py with one
 // row scatter behind two wrappers (ops/cuda/kv_write.py), each with its own
@@ -72,7 +73,72 @@ cudaError_t launch_rows(const void* k_src, const void* v_src, long long sp,
   return cudaGetLastError();
 }
 
+// K11c + K11d: the latent (MLA) writers. The same row scatter into the
+// single-head cache [L, NB, 1, bs, Dk]: one block per (chunk, token) copies
+// one Dk-wide row. They replace latent_write_prefill_batched_tpu (K11c,
+// page-aligned chunks; the TPU kernel moves whole pages and fills the
+// never-read tail of the last one with padding) and
+// latent_write_rmw_batched_tpu (K11d, S <= block_size at any alignment,
+// read-patch-write of at most two pages). Here exactly the ntok valid rows
+// of each chunk are written. Bound: bytes.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    latent_write_rows_kernel(const T* __restrict__ src, long long stride_p,
+                             long long stride_s,  // element strides; Dk is unit
+                             T* cache,            // [L, NB, 1, bs, Dk]
+                             const int* __restrict__ block_tables,  // [P, nbmax]
+                             const int* __restrict__ q_offsets,     // [P]
+                             const int* __restrict__ ntoks,         // [P]
+                             int layer, int num_blocks, int bs, int dk, int nbmax,
+                             int require_aligned) {
+  const int p = blockIdx.x, j = blockIdx.y;
+  if (j >= ntoks[p]) return;
+  const int q_offset = q_offsets[p];
+  if (require_aligned) assert(q_offset % bs == 0);
+  const int pos = q_offset + j;
+  const int blk = block_tables[(size_t)p * nbmax + pos / bs];
+  const T* s = src + (size_t)p * stride_p + (size_t)j * stride_s;
+  T* d = cache + cache_row(layer, num_blocks, 1, bs, blk, 0, pos % bs, dk);
+  for (int i = threadIdx.x; i < dk; i += blockDim.x) d[i] = s[i];
+}
+
+template <typename T>
+cudaError_t launch_latent_rows(const void* src, long long sp, long long ss,
+                               void* cache, const int* block_tables,
+                               const int* q_offsets, const int* ntoks, int p, int s,
+                               int layer, int num_blocks, int bs, int dk, int nbmax,
+                               int require_aligned, cudaStream_t stream) {
+  latent_write_rows_kernel<T><<<dim3(p, s), kThreads, 0, stream>>>(
+      static_cast<const T*>(src), sp, ss, static_cast<T*>(cache), block_tables,
+      q_offsets, ntoks, layer, num_blocks, bs, dk, nbmax, require_aligned);
+  return cudaGetLastError();
+}
+
 }  // namespace xllm
+
+extern "C" int xllm_latent_write_rows(int device, const void* src, long long stride_p,
+                                      long long stride_s, void* cache,
+                                      const void* block_tables, const void* q_offsets,
+                                      const void* ntoks, int dtype, int p, int s,
+                                      int layer, int num_blocks, int bs, int dk,
+                                      int nbmax, int require_aligned, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  if (s > 65535) return (int)cudaErrorInvalidValue;
+  const int* bt = static_cast<const int*>(block_tables);
+  const int* qo = static_cast<const int*>(q_offsets);
+  const int* nt = static_cast<const int*>(ntoks);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == XLLM_DTYPE_BF16)
+    return (int)xllm::launch_latent_rows<__nv_bfloat16>(
+        src, stride_p, stride_s, cache, bt, qo, nt, p, s, layer, num_blocks, bs, dk,
+        nbmax, require_aligned, st);
+  if (dtype == XLLM_DTYPE_F32)
+    return (int)xllm::launch_latent_rows<float>(src, stride_p, stride_s, cache, bt, qo,
+                                                nt, p, s, layer, num_blocks, bs, dk,
+                                                nbmax, require_aligned, st);
+  return (int)cudaErrorInvalidValue;
+}
 
 extern "C" int xllm_kv_write_rows(int device, const void* k_src,
                                   const void* v_src, long long stride_p,

@@ -1,0 +1,593 @@
+// K11a + K11b: latent (MLA) paged attention, decode and batched prefill.
+//
+// Replaces two Pallas kernels of xllm_tpu/ops/pallas/mla_attention.py:
+//   K11a mla_decode_attention_write_tpu: write each sequence's new latent
+//        row lat_new [B, Dk] at slot_mapping into the single-head cache
+//        [L, NB, 1, bs, Dk] (in place), then attend q [B, H, Dk] over
+//        seq_lens tokens -> [B, H, dv];
+//   K11b mla_prefill_attention_batched_tpu: P chunks q [P, S, H, Dk], causal
+//        at q_offsets[p] + t over kv_lens[p] tokens -> [P, S, H, dv].
+// Absorbed MLA is an MQA over one latent head: the scores take all Dk lanes
+// of a cached row, the values its first dv lanes, so one row read feeds
+// both products. A row with kv_len 0 (a padded row) and a query row past
+// its chunk's ntok = kv_len - q_offset (bucket padding) come out as zeros.
+//
+// Both contracts run one kernel template. Its rows are the (token, head)
+// pairs of a chunk, token-major (row r = t * H + h, the layout of q), and a
+// decode step is a chunk of one token at q_offset = seq_len - 1. All H
+// heads of a token share the latent rows, so (tokens x heads) fold into the
+// M dimension of the products, as the TPU kernel's hg * tq rows do.
+//
+// What bounds it. Decode, bytes: a step reads every live latent row once
+// (16 sequences x ~550 tokens x 640 lanes x 2 B = 11.3 MB a layer at
+// DeepSeek-V2-Lite's shapes) for ~2 x 16 x 1088 flops a row. Prefill,
+// operations: a 2048-token chunk does 16 heads x 2.1 M causal pairs x
+// (576 + 512) x 2 = 73 GFLOP over ~78 MB.
+//
+// Design, bf16 (tensor cores): a block owns BM = 16 x MT rows and walks its
+// KV range KT tokens at a time through a two-stage cp.async ring in shared
+// memory: MT 1, KT 64 for decode (the 16 heads of one token are one m16
+// tile); MT 2, KT 64 for prefill (two tokens of 16 heads: each latent row
+// brought to the SM serves 32 query rows; at Dk 640 the Q tile and two
+// 64-row stages take 221 KB of the 227 KB a block may have). Per tile,
+// eight warps compute S = Q K^T with mma.sync
+// m16n8k16 (f32 accumulators; K rows feed the B operand through ldmatrix,
+// V the same rows through ldmatrix.trans), an online softmax in f32 per
+// row, P rounded to bf16 (as the TPU kernel and the oracle round the
+// probabilities to the cache dtype before P V), and P V with the dv
+// columns split across the warps (64 each at dv 512, so a warp keeps MT x
+// 32 f32 accumulators). Decode splits each sequence's context across
+// blocks (as K1 does), since 16 sequences are far fewer blocks than the
+// card has SMs, and so does a prefill launch with few row tiles (a short
+// chunk deep in a prompt); the last split to finish merges the partial
+// (m, l, acc) with per-row weights computed once and 16-byte loads.
+//
+// The new decode row: the tile loader takes position seq_len - 1 from
+// lat_new, never from the cache, and the block that owns that position
+// (row tile 0) stores the row into the cache. No block reads that cache row.
+//
+// f32 (tests and the parity models): the same walk with FMA on the CUDA
+// cores, no TF32, no context split.
+#include "common.cuh"
+
+namespace xllm {
+namespace mla {
+
+constexpr int kWarps = 8;
+constexpr int kThreadsM = kWarps * 32;
+constexpr int kRowPad = 8;   // bf16 elements: rows 16 B apart mod 128 B
+constexpr int kSPad = 4;     // f32 score rows
+constexpr int kPPad = 8;     // bf16 probability rows
+constexpr int kMaxSplits = 32;  // context splits of one decode row tile
+
+// Row limit of chunk row r: positions < limit are visible to it.
+__device__ __forceinline__ int row_limit(int r, int rows_live, int h, int kv_len,
+                                         int q_offset) {
+  return r < rows_live ? min(kv_len, q_offset + r / h + 1) : 0;
+}
+
+__device__ __forceinline__ size_t latent_row(int layer, int num_blocks, int bs,
+                                             int blk, int off, int dk) {
+  return (((size_t)layer * num_blocks + blk) * bs + off) * dk;
+}
+
+template <int MT, int KT>
+size_t tc_smem_bytes(int dk) {
+  constexpr int BM = 16 * MT;
+  return (size_t)BM * (dk + kRowPad) * 2 + 2 * (size_t)KT * (dk + kRowPad) * 2 +
+         (size_t)BM * (KT + kSPad) * 4 + (size_t)BM * (KT + kPPad) * 2 +
+         4 * (size_t)BM * 4;
+}
+
+template <int MT, int KT, int DV, bool DECODE>
+__global__ void __launch_bounds__(kThreadsM)
+    mla_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,        // [P, S*H, Dk]
+                            const __nv_bfloat16* __restrict__ lat_new,  // [P, Dk]
+                            __nv_bfloat16* cache,                 // [L, NB, 1, bs, Dk]
+                            const int* __restrict__ slot_mapping,  // [P] (decode)
+                            const int* __restrict__ block_tables,  // [P, nbmax]
+                            const int* __restrict__ q_offsets,     // [P] (prefill)
+                            const int* __restrict__ kv_lens,       // [P]
+                            __nv_bfloat16* __restrict__ out,       // [P, S*H, DV]
+                            float* part,    // [P, RT, nsplit, BM, 4 + DV]
+                            int* counters,  // [P * RT], 0 between launches
+                            int s, int h, int dk, int layer, int num_blocks,
+                            int bs, int nbmax, float scale, int chunk,
+                            int nsplit) {
+  constexpr int BM = 16 * MT;
+  constexpr int WPM = kWarps / MT;     // warps per m16 tile in S = Q K^T
+  constexpr int NPW = (KT / 8) / WPM;  // n8 tiles of S per warp
+  constexpr int CW = DV / kWarps;      // P V columns per warp
+  constexpr int NT = CW / 8;           // n8 tiles of P V per warp
+  constexpr int CPL = KT / 32;           // softmax columns per lane
+  constexpr int PR = 4 + DV;  // a partial row of a split: m, l, two pad floats, acc
+  static_assert(NPW >= 1 && NT % 2 == 0 && KT % 32 == 0, "tile split");
+
+  const int rt = blockIdx.x, split = blockIdx.y, p = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rows = s * h;
+  const int kv_len = kv_lens[p];
+  const int q_offset = DECODE ? kv_len - 1 : q_offsets[p];
+  const int rows_live = kv_len > 0 ? (kv_len - q_offset) * h : 0;
+  const int r0 = rt * BM;
+  const size_t row_base = (size_t)p * rows;
+  __nv_bfloat16* o = out + (row_base + r0) * DV;
+  if (r0 >= rows_live) {  // padded row or bucket padding: zeros
+    if (split == 0)
+      for (int i = tid; i < min(BM, rows - r0) * DV; i += kThreadsM)
+        o[i] = __float2bfloat16(0.f);
+    return;
+  }
+  const int r_last = min(r0 + BM, rows_live) - 1;
+  const int kv_end = min(kv_len, q_offset + r_last / h + 1);
+  const int nsp = (kv_end + chunk - 1) / chunk;  // splits with work
+  if (split >= nsp) return;
+  const int t_begin = split * chunk;
+  const int t_end = min(t_begin + chunk, kv_end);
+  const int* bt = block_tables + (size_t)p * nbmax;
+
+  if (DECODE && rt == 0 && split == nsp - 1) {
+    const int slot = slot_mapping[p];
+    __nv_bfloat16* dst = cache + latent_row(layer, num_blocks, bs, slot / bs, slot % bs, dk);
+    for (int i = tid; i < dk; i += kThreadsM) dst[i] = lat_new[(size_t)p * dk + i];
+  }
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ldk = dk + kRowPad;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* kvs0 = qs + BM * ldk;
+  __nv_bfloat16* kvs1 = kvs0 + KT * ldk;
+  float* ss = reinterpret_cast<float*>(kvs1 + KT * ldk);  // [BM, KT + kSPad]
+  __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(ss + BM * (KT + kSPad));
+  float* m_s = reinterpret_cast<float*>(ps + BM * (KT + kPPad));
+  float* l_s = m_s + BM;
+  float* alpha_s = l_s + BM;
+  int* lim_s = reinterpret_cast<int*>(alpha_s + BM);
+  __shared__ int is_last;
+
+  const int dchunks = dk / 8;  // 16-byte pieces of a row
+  for (int c = tid; c < BM * dchunks; c += kThreadsM) {
+    const int r = c / dchunks, kc = (c % dchunks) * 8;
+    const bool ok = r0 + r < rows_live;
+    cp_async16(qs + r * ldk + kc, ok ? q + (row_base + r0 + r) * dk + kc : q, ok);
+  }
+  // one warp per row: the page lookup once a row, lanes on 16-byte pieces
+  auto load_tile = [&](__nv_bfloat16* dst, int t0) {
+    for (int j = warp; j < KT; j += kWarps) {
+      const int pos = t0 + j;
+      const bool ok = pos < t_end;
+      const __nv_bfloat16* src = cache;
+      if (ok)
+        src = DECODE && pos == kv_len - 1
+                  ? lat_new + (size_t)p * dk
+                  : cache + latent_row(layer, num_blocks, bs, bt[pos / bs], pos % bs, dk);
+      for (int kc = lane * 8; kc < dk; kc += 32 * 8)
+        cp_async16(dst + j * ldk + kc, ok ? src + kc : cache, ok);  // rows past t_end: zeros
+    }
+  };
+  load_tile(kvs0, t_begin);
+  cp_async_commit();
+  for (int r = tid; r < BM; r += kThreadsM) {
+    m_s[r] = -INFINITY;
+    l_s[r] = 0.f;
+    lim_s[r] = min(row_limit(r0 + r, rows_live, h, kv_len, q_offset), t_end);
+  }
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
+
+  const int ntiles = (t_end - t_begin + KT - 1) / KT;
+  const int c0 = warp * CW;
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile it (and Q) landed; the other buffer is free
+    if (it + 1 < ntiles) load_tile((it & 1) ? kvs0 : kvs1, t_begin + (it + 1) * KT);
+    cp_async_commit();
+    const __nv_bfloat16* kv = (it & 1) ? kvs1 : kvs0;
+    const int t0 = t_begin + it * KT;
+
+    // S = Q K^T: warp (wm, wn) owns m16 tile wm and NPW n8 tiles; even
+    // and odd k steps go to two accumulator sets, so consecutive mma.sync
+    // do not wait on each other
+    {
+      const int wm = warp / WPM, wn = warp % WPM;
+      float sacc[2][NPW][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int j = 0; j < NPW; ++j)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) sacc[u][j][k] = 0.f;
+      const __nv_bfloat16* qrow = qs + (wm * 16 + (lane % 16)) * ldk + (lane / 16) * 8;
+      const __nv_bfloat16* krow = kv + (wn * NPW * 8 + (lane % 8)) * ldk + ((lane / 8) % 2) * 8;
+      auto k_step = [&](int kk, float (&acc_s)[NPW][4]) {
+        uint32_t a[4];
+        ldmatrix_x4(a, qrow + kk);
+#pragma unroll
+        for (int j = 0; j < NPW; ++j) {
+          uint32_t b[2];  // K rows are the n index, their lanes the k index
+          ldmatrix_x2(b, krow + j * 8 * ldk + kk);
+          mma_bf16(acc_s[j], a, b[0], b[1]);
+        }
+      };
+      int kk = 0;
+#pragma unroll 2
+      for (; kk + 32 <= dk; kk += 32) {
+        k_step(kk, sacc[0]);
+        k_step(kk + 16, sacc[1]);
+      }
+      if (kk < dk) k_step(kk, sacc[0]);
+#pragma unroll
+      for (int j = 0; j < NPW; ++j) {
+        const int r = wm * 16 + lane / 4, c = (wn * NPW + j) * 8 + (lane % 4) * 2;
+        *reinterpret_cast<float2*>(ss + r * (KT + kSPad) + c) =
+            make_float2(sacc[0][j][0] + sacc[1][j][0], sacc[0][j][1] + sacc[1][j][1]);
+        *reinterpret_cast<float2*>(ss + (r + 8) * (KT + kSPad) + c) =
+            make_float2(sacc[0][j][2] + sacc[1][j][2], sacc[0][j][3] + sacc[1][j][3]);
+      }
+    }
+    __syncthreads();
+
+    // online softmax, one warp per row, KT / 32 columns per lane
+    for (int r = warp; r < BM; r += kWarps) {
+      const int lim = lim_s[r];
+      const float* srow = ss + r * (KT + kSPad);
+      float v[CPL];
+      float vmax = -INFINITY;
+#pragma unroll
+      for (int u = 0; u < CPL; ++u) {
+        const int j = lane + 32 * u;
+        v[u] = t0 + j < lim ? srow[j] * scale : -INFINITY;
+        vmax = fmaxf(vmax, v[u]);
+      }
+      const float m_old = m_s[r];
+      const float m_new = fmaxf(m_old, warp_max(vmax));
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;  // no live column yet
+      float psum = 0.f;
+#pragma unroll
+      for (int u = 0; u < CPL; ++u) {
+        const float pr = expf(v[u] - m_use);
+        ps[r * (KT + kPPad) + lane + 32 * u] = __float2bfloat16(pr);
+        psum += pr;
+      }
+      const float sum = warp_sum(psum);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_use);
+        m_s[r] = m_new;
+        l_s[r] = l_s[r] * alpha + sum;
+        alpha_s[r] = alpha;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * alpha + P V over this warp's CW value columns
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const float lo = alpha_s[i * 16 + lane / 4], hi = alpha_s[i * 16 + lane / 4 + 8];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        acc[i][j][0] *= lo;
+        acc[i][j][1] *= lo;
+        acc[i][j][2] *= hi;
+        acc[i][j][3] *= hi;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < KT; kk += 16) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        ldmatrix_x4(a[i], ps + (i * 16 + (lane % 16)) * (KT + kPPad) + kk + (lane / 16) * 8);
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t b[4];  // (k 0-7, k 8-15) of n8 tile j, then of tile j + 1
+        ldmatrix_x4_trans(b, kv + (kk + (lane % 16)) * ldk + c0 + j * 8 + (lane / 16) * 8);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          mma_bf16(acc[i][j], a[i], b[0], b[1]);
+          mma_bf16(acc[i][j + 1], a[i], b[2], b[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // final m and l are visible to every warp
+
+  if (nsp == 1) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = i * 16 + lane / 4 + half * 8;
+        if (r0 + r >= rows) continue;
+        const float l = fmaxf(l_s[r], 1e-30f);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int c = c0 + j * 8 + (lane % 4) * 2;
+          *reinterpret_cast<__nv_bfloat162*>(o + (size_t)r * DV + c) =
+              __floats2bfloat162_rn(acc[i][j][2 * half] / l, acc[i][j][2 * half + 1] / l);
+        }
+      }
+    }
+    return;
+  }
+
+  // several splits: publish (m, l, acc); the last split to finish merges
+  // them and re-arms the counter (threadfence-reduction pattern, as K1)
+  float* pb = part + ((size_t)p * gridDim.x + rt) * nsplit * BM * PR;
+  float* pp = pb + (size_t)split * BM * PR;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = i * 16 + lane / 4 + half * 8;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int c = c0 + j * 8 + (lane % 4) * 2;
+        *reinterpret_cast<float2*>(pp + (size_t)r * PR + 4 + c) =
+            make_float2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
+      }
+    }
+  }
+  for (int r = tid; r < BM; r += kThreadsM) {
+    pp[(size_t)r * PR] = m_s[r];
+    pp[(size_t)r * PR + 1] = l_s[r];
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(&counters[p * gridDim.x + rt], 1) == nsp - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  // each split's weight exp(m_split - m) per row, once; then every four
+  // output columns are one weighted sum over the splits (16-byte loads,
+  // eight splits in flight)
+  __shared__ float w_s[BM * kMaxSplits];
+  __shared__ float lsum_s[BM];
+  for (int r = tid; r < BM; r += kThreadsM) {
+    float m = -INFINITY;
+    for (int sp = 0; sp < nsp; ++sp) m = fmaxf(m, __ldcg(pb + ((size_t)sp * BM + r) * PR));
+    float l = 0.f;
+    for (int sp = 0; sp < nsp; ++sp) {
+      const float* src = pb + ((size_t)sp * BM + r) * PR;
+      const float w = m == -INFINITY ? 0.f : expf(__ldcg(src) - m);
+      w_s[r * kMaxSplits + sp] = w;
+      l = fmaf(__ldcg(src + 1), w, l);
+    }
+    lsum_s[r] = fmaxf(l, 1e-30f);
+  }
+  __syncthreads();
+  for (int idx = tid; idx < BM * (DV / 4); idx += kThreadsM) {
+    const int r = idx / (DV / 4), c = (idx % (DV / 4)) * 4;
+    if (r0 + r >= rows) continue;
+    const float* src = pb + (size_t)r * PR + 4 + c;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int sp = 0; sp < nsp; ++sp) {
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(src + (size_t)sp * BM * PR));
+      const float w = w_s[r * kMaxSplits + sp];
+      a.x = fmaf(v.x, w, a.x);
+      a.y = fmaf(v.y, w, a.y);
+      a.z = fmaf(v.z, w, a.z);
+      a.w = fmaf(v.w, w, a.w);
+    }
+    const float l = lsum_s[r];
+    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(o + (size_t)r * DV + c);
+    dst[0] = __floats2bfloat162_rn(a.x / l, a.y / l);
+    dst[1] = __floats2bfloat162_rn(a.z / l, a.w / l);
+  }
+  if (tid == 0) counters[p * gridDim.x + rt] = 0;
+}
+
+// ---------------------------------------------------------------------------
+// f32: FMA on the CUDA cores, one block per (chunk, 16-row tile)
+// ---------------------------------------------------------------------------
+constexpr int kFR = 16;  // rows per block
+constexpr int kFT = 32;  // KV tokens per tile
+
+size_t f32_smem_bytes(int dk, int dv) {
+  return ((size_t)kFR * (dk + 1) + (size_t)kFT * (dk + 1) + kFR * kFT +
+          (size_t)kFR * dv + 3 * kFR) * 4;
+}
+
+template <bool DECODE>
+__global__ void __launch_bounds__(kThreadsM)
+    mla_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ lat_new,
+                             float* cache, const int* __restrict__ slot_mapping,
+                             const int* __restrict__ block_tables,
+                             const int* __restrict__ q_offsets,
+                             const int* __restrict__ kv_lens, float* __restrict__ out,
+                             int s, int h, int dk, int dv, int layer, int num_blocks,
+                             int bs, int nbmax, float scale) {
+  const int rt = blockIdx.x, p = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rows = s * h;
+  const int kv_len = kv_lens[p];
+  const int q_offset = DECODE ? kv_len - 1 : q_offsets[p];
+  const int rows_live = kv_len > 0 ? (kv_len - q_offset) * h : 0;
+  const int r0 = rt * kFR;
+  const size_t row_base = (size_t)p * rows;
+  float* o = out + (row_base + r0) * dv;
+  const int nr = min(kFR, rows - r0);
+  if (r0 >= rows_live) {
+    for (int i = tid; i < nr * dv; i += kThreadsM) o[i] = 0.f;
+    return;
+  }
+  const int kv_end = min(kv_len, q_offset + (min(r0 + kFR, rows_live) - 1) / h + 1);
+  const int* bt = block_tables + (size_t)p * nbmax;
+  if (DECODE && rt == 0) {
+    const int slot = slot_mapping[p];
+    float* dst = cache + latent_row(layer, num_blocks, bs, slot / bs, slot % bs, dk);
+    for (int i = tid; i < dk; i += kThreadsM) dst[i] = lat_new[(size_t)p * dk + i];
+  }
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);  // [kFR, dk + 1]
+  float* ks = qs + kFR * (dk + 1);             // [kFT, dk + 1]
+  float* ss = ks + kFT * (dk + 1);             // [kFR, kFT]
+  float* acc = ss + kFR * kFT;                 // [kFR, dv]
+  float* m_s = acc + kFR * dv;
+  float* l_s = m_s + kFR;
+  float* alpha_s = l_s + kFR;
+
+  for (int i = tid; i < kFR * dk; i += kThreadsM) {
+    const int r = i / dk, d = i % dk;
+    qs[r * (dk + 1) + d] = r0 + r < rows_live ? q[(row_base + r0 + r) * dk + d] : 0.f;
+  }
+  for (int i = tid; i < kFR * dv; i += kThreadsM) acc[i] = 0.f;
+  for (int r = tid; r < kFR; r += kThreadsM) {
+    m_s[r] = -INFINITY;
+    l_s[r] = 0.f;
+  }
+  for (int t0 = 0; t0 < kv_end; t0 += kFT) {
+    const int nj = min(kFT, kv_end - t0);
+    __syncthreads();  // the previous tile is consumed
+    for (int i = tid; i < nj * dk; i += kThreadsM) {
+      const int j = i / dk, d = i % dk, pos = t0 + j;
+      ks[j * (dk + 1) + d] =
+          DECODE && pos == kv_len - 1
+              ? lat_new[(size_t)p * dk + d]
+              : cache[latent_row(layer, num_blocks, bs, bt[pos / bs], pos % bs, dk) + d];
+    }
+    __syncthreads();
+    for (int i = tid; i < kFR * kFT; i += kThreadsM) {
+      const int r = i / kFT, j = i % kFT;
+      const int lim = row_limit(r0 + r, rows_live, h, kv_len, q_offset);
+      float sc = -INFINITY;
+      if (j < nj && t0 + j < lim) {
+        const float* qr = qs + r * (dk + 1);
+        const float* kr = ks + j * (dk + 1);
+        float a = 0.f;
+        for (int d = 0; d < dk; ++d) a = fmaf(qr[d], kr[d], a);
+        sc = a * scale;
+      }
+      ss[i] = sc;
+    }
+    __syncthreads();
+    for (int r = warp; r < kFR; r += kWarps) {
+      const float v = ss[r * kFT + lane];  // kFT == 32: one column per lane
+      const float m_old = m_s[r];
+      const float m_new = fmaxf(m_old, warp_max(v));
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float pr = expf(v - m_use);
+      ss[r * kFT + lane] = pr;
+      const float sum = warp_sum(pr);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_use);
+        m_s[r] = m_new;
+        l_s[r] = l_s[r] * alpha + sum;
+        alpha_s[r] = alpha;
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < kFR * dv; i += kThreadsM) {
+      const int r = i / dv, c = i % dv;
+      const float* pr = ss + r * kFT;
+      float a = acc[i] * alpha_s[r];
+      for (int j = 0; j < nj; ++j) a = fmaf(pr[j], ks[j * (dk + 1) + c], a);
+      acc[i] = a;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < nr * dv; i += kThreadsM)
+    o[i] = acc[i] / fmaxf(l_s[i / dv], 1e-30f);
+}
+
+template <int MT, int KT, int DV, bool DECODE>
+cudaError_t launch_tc(const void* q, const void* lat_new, void* cache, const int* sm,
+                      const int* bt, const int* qo, const int* kl, void* out,
+                      float* part, int* counters, int p, int s, int h, int dk,
+                      int layer, int num_blocks, int bs, int nbmax, float scale,
+                      int chunk, int nsplit, cudaStream_t stream) {
+  auto kernel = mla_attention_tc_kernel<MT, KT, DV, DECODE>;
+  const size_t smem = tc_smem_bytes<MT, KT>(dk);
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((s * h + 16 * MT - 1) / (16 * MT), nsplit, p);
+  kernel<<<grid, kThreadsM, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(lat_new),
+      static_cast<__nv_bfloat16*>(cache), sm, bt, qo, kl,
+      static_cast<__nv_bfloat16*>(out), part, counters, s, h, dk, layer, num_blocks,
+      bs, nbmax, scale, chunk, nsplit);
+  return cudaGetLastError();
+}
+
+template <bool DECODE>
+cudaError_t launch_f32(const void* q, const void* lat_new, void* cache, const int* sm,
+                       const int* bt, const int* qo, const int* kl, void* out, int p,
+                       int s, int h, int dk, int dv, int layer, int num_blocks, int bs,
+                       int nbmax, float scale, cudaStream_t stream) {
+  auto kernel = mla_attention_f32_kernel<DECODE>;
+  const size_t smem = f32_smem_bytes(dk, dv);
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((s * h + kFR - 1) / kFR, 1, p);
+  kernel<<<grid, kThreadsM, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(lat_new),
+      static_cast<float*>(cache), sm, bt, qo, kl, static_cast<float*>(out), s, h, dk,
+      dv, layer, num_blocks, bs, nbmax, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace mla
+}  // namespace xllm
+
+// decode != 0: K11a (s == 1, q_offsets unused, lat_new and slot_mapping
+// read); else K11b (lat_new and slot_mapping unused). bf16 takes
+// dk % 16 == 0 and dv in {128, 256, 512} and splits the context into
+// nsplit <= 32 chunks of `chunk` positions; f32 takes any dk and
+// dv <= dk and does not split.
+extern "C" int xllm_mla_attention(int device, int decode, const void* q,
+                                  const void* lat_new, void* cache,
+                                  const void* slot_mapping, const void* block_tables,
+                                  const void* q_offsets, const void* kv_lens, void* out,
+                                  void* part, void* counters, int dtype, int p, int s,
+                                  int h, int dk, int dv, int layer, int num_blocks,
+                                  int bs, int nbmax, float scale, int chunk, int nsplit,
+                                  void* stream) {
+  using namespace xllm::mla;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  if (p > 65535 || nsplit > kMaxSplits || chunk <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int* sm = static_cast<const int*>(slot_mapping);
+  const int* bt = static_cast<const int*>(block_tables);
+  const int* qo = static_cast<const int*>(q_offsets);
+  const int* kl = static_cast<const int*>(kv_lens);
+  float* pt = static_cast<float*>(part);
+  int* ct = static_cast<int*>(counters);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == XLLM_DTYPE_BF16) {
+    if (dk % 16) return (int)cudaErrorInvalidValue;
+#define XLLM_LAUNCH(DV)                                                               \
+  if (dv == DV)                                                                       \
+    return decode ? (int)launch_tc<1, 64, DV, true>(q, lat_new, cache, sm, bt, qo, kl, out, \
+                                                pt, ct, p, s, h, dk, layer,          \
+                                                num_blocks, bs, nbmax, scale, chunk, \
+                                                nsplit, st)                          \
+                  : (int)launch_tc<2, 64, DV, false>(q, lat_new, cache, sm, bt, qo, kl,  \
+                                                 out, pt, ct, p, s, h, dk, layer,    \
+                                                 num_blocks, bs, nbmax, scale,       \
+                                                 chunk, nsplit, st);
+    XLLM_LAUNCH(512)
+    XLLM_LAUNCH(256)
+    XLLM_LAUNCH(128)
+#undef XLLM_LAUNCH
+    return (int)cudaErrorInvalidValue;
+  }
+  if (dtype == XLLM_DTYPE_F32) {
+    if (dv > dk) return (int)cudaErrorInvalidValue;
+    return decode ? (int)launch_f32<true>(q, lat_new, cache, sm, bt, qo, kl, out, p, s,
+                                          h, dk, dv, layer, num_blocks, bs, nbmax,
+                                          scale, st)
+                  : (int)launch_f32<false>(q, lat_new, cache, sm, bt, qo, kl, out, p,
+                                           s, h, dk, dv, layer, num_blocks, bs, nbmax,
+                                           scale, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}

@@ -241,17 +241,7 @@ class DenseDecoderModel(nn.Module):
         updated in place. P chunks from P sequences in one pass."""
         c = self.cfg
         p, s = inp.token_ids.shape
-
-        def attn_fn(q, k, v, layer_idx):
-            out, _, _ = prefill_attention_write_batched(
-                q.reshape(p, s, *q.shape[1:]),
-                k.reshape(p, s, *k.shape[1:]),
-                v.reshape(p, s, *v.shape[1:]),
-                k_all, v_all, layer_idx, inp.slot_mapping, inp.block_tables,
-                inp.q_offsets, inp.kv_lens, self.scale, window=self.window,
-            )
-            return out.reshape(p * s, *out.shape[2:])
-
+        attn_fn = self._prefill_attn_fn(k_all, v_all, inp)
         x = self.embed_tokens[inp.token_ids.reshape(-1).long()]
         x = self._run_layers(x, inp.positions.reshape(-1), attn_fn)
         x = x.reshape(p, s, -1)
@@ -271,6 +261,28 @@ class DenseDecoderModel(nn.Module):
         token_ids: torch.Tensor,  # [B] (gathered from the last_tokens ring)
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """-> (hidden [B, D], k_all, v_all); the caches are updated in place."""
+        x = self.embed_tokens[token_ids.long()]
+        x = self._run_layers(x, inp.positions, self._decode_attn_fn(k_all, v_all, inp))
+        return x, k_all, v_all
+
+    def _prefill_attn_fn(self, k_all, v_all, inp: BatchedPrefillInput):
+        """The attention step ``_run_layers`` calls in a prefill pass."""
+        p, s = inp.token_ids.shape
+
+        def attn_fn(q, k, v, layer_idx):
+            out, _, _ = prefill_attention_write_batched(
+                q.reshape(p, s, *q.shape[1:]),
+                k.reshape(p, s, *k.shape[1:]),
+                v.reshape(p, s, *v.shape[1:]),
+                k_all, v_all, layer_idx, inp.slot_mapping, inp.block_tables,
+                inp.q_offsets, inp.kv_lens, self.scale, window=self.window,
+            )
+            return out.reshape(p * s, *out.shape[2:])
+
+        return attn_fn
+
+    def _decode_attn_fn(self, k_all, v_all, inp: DecodeInput):
+        """The attention step ``_run_layers`` calls in a decode pass."""
 
         def attn_fn(q, k, v, layer_idx):
             out, _, _ = decode_attention_write(
@@ -279,9 +291,7 @@ class DenseDecoderModel(nn.Module):
             )
             return out
 
-        x = self.embed_tokens[token_ids.long()]
-        x = self._run_layers(x, inp.positions, attn_fn)
-        return x, k_all, v_all
+        return attn_fn
 
     def compute_logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """[N, D] -> [N, V] in the model dtype."""

@@ -65,6 +65,11 @@ class MoeDecoderModel(DenseDecoderModel):
     def _mlp(self, lp: DecoderLayer, x: torch.Tensor) -> torch.Tensor:
         if not isinstance(lp, MoeDecoderLayer):
             return super()._mlp(lp, x)
+        return self._moe_block(lp, x)
+
+    def _moe_block(self, lp: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        """Routed experts x ``routed_scaling_factor`` plus the shared
+        experts' MLP (also the MLA families' MoE block)."""
         c = self.cfg
         out = moe_mlp(
             x, lp.router_w, lp.experts_gate_up, lp.experts_down,

@@ -1,7 +1,7 @@
 """Model registry (counterpart of ``xllm_tpu/models/registry.py``).
 
-The dense GQA families and the GQA MoE families; every other family of
-the JAX registry raises until its slice is ported.
+The dense GQA families, the GQA MoE families and the MLA families; every
+other family of the JAX registry raises until its slice is ported.
 """
 
 from __future__ import annotations
@@ -16,6 +16,12 @@ DENSE_FAMILIES = ("llama", "mistral", "qwen2", "qwen3", "glm4", "mimo")
 # noaux routing, shared expert, dense first layers, partial rotate-half
 # rope), minimax-m2 (sigmoid routing, partial interleaved rope)
 MOE_FAMILIES = ("qwen3_moe", "glm4_moe", "minimax_m2")
+# MLA (latent attention) + dense first layers + routed/shared experts:
+# deepseek v2/v3, kimi-k2 (the v3 architecture) and glm4-moe-lite (MLA with
+# rotate-half rope)
+MLA_FAMILIES = ("deepseek_v2", "deepseek_v3", "kimi_k2", "glm4_moe_lite")
+# MLA + the DSA lightning indexer (deepseek-v3.2, glm5): not ported yet
+DSA_FAMILIES = ("deepseek_v32", "glm_moe_dsa")
 
 
 class ModelRegistry:
@@ -32,6 +38,11 @@ class ModelRegistry:
 
     @classmethod
     def get(cls, name: str) -> type:
+        if name in DSA_FAMILIES:
+            raise NotImplementedError(
+                f"model_type {name!r} needs DSA sparse attention, which is "
+                "not ported to xllm_tpu_torch yet"
+            )
         if name not in cls._registry:
             raise NotImplementedError(
                 f"model_type {name!r} is not ported to xllm_tpu_torch yet; "
@@ -42,12 +53,17 @@ class ModelRegistry:
 
 def get_model_class(model_type: str) -> type:
     from xllm_tpu_torch.models.decoder import DenseDecoderModel
+    from xllm_tpu_torch.models.mla_decoder import Glm4MoeLiteModel, MlaDecoderModel
     from xllm_tpu_torch.models.moe_decoder import MoeDecoderModel
 
     for name in DENSE_FAMILIES:
         ModelRegistry._registry.setdefault(name, DenseDecoderModel)
     for name in MOE_FAMILIES:
         ModelRegistry._registry.setdefault(name, MoeDecoderModel)
+    for name in MLA_FAMILIES:
+        ModelRegistry._registry.setdefault(
+            name, Glm4MoeLiteModel if name == "glm4_moe_lite" else MlaDecoderModel
+        )
     return ModelRegistry.get(model_type)
 
 

@@ -10,11 +10,21 @@ with its own launch counter:
   P token-major chunks ``[P, S, Hkv, D]`` with ``S <= block_size`` that may
   start mid-page.
 
+The latent (MLA) twins write into the single-head cache ``[L, NB, 1, bs,
+Dk]`` through one more row scatter, again behind two wrappers and counters:
+
+- ``latent_write_prefill_batched`` (K11c) replaces
+  ``latent_write_prefill_batched_tpu``: P chunks ``[P, S_pad, Dk]`` from
+  page-aligned ``q_offsets``;
+- ``latent_write_rmw_batched`` (K11d) replaces
+  ``latent_write_rmw_batched_tpu``: P chunks ``[P, S, Dk]``, ``S <=
+  block_size``, at any alignment.
+
 Token ``j < ntoks[p]`` of chunk ``p`` lands at position ``q_offsets[p] + j``
 of its sequence, through ``block_tables[p]``; ``ntoks[p] == 0`` marks a
-padded row. Exactly the valid rows are written, in place. (The TPU's K2
-also overwrote the never-read rest of the tail page: its DMAs move whole
-pages.) Bound on the card: bytes; see the CUDA source.
+padded row. Exactly the valid rows are written, in place. (The TPU's K2 and
+K11c also overwrote the never-read rest of the tail page: their DMAs move
+whole pages.) Bound on the card: bytes; see the CUDA source.
 """
 
 from __future__ import annotations
@@ -31,6 +41,14 @@ PREFILL_TPU_KERNEL = (
     "xllm_tpu/ops/pallas/kv_write.py:355 kv_write_prefill_batched_tpu"
 )
 RMW_TPU_KERNEL = "xllm_tpu/ops/pallas/kv_write.py:490 kv_write_rmw_batched_tpu"
+LATENT_PREFILL_NAME = "latent_write_prefill_batched"
+LATENT_RMW_NAME = "latent_write_rmw_batched"
+LATENT_PREFILL_TPU_KERNEL = (
+    "xllm_tpu/ops/pallas/kv_write.py:759 latent_write_prefill_batched_tpu"
+)
+LATENT_RMW_TPU_KERNEL = (
+    "xllm_tpu/ops/pallas/kv_write.py:846 latent_write_rmw_batched_tpu"
+)
 _SOURCE = "kv_write"
 
 
@@ -71,6 +89,10 @@ def _load() -> ctypes.CDLL:
             i, p, p, ll, ll, ll, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p,
         ]
         lib.xllm_kv_write_rows.restype = i
+        lib.xllm_latent_write_rows.argtypes = [
+            i, p, ll, ll, p, p, p, p, i, i, i, i, i, i, i, i, i, p,
+        ]
+        lib.xllm_latent_write_rows.restype = i
         _lib = lib
     return _lib
 
@@ -156,3 +178,99 @@ def kv_write_rmw_batched(
         _launch(RMW_NAME, kt, vt, k_all, v_all, layer_idx, block_tables,
                 q_offsets, ntoks, require_aligned=False)
     return k_all, v_all
+
+
+# ---------------------------------------------------------------------------
+# K11c + K11d: the latent (MLA) writers
+# ---------------------------------------------------------------------------
+def latent_write_rows_plain(
+    rows: torch.Tensor,  # [P, S, Dk] token-major
+    cache: torch.Tensor,  # [L, NB, 1, bs, Dk], updated in place
+    layer_idx: int,
+    block_tables: torch.Tensor,  # [P, NBmax] int32
+    q_offsets: torch.Tensor,  # [P] int32
+    ntoks: torch.Tensor,  # [P] int32 (0 = padded row)
+) -> None:
+    """Plain PyTorch version of the latent row scatter: writes the
+    ``ntoks`` valid rows of each chunk and nothing else."""
+    p, s = rows.shape[:2]
+    bs = cache.shape[3]
+    j = torch.arange(s, device=rows.device)
+    valid = j[None, :] < ntoks.long()[:, None]  # [P, S]
+    pos = q_offsets.long()[:, None] + j[None, :]
+    page = torch.where(valid, pos // bs, 0)
+    blk = torch.gather(block_tables.long(), 1, page)[valid]
+    off = (pos % bs)[valid]
+    cache[int(layer_idx), blk, 0, off, :] = rows[valid].to(cache.dtype)
+
+
+def _launch_latent(name, rows, cache, layer_idx, block_tables, q_offsets,
+                   ntoks, require_aligned: bool) -> None:
+    p, s, dk = rows.shape
+    nl, nb, one, bs, dk_c = cache.shape
+    dtype = _build.dtype_code(cache.dtype)
+    if (one, dk_c) != (1, dk):
+        raise ValueError(f"{name}: rows {tuple(rows.shape)} vs cache {tuple(cache.shape)}")
+    if not cache.is_contiguous():
+        raise ValueError(f"{name}: the cache must be contiguous")
+    for t in (block_tables, q_offsets, ntoks):
+        if t.dtype != torch.int32 or not t.is_contiguous() or t.device != cache.device:
+            raise ValueError(f"{name}: index arrays must be contiguous int32 on {cache.device}")
+        if t.shape[0] != p:
+            raise ValueError(f"{name}: index arrays must have one row per chunk ({p})")
+    if p == 0 or s == 0:
+        return
+    lib = _load()  # a failed build raises here, before any copy
+    rows = rows.to(cache.dtype)
+    if rows.stride(2) != 1:
+        rows = rows.contiguous()
+    _build.count_launch(name)
+    err = lib.xllm_latent_write_rows(
+        cache.device.index or 0, _build.ptr(rows), rows.stride(0), rows.stride(1),
+        _build.ptr(cache), _build.ptr(block_tables), _build.ptr(q_offsets),
+        _build.ptr(ntoks), dtype, p, s, int(layer_idx), nb, bs, dk,
+        block_tables.shape[1], int(require_aligned), _build.stream_of(cache),
+    )
+    _build.check(lib, err, name)
+
+
+def latent_write_prefill_batched(
+    rows: torch.Tensor,  # [P, S_pad, Dk]
+    cache: torch.Tensor,
+    layer_idx: int,
+    block_tables: torch.Tensor,  # [P, NBmax] int32
+    q_offsets: torch.Tensor,  # [P] int32, page-aligned
+    ntoks: torch.Tensor,  # [P] int32 (0 = padded row)
+) -> torch.Tensor:
+    """K11c: full-page writer contract (chunks start on a page boundary;
+    the kernel asserts it per row). -> cache, updated in place."""
+    if cache.device.type == "cpu":
+        bs = cache.shape[3]
+        assert bool(((q_offsets % bs == 0) | (ntoks == 0)).all()), (
+            "full-page writer needs page-aligned chunk starts"
+        )
+        latent_write_rows_plain(rows, cache, layer_idx, block_tables, q_offsets, ntoks)
+    else:
+        _launch_latent(LATENT_PREFILL_NAME, rows, cache, layer_idx, block_tables,
+                       q_offsets, ntoks, require_aligned=True)
+    return cache
+
+
+def latent_write_rmw_batched(
+    rows: torch.Tensor,  # [P, S, Dk], S <= block_size
+    cache: torch.Tensor,
+    layer_idx: int,
+    block_tables: torch.Tensor,  # [P, NBmax] int32
+    q_offsets: torch.Tensor,  # [P] int32, any alignment
+    ntoks: torch.Tensor,  # [P] int32 (0 = padded row)
+) -> torch.Tensor:
+    """K11d: chunks of at most one page that may start mid-page.
+    -> cache, updated in place."""
+    if rows.shape[1] > cache.shape[3]:
+        raise ValueError("RMW writer covers chunks of at most one page")
+    if cache.device.type == "cpu":
+        latent_write_rows_plain(rows, cache, layer_idx, block_tables, q_offsets, ntoks)
+    else:
+        _launch_latent(LATENT_RMW_NAME, rows, cache, layer_idx, block_tables,
+                       q_offsets, ntoks, require_aligned=False)
+    return cache

@@ -1,0 +1,286 @@
+"""K11a + K11b: latent (MLA) paged attention (``csrc/mla_attention.cu``).
+
+- ``mla_decode_attention_write`` (K11a) replaces
+  ``xllm_tpu/ops/pallas/mla_attention.py`` ``mla_decode_attention_write_tpu``:
+  write each sequence's new latent row ``lat_new [B, Dk]`` at
+  ``slot_mapping`` into the single-head cache ``[L, NB, 1, bs, Dk]`` (in
+  place), then attend ``q [B, H, Dk]`` over ``seq_lens`` tokens (the current
+  one included) -> ``[B, H, dv]``;
+- ``mla_prefill_attention_batched`` (K11b) replaces
+  ``mla_prefill_attention_batched_tpu``: P chunks ``q [P, S, H, Dk]``,
+  causal at ``q_offsets[p] + t`` over ``kv_lens[p]`` tokens ->
+  ``[P, S, H, dv]``.
+
+Scores take all Dk lanes of a cached row, values its first ``dv`` lanes
+(absorbed MLA: an MQA over one latent head). The softmax is f32 and the
+probabilities are rounded to the cache dtype before the value product, as
+in the TPU kernels and ``ops/mla_ref``. A row with ``seq_len``/``kv_len``
+0 (a padded row) and a query row past its chunk's ``kv_len - q_offset``
+(bucket padding) come out as zeros. Bound on the card: bytes at decode,
+operations at prefill; the design notes are in the CUDA source. Decode
+splits each row's context across up to 32 blocks; prefill does too when
+its row tiles alone give few blocks (``prefill_splits``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from xllm_tpu_torch.ops.cuda import _build
+
+DECODE_NAME = "mla_decode_attention_write"
+PREFILL_NAME = "mla_prefill_attention_batched"
+DECODE_TPU_KERNEL = (
+    "xllm_tpu/ops/pallas/mla_attention.py:148 mla_decode_attention_write_tpu"
+)
+PREFILL_TPU_KERNEL = (
+    "xllm_tpu/ops/pallas/mla_attention.py:507 mla_prefill_attention_batched_tpu"
+)
+_SOURCE = "mla_attention"
+TC_VALUE_DIMS = (128, 256, 512)  # dv of the bf16 (tensor-core) builds
+
+
+def _attend_plain(q, lat, limits, scale, dv, cache_dtype):
+    """q [N, R, Dk], lat [N, KV, Dk], limits [N, R] (row r sees positions
+    < limits[n, r]) -> [N, R, dv] in q's dtype; rows with limit 0 are
+    zeros."""
+    scores = torch.einsum("nrd,nkd->nrk", q.float(), lat.float()) * scale
+    kv_idx = torch.arange(lat.shape[1], device=q.device)
+    mask = kv_idx[None, None, :] < limits[..., None]
+    probs = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
+    probs = torch.nan_to_num(probs)  # fully masked rows -> 0
+    # probabilities rounded to the cache dtype before the value product
+    probs = probs.to(cache_dtype).float()
+    out = torch.einsum("nrk,nkd->nrd", probs, lat[..., :dv].float())
+    return out.to(q.dtype)
+
+
+def _gather_latent(cache, layer: int, block_tables) -> torch.Tensor:
+    """-> [N, NBmax * bs, Dk]: each row's pages in table order."""
+    pages = cache[layer][block_tables.long()]  # [N, NBmax, 1, bs, Dk]
+    n, nbmax, _, bs, dk = pages.shape
+    return pages.reshape(n, nbmax * bs, dk)
+
+
+def mla_decode_attention_write_plain(
+    q: torch.Tensor,  # [B, H, Dk]
+    lat_new: torch.Tensor,  # [B, Dk]
+    cache: torch.Tensor,  # [L, NB, 1, bs, Dk], updated in place
+    layer_idx: int,
+    slot_mapping: torch.Tensor,  # [B] int32
+    block_tables: torch.Tensor,  # [B, NBmax] int32
+    seq_lens: torch.Tensor,  # [B] int32 (incl. the current token)
+    scale: float,
+    dv: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of K11a (same in-place write, same zeros for
+    padded rows)."""
+    layer = int(layer_idx)
+    bs = cache.shape[3]
+    slots = slot_mapping[seq_lens > 0].long()
+    cache[layer, slots // bs, 0, slots % bs, :] = lat_new[seq_lens > 0].to(cache.dtype)
+    lat = _gather_latent(cache, layer, block_tables)
+    limits = seq_lens.long()[:, None].expand(-1, q.shape[1])
+    return _attend_plain(q, lat, limits, scale, dv, cache.dtype)
+
+
+def prefill_row_limits(s: int, h: int, q_offsets, kv_lens) -> torch.Tensor:
+    """[P, S * H]: chunk row (t, h) sees positions < min(kv_len, q_offset
+    + t + 1); rows past ntok = kv_len - q_offset (bucket padding) and padded
+    rows (kv_len 0) see none."""
+    t = torch.arange(s, device=kv_lens.device)
+    qo, kl = q_offsets.long()[:, None], kv_lens.long()[:, None]
+    lim = torch.minimum(kl, qo + t[None, :] + 1)
+    lim = torch.where(t[None, :] < kl - qo, lim, 0)
+    return lim.repeat_interleave(h, dim=1)
+
+
+def mla_prefill_attention_batched_plain(
+    q: torch.Tensor,  # [P, S, H, Dk]
+    cache: torch.Tensor,  # [L, NB, 1, bs, Dk]
+    layer_idx: int,
+    block_tables: torch.Tensor,  # [P, NBmax] int32
+    q_offsets: torch.Tensor,  # [P] int32
+    kv_lens: torch.Tensor,  # [P] int32 (0 = padded row)
+    scale: float,
+    dv: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of K11b -> [P, S, H, dv]."""
+    p, s, h, dk = q.shape
+    lat = _gather_latent(cache, int(layer_idx), block_tables)
+    limits = prefill_row_limits(s, h, q_offsets, kv_lens)
+    out = _attend_plain(q.reshape(p, s * h, dk), lat, limits, scale, dv, cache.dtype)
+    return out.reshape(p, s, h, dv)
+
+
+_lib = None
+_TILE = 64  # KT of the decode build: a context split is a multiple of it
+_MAX_SPLITS = 32  # kMaxSplits of csrc/mla_attention.cu
+# per-device int32 split counters; the kernel leaves them at 0
+_counters: dict[torch.device, torch.Tensor] = {}
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = _build.load(_SOURCE)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.xllm_mla_attention.argtypes = [
+            i, i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
+            ctypes.c_float, i, i, p,
+        ]
+        lib.xllm_mla_attention.restype = i
+        _lib = lib
+    return _lib
+
+
+def split_plan(max_ctx: int, max_splits: int = _MAX_SPLITS) -> tuple[int, int]:
+    """-> (chunk, nsplit) of a launch: context splits of ``chunk``
+    positions, a multiple of the tile, at most ``max_splits`` of them over
+    ``max_ctx`` (sized from the block-table width, so the launch reads
+    nothing back from the card)."""
+    tiles = -(-max_ctx // _TILE)
+    chunk = _TILE * max(1, -(-tiles // max_splits))
+    return chunk, max(1, -(-max_ctx // chunk))
+
+
+_PREFILL_ROWS = 32  # rows (token, head pairs) of a bf16 prefill block
+_BUSY_BLOCKS = 528  # 4 blocks for each of an H100's 132 SMs
+
+
+def prefill_splits(p: int, s: int, h: int) -> int:
+    """Context splits of a bf16 K11b launch: none while the row tiles alone
+    give ``_BUSY_BLOCKS`` blocks (every chunk of 512 tokens or more), else
+    enough to reach it (a short chunk deep in a prompt walks its whole
+    context in few blocks)."""
+    blocks = p * -(-s * h // _PREFILL_ROWS)
+    return min(_MAX_SPLITS, max(1, -(-_BUSY_BLOCKS // blocks)))
+
+
+def _split_counters(device: torch.device, n: int) -> torch.Tensor:
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[device] = buf
+    return buf
+
+
+def _check(name, q, cache, dv, index_arrays) -> tuple[int, int]:
+    """Shape, dtype and layout checks of a CUDA launch -> (dtype code, Dk)."""
+    nl, nb, one, bs, dk = cache.shape
+    dtype = _build.dtype_code(cache.dtype)
+    if one != 1 or q.shape[-1] != dk or not 0 < dv <= dk:
+        raise ValueError(f"{name}: q {tuple(q.shape)} vs cache {tuple(cache.shape)}, dv {dv}")
+    if cache.dtype == torch.bfloat16 and (dk % 16 or dv not in TC_VALUE_DIMS):
+        raise NotImplementedError(
+            f"{name}: the bf16 kernel takes Dk a multiple of 16 and dv in "
+            f"{TC_VALUE_DIMS}, not Dk {dk}, dv {dv}"
+        )
+    if not cache.is_contiguous():
+        raise ValueError(f"{name}: the cache must be contiguous")
+    for t in index_arrays:
+        if t.dtype != torch.int32 or not t.is_contiguous() or t.device != cache.device:
+            raise ValueError(f"{name}: index arrays must be contiguous int32 on {cache.device}")
+        if t.shape[0] != q.shape[0]:
+            raise ValueError(f"{name}: index arrays must have one row per q row ({q.shape[0]})")
+    return dtype, dk
+
+
+def mla_decode_attention_write(
+    q: torch.Tensor,
+    lat_new: torch.Tensor,
+    cache: torch.Tensor,
+    layer_idx: int,
+    slot_mapping: torch.Tensor,
+    block_tables: torch.Tensor,
+    seq_lens: torch.Tensor,
+    scale: float,
+    dv: int,
+) -> torch.Tensor:
+    """K11a -> out [B, H, dv] in q's dtype; the cache is updated in place."""
+    if q.device.type == "cpu":
+        return mla_decode_attention_write_plain(
+            q, lat_new, cache, layer_idx, slot_mapping, block_tables, seq_lens,
+            scale, dv,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"{DECODE_NAME}: unsupported device {q.device}")
+    b, h, _ = q.shape
+    dtype, dk = _check(DECODE_NAME, q, cache, dv, (slot_mapping, block_tables, seq_lens))
+    if lat_new.shape != (b, dk):
+        raise ValueError(f"{DECODE_NAME}: lat_new {tuple(lat_new.shape)} is not [B, Dk]")
+    if b == 0:
+        return torch.empty(0, h, dv, dtype=q.dtype, device=q.device)
+    lib = _load()  # a failed build raises here, before any allocation
+    qk = q.to(cache.dtype).contiguous()
+    ln = lat_new.to(cache.dtype).contiguous()
+    out = torch.empty(b, h, dv, dtype=cache.dtype, device=q.device)
+    bs, nbmax = cache.shape[3], block_tables.shape[1]
+    if cache.dtype == torch.bfloat16:
+        chunk, nsplit = split_plan(nbmax * bs)
+        row_tiles = -(-h // 16)
+    else:  # the f32 kernel does not split the context
+        chunk, nsplit, row_tiles = nbmax * bs, 1, 0
+    part = torch.empty(
+        (b, row_tiles, nsplit, 16, 4 + dv) if nsplit > 1 else (1,),
+        dtype=torch.float32, device=q.device,
+    )
+    counters = _split_counters(q.device, b * max(row_tiles, 1))
+    _build.count_launch(DECODE_NAME)
+    err = lib.xllm_mla_attention(
+        q.device.index or 0, 1, _build.ptr(qk), _build.ptr(ln), _build.ptr(cache),
+        _build.ptr(slot_mapping), _build.ptr(block_tables), None,
+        _build.ptr(seq_lens), _build.ptr(out), _build.ptr(part),
+        _build.ptr(counters), dtype, b, 1, h, dk, dv, int(layer_idx),
+        cache.shape[1], bs, nbmax, float(scale), chunk, nsplit, _build.stream_of(q),
+    )
+    _build.check(lib, err, DECODE_NAME)
+    return out.to(q.dtype)
+
+
+def mla_prefill_attention_batched(
+    q: torch.Tensor,
+    cache: torch.Tensor,
+    layer_idx: int,
+    block_tables: torch.Tensor,
+    q_offsets: torch.Tensor,
+    kv_lens: torch.Tensor,
+    scale: float,
+    dv: int,
+) -> torch.Tensor:
+    """K11b -> out [P, S, H, dv] in q's dtype."""
+    if q.device.type == "cpu":
+        return mla_prefill_attention_batched_plain(
+            q, cache, layer_idx, block_tables, q_offsets, kv_lens, scale, dv,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"{PREFILL_NAME}: unsupported device {q.device}")
+    p, s, h, _ = q.shape
+    dtype, dk = _check(PREFILL_NAME, q, cache, dv, (block_tables, q_offsets, kv_lens))
+    if q.numel() == 0:
+        return torch.empty(p, s, h, dv, dtype=q.dtype, device=q.device)
+    lib = _load()  # a failed build raises here, before any allocation
+    out = torch.empty(p, s, h, dv, dtype=cache.dtype, device=q.device)
+    qk = q.to(cache.dtype).contiguous()
+    bs, nbmax = cache.shape[3], block_tables.shape[1]
+    chunk, nsplit = nbmax * bs, 1
+    if cache.dtype == torch.bfloat16:
+        chunk, nsplit = split_plan(nbmax * bs, prefill_splits(p, s, h))
+    row_tiles = -(-s * h // _PREFILL_ROWS)
+    part = torch.empty(
+        (p, row_tiles, nsplit, _PREFILL_ROWS, 4 + dv) if nsplit > 1 else (1,),
+        dtype=torch.float32, device=q.device,
+    )
+    counters = _split_counters(q.device, p * row_tiles)
+    _build.count_launch(PREFILL_NAME)
+    err = lib.xllm_mla_attention(
+        q.device.index or 0, 0, _build.ptr(qk), None, _build.ptr(cache), None,
+        _build.ptr(block_tables), _build.ptr(q_offsets), _build.ptr(kv_lens),
+        _build.ptr(out), _build.ptr(part), _build.ptr(counters), dtype, p, s, h, dk,
+        dv, int(layer_idx), cache.shape[1], bs, nbmax, float(scale), chunk, nsplit,
+        _build.stream_of(q),
+    )
+    _build.check(lib, err, PREFILL_NAME)
+    return out.to(q.dtype)

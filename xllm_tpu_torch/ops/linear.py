@@ -23,3 +23,14 @@ def linear_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cuda":
         return torch.mm(x, w, out_dtype=torch.float32)
     return torch.mm(x.float(), w.float())
+
+
+def bmm_round_once(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[N, T, K] @ [N, K, M] -> [N, T, M] in a's dtype, rounded once from
+    f32 sums: the JAX ``einsum(..., preferred_element_type=f32).astype``
+    of MLA's per-head absorption products. cuBLAS accumulates a bf16 batched
+    product in f32 and rounds once; on the CPU the operands are upcast, so
+    both devices compute the same function."""
+    if a.dtype == torch.float32 or a.device.type == "cuda":
+        return torch.bmm(a, b)
+    return torch.bmm(a.float(), b.float()).to(a.dtype)

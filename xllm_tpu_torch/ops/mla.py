@@ -1,0 +1,67 @@
+"""MLA latent-attention entry points (counterpart of ``xllm_tpu/ops/mla.py``).
+
+The cache write is part of the op, as in the JAX package; here the latent
+cache ``[L, NB, 1, bs, Dk]`` is updated in place (JAX donates it) and
+returned for parity of signatures. Each call goes through the kernel
+wrappers of ``ops/cuda/``: a CUDA tensor launches the hand-written kernel,
+a CPU tensor takes its plain PyTorch version.
+
+Kernel choice, as in the JAX dispatch:
+- decode: K11a (``ops/cuda/mla_attention.mla_decode_attention_write``);
+- batched prefill with chunk bucket ``S <= block_size``: K11d writer (chunks
+  may start mid-page), else K11c (page-aligned chunks); then K11b.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from xllm_tpu_torch.ops.cuda.kv_write import (
+    latent_write_prefill_batched,
+    latent_write_rmw_batched,
+)
+from xllm_tpu_torch.ops.cuda.mla_attention import (
+    mla_decode_attention_write as _decode_kernel,
+)
+from xllm_tpu_torch.ops.cuda.mla_attention import mla_prefill_attention_batched
+
+
+def mla_decode_attention_write(
+    q_eff: torch.Tensor,  # [B, H, Dk]
+    lat_new: torch.Tensor,  # [B, Dk]
+    cache: torch.Tensor,  # [L, NB, 1, bs, Dk]
+    layer_idx: int,
+    slot_mapping: torch.Tensor,  # [B] int32
+    block_tables: torch.Tensor,  # [B, NBmax] int32
+    seq_lens: torch.Tensor,  # [B] int32 (incl. the current token)
+    scale: float,
+    dv: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Write each sequence's new latent row, then attend. -> (out, cache)."""
+    out = _decode_kernel(q_eff, lat_new, cache, layer_idx, slot_mapping,
+                         block_tables, seq_lens, scale, dv)
+    return out, cache
+
+
+def mla_prefill_attention_write_batched(
+    q_eff: torch.Tensor,  # [P, S, H, Dk]
+    lat_new: torch.Tensor,  # [P, S, Dk]
+    cache: torch.Tensor,  # [L, NB, 1, bs, Dk]
+    layer_idx: int,
+    slot_mapping: torch.Tensor,  # [P, S] (kept for the JAX signature; the
+    # writers place rows from block_tables + q_offsets)
+    block_tables: torch.Tensor,  # [P, NBmax] int32
+    q_offsets: torch.Tensor,  # [P] int32
+    kv_lens: torch.Tensor,  # [P] int32 (0 = padded row)
+    scale: float,
+    dv: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """P latent chunks written + attended. -> (out [P, S, H, dv], cache)."""
+    del slot_mapping
+    ntoks = kv_lens - q_offsets
+    writer = (latent_write_rmw_batched if lat_new.shape[1] <= cache.shape[3]
+              else latent_write_prefill_batched)
+    writer(lat_new, cache, layer_idx, block_tables, q_offsets, ntoks)
+    out = mla_prefill_attention_batched(q_eff, cache, layer_idx, block_tables,
+                                        q_offsets, kv_lens, scale, dv)
+    return out, cache

@@ -3,8 +3,9 @@
 HF "rotate-half" convention used by the llama/qwen families, computed on the
 fly from positions, and the two partial variants (only the first
 ``rotary_dim`` dims rotate): rotate-half on the rotary slice (glm4-moe) and
-interleaved even/odd pairs (glm4, minimax-m2). The full interleaved variant
-belongs to the MLA families, which are not ported yet.
+interleaved even/odd pairs (glm4, minimax-m2). ``apply_rope_interleaved``
+rotates every dim in complex pairs: the DeepSeek MLA convention on the
+``qk_rope_head_dim`` dims.
 """
 
 from __future__ import annotations
@@ -168,3 +169,15 @@ def apply_rope_partial_interleaved_cos(
         return torch.cat([out.reshape(xr.shape), rest], dim=-1).to(x.dtype)
 
     return rot(q), rot(k)
+
+
+def apply_rope_interleaved(
+    q: torch.Tensor,  # [T, Hq, D]
+    k: torch.Tensor,  # [T, Hkv, D]
+    positions: torch.Tensor,  # [T] int
+    inv_freq: torch.Tensor,  # [D / 2] f32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Interleaved (complex-pair) convention: pairs (x[2i], x[2i+1]), as
+    DeepSeek v2/v3 MLA rotates its rope dims (HF ``apply_rotary_emb``
+    through ``view_as_complex``); not the llama rotate-half convention."""
+    return apply_rope_partial_interleaved_cos(q, k, positions, inv_freq, q.shape[-1])

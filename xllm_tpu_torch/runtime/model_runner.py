@@ -1,7 +1,7 @@
 """Device execution: forward steps + sampling, eagerly in PyTorch.
 
 Counterpart of the subset of ``xllm_tpu/runtime/model_runner.py`` that
-serves the dense and MoE main paths on one device: ``load_model``, ``initialize_kv_cache``,
+serves the dense, MoE and MLA main paths on one device: ``load_model``, ``initialize_kv_cache``,
 ``run_prefill_batched`` and ``run_decode``. The device-resident
 ``last_tokens`` ring (each slot holds its sequence's last sampled token, so
 the next decode reads it without a host round trip) and the ``token_hist``
@@ -18,7 +18,7 @@ import torch
 
 from xllm_tpu_torch.config import EngineConfig
 from xllm_tpu_torch.framework.request import Sequence
-from xllm_tpu_torch.models.registry import MOE_FAMILIES, create_model
+from xllm_tpu_torch.models.registry import MLA_FAMILIES, MOE_FAMILIES, create_model
 from xllm_tpu_torch.runtime.forward_params import (
     BatchedPrefillInput,
     DecodeInput,
@@ -88,12 +88,12 @@ def reject_unported(config: EngineConfig) -> None:
         raise NotImplementedError("latency-aware scheduling is not ported yet")
     if s.enable_forward_interruption:
         raise NotImplementedError("forward interruption is not ported yet")
-    if c.model.vision or c.model.kv_lora_rank > 0:
-        raise NotImplementedError("MLA and VLM families are not ported yet")
-    if c.model.num_experts > 0 and c.model.model_type not in MOE_FAMILIES:
+    if c.model.vision:
+        raise NotImplementedError("VLM families are not ported yet")
+    if c.model.num_experts > 0 and c.model.model_type not in MOE_FAMILIES + MLA_FAMILIES:
         raise NotImplementedError(
             f"MoE family {c.model.model_type!r} is not ported yet; "
-            f"ported: {MOE_FAMILIES}"
+            f"ported: {MOE_FAMILIES + MLA_FAMILIES}"
         )
 
 

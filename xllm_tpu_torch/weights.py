@@ -16,6 +16,13 @@ slot map ``expert_placement``) and the ``first_k_dense_replace`` dense
 layers under ``dense_layers``; they go to ``model.layers[n_dense:]`` and
 ``model.layers[:n_dense]``. EPLB is not ported: the placement must be the
 identity, which is checked here, once, on the host.
+
+An MLA tree (``xllm_tpu/models/mla_decoder.py``) names its groups
+``dense_layers`` (the first ``first_k_dense_replace`` layers, or every
+layer of a model without experts) and ``moe_layers``; its attention keys
+are ``kv_a_proj_w``, ``kv_a_norm``, ``kv_b_nope_w [H, kvr, nope]``,
+``kv_b_v_w [H, kvr, vh]``, ``o_proj_w`` and either ``q_proj_w`` or
+``q_a_proj_w`` / ``q_a_norm`` / ``q_b_proj_w``.
 """
 
 from __future__ import annotations
@@ -55,7 +62,8 @@ def load_param_tree(model, tree: dict) -> None:
     if "lm_head" in tree:
         put(model.lm_head, tree["lm_head"])
     n_dense = getattr(model, "n_dense", 0)
-    groups = {"dense_layers": model.layers[:n_dense], "layers": model.layers[n_dense:]}
+    groups = {"dense_layers": model.layers[:n_dense],
+              getattr(model, "moe_group", "layers"): model.layers[n_dense:]}
     for group, layers in groups.items():
         if not len(layers):
             continue
@@ -82,14 +90,16 @@ def random_param_tree(cfg: ModelConfig, seed: int) -> dict:
     weights N(0, 0.02); for a MoE config the router bias 0 and the identity
     expert placement); the same tree loads into either package."""
     rng = np.random.default_rng(seed)
-    hq, hkv, dh = cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim
-    g = hq // hkv
-    L, D, I, V = (cfg.num_hidden_layers, cfg.hidden_size,
-                  cfg.intermediate_size, cfg.vocab_size)
 
     def w(*shape):
         return (rng.standard_normal(shape, np.float32) * 0.02).astype(np.float32)
 
+    if cfg.kv_lora_rank > 0:
+        return _random_mla_tree(cfg, w)
+    hq, hkv, dh = cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim
+    g = hq // hkv
+    L, D, I, V = (cfg.num_hidden_layers, cfg.hidden_size,
+                  cfg.intermediate_size, cfg.vocab_size)
     layers = {
         "input_layernorm": np.ones((L, D), np.float32),
         "post_attention_layernorm": np.ones((L, D), np.float32),
@@ -113,25 +123,71 @@ def random_param_tree(cfg: ModelConfig, seed: int) -> dict:
         "norm": np.ones((D,), np.float32),
     }
     if cfg.num_experts > 0:
-        nd, E, MI = cfg.first_k_dense_replace, cfg.num_experts, cfg.moe_intermediate_size
+        nd = cfg.first_k_dense_replace
         if nd > 0:
             tree["dense_layers"] = {k: v[:nd] for k, v in layers.items()}
         moe = tree["layers"] = {
             k: v[nd:] for k, v in layers.items()
             if k not in ("gate_proj_w", "up_proj_w", "down_proj_w")
         }
-        nm = L - nd
-        moe["router_w"] = w(nm, D, E)
-        if cfg.scoring_func == "sigmoid":
-            moe["router_bias"] = np.zeros((nm, E), np.float32)
-        moe["experts_gate_up"] = w(nm, E, D, 2 * MI)
-        moe["experts_down"] = w(nm, E, MI, D)
-        if cfg.n_shared_experts > 0:
-            SI = cfg.n_shared_experts * MI
-            moe["shared_gate_proj_w"] = w(nm, D, SI)
-            moe["shared_up_proj_w"] = w(nm, D, SI)
-            moe["shared_down_proj_w"] = w(nm, SI, D)
-        moe["expert_placement"] = np.tile(np.arange(E, dtype=np.int32), (nm, 1))
+        _add_experts(moe, cfg, L - nd, w)
     if not cfg.tie_word_embeddings:
         tree["lm_head"] = w(D, V)
+    return tree
+
+
+def _add_experts(stacks: dict, cfg: ModelConfig, n: int, w) -> None:
+    """The MoE stacks of ``n`` layers: router (f32 zero bias for sigmoid
+    routing), experts, shared experts, identity placement."""
+    D, E, MI = cfg.hidden_size, cfg.num_experts, cfg.moe_intermediate_size
+    stacks["router_w"] = w(n, D, E)
+    if cfg.scoring_func == "sigmoid":
+        stacks["router_bias"] = np.zeros((n, E), np.float32)
+    stacks["experts_gate_up"] = w(n, E, D, 2 * MI)
+    stacks["experts_down"] = w(n, E, MI, D)
+    if cfg.n_shared_experts > 0:
+        SI = cfg.n_shared_experts * MI
+        stacks["shared_gate_proj_w"] = w(n, D, SI)
+        stacks["shared_up_proj_w"] = w(n, D, SI)
+        stacks["shared_down_proj_w"] = w(n, SI, D)
+    stacks["expert_placement"] = np.tile(np.arange(E, dtype=np.int32), (n, 1))
+
+
+def _random_mla_tree(cfg: ModelConfig, w) -> dict:
+    """The JAX ``MlaDecoderModel.init_params`` tree's shapes and rule."""
+    L, D, I, V = (cfg.num_hidden_layers, cfg.hidden_size,
+                  cfg.intermediate_size, cfg.vocab_size)
+    H, qr, kvr = cfg.num_attention_heads, cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rope, vh = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    n_dense = cfg.first_k_dense_replace if cfg.num_experts > 0 else L
+
+    def attn(n):
+        p = {
+            "input_layernorm": np.ones((n, D), np.float32),
+            "post_attention_layernorm": np.ones((n, D), np.float32),
+            "kv_a_proj_w": w(n, D, kvr + rope),
+            "kv_a_norm": np.ones((n, kvr), np.float32),
+            "kv_b_nope_w": w(n, H, kvr, nope),
+            "kv_b_v_w": w(n, H, kvr, vh),
+            "o_proj_w": w(n, H * vh, D),
+        }
+        if qr > 0:
+            p["q_a_proj_w"] = w(n, D, qr)
+            p["q_a_norm"] = np.ones((n, qr), np.float32)
+            p["q_b_proj_w"] = w(n, qr, H * (nope + rope))
+        else:
+            p["q_proj_w"] = w(n, D, H * (nope + rope))
+        return p
+
+    tree = {"embed_tokens": w(V, D), "norm": np.ones((D,), np.float32)}
+    if not cfg.tie_word_embeddings:
+        tree["lm_head"] = w(D, V)
+    if n_dense > 0:
+        dense = tree["dense_layers"] = attn(n_dense)
+        dense["gate_proj_w"] = w(n_dense, D, I)
+        dense["up_proj_w"] = w(n_dense, D, I)
+        dense["down_proj_w"] = w(n_dense, I, D)
+    if L > n_dense:
+        tree["moe_layers"] = moe = attn(L - n_dense)
+        _add_experts(moe, cfg, L - n_dense, w)
     return tree
