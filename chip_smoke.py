@@ -24,7 +24,12 @@ phase raises on failure, so a non-zero exit means a phase failed:
    shapes (16 heads, Dk 640 of which 576 live, dv 512, block_size 64) with
    padded rows, a 4,096-token context, a new token that opens a page, each
    prefill bucket with a chunk at q_offset > 0 and a write across a page
-   boundary, K11a/b also at 20 and 128 heads. Then the kernel, the plain version and one PyTorch library call
+   boundary, K11a/b also at 20 and 128 heads; K1-K4 again on int8 and fp8
+   caches at qwen3-1.7B's shapes (bf16 and f32 queries); K5 (w8a8), K6
+   (fp8 weight-only) and K7 (bf16 weight streaming) at Qwen3-8B's
+   projection shapes (qkv K 4096 / N 6144, o 4096 / 4096, gate and up 4096 /
+   12,288, down 12,288 / 4096) for a 16-token decode step and a 2048-token
+   chunk, bf16 and f32 x, through the stacked wrappers. Then the kernel, the plain version and one PyTorch library call
    (the yardstick, never used by the port) are timed with CUDA events,
    queued behind a device-side sleep so that the device's time is timed
    and not the host's launch rate, rotating over cache layers so that
@@ -46,13 +51,23 @@ phase raises on failure, so a non-zero exit means a phase failed:
    decode pass launches K11a once per layer, every prefill pass K11b and
    one latent writer (K11c or K11d) once per layer and no K1-K4, and both
    K10 twice per MoE layer;
-6. parity: small f32 qwen3, qwen3-moe, glm4-moe (sigmoid routing with a
+6. quantized engines: Qwen3-8B at full width and depth (36 layers) with
+   int8 weights and an int8 KV cache under ``XLLM_QMM_KERNEL=pallas`` (every
+   model pass launches K5 five times per layer, 180, and no K6 or K7), then
+   with fp8 weights and an fp8 KV cache (K6, 180 a pass); then the
+   qwen3-1.7B engine once more under ``XLLM_BF16_MM=pallas`` (every pass of
+   at most 256 tokens launches K7 five times per layer, 140);
+7. parity: small f32 qwen3, qwen3-moe, glm4-moe (sigmoid routing with a
    non-zero router bias, a shared expert, a dense first layer and partial
    rope), deepseek_v2 (q_lora_rank 0, YaRN, latent padded from 144 to 256
    lanes), deepseek_v3 (q_lora_rank > 0, sigmoid routing in two groups) and
    glm4_moe_lite (rotate-half rope) models, each from one seed, served on
    the card (kernels) and on the CPU (plain versions), must give identical
-   greedy tokens.
+   greedy tokens; and the small qwen3 with int8 weights and an int8 KV cache
+   under ``XLLM_QMM_KERNEL=pallas`` (K5 and the int8-cache K1-K4).
+
+``python3 chip_smoke.py --phases kernels`` (a comma list of build, kernels,
+engines, quant, parity) runs a subset and prints no result line.
 
 The line before the last is ``{"kernels": [...]}`` (errors, times, bounds
 and launch counts); the last line is ``{"ok": true, "device": {...}}``.
@@ -60,8 +75,11 @@ and launch counts); the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -85,14 +103,17 @@ from xllm_tpu_torch.ops.cuda import gmm as k10
 from xllm_tpu_torch.ops.cuda import kv_write as k24
 from xllm_tpu_torch.ops.cuda import mla_attention as k11
 from xllm_tpu_torch.ops.cuda import prefill_attention as k3
+from xllm_tpu_torch.ops.cuda import quant_matmul as qmm
+from xllm_tpu_torch.ops.quant import to_e4m3
 from xllm_tpu_torch.ops.rope import rope_mscale
 from xllm_tpu_torch.runtime.model_runner import ModelRunner
 from xllm_tpu_torch.weights import random_param_tree
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
-# dense bf16 tensor-core FLOP/s
+# dense bf16 tensor-core FLOP/s, dense int8 tensor-core OP/s
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
 # SM clock of an H100 SXM at its highest boost; torch.cuda._sleep counts
 # SM cycles, so at a lower clock the sleep only lasts longer
 SLEEP_CYCLES_PER_S = 1.98e9
@@ -120,6 +141,25 @@ QWEN3_1P7B = dict(
     head_dim=128,
     qk_norm=True,
     tie_word_embeddings=True,
+    rope_theta=1000000.0,
+    max_position_embeddings=4096,
+)
+# Qwen3-8B (bench.py MODEL_8B; the widths of Qwen/Qwen3-8B's published
+# config.json): 36 layers, 32 query / 8 KV heads, intermediate 12,288,
+# untied lm_head; served with int8 or fp8 weights (~7.0 GB) beside the
+# bf16 embedding and head (~2.5 GB), at full width and depth
+QWEN3_8B = dict(
+    model_type="qwen3",
+    dtype="bfloat16",
+    vocab_size=151936,
+    hidden_size=4096,
+    intermediate_size=12288,
+    num_hidden_layers=36,
+    num_attention_heads=32,
+    num_key_value_heads=8,
+    head_dim=128,
+    qk_norm=True,
+    tie_word_embeddings=False,
     rope_theta=1000000.0,
     max_position_embeddings=4096,
 )
@@ -240,8 +280,8 @@ def time_three(kernel, plain, library, plain_iters: int) -> dict:
                 plain_queued=plain_queued, library_queued=library_queued)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16
+def bound_ms(nbytes: float, flops: float, peak: float = PEAK_BF16) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -288,11 +328,60 @@ def i32(a, dev):
     return torch.as_tensor(np.asarray(a, np.int32), device=dev)
 
 
+# quantized KV caches: "int8" (codes; the model folds the per-head scales
+# outside the kernels) or "fp8_e4m3" (values); None is the model dtype
+QUANT_CACHES = ("int8", "fp8_e4m3")
+QUANT_TOL = ("int8 / fp8 cache: |out - ref| <= 1e-5 + 2^-7 (|ref| + sum_j p_j |v_j|) "
+             "(both round P to bf16, the kernel against its running maximum, the plain "
+             "version against the final one); writers: byte-equal caches")
+
+
+def kv_tensor(g, dev, shape, dtype, cache):
+    """A random cache (or rows bound for one): the model dtype, int8 codes
+    in [-127, 127], or e4m3 values of N(0, 4)."""
+    if cache is None:
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    if cache == "int8":
+        return torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+    return to_e4m3(torch.randn(shape, generator=g, device=dev) * 2.0)
+
+
+def new_rows(g, dev, shape, dtype, cache):
+    """New K/V rows as the model hands them to the kernels: int8 codes for
+    an int8 cache, else values in the model dtype."""
+    if cache == "int8":
+        return kv_tensor(g, dev, shape, dtype, cache)
+    return (torch.randn(shape, generator=g, device=dev) * (2.0 if cache else 1.0)).to(dtype)
+
+
+def q_scale(cache) -> float:
+    """Queries against int8 codes carry the K scale folded in (the model's
+    default s_k, 4 / 127); else unit scale."""
+    return 4.0 / 127.0 if cache == "int8" else 1.0
+
+
+def same_bytes(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.element_size() == 1:
+        return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    return torch.equal(a, b)
+
+
+def check_quant_close(out, ref, pv, what: str) -> float:
+    """Quantized-cache attention against its plain version within
+    ``QUANT_TOL``; ``pv`` is sum_j p_j |v_j| -> max abs err."""
+    diff = (out.float() - ref.float()).abs()
+    lim = 1e-5 + 2.0 ** -7 * (ref.float().abs() + pv)
+    excess = (diff - lim).max().item()
+    assert excess <= 0, f"{what}: max abs err {diff.max().item()}, over the bound by {excess}"
+    return diff.max().item()
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels
 # ---------------------------------------------------------------------------
-def check_decode(rng, dev, dtype, timed: bool) -> dict:
-    """K1 at B=16: 14 live rows over the served context mix, 2 padded."""
+def check_decode(rng, dev, dtype, timed: bool, cache=None) -> dict:
+    """K1 at B=16: 14 live rows over the served context mix, 2 padded;
+    ``cache`` int8 / fp8_e4m3 for a quantized cache (q in ``dtype``)."""
     lens = [56, 316, 716, 2116] * 3 + [56, 316] + [0, 0]
     b = len(lens)
     nb = 1 + sum(-(-n // BS) for n in lens) + 8
@@ -301,11 +390,11 @@ def check_decode(rng, dev, dtype, timed: bool) -> dict:
              for i, n in enumerate(lens)]
     g = torch.Generator(device=dev).manual_seed(1)
     shape = (LAYERS, nb, HKV, BS, D)
-    kc = torch.randn(shape, generator=g, device=dev).to(dtype)
-    vc = torch.randn(shape, generator=g, device=dev).to(dtype)
-    q = torch.randn(b, HQ, D, generator=g, device=dev).to(dtype)
-    kn = torch.randn(b, HKV, D, generator=g, device=dev).to(dtype)
-    vn = torch.randn(b, HKV, D, generator=g, device=dev).to(dtype)
+    kc = kv_tensor(g, dev, shape, dtype, cache)
+    vc = kv_tensor(g, dev, shape, dtype, cache)
+    q = (torch.randn(b, HQ, D, generator=g, device=dev) * q_scale(cache)).to(dtype)
+    kn = new_rows(g, dev, (b, HKV, D), dtype, cache)
+    vn = new_rows(g, dev, (b, HKV, D), dtype, cache)
     sm, btt, sl = i32(slots, dev), i32(bt, dev), i32(lens, dev)
     scale = D ** -0.5
     layer = 3
@@ -315,24 +404,41 @@ def check_decode(rng, dev, dtype, timed: bool) -> dict:
     kp, vp = kc.clone(), vc.clone()
     ref = k1.paged_decode_attention_write_plain(q, kn, vn, kp, vp, layer, sm, btt, sl, scale)
     sync()
-    err = check_close(out, ref, f"K1 {dtype}")
-    assert torch.equal(kk, kp) and torch.equal(vk, vp), f"K1 {dtype}: caches differ"
+    what = f"K1 {dtype} cache {cache or dtype}"
+    if cache is None:
+        err = check_close(out, ref, what)
+    else:  # sum_j p_j |v_j| from an f32 softmax over the written caches
+        pv = k1.paged_decode_attention_write_plain(
+            q.float(), kn.float(), vn.float().abs(), kp.float(), vp.float().abs(), layer,
+            sm, btt, sl, scale)
+        err = check_quant_close(out, ref, pv, what)
+    assert same_bytes(kk, kp) and same_bytes(vk, vp), f"{what}: caches differ"
     assert not out[-2:].float().abs().any(), "K1: padded rows must be zeros"
     res = {"max_abs_err": err}
+    if cache == "fp8_e4m3":
+        # the in-kernel e4m3 cast of a new row gives the JAX package's bytes,
+        # NaN beyond 464 included
+        big = (torch.randn(b, HKV, D, generator=g, device=dev) * 300).to(dtype)
+        kk, kp = kc.clone(), kc.clone()
+        k1.paged_decode_attention_write(q, big, big, kk, vk, layer, sm, btt, sl, scale)
+        k1.paged_decode_attention_write_plain(q, big, big, kp, vp, layer, sm, btt, sl, scale)
+        sync()
+        assert same_bytes(kk, kp), f"{what}: e4m3 cast of new rows differs"
     if not timed:
         return res
 
-    el = kc.element_size()
+    q_el, c_el, n_el = q.element_size(), kc.element_size(), kn.element_size()
     ntok = sum(lens)
-    nbytes = (2 * b * HQ * D + 4 * b * HKV * D + 2 * ntok * HKV * D) * el
+    nbytes = 2 * b * HQ * D * q_el + 2 * b * HKV * D * (n_el + c_el) + 2 * ntok * HKV * D * c_el
     flops = 4.0 * ntok * HQ * D
-    # library yardstick: SDPA over K/V gathered into contiguous tensors
+    # library yardstick: SDPA over K/V gathered into contiguous tensors (a
+    # quantized cache upcast to q's dtype)
     lmax = -(-max(lens) // BS) * BS
     ctx = bt[:, : lmax // BS]
     idx = i32(ctx, dev).long()
-    kg = [kc[l][idx].permute(0, 2, 1, 3, 4).reshape(b, HKV, lmax, D)
+    kg = [kc[l][idx].permute(0, 2, 1, 3, 4).reshape(b, HKV, lmax, D).to(dtype)
           for l in range(LAYERS)]
-    vg = [vc[l][idx].permute(0, 2, 1, 3, 4).reshape(b, HKV, lmax, D)
+    vg = [vc[l][idx].permute(0, 2, 1, 3, 4).reshape(b, HKV, lmax, D).to(dtype)
           for l in range(LAYERS)]
     mask = (torch.arange(lmax, device=dev)[None, :] < sl[:, None].long())[:, None, None, :]
     q4 = q[:, :, None, :]
@@ -420,11 +526,11 @@ def _chunk_tables(rng, rows, dev):
     return nb, i32(bt, dev), qo, nt, kvl
 
 
-def check_prefill(rng, dev, dtype, timed: bool) -> dict:
+def check_prefill(rng, dev, dtype, timed: bool, cache=None) -> dict:
     """K3 at every bucket of ``K3_SHAPES`` (chunks at q_offset > 0 and
     padded rows) -> the first bucket's result, with every bucket's in
     ``by_shape``."""
-    results = [check_prefill_shape(rng, dev, dtype, timed, s, rows)
+    results = [check_prefill_shape(rng, dev, dtype, timed, s, rows, cache=cache)
                for s, rows in K3_SHAPES.items()]
     res = dict(results[0])
     res["max_abs_err"] = max(r["max_abs_err"] for r in results)
@@ -434,20 +540,26 @@ def check_prefill(rng, dev, dtype, timed: bool) -> dict:
 
 
 def check_prefill_shape(rng, dev, dtype, timed: bool, s: int, rows,
-                        hq: int = HQ, hkv: int = HKV) -> dict:
+                        hq: int = HQ, hkv: int = HKV, cache=None) -> dict:
     p = len(rows)
     nb, btt, qo, _, kvl = _chunk_tables(rng, rows, dev)
     g = torch.Generator(device=dev).manual_seed(2)
     shape = (LAYERS, nb, hkv, BS, D)
-    kc = torch.randn(shape, generator=g, device=dev).to(dtype)
-    vc = torch.randn(shape, generator=g, device=dev).to(dtype)
-    q = torch.randn(p, s, hq, D, generator=g, device=dev).to(dtype)
+    kc = kv_tensor(g, dev, shape, dtype, cache)
+    vc = kv_tensor(g, dev, shape, dtype, cache)
+    q = (torch.randn(p, s, hq, D, generator=g, device=dev) * q_scale(cache)).to(dtype)
     scale = D ** -0.5
     out = k3.paged_attention_prefill_batched(q, kc, vc, 5, btt, qo, kvl, scale)
     ref = k3.paged_attention_prefill_batched_plain(q, kc, vc, 5, btt, qo, kvl, scale)
     sync()
-    what = f"K3 {dtype} S={s} {rows} Hq {hq} Hkv {hkv}"
-    err = check_close(out, ref, what)
+    what = f"K3 {dtype} cache {cache or dtype} S={s} {rows} Hq {hq} Hkv {hkv}"
+    if cache is None:
+        err = check_close(out, ref, what)
+    else:
+        pv = k3.paged_attention_prefill_batched_plain(
+            q.float(), kc.float(), vc.float().abs(), 5, btt, qo, kvl, scale)
+        err = check_quant_close(out, ref, pv, what)
+        del pv
     for i, (_, n) in enumerate(rows):
         # a padded row and the bucket padding past ntok are zeros
         assert not out[i, n:].float().abs().any(), f"{what}: row {i} past ntok not zero"
@@ -455,20 +567,21 @@ def check_prefill_shape(rng, dev, dtype, timed: bool, s: int, rows,
     if not timed:
         return res
 
-    el = kc.element_size()
+    q_el, c_el = q.element_size(), kc.element_size()
     ntok = sum(n for _, n in rows)
     kv_rows = sum(qo_ + n for qo_, n in rows if n)
     pairs = sum(sum(qo_ + i + 1 for i in range(n)) for qo_, n in rows)
-    nbytes = (2 * ntok * hq * D + 2 * kv_rows * hkv * D) * el
+    nbytes = 2 * ntok * hq * D * q_el + 2 * kv_rows * hkv * D * c_el
     flops = 4.0 * pairs * hq * D
     # library yardstick: one SDPA call over K/V gathered contiguous, with the
-    # causal + kv_len mask of each chunk
+    # causal + kv_len mask of each chunk (a quantized cache upcast to q's
+    # dtype)
     lmax = max(qo_ + n for qo_, n in rows)
     lmax = -(-lmax // BS) * BS
     idx = btt[:, : lmax // BS].long()
-    kg = [kc[l][idx].permute(0, 2, 1, 3, 4).reshape(p, hkv, lmax, D)
+    kg = [kc[l][idx].permute(0, 2, 1, 3, 4).reshape(p, hkv, lmax, D).to(dtype)
           for l in range(LAYERS)]
-    vg = [vc[l][idx].permute(0, 2, 1, 3, 4).reshape(p, hkv, lmax, D)
+    vg = [vc[l][idx].permute(0, 2, 1, 3, 4).reshape(p, hkv, lmax, D).to(dtype)
           for l in range(LAYERS)]
     qpos = qo.long()[:, None] + torch.arange(s, device=dev)[None, :]
     kvi = torch.arange(lmax, device=dev)
@@ -489,19 +602,30 @@ def check_prefill_shape(rng, dev, dtype, timed: bool, s: int, rows,
     return res
 
 
-def check_writer(rng, dev, dtype, timed: bool, rmw: bool) -> dict:
+# e4m3 casts at its edge (the largest value 448, the tie at 464 that rounds
+# to it, and beyond, where JAX's cast gives NaN and torch's saturates),
+# written by K2 / K4 into an fp8 cache
+E4M3_EDGES = [448.0, 456.0, 464.0, 480.0, 1000.0, float("inf"), 2.0 ** -10, 0.0]
+
+
+def check_writer(rng, dev, dtype, timed: bool, rmw: bool, cache=None) -> dict:
     """K2 (head-major, page-aligned, S=512) or K4 (token-major, S=64,
-    mid-page starts)."""
+    mid-page starts); into a quantized cache from int8 codes or from
+    ``dtype`` rows that the kernel casts to e4m3 (``E4M3_EDGES`` among
+    them)."""
     rows, s = (RMW_ROWS, RMW_S) if rmw else (PREFILL_ROWS, PREFILL_S)
     p = len(rows)
     nb, btt, qo, nt, _ = _chunk_tables(rng, rows, dev)
     g = torch.Generator(device=dev).manual_seed(3)
     shape = (LAYERS, nb, HKV, BS, D)
-    kc = torch.randn(shape, generator=g, device=dev).to(dtype)
-    vc = torch.randn(shape, generator=g, device=dev).to(dtype)
+    kc = kv_tensor(g, dev, shape, dtype, cache)
+    vc = kv_tensor(g, dev, shape, dtype, cache)
     src_shape = (p, s, HKV, D) if rmw else (p, HKV, s, D)
-    kn = torch.randn(src_shape, generator=g, device=dev).to(dtype)
-    vn = torch.randn(src_shape, generator=g, device=dev).to(dtype)
+    kn = new_rows(g, dev, src_shape, dtype, cache)
+    vn = new_rows(g, dev, src_shape, dtype, cache)
+    if cache == "fp8_e4m3":  # the kernel's cast where torch's own differs
+        kn[0, 0, 0, :len(E4M3_EDGES)] = torch.tensor(E4M3_EDGES, dtype=dtype, device=dev)
+        vn[0, 0, 0, :len(E4M3_EDGES)] = -torch.tensor(E4M3_EDGES, dtype=dtype, device=dev)
     fn = k24.kv_write_rmw_batched if rmw else k24.kv_write_prefill_batched
 
     def plain(k_all, v_all, layer):
@@ -513,16 +637,16 @@ def check_writer(rng, dev, dtype, timed: bool, rmw: bool) -> dict:
     kp, vp = kc.clone(), vc.clone()
     plain(kp, vp, 2)
     sync()
-    name = "K4" if rmw else "K2"
-    assert torch.equal(kk, kp) and torch.equal(vk, vp), f"{name} {dtype}: caches differ"
-    assert not torch.equal(kk, kc), f"{name}: nothing was written"
-    res = {"max_abs_err": max_err(kk, kp)}
+    name = f"{'K4' if rmw else 'K2'} {dtype} cache {cache or dtype}"
+    assert same_bytes(kk, kp) and same_bytes(vk, vp), f"{name}: caches differ"
+    assert not same_bytes(kk, kc), f"{name}: nothing was written"
+    res = {"max_abs_err": 0.0}  # the bytes are equal (an fp8 cache holds NaN)
     if not timed:
         return res
 
-    el = kc.element_size()
     ntok = sum(n for _, n in rows)
-    nbytes = 2 * 2 * ntok * HKV * D * el  # K and V rows read once, written once
+    # K and V rows read once (as given), written once (in the cache dtype)
+    nbytes = 2 * ntok * HKV * D * (kn.element_size() + kc.element_size())
     # library yardstick: one advanced-index row assignment per cache with
     # the row indices computed beforehand
     pos = [(i, qo_ + j) for i, (qo_, n) in enumerate(rows) for j in range(n)]
@@ -532,12 +656,18 @@ def check_writer(rng, dev, dtype, timed: bool, rmw: bool) -> dict:
     sel = [(i, j) for i, (_, n) in enumerate(rows) for j in range(n)]
     src_k = kn if rmw else kn.transpose(1, 2)
     src_v = vn if rmw else vn.transpose(1, 2)
+    # (a quantized cache takes the rows' bytes, cast beforehand: the
+    # yardstick's time leaves out the e4m3 cast that the kernel does)
     rk = torch.stack([src_k[i, j] for i, j in sel])  # [N, Hkv, D]
     rv = torch.stack([src_v[i, j] for i, j in sel])
+    lk, lv = kc, vc
+    if cache is not None:
+        rk, rv = (to_e4m3(r) if cache == "fp8_e4m3" else r for r in (rk, rv))
+        lk, lv, rk, rv = (t.view(torch.uint8) for t in (kc, vc, rk, rv))
 
     def library(i):
-        kc[i % LAYERS, blk, :, off, :] = rk
-        vc[i % LAYERS, blk, :, off, :] = rv
+        lk[i % LAYERS, blk, :, off, :] = rk
+        lv[i % LAYERS, blk, :, off, :] = rv
 
     res.update(time_three(
         lambda i: fn(kn, vn, kc, vc, i % LAYERS, btt, qo, nt),
@@ -935,6 +1065,221 @@ def check_mla_heads(rng, dev, dtype) -> float:
     return worst
 
 
+# K5-K7 at Qwen3-8B's projections (name, K, N), each timed at a decode
+# step's 16 rows and a full 2048-token chunk; the weights are stacks of
+# QMM_LAYERS layers (int8: 100-200 MB, more than the 50 MB L2) that the
+# timing loops rotate over, through the stacked wrappers (the unstacked
+# ones are held equal to them)
+QMM_SHAPES = [("qkv", 4096, 6144), ("o", 4096, 4096), ("gate_up", 4096, 12288),
+              ("down", 12288, 4096)]
+QMM_ROWS = (16, 2048)
+# also checked, untimed, at row counts that leave a row tile part-filled
+# (16-row tiles at 5 and 24, 128-row tiles at 52, 64 and 192: prefill passes
+# of the 64-token bucket hold 64 P rows)
+QMM_EDGE_ROWS = (5, 24, 52, 64, 192)
+# K7's own path, the qwen3-1.7B engine under XLLM_BF16_MM=pallas (qkv, o,
+# gate and up, down): timed at a decode step and at the 256 rows of its
+# largest pass, checked at the row counts of its other prefill passes
+QMM_SHAPES_1P7B = [("qkv", 2048, 4096), ("o", 2048, 2048), ("gate_up", 2048, 6144),
+                   ("down", 6144, 2048)]
+QMM_ROWS_1P7B = (16, 256)
+QMM_EDGE_ROWS_1P7B = (52, 64, 128, 192)
+QMM_LAYERS = 4
+QMM_TOL = ("K5: bit-equal to its plain version; K6, K7: |out - ref| <= K 2^-24 "
+           "(|x| @ |w|) |s| + 1e-6 (exact products, f32 sums in another order)")
+# kind -> (kernel name, stacked wrapper, unstacked wrapper, plain version)
+QMM_KINDS = {
+    "int8": (qmm.W8A8_NAME, qmm.quant_matmul_int8_stacked, qmm.quant_matmul_int8,
+             qmm.quant_matmul_int8_plain),
+    "fp8_e4m3": (qmm.FP8_NAME, qmm.quant_matmul_fp8_stacked, qmm.quant_matmul_fp8,
+                 qmm.quant_matmul_fp8_plain),
+    "bf16": (qmm.BF16_NAME, lambda x, w, s, li: qmm.matmul_bf16_stacked(x, w, li),
+             lambda x, w, s: qmm.matmul_bf16(x, w),
+             lambda x, w, s: qmm.matmul_bf16_plain(x, w)),
+}
+# kind -> [(model, shapes, timed rows, checked rows)]
+QMM_MODELS = {
+    "int8": [("Qwen3-8B", QMM_SHAPES, QMM_ROWS, QMM_EDGE_ROWS)],
+    "fp8_e4m3": [("Qwen3-8B", QMM_SHAPES, QMM_ROWS, QMM_EDGE_ROWS)],
+    "bf16": [("Qwen3-8B", QMM_SHAPES, QMM_ROWS, QMM_EDGE_ROWS),
+             ("qwen3-1.7B", QMM_SHAPES_1P7B, QMM_ROWS_1P7B, QMM_EDGE_ROWS_1P7B)],
+}
+
+
+def qmm_weights(g, dev, kind, k, n):
+    """A random weight stack [QMM_LAYERS, K, N] and its scales [.., N]."""
+    shape = (QMM_LAYERS, k, n)
+    spread = torch.rand(QMM_LAYERS, n, generator=g, device=dev) + 0.5
+    if kind == "int8":
+        w = torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+        return w, spread * (0.02 / 127.0)
+    if kind == "fp8_e4m3":
+        w = to_e4m3(torch.randn(shape, generator=g, device=dev) * 64.0)
+        return w, spread * (0.02 / 64.0)
+    return (torch.randn(shape, generator=g, device=dev) * 0.02).bfloat16(), None
+
+
+def check_qmm_close(out, ref, x, w, s, exact: bool, what: str) -> float:
+    """K5 bit-equal; K6 / K7 within ``QMM_TOL`` -> max abs err."""
+    if exact:
+        assert torch.equal(out, ref), f"{what}: not bit-equal, max abs err {max_err(out, ref)}"
+        return 0.0
+    lim = torch.mm(x.to(torch.bfloat16).float().abs(), w.float().abs())
+    if s is not None:
+        lim = lim * s.abs()
+    lim = lim * (w.shape[0] * 2.0 ** -24) + 1e-6
+    diff = (out - ref).abs()
+    worst = (diff / lim).max().item()
+    assert worst <= 1.0, f"{what}: max abs err {diff.max().item()}, {worst:.3g} x the bound"
+    return diff.max().item()
+
+
+def int_mm_yardstick(x, w, s):
+    """K5's library yardstick: the same activation quantization, then
+    ``torch._int_mm`` and the scaling; None where its shape rules refuse."""
+    def call(i):
+        xq, sx = qmm.quantize_activations(x)
+        return (torch._int_mm(xq, w[i % QMM_LAYERS]).float() * sx) * s[i % QMM_LAYERS]
+    try:
+        call(0)
+        sync()
+    except RuntimeError:
+        return None
+    return call
+
+
+def check_qmm_shape(g, dev, kind, model, proj, k, n, rows, edge_rows):
+    """One kind of K5-K7 at one projection of ``model``: checked at
+    ``rows`` and ``edge_rows`` with bf16 x, at ``rows`` also with f32 x and
+    timed -> (timed results, worst f32-x error, worst edge-row error)."""
+    name, stacked, unstacked, plain = QMM_KINDS[kind]
+    exact = kind == "int8"
+    w, s = qmm_weights(g, dev, kind, k, n)
+
+    def scale(li):
+        return None if s is None else s[li]
+
+    timed, worst_f32, worst_edge = [], 0.0, 0.0
+    for m in edge_rows:
+        x = torch.randn(m, k, generator=g, device=dev).bfloat16()
+        what = f"{name} {model} {proj} M={m} K={k} N={n}"
+        worst_edge = max(worst_edge, check_qmm_close(
+            stacked(x, w, s, 3), plain(x, w[3], scale(3)), x, w[3], scale(3), exact, what))
+    for m in rows:
+        x = torch.randn(m, k, generator=g, device=dev).bfloat16()
+        what = f"{name} {model} {proj} M={m} K={k} N={n}"
+        out = stacked(x, w, s, 1)
+        ref = plain(x, w[1], scale(1))
+        sync()
+        err = check_qmm_close(out, ref, x, w[1], scale(1), exact, what)
+        assert torch.equal(unstacked(x, w[1], scale(1)), out), f"{what}: stacked != unstacked"
+        x32 = x.float() + torch.randn(m, k, generator=g, device=dev) * 1e-3
+        worst_f32 = max(worst_f32, check_qmm_close(
+            stacked(x32, w, s, 2), plain(x32, w[2], scale(2)),
+            x32, w[2], scale(2), exact, what + " f32 x"))
+        if kind == "int8":
+            library = int_mm_yardstick(x, w, s)
+            lib_name = "torch._int_mm + scaling"
+        elif kind == "fp8_e4m3":
+            def library(i):  # the port's default: dequantize, one product
+                wl = w[i % QMM_LAYERS].to(torch.bfloat16) * s[i % QMM_LAYERS].bfloat16()
+                return torch.mm(x, wl, out_dtype=torch.float32)
+            lib_name = "dequant + torch.mm(out_dtype=f32)"
+        else:
+            def library(i):
+                return torch.mm(x, w[i % QMM_LAYERS], out_dtype=torch.float32)
+            lib_name = "torch.mm(out_dtype=f32)"
+        res = {"max_abs_err": err}
+        res.update(time_three(
+            lambda i: stacked(x, w, s, i % QMM_LAYERS),
+            lambda i: plain(x, w[i % QMM_LAYERS], scale(i % QMM_LAYERS)),
+            library or (lambda i: None),
+            plain_iters=5,
+        ))
+        if kind == "int8":
+            # the kernel alone, on activations quantized beforehand (the
+            # wrapper's time above includes that quantization, in PyTorch)
+            xq, sx = qmm.quantize_activations(x)
+            assert torch.equal(qmm.launch_prepared(name, xq, sx, w, s, 1), out), what
+            res["kernel_only_ms"], queued = time_ms(
+                lambda i: qmm.launch_prepared(name, xq, sx, w, s, i % QMM_LAYERS))
+            assert queued, f"{what}: the launch waited on the device"
+        if library is None:
+            res["library_ms"] = None
+        res["library"] = lib_name if library else f"{lib_name}: refused at M={m}"
+        nbytes = (m * k * x.element_size() + k * n * w.element_size() + m * n * 4
+                  + (0 if s is None else n * 4) + (m * 4 if kind == "int8" else 0))
+        res["bound_ms"], res["bound_by"] = bound_ms(
+            nbytes, 2.0 * m * k * n, PEAK_INT8 if kind == "int8" else PEAK_BF16)
+        res["row_tile"] = qmm.row_tile(m)
+        res["shape"] = (f"{model} {proj}: M={m} ({'decode' if m == 16 else 'prefill'}), "
+                        f"K {k}, N {n}, {kind} weights, bf16 x")
+        timed.append(res)
+    del w, s
+    free_device_memory()
+    return timed, worst_f32, worst_edge
+
+
+def check_qmm(dev) -> dict:
+    """K5, K6, K7 at every shape of ``QMM_MODELS``: bf16 x at the timed
+    and the edge rows, f32 x at the timed rows -> {kernel name: the first
+    (Qwen3-8B decode qkv) result with every timed shape's in ``by_shape``}."""
+    g = torch.Generator(device=dev).manual_seed(20)
+    results = {}
+    for kind, models in QMM_MODELS.items():
+        name = QMM_KINDS[kind][0]
+        by_shape, worst_f32, worst_edge, edges = [], 0.0, 0.0, []
+        for model, shapes, rows, edge_rows in models:
+            for proj, k, n in shapes:
+                timed, f32, edge = check_qmm_shape(g, dev, kind, model, proj, k, n,
+                                                   rows, edge_rows)
+                by_shape += timed
+                worst_f32, worst_edge = max(worst_f32, f32), max(worst_edge, edge)
+            edges.append(f"{model} M {edge_rows}")
+        row = dict(by_shape[0], by_shape=by_shape, max_abs_err_f32=worst_f32,
+                   max_abs_err_edge_rows=worst_edge,
+                   max_abs_err=max([worst_edge] + [r["max_abs_err"] for r in by_shape]))
+        results[name] = row
+        log(f"[kernels] {name}: bf16 x err {row['max_abs_err']:.3g} (part-filled row "
+            f"tiles, {'; '.join(edges)}: {worst_edge:.3g}), f32 x err {worst_f32:.3g} "
+            f"({QMM_TOL})")
+        for r in by_shape:
+            lib = ("n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms")
+            alone = (f" (the launch alone {r['kernel_only_ms']:.4f} ms)"
+                     if "kernel_only_ms" in r else "")
+            log(f"[kernels]   {r['shape']}: kernel {r['ms']:.4f} ms{alone} (row tile "
+                f"{r['row_tile']}), plain {r['plain_ms']:.4f} ms, library ({r['library']}) "
+                f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return results
+
+
+def phase_quant_caches(rng, dev) -> dict:
+    """K1-K4 on int8 and fp8 caches at qwen3-1.7B's shapes: bf16 q timed,
+    f32 q checked -> {kernel name: {cache: result}}."""
+    checks = {
+        k1.NAME: lambda dt, t, c: check_decode(rng, dev, dt, t, cache=c),
+        k24.PREFILL_NAME: lambda dt, t, c: check_writer(rng, dev, dt, t, rmw=False, cache=c),
+        k3.NAME: lambda dt, t, c: check_prefill(rng, dev, dt, t, cache=c),
+        k24.RMW_NAME: lambda dt, t, c: check_writer(rng, dev, dt, t, rmw=True, cache=c),
+    }
+    out = {}
+    for name, check in checks.items():
+        out[name] = {}
+        for cache in QUANT_CACHES:
+            f32 = check(torch.float32, False, cache)
+            res = check(torch.bfloat16, True, cache)
+            res["max_abs_err_f32"] = f32["max_abs_err"]
+            out[name][cache] = res
+            log(f"[kernels] {name} on a {cache} cache: bf16 q err {res['max_abs_err']:.3g}, "
+                f"f32 q err {f32['max_abs_err']:.3g} ({QUANT_TOL})")
+            for r in res.get("by_shape", [res]):
+                log(f"[kernels]   {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+                    f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
+                    f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            free_device_memory()
+    return out
+
+
 def phase_kernels(dev) -> dict:
     rng = np.random.default_rng(0)
     checks = {
@@ -1011,12 +1356,15 @@ def phase_kernels(dev) -> dict:
 # phases 3 and 4: the engines at full width
 # ---------------------------------------------------------------------------
 def engine_config(model_kw=QWEN3_1P7B, batch: int = 16,
-                  num_blocks: int = 1024) -> EngineConfig:
+                  num_blocks: int = 1024, quant: str = "",
+                  kv_cache_dtype: str = "auto") -> EngineConfig:
     """The served configuration: split layout, block_size 64, ``batch``
-    sequences, max_model_len 4096, prefill chunks of at most 2048 tokens."""
-    return EngineConfig(
+    sequences, max_model_len 4096, prefill chunks of at most 2048 tokens;
+    ``quant`` and ``kv_cache_dtype`` for the quantized engines."""
+    cfg = EngineConfig(
         model=ModelConfig(**model_kw),
-        cache=CacheConfig(block_size=BS, num_blocks=num_blocks),
+        cache=CacheConfig(block_size=BS, num_blocks=num_blocks,
+                          kv_cache_dtype=kv_cache_dtype),
         scheduler=SchedulerConfig(
             max_seqs_per_batch=batch,
             max_model_len=4096,
@@ -1026,6 +1374,23 @@ def engine_config(model_kw=QWEN3_1P7B, batch: int = 16,
         ),
         seed=0,
     )
+    cfg.quant.method = quant
+    return cfg
+
+
+@contextlib.contextmanager
+def environ(**kw):
+    """Set environment variables for the duration of a phase."""
+    old = {k: os.environ.get(k) for k in kw}
+    os.environ.update(kw)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def warm_up(eng: LLMEngine, rng) -> None:
@@ -1038,19 +1403,31 @@ def warm_up(eng: LLMEngine, rng) -> None:
     eng.generate_all()
 
 
-def count_per_pass(runner) -> list[tuple[str, dict]]:
+def count_per_pass(runner) -> list[tuple[str, int, dict]]:
     """Wrap the runner's two model passes (one prefill group, one decode
-    batch) so that each appends ``(kind, launch-count delta)`` to the list
-    returned. The engine calls them through the instance, so the wrappers
-    see every pass."""
-    deltas: list[tuple[str, dict]] = []
+    batch) so that each appends ``(kind, rows, launch-count delta)`` to the
+    list returned; ``rows`` is the token count of the pass's hidden state,
+    the row count of each of its projections. The engine calls them through
+    the instance, so the wrappers see every pass."""
+    deltas: list[tuple[str, int, dict]] = []
+    model = runner.model
+    rows = []
+    run_layers = model._run_layers
+
+    def seen_rows(x, *args, **kw):
+        rows.append(x.shape[0])
+        return run_layers(x, *args, **kw)
+
+    model._run_layers = seen_rows
 
     def wrap(fn, kind):
         def counted(*args, **kw):
             before = dict(_build.launch_counts)
+            rows.clear()
             out = fn(*args, **kw)
-            deltas.append((kind, {k: v - before.get(k, 0)
-                                  for k, v in _build.launch_counts.items()}))
+            assert len(rows) == 1, f"{kind} pass ran the layers {len(rows)} times"
+            deltas.append((kind, rows[0], {k: v - before.get(k, 0)
+                                           for k, v in _build.launch_counts.items()}))
             return out
         return counted
 
@@ -1059,38 +1436,52 @@ def count_per_pass(runner) -> list[tuple[str, dict]]:
     return deltas
 
 
-def pass_launches(layers: int, moe_layers: int, mla: bool) -> dict[str, list[dict]]:
-    """The launches each model pass must make, by kind: a decode pass K1
-    (K11a in an MLA model) once per layer; a prefill pass K3 (K11b) once per
-    layer and one of the two writers (K2 / K11c for a chunk bucket above
-    block_size, K4 / K11d otherwise) once per layer; in a MoE model both
-    also K10 twice per MoE layer (gate_up and down); nothing else."""
+def pass_launches(layers: int, moe_layers: int, mla: bool, kind: str, rows: int,
+                  qmm_name: str = "", qmm_max_rows: int = 0) -> list[dict]:
+    """The launches a model pass of ``kind`` over ``rows`` tokens must make
+    (one of the dicts returned): a decode pass K1 (K11a in an MLA model)
+    once per layer; a prefill pass K3 (K11b) once per layer and one of the
+    two writers (K2 / K11c for a chunk bucket above block_size, K4 / K11d
+    otherwise) once per layer; in a MoE model both also K10 twice per MoE
+    layer (gate_up and down); with ``qmm_name`` (K5, K6 or K7) that kernel
+    five times per layer (qkv, o, gate, up, down) if the pass has at most
+    ``qmm_max_rows`` rows (0: in every pass), else not at all; nothing
+    else."""
     extra = {k10.NAME: 2 * moe_layers} if moe_layers else {}
+    if qmm_name and (not qmm_max_rows or rows <= qmm_max_rows):
+        extra[qmm_name] = 5 * layers
     decode, prefill, writers = (
         (k11.DECODE_NAME, k11.PREFILL_NAME, (k24.LATENT_PREFILL_NAME, k24.LATENT_RMW_NAME))
         if mla else (k1.NAME, k3.NAME, (k24.PREFILL_NAME, k24.RMW_NAME)))
-    return {
-        "decode": [{decode: layers, **extra}],
-        "prefill": [{prefill: layers, w: layers, **extra} for w in writers],
-    }
+    if kind == "decode":
+        return [{decode: layers, **extra}]
+    return [{prefill: layers, w: layers, **extra} for w in writers]
 
 
-def check_passes(deltas, want: dict[str, list[dict]]) -> None:
-    for i, (kind, d) in enumerate(deltas):
+def check_passes(deltas, want) -> None:
+    """Each pass's launches against ``want(kind, rows)``."""
+    for i, (kind, rows, d) in enumerate(deltas):
         got = {k: n for k, n in d.items() if n}
-        assert got in want[kind], (
-            f"{kind} pass {i}: launches {got}, expected one of {want[kind]}")
+        assert got in want(kind, rows), (
+            f"{kind} pass {i} over {rows} rows: launches {got}, expected one of "
+            f"{want(kind, rows)}")
 
 
 def phase_engine(model_kw=QWEN3_1P7B, num_blocks: int = 1024,
-                 tag: str = "engine") -> tuple[dict, dict]:
-    cfg = engine_config(model_kw, num_blocks=num_blocks)
+                 tag: str = "engine", quant: str = "", kv_cache_dtype: str = "auto",
+                 qmm_name: str = "", qmm_max_rows: int = 0) -> tuple[dict, dict]:
+    """Serve ``model_kw`` on the card (see the module docstring); with
+    ``qmm_name`` every model pass must also launch that kernel five times
+    per layer (``pass_launches``)."""
+    cfg = engine_config(model_kw, num_blocks=num_blocks, quant=quant,
+                        kv_cache_dtype=kv_cache_dtype)
     t0 = time.perf_counter()
     eng = LLMEngine(cfg, device="cuda")
     sync()
     log(f"[{tag}] {model_kw['model_type']}, {model_kw['num_hidden_layers']} layers, "
         f"hidden {model_kw['hidden_size']}, {model_kw.get('num_experts', 0)} experts, "
-        f"{model_kw['dtype']}, random weights, {num_blocks} KV blocks: built in "
+        f"{model_kw['dtype']}, weights {quant or model_kw['dtype']} (random), KV cache "
+        f"{kv_cache_dtype}, {num_blocks} KV blocks: built in "
         f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
         "allocated")
     rng = np.random.default_rng(0)
@@ -1130,20 +1521,32 @@ def phase_engine(model_kw=QWEN3_1P7B, num_blocks: int = 1024,
     # twice per MoE layer)
     layers = cfg.model.num_hidden_layers
     moe_layers = (layers - cfg.model.first_k_dense_replace) if cfg.model.num_experts else 0
-    want = pass_launches(layers, moe_layers, mla=cfg.model.kv_lora_rank > 0)
+    mla = cfg.model.kv_lora_rank > 0
+
+    def want(kind, rows):
+        return pass_launches(layers, moe_layers, mla, kind, rows, qmm_name=qmm_name,
+                             qmm_max_rows=qmm_max_rows)
+
     check_passes(deltas, want)
     per_pass = {}
-    for name, per in {k: n for kind in want.values() for d in kind for k, n in d.items()}.items():
+    expected = {k: n for kind, rows, _ in deltas for d in want(kind, rows)
+                for k, n in d.items()}
+    for name, per in expected.items():
         assert launches.get(name, 0) > 0, f"kernel {name} never launched: {launches}"
-        seen = sorted({d.get(name, 0) for _, d in deltas} - {0})
-        passes = sum(1 for _, d in deltas if d.get(name, 0))
+        seen = sorted({d.get(name, 0) for _, _, d in deltas} - {0})
+        passes = sum(1 for _, _, d in deltas if d.get(name, 0))
         assert seen == [per], f"{name}: launches per model pass {seen}, not [{per}]"
         assert passes * per == launches[name], (name, passes, launches[name])
         per_pass[name] = {"launches_per_step": seen[0], "passes": passes}
+    if qmm_max_rows:  # the passes that take torch's product, by their rows
+        per_pass[qmm_name]["passes_over_max_rows"] = sorted(
+            rows for _, rows, d in deltas if not d.get(qmm_name, 0))
     ttft = sorted(first.values())
     gen = 32 * len(reqs)
     info = {
         "model": model_kw["model_type"],
+        "quant": quant,
+        "kv_cache_dtype": kv_cache_dtype,
         "layers": layers,
         "requests": len(reqs),
         "prompt_lens": sorted(set(lens)),
@@ -1204,16 +1607,19 @@ PARITY_MODELS.update({
 })
 
 
-def phase_parity(name: str, model_kw: dict, devices=("cuda", "cpu")) -> int:
+def phase_parity(name: str, model_kw: dict, devices=("cuda", "cpu"), quant: str = "",
+                 kv_cache_dtype: str = "auto") -> int:
     def make():
-        return EngineConfig(
+        cfg = EngineConfig(
             model=ModelConfig(**model_kw),
-            cache=CacheConfig(block_size=16, num_blocks=128),
+            cache=CacheConfig(block_size=16, num_blocks=128, kv_cache_dtype=kv_cache_dtype),
             scheduler=SchedulerConfig(max_seqs_per_batch=4, max_model_len=256,
                                       max_tokens_per_chunk_for_prefill=64,
                                       prefill_token_buckets=[16, 64],
                                       decode_batch_buckets=[2, 4]),
         )
+        cfg.quant.method = quant
+        return cfg
 
     tree = random_param_tree(make().model, seed=7)
     rng = np.random.default_rng(1)
@@ -1238,8 +1644,9 @@ def phase_parity(name: str, model_kw: dict, devices=("cuda", "cpu")) -> int:
         got[dev] = [outs[i] for i in ids]
     a, b = (got[d] for d in devices)
     assert a == b, f"{name}: greedy tokens differ:\n{a}\n{b}"
-    log(f"[parity] f32 {name} (2 layers, bs 16): {len(prompts)} "
-        f"requests x 16 greedy tokens identical on {' and '.join(devices)}")
+    log(f"[parity] f32 {name} (2 layers, bs 16{', ' + quant + ' weights' if quant else ''}"
+        f"{', ' + kv_cache_dtype + ' KV' if kv_cache_dtype != 'auto' else ''}): "
+        f"{len(prompts)} requests x 16 greedy tokens identical on {' and '.join(devices)}")
     return len(prompts)
 
 
@@ -1249,7 +1656,25 @@ def free_device_memory() -> None:
     torch.cuda.empty_cache()
 
 
+PHASES = ("build", "kernels", "qkernels", "engines", "quant", "parity")
+
+
+def timed_phase(label: str, fn, *args, **kw):
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    free_device_memory()
+    log(f"[{label}] done in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma list of " + ", ".join(PHASES) + " (a subset prints no "
+                    "result line)")
+    phases = set(ap.parse_args().phases.split(","))
+    if not phases <= set(PHASES):
+        raise SystemExit(f"unknown phases {sorted(phases - set(PHASES))}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke run "
               "needs a CUDA card", file=sys.stderr)
@@ -1273,26 +1698,41 @@ def main() -> int:
     log(f"[build] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
-    t0 = time.perf_counter()
-    kern = phase_kernels(dev)
-    free_device_memory()
-    log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    launches, info = phase_engine()
-    free_device_memory()
-    log(f"[engine] done in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    moe_launches, moe_info = phase_engine(QWEN3_30B_A3B, num_blocks=512, tag="moe-engine")
-    free_device_memory()
-    log(f"[moe-engine] done in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    mla_launches, mla_info = phase_engine(DEEPSEEK_V2_LITE, num_blocks=512, tag="mla-engine")
-    free_device_memory()
-    log(f"[mla-engine] done in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    for name, model_kw in PARITY_MODELS.items():
-        phase_parity(name, model_kw)
-    log(f"[parity] done in {time.perf_counter() - t0:.1f} s")
+    kern, qcache, runs = {}, {}, {}
+    if "kernels" in phases:
+        kern.update(timed_phase("kernels", phase_kernels, dev))
+    if "qkernels" in phases:
+        kern.update(timed_phase("qkernels", check_qmm, dev))
+        qcache = timed_phase("qkernels", phase_quant_caches, np.random.default_rng(1), dev)
+    if "engines" in phases:
+        runs["dense"] = timed_phase("engine", phase_engine)
+        runs["moe"] = timed_phase("moe-engine", phase_engine, QWEN3_30B_A3B,
+                                  num_blocks=512, tag="moe-engine")
+        runs["mla"] = timed_phase("mla-engine", phase_engine, DEEPSEEK_V2_LITE,
+                                  num_blocks=512, tag="mla-engine")
+    if "quant" in phases:
+        with environ(XLLM_QMM_KERNEL="pallas"):
+            runs["int8"] = timed_phase(
+                "int8-engine", phase_engine, QWEN3_8B, tag="int8-engine", quant="int8",
+                kv_cache_dtype="int8", qmm_name=qmm.W8A8_NAME)
+            runs["fp8_e4m3"] = timed_phase(
+                "fp8-engine", phase_engine, QWEN3_8B, tag="fp8-engine", quant="fp8_e4m3",
+                kv_cache_dtype="fp8_e4m3", qmm_name=qmm.FP8_NAME)
+        with environ(XLLM_BF16_MM="pallas"):
+            runs["bf16mm"] = timed_phase(
+                "bf16mm-engine", phase_engine, tag="bf16mm-engine", qmm_name=qmm.BF16_NAME,
+                qmm_max_rows=256)
+    if "parity" in phases:
+        t0 = time.perf_counter()
+        for name, model_kw in PARITY_MODELS.items():
+            phase_parity(name, model_kw)
+        with environ(XLLM_QMM_KERNEL="pallas"):
+            phase_parity("qwen3", PARITY_DENSE, quant="int8", kv_cache_dtype="int8")
+        log(f"[parity] done in {time.perf_counter() - t0:.1f} s")
+    if phases != set(PHASES):
+        log(card)
+        log(f"chip_smoke: partial run ({', '.join(sorted(phases))}); no result line")
+        return 0
 
     meta = {
         k1.NAME: (k1.TPU_KERNEL, "decode_attention.cu"),
@@ -1304,18 +1744,26 @@ def main() -> int:
         k11.PREFILL_NAME: (k11.PREFILL_TPU_KERNEL, "mla_attention.cu"),
         k24.LATENT_PREFILL_NAME: (k24.LATENT_PREFILL_TPU_KERNEL, "kv_write.cu"),
         k24.LATENT_RMW_NAME: (k24.LATENT_RMW_TPU_KERNEL, "kv_write.cu"),
+        qmm.W8A8_NAME: (qmm.W8A8_TPU_KERNEL, "quant_matmul.cu"),
+        qmm.FP8_NAME: (qmm.FP8_TPU_KERNEL, "quant_matmul.cu"),
+        qmm.BF16_NAME: (qmm.BF16_TPU_KERNEL, "quant_matmul.cu"),
     }
     # each kernel's launches come from the run of its own slice's path, with
     # the counters zeroed just before it: K1-K4 the dense engine phase, K10
-    # the MoE engine phase, K11a-d the MLA engine phase
-    path_of = {k10.NAME: (moe_launches, moe_info)}
-    path_of.update({name: (mla_launches, mla_info) for name in meta
+    # the MoE engine phase, K11a-d the MLA engine phase, K5 and K6 the int8
+    # and fp8 Qwen3-8B phases, K7 the qwen3-1.7B phase under XLLM_BF16_MM
+    # (and each quantized-cache row of K1-K4 its cache's Qwen3-8B phase)
+    path_of = {k10.NAME: runs["moe"], qmm.W8A8_NAME: runs["int8"],
+               qmm.FP8_NAME: runs["fp8_e4m3"], qmm.BF16_NAME: runs["bf16mm"]}
+    path_of.update({name: runs["mla"] for name in meta
                     if name.startswith(("mla_", "latent_"))})
+    keys = ("shape", "max_abs_err", "max_abs_err_f32", "ms", "kernel_only_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "library", "row_tile", "ms_by_row_tile")
     rows = []
     for name, res in kern.items():
         tpu, src = meta[name]
         where, func = tpu.split()
-        path_launches, path_info = path_of.get(name, (launches, info))
+        path_launches, path_info = path_of.get(name, runs["dense"])
         row = {
             "name": name,
             "route": "cuda",
@@ -1329,6 +1777,7 @@ def main() -> int:
             "max_abs_err": res["max_abs_err"],
             "max_abs_err_f32": res["max_abs_err_f32"],
             "ms": res["ms"],
+            **{k: res[k] for k in ("kernel_only_ms", "max_abs_err_edge_rows") if k in res},
             "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"],
@@ -1338,12 +1787,16 @@ def main() -> int:
             "shape": res["shape"],
         }
         if "by_shape" in res:
-            row["by_shape"] = [
-                {k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                   "bound_by", "library_ms", "library", "row_tile",
-                                   "ms_by_row_tile")
-                 if k in r}
-                for r in res["by_shape"]]
+            row["by_shape"] = [{k: r[k] for k in keys if k in r} for r in res["by_shape"]]
+        if name in qcache:
+            row["by_cache"] = {
+                cache: dict({k: r[k] for k in keys if k in r},
+                            launches=runs[cache][0][name],
+                            launches_per_step=runs[cache][1]["per_pass"][name][
+                                "launches_per_step"],
+                            by_shape=[{k: x[k] for k in keys if k in x}
+                                      for x in r.get("by_shape", [])])
+                for cache, r in qcache[name].items()}
         rows.append(row)
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)

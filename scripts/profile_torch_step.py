@@ -2,12 +2,17 @@
 """Where an engine step of the PyTorch/CUDA port spends its time, on one GPU.
 
     python3 scripts/profile_torch_step.py
-        [--model qwen3-1.7b|qwen3-30b-a3b|deepseek-v2-lite]
+        [--model qwen3-1.7b|qwen3-30b-a3b|deepseek-v2-lite|qwen3-8b|qwen3-8b-int8|qwen3-8b-fp8]
         [--prompt-len 512] [--steps 16]
 
 Serves a config of ``chip_smoke.py`` (the qwen3-1.7B-class dense model, 28
-layers; Qwen3-30B-A3B, 48 layers with 128 experts; or DeepSeek-V2-Lite, 27
-MLA layers with 64 experts; bf16, random weights) through ``xllm_tpu_torch.engine.LLMEngine`` on the card:
+layers; Qwen3-30B-A3B, 48 layers with 128 experts; DeepSeek-V2-Lite, 27
+MLA layers with 64 experts; Qwen3-8B, 36 layers, with bf16 weights, or
+int8 weights and an int8 KV cache, or fp8 weights and an fp8 KV cache;
+random weights) through ``xllm_tpu_torch.engine.LLMEngine`` on the card.
+A quantized model runs twice, one engine after the other in one process:
+with the dequant default, then with ``XLLM_QMM_KERNEL=pallas`` (K5 / K6).
+Each engine:
 16 greedy requests of ``--prompt-len`` tokens, after two warm-up requests
 (first calls load CUDA modules and pick GEMM algorithms). Two windows are
 traced with ``torch.profiler``:
@@ -21,14 +26,15 @@ For each window it reports the host-clock time per step (between two
 union of the kernel and copy intervals on the trace), the device idle
 share, and the device time per step by kernel group: the port's
 hand-written kernels by name, GEMMs, and everything else. The last line
-of the output is one JSON object with those numbers and the card's name
-and power limit. Needs one CUDA card and nvcc; imports neither jax nor
-``xllm_tpu``.
+of the output is one JSON object with those numbers (by variant) and the
+card's name and power limit. Needs one CUDA card and nvcc; imports
+neither jax nor ``xllm_tpu``.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import sys
 import time
@@ -54,12 +60,18 @@ OWN_KERNELS = {
     "mla_attention_tc_kernel<1": "K11a mla_decode_attention_write",
     "mla_attention_tc_kernel<2": "K11b mla_prefill_attention_batched",
     "latent_write_rows_kernel": "K11c/K11d latent_write_rows",
+    "qmm_int8_kernel": "K5 quant_matmul_int8",
+    "qmm_bf16_kernel<true": "K6 quant_matmul_fp8",
+    "qmm_bf16_kernel<false": "K7 matmul_bf16",
 }
-# --model -> (chip_smoke model config, KV blocks)
+# --model -> (chip_smoke model config, KV blocks, quant method, KV dtype)
 MODELS = {
-    "qwen3-1.7b": (chip_smoke.QWEN3_1P7B, 1024),
-    "qwen3-30b-a3b": (chip_smoke.QWEN3_30B_A3B, 512),
-    "deepseek-v2-lite": (chip_smoke.DEEPSEEK_V2_LITE, 512),
+    "qwen3-1.7b": (chip_smoke.QWEN3_1P7B, 1024, "", "auto"),
+    "qwen3-30b-a3b": (chip_smoke.QWEN3_30B_A3B, 512, "", "auto"),
+    "deepseek-v2-lite": (chip_smoke.DEEPSEEK_V2_LITE, 512, "", "auto"),
+    "qwen3-8b": (chip_smoke.QWEN3_8B, 1024, "", "auto"),
+    "qwen3-8b-int8": (chip_smoke.QWEN3_8B, 1024, "int8", "int8"),
+    "qwen3-8b-fp8": (chip_smoke.QWEN3_8B, 1024, "fp8_e4m3", "fp8_e4m3"),
 }
 GEMM_MARKS = ("gemm", "xmma", "cutlass", "cublas", "sm90_", "nvjet")
 
@@ -136,20 +148,11 @@ def traced(eng: LLMEngine, n_steps: int | None, until=None) -> dict:
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=sorted(MODELS), default="qwen3-1.7b")
-    ap.add_argument("--prompt-len", type=int, default=512)
-    ap.add_argument("--steps", type=int, default=16)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("profile_torch_step: needs a CUDA card", file=sys.stderr)
-        return 2
-    card = chip_smoke.card_line()
-    print(card, flush=True)
-    _build.build_all()
-    model_kw, num_blocks = MODELS[args.model]
-    cfg = chip_smoke.engine_config(model_kw, batch=BATCH, num_blocks=num_blocks)
+def profile_engine(args, model: str) -> dict:
+    """Serve ``model`` once and trace its prefill and decode windows."""
+    model_kw, num_blocks, quant, kv = MODELS[model]
+    cfg = chip_smoke.engine_config(model_kw, batch=BATCH, num_blocks=num_blocks,
+                                   quant=quant, kv_cache_dtype=kv)
     eng = LLMEngine(cfg, device="cuda")
     rng = np.random.default_rng(0)
     chip_smoke.warm_up(eng, rng)
@@ -181,19 +184,43 @@ def main() -> int:
     while eng.has_unfinished():
         eng.step()
     assert eng.block_manager.num_used_blocks == 0, "KV blocks leaked"
+    return {"prefill": prefill, "decode": decode}
 
-    for name, res in (("prefill", prefill), ("decode", decode)):
-        print(f"[{name}] {res['steps']} steps: host {res['host_ms_per_step_traced']:.3f} ms/step "
-              f"(traced), device busy {res['device_busy_ms_per_step']:.3f} ms/step, "
-              f"idle share {res['device_idle_share']:.3f}", flush=True)
-        for g, ms in res["device_ms_per_step_by_group"].items():
-            print(f"[{name}]   device {g}: {ms:.4f} ms/step", flush=True)
-        for op, ms, n in res["top_host_ops_ms_per_step"]:
-            print(f"[{name}]   host {op}: {ms:.4f} ms/step over {n:.0f} calls", flush=True)
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(MODELS), default="qwen3-1.7b")
+    ap.add_argument("--prompt-len", type=int, default=512)
+    ap.add_argument("--steps", type=int, default=16)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_step: needs a CUDA card", file=sys.stderr)
+        return 2
+    card = chip_smoke.card_line()
+    print(card, flush=True)
+    _build.build_all()
+    variants = ["default", "pallas"] if MODELS[args.model][2] else ["default"]
+    results = {}
+    for variant in variants:
+        env = {"XLLM_QMM_KERNEL": "pallas" if variant == "pallas" else ""}
+        with chip_smoke.environ(**env):
+            results[variant] = profile_engine(args, args.model)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for name in ("prefill", "decode"):
+            res = results[variant][name]
+            print(f"[{variant} {name}] {res['steps']} steps: host "
+                  f"{res['host_ms_per_step_traced']:.3f} ms/step (traced), device busy "
+                  f"{res['device_busy_ms_per_step']:.3f} ms/step, idle share "
+                  f"{res['device_idle_share']:.3f}", flush=True)
+            for g, ms in res["device_ms_per_step_by_group"].items():
+                print(f"[{variant} {name}]   device {g}: {ms:.4f} ms/step", flush=True)
+            for op, ms, n in res["top_host_ops_ms_per_step"]:
+                print(f"[{variant} {name}]   host {op}: {ms:.4f} ms/step over {n:.0f} calls",
+                      flush=True)
     print(card, flush=True)
     print(json.dumps({"card": card, "model": args.model, "batch": BATCH,
-                      "prompt_len": args.prompt_len,
-                      "prefill": prefill, "decode": decode}), flush=True)
+                      "prompt_len": args.prompt_len, "variants": results}), flush=True)
     return 0
 
 

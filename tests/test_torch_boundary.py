@@ -84,6 +84,7 @@ def test_imports_no_jax_no_reference_no_triton():
                 "xllm_tpu_torch.ops.cuda.kv_write",
                 "xllm_tpu_torch.ops.cuda.prefill_attention",
                 "xllm_tpu_torch.ops.cuda.gmm", "xllm_tpu_torch.ops.moe",
+                "xllm_tpu_torch.ops.cuda.quant_matmul", "xllm_tpu_torch.ops.quant",
                 "xllm_tpu_torch.models.moe_decoder",
                 "xllm_tpu_torch.ops.cuda.mla_attention", "xllm_tpu_torch.ops.mla",
                 "xllm_tpu_torch.models.mla_decoder",
@@ -132,9 +133,12 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     [
         {"cache": {"kv_layout": "interleaved"}},
         {"cache": {"kv_layout": "interleaved_rm"}},
-        {"cache": {"kv_cache_dtype": "int8"}},
-        {"cache": {"kv_cache_dtype": "fp8_e4m3"}},
-        {"quant": {"method": "int8"}},
+        # quantized weights and KV serve for the dense families now; the
+        # MoE and MLA families still raise for them
+        pytest.param({"model": _MOE, "cache": {"kv_cache_dtype": "int8"}}, id="int8_0"),
+        pytest.param({"model": _MLA, "cache": {"kv_cache_dtype": "fp8_e4m3"}},
+                     id="fp8_e4m3"),
+        pytest.param({"model": _MLA, "quant": {"method": "int8"}}, id="int8_1"),
         {"speculative": {"method": "suffix"}},
         {"parallel": {"tp_size": 2}},
         {"parallel": {"dp_size": 2}},

@@ -9,15 +9,18 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
 
-// cache dtype codes (ops/cuda/_build.py DTYPE_*)
+// dtype codes (ops/cuda/_build.py DTYPE_*)
 #define XLLM_DTYPE_F32 0
 #define XLLM_DTYPE_BF16 1
+#define XLLM_DTYPE_I8 2
+#define XLLM_DTYPE_E4M3 3
 
 namespace xllm {
 
@@ -29,9 +32,70 @@ constexpr int kTile = 64;      // KV tokens per shared-memory tile
 // for f32 pairs).
 constexpr int kPad = 2;
 
+// One byte of a float8_e4m3fn cache (a tag type: its conversions are the
+// helpers below, never implicit).
+struct e4m3 {
+  uint8_t bits;
+};
+
+// Quantized (1-byte) caches are read through bf16 tiles: int8 codes and
+// e4m3 values are exact in bf16 (the TPU kernels' _mxu upcast).
+template <typename C>
+struct TileOf {
+  using type = C;
+};
+template <>
+struct TileOf<int8_t> {
+  using type = __nv_bfloat16;
+};
+template <>
+struct TileOf<e4m3> {
+  using type = __nv_bfloat16;
+};
+template <typename C>
+constexpr bool kQuantCache = sizeof(C) == 1;
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// Cast of a new K/V row to the cache dtype: int8 rows arrive as integral
+// codes (exact); e4m3 rounds to nearest even and, without saturation, turns
+// a magnitude above 464 into NaN, as the JAX package's cast does.
+template <typename C>
+__device__ __forceinline__ C to_cache(float x);
+template <>
+__device__ __forceinline__ int8_t to_cache<int8_t>(float x) {
+  return static_cast<int8_t>(__float2int_rn(x));
+}
+template <>
+__device__ __forceinline__ e4m3 to_cache<e4m3>(float x) {
+  return e4m3{static_cast<uint8_t>(__nv_cvt_float_to_fp8(x, __NV_NOSAT, __NV_E4M3))};
+}
+
+// P rounded to bf16 before P.V, as the TPU kernels do on quantized caches
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// two 1-byte cache values (low byte first) -> two bf16 (low half first)
+__device__ __forceinline__ uint32_t bf16x2_bits(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+template <typename C>
+__device__ __forceinline__ uint32_t upcast2(uint32_t two);
+template <>
+__device__ __forceinline__ uint32_t upcast2<int8_t>(uint32_t two) {
+  return bf16x2_bits((float)(int8_t)(two & 0xffu), (float)(int8_t)((two >> 8) & 0xffu));
+}
+template <>
+__device__ __forceinline__ uint32_t upcast2<e4m3>(uint32_t two) {
+  const __half2_raw h =
+      __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(two & 0xffffu), __NV_E4M3);
+  const float2 f = __half22float2(__half2(h));
+  return bf16x2_bits(f.x, f.y);
 }
 
 template <typename T>
@@ -100,6 +164,55 @@ __device__ __forceinline__ void load_kv_tile(T* ks, T* vs, const T* k_cache,
     kd[0] = kv.x; kd[1] = kv.y; kd[2] = kv.z; kd[3] = kv.w;
     vd[0] = vv.x; vd[1] = vv.y; vd[2] = vv.z; vd[3] = vv.w;
   }
+}
+
+// The same for a 1-byte cache C (int8 or e4m3): 16 values per 16-byte
+// load, upcast to bf16 on their way into the padded bf16 tiles.
+template <typename C, int D>
+__device__ __forceinline__ void load_kv_tile_upcast(__nv_bfloat16* ks, __nv_bfloat16* vs,
+                                                    const C* k_cache, const C* v_cache,
+                                                    const int* bt_row, int layer,
+                                                    int num_blocks, int hkv, int h,
+                                                    int bs, int t0, int jlo, int jhi) {
+  constexpr int kVec = 16;
+  constexpr int kChunks = D / kVec;
+  const int n = (jhi - jlo) * kChunks;
+  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
+    const int j = jlo + idx / kChunks;
+    const int c = idx % kChunks;
+    const int pos = t0 + j;
+    const int blk = bt_row[pos / bs];
+    const size_t src =
+        cache_row(layer, num_blocks, hkv, bs, blk, h, pos % bs, D) + c * kVec;
+    const uint4 kv = *reinterpret_cast<const uint4*>(k_cache + src);
+    const uint4 vv = *reinterpret_cast<const uint4*>(v_cache + src);
+    const uint32_t kw[4] = {kv.x, kv.y, kv.z, kv.w}, vw[4] = {vv.x, vv.y, vv.z, vv.w};
+    uint32_t* kd = reinterpret_cast<uint32_t*>(ks + j * (D + kPad) + c * kVec);
+    uint32_t* vd = reinterpret_cast<uint32_t*>(vs + j * (D + kPad) + c * kVec);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      kd[2 * i] = upcast2<C>(kw[i]);
+      kd[2 * i + 1] = upcast2<C>(kw[i] >> 16);
+      vd[2 * i] = upcast2<C>(vw[i]);
+      vd[2 * i + 1] = upcast2<C>(vw[i] >> 16);
+    }
+  }
+}
+
+// Either loader, by the cache type: S is the tile type (TileOf<C>::type).
+template <typename C, int D>
+__device__ __forceinline__ void load_tile(typename TileOf<C>::type* ks,
+                                          typename TileOf<C>::type* vs,
+                                          const C* k_cache, const C* v_cache,
+                                          const int* bt_row, int layer, int num_blocks,
+                                          int hkv, int h, int bs, int t0, int jlo,
+                                          int jhi) {
+  if constexpr (kQuantCache<C>)
+    load_kv_tile_upcast<C, D>(ks, vs, k_cache, v_cache, bt_row, layer, num_blocks, hkv,
+                              h, bs, t0, jlo, jhi);
+  else
+    load_kv_tile<C, D>(ks, vs, k_cache, v_cache, bt_row, layer, num_blocks, hkv, h, bs,
+                       t0, jlo, jhi);
 }
 
 // ---------------------------------------------------------------------------

@@ -33,6 +33,14 @@
 // like every other position; no other split reads that position.
 // Sequences never share a page that is written (shared prefix pages are
 // full and read-only), so no other block touches the row.
+//
+// Quantized caches (int8 codes or e4m3, 1 byte a value; q, the new rows and
+// the output stay bf16 or f32): the tiles are upcast to bf16 on their way
+// into shared memory, and two rules of the TPU kernel hold: the new token is
+// attended as given, not as stored (the last split starts its softmax at
+// m = q.k_new * scale, l = 1, acc = v_new and walks the cached positions
+// [.., seq_len - 1) only; it writes the row cast to the cache dtype), and P
+// is rounded to bf16 before P.V (l sums the unrounded P).
 #include "common.cuh"
 
 namespace xllm {
@@ -50,18 +58,19 @@ __device__ __forceinline__ float dot_q_k(const float* q, const T* k) {
   return s;
 }
 
-template <typename T, int D>
+template <typename S, int D>
 size_t decode_smem_bytes(int group) {
-  return 2 * (size_t)kTile * (D + kPad) * sizeof(T) +
+  return 2 * (size_t)kTile * (D + kPad) * sizeof(S) +
          ((size_t)group * (2 * D + kTile) + 3 * group) * sizeof(float);
 }
 
-template <typename T, int D>
+// T: q / new rows / output; C: the cache (T itself, or int8 / e4m3)
+template <typename T, typename C, int D>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_write_kernel(const T* __restrict__ q,      // [B, Hq, D]
                                   const T* __restrict__ k_new,  // [B, Hkv, D]
                                   const T* __restrict__ v_new,
-                                  T* k_cache, T* v_cache,  // [L, NB, Hkv, bs, D]
+                                  C* k_cache, C* v_cache,  // [L, NB, Hkv, bs, D]
                                   const int* __restrict__ slot_mapping,  // [B]
                                   const int* __restrict__ block_tables,  // [B, nbmax]
                                   const int* __restrict__ seq_lens,      // [B]
@@ -71,9 +80,11 @@ __global__ void __launch_bounds__(kThreads)
                                   int layer, int num_blocks, int hkv, int bs,
                                   int nbmax, int group, float scale,
                                   int window, int chunk, int nsplit) {
+  using S = typename TileOf<C>::type;
+  constexpr bool kQuant = kQuantCache<C>;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + kTile * (D + kPad);
+  S* ks = reinterpret_cast<S*>(smem);
+  S* vs = ks + kTile * (D + kPad);
   float* qs = reinterpret_cast<float*>(vs + kTile * (D + kPad));  // [G, D]
   float* acc = qs + group * D;                                    // [G, D]
   float* ss = acc + group * D;                                    // [G, kTile]
@@ -102,15 +113,21 @@ __global__ void __launch_bounds__(kThreads)
   const int t_end = min(t_begin + chunk, seq_len);
 
   // 1. the split holding the last position writes the new K/V row first
-  if (split == nsp - 1) {
+  const bool last = split == nsp - 1;
+  const T* kn = k_new + ((size_t)b * hkv + h) * D;
+  const T* vn = v_new + ((size_t)b * hkv + h) * D;
+  if (last) {
     const int slot = slot_mapping[b];
     const size_t wrow =
         cache_row(layer, num_blocks, hkv, bs, slot / bs, h, slot % bs, D);
-    const T* kn = k_new + ((size_t)b * hkv + h) * D;
-    const T* vn = v_new + ((size_t)b * hkv + h) * D;
     for (int d = tid; d < D; d += blockDim.x) {
-      k_cache[wrow + d] = kn[d];
-      v_cache[wrow + d] = vn[d];
+      if constexpr (kQuant) {
+        k_cache[wrow + d] = to_cache<C>(to_float(kn[d]));
+        v_cache[wrow + d] = to_cache<C>(to_float(vn[d]));
+      } else {
+        k_cache[wrow + d] = kn[d];
+        v_cache[wrow + d] = vn[d];
+      }
     }
   }
   for (int i = tid; i < group * D; i += blockDim.x) {
@@ -122,21 +139,38 @@ __global__ void __launch_bounds__(kThreads)
     ls[g] = 0.f;
   }
   __syncthreads();  // the new row is visible to the whole block from here
-
-  // 2. online-softmax walk over [t_begin, t_end), kTile at a time; every
-  //    tile holds at least one live position, so m stays finite
-  const int* bt = block_tables + (size_t)b * nbmax;
   const int nwarps = blockDim.x / 32;
-  for (int t0 = t_begin; t0 < t_end; t0 += kTile) {
+  if (kQuant && last) {
+    // the new token as given: m = q.k_new * scale, l = 1, acc = v_new
+    for (int g = warp; g < group; g += nwarps) {
+      float s = 0.f;
+      for (int d = lane; d < D; d += 32) s = fmaf(qs[g * D + d], to_float(kn[d]), s);
+      s = warp_sum(s);
+      if (lane == 0) {
+        ms[g] = s * scale;
+        ls[g] = 1.f;
+      }
+    }
+    for (int i = tid; i < group * D; i += blockDim.x) acc[i] = to_float(vn[i % D]);
+    __syncthreads();
+  }
+
+  // 2. online-softmax walk over [t_begin, t_end), kTile at a time (on a
+  //    quantized cache over the cached positions, below seq_len - 1); every
+  //    tile of a split that starts at m = -inf holds a live position, so m
+  //    stays finite
+  const int* bt = block_tables + (size_t)b * nbmax;
+  const int t_walk = kQuant ? min(t_end, seq_len - 1) : t_end;
+  for (int t0 = t_begin; t0 < t_walk; t0 += kTile) {
     const int jlo = max(lo - t0, 0);
-    const int jhi = min(t_end - t0, kTile);
-    load_kv_tile<T, D>(ks, vs, k_cache, v_cache, bt, layer, num_blocks, hkv, h,
-                       bs, t0, jlo, jhi);
+    const int jhi = min(t_walk - t0, kTile);
+    load_tile<C, D>(ks, vs, k_cache, v_cache, bt, layer, num_blocks, hkv, h, bs, t0,
+                    jlo, jhi);
     __syncthreads();
     for (int i = tid; i < group * kTile; i += blockDim.x) {
       const int g = i / kTile, j = i % kTile;
       ss[i] = (j >= jlo && j < jhi)
-                  ? dot_q_k<T, D>(qs + g * D, ks + j * (D + kPad)) * scale
+                  ? dot_q_k<S, D>(qs + g * D, ks + j * (D + kPad)) * scale
                   : -INFINITY;
     }
     __syncthreads();
@@ -146,8 +180,8 @@ __global__ void __launch_bounds__(kThreads)
       const float m_old = ms[g];
       const float m_new = fmaxf(m_old, warp_max(fmaxf(a, c)));
       const float p0 = expf(a - m_new), p1 = expf(c - m_new);
-      srow[lane] = p0;
-      srow[lane + 32] = p1;
+      srow[lane] = kQuant ? round_bf16(p0) : p0;
+      srow[lane + 32] = kQuant ? round_bf16(p1) : p1;
       const float sum = warp_sum(p0 + p1);
       if (lane == 0) {
         const float alpha = expf(m_old - m_new);
@@ -205,7 +239,7 @@ __global__ void __launch_bounds__(kThreads)
   if (tid == 0) counters[b * hkv + h] = 0;
 }
 
-template <typename T, int D>
+template <typename T, typename C, int D>
 cudaError_t launch_decode(const void* q, const void* k_new, const void* v_new,
                           void* k_cache, void* v_cache, const int* slot_mapping,
                           const int* block_tables, const int* seq_lens,
@@ -213,14 +247,14 @@ cudaError_t launch_decode(const void* q, const void* k_new, const void* v_new,
                           int layer, int num_blocks, int hkv, int bs, int nbmax,
                           int group, float scale, int window, int chunk,
                           int nsplit, cudaStream_t stream) {
-  auto kernel = decode_attention_write_kernel<T, D>;
-  const size_t smem = decode_smem_bytes<T, D>(group);
+  auto kernel = decode_attention_write_kernel<T, C, D>;
+  const size_t smem = decode_smem_bytes<typename TileOf<C>::type, D>(group);
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<dim3(nsplit, hkv, batch), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_new),
-      static_cast<const T*>(v_new), static_cast<T*>(k_cache),
-      static_cast<T*>(v_cache), slot_mapping, block_tables, seq_lens,
+      static_cast<const T*>(v_new), static_cast<C*>(k_cache),
+      static_cast<C*>(v_cache), slot_mapping, block_tables, seq_lens,
       static_cast<T*>(out), part, counters, layer, num_blocks, hkv, bs, nbmax,
       group, scale, window, chunk, nsplit);
   return cudaGetLastError();
@@ -232,7 +266,7 @@ extern "C" int xllm_decode_attention_write(
     int device, const void* q, const void* k_new, const void* v_new,
     void* k_cache, void* v_cache, const void* slot_mapping,
     const void* block_tables, const void* seq_lens, void* out, void* part,
-    void* counters, int dtype, int head_dim, int batch, int layer,
+    void* counters, int dtype, int qtype, int head_dim, int batch, int layer,
     int num_blocks, int hkv, int bs, int nbmax, int group, float scale,
     int window, int chunk, int nsplit, void* stream) {
   cudaError_t e = cudaSetDevice(device);
@@ -245,15 +279,24 @@ extern "C" int xllm_decode_attention_write(
   float* pt = static_cast<float*>(part);
   int* ct = static_cast<int*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define XLLM_LAUNCH(T, D)                                                     \
-  return (int)xllm::launch_decode<T, D>(q, k_new, v_new, k_cache, v_cache, sm, \
-                                        bt, sl, out, pt, ct, batch, layer,     \
-                                        num_blocks, hkv, bs, nbmax, group,     \
-                                        scale, window, chunk, nsplit, s)
-  if (dtype == XLLM_DTYPE_BF16 && head_dim == 128) XLLM_LAUNCH(__nv_bfloat16, 128);
-  if (dtype == XLLM_DTYPE_BF16 && head_dim == 64) XLLM_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == XLLM_DTYPE_F32 && head_dim == 128) XLLM_LAUNCH(float, 128);
-  if (dtype == XLLM_DTYPE_F32 && head_dim == 64) XLLM_LAUNCH(float, 64);
+#define XLLM_LAUNCH(T, C, D)                                                     \
+  return (int)xllm::launch_decode<T, C, D>(q, k_new, v_new, k_cache, v_cache, sm, \
+                                           bt, sl, out, pt, ct, batch, layer,     \
+                                           num_blocks, hkv, bs, nbmax, group,     \
+                                           scale, window, chunk, nsplit, s)
+#define XLLM_HEAD_DIMS(T, C)                      \
+  if (head_dim == 128) XLLM_LAUNCH(T, C, 128);     \
+  if (head_dim == 64) XLLM_LAUNCH(T, C, 64);
+#define XLLM_CACHES(T, TCODE)                                               \
+  if (qtype == TCODE) {                                                     \
+    if (dtype == TCODE) { XLLM_HEAD_DIMS(T, T) }                            \
+    if (dtype == XLLM_DTYPE_I8) { XLLM_HEAD_DIMS(T, int8_t) }               \
+    if (dtype == XLLM_DTYPE_E4M3) { XLLM_HEAD_DIMS(T, xllm::e4m3) }         \
+  }
+  XLLM_CACHES(__nv_bfloat16, XLLM_DTYPE_BF16)
+  XLLM_CACHES(float, XLLM_DTYPE_F32)
+#undef XLLM_CACHES
+#undef XLLM_HEAD_DIMS
 #undef XLLM_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

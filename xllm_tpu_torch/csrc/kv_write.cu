@@ -17,22 +17,37 @@
 // else. The source layout reaches the kernel as element strides, so the
 // head-major view costs no transpose copy.
 //
+// Quantized caches: int8 codes arrive as int8 and are copied as bytes; bf16
+// or f32 rows bound for an e4m3 cache are cast here, element by element,
+// with to_cache (the JAX package's bytes, as K1 writes its new row), so the
+// rows are read once in their own dtype and no cast runs before the launch.
+//
 // What bounds it: bytes (read each new row once, write it once; no math).
 // One block per (chunk, token) copies the token's Hkv x D rows of K and V;
 // neighbouring threads move neighbouring elements of one head row, so
 // both the read and the write are coalesced.
 #include <cassert>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace xllm {
 
-template <typename T>
+// A source element in the cache dtype C: a copy, or the e4m3 cast.
+template <typename C, typename S>
+__device__ __forceinline__ C as_cache(S x) {
+  if constexpr (std::is_same_v<S, C>)
+    return x;
+  else
+    return to_cache<C>(to_float(x));
+}
+
+template <typename S, typename C>
 __global__ void __launch_bounds__(kThreads)
-    kv_write_rows_kernel(const T* __restrict__ k_src, const T* __restrict__ v_src,
+    kv_write_rows_kernel(const S* __restrict__ k_src, const S* __restrict__ v_src,
                          long long stride_p, long long stride_s,
                          long long stride_h,  // element strides; d is unit
-                         T* k_cache, T* v_cache,  // [L, NB, Hkv, bs, D]
+                         C* k_cache, C* v_cache,  // [L, NB, Hkv, bs, D]
                          const int* __restrict__ block_tables,  // [P, nbmax]
                          const int* __restrict__ q_offsets,     // [P]
                          const int* __restrict__ ntoks,         // [P]
@@ -53,21 +68,21 @@ __global__ void __launch_bounds__(kThreads)
     const size_t src = src0 + (size_t)h * stride_h + d;
     const size_t dst = cache_row(layer, num_blocks, hkv, bs, blk, h, pos % bs,
                                  head_dim) + d;
-    k_cache[dst] = k_src[src];
-    v_cache[dst] = v_src[src];
+    k_cache[dst] = as_cache<C>(k_src[src]);
+    v_cache[dst] = as_cache<C>(v_src[src]);
   }
 }
 
-template <typename T>
+template <typename S, typename C>
 cudaError_t launch_rows(const void* k_src, const void* v_src, long long sp,
                         long long ss, long long sh, void* k_cache, void* v_cache,
                         const int* block_tables, const int* q_offsets,
                         const int* ntoks, int p, int s, int layer, int num_blocks,
                         int hkv, int bs, int head_dim, int nbmax,
                         int require_aligned, cudaStream_t stream) {
-  kv_write_rows_kernel<T><<<dim3(p, s), kThreads, 0, stream>>>(
-      static_cast<const T*>(k_src), static_cast<const T*>(v_src), sp, ss, sh,
-      static_cast<T*>(k_cache), static_cast<T*>(v_cache), block_tables,
+  kv_write_rows_kernel<S, C><<<dim3(p, s), kThreads, 0, stream>>>(
+      static_cast<const S*>(k_src), static_cast<const S*>(v_src), sp, ss, sh,
+      static_cast<C*>(k_cache), static_cast<C*>(v_cache), block_tables,
       q_offsets, ntoks, layer, num_blocks, hkv, bs, head_dim, nbmax,
       require_aligned);
   return cudaGetLastError();
@@ -145,8 +160,8 @@ extern "C" int xllm_kv_write_rows(int device, const void* k_src,
                                   long long stride_s, long long stride_h,
                                   void* k_cache, void* v_cache,
                                   const void* block_tables, const void* q_offsets,
-                                  const void* ntoks, int dtype, int p, int s,
-                                  int layer, int num_blocks, int hkv, int bs,
+                                  const void* ntoks, int src_dtype, int dtype, int p,
+                                  int s, int layer, int num_blocks, int hkv, int bs,
                                   int head_dim, int nbmax, int require_aligned,
                                   void* stream) {
   cudaError_t e = cudaSetDevice(device);
@@ -155,13 +170,20 @@ extern "C" int xllm_kv_write_rows(int device, const void* k_src,
   const int* qo = static_cast<const int*>(q_offsets);
   const int* nt = static_cast<const int*>(ntoks);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == XLLM_DTYPE_BF16)
-    return (int)xllm::launch_rows<__nv_bfloat16>(
-        k_src, v_src, stride_p, stride_s, stride_h, k_cache, v_cache, bt, qo, nt,
-        p, s, layer, num_blocks, hkv, bs, head_dim, nbmax, require_aligned, st);
-  if (dtype == XLLM_DTYPE_F32)
-    return (int)xllm::launch_rows<float>(
-        k_src, v_src, stride_p, stride_s, stride_h, k_cache, v_cache, bt, qo, nt,
-        p, s, layer, num_blocks, hkv, bs, head_dim, nbmax, require_aligned, st);
+#define XLLM_ROWS(S, C)                                                            \
+  return (int)xllm::launch_rows<S, C>(k_src, v_src, stride_p, stride_s, stride_h, \
+                                      k_cache, v_cache, bt, qo, nt, p, s, layer,  \
+                                      num_blocks, hkv, bs, head_dim, nbmax,       \
+                                      require_aligned, st);
+  if (src_dtype == dtype) {  // a copy (of bytes, for a 1-byte cache)
+    if (dtype == XLLM_DTYPE_BF16) { XLLM_ROWS(__nv_bfloat16, __nv_bfloat16) }
+    if (dtype == XLLM_DTYPE_F32) { XLLM_ROWS(float, float) }
+    if (dtype == XLLM_DTYPE_I8 || dtype == XLLM_DTYPE_E4M3) { XLLM_ROWS(uint8_t, uint8_t) }
+  }
+  if (dtype == XLLM_DTYPE_E4M3) {  // the e4m3 cast of a bf16 / f32 row
+    if (src_dtype == XLLM_DTYPE_BF16) { XLLM_ROWS(__nv_bfloat16, xllm::e4m3) }
+    if (src_dtype == XLLM_DTYPE_F32) { XLLM_ROWS(float, xllm::e4m3) }
+  }
+#undef XLLM_ROWS
   return (int)cudaErrorInvalidValue;
 }

@@ -22,6 +22,11 @@
 // walk stops at the tile's causal frontier min(kv_len, last row + 1) and
 // starts at the window's lower edge. Not yet done: mma/wgmma on bf16
 // tiles, and overlapping the next tile's load with this tile's math.
+//
+// Quantized caches (int8 codes or e4m3; q and the output stay bf16 or f32):
+// the K/V tiles are upcast to bf16 on their way into shared memory and, as
+// in the TPU kernel, P is rounded to bf16 before P.V (l sums the unrounded
+// P). The chunk's own rows are read back from the cache, as stored.
 #include "common.cuh"
 
 namespace xllm {
@@ -29,17 +34,18 @@ namespace xllm {
 constexpr int kRows = 64;                         // query rows per block
 constexpr int kRowsPerWarp = kRows / (kThreads / 32);  // 16
 
-template <typename T, int D>
+template <typename S, int D>
 size_t prefill_smem_bytes() {
   return ((size_t)kRows * D + (size_t)kRows * kTile + 3 * kRows) * sizeof(float) +
-         2 * (size_t)kTile * (D + kPad) * sizeof(T);
+         2 * (size_t)kTile * (D + kPad) * sizeof(S);
 }
 
-template <typename T, int D>
+// T: q / output; C: the cache (T itself, or int8 / e4m3)
+template <typename T, typename C, int D>
 __global__ void __launch_bounds__(kThreads)
     prefill_attention_kernel(const T* __restrict__ q,  // [P, S, Hq, D]
-                             const T* __restrict__ k_cache,
-                             const T* __restrict__ v_cache,  // [L, NB, Hkv, bs, D]
+                             const C* __restrict__ k_cache,
+                             const C* __restrict__ v_cache,  // [L, NB, Hkv, bs, D]
                              const int* __restrict__ block_tables,  // [P, nbmax]
                              const int* __restrict__ q_offsets,     // [P]
                              const int* __restrict__ kv_lens,       // [P]
@@ -47,6 +53,8 @@ __global__ void __launch_bounds__(kThreads)
                              int layer, int num_blocks, int hkv, int bs,
                              int nbmax, int seq, int group, int tq, float scale,
                              int window) {
+  using S = typename TileOf<C>::type;
+  constexpr bool kQuant = kQuantCache<C>;
   constexpr int kPairs = D / 64;  // column pairs per lane: 2 * lane + 64 * c
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);  // [kRows, D]
@@ -54,8 +62,8 @@ __global__ void __launch_bounds__(kThreads)
   float* ms = ps + kRows * kTile;               // [kRows]
   float* ls = ms + kRows;
   float* alpha_s = ls + kRows;
-  T* ks = reinterpret_cast<T*>(alpha_s + kRows);  // [kTile, D + kPad]
-  T* vs = ks + kTile * (D + kPad);
+  S* ks = reinterpret_cast<S*>(alpha_s + kRows);  // [kTile, D + kPad]
+  S* vs = ks + kTile * (D + kPad);
 
   const int p = blockIdx.x, h = blockIdx.y, s0 = blockIdx.z * tq;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -103,16 +111,16 @@ __global__ void __launch_bounds__(kThreads)
   for (int t0 = (lo / kTile) * kTile; t0 < hi; t0 += kTile) {
     const int jlo = max(lo - t0, 0);
     const int jhi = min(hi - t0, kTile);
-    load_kv_tile<T, D>(ks, vs, k_cache, v_cache, bt, layer, num_blocks, hkv, h,
-                       bs, t0, jlo, jhi);
+    load_tile<C, D>(ks, vs, k_cache, v_cache, bt, layer, num_blocks, hkv, h, bs, t0,
+                    jlo, jhi);
     __syncthreads();
 
     // scores: rows warp + 4 * i, keys lane and lane + 32
     float sc[kRowsPerWarp][2];
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) sc[i][0] = sc[i][1] = 0.f;
-    const T* k0 = ks + lane * (D + kPad);
-    const T* k1 = ks + (lane + 32) * (D + kPad);
+    const S* k0 = ks + lane * (D + kPad);
+    const S* k1 = ks + (lane + 32) * (D + kPad);
 #pragma unroll 2
     for (int d = 0; d < D; d += 2) {
       const float2 a = load2(k0 + d), b = load2(k1 + d);
@@ -142,8 +150,8 @@ __global__ void __launch_bounds__(kThreads)
       const bool none = m_new == -INFINITY;  // nothing visible yet
       const float p0 = none ? 0.f : expf(s2[0] - m_new);
       const float p1 = none ? 0.f : expf(s2[1] - m_new);
-      ps[r * kTile + lane] = p0;
-      ps[r * kTile + lane + 32] = p1;
+      ps[r * kTile + lane] = kQuant ? round_bf16(p0) : p0;
+      ps[r * kTile + lane + 32] = kQuant ? round_bf16(p1) : p1;
       const float sum = warp_sum(p0 + p1);
       if (lane == 0) {
         const float alpha = none ? 1.f : expf(m_old - m_new);
@@ -197,22 +205,22 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
+template <typename T, typename C, int D>
 cudaError_t launch_prefill(const void* q, const void* k_cache,
                            const void* v_cache, const int* block_tables,
                            const int* q_offsets, const int* kv_lens, void* out,
                            int p, int seq, int layer, int num_blocks, int hkv,
                            int bs, int nbmax, int group, float scale, int window,
                            cudaStream_t stream) {
-  auto kernel = prefill_attention_kernel<T, D>;
-  const size_t smem = prefill_smem_bytes<T, D>();
+  auto kernel = prefill_attention_kernel<T, C, D>;
+  const size_t smem = prefill_smem_bytes<typename TileOf<C>::type, D>();
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   const int tq = kRows / group;
   const dim3 grid(p, hkv, (seq + tq - 1) / tq);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_cache),
-      static_cast<const T*>(v_cache), block_tables, q_offsets, kv_lens,
+      static_cast<const T*>(q), static_cast<const C*>(k_cache),
+      static_cast<const C*>(v_cache), block_tables, q_offsets, kv_lens,
       static_cast<T*>(out), layer, num_blocks, hkv, bs, nbmax, seq, group, tq,
       scale, window);
   return cudaGetLastError();
@@ -224,7 +232,8 @@ extern "C" int xllm_prefill_attention(int device, const void* q,
                                       const void* k_cache, const void* v_cache,
                                       const void* block_tables,
                                       const void* q_offsets, const void* kv_lens,
-                                      void* out, int dtype, int head_dim, int p,
+                                      void* out, int dtype, int qtype, int head_dim,
+                                      int p,
                                       int seq, int layer, int num_blocks, int hkv,
                                       int bs, int nbmax, int group, float scale,
                                       int window, void* stream) {
@@ -235,14 +244,23 @@ extern "C" int xllm_prefill_attention(int device, const void* q,
   const int* qo = static_cast<const int*>(q_offsets);
   const int* kl = static_cast<const int*>(kv_lens);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define XLLM_LAUNCH(T, D)                                                        \
-  return (int)xllm::launch_prefill<T, D>(q, k_cache, v_cache, bt, qo, kl, out, p, \
-                                         seq, layer, num_blocks, hkv, bs, nbmax,  \
-                                         group, scale, window, s)
-  if (dtype == XLLM_DTYPE_BF16 && head_dim == 128) XLLM_LAUNCH(__nv_bfloat16, 128);
-  if (dtype == XLLM_DTYPE_BF16 && head_dim == 64) XLLM_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == XLLM_DTYPE_F32 && head_dim == 128) XLLM_LAUNCH(float, 128);
-  if (dtype == XLLM_DTYPE_F32 && head_dim == 64) XLLM_LAUNCH(float, 64);
+#define XLLM_LAUNCH(T, C, D)                                                        \
+  return (int)xllm::launch_prefill<T, C, D>(q, k_cache, v_cache, bt, qo, kl, out, p, \
+                                            seq, layer, num_blocks, hkv, bs, nbmax,  \
+                                            group, scale, window, s)
+#define XLLM_HEAD_DIMS(T, C)                  \
+  if (head_dim == 128) XLLM_LAUNCH(T, C, 128); \
+  if (head_dim == 64) XLLM_LAUNCH(T, C, 64);
+#define XLLM_CACHES(T, TCODE)                                       \
+  if (qtype == TCODE) {                                             \
+    if (dtype == TCODE) { XLLM_HEAD_DIMS(T, T) }                    \
+    if (dtype == XLLM_DTYPE_I8) { XLLM_HEAD_DIMS(T, int8_t) }       \
+    if (dtype == XLLM_DTYPE_E4M3) { XLLM_HEAD_DIMS(T, xllm::e4m3) } \
+  }
+  XLLM_CACHES(__nv_bfloat16, XLLM_DTYPE_BF16)
+  XLLM_CACHES(float, XLLM_DTYPE_F32)
+#undef XLLM_CACHES
+#undef XLLM_HEAD_DIMS
 #undef XLLM_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -14,9 +14,18 @@ The JAX ``lax.scan`` over stacked layers becomes a Python loop over
 loop passes ``layer_idx`` into the attention kernels, which update the
 cache in place. Dense projections, norms, rope and the lm_head are plain
 PyTorch (the JAX package left them to XLA).
+
+Quantization (``quant="int8" | "fp8_e4m3"``): every ``*_proj_w`` is stored
+in int8 or float8_e4m3fn with an f32 per-column ``*_scale``, and its product
+goes through ``ops.quant.quant_matmul`` (``_linear``). With an int8 KV cache
+(``set_kv_scales``) the per-layer-per-head scales stay outside the attention
+kernels, as in the JAX model: s_k folds into q, the new K/V rows are
+quantized to int8 codes before the kernels, and s_v multiplies the output.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
@@ -27,8 +36,10 @@ from xllm_tpu_torch.ops.attention import (
     decode_attention_write,
     prefill_attention_write_batched,
 )
+from xllm_tpu_torch.ops.cuda.quant_matmul import matmul_bf16
 from xllm_tpu_torch.ops.linear import linear_f32
 from xllm_tpu_torch.ops.norms import rms_norm
+from xllm_tpu_torch.ops.quant import quant_matmul, to_e4m3
 from xllm_tpu_torch.ops.rope import (
     apply_rope,
     apply_rope_partial,
@@ -51,24 +62,38 @@ def _param(*shape, dtype, device) -> nn.Parameter:
     )
 
 
+QUANT_WEIGHT_DTYPES = {"int8": torch.int8, "fp8_e4m3": torch.float8_e4m3fn}
+
+
 class DecoderLayer(nn.Module):
     """One layer's parameters, named as the JAX parameter tree's keys.
-    ``dense_mlp=False`` leaves out the dense MLP (a MoE layer)."""
+    ``dense_mlp=False`` leaves out the dense MLP (a MoE layer). With
+    ``quant`` set, each ``*_proj_w`` is int8 or float8_e4m3fn and has an
+    f32 ``*_scale`` [out]."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device, dense_mlp: bool = True) -> None:
+    def __init__(self, cfg: ModelConfig, dtype, device, dense_mlp: bool = True,
+                 quant: str = "") -> None:
         super().__init__()
         hq, hkv, dh = cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim
         g = hq // hkv
         d, i = cfg.hidden_size, cfg.intermediate_size
         kw = dict(dtype=dtype, device=device)
+
+        def proj(name: str, k: int, n: int) -> None:
+            if not quant:
+                setattr(self, name, _param(k, n, **kw))
+                return
+            setattr(self, name, _param(k, n, dtype=QUANT_WEIGHT_DTYPES[quant], device=device))
+            setattr(self, name + "_scale", _param(n, dtype=torch.float32, device=device))
+
         self.input_layernorm = _param(d, **kw)
         self.post_attention_layernorm = _param(d, **kw)
-        self.qkv_proj_w = _param(d, hkv * (g + 2) * dh, **kw)
-        self.o_proj_w = _param(hq * dh, d, **kw)
+        proj("qkv_proj_w", d, hkv * (g + 2) * dh)
+        proj("o_proj_w", hq * dh, d)
         if dense_mlp:
-            self.gate_proj_w = _param(d, i, **kw)
-            self.up_proj_w = _param(d, i, **kw)
-            self.down_proj_w = _param(i, d, **kw)
+            proj("gate_proj_w", d, i)
+            proj("up_proj_w", d, i)
+            proj("down_proj_w", i, d)
         if cfg.attention_bias:
             self.qkv_proj_b = _param(hkv * (g + 2) * dh, **kw)
         if cfg.qk_norm:
@@ -83,13 +108,19 @@ class DenseDecoderModel(nn.Module):
     kv_layout = "split"
     supports_batched_prefill = True
 
-    def __init__(self, cfg: ModelConfig, device="cpu") -> None:
+    def __init__(self, cfg: ModelConfig, device="cpu", quant: str = "") -> None:
         super().__init__()
         if cfg.num_attention_heads % cfg.num_kv_heads:
             raise ValueError("num_attention_heads must be a multiple of num_kv_heads")
+        if quant and quant not in QUANT_WEIGHT_DTYPES:
+            raise ValueError(f"quant must be one of {sorted(QUANT_WEIGHT_DTYPES)}, not {quant!r}")
         self.cfg = cfg
+        self.quant = quant
         self.device = torch.device(device)
         self.dtype = _DTYPES[cfg.dtype]
+        # int8-KV per-layer-per-head scales (s_k, s_v), each [L, Hkv] f32;
+        # set by the runner for an int8 cache (set_kv_scales)
+        self.kv_scales = None
         self.scale = cfg.head_dim**-0.5 * rope_mscale(cfg.rope_scaling) ** 2
         # sliding-window attention (mistral/qwen2); 0 = full attention
         self.window = int(cfg.sliding_window or 0)
@@ -116,14 +147,16 @@ class DenseDecoderModel(nn.Module):
     # parameters
     # ------------------------------------------------------------------
     def _make_layer(self, layer_idx: int) -> nn.Module:
-        return DecoderLayer(self.cfg, self.dtype, self.device)
+        return DecoderLayer(self.cfg, self.dtype, self.device, quant=self.quant)
 
     @torch.no_grad()
     def init_random_(self, seed: int) -> None:
         """Random init from ``seed`` (tests / synthetic runs): norms 1,
         biases (the MoE router's too) 0, every other weight N(0, 0.02)
         drawn in f32 and cast, as the JAX ``init_params`` does (its bits
-        differ: another RNG)."""
+        differ: another RNG). Quantized weights are drawn directly in their
+        dtype, as the JAX ``_init_params_quantized``: int8 uniform in
+        [-127, 127] with scale 0.02 / 127, fp8 N(0, 0.02) cast with scale 1."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         for name, p in self.named_parameters():
@@ -132,6 +165,14 @@ class DenseDecoderModel(nn.Module):
                 p.fill_(1.0)
             elif leaf.endswith(("_b", "_bias")):
                 p.zero_()
+            elif leaf.endswith("_scale"):
+                p.fill_(0.02 / 127.0 if self.quant == "int8" else 1.0)
+            elif p.dtype == torch.int8:
+                p.copy_(torch.randint(-127, 128, p.shape, generator=gen,
+                                      device=self.device, dtype=torch.int8))
+            elif p.dtype == torch.float8_e4m3fn:
+                w = torch.randn(p.shape, generator=gen, device=self.device)
+                p.view(torch.uint8).copy_(to_e4m3(w * 0.02).view(torch.uint8))
             else:
                 w = torch.randn(
                     p.shape, generator=gen, device=self.device,
@@ -167,13 +208,39 @@ class DenseDecoderModel(nn.Module):
     # ------------------------------------------------------------------
     # forward
     # ------------------------------------------------------------------
+    @staticmethod
+    def _linear(lp: nn.Module, name: str, x: torch.Tensor,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """x [T, K] @ ``lp.<name>`` -> [T, N] in ``out_dtype``, from f32 sums
+        rounded once (the JAX ``_linear`` and its callers' astype).
+
+        - int8 / fp8 weights: ``quant_matmul`` with ``lp.<name>_scale``
+          (the dequant default, or K5 / K6 under ``XLLM_QMM_KERNEL=pallas``);
+        - bf16 weights under ``XLLM_BF16_MM=pallas`` or ``=stacked`` and at
+          most 256 rows: K7. The JAX package's "stacked" form keeps the
+          weight stack out of its layer scan and indexes the layer inside
+          the kernel; the port has no layer scan, so both values launch the
+          same per-layer kernel;
+        - otherwise PyTorch's product."""
+        w = getattr(lp, name)
+        if w.dtype in QUANT_WEIGHT_DTYPES.values():
+            y = quant_matmul(x, w, getattr(lp, name + "_scale"))
+        elif (os.environ.get("XLLM_BF16_MM") in ("pallas", "stacked")
+              and w.dtype == torch.bfloat16 and x.shape[0] <= 256):
+            y = matmul_bf16(x, w)
+        elif out_dtype == torch.float32:
+            return linear_f32(x, w)
+        else:
+            return torch.matmul(x, w)  # f32 sums, rounded once to x's dtype
+        return y.to(out_dtype)
+
     def _mlp(self, lp: DecoderLayer, x: torch.Tensor) -> torch.Tensor:
         # gate and up stay in f32 through SiLU x up; one rounding before
         # the down projection (the JAX _linear's preferred_element_type)
-        gate = linear_f32(x, lp.gate_proj_w)
-        up = linear_f32(x, lp.up_proj_w)
+        gate = self._linear(lp, "gate_proj_w", x)
+        up = self._linear(lp, "up_proj_w", x)
         act = (F.silu(gate) * up).to(x.dtype)
-        return torch.matmul(act, lp.down_proj_w)
+        return self._linear(lp, "down_proj_w", act, x.dtype)
 
     def _attn_qkv(
         self, lp: DecoderLayer, x: torch.Tensor, positions: torch.Tensor
@@ -184,9 +251,9 @@ class DenseDecoderModel(nn.Module):
         g = c.num_attention_heads // hkv
         if c.attention_bias:
             # the bias joins the f32 product; one rounding after it
-            qkv = (linear_f32(x, lp.qkv_proj_w) + lp.qkv_proj_b).to(x.dtype)
+            qkv = (self._linear(lp, "qkv_proj_w", x) + lp.qkv_proj_b).to(x.dtype)
         else:
-            qkv = torch.matmul(x, lp.qkv_proj_w)
+            qkv = self._linear(lp, "qkv_proj_w", x, x.dtype)
         # group-major fused layout: [T, hkv, g+2, dh]
         qkv = qkv.reshape(t, hkv, g + 2, dh)
         q = qkv[:, :, :g].reshape(t, c.num_attention_heads, dh)
@@ -217,7 +284,7 @@ class DenseDecoderModel(nn.Module):
             attn = attn_fn(q, k, v, layer_idx).reshape(
                 t, c.num_attention_heads * c.head_dim
             )
-            attn_out = torch.matmul(attn, lp.o_proj_w)
+            attn_out = self._linear(lp, "o_proj_w", attn, x.dtype)
             if c.use_sandwich_norms:
                 attn_out = rms_norm(
                     attn_out, lp.post_self_attn_layernorm, c.rms_norm_eps
@@ -270,6 +337,7 @@ class DenseDecoderModel(nn.Module):
         p, s = inp.token_ids.shape
 
         def attn_fn(q, k, v, layer_idx):
+            q, k, v = self._kv_quant_in(q, k, v, layer_idx)
             out, _, _ = prefill_attention_write_batched(
                 q.reshape(p, s, *q.shape[1:]),
                 k.reshape(p, s, *k.shape[1:]),
@@ -277,7 +345,7 @@ class DenseDecoderModel(nn.Module):
                 k_all, v_all, layer_idx, inp.slot_mapping, inp.block_tables,
                 inp.q_offsets, inp.kv_lens, self.scale, window=self.window,
             )
-            return out.reshape(p * s, *out.shape[2:])
+            return self._kv_quant_out(out.reshape(p * s, *out.shape[2:]), layer_idx)
 
         return attn_fn
 
@@ -285,13 +353,51 @@ class DenseDecoderModel(nn.Module):
         """The attention step ``_run_layers`` calls in a decode pass."""
 
         def attn_fn(q, k, v, layer_idx):
+            q, k, v = self._kv_quant_in(q, k, v, layer_idx)
             out, _, _ = decode_attention_write(
                 q, k, v, k_all, v_all, layer_idx, inp.slot_mapping,
                 inp.block_tables, inp.seq_lens, self.scale, window=self.window,
             )
-            return out
+            return self._kv_quant_out(out, layer_idx)
 
         return attn_fn
+
+    # ------------------------------------------------------------------
+    # int8 KV (scales applied outside the attention kernels)
+    # ------------------------------------------------------------------
+    def _kv_quant_in(self, q, k, v, layer_idx: int):
+        """Fold s_k into q and quantize the new K/V rows to int8 codes:
+        (q * s_k) . (k / s_k) == q . k, so the kernels see one code space
+        for the cached pages and the new rows."""
+        if self.kv_scales is None:
+            return q, k, v
+        sk, sv = (s[layer_idx] for s in self.kv_scales)
+        g = self.cfg.num_attention_heads // self.cfg.num_kv_heads
+        q = (q.float() * sk.repeat_interleave(g)[None, :, None]).to(q.dtype)
+
+        def quant(x, s):
+            codes = torch.round(x.float() / s[None, :, None])
+            return torch.clamp(codes, -127, 127).to(torch.int8)
+
+        return q, quant(k, sk), quant(v, sv)
+
+    def _kv_quant_out(self, out, layer_idx: int):
+        """out = sum p (v / s_v): multiply s_v back per kv head."""
+        if self.kv_scales is None:
+            return out
+        g = self.cfg.num_attention_heads // self.cfg.num_kv_heads
+        sv = self.kv_scales[1][layer_idx].repeat_interleave(g)
+        return (out.float() * sv[None, :, None]).to(out.dtype)
+
+    def set_kv_scales(self, s_k, s_v) -> None:
+        """Install per-layer-per-head int8-KV scales ([L, Hkv] f32, or
+        scalars)."""
+        shape = (self.cfg.num_hidden_layers, self.cfg.num_kv_heads)
+        self.kv_scales = tuple(
+            torch.broadcast_to(torch.as_tensor(s, dtype=torch.float32), shape)
+            .contiguous().to(self.device)
+            for s in (s_k, s_v)
+        )
 
     def compute_logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """[N, D] -> [N, V] in the model dtype."""

@@ -67,5 +67,8 @@ def get_model_class(model_type: str) -> type:
     return ModelRegistry.get(model_type)
 
 
-def create_model(cfg: ModelConfig, device="cpu"):
-    return get_model_class(cfg.model_type)(cfg, device=device)
+def create_model(cfg: ModelConfig, device="cpu", quant: str = ""):
+    """``quant`` ("int8" | "fp8_e4m3") stores the dense families' projections
+    quantized; the runner refuses it for the other families."""
+    kw = {"quant": quant} if quant else {}
+    return get_model_class(cfg.model_type)(cfg, device=device, **kw)

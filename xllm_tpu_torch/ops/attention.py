@@ -67,6 +67,8 @@ def prefill_attention_write_batched(
     del slot_mapping
     s = q.shape[1]
     ntoks = kv_lens - q_offsets
+    # the writers cast the new rows to the cache dtype (JAX casts them here;
+    # an fp8 cache's cast runs inside the kernel, with the same bytes)
     if s <= k_all.shape[3]:
         # small chunks (the tail of a prompt, speculative verify rows) may
         # start mid-page: token-major row writer

@@ -148,22 +148,30 @@ def stream_of(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-# cache dtype codes shared with csrc/common.cuh
+# dtype codes shared with csrc/common.cuh
 DTYPE_F32 = 0
 DTYPE_BF16 = 1
+DTYPE_I8 = 2
+DTYPE_E4M3 = 3
 
 
 def dtype_code(dtype) -> int:
     import torch
 
-    if dtype == torch.float32:
-        return DTYPE_F32
-    if dtype == torch.bfloat16:
-        return DTYPE_BF16
-    raise NotImplementedError(
-        f"CUDA kernels take bfloat16 or float32 caches, not {dtype}; "
-        "int8 and fp8 caches wait for the quantization slice"
-    )
+    codes = {torch.float32: DTYPE_F32, torch.bfloat16: DTYPE_BF16,
+             torch.int8: DTYPE_I8, torch.float8_e4m3fn: DTYPE_E4M3}
+    if dtype not in codes:
+        raise NotImplementedError(
+            f"CUDA kernels take float32, bfloat16, int8 or float8_e4m3fn, not {dtype}"
+        )
+    return codes[dtype]
+
+
+def is_quantized(dtype) -> bool:
+    """A 1-byte cache or weight dtype (int8 codes or float8_e4m3fn)."""
+    import torch
+
+    return dtype in (torch.int8, torch.float8_e4m3fn)
 
 
 def check_head_dim(d: int) -> None:

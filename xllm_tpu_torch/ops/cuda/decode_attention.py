@@ -8,6 +8,14 @@ tokens (current one included) through ``block_tables`` with an f32 softmax
 and an optional sliding ``window``. A row with ``seq_len == 0`` writes
 nothing and outputs zeros.
 
+Quantized caches (int8 codes or float8_e4m3fn; q, the new rows and the
+output stay bf16 or f32) follow the TPU kernel, in the kernel and its plain
+version alike: the new token is attended as given (its row is not read
+back from the cache) and written cast to the cache dtype, and P is rounded
+to bf16 before P.V. (The JAX package's portable CPU path differs on both
+points: it writes first and attends to the stored row, and keeps P in q's
+dtype.)
+
 Bound on the card: bytes (every live K/V row is read once per step); the
 design notes are in the CUDA source. ``paged_decode_attention_write`` takes
 the kernel for a CUDA tensor and the plain version for a CPU tensor.
@@ -20,6 +28,7 @@ import ctypes
 import torch
 
 from xllm_tpu_torch.ops.cuda import _build
+from xllm_tpu_torch.ops.quant import cast_to
 
 NAME = "decode_attention_write"
 TPU_KERNEL = (
@@ -43,13 +52,16 @@ def paged_decode_attention_write_plain(
     window: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same in-place write, same
-    zeros for padded rows)."""
+    zeros for padded rows, same rules on a quantized cache)."""
     layer = int(layer_idx)
     bs = k_all.shape[3]
     live = seq_lens > 0
     slot = slot_mapping.long()[live]
-    k_all[layer, slot // bs, :, slot % bs, :] = k_new[live].to(k_all.dtype)
-    v_all[layer, slot // bs, :, slot % bs, :] = v_new[live].to(v_all.dtype)
+    for new, cache in ((k_new, k_all), (v_new, v_all)):
+        rows = cast_to(new[live], cache.dtype)
+        if _build.is_quantized(cache.dtype):  # write the bytes
+            cache, rows = cache.view(torch.uint8), rows.view(torch.uint8)
+        cache[layer, slot // bs, :, slot % bs, :] = rows
 
     b, hq, d = q.shape
     hkv = k_all.shape[2]
@@ -62,13 +74,29 @@ def paged_decode_attention_write_plain(
     scores = torch.einsum("bkgd,bksd->bkgs", qg, k) * scale
     kv_idx = torch.arange(k.shape[2], device=q.device)
     lens = seq_lens.long()[:, None, None, None]
-    mask = kv_idx < lens
+    if not _build.is_quantized(k_all.dtype):
+        mask = kv_idx < lens
+        if window > 0:
+            mask = mask & (kv_idx >= lens - window)
+        probs = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
+        probs = torch.nan_to_num(probs)  # fully masked (padded) rows -> 0
+        out = torch.einsum("bkgs,bksd->bkgd", probs, v).reshape(b, hq, d)
+        return out.to(q.dtype)
+    # quantized cache: the cached positions [.., seq_len - 1) from the
+    # cache, the new token as given; P rounded to bf16 before P.V
+    mask = kv_idx < lens - 1
     if window > 0:
         mask = mask & (kv_idx >= lens - window)
-    probs = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
-    probs = torch.nan_to_num(probs)  # fully masked (padded) rows -> 0
-    out = torch.einsum("bkgs,bksd->bkgd", probs, v).reshape(b, hq, d)
-    return out.to(q.dtype)
+    scores = scores.masked_fill(~mask, float("-inf"))
+    s_new = (qg * k_new.float()[:, :, None, :]).sum(-1) * scale  # [B, Hkv, G]
+    m = torch.maximum(scores.amax(-1), s_new)
+    p = torch.exp(scores - m[..., None])
+    p_new = torch.exp(s_new - m)
+    acc = torch.einsum("bkgs,bksd->bkgd", p.bfloat16().float(), v)
+    acc = acc + p_new[..., None] * v_new.float()[:, :, None, :]
+    out = acc / (p.sum(-1) + p_new)[..., None]
+    out = torch.where(live[:, None, None, None], out, 0.0)  # padded rows -> 0
+    return out.reshape(b, hq, d).to(q.dtype)
 
 
 _lib = None
@@ -84,7 +112,7 @@ def _load() -> ctypes.CDLL:
         lib = _build.load(_SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.xllm_decode_attention_write.argtypes = [
-            i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
+            i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
             ctypes.c_float, i, i, i, p,
         ]
         lib.xllm_decode_attention_write.restype = i
@@ -133,6 +161,12 @@ def paged_decode_attention_write(
     nl, nb, hkv, bs, d_cache = k_all.shape
     _build.check_head_dim(d)
     dtype = _build.dtype_code(k_all.dtype)
+    # q, the new rows and the output in the cache dtype; on a quantized
+    # cache in q's own (bf16 or f32; int8 codes are exact in either)
+    work = q.dtype if _build.is_quantized(k_all.dtype) else k_all.dtype
+    qtype = _build.dtype_code(work)
+    if _build.is_quantized(work):
+        raise ValueError(f"{NAME}: q must be bfloat16 or float32, not {q.dtype}")
     if d_cache != d or hq % hkv or v_all.shape != k_all.shape:
         raise ValueError(f"{NAME}: q {tuple(q.shape)} vs cache {tuple(k_all.shape)}")
     if k_new.shape != (b, hkv, d) or v_new.shape != (b, hkv, d):
@@ -144,9 +178,9 @@ def paged_decode_attention_write(
             raise ValueError(f"{NAME}: index arrays must be contiguous int32 on {q.device}")
     if b == 0:
         return torch.empty_like(q)
-    qk = q.to(k_all.dtype).contiguous()
-    kn = k_new.to(k_all.dtype).contiguous()
-    vn = v_new.to(k_all.dtype).contiguous()
+    qk = q.to(work).contiguous()
+    kn = k_new.to(work).contiguous()
+    vn = v_new.to(work).contiguous()
     out = torch.empty_like(qk)
     group = hq // hkv
     # splits are sized from the block-table width, not from seq_lens, so
@@ -163,7 +197,7 @@ def paged_decode_attention_write(
         q.device.index or 0, _build.ptr(qk), _build.ptr(kn), _build.ptr(vn),
         _build.ptr(k_all), _build.ptr(v_all), _build.ptr(slot_mapping),
         _build.ptr(block_tables), _build.ptr(seq_lens), _build.ptr(out),
-        _build.ptr(part), _build.ptr(counters), dtype, d, b, int(layer_idx),
+        _build.ptr(part), _build.ptr(counters), dtype, qtype, d, b, int(layer_idx),
         nb, hkv, bs, block_tables.shape[1], group, float(scale), int(window),
         chunk, nsplit, _build.stream_of(q),
     )

@@ -10,7 +10,7 @@ as zeros. Unlike the TPU kernel it takes any M and N (K and N multiples of
 
 Bound on the card: bytes, at decode and at the 2048-token prefill bucket
 alike; see the CUDA source. fp8 ``rhs`` (the TPU kernel's weight-only
-upcast) waits for the quantization slice.
+upcast, for fp8 expert stacks) is not ported yet.
 """
 
 from __future__ import annotations
@@ -87,7 +87,7 @@ def gmm(
     e, k2, n = rhs.shape
     if rhs.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
         raise NotImplementedError(
-            f"{NAME}: fp8 expert weights wait for the quantization slice"
+            f"{NAME}: fp8 expert weights (the fp8-rhs instance) are not ported yet"
         )
     if lhs.dtype != rhs.dtype:
         raise ValueError(f"{NAME}: lhs {lhs.dtype} vs rhs {rhs.dtype}")

@@ -24,7 +24,11 @@ Token ``j < ntoks[p]`` of chunk ``p`` lands at position ``q_offsets[p] + j``
 of its sequence, through ``block_tables[p]``; ``ntoks[p] == 0`` marks a
 padded row. Exactly the valid rows are written, in place. (The TPU's K2 and
 K11c also overwrote the never-read rest of the tail page: their DMAs move
-whole pages.) Bound on the card: bytes; see the CUDA source.
+whole pages.) Rows in another dtype than the cache's are cast to it: bf16
+or f32 rows bound for an fp8 cache by the kernel itself, with the JAX
+package's bytes (``ops.quant.to_e4m3`` in the plain version), any other
+pair by ``Tensor.to`` before the launch; int8 codes are copied as bytes.
+Bound on the card: bytes; see the CUDA source.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import ctypes
 import torch
 
 from xllm_tpu_torch.ops.cuda import _build
+from xllm_tpu_torch.ops.quant import cast_to
 
 PREFILL_NAME = "kv_write_prefill_batched"
 RMW_NAME = "kv_write_rmw_batched"
@@ -73,8 +78,11 @@ def kv_write_rows_plain(
     blk = torch.gather(block_tables.long(), 1, page)[valid]
     off = (pos % bs)[valid]
     layer = int(layer_idx)
-    k_all[layer, blk, :, off, :] = k_rows[valid].to(k_all.dtype)
-    v_all[layer, blk, :, off, :] = v_rows[valid].to(v_all.dtype)
+    for rows, cache in ((k_rows, k_all), (v_rows, v_all)):
+        rows = cast_to(rows[valid], cache.dtype)
+        if _build.is_quantized(cache.dtype):  # write the bytes
+            cache, rows = cache.view(torch.uint8), rows.view(torch.uint8)
+        cache[layer, blk, :, off, :] = rows
 
 
 _lib = None
@@ -86,7 +94,7 @@ def _load() -> ctypes.CDLL:
         lib = _build.load(_SOURCE)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.xllm_kv_write_rows.argtypes = [
-            i, p, p, ll, ll, ll, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p,
+            i, p, p, ll, ll, ll, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p,
         ]
         lib.xllm_kv_write_rows.restype = i
         lib.xllm_latent_write_rows.argtypes = [
@@ -111,8 +119,11 @@ def _launch(name, k_rows, v_rows, k_all, v_all, layer_idx, block_tables,
     for t in (block_tables, q_offsets, ntoks):
         if t.dtype != torch.int32 or not t.is_contiguous() or t.device != k_all.device:
             raise ValueError(f"{name}: index arrays must be contiguous int32 on {k_all.device}")
-    k_rows = k_rows.to(k_all.dtype)
-    v_rows = v_rows.to(k_all.dtype)
+    if k_rows.dtype != v_rows.dtype or k_all.dtype != v_all.dtype:
+        raise ValueError(f"{name}: K and V rows (and caches) must share a dtype")
+    if not (k_all.dtype == torch.float8_e4m3fn
+            and k_rows.dtype in (torch.bfloat16, torch.float32)):
+        k_rows, v_rows = k_rows.to(k_all.dtype), v_rows.to(v_all.dtype)
     if k_rows.stride(3) != 1 or k_rows.stride() != v_rows.stride():
         k_rows = k_rows.contiguous()
         v_rows = v_rows.contiguous()
@@ -125,7 +136,8 @@ def _launch(name, k_rows, v_rows, k_all, v_all, layer_idx, block_tables,
         k_all.device.index or 0, _build.ptr(k_rows), _build.ptr(v_rows),
         sp, ss, sh, _build.ptr(k_all), _build.ptr(v_all),
         _build.ptr(block_tables), _build.ptr(q_offsets), _build.ptr(ntoks),
-        dtype, p, s, int(layer_idx), nb, hkv, bs, d, block_tables.shape[1],
+        _build.dtype_code(k_rows.dtype), dtype, p, s, int(layer_idx), nb, hkv, bs, d,
+        block_tables.shape[1],
         int(require_aligned), _build.stream_of(k_all),
     )
     _build.check(lib, err, name)

@@ -9,6 +9,10 @@ marks a padded row. Query rows past a chunk's ``kv_len - q_offset`` tokens
 (bucket padding) and padded rows come out as zeros, in the kernel and in
 its plain version alike.
 
+Quantized caches (int8 codes or float8_e4m3fn; q and the output stay bf16
+or f32): P is rounded to bf16 before P.V, as in the TPU kernel, in the
+kernel and its plain version alike.
+
 Bound on the card: operations for long chunks (S = 2048), bytes for
 short ragged ones; see the CUDA source.
 """
@@ -63,8 +67,17 @@ def paged_attention_prefill_batched_plain(
     live = q_pos < kv_lens.long()[:, None]  # rows holding a real token
     mask = mask & live[:, :, None]
     scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
-    probs = torch.nan_to_num(torch.softmax(scores, dim=-1))
-    out = torch.einsum("pkgqs,pksd->pqkgd", probs, v).reshape(p, s, hq, d)
+    if not _build.is_quantized(k_all.dtype):
+        probs = torch.nan_to_num(torch.softmax(scores, dim=-1))
+        out = torch.einsum("pkgqs,pksd->pqkgd", probs, v).reshape(p, s, hq, d)
+        return out.to(q.dtype)
+    # quantized cache: P rounded to bf16 before P.V, l of the unrounded P
+    m = scores.amax(-1, keepdim=True)
+    probs = torch.exp(scores - torch.where(torch.isfinite(m), m, 0.0))
+    l = probs.sum(-1)  # 0 for a row without a real token
+    out = torch.einsum("pkgqs,pksd->pqkgd", probs.bfloat16().float(), v)
+    l = l.permute(0, 3, 1, 2)[..., None]  # [P, S, Hkv, G, 1]
+    out = torch.where(l > 0, out / l, 0.0).reshape(p, s, hq, d)
     return out.to(q.dtype)
 
 
@@ -77,7 +90,7 @@ def _load() -> ctypes.CDLL:
         lib = _build.load(_SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.xllm_prefill_attention.argtypes = [
-            i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
+            i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i,
             ctypes.c_float, i, p,
         ]
         lib.xllm_prefill_attention.restype = i
@@ -108,6 +121,11 @@ def paged_attention_prefill_batched(
     nl, nb, hkv, bs, d_cache = k_all.shape
     _build.check_head_dim(d)
     dtype = _build.dtype_code(k_all.dtype)
+    # q and the output in the cache dtype; on a quantized cache in q's own
+    work = q.dtype if _build.is_quantized(k_all.dtype) else k_all.dtype
+    qtype = _build.dtype_code(work)
+    if _build.is_quantized(work):
+        raise ValueError(f"{NAME}: q must be bfloat16 or float32, not {q.dtype}")
     if d_cache != d or hq % hkv or v_all.shape != k_all.shape:
         raise ValueError(f"{NAME}: q {tuple(q.shape)} vs cache {tuple(k_all.shape)}")
     if hq // hkv > _MAX_GROUP:
@@ -117,7 +135,7 @@ def paged_attention_prefill_batched(
     for t in (block_tables, q_offsets, kv_lens):
         if t.dtype != torch.int32 or not t.is_contiguous() or t.device != q.device:
             raise ValueError(f"{NAME}: index arrays must be contiguous int32 on {q.device}")
-    qk = q.to(k_all.dtype).contiguous()
+    qk = q.to(work).contiguous()
     out = torch.empty_like(qk)
     if p == 0 or s == 0:
         return out.to(q.dtype)
@@ -126,7 +144,7 @@ def paged_attention_prefill_batched(
     err = lib.xllm_prefill_attention(
         q.device.index or 0, _build.ptr(qk), _build.ptr(k_all),
         _build.ptr(v_all), _build.ptr(block_tables), _build.ptr(q_offsets),
-        _build.ptr(kv_lens), _build.ptr(out), dtype, d, p, s, int(layer_idx),
+        _build.ptr(kv_lens), _build.ptr(out), dtype, qtype, d, p, s, int(layer_idx),
         nb, hkv, bs, block_tables.shape[1], hq // hkv, float(scale),
         int(window), _build.stream_of(q),
     )

@@ -64,11 +64,18 @@ def reject_unported(config: EngineConfig) -> None:
         raise NotImplementedError(
             f"kv_layout={c.cache.kv_layout!r}: only the split layout is ported"
         )
-    if c.cache.kv_cache_dtype in ("int8", "fp8_e4m3") or c.quant.quantize_kv:
-        raise NotImplementedError("quantized KV caches are not ported yet")
-    if c.quant.method:
+    quant_kv = c.cache.kv_cache_dtype in ("int8", "fp8_e4m3")
+    if c.quant.method not in ("", "int8", "fp8_e4m3"):
+        raise ValueError(f"quant.method={c.quant.method!r}: one of '', int8, fp8_e4m3")
+    if c.model.model_type in MOE_FAMILIES and (c.quant.method or quant_kv):
         raise NotImplementedError(
-            f"quant.method={c.quant.method!r}: quantization is not ported yet"
+            "quantized MoE families are not ported yet: fp8 expert stacks wait for "
+            "K10's fp8-rhs instance, int8 weights and KV for the MoE block's quantized path"
+        )
+    if c.model.model_type in MLA_FAMILIES and (c.quant.method or quant_kv):
+        raise NotImplementedError(
+            "quantized MLA families are not ported yet: an fp8 latent cache waits for "
+            "K11a/b's fp8 instances, quantized weights for the MLA projections' path"
         )
     if c.speculative.method:
         raise NotImplementedError("speculative decoding is not ported yet")
@@ -102,7 +109,8 @@ class ModelRunner:
         reject_unported(config)
         self.config = config
         self.device = resolve_device(device)
-        self.model = create_model(config.model, device=self.device)
+        self.model = create_model(config.model, device=self.device,
+                                  quant=config.quant.method)
         self.weights_loaded = False
         self.k_cache = None
         self.v_cache = None
@@ -142,10 +150,15 @@ class ModelRunner:
     # ------------------------------------------------------------------
     def load_model(self, params: dict | None = None, seed: int | None = None) -> None:
         """Load weights: a JAX-layout parameter tree (``weights.py``), or a
-        random init from ``seed`` (default ``config.seed``)."""
+        random init from ``seed`` (default ``config.seed``). With
+        ``quant.method`` set, a full-precision tree is quantized first, as
+        the JAX runner does; a tree that is already quantized (int8 /
+        float8_e4m3fn stacks with their ``*_scale``) is carried as it is."""
         if params is not None:
             from xllm_tpu_torch.weights import load_param_tree
 
+            if self.config.quant.method:
+                params = self._quantize_params(params)
             load_param_tree(self.model, params)
         elif self.config.model.model_path and self.config.load_format != "dummy":
             raise NotImplementedError(
@@ -164,10 +177,47 @@ class ModelRunner:
             (self.max_slots + 1, hist_cols), dtype=torch.int32, device=self.device
         )
 
+    # matmul weights eligible for weight-only quantization (the JAX
+    # runner's rule): every "*_proj_w" of a layer group but these
+    _QUANT_SKIP = ("router_w", "merger_proj_w")
+
+    def _quantize_params(self, params: dict) -> dict:
+        """Quantize every eligible bf16 / f32 ``*_proj_w`` stack of a
+        JAX-layout tree with ``ops.quant`` (the JAX ``_quantize_params``:
+        same eligibility, same bytes). Embeddings, lm_head, norms and
+        routers stay as they are; stacks already quantized are kept."""
+        from xllm_tpu_torch.ops.quant import QUANTIZERS
+        from xllm_tpu_torch.weights import as_tensor
+
+        quantize = QUANTIZERS[self.config.quant.method]
+        out = dict(params)
+        for group_name, group in params.items():
+            if not isinstance(group, dict):
+                continue
+            new_group = dict(group)
+            for name, w in group.items():
+                if not name.endswith("_proj_w") or name in self._QUANT_SKIP:
+                    continue
+                w = as_tensor(w)
+                if w.dtype not in (torch.bfloat16, torch.float32):
+                    continue
+                new_group[name], new_group[name + "_scale"] = quantize(w)
+            out[group_name] = new_group
+        return out
+
+    def set_kv_scales(self, s_k, s_v) -> None:
+        """Install calibrated int8-KV scales (``ops.quant.calibrate_kv_scales``)."""
+        if self.k_cache is not None and self.k_cache.dtype != torch.int8:
+            raise ValueError("set_kv_scales applies to int8-KV engines")
+        self.model.set_kv_scales(s_k, s_v)
+
     def initialize_kv_cache(self, num_blocks: int | None = None) -> int:
         """Allocate the paged pool; returns num_blocks."""
         self.num_blocks = num_blocks or self._derive_num_blocks()
         kv_dtype = self._resolve_kv_dtype()
+        if kv_dtype == torch.int8 and self.model.kv_scales is None:
+            cc = self.config.cache
+            self.model.set_kv_scales(cc.kv_scale_k, cc.kv_scale_v)
         self.k_cache, self.v_cache = self.model.new_kv_cache(
             self.num_blocks, self.block_size, kv_dtype
         )
@@ -178,12 +228,13 @@ class ModelRunner:
         return self.num_blocks
 
     def _resolve_kv_dtype(self) -> torch.dtype:
+        """The cache's storage dtype. int8 holds codes whose per-head scales
+        fold outside the kernels; fp8_e4m3 holds the values themselves."""
         name = self.config.cache.kv_cache_dtype
         if name in ("auto", ""):
             return self.model.dtype
-        table = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-        if name in ("int8", "fp8_e4m3"):
-            raise NotImplementedError(f"kv_cache_dtype={name!r} is not ported yet")
+        table = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+                 "int8": torch.int8, "fp8_e4m3": torch.float8_e4m3fn}
         if name not in table:
             raise ValueError(
                 f"unsupported kv_cache_dtype {name!r}; one of {sorted(table)}"

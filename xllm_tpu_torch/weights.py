@@ -23,6 +23,12 @@ layer of a model without experts) and ``moe_layers``; its attention keys
 are ``kv_a_proj_w``, ``kv_a_norm``, ``kv_b_nope_w [H, kvr, nope]``,
 ``kv_b_v_w [H, kvr, vh]``, ``o_proj_w`` and either ``q_proj_w`` or
 ``q_a_proj_w`` / ``q_a_norm`` / ``q_b_proj_w``.
+
+A quantized tree (the JAX runner's ``_quantize_params``) holds int8 or
+float8_e4m3fn ``*_proj_w`` stacks beside f32 ``*_scale`` stacks; it loads
+into a model built with the same ``quant`` method, byte for byte. numpy has
+no float8 type of its own: a JAX float8 array arrives as an ml_dtypes array
+and is carried through its bytes, so the port never imports ml_dtypes.
 """
 
 from __future__ import annotations
@@ -33,12 +39,18 @@ import torch
 from xllm_tpu_torch.config import ModelConfig
 
 
+# ml_dtypes types of a JAX array, by name -> (bytes as numpy, torch dtype)
+_BYTE_VIEWS = {"bfloat16": (np.uint16, torch.bfloat16),
+               "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+
+
 def as_tensor(a) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return a
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16 from a JAX array
-        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    if a.dtype.name in _BYTE_VIEWS:
+        raw, dtype = _BYTE_VIEWS[a.dtype.name]
+        return torch.from_numpy(np.ascontiguousarray(a).view(raw).copy()).view(dtype)
     if not (a.flags.writeable and a.flags.c_contiguous):
         a = np.array(a)  # a JAX array's numpy view is read-only
     return torch.from_numpy(a)
@@ -55,6 +67,12 @@ def load_param_tree(model, tree: dict) -> None:
             raise ValueError(
                 f"shape {tuple(value.shape)} does not fit {tuple(param.shape)}"
             )
+        if param.dtype in (torch.int8, torch.float8_e4m3fn):
+            # quantized weights carry their bytes; a cast would change them
+            if value.dtype != param.dtype:
+                raise ValueError(f"a {param.dtype} weight cannot load {value.dtype} values")
+            param.view(torch.uint8).copy_(value.view(torch.uint8).to(param.device))
+            return
         param.copy_(value.to(device=param.device, dtype=param.dtype))
 
     put(model.embed_tokens, tree["embed_tokens"])
