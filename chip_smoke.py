@@ -29,7 +29,12 @@ phase raises on failure, so a non-zero exit means a phase failed:
    (fp8 weight-only) and K7 (bf16 weight streaming) at Qwen3-8B's
    projection shapes (qkv K 4096 / N 6144, o 4096 / 4096, gate and up 4096 /
    12,288, down 12,288 / 4096) for a 16-token decode step and a 2048-token
-   chunk, bf16 and f32 x, through the stacked wrappers. Then the kernel, the plain version and one PyTorch library call
+   chunk, bf16 and f32 x, through the stacked wrappers; the single-chunk
+   kernels of prompt scoring and embeddings, K2b, K4b and K3b at
+   qwen3-1.7B's shapes (K3b at S 2048 from q_offset 0 and 2048, 300 tokens
+   in the 512 bucket, 52 at q_offset 2048 in the 64 bucket, and with a
+   window; also on int8 and fp8 caches) and K11e-g at DeepSeek-V2-Lite's.
+   Then the kernel, the plain version and one PyTorch library call
    (the yardstick, never used by the port) are timed with CUDA events,
    queued behind a device-side sleep so that the device's time is timed
    and not the host's launch rate, rotating over cache layers so that
@@ -41,30 +46,40 @@ phase raises on failure, so a non-zero exit means a phase failed:
    two warm-up requests, then 16 greedy requests whose prompts take every
    kernel; the launch counters are zeroed just before those 16 and read
    just after, and also around each model pass, which must launch each
-   kernel it uses once per layer;
+   kernel it uses once per layer. Then the same engine scores prompts of
+   2,100 and 300 tokens and embeds prompts of 40 and 700 tokens beside two
+   greedy requests, counters zeroed just before and read just after: every
+   score or embed pass launches K3b and one of K2b / K4b once per layer and
+   no K1-K4;
 4. MoE engine: the same at the full width and depth of Qwen3-30B-A3B
    (48 layers, 128 experts, top-8, bf16, ~61 GB of random weights), after
    the dense engine is freed; every MoE model pass also launches K10 twice
-   per layer;
+   per layer, and it scores one 2,100-token prompt;
 5. MLA engine: the same at the full width and depth of DeepSeek-V2-Lite
    (27 layers, MLA + 64 experts, bf16, ~31 GB of random weights); every
    decode pass launches K11a once per layer, every prefill pass K11b and
    one latent writer (K11c or K11d) once per layer and no K1-K4, and both
-   K10 twice per MoE layer;
+   K10 twice per MoE layer; its scores and embeds launch K11e and one of
+   K11f / K11g once per layer and no K11a-d;
 6. quantized engines: Qwen3-8B at full width and depth (36 layers) with
    int8 weights and an int8 KV cache under ``XLLM_QMM_KERNEL=pallas`` (every
    model pass launches K5 five times per layer, 180, and no K6 or K7), then
    with fp8 weights and an fp8 KV cache (K6, 180 a pass); then the
    qwen3-1.7B engine once more under ``XLLM_BF16_MM=pallas`` (every pass of
-   at most 256 tokens launches K7 five times per layer, 140);
+   at most 256 tokens launches K7 five times per layer, 140); each
+   Qwen3-8B engine also scores a 2,100-token prompt (K2b, K3b, K4b on its
+   int8 or fp8 cache);
 7. parity: small f32 qwen3, qwen3-moe, glm4-moe (sigmoid routing with a
    non-zero router bias, a shared expert, a dense first layer and partial
    rope), deepseek_v2 (q_lora_rank 0, YaRN, latent padded from 144 to 256
    lanes), deepseek_v3 (q_lora_rank > 0, sigmoid routing in two groups) and
    glm4_moe_lite (rotate-half rope) models, each from one seed, served on
    the card (kernels) and on the CPU (plain versions), must give identical
-   greedy tokens; and the small qwen3 with int8 weights and an int8 KV cache
-   under ``XLLM_QMM_KERNEL=pallas`` (K5 and the int8-cache K1-K4).
+   greedy tokens, and the qwen3 and deepseek_v2 models the same scores and
+   embeddings within 1e-4; the small qwen3 with int8 weights and an int8 KV
+   cache under ``XLLM_QMM_KERNEL=pallas`` (K5 and the int8-cache K1-K4);
+   then ``AsyncLLMEngine`` on the card, whose concurrent generate, embed
+   and score calls must equal the same requests run alone.
 
 ``python3 chip_smoke.py --phases kernels`` (a comma list of build, kernels,
 engines, quant, parity) runs a subset and prints no result line.
@@ -76,6 +91,7 @@ and launch counts); the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import contextlib
 import gc
 import json
@@ -107,6 +123,7 @@ from xllm_tpu_torch.ops.cuda import quant_matmul as qmm
 from xllm_tpu_torch.ops.quant import to_e4m3
 from xllm_tpu_torch.ops.rope import rope_mscale
 from xllm_tpu_torch.runtime.model_runner import ModelRunner
+from xllm_tpu_torch.server.async_engine import AsyncLLMEngine
 from xllm_tpu_torch.weights import random_param_tree
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
@@ -332,8 +349,9 @@ def i32(a, dev):
 # outside the kernels) or "fp8_e4m3" (values); None is the model dtype
 QUANT_CACHES = ("int8", "fp8_e4m3")
 QUANT_TOL = ("int8 / fp8 cache: |out - ref| <= 1e-5 + 2^-7 (|ref| + sum_j p_j |v_j|) "
-             "(both round P to bf16, the kernel against its running maximum, the plain "
-             "version against the final one); writers: byte-equal caches")
+             "(both round P to bf16 against the same running maximum: K1 after each "
+             "64-position tile of a context split, K3 / K3b after each page, where an ulp "
+             "of exp can still flip a rounding); writers: byte-equal caches")
 
 
 def kv_tensor(g, dev, shape, dtype, cache):
@@ -539,9 +557,28 @@ def check_prefill(rng, dev, dtype, timed: bool, cache=None) -> dict:
     return res
 
 
+def prefill_fns(single: bool):
+    """K3 (P chunks) or K3b (one chunk, the same [1, S, ...] tensors seen
+    through the single-chunk wrappers): -> (kernel, plain), each called as
+    f(q, k_all, v_all, layer, block_tables, q_offsets, kv_lens, scale,
+    window) and returning [P, S, Hq, D]."""
+    if not single:
+        return k3.paged_attention_prefill_batched, k3.paged_attention_prefill_batched_plain
+
+    def one(fn):
+        return lambda q, kc, vc, layer, bt, qo, kvl, scale, window=0: fn(
+            q[0], kc, vc, layer, bt[0], qo[0], kvl[0], scale, window)[None]
+
+    return one(k3.paged_attention_prefill), one(k3.paged_attention_prefill_plain)
+
+
 def check_prefill_shape(rng, dev, dtype, timed: bool, s: int, rows,
-                        hq: int = HQ, hkv: int = HKV, cache=None) -> dict:
+                        hq: int = HQ, hkv: int = HKV, cache=None, single: bool = False,
+                        window: int = 0) -> dict:
+    """K3 over P chunks, or K3b (``single``) over one chunk of ``rows``."""
     p = len(rows)
+    assert p == 1 or not single
+    kernel, plain = prefill_fns(single)
     nb, btt, qo, _, kvl = _chunk_tables(rng, rows, dev)
     g = torch.Generator(device=dev).manual_seed(2)
     shape = (LAYERS, nb, hkv, BS, D)
@@ -549,15 +586,16 @@ def check_prefill_shape(rng, dev, dtype, timed: bool, s: int, rows,
     vc = kv_tensor(g, dev, shape, dtype, cache)
     q = (torch.randn(p, s, hq, D, generator=g, device=dev) * q_scale(cache)).to(dtype)
     scale = D ** -0.5
-    out = k3.paged_attention_prefill_batched(q, kc, vc, 5, btt, qo, kvl, scale)
-    ref = k3.paged_attention_prefill_batched_plain(q, kc, vc, 5, btt, qo, kvl, scale)
+    out = kernel(q, kc, vc, 5, btt, qo, kvl, scale, window)
+    ref = plain(q, kc, vc, 5, btt, qo, kvl, scale, window)
     sync()
-    what = f"K3 {dtype} cache {cache or dtype} S={s} {rows} Hq {hq} Hkv {hkv}"
+    what = (f"{'K3b' if single else 'K3'} {dtype} cache {cache or dtype} S={s} {rows} "
+            f"Hq {hq} Hkv {hkv} window {window}")
     if cache is None:
         err = check_close(out, ref, what)
     else:
         pv = k3.paged_attention_prefill_batched_plain(
-            q.float(), kc.float(), vc.float().abs(), 5, btt, qo, kvl, scale)
+            q.float(), kc.float(), vc.float().abs(), 5, btt, qo, kvl, scale, window)
         err = check_quant_close(out, ref, pv, what)
         del pv
     for i, (_, n) in enumerate(rows):
@@ -570,7 +608,8 @@ def check_prefill_shape(rng, dev, dtype, timed: bool, s: int, rows,
     q_el, c_el = q.element_size(), kc.element_size()
     ntok = sum(n for _, n in rows)
     kv_rows = sum(qo_ + n for qo_, n in rows if n)
-    pairs = sum(sum(qo_ + i + 1 for i in range(n)) for qo_, n in rows)
+    pairs = sum(sum(min(qo_ + i + 1, window or qo_ + i + 1) for i in range(n))
+                for qo_, n in rows)
     nbytes = 2 * ntok * hq * D * q_el + 2 * kv_rows * hkv * D * c_el
     flops = 4.0 * pairs * hq * D
     # library yardstick: one SDPA call over K/V gathered contiguous, with the
@@ -586,19 +625,46 @@ def check_prefill_shape(rng, dev, dtype, timed: bool, s: int, rows,
     qpos = qo.long()[:, None] + torch.arange(s, device=dev)[None, :]
     kvi = torch.arange(lmax, device=dev)
     mask = (kvi[None, None, :] <= qpos[:, :, None]) & (kvi[None, None, :] < kvl.long()[:, None, None])
+    if window:
+        mask &= kvi[None, None, :] > qpos[:, :, None] - window
     mask = mask[:, None]
     qt = q.transpose(1, 2)
     res.update(time_three(
-        lambda i: k3.paged_attention_prefill_batched(
-            q, kc, vc, i % LAYERS, btt, qo, kvl, scale),
-        lambda i: k3.paged_attention_prefill_batched_plain(
-            q, kc, vc, i % LAYERS, btt, qo, kvl, scale),
+        lambda i: kernel(q, kc, vc, i % LAYERS, btt, qo, kvl, scale, window),
+        lambda i: plain(q, kc, vc, i % LAYERS, btt, qo, kvl, scale, window),
         lambda i: sdpa(qt, kg[i % LAYERS], vg[i % LAYERS], mask, scale),
         plain_iters=5,
     ))
-    res["shape"] = (f"P={p} chunks of S={s} (q_offset, ntok) {rows}, "
-                    f"Hq {hq}, Hkv {hkv}, D {D}, bs {BS}")
+    res["shape"] = (f"{'one chunk' if single else f'P={p} chunks'} of S={s} (q_offset, "
+                    f"ntok) {rows}, Hq {hq}, Hkv {hkv}, D {D}, bs {BS}"
+                    + (f", window {window}" if window else ""))
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops)
+    return res
+
+
+# K3b / K11e at each chunk bucket a score or embed pass gives them, (S,
+# [(q_offset, ntok)]): a 2048-token chunk from q_offset 0 and one from
+# 2048, 300 tokens in the 512 bucket, the 52-token tail of a 2,100-token
+# prompt at q_offset 2048 in the 64 bucket. The first is timed into the
+# kernels line. K3b is also checked with a sliding window (not timed).
+SINGLE_SHAPES = [(2048, [(0, 2048)]), (2048, [(2048, 2048)]), (PREFILL_S, [(0, 300)]),
+                 (64, [(2048, 52)])]
+SINGLE_WINDOW = (PREFILL_S, [(512, 300)], 100)
+
+
+def check_single_prefill(rng, dev, dtype, timed: bool, cache=None) -> dict:
+    """K3b at every bucket of ``SINGLE_SHAPES`` (bucket padding in the 512
+    and 64 buckets) and with a window -> the first bucket's result, every
+    bucket's in ``by_shape``."""
+    results = [check_prefill_shape(rng, dev, dtype, timed, s, rows, cache=cache, single=True)
+               for s, rows in SINGLE_SHAPES]
+    s, rows, window = SINGLE_WINDOW
+    win = check_prefill_shape(rng, dev, dtype, False, s, rows, cache=cache, single=True,
+                              window=window)
+    res = dict(results[0])
+    res["max_abs_err"] = max([win["max_abs_err"]] + [r["max_abs_err"] for r in results])
+    if timed:
+        res["by_shape"] = results
     return res
 
 
@@ -608,12 +674,56 @@ def check_prefill_shape(rng, dev, dtype, timed: bool, s: int, rows,
 E4M3_EDGES = [448.0, 456.0, 464.0, 480.0, 1000.0, float("inf"), 2.0 ** -10, 0.0]
 
 
-def check_writer(rng, dev, dtype, timed: bool, rmw: bool, cache=None) -> dict:
+# single-chunk writers, (S, [(q_offset, ntok)]), the first of each timed:
+# K2b a full 2048-token chunk, the 700-token embed prompt in the 2048
+# bucket, 300 tokens in the 512 bucket; K4b the 52-token tail at q_offset
+# 2048, a chunk from mid-page across a page boundary, 40 tokens from 0
+SINGLE_WRITES = {False: [(2048, [(0, 2048)]), (2048, [(0, 700)]), (PREFILL_S, [(0, 300)])],
+                 True: [(RMW_S, [(2048, 52)]), (RMW_S, [(100, 60)]), (RMW_S, [(0, 40)])]}
+
+
+def writer_fns(rmw: bool, single: bool):
+    """-> (kernel, plain) of K2 / K4 (P chunks) or K2b / K4b (one chunk,
+    the same P = 1 tensors seen through the single-chunk wrappers), each
+    called as f(kn, vn, k_all, v_all, layer, block_tables, q_offsets,
+    ntoks) with the source in the kernel's own layout."""
+    if not single:
+        fn = k24.kv_write_rmw_batched if rmw else k24.kv_write_prefill_batched
+
+        def plain(kn, vn, k_all, v_all, layer, btt, qo, nt):
+            kr, vr = (kn, vn) if rmw else (kn.transpose(1, 2), vn.transpose(1, 2))
+            k24.kv_write_rows_plain(kr, vr, k_all, v_all, layer, btt, qo, nt)
+
+        return fn, plain
+
+    def one(fn):
+        return lambda kn, vn, k_all, v_all, layer, btt, qo, nt: fn(
+            kn[0], vn[0], k_all, v_all, layer, btt[0], qo[0], nt[0])
+
+    if rmw:
+        return one(k24.kv_write_rmw), one(k24.kv_write_rmw_plain)
+    return one(k24.kv_write_prefill), one(k24.kv_write_prefill_plain)
+
+
+def check_single_writer(rng, dev, dtype, timed: bool, rmw: bool, cache=None) -> dict:
+    """K2b or K4b at every chunk of ``SINGLE_WRITES`` -> the first's
+    result (timed), each checked byte for byte."""
+    shapes = SINGLE_WRITES[rmw]
+    res = check_writer(rng, dev, dtype, timed, rmw, cache, rows=shapes[0][1],
+                       s=shapes[0][0], single=True)
+    for s, rows in shapes[1:]:
+        check_writer(rng, dev, dtype, False, rmw, cache, rows=rows, s=s, single=True)
+    return res
+
+
+def check_writer(rng, dev, dtype, timed: bool, rmw: bool, cache=None, rows=None,
+                 s: int = 0, single: bool = False) -> dict:
     """K2 (head-major, page-aligned, S=512) or K4 (token-major, S=64,
-    mid-page starts); into a quantized cache from int8 codes or from
-    ``dtype`` rows that the kernel casts to e4m3 (``E4M3_EDGES`` among
-    them)."""
-    rows, s = (RMW_ROWS, RMW_S) if rmw else (PREFILL_ROWS, PREFILL_S)
+    mid-page starts), or with ``single`` K2b / K4b over the one chunk of
+    ``rows``; into a quantized cache from int8 codes or from ``dtype`` rows
+    that the kernel casts to e4m3 (``E4M3_EDGES`` among them)."""
+    if rows is None:
+        rows, s = (RMW_ROWS, RMW_S) if rmw else (PREFILL_ROWS, PREFILL_S)
     p = len(rows)
     nb, btt, qo, nt, _ = _chunk_tables(rng, rows, dev)
     g = torch.Generator(device=dev).manual_seed(3)
@@ -626,18 +736,18 @@ def check_writer(rng, dev, dtype, timed: bool, rmw: bool, cache=None) -> dict:
     if cache == "fp8_e4m3":  # the kernel's cast where torch's own differs
         kn[0, 0, 0, :len(E4M3_EDGES)] = torch.tensor(E4M3_EDGES, dtype=dtype, device=dev)
         vn[0, 0, 0, :len(E4M3_EDGES)] = -torch.tensor(E4M3_EDGES, dtype=dtype, device=dev)
-    fn = k24.kv_write_rmw_batched if rmw else k24.kv_write_prefill_batched
+    fn, plain_fn = writer_fns(rmw, single)
 
     def plain(k_all, v_all, layer):
-        kr, vr = (kn, vn) if rmw else (kn.transpose(1, 2), vn.transpose(1, 2))
-        k24.kv_write_rows_plain(kr, vr, k_all, v_all, layer, btt, qo, nt)
+        plain_fn(kn, vn, k_all, v_all, layer, btt, qo, nt)
 
     kk, vk = kc.clone(), vc.clone()
     fn(kn, vn, kk, vk, 2, btt, qo, nt)
     kp, vp = kc.clone(), vc.clone()
     plain(kp, vp, 2)
     sync()
-    name = f"{'K4' if rmw else 'K2'} {dtype} cache {cache or dtype}"
+    name = (f"{'K4' if rmw else 'K2'}{'b' if single else ''} {dtype} cache {cache or dtype} "
+            f"S={s} {rows}")
     assert same_bytes(kk, kp) and same_bytes(vk, vp), f"{name}: caches differ"
     assert not same_bytes(kk, kc), f"{name}: nothing was written"
     res = {"max_abs_err": 0.0}  # the bytes are equal (an fp8 cache holds NaN)
@@ -675,8 +785,9 @@ def check_writer(rng, dev, dtype, timed: bool, rmw: bool, cache=None) -> dict:
         library,
         plain_iters=40,
     ))
-    res["shape"] = (f"P={p} chunks of S={s} (q_offset, ntok) {rows}, "
-                    f"{'token' if rmw else 'head'}-major, Hkv {HKV}, D {D}, bs {BS}")
+    res["shape"] = (f"{'one chunk' if single else f'P={p} chunks'} of S={s} (q_offset, "
+                    f"ntok) {rows}, {'token' if rmw else 'head'}-major, Hkv {HKV}, D {D}, "
+                    f"bs {BS}")
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 0.0)
     return res
 
@@ -937,22 +1048,37 @@ def check_mla_decode(rng, dev, dtype, timed: bool, h: int = MLA_H) -> dict:
     return res
 
 
+def mla_prefill_fns(single: bool):
+    """-> (kernel, plain) of K11b (P chunks) or K11e (one chunk, the same
+    P = 1 tensors seen through the single-chunk wrappers), each called as
+    f(q, cache, layer, block_tables, q_offsets, kv_lens, scale, dv)."""
+    if not single:
+        return k11.mla_prefill_attention_batched, k11.mla_prefill_attention_batched_plain
+
+    def one(fn):
+        return lambda q, cache, layer, bt, qo, kvl, scale, dv: fn(
+            q[0], cache, layer, bt[0], qo[0], kvl[0], scale, dv)[None]
+
+    return one(k11.mla_prefill_attention), one(k11.mla_prefill_attention_plain)
+
+
 def check_mla_prefill_shape(rng, dev, dtype, timed: bool, s: int, rows,
-                            h: int = MLA_H, trim: bool = False) -> dict:
-    """K11b over one bucket's chunks: rows past ntok and padded rows zeros.
-    ``trim``: block tables only as wide as the chunks need (the plain
-    version's scores then fit at H 128)."""
+                            h: int = MLA_H, trim: bool = False, single: bool = False) -> dict:
+    """K11b over one bucket's chunks (K11e with ``single``): rows past ntok
+    and padded rows zeros. ``trim``: block tables only as wide as the
+    chunks need (the plain version's scores then fit at H 128)."""
     p = len(rows)
+    kernel, plain = mla_prefill_fns(single)
     nb, btt, qo, _, kvl = _chunk_tables(rng, rows, dev)
     if trim:
         btt = btt[:, : -(-max(a + n for a, n in rows) // BS)].contiguous()
     g = torch.Generator(device=dev).manual_seed(12)
     cache = latent_rand(g, dev, dtype, LAYERS, nb, 1, BS, MLA_DK)
     q = latent_rand(g, dev, dtype, p, s, h, MLA_DK)
-    out = k11.mla_prefill_attention_batched(q, cache, 5, btt, qo, kvl, MLA_SCALE, MLA_DV)
-    ref = k11.mla_prefill_attention_batched_plain(q, cache, 5, btt, qo, kvl, MLA_SCALE, MLA_DV)
+    out = kernel(q, cache, 5, btt, qo, kvl, MLA_SCALE, MLA_DV)
+    ref = plain(q, cache, 5, btt, qo, kvl, MLA_SCALE, MLA_DV)
     sync()
-    what = f"K11b {dtype} S={s} {rows} H {h}"
+    what = f"{'K11e' if single else 'K11b'} {dtype} S={s} {rows} H {h}"
     limits = k11.prefill_row_limits(s, h, qo, kvl)
     pv = pv_abs(q.reshape(p, s * h, MLA_DK), k11._gather_latent(cache, 5, btt), limits,
                 MLA_SCALE).reshape(out.shape)
@@ -978,16 +1104,15 @@ def check_mla_prefill_shape(rng, dev, dtype, timed: bool, s: int, rows,
             & (kvi[None, None, :] < kvl.long()[:, None, None]))[:, None]
     qt = q.transpose(1, 2)
     res.update(time_three(
-        lambda i: k11.mla_prefill_attention_batched(q, cache, i % LAYERS, btt, qo, kvl,
-                                                    MLA_SCALE, MLA_DV),
-        lambda i: k11.mla_prefill_attention_batched_plain(q, cache, i % LAYERS, btt, qo, kvl,
-                                                          MLA_SCALE, MLA_DV),
+        lambda i: kernel(q, cache, i % LAYERS, btt, qo, kvl, MLA_SCALE, MLA_DV),
+        lambda i: plain(q, cache, i % LAYERS, btt, qo, kvl, MLA_SCALE, MLA_DV),
         lambda i: sdpa(qt, kg[i % LAYERS], vg[i % LAYERS], mask, MLA_SCALE),
         plain_iters=3,
     ))
     res["library"] = "SDPA " + sdpa_backend(lambda: sdpa(qt, kg[0], vg[0], mask, MLA_SCALE))
-    res["shape"] = (f"P={p} chunks of S={s} (q_offset, ntok) {rows}, H {h}, "
-                    f"Dk {MLA_DK} ({MLA_DK_LIVE} live), dv {MLA_DV}, bs {BS}")
+    res["shape"] = (f"{'one chunk' if single else f'P={p} chunks'} of S={s} (q_offset, "
+                    f"ntok) {rows}, H {h}, Dk {MLA_DK} ({MLA_DK_LIVE} live), dv {MLA_DV}, "
+                    f"bs {BS}")
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops)
     return res
 
@@ -1004,22 +1129,64 @@ def check_mla_prefill(rng, dev, dtype, timed: bool) -> dict:
     return res
 
 
-def check_latent_writer(rng, dev, dtype, timed: bool, rmw: bool) -> dict:
+def check_mla_single_prefill(rng, dev, dtype, timed: bool) -> dict:
+    """K11e at every bucket of ``SINGLE_SHAPES`` -> the first's result,
+    every bucket's in ``by_shape``."""
+    results = [check_mla_prefill_shape(rng, dev, dtype, timed, s, rows, single=True)
+               for s, rows in SINGLE_SHAPES]
+    res = dict(results[0])
+    res["max_abs_err"] = max(r["max_abs_err"] for r in results)
+    if timed:
+        res["by_shape"] = results
+    return res
+
+
+def latent_writer_fns(rmw: bool, single: bool):
+    """-> (kernel, plain) of K11c / K11d (P chunks) or K11f / K11g (one
+    chunk of the same P = 1 tensors), each called as f(src, cache, layer,
+    block_tables, q_offsets, ntoks)."""
+    if not single:
+        fn = k24.latent_write_rmw_batched if rmw else k24.latent_write_prefill_batched
+        return fn, k24.latent_write_rows_plain
+
+    def one(fn):
+        return lambda src, cache, layer, bt, qo, nt: fn(src[0], cache, layer, bt[0], qo[0],
+                                                        nt[0])
+
+    if rmw:
+        return one(k24.latent_write_rmw), one(k24.latent_write_rmw_plain)
+    return one(k24.latent_write_prefill), one(k24.latent_write_prefill_plain)
+
+
+def check_single_latent_writer(rng, dev, dtype, timed: bool, rmw: bool) -> dict:
+    """K11f or K11g at every chunk of ``SINGLE_WRITES`` -> the first's
+    result (timed), each checked byte for byte."""
+    shapes = SINGLE_WRITES[rmw]
+    res = check_latent_writer(rng, dev, dtype, timed, rmw, rows=shapes[0][1],
+                              s=shapes[0][0], single=True)
+    for s, rows in shapes[1:]:
+        check_latent_writer(rng, dev, dtype, False, rmw, rows=rows, s=s, single=True)
+    return res
+
+
+def check_latent_writer(rng, dev, dtype, timed: bool, rmw: bool, rows=None, s: int = 0,
+                        single: bool = False) -> dict:
     """K11c (S=512, page-aligned chunks) or K11d (S=64: mid-page starts, a
-    chunk across a page boundary): caches byte-equal to the plain
-    version's."""
-    rows, s = (RMW_ROWS, RMW_S) if rmw else (PREFILL_ROWS, PREFILL_S)
+    chunk across a page boundary), or with ``single`` K11f / K11g over the
+    one chunk of ``rows``: caches byte-equal to the plain version's."""
+    if rows is None:
+        rows, s = (RMW_ROWS, RMW_S) if rmw else (PREFILL_ROWS, PREFILL_S)
     p = len(rows)
     nb, btt, qo, nt, _ = _chunk_tables(rng, rows, dev)
     g = torch.Generator(device=dev).manual_seed(13)
     cache = latent_rand(g, dev, dtype, LAYERS, nb, 1, BS, MLA_DK)
     src = latent_rand(g, dev, dtype, p, s, MLA_DK)
-    fn = k24.latent_write_rmw_batched if rmw else k24.latent_write_prefill_batched
+    fn, plain = latent_writer_fns(rmw, single)
     ck, cp = cache.clone(), cache.clone()
     fn(src, ck, 2, btt, qo, nt)
-    k24.latent_write_rows_plain(src, cp, 2, btt, qo, nt)
+    plain(src, cp, 2, btt, qo, nt)
     sync()
-    name = "K11d" if rmw else "K11c"
+    name = ("K11g" if single else "K11d") if rmw else ("K11f" if single else "K11c")
     assert torch.equal(ck, cp), f"{name} {dtype}: caches differ"
     assert not torch.equal(ck, cache), f"{name}: nothing was written"
     res = {"max_abs_err": max_err(ck, cp)}
@@ -1039,12 +1206,13 @@ def check_latent_writer(rng, dev, dtype, timed: bool, rmw: bool) -> dict:
 
     res.update(time_three(
         lambda i: fn(src, cache, i % LAYERS, btt, qo, nt),
-        lambda i: k24.latent_write_rows_plain(src, cache, i % LAYERS, btt, qo, nt),
+        lambda i: plain(src, cache, i % LAYERS, btt, qo, nt),
         library,
         plain_iters=40,
     ))
     res["library"] = "index assign"
-    res["shape"] = (f"P={p} chunks of S={s} (q_offset, ntok) {rows}, Dk {MLA_DK}, bs {BS}")
+    res["shape"] = (f"{'one chunk' if single else f'P={p} chunks'} of S={s} (q_offset, "
+                    f"ntok) {rows}, Dk {MLA_DK}, bs {BS}")
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 0.0)
     return res
 
@@ -1136,16 +1304,27 @@ def check_qmm_close(out, ref, x, w, s, exact: bool, what: str) -> float:
 
 def int_mm_yardstick(x, w, s):
     """K5's library yardstick: the same activation quantization, then
-    ``torch._int_mm`` and the scaling; None where its shape rules refuse."""
-    def call(i):
+    ``torch._int_mm`` and the scaling. Where its shape rules refuse the rows
+    (M <= 16), the quantized activations get zero rows up to 32 and the
+    product's first M rows are kept. -> (call, description)."""
+    m = x.shape[0]
+
+    def call(i, pad=0):
         xq, sx = qmm.quantize_activations(x)
-        return (torch._int_mm(xq, w[i % QMM_LAYERS]).float() * sx) * s[i % QMM_LAYERS]
+        if pad:
+            xq = torch.cat([xq, xq.new_zeros(pad, xq.shape[1])])
+        y = torch._int_mm(xq, w[i % QMM_LAYERS])[:m]
+        return (y.float() * sx) * s[i % QMM_LAYERS]
+
     try:
         call(0)
         sync()
+        return call, "torch._int_mm + scaling"
     except RuntimeError:
-        return None
-    return call
+        pad = 32 - m
+        call(0, pad)
+        sync()
+        return (lambda i: call(i, pad)), f"torch._int_mm + scaling, x padded from {m} to 32 rows"
 
 
 def check_qmm_shape(g, dev, kind, model, proj, k, n, rows, edge_rows):
@@ -1178,8 +1357,7 @@ def check_qmm_shape(g, dev, kind, model, proj, k, n, rows, edge_rows):
             stacked(x32, w, s, 2), plain(x32, w[2], scale(2)),
             x32, w[2], scale(2), exact, what + " f32 x"))
         if kind == "int8":
-            library = int_mm_yardstick(x, w, s)
-            lib_name = "torch._int_mm + scaling"
+            library, lib_name = int_mm_yardstick(x, w, s)
         elif kind == "fp8_e4m3":
             def library(i):  # the port's default: dequantize, one product
                 wl = w[i % QMM_LAYERS].to(torch.bfloat16) * s[i % QMM_LAYERS].bfloat16()
@@ -1193,7 +1371,7 @@ def check_qmm_shape(g, dev, kind, model, proj, k, n, rows, edge_rows):
         res.update(time_three(
             lambda i: stacked(x, w, s, i % QMM_LAYERS),
             lambda i: plain(x, w[i % QMM_LAYERS], scale(i % QMM_LAYERS)),
-            library or (lambda i: None),
+            library,
             plain_iters=5,
         ))
         if kind == "int8":
@@ -1204,9 +1382,7 @@ def check_qmm_shape(g, dev, kind, model, proj, k, n, rows, edge_rows):
             res["kernel_only_ms"], queued = time_ms(
                 lambda i: qmm.launch_prepared(name, xq, sx, w, s, i % QMM_LAYERS))
             assert queued, f"{what}: the launch waited on the device"
-        if library is None:
-            res["library_ms"] = None
-        res["library"] = lib_name if library else f"{lib_name}: refused at M={m}"
+        res["library"] = lib_name
         nbytes = (m * k * x.element_size() + k * n * w.element_size() + m * n * 4
                   + (0 if s is None else n * 4) + (m * 4 if kind == "int8" else 0))
         res["bound_ms"], res["bound_by"] = bound_ms(
@@ -1253,6 +1429,45 @@ def check_qmm(dev) -> dict:
     return results
 
 
+def check_prefill_short_pages(rng, dev) -> float:
+    """K3 and K3b on int8 and fp8 caches with pages of 16 and 32 positions,
+    shorter than the kernel's 64-position tile (P then rounds against the
+    running maximum after each page, as in the TPU kernel and the plain
+    version), bf16 and f32 q, against the plain versions within
+    ``QUANT_TOL`` -> worst error."""
+    worst, s = 0.0, 256
+    rows = [(0, 200), (96, 100), (0, 0)]
+    for bs in (16, 32):
+        lens = [a + n for a, n in rows]
+        nb = 1 + sum(-(-n // bs) for n in lens) + 4
+        free = rng.permutation(np.arange(1, nb)).tolist()
+        bt = np.zeros((len(rows), 256 // bs + 4), np.int32)
+        for i, n in enumerate(lens):
+            bt[i, : -(-n // bs)] = [free.pop() for _ in range(-(-n // bs))]
+        btt, qo = i32(bt, dev), i32([a for a, _ in rows], dev)
+        kvl = i32([a + n if n else 0 for a, n in rows], dev)
+        g = torch.Generator(device=dev).manual_seed(6)
+        for cache in QUANT_CACHES:
+            for dtype in (torch.float32, torch.bfloat16):
+                kc = kv_tensor(g, dev, (2, nb, HKV, bs, D), dtype, cache)
+                vc = kv_tensor(g, dev, (2, nb, HKV, bs, D), dtype, cache)
+                q = (torch.randn(len(rows), s, HQ, D, generator=g, device=dev)
+                     * q_scale(cache)).to(dtype)
+                args = (1, btt, qo, kvl, D ** -0.5)
+                pv = k3.paged_attention_prefill_batched_plain(
+                    q.float(), kc.float(), vc.float().abs(), *args)
+                for single in (False, True):
+                    kernel, plain = prefill_fns(single)
+                    sel = slice(1, 2) if single else slice(None)
+                    a = (1, btt[sel], qo[sel], kvl[sel], D ** -0.5)
+                    out, ref = kernel(q[sel], kc, vc, *a), plain(q[sel], kc, vc, *a)
+                    sync()
+                    what = (f"{'K3b' if single else 'K3'} {dtype} cache {cache} block_size "
+                            f"{bs}")
+                    worst = max(worst, check_quant_close(out, ref, pv[sel], what))
+    return worst
+
+
 def phase_quant_caches(rng, dev) -> dict:
     """K1-K4 on int8 and fp8 caches at qwen3-1.7B's shapes: bf16 q timed,
     f32 q checked -> {kernel name: {cache: result}}."""
@@ -1261,6 +1476,11 @@ def phase_quant_caches(rng, dev) -> dict:
         k24.PREFILL_NAME: lambda dt, t, c: check_writer(rng, dev, dt, t, rmw=False, cache=c),
         k3.NAME: lambda dt, t, c: check_prefill(rng, dev, dt, t, cache=c),
         k24.RMW_NAME: lambda dt, t, c: check_writer(rng, dev, dt, t, rmw=True, cache=c),
+        k24.ONE_PREFILL_NAME: lambda dt, t, c: check_single_writer(rng, dev, dt, t, rmw=False,
+                                                                   cache=c),
+        k3.ONE_NAME: lambda dt, t, c: check_single_prefill(rng, dev, dt, t, cache=c),
+        k24.ONE_RMW_NAME: lambda dt, t, c: check_single_writer(rng, dev, dt, t, rmw=True,
+                                                               cache=c),
     }
     out = {}
     for name, check in checks.items():
@@ -1277,6 +1497,10 @@ def phase_quant_caches(rng, dev) -> dict:
                     f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
                     f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
             free_device_memory()
+    err = check_prefill_short_pages(rng, dev)
+    log(f"[kernels] {k3.NAME} and {k3.ONE_NAME} on int8 and fp8 caches with block_size 16 "
+        f"and 32 (P rounded against the running maximum after each page), bf16 and f32 q: "
+        f"worst err {err:.3g} ({QUANT_TOL})")
     return out
 
 
@@ -1291,9 +1515,20 @@ def phase_kernels(dev) -> dict:
         k11.PREFILL_NAME: lambda dt, t: check_mla_prefill(rng, dev, dt, t),
         k24.LATENT_PREFILL_NAME: lambda dt, t: check_latent_writer(rng, dev, dt, t, rmw=False),
         k24.LATENT_RMW_NAME: lambda dt, t: check_latent_writer(rng, dev, dt, t, rmw=True),
+        # the single-chunk kernels of prompt scoring and embeddings
+        k24.ONE_PREFILL_NAME: lambda dt, t: check_single_writer(rng, dev, dt, t, rmw=False),
+        k3.ONE_NAME: lambda dt, t: check_single_prefill(rng, dev, dt, t),
+        k24.ONE_RMW_NAME: lambda dt, t: check_single_writer(rng, dev, dt, t, rmw=True),
+        k11.ONE_PREFILL_NAME: lambda dt, t: check_mla_single_prefill(rng, dev, dt, t),
+        k24.ONE_LATENT_PREFILL_NAME: lambda dt, t: check_single_latent_writer(
+            rng, dev, dt, t, rmw=False),
+        k24.ONE_LATENT_RMW_NAME: lambda dt, t: check_single_latent_writer(
+            rng, dev, dt, t, rmw=True),
     }
     tol_of = {name: MLA_TOL for name in (k11.DECODE_NAME, k11.PREFILL_NAME,
-                                         k24.LATENT_PREFILL_NAME, k24.LATENT_RMW_NAME)}
+                                         k24.LATENT_PREFILL_NAME, k24.LATENT_RMW_NAME,
+                                         k11.ONE_PREFILL_NAME, k24.ONE_LATENT_PREFILL_NAME,
+                                         k24.ONE_LATENT_RMW_NAME)}
     results = {}
     for name, check in checks.items():
         f32 = check(torch.float32, False)
@@ -1404,11 +1639,12 @@ def warm_up(eng: LLMEngine, rng) -> None:
 
 
 def count_per_pass(runner) -> list[tuple[str, int, dict]]:
-    """Wrap the runner's two model passes (one prefill group, one decode
-    batch) so that each appends ``(kind, rows, launch-count delta)`` to the
-    list returned; ``rows`` is the token count of the pass's hidden state,
-    the row count of each of its projections. The engine calls them through
-    the instance, so the wrappers see every pass."""
+    """Wrap the runner's model passes (one prefill group, one decode batch,
+    one scored chunk, one embed request's final chunk) so that each appends
+    ``(kind, rows, launch-count delta)`` to the list returned; ``rows`` is
+    the token count of the pass's hidden state, the row count of each of
+    its projections. The engine calls them through the instance, so the
+    wrappers see every pass."""
     deltas: list[tuple[str, int, dict]] = []
     model = runner.model
     rows = []
@@ -1433,6 +1669,8 @@ def count_per_pass(runner) -> list[tuple[str, int, dict]]:
 
     runner.run_prefill_batched = wrap(runner.run_prefill_batched, "prefill")
     runner.run_decode = wrap(runner.run_decode, "decode")
+    runner.run_score_chunk = wrap(runner.run_score_chunk, "score")
+    runner.run_prefill_embed = wrap(runner.run_prefill_embed, "embed")
     return deltas
 
 
@@ -1442,7 +1680,9 @@ def pass_launches(layers: int, moe_layers: int, mla: bool, kind: str, rows: int,
     (one of the dicts returned): a decode pass K1 (K11a in an MLA model)
     once per layer; a prefill pass K3 (K11b) once per layer and one of the
     two writers (K2 / K11c for a chunk bucket above block_size, K4 / K11d
-    otherwise) once per layer; in a MoE model both also K10 twice per MoE
+    otherwise) once per layer; a score or embed pass (one chunk) K3b (K11e)
+    once per layer and one of K2b / K4b (K11f / K11g) once per layer; in a
+    MoE model each also K10 twice per MoE
     layer (gate_up and down); with ``qmm_name`` (K5, K6 or K7) that kernel
     five times per layer (qkv, o, gate, up, down) if the pass has at most
     ``qmm_max_rows`` rows (0: in every pass), else not at all; nothing
@@ -1453,6 +1693,10 @@ def pass_launches(layers: int, moe_layers: int, mla: bool, kind: str, rows: int,
     decode, prefill, writers = (
         (k11.DECODE_NAME, k11.PREFILL_NAME, (k24.LATENT_PREFILL_NAME, k24.LATENT_RMW_NAME))
         if mla else (k1.NAME, k3.NAME, (k24.PREFILL_NAME, k24.RMW_NAME)))
+    if kind in ("score", "embed"):
+        prefill, writers = (
+            (k11.ONE_PREFILL_NAME, (k24.ONE_LATENT_PREFILL_NAME, k24.ONE_LATENT_RMW_NAME))
+            if mla else (k3.ONE_NAME, (k24.ONE_PREFILL_NAME, k24.ONE_RMW_NAME)))
     if kind == "decode":
         return [{decode: layers, **extra}]
     return [{prefill: layers, w: layers, **extra} for w in writers]
@@ -1467,12 +1711,103 @@ def check_passes(deltas, want) -> None:
             f"{want(kind, rows)}")
 
 
+# this slice's path in the engine phases: prompts scored and embedded
+SCORE_LENS = (2100, 300)
+EMBED_LENS = (40, 700)
+
+
+def per_pass_summary(deltas, launches, want) -> dict:
+    """Check each pass of a run against ``want`` and the run's counts
+    against the passes: every kernel a pass of the run must launch was
+    launched, the same number of times in each pass that launched it, and
+    that times the passes is the run's count. -> {kernel: {launches_per_step,
+    passes}}."""
+    check_passes(deltas, want)
+    per_pass = {}
+    expected = {k: n for kind, rows, _ in deltas for d in want(kind, rows)
+                for k, n in d.items()}
+    for name, per in expected.items():
+        assert launches.get(name, 0) > 0, f"kernel {name} never launched: {launches}"
+        seen = sorted({d.get(name, 0) for _, _, d in deltas} - {0})
+        passes = sum(1 for _, _, d in deltas if d.get(name, 0))
+        assert seen == [per], f"{name}: launches per model pass {seen}, not [{per}]"
+        assert passes * per == launches[name], (name, passes, launches[name])
+        per_pass[name] = {"launches_per_step": seen[0], "passes": passes}
+    return per_pass
+
+
+def drive_scoring(eng: LLMEngine, rng, deltas, want, tag: str, score_lens,
+                  embed_lens) -> tuple[dict, dict]:
+    """Prompt scoring and embeddings on a served engine: ``score_prompt``
+    over prompts of ``score_lens`` tokens, then embed requests of
+    ``embed_lens`` tokens beside as many greedy requests. The counters are
+    zeroed just before and read just after; every model pass of the run is
+    checked (``pass_launches``: each score or embed pass K3b / K11e and one
+    single-chunk writer once per layer, no K1-K4 or K11a-d). -> (launches,
+    info)."""
+    cfg = eng.config
+    vocab = cfg.model.vocab_size
+    eng.score_prompt(rng.integers(1, vocab, 100).tolist())  # first calls, uncounted
+    scored = [rng.integers(1, vocab, n).tolist() for n in score_lens]
+    embeds = [rng.integers(1, vocab, n).tolist() for n in embed_lens]
+    greedy = [rng.integers(1, vocab, n).tolist() for n in embed_lens]
+    sp = SamplingParams(temperature=0.0, max_tokens=8, ignore_eos=True)
+    del deltas[:]
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    lps = [eng.score_prompt(p) for p in scored]
+    t_score = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eids = [eng.add_request(prompt_token_ids=p, embed=True).request_id for p in embeds]
+    gids = [eng.add_request(prompt_token_ids=p, sampling_params=sp).request_id
+            for p in greedy]
+    outs, t_embed = {}, 0.0
+    while eng.has_unfinished():
+        for ro in eng.step():
+            if ro.finished:
+                outs[ro.request_id] = ro
+                if ro.request_id in eids:
+                    t_embed = time.perf_counter() - t0
+    sync()
+    launches = dict(_build.launch_counts)
+    for p, lp in zip(scored, lps):
+        assert lp.shape == (len(p) - 1,) and np.isfinite(lp).all() and (lp < 1e-4).all(), tag
+    for i in eids:
+        v = np.asarray(outs[i].embedding)
+        assert v.shape == (cfg.model.hidden_size,) and np.isfinite(v).all(), tag
+        assert abs(np.linalg.norm(v) - 1.0) < 1e-4, f"{tag}: embedding norm {np.linalg.norm(v)}"
+    for i in gids:
+        assert len(outs[i].outputs[0].token_ids) == 8, tag
+    assert eng.block_manager.num_used_blocks == 0, "KV blocks leaked"
+    per_pass = per_pass_summary(deltas, launches, want)
+    info = {
+        "score_prompt_lens": list(score_lens),
+        "score_s": t_score,
+        "scored_tok_per_s": sum(score_lens) / t_score,
+        "embed_prompt_lens": list(embed_lens),
+        "embed_s": t_embed,
+        "embeddings_per_s": len(embeds) / t_embed if embeds else None,
+        "launches": launches,
+        "per_pass": per_pass,
+    }
+    rate = (f"; {len(embeds)} embed requests beside {len(greedy)} greedy ones done in "
+            f"{t_embed:.3f} s ({info['embeddings_per_s']:.1f} embeddings/s)" if embeds else "")
+    log(f"[{tag}] scored prompts of {list(score_lens)} tokens in {t_score:.3f} s "
+        f"({info['scored_tok_per_s']:.1f} scored tok/s, synchronous){rate}; "
+        f"{card_line()}; launches {launches}; {len(deltas)} model passes, per kernel "
+        f"{per_pass}")
+    return launches, info
+
+
 def phase_engine(model_kw=QWEN3_1P7B, num_blocks: int = 1024,
                  tag: str = "engine", quant: str = "", kv_cache_dtype: str = "auto",
-                 qmm_name: str = "", qmm_max_rows: int = 0) -> tuple[dict, dict]:
+                 qmm_name: str = "", qmm_max_rows: int = 0, score_lens=(),
+                 embed_lens=()) -> tuple[dict, dict]:
     """Serve ``model_kw`` on the card (see the module docstring); with
     ``qmm_name`` every model pass must also launch that kernel five times
-    per layer (``pass_launches``)."""
+    per layer (``pass_launches``). Then, with ``score_lens``, score prompts
+    and embed (``drive_scoring``): ``info["score"]`` holds that run's
+    (launches, info)."""
     cfg = engine_config(model_kw, num_blocks=num_blocks, quant=quant,
                         kv_cache_dtype=kv_cache_dtype)
     t0 = time.perf_counter()
@@ -1527,17 +1862,7 @@ def phase_engine(model_kw=QWEN3_1P7B, num_blocks: int = 1024,
         return pass_launches(layers, moe_layers, mla, kind, rows, qmm_name=qmm_name,
                              qmm_max_rows=qmm_max_rows)
 
-    check_passes(deltas, want)
-    per_pass = {}
-    expected = {k: n for kind, rows, _ in deltas for d in want(kind, rows)
-                for k, n in d.items()}
-    for name, per in expected.items():
-        assert launches.get(name, 0) > 0, f"kernel {name} never launched: {launches}"
-        seen = sorted({d.get(name, 0) for _, _, d in deltas} - {0})
-        passes = sum(1 for _, _, d in deltas if d.get(name, 0))
-        assert seen == [per], f"{name}: launches per model pass {seen}, not [{per}]"
-        assert passes * per == launches[name], (name, passes, launches[name])
-        per_pass[name] = {"launches_per_step": seen[0], "passes": passes}
+    per_pass = per_pass_summary(deltas, launches, want)
     if qmm_max_rows:  # the passes that take torch's product, by their rows
         per_pass[qmm_name]["passes_over_max_rows"] = sorted(
             rows for _, rows, d in deltas if not d.get(qmm_name, 0))
@@ -1562,6 +1887,8 @@ def phase_engine(model_kw=QWEN3_1P7B, num_blocks: int = 1024,
         f"TTFT median {info['ttft_s_median'] * 1e3:.1f} ms, max {ttft[-1] * 1e3:.1f} ms; "
         f"{info['gen_tok_per_s']:.1f} generated tok/s overall (eager, no CUDA graphs); "
         f"launches {launches}; {len(deltas)} model passes, per kernel {per_pass}")
+    if score_lens:
+        info["score"] = drive_scoring(eng, rng, deltas, want, tag, score_lens, embed_lens)
     return launches, info
 
 
@@ -1607,19 +1934,102 @@ PARITY_MODELS.update({
 })
 
 
+# parity of scoring and embeddings (block_size 16, chunks of 64, buckets
+# 16 and 64): scores of 70 tokens (64 + 6: K2b / K11f, then K4b / K11g), 40
+# and 10; embeds of 100 (a batched first chunk, then 36 tokens at q_offset
+# 64) and 10; card and CPU within PARITY_SCORE_TOL
+SCORE_PARITY = {"score": (70, 40, 10), "embed": (100, 10)}
+PARITY_SCORE_TOL = 1e-4
+
+
+def parity_config(model_kw: dict, quant: str = "", kv_cache_dtype: str = "auto"):
+    cfg = EngineConfig(
+        model=ModelConfig(**model_kw),
+        cache=CacheConfig(block_size=16, num_blocks=128, kv_cache_dtype=kv_cache_dtype),
+        scheduler=SchedulerConfig(max_seqs_per_batch=4, max_model_len=256,
+                                  max_tokens_per_chunk_for_prefill=64,
+                                  prefill_token_buckets=[16, 64],
+                                  decode_batch_buckets=[2, 4]),
+    )
+    cfg.quant.method = quant
+    return cfg
+
+
+def phase_async(model_kw: dict = PARITY_DENSE) -> None:
+    """``AsyncLLMEngine`` on the card: three greedy requests, an embed
+    request and ``call("score_prompt")`` submitted together give what each
+    gives alone on an engine with the same weights (tokens equal; scores
+    and the embedding within 1e-6: the same kernels at the same shapes)."""
+    cfg = parity_config(model_kw)
+    tree = random_param_tree(cfg.model, seed=7)
+    rng = np.random.default_rng(3)
+    gen = [rng.integers(1, 1000, n).tolist() for n in (10, 40, 100)]
+    emb = rng.integers(1, 1000, 70).tolist()
+    scored = rng.integers(1, 1000, 90).tolist()
+    sp = SamplingParams(temperature=0.0, max_tokens=8, ignore_eos=True)
+
+    def engine():
+        runner = ModelRunner(cfg, device="cuda")
+        runner.load_model(params=tree)
+        return LLMEngine(cfg, runner=runner)
+
+    eng = engine()
+    alone = []
+    for p in gen:
+        eng.add_request(prompt_token_ids=p, sampling_params=sp)
+        alone.append(eng.generate_all()[0].outputs[0].token_ids)
+    eng.add_request(prompt_token_ids=emb, embed=True)
+    alone_emb = np.asarray(eng.generate_all()[0].embedding)
+    alone_lp = eng.score_prompt(scored)
+    aeng = AsyncLLMEngine(cfg, engine=engine())
+    aeng.start()
+
+    async def last(agen):
+        out = None
+        async for out in agen:
+            pass
+        return out
+
+    async def together():
+        return await asyncio.gather(
+            *(last(aeng.generate(prompt_token_ids=p, sampling_params=sp)) for p in gen),
+            last(aeng.generate(prompt_token_ids=emb, embed=True)),
+            aeng.call("score_prompt", scored))
+
+    t0 = time.perf_counter()
+    try:
+        *outs, emb_out, lp = asyncio.run(together())
+    finally:
+        aeng.stop()
+    assert [o.outputs[0].token_ids for o in outs] == alone, "async generate differs"
+    err = max(float(np.abs(np.asarray(emb_out.embedding) - alone_emb).max()),
+              float(np.abs(lp - alone_lp).max()))
+    assert err <= 1e-6, f"async embed / score differ from alone by {err}"
+    assert aeng.engine.block_manager.num_used_blocks == 0
+    log(f"[async] AsyncLLMEngine on the card: {len(gen)} greedy requests, an embed request "
+        f"and a score call together in {time.perf_counter() - t0:.2f} s equal each alone "
+        f"(max abs diff {err:.3g})")
+
+
+def parity_scores(eng: LLMEngine, rng_seed: int = 2) -> tuple[list, list]:
+    """The ``SCORE_PARITY`` requests on ``eng`` -> (logprobs, embeddings)."""
+    rng = np.random.default_rng(rng_seed)
+    vocab = eng.config.model.vocab_size
+    lps = [eng.score_prompt(rng.integers(1, vocab, n).tolist())
+           for n in SCORE_PARITY["score"]]
+    ids = [eng.add_request(prompt_token_ids=rng.integers(1, vocab, n).tolist(),
+                           embed=True).request_id for n in SCORE_PARITY["embed"]]
+    outs = {ro.request_id: ro.embedding for ro in eng.generate_all()}
+    assert eng.block_manager.num_used_blocks == 0
+    return lps, [np.asarray(outs[i]) for i in ids]
+
+
 def phase_parity(name: str, model_kw: dict, devices=("cuda", "cpu"), quant: str = "",
-                 kv_cache_dtype: str = "auto") -> int:
+                 kv_cache_dtype: str = "auto", scores: bool = False) -> int:
+    """Greedy tokens of the card equal the CPU's; with ``scores`` also the
+    scores and embeddings of ``SCORE_PARITY``, within ``PARITY_SCORE_TOL``."""
     def make():
-        cfg = EngineConfig(
-            model=ModelConfig(**model_kw),
-            cache=CacheConfig(block_size=16, num_blocks=128, kv_cache_dtype=kv_cache_dtype),
-            scheduler=SchedulerConfig(max_seqs_per_batch=4, max_model_len=256,
-                                      max_tokens_per_chunk_for_prefill=64,
-                                      prefill_token_buckets=[16, 64],
-                                      decode_batch_buckets=[2, 4]),
-        )
-        cfg.quant.method = quant
-        return cfg
+        return parity_config(model_kw, quant, kv_cache_dtype)
 
     tree = random_param_tree(make().model, seed=7)
     rng = np.random.default_rng(1)
@@ -1631,7 +2041,7 @@ def phase_parity(name: str, model_kw: dict, devices=("cuda", "cpu"), quant: str 
     # 10 and 70 -> S <= bs chunks (K4); 40, 100 -> K2, 100 chunked at 64
     prompts = [rng.integers(1, 1000, n).tolist() for n in (10, 40, 100, 70, 23, 5)]
     sp = SamplingParams(temperature=0.0, max_tokens=16, ignore_eos=True)
-    got = {}
+    got, scored = {}, {}
     for dev in devices:
         cfg = make()
         runner = ModelRunner(cfg, device=dev)
@@ -1642,8 +2052,19 @@ def phase_parity(name: str, model_kw: dict, devices=("cuda", "cpu"), quant: str 
         outs = {ro.request_id: ro.outputs[0].token_ids for ro in eng.generate_all()}
         assert eng.block_manager.num_used_blocks == 0
         got[dev] = [outs[i] for i in ids]
+        if scores:
+            scored[dev] = parity_scores(eng)
     a, b = (got[d] for d in devices)
     assert a == b, f"{name}: greedy tokens differ:\n{a}\n{b}"
+    if scores:
+        errs = []
+        for x, y in zip(*(scored[d][0] + scored[d][1] for d in devices)):
+            assert x.shape == y.shape
+            errs.append(float(np.abs(x - y).max()))
+        assert max(errs) <= PARITY_SCORE_TOL, f"{name}: scores / embeddings differ by {errs}"
+        log(f"[parity] f32 {name}: scores of {SCORE_PARITY['score']} tokens and embeddings "
+            f"of {SCORE_PARITY['embed']} on {' and '.join(devices)} within "
+            f"{PARITY_SCORE_TOL:g} (max abs diff {max(errs):.3g})")
     log(f"[parity] f32 {name} (2 layers, bs 16{', ' + quant + ' weights' if quant else ''}"
         f"{', ' + kv_cache_dtype + ' KV' if kv_cache_dtype != 'auto' else ''}): "
         f"{len(prompts)} requests x 16 greedy tokens identical on {' and '.join(devices)}")
@@ -1705,19 +2126,22 @@ def main() -> int:
         kern.update(timed_phase("qkernels", check_qmm, dev))
         qcache = timed_phase("qkernels", phase_quant_caches, np.random.default_rng(1), dev)
     if "engines" in phases:
-        runs["dense"] = timed_phase("engine", phase_engine)
+        # scores of 2,100 tokens (chunks of 2048 and 52: K2b and K4b) and
+        # 300 (K2b in the 512 bucket); embeds of 40 (K4b) and 700 (K2b)
+        scoring = dict(score_lens=SCORE_LENS, embed_lens=EMBED_LENS)
+        runs["dense"] = timed_phase("engine", phase_engine, **scoring)
         runs["moe"] = timed_phase("moe-engine", phase_engine, QWEN3_30B_A3B,
-                                  num_blocks=512, tag="moe-engine")
+                                  num_blocks=512, tag="moe-engine", score_lens=(2100,))
         runs["mla"] = timed_phase("mla-engine", phase_engine, DEEPSEEK_V2_LITE,
-                                  num_blocks=512, tag="mla-engine")
+                                  num_blocks=512, tag="mla-engine", **scoring)
     if "quant" in phases:
         with environ(XLLM_QMM_KERNEL="pallas"):
             runs["int8"] = timed_phase(
                 "int8-engine", phase_engine, QWEN3_8B, tag="int8-engine", quant="int8",
-                kv_cache_dtype="int8", qmm_name=qmm.W8A8_NAME)
+                kv_cache_dtype="int8", qmm_name=qmm.W8A8_NAME, score_lens=(2100,))
             runs["fp8_e4m3"] = timed_phase(
                 "fp8-engine", phase_engine, QWEN3_8B, tag="fp8-engine", quant="fp8_e4m3",
-                kv_cache_dtype="fp8_e4m3", qmm_name=qmm.FP8_NAME)
+                kv_cache_dtype="fp8_e4m3", qmm_name=qmm.FP8_NAME, score_lens=(2100,))
         with environ(XLLM_BF16_MM="pallas"):
             runs["bf16mm"] = timed_phase(
                 "bf16mm-engine", phase_engine, tag="bf16mm-engine", qmm_name=qmm.BF16_NAME,
@@ -1725,9 +2149,10 @@ def main() -> int:
     if "parity" in phases:
         t0 = time.perf_counter()
         for name, model_kw in PARITY_MODELS.items():
-            phase_parity(name, model_kw)
+            phase_parity(name, model_kw, scores=name in ("qwen3", "deepseek_v2"))
         with environ(XLLM_QMM_KERNEL="pallas"):
             phase_parity("qwen3", PARITY_DENSE, quant="int8", kv_cache_dtype="int8")
+        phase_async()
         log(f"[parity] done in {time.perf_counter() - t0:.1f} s")
     if phases != set(PHASES):
         log(card)
@@ -1747,6 +2172,12 @@ def main() -> int:
         qmm.W8A8_NAME: (qmm.W8A8_TPU_KERNEL, "quant_matmul.cu"),
         qmm.FP8_NAME: (qmm.FP8_TPU_KERNEL, "quant_matmul.cu"),
         qmm.BF16_NAME: (qmm.BF16_TPU_KERNEL, "quant_matmul.cu"),
+        k24.ONE_PREFILL_NAME: (k24.ONE_PREFILL_TPU_KERNEL, "kv_write.cu"),
+        k3.ONE_NAME: (k3.ONE_TPU_KERNEL, "prefill_attention.cu"),
+        k24.ONE_RMW_NAME: (k24.ONE_RMW_TPU_KERNEL, "kv_write.cu"),
+        k11.ONE_PREFILL_NAME: (k11.ONE_PREFILL_TPU_KERNEL, "mla_attention.cu"),
+        k24.ONE_LATENT_PREFILL_NAME: (k24.ONE_LATENT_PREFILL_TPU_KERNEL, "kv_write.cu"),
+        k24.ONE_LATENT_RMW_NAME: (k24.ONE_LATENT_RMW_TPU_KERNEL, "kv_write.cu"),
     }
     # each kernel's launches come from the run of its own slice's path, with
     # the counters zeroed just before it: K1-K4 the dense engine phase, K10
@@ -1757,13 +2188,22 @@ def main() -> int:
                qmm.FP8_NAME: runs["fp8_e4m3"], qmm.BF16_NAME: runs["bf16mm"]}
     path_of.update({name: runs["mla"] for name in meta
                     if name.startswith(("mla_", "latent_"))})
+    # the single-chunk kernels' launches come from the scoring and embedding
+    # run of their engine (zeroed just before it): K2b-K4b the dense engine's
+    # (and each quantized-cache row its Qwen3-8B engine's), K11e-g the MLA
+    # engine's
+    single = {k24.ONE_PREFILL_NAME, k3.ONE_NAME, k24.ONE_RMW_NAME, k11.ONE_PREFILL_NAME,
+              k24.ONE_LATENT_PREFILL_NAME, k24.ONE_LATENT_RMW_NAME}
+
+    def run_of(run, name):
+        return run[1]["score"] if name in single else run
     keys = ("shape", "max_abs_err", "max_abs_err_f32", "ms", "kernel_only_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "library", "row_tile", "ms_by_row_tile")
     rows = []
     for name, res in kern.items():
         tpu, src = meta[name]
         where, func = tpu.split()
-        path_launches, path_info = path_of.get(name, runs["dense"])
+        path_launches, path_info = run_of(path_of.get(name, runs["dense"]), name)
         row = {
             "name": name,
             "route": "cuda",
@@ -1791,8 +2231,8 @@ def main() -> int:
         if name in qcache:
             row["by_cache"] = {
                 cache: dict({k: r[k] for k in keys if k in r},
-                            launches=runs[cache][0][name],
-                            launches_per_step=runs[cache][1]["per_pass"][name][
+                            launches=run_of(runs[cache], name)[0][name],
+                            launches_per_step=run_of(runs[cache], name)[1]["per_pass"][name][
                                 "launches_per_step"],
                             by_shape=[{k: x[k] for k in keys if k in x}
                                       for x in r.get("by_shape", [])])

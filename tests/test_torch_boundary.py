@@ -88,6 +88,7 @@ def test_imports_no_jax_no_reference_no_triton():
                 "xllm_tpu_torch.models.moe_decoder",
                 "xllm_tpu_torch.ops.cuda.mla_attention", "xllm_tpu_torch.ops.mla",
                 "xllm_tpu_torch.models.mla_decoder",
+                "xllm_tpu_torch.server.async_engine", "xllm_tpu_torch.common.metrics",
                 "xllm_tpu_torch.engine", "xllm_tpu_torch.llm"):
         assert mod in out["imported"]
 
@@ -168,13 +169,13 @@ def test_unported_knobs_raise(over):
 @pytest.mark.parametrize(
     "kw",
     [{"sampling_params": SamplingParams(use_beam_search=True, best_of=2)},
-     {"embed": True}, {"images": [object()]}],
-    ids=["beam", "embed", "image"],
+     {"images": [object()]}],
+    ids=["beam", "image"],
 )
 def test_unported_requests_raise(kw):
+    # embed requests and prompt scoring serve now
+    # (tests/test_torch_score.py::test_embed_and_score_requests_serve)
     eng = LLMEngine(_tiny(), device="cpu")
     with pytest.raises(NotImplementedError):
         eng.add_request(prompt_token_ids=[1, 2, 3], **kw)
-    with pytest.raises(NotImplementedError):
-        eng.score_prompt([1, 2, 3])
 

@@ -15,7 +15,10 @@
 // row directly, so one kernel serves both contracts and writes exactly the
 // ntok valid rows of each chunk (ntok = 0 marks a padded row) and nothing
 // else. The source layout reaches the kernel as element strides, so the
-// head-major view costs no transpose copy.
+// head-major view costs no transpose copy. Launched with one chunk (P = 1),
+// the same kernels are the single-chunk writers kv_write_prefill_tpu (K2b),
+// kv_write_rmw_tpu (K4b), latent_write_prefill_tpu (K11f) and
+// latent_write_rmw_tpu (K11g), each counted apart by ops/cuda/kv_write.py.
 //
 // Quantized caches: int8 codes arrive as int8 and are copied as bytes; bf16
 // or f32 rows bound for an e4m3 cache are cast here, element by element,

@@ -10,7 +10,12 @@
 // Absorbed MLA is an MQA over one latent head: the scores take all Dk lanes
 // of a cached row, the values its first dv lanes, so one row read feeds
 // both products. A row with kv_len 0 (a padded row) and a query row past
-// its chunk's ntok = kv_len - q_offset (bucket padding) come out as zeros.
+// its chunk's ntok = kv_len - q_offset (bucket padding) come out as zeros,
+// by design: the TPU kernels mask (kv <= row_pos) & (kv < kv_len), so a
+// bucket-padding row there attends to all of [0, kv_len), a result that
+// nothing reads. Launched with one chunk, the prefill contract is also
+// mla_prefill_attention_tpu's (K11e, counted apart by
+// ops/cuda/mla_attention.py).
 //
 // Both contracts run one kernel template. Its rows are the (token, head)
 // pairs of a chunk, token-major (row r = t * H + h, the layout of q), and a

@@ -1,12 +1,17 @@
-// K3: batched causal flash attention of prompt chunks over paged KV.
+// K3 + K3b: causal flash attention of prompt chunks over paged KV.
 //
 // Replaces xllm_tpu/ops/pallas/prefill_attention.py
-// paged_attention_prefill_batched_tpu (same contract: P chunks, q
+// paged_attention_prefill_batched_tpu (K3; same contract: P chunks, q
 // [P, S, Hq, D] at absolute positions q_offsets + i, each attending
 // causally to its own paged K/V up to kv_lens through block_tables, GQA,
-// optional sliding window; kv_len 0 marks a padded row). Query rows past a
+// optional sliding window; kv_len 0 marks a padded row) and, launched with
+// one chunk, paged_attention_prefill_tpu (K3b, the single-chunk contract;
+// ops/cuda/prefill_attention.py counts it apart). Query rows past a
 // chunk's ntok = kv_len - q_offset tokens (bucket padding) and padded rows
-// come out as zeros.
+// come out as zeros, by design: the TPU kernels' mask (kv <= row_pos) &
+// (kv < kv_len) lets a bucket-padding row attend to all of [0, kv_len),
+// work whose result nothing reads (logits, scores and the cache writers
+// take real rows only).
 //
 // What bounds it: operations for long chunks. A 2048-token chunk does ~2 x
 // S x kv x Hq x D x 2 flops against one read of its K/V, above the card's
@@ -26,7 +31,13 @@
 // Quantized caches (int8 codes or e4m3; q and the output stay bf16 or f32):
 // the K/V tiles are upcast to bf16 on their way into shared memory and, as
 // in the TPU kernel, P is rounded to bf16 before P.V (l sums the unrounded
-// P). The chunk's own rows are read back from the cache, as stored.
+// P). The chunk's own rows are read back from the cache, as stored. The TPU
+// kernel rounds P against its running maximum after each page; so does this
+// one when a page is shorter than a tile (block_size 16 or 32): each page
+// of the tile takes the running maximum up to its end (a prefix maximum
+// over the warp's lanes), its rounded P then carries exp(m_page - m_tile)
+// in f32, as the TPU kernel's later rescales carry it. At block_size 64 a
+// tile is a page.
 #include "common.cuh"
 
 namespace xllm {
@@ -52,7 +63,7 @@ __global__ void __launch_bounds__(kThreads)
                              T* __restrict__ out,                   // [P, S, Hq, D]
                              int layer, int num_blocks, int hkv, int bs,
                              int nbmax, int seq, int group, int tq, float scale,
-                             int window) {
+                             int window, int seg) {  // seg: page length < kTile, or kTile
   using S = typename TileOf<C>::type;
   constexpr bool kQuant = kQuantCache<C>;
   constexpr int kPairs = D / 64;  // column pairs per lane: 2 * lane + 64 * c
@@ -148,10 +159,41 @@ __global__ void __launch_bounds__(kThreads)
       const float m_old = ms[r];
       const float m_new = fmaxf(m_old, warp_max(fmaxf(s2[0], s2[1])));
       const bool none = m_new == -INFINITY;  // nothing visible yet
-      const float p0 = none ? 0.f : expf(s2[0] - m_new);
-      const float p1 = none ? 0.f : expf(s2[1] - m_new);
-      ps[r * kTile + lane] = kQuant ? round_bf16(p0) : p0;
-      ps[r * kTile + lane + 32] = kQuant ? round_bf16(p1) : p1;
+      float p0 = none ? 0.f : expf(s2[0] - m_new);
+      float p1 = none ? 0.f : expf(s2[1] - m_new);
+      if (kQuant && seg < kTile) {
+        // page maxima (keys of a page: seg neighbouring lanes), then the
+        // running maximum at the end of each key's page
+        float run0 = s2[0], run1 = s2[1];
+        for (int o = 16; o > 0; o >>= 1) {
+          if (o < seg) {
+            run0 = fmaxf(run0, __shfl_xor_sync(0xffffffffu, run0, o));
+            run1 = fmaxf(run1, __shfl_xor_sync(0xffffffffu, run1, o));
+          }
+        }
+        for (int o = 1; o < 32; o <<= 1) {
+          const float a = __shfl_up_sync(0xffffffffu, run0, o);
+          const float b = __shfl_up_sync(0xffffffffu, run1, o);
+          if (lane >= o) {
+            run0 = fmaxf(run0, a);
+            run1 = fmaxf(run1, b);
+          }
+        }
+        run1 = fmaxf(run1, __shfl_sync(0xffffffffu, run0, 31));
+        run0 = fmaxf(run0, m_old);
+        run1 = fmaxf(run1, m_old);
+        const float w0 = run0 == -INFINITY ? 0.f : expf(run0 - m_new);
+        const float w1 = run1 == -INFINITY ? 0.f : expf(run1 - m_new);
+        const float q0 = run0 == -INFINITY ? 0.f : expf(s2[0] - run0);
+        const float q1 = run1 == -INFINITY ? 0.f : expf(s2[1] - run1);
+        ps[r * kTile + lane] = round_bf16(q0) * w0;
+        ps[r * kTile + lane + 32] = round_bf16(q1) * w1;
+        p0 = q0 * w0;
+        p1 = q1 * w1;
+      } else {
+        ps[r * kTile + lane] = kQuant ? round_bf16(p0) : p0;
+        ps[r * kTile + lane + 32] = kQuant ? round_bf16(p1) : p1;
+      }
       const float sum = warp_sum(p0 + p1);
       if (lane == 0) {
         const float alpha = none ? 1.f : expf(m_old - m_new);
@@ -222,7 +264,7 @@ cudaError_t launch_prefill(const void* q, const void* k_cache,
       static_cast<const T*>(q), static_cast<const C*>(k_cache),
       static_cast<const C*>(v_cache), block_tables, q_offsets, kv_lens,
       static_cast<T*>(out), layer, num_blocks, hkv, bs, nbmax, seq, group, tq,
-      scale, window);
+      scale, window, bs < kTile && kTile % bs == 0 ? bs : kTile);
   return cudaGetLastError();
 }
 

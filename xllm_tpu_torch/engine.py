@@ -1,8 +1,10 @@
 """LLMEngine: scheduler + block manager + model runner glue.
 
-Counterpart of ``xllm_tpu/engine.py`` ``LLMEngine`` for the dense main
-path: continuous batching with chunked, batched prefill and decode over
-the split paged KV cache.
+Counterpart of ``xllm_tpu/engine.py`` ``LLMEngine`` for the served paths:
+continuous batching with chunked, batched prefill and decode over the
+split paged KV cache; embed requests, whose final prompt chunk runs the
+single-chunk pass and returns a pooled vector; and prompt scoring
+(``score_prompt``), chunk by chunk on a throwaway sequence.
 
 Async schedule overlap, as in the JAX engine: sampled tokens stay on the
 device in the runner's ``last_tokens`` ring and feed the next step
@@ -19,6 +21,7 @@ import uuid
 from collections import deque
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from xllm_tpu_torch.config import EngineConfig
@@ -29,6 +32,7 @@ from xllm_tpu_torch.framework.request import (
     RequestOutput,
     Sequence,
     SequenceOutput,
+    StoppingChecker,
 )
 from xllm_tpu_torch.framework.sampling_params import SamplingParams
 from xllm_tpu_torch.framework.tokenizer import IncrementalDecoder, Tokenizer
@@ -104,6 +108,10 @@ class LLMEngine:
         )
         self.scheduler = ContinuousScheduler(config.scheduler, self.block_manager)
         self._decoders: dict[int, IncrementalDecoder] = {}
+        # detokenize in the step loop; AsyncLLMEngine clears it and
+        # detokenizes on its response thread instead (except sequences with
+        # stop strings, whose stopping decision needs the text here)
+        self.inline_detok = True
         self._active_requests: dict[str, Request] = {}
         # async schedule-overlap state
         self._pending: deque[_Pending] = deque()
@@ -134,8 +142,6 @@ class LLMEngine:
         images: list | None = None,
         videos: list | None = None,
     ) -> Request:
-        if embed:
-            raise NotImplementedError("embedding requests are not ported yet")
         if images or videos:
             raise NotImplementedError("image and video inputs are not ported yet")
         if prompt_token_ids is None:
@@ -153,6 +159,8 @@ class LLMEngine:
         sampling_params = sampling_params or SamplingParams()
         if sampling_params.use_beam_search:
             raise NotImplementedError("beam search is not ported yet")
+        if embed:  # one pooled vector, no generated token
+            sampling_params = SamplingParams(max_tokens=1)
         request_id = request_id or f"req-{uuid.uuid4().hex[:16]}"
         req = Request(
             request_id=request_id,
@@ -161,6 +169,7 @@ class LLMEngine:
             eos_token_ids=tuple(self.config.model.eos_token_ids),
             max_model_len=max_len,
             prompt=prompt or "",
+            embed=embed,
             priority=priority,
             offline=offline,
         )
@@ -173,8 +182,42 @@ class LLMEngine:
                 )
         return req
 
-    def score_prompt(self, prompt_token_ids: list[int]):
-        raise NotImplementedError("prompt scoring is not ported yet")
+    def score_prompt(self, prompt_token_ids: list[int]) -> np.ndarray:
+        """Per-token logprobs of a prompt under the model (scoring,
+        perplexity; the OpenAI echo+logprobs semantics) -> lp [n - 1] f32,
+        lp[i] = log p(token[i + 1] | tokens[: i + 1]).
+
+        A throwaway sequence takes blocks from the pool, is scored chunk by
+        chunk (chunks of ``max_tokens_per_chunk_for_prefill`` rounded down to
+        whole pages, at least one), and always frees them. Each chunk reads
+        its result back, so the steps still in flight (``overlap_depth``)
+        have run first on the card's one stream; their blocks are not
+        touched."""
+        n = len(prompt_token_ids)
+        if n < 2:
+            raise ValueError("scoring needs at least 2 tokens")
+        max_len = self.config.scheduler.max_model_len
+        if n > max_len:
+            raise ValueError("prompt exceeds max_model_len")
+        seq = Sequence(
+            list(prompt_token_ids), SamplingParams(max_tokens=1),
+            StoppingChecker(max_new_tokens=1, max_model_len=max_len),
+            request_id="score",
+        )
+        chunk = self.config.scheduler.max_tokens_per_chunk_for_prefill
+        bs = self.config.cache.block_size
+        chunk = max(bs, chunk - chunk % bs)
+        lps: list[np.ndarray] = []
+        try:
+            while seq.num_computed_tokens < n:
+                m = min(chunk, n - seq.num_computed_tokens)
+                if not self.block_manager.allocate(seq, m):
+                    raise RuntimeError("KV pool exhausted during scoring")
+                lps.append(self.runner.run_score_chunk(seq, m))
+                seq.num_computed_tokens += m
+        finally:
+            self.block_manager.free(seq)
+        return np.concatenate(lps)[: n - 1]
 
     def abort_request(self, request_id: str) -> None:
         req = self._active_requests.pop(request_id, None)
@@ -222,10 +265,21 @@ class LLMEngine:
             for seq in req.sequences:
                 self._release_slot(seq)
 
-        # whole-batch prefill: one pass per (P, S) bucket group
+        # an embed request's final chunk runs the single-chunk pass and
+        # finishes the request; every other chunk rides the batched prefill
+        embed_done: list[Sequence] = []
         batched_items: list[tuple[Sequence, int]] = []
         for seq, n in out.prefill_items:
             self._assign_slot(seq)
+            req = self._active_requests.get(seq.request_id)
+            if (req is not None and req.embed
+                    and seq.num_computed_tokens + n >= seq.num_tokens):
+                vec = self.runner.run_prefill_embed(seq, n)
+                seq.num_computed_tokens += n
+                seq.embedding = vec.tolist()
+                seq.finish(FinishReason.STOP)
+                embed_done.append(seq)
+                continue
             batched_items.append((seq, n))
         if batched_items:
             sc = self.config.scheduler
@@ -264,7 +318,7 @@ class LLMEngine:
                 seq.append_placeholder()
             self._defer(decode_seqs, tokens, logprobs, rows, tops)
 
-        touched: list[Sequence] = []
+        touched: list[Sequence] = embed_done
         self._step_no += 1
         if out.prefill_items:
             self._last_prefill_step = self._step_no
@@ -324,7 +378,7 @@ class LLMEngine:
         if not seq.is_finished:
             seq.maybe_finish(token, self.config.scheduler.max_model_len)
             dec = self._decoders.get(seq.seq_id)
-            if dec is not None:
+            if dec is not None and (self.inline_detok or seq.stopping.stop_strings):
                 delta = dec.decode_new(seq.token_ids[: seq.num_fixed_tokens])
                 if delta:
                     seq.output_text += delta
@@ -384,6 +438,8 @@ class LLMEngine:
                     for i, seq in enumerate(req.sequences)
                 ],
             )
+            if req.embed and req.sequences[0].embedding is not None:
+                ro.embedding = req.sequences[0].embedding
             if req_done:
                 ro.usage = {
                     "prompt_tokens": req.sequences[0].num_prompt_tokens,

@@ -34,6 +34,7 @@ from torch import nn
 from xllm_tpu_torch.config import ModelConfig
 from xllm_tpu_torch.ops.attention import (
     decode_attention_write,
+    prefill_attention_write,
     prefill_attention_write_batched,
 )
 from xllm_tpu_torch.ops.cuda.quant_matmul import matmul_bf16
@@ -47,7 +48,11 @@ from xllm_tpu_torch.ops.rope import (
     rope_inv_freq,
     rope_mscale,
 )
-from xllm_tpu_torch.runtime.forward_params import BatchedPrefillInput, DecodeInput
+from xllm_tpu_torch.runtime.forward_params import (
+    BatchedPrefillInput,
+    DecodeInput,
+    PrefillInput,
+)
 
 _DTYPES = {
     "bfloat16": torch.bfloat16,
@@ -297,6 +302,30 @@ class DenseDecoderModel(nn.Module):
             x = x + mlp_out
         return rms_norm(x, self.norm, c.rms_norm_eps)
 
+    def prefill(
+        self,
+        k_all: torch.Tensor,
+        v_all: torch.Tensor,
+        inp: PrefillInput,
+        num_logits: int = 1,
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One sequence's prompt chunk (prompt scoring, embeddings) ->
+        (hidden of the last ``num_logits`` real rows [num_logits, D], k_all,
+        v_all); the caches are updated in place.
+
+        The rows start at ``logits_idx - (num_logits - 1)`` clamped into
+        ``[0, S - num_logits]``, as JAX's ``dynamic_slice_in_dim`` clamps
+        (scoring asks for all ``S`` rows, so the start clamps to 0), and
+        are gathered on the device: nothing syncs."""
+        x = self.embed_tokens[inp.token_ids.long()]
+        x = self._run_layers(x, inp.positions, self._chunk_attn_fn(k_all, v_all, inp))
+        s = x.shape[0]
+        if not 0 < num_logits <= s:
+            raise ValueError(f"num_logits {num_logits} outside [1, {s}]")
+        start = (inp.logits_idx.long() - (num_logits - 1)).clamp(0, s - num_logits)
+        rows = start.reshape(1) + torch.arange(num_logits, device=x.device)
+        return x[rows], k_all, v_all
+
     def prefill_batched(
         self,
         k_all: torch.Tensor,
@@ -346,6 +375,19 @@ class DenseDecoderModel(nn.Module):
                 inp.q_offsets, inp.kv_lens, self.scale, window=self.window,
             )
             return self._kv_quant_out(out.reshape(p * s, *out.shape[2:]), layer_idx)
+
+        return attn_fn
+
+    def _chunk_attn_fn(self, k_all, v_all, inp: PrefillInput):
+        """The attention step ``_run_layers`` calls in a single-chunk pass."""
+
+        def attn_fn(q, k, v, layer_idx):
+            q, k, v = self._kv_quant_in(q, k, v, layer_idx)
+            out, _, _ = prefill_attention_write(
+                q, k, v, k_all, v_all, layer_idx, inp.slot_mapping, inp.block_table,
+                inp.q_offset, inp.kv_len, self.scale, window=self.window,
+            )
+            return self._kv_quant_out(out, layer_idx)
 
         return attn_fn
 

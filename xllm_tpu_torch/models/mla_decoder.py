@@ -33,6 +33,7 @@ from xllm_tpu_torch.models.moe_decoder import MoeDecoderModel
 from xllm_tpu_torch.ops.linear import bmm_round_once
 from xllm_tpu_torch.ops.mla import (
     mla_decode_attention_write,
+    mla_prefill_attention_write,
     mla_prefill_attention_write_batched,
 )
 from xllm_tpu_torch.ops.norms import rms_norm
@@ -42,7 +43,11 @@ from xllm_tpu_torch.ops.rope import (
     rope_inv_freq,
     rope_mscale,
 )
-from xllm_tpu_torch.runtime.forward_params import BatchedPrefillInput, DecodeInput
+from xllm_tpu_torch.runtime.forward_params import (
+    BatchedPrefillInput,
+    DecodeInput,
+    PrefillInput,
+)
 
 
 def _dense_layers(cfg: ModelConfig) -> int:
@@ -208,6 +213,19 @@ class MlaDecoderModel(DenseDecoderModel):
                 inp.block_tables, inp.q_offsets, inp.kv_lens, self.scale, self.dv,
             )
             return out.reshape(p * s, *out.shape[2:])
+
+        return attn_fn
+
+    def _chunk_attn_fn(self, k_all, v_all, inp: PrefillInput):
+        """``prefill`` (one chunk; the dense model's, with its clamped row
+        window) runs this latent step: K11f or K11g, then K11e."""
+
+        def attn_fn(q_eff, lat_new, layer_idx):
+            out, _ = mla_prefill_attention_write(
+                q_eff, lat_new, k_all, layer_idx, inp.slot_mapping, inp.block_table,
+                inp.q_offset, inp.kv_len, self.scale, self.dv,
+            )
+            return out
 
         return attn_fn
 

@@ -12,7 +12,11 @@ Kernel choice, as in the JAX dispatch:
 - batched prefill with chunk bucket ``S > block_size``: K2 full-page writer
   then K3 flash prefill;
 - batched prefill with ``S <= block_size``: K4 writer (chunks may start
-  mid-page) then K3.
+  mid-page) then K3;
+- single-chunk prefill (prompt scoring, embeddings): K4b when the chunk
+  bucket ``S_pad <= block_size``, else K2b, then K3b. The interleaved
+  layouts, which JAX routes through its batched kernels with P = 1, are
+  not ported (K8, K9) and raise.
 """
 
 from __future__ import annotations
@@ -21,10 +25,15 @@ import torch
 
 from xllm_tpu_torch.ops.cuda.decode_attention import paged_decode_attention_write
 from xllm_tpu_torch.ops.cuda.kv_write import (
+    kv_write_prefill,
     kv_write_prefill_batched,
+    kv_write_rmw,
     kv_write_rmw_batched,
 )
-from xllm_tpu_torch.ops.cuda.prefill_attention import paged_attention_prefill_batched
+from xllm_tpu_torch.ops.cuda.prefill_attention import (
+    paged_attention_prefill,
+    paged_attention_prefill_batched,
+)
 
 
 def decode_attention_write(
@@ -85,4 +94,37 @@ def prefill_attention_write_batched(
         q, k_all, v_all, layer_idx, block_tables, q_offsets, kv_lens, scale,
         window,
     )
+    return out, k_all, v_all
+
+
+def prefill_attention_write(
+    q: torch.Tensor,  # [S, Hq, D]
+    k_new: torch.Tensor,  # [S, Hkv, D]
+    v_new: torch.Tensor,
+    k_all: torch.Tensor,  # [L, NB, Hkv, bs, D]
+    v_all: torch.Tensor,
+    layer_idx: int,
+    slot_mapping: torch.Tensor,  # [S] int32 (kept for the JAX signature)
+    block_table: torch.Tensor,  # [NBmax] int32
+    q_offset: torch.Tensor,  # [] int32
+    kv_len: torch.Tensor,  # [] int32
+    scale: float,
+    window: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One sequence's prompt chunk written + attended. -> (out, k, v)."""
+    del slot_mapping
+    if k_all.dim() == 6:  # [L, NB, 2, Hkv, bs, D]
+        raise NotImplementedError(
+            "prefill_attention_write: the interleaved KV layouts (kernels K8, K9) "
+            "are not ported yet"
+        )
+    ntok = kv_len - q_offset
+    if k_new.shape[0] <= k_all.shape[3]:
+        # a chunk of at most one page may start mid-page: token-major writer
+        kv_write_rmw(k_new, v_new, k_all, v_all, layer_idx, block_table, q_offset, ntok)
+    else:
+        kv_write_prefill(k_new.transpose(0, 1), v_new.transpose(0, 1), k_all, v_all,
+                         layer_idx, block_table, q_offset, ntok)
+    out = paged_attention_prefill(q, k_all, v_all, layer_idx, block_table, q_offset,
+                                  kv_len, scale, window)
     return out, k_all, v_all

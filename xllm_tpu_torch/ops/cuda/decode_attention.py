@@ -12,7 +12,9 @@ Quantized caches (int8 codes or float8_e4m3fn; q, the new rows and the
 output stay bf16 or f32) follow the TPU kernel, in the kernel and its plain
 version alike: the new token is attended as given (its row is not read
 back from the cache) and written cast to the cache dtype, and P is rounded
-to bf16 before P.V. (The JAX package's portable CPU path differs on both
+to bf16 before P.V, against the running maximum of the kernel's walk
+(64-position tiles within each context split, ``_quantized_row``), so that
+the card and the CPU round the same P. (The JAX package's portable CPU path differs on both
 points: it writes first and attends to the stored row, and keeps P in q's
 dtype.)
 
@@ -89,14 +91,54 @@ def paged_decode_attention_write_plain(
         mask = mask & (kv_idx >= lens - window)
     scores = scores.masked_fill(~mask, float("-inf"))
     s_new = (qg * k_new.float()[:, :, None, :]).sum(-1) * scale  # [B, Hkv, G]
-    m = torch.maximum(scores.amax(-1), s_new)
-    p = torch.exp(scores - m[..., None])
-    p_new = torch.exp(s_new - m)
-    acc = torch.einsum("bkgs,bksd->bkgd", p.bfloat16().float(), v)
-    acc = acc + p_new[..., None] * v_new.float()[:, :, None, :]
-    out = acc / (p.sum(-1) + p_new)[..., None]
-    out = torch.where(live[:, None, None, None], out, 0.0)  # padded rows -> 0
+    chunk, _ = _split_plan(block_tables.shape[1] * bs)
+    out = torch.zeros(b, hkv, hq // hkv, d, device=q.device)
+    for i in torch.nonzero(live).flatten().tolist():
+        out[i] = _quantized_row(scores[i], v[i], s_new[i], v_new[i].float(),
+                                int(seq_lens[i]), window, chunk)
     return out.reshape(b, hq, d).to(q.dtype)
+
+
+def _quantized_row(scores, v, s_new, v_new, seq_len: int, window: int,
+                   chunk: int) -> torch.Tensor:
+    """One sequence's attention on a quantized cache, P rounded as the
+    kernel rounds it: the context splits of ``chunk`` positions from the
+    tile below the window's edge, each walked a 64-position tile at a time,
+    P rounded to bf16 against the split's running maximum after each tile
+    (the last split's starts at the new token's score, with l = 1 and acc =
+    v_new), then the splits merged by their maxima. scores [Hkv, G, S]
+    (masked to the cached positions), v [Hkv, S, D], s_new [Hkv, G], v_new
+    [Hkv, D] -> [Hkv, G, D]."""
+    lo = max(seq_len - window, 0) if window > 0 else 0
+    base = lo // _TILE * _TILE
+    nsp = -(-(seq_len - base) // chunk)
+    span = nsp * chunk
+    sc = scores[..., base:base + span]
+    vv = v[:, base:base + span]
+    pad = span - sc.shape[-1]
+    if pad:  # past the table's width: masked positions
+        sc = torch.nn.functional.pad(sc, (0, pad), value=float("-inf"))
+        vv = torch.nn.functional.pad(vv, (0, 0, 0, pad))
+    tiles = sc.unflatten(-1, (nsp, chunk // _TILE, _TILE))  # [Hkv, G, split, tile, 64]
+    m_init = torch.full(tiles.shape[:3], float("-inf"), device=sc.device)
+    m_init[..., -1] = s_new
+    m_run = torch.maximum(torch.cummax(tiles.amax(-1), dim=-1).values, m_init[..., None])
+    m_split = m_run[..., -1]  # [Hkv, G, split]
+    seen = torch.isfinite(m_run)
+    m_run = torch.where(seen, m_run, 0.0)
+    weight = torch.where(seen, torch.exp(m_run - m_split[..., None]), 0.0)
+    p = torch.exp(tiles - m_run[..., None])  # masked positions: 0
+    l = (p.sum(-1) * weight).sum(-1)  # [Hkv, G, split]
+    pr = (p.bfloat16().float() * weight[..., None]).flatten(-3)  # [Hkv, G, span]
+    acc = torch.einsum("kgns,knsd->kgnd", pr.unflatten(-1, (nsp, chunk)),
+                       vv.unflatten(1, (nsp, chunk)))  # [Hkv, G, split, D]
+    w_new = torch.exp(s_new - m_split[..., -1])  # the new token, last split
+    acc[..., -1, :] += w_new[..., None] * v_new[:, None, :]
+    l[..., -1] += w_new
+    # merge the splits by their maxima (a split without a position has none)
+    top = m_split.amax(-1, keepdim=True)
+    ws = torch.where(torch.isfinite(m_split), torch.exp(m_split - top), 0.0)
+    return (acc * ws[..., None]).sum(-2) / (l * ws).sum(-1)[..., None]
 
 
 _lib = None

@@ -1,24 +1,38 @@
-"""K2 + K4: batched paged KV-cache writers (``csrc/kv_write.cu``).
+"""K2, K4 and their single-chunk twins K2b, K4b: paged KV-cache writers
+(``csrc/kv_write.cu``).
 
-One row-scatter kernel serves two contracts through two wrappers, each
-with its own launch counter:
+One row-scatter kernel serves four contracts through four wrappers, each
+with its own launch counter and plain version:
 
 - ``kv_write_prefill_batched`` (K2) replaces
   ``xllm_tpu/ops/pallas/kv_write.py`` ``kv_write_prefill_batched_tpu``:
   P head-major chunks ``[P, Hkv, S, D]`` from page-aligned ``q_offsets``;
 - ``kv_write_rmw_batched`` (K4) replaces ``kv_write_rmw_batched_tpu``:
   P token-major chunks ``[P, S, Hkv, D]`` with ``S <= block_size`` that may
-  start mid-page.
+  start mid-page;
+- ``kv_write_prefill`` (K2b) replaces ``kv_write_prefill_tpu``: one
+  head-major chunk ``[Hkv, S_pad, D]`` from a page-aligned ``q_offset``;
+- ``kv_write_rmw`` (K4b) replaces ``kv_write_rmw_tpu``: one token-major
+  chunk ``[S, Hkv, D]``, ``S <= block_size``, at any alignment.
 
 The latent (MLA) twins write into the single-head cache ``[L, NB, 1, bs,
-Dk]`` through one more row scatter, again behind two wrappers and counters:
+Dk]`` through one more row scatter, again behind four wrappers and
+counters:
 
 - ``latent_write_prefill_batched`` (K11c) replaces
   ``latent_write_prefill_batched_tpu``: P chunks ``[P, S_pad, Dk]`` from
   page-aligned ``q_offsets``;
 - ``latent_write_rmw_batched`` (K11d) replaces
   ``latent_write_rmw_batched_tpu``: P chunks ``[P, S, Dk]``, ``S <=
-  block_size``, at any alignment.
+  block_size``, at any alignment;
+- ``latent_write_prefill`` (K11f) and ``latent_write_rmw`` (K11g) replace
+  ``latent_write_prefill_tpu`` and ``latent_write_rmw_tpu``: the same for
+  one chunk ``[S, Dk]``.
+
+A single-chunk writer is its batched twin's kernel launched with one chunk
+(the contracts are the batched ones at P = 1): ``q_offset`` and ``ntok``
+are 0-d int32 tensors on the cache's device, read by the kernel as
+one-element arrays, so nothing syncs.
 
 Token ``j < ntoks[p]`` of chunk ``p`` lands at position ``q_offsets[p] + j``
 of its sequence, through ``block_tables[p]``; ``ntoks[p] == 0`` marks a
@@ -54,6 +68,16 @@ LATENT_PREFILL_TPU_KERNEL = (
 LATENT_RMW_TPU_KERNEL = (
     "xllm_tpu/ops/pallas/kv_write.py:846 latent_write_rmw_batched_tpu"
 )
+ONE_PREFILL_NAME = "kv_write_prefill"
+ONE_RMW_NAME = "kv_write_rmw"
+ONE_PREFILL_TPU_KERNEL = "xllm_tpu/ops/pallas/kv_write.py:223 kv_write_prefill_tpu"
+ONE_RMW_TPU_KERNEL = "xllm_tpu/ops/pallas/kv_write.py:165 kv_write_rmw_tpu"
+ONE_LATENT_PREFILL_NAME = "latent_write_prefill"
+ONE_LATENT_RMW_NAME = "latent_write_rmw"
+ONE_LATENT_PREFILL_TPU_KERNEL = (
+    "xllm_tpu/ops/pallas/kv_write.py:595 latent_write_prefill_tpu"
+)
+ONE_LATENT_RMW_TPU_KERNEL = "xllm_tpu/ops/pallas/kv_write.py:675 latent_write_rmw_tpu"
 _SOURCE = "kv_write"
 
 
@@ -157,10 +181,7 @@ def kv_write_prefill_batched(
     kernel asserts it per row). -> (k_all, v_all), updated in place."""
     k_rows, v_rows = kt.transpose(1, 2), vt.transpose(1, 2)  # views
     if k_all.device.type == "cpu":
-        bs = k_all.shape[3]
-        assert bool(((q_offsets % bs == 0) | (ntoks == 0)).all()), (
-            "full-page writer needs page-aligned chunk starts"
-        )
+        _assert_aligned(q_offsets, ntoks, k_all.shape[3])
         kv_write_rows_plain(k_rows, v_rows, k_all, v_all, layer_idx,
                             block_tables, q_offsets, ntoks)
     else:
@@ -189,6 +210,80 @@ def kv_write_rmw_batched(
     else:
         _launch(RMW_NAME, kt, vt, k_all, v_all, layer_idx, block_tables,
                 q_offsets, ntoks, require_aligned=False)
+    return k_all, v_all
+
+
+# ---------------------------------------------------------------------------
+# K2b + K4b: one chunk (the batched contracts at P = 1)
+# ---------------------------------------------------------------------------
+def _one_chunk(block_table, q_offset, ntok):
+    """A single chunk's block-table row [NBmax] and 0-d ``q_offset`` /
+    ``ntok`` -> the batched writers' [1, NBmax], [1], [1] (views)."""
+    return block_table[None], q_offset.reshape(1), ntok.reshape(1)
+
+
+def _assert_aligned(q_offsets, ntoks, bs: int) -> None:
+    assert bool(((q_offsets % bs == 0) | (ntoks == 0)).all()), (
+        "full-page writer needs page-aligned chunk starts"
+    )
+
+
+def kv_write_prefill_plain(kt, vt, k_all, v_all, layer_idx, block_table,
+                           q_offset, ntok) -> None:
+    """Plain PyTorch version of K2b: one head-major chunk's valid rows."""
+    _assert_aligned(q_offset, ntok, k_all.shape[3])
+    kv_write_rows_plain(kt.transpose(0, 1)[None], vt.transpose(0, 1)[None], k_all,
+                        v_all, layer_idx, *_one_chunk(block_table, q_offset, ntok))
+
+
+def kv_write_rmw_plain(kt, vt, k_all, v_all, layer_idx, block_table, q_offset,
+                       ntok) -> None:
+    """Plain PyTorch version of K4b: one token-major chunk's valid rows."""
+    kv_write_rows_plain(kt[None], vt[None], k_all, v_all, layer_idx,
+                        *_one_chunk(block_table, q_offset, ntok))
+
+
+def kv_write_prefill(
+    kt: torch.Tensor,  # [Hkv, S_pad, D] head-major new K of the chunk
+    vt: torch.Tensor,
+    k_all: torch.Tensor,  # [L, NB, Hkv, bs, D], updated in place
+    v_all: torch.Tensor,
+    layer_idx: int,
+    block_table: torch.Tensor,  # [NBmax] int32
+    q_offset: torch.Tensor,  # [] int32, page-aligned
+    ntok: torch.Tensor,  # [] int32 valid rows of the chunk
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2b: one chunk from a page boundary (the kernel asserts it).
+    -> (k_all, v_all), updated in place."""
+    if k_all.device.type == "cpu":
+        kv_write_prefill_plain(kt, vt, k_all, v_all, layer_idx, block_table,
+                               q_offset, ntok)
+    else:  # the head-major chunk reaches the kernel as a strided view
+        _launch(ONE_PREFILL_NAME, kt.transpose(0, 1)[None], vt.transpose(0, 1)[None],
+                k_all, v_all, layer_idx, *_one_chunk(block_table, q_offset, ntok),
+                require_aligned=True)
+    return k_all, v_all
+
+
+def kv_write_rmw(
+    kt: torch.Tensor,  # [S, Hkv, D] token-major, S <= block_size
+    vt: torch.Tensor,
+    k_all: torch.Tensor,
+    v_all: torch.Tensor,
+    layer_idx: int,
+    block_table: torch.Tensor,  # [NBmax] int32
+    q_offset: torch.Tensor,  # [] int32, any alignment
+    ntok: torch.Tensor,  # [] int32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4b: one chunk of at most one page that may start mid-page.
+    -> (k_all, v_all), updated in place."""
+    if kt.shape[0] > k_all.shape[3]:
+        raise ValueError("RMW writer covers chunks of at most one page")
+    if k_all.device.type == "cpu":
+        kv_write_rmw_plain(kt, vt, k_all, v_all, layer_idx, block_table, q_offset, ntok)
+    else:
+        _launch(ONE_RMW_NAME, kt[None], vt[None], k_all, v_all, layer_idx,
+                *_one_chunk(block_table, q_offset, ntok), require_aligned=False)
     return k_all, v_all
 
 
@@ -257,10 +352,7 @@ def latent_write_prefill_batched(
     """K11c: full-page writer contract (chunks start on a page boundary;
     the kernel asserts it per row). -> cache, updated in place."""
     if cache.device.type == "cpu":
-        bs = cache.shape[3]
-        assert bool(((q_offsets % bs == 0) | (ntoks == 0)).all()), (
-            "full-page writer needs page-aligned chunk starts"
-        )
+        _assert_aligned(q_offsets, ntoks, cache.shape[3])
         latent_write_rows_plain(rows, cache, layer_idx, block_tables, q_offsets, ntoks)
     else:
         _launch_latent(LATENT_PREFILL_NAME, rows, cache, layer_idx, block_tables,
@@ -285,4 +377,59 @@ def latent_write_rmw_batched(
     else:
         _launch_latent(LATENT_RMW_NAME, rows, cache, layer_idx, block_tables,
                        q_offsets, ntoks, require_aligned=False)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# K11f + K11g: one latent chunk (the batched contracts at P = 1)
+# ---------------------------------------------------------------------------
+def latent_write_prefill_plain(rows, cache, layer_idx, block_table, q_offset,
+                               ntok) -> None:
+    """Plain PyTorch version of K11f: one chunk's valid latent rows."""
+    _assert_aligned(q_offset, ntok, cache.shape[3])
+    latent_write_rows_plain(rows[None], cache, layer_idx,
+                            *_one_chunk(block_table, q_offset, ntok))
+
+
+def latent_write_rmw_plain(rows, cache, layer_idx, block_table, q_offset,
+                           ntok) -> None:
+    """Plain PyTorch version of K11g."""
+    latent_write_rows_plain(rows[None], cache, layer_idx,
+                            *_one_chunk(block_table, q_offset, ntok))
+
+
+def latent_write_prefill(
+    rows: torch.Tensor,  # [S_pad, Dk]
+    cache: torch.Tensor,  # [L, NB, 1, bs, Dk], updated in place
+    layer_idx: int,
+    block_table: torch.Tensor,  # [NBmax] int32
+    q_offset: torch.Tensor,  # [] int32, page-aligned
+    ntok: torch.Tensor,  # [] int32
+) -> torch.Tensor:
+    """K11f: one latent chunk from a page boundary. -> cache, in place."""
+    if cache.device.type == "cpu":
+        latent_write_prefill_plain(rows, cache, layer_idx, block_table, q_offset, ntok)
+    else:
+        _launch_latent(ONE_LATENT_PREFILL_NAME, rows[None], cache, layer_idx,
+                       *_one_chunk(block_table, q_offset, ntok), require_aligned=True)
+    return cache
+
+
+def latent_write_rmw(
+    rows: torch.Tensor,  # [S, Dk], S <= block_size
+    cache: torch.Tensor,
+    layer_idx: int,
+    block_table: torch.Tensor,  # [NBmax] int32
+    q_offset: torch.Tensor,  # [] int32, any alignment
+    ntok: torch.Tensor,  # [] int32
+) -> torch.Tensor:
+    """K11g: one latent chunk of at most one page that may start mid-page.
+    -> cache, in place."""
+    if rows.shape[0] > cache.shape[3]:
+        raise ValueError("RMW writer covers chunks of at most one page")
+    if cache.device.type == "cpu":
+        latent_write_rmw_plain(rows, cache, layer_idx, block_table, q_offset, ntok)
+    else:
+        _launch_latent(ONE_LATENT_RMW_NAME, rows[None], cache, layer_idx,
+                       *_one_chunk(block_table, q_offset, ntok), require_aligned=False)
     return cache

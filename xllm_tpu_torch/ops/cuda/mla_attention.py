@@ -9,14 +9,19 @@
 - ``mla_prefill_attention_batched`` (K11b) replaces
   ``mla_prefill_attention_batched_tpu``: P chunks ``q [P, S, H, Dk]``,
   causal at ``q_offsets[p] + t`` over ``kv_lens[p]`` tokens ->
-  ``[P, S, H, dv]``.
+  ``[P, S, H, dv]``;
+- ``mla_prefill_attention`` (K11e) replaces ``mla_prefill_attention_tpu``:
+  one chunk ``q [S, H, Dk]`` with 0-d ``q_offset`` and ``kv_len`` on the
+  device -> ``[S, H, dv]``, K11b's kernel launched with one chunk under its
+  own launch counter.
 
 Scores take all Dk lanes of a cached row, values its first ``dv`` lanes
 (absorbed MLA: an MQA over one latent head). The softmax is f32 and the
 probabilities are rounded to the cache dtype before the value product, as
 in the TPU kernels and ``ops/mla_ref``. A row with ``seq_len``/``kv_len``
 0 (a padded row) and a query row past its chunk's ``kv_len - q_offset``
-(bucket padding) come out as zeros. Bound on the card: bytes at decode,
+(bucket padding) come out as zeros (the TPU kernels attend a padding
+row to all of ``[0, kv_len)``; nothing reads it). Bound on the card: bytes at decode,
 operations at prefill; the design notes are in the CUDA source. Decode
 splits each row's context across up to 32 blocks; prefill does too when
 its row tiles alone give few blocks (``prefill_splits``).
@@ -37,6 +42,10 @@ DECODE_TPU_KERNEL = (
 )
 PREFILL_TPU_KERNEL = (
     "xllm_tpu/ops/pallas/mla_attention.py:507 mla_prefill_attention_batched_tpu"
+)
+ONE_PREFILL_NAME = "mla_prefill_attention"
+ONE_PREFILL_TPU_KERNEL = (
+    "xllm_tpu/ops/pallas/mla_attention.py:331 mla_prefill_attention_tpu"
 )
 _SOURCE = "mla_attention"
 TC_VALUE_DIMS = (128, 256, 512)  # dv of the bf16 (tensor-core) builds
@@ -113,6 +122,23 @@ def mla_prefill_attention_batched_plain(
     limits = prefill_row_limits(s, h, q_offsets, kv_lens)
     out = _attend_plain(q.reshape(p, s * h, dk), lat, limits, scale, dv, cache.dtype)
     return out.reshape(p, s, h, dv)
+
+
+def mla_prefill_attention_plain(
+    q: torch.Tensor,  # [S, H, Dk]
+    cache: torch.Tensor,  # [L, NB, 1, bs, Dk]
+    layer_idx: int,
+    block_table: torch.Tensor,  # [NBmax] int32
+    q_offset: torch.Tensor,  # [] int32
+    kv_len: torch.Tensor,  # [] int32
+    scale: float,
+    dv: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of K11e (K11b's at one chunk) -> [S, H, dv]."""
+    return mla_prefill_attention_batched_plain(
+        q[None], cache, layer_idx, block_table[None], q_offset.reshape(1),
+        kv_len.reshape(1), scale, dv,
+    )[0]
 
 
 _lib = None
@@ -240,6 +266,24 @@ def mla_decode_attention_write(
     return out.to(q.dtype)
 
 
+def mla_prefill_attention(
+    q: torch.Tensor,
+    cache: torch.Tensor,
+    layer_idx: int,
+    block_table: torch.Tensor,
+    q_offset: torch.Tensor,
+    kv_len: torch.Tensor,
+    scale: float,
+    dv: int,
+) -> torch.Tensor:
+    """K11e -> out [S, H, dv] in q's dtype."""
+    if q.device.type == "cpu":
+        return mla_prefill_attention_plain(q, cache, layer_idx, block_table, q_offset,
+                                           kv_len, scale, dv)
+    return _launch_prefill(ONE_PREFILL_NAME, q[None], cache, layer_idx, block_table[None],
+                           q_offset.reshape(1), kv_len.reshape(1), scale, dv)[0]
+
+
 def mla_prefill_attention_batched(
     q: torch.Tensor,
     cache: torch.Tensor,
@@ -255,10 +299,17 @@ def mla_prefill_attention_batched(
         return mla_prefill_attention_batched_plain(
             q, cache, layer_idx, block_tables, q_offsets, kv_lens, scale, dv,
         )
+    return _launch_prefill(PREFILL_NAME, q, cache, layer_idx, block_tables, q_offsets,
+                           kv_lens, scale, dv)
+
+
+def _launch_prefill(name, q, cache, layer_idx, block_tables, q_offsets, kv_lens,
+                    scale, dv) -> torch.Tensor:
+    """K11b's kernel over P chunks, counted under ``name`` -> [P, S, H, dv]."""
     if q.device.type != "cuda":
-        raise ValueError(f"{PREFILL_NAME}: unsupported device {q.device}")
+        raise ValueError(f"{name}: unsupported device {q.device}")
     p, s, h, _ = q.shape
-    dtype, dk = _check(PREFILL_NAME, q, cache, dv, (block_tables, q_offsets, kv_lens))
+    dtype, dk = _check(name, q, cache, dv, (block_tables, q_offsets, kv_lens))
     if q.numel() == 0:
         return torch.empty(p, s, h, dv, dtype=q.dtype, device=q.device)
     lib = _load()  # a failed build raises here, before any allocation
@@ -274,7 +325,7 @@ def mla_prefill_attention_batched(
         dtype=torch.float32, device=q.device,
     )
     counters = _split_counters(q.device, p * row_tiles)
-    _build.count_launch(PREFILL_NAME)
+    _build.count_launch(name)
     err = lib.xllm_mla_attention(
         q.device.index or 0, 0, _build.ptr(qk), None, _build.ptr(cache), None,
         _build.ptr(block_tables), _build.ptr(q_offsets), _build.ptr(kv_lens),
@@ -282,5 +333,5 @@ def mla_prefill_attention_batched(
         dv, int(layer_idx), cache.shape[1], bs, nbmax, float(scale), chunk, nsplit,
         _build.stream_of(q),
     )
-    _build.check(lib, err, PREFILL_NAME)
+    _build.check(lib, err, name)
     return out.to(q.dtype)

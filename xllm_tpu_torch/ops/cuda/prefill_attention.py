@@ -1,17 +1,31 @@
-"""K3: batched causal flash attention over paged KV (``csrc/prefill_attention.cu``).
+"""K3 and K3b: causal flash attention over paged KV (``csrc/prefill_attention.cu``).
 
-Replaces ``xllm_tpu/ops/pallas/prefill_attention.py``
-``paged_attention_prefill_batched_tpu``. Contract: P prompt chunks, one per
-sequence, ``q [P, S, Hq, D]`` at absolute positions ``q_offsets[p] + i``,
-each attending causally to its own paged K/V up to ``kv_lens[p]`` through
-``block_tables[p]``, GQA, optional sliding ``window``. ``kv_lens[p] == 0``
-marks a padded row. Query rows past a chunk's ``kv_len - q_offset`` tokens
-(bucket padding) and padded rows come out as zeros, in the kernel and in
-its plain version alike.
+- ``paged_attention_prefill_batched`` (K3) replaces
+  ``xllm_tpu/ops/pallas/prefill_attention.py``
+  ``paged_attention_prefill_batched_tpu``. Contract: P prompt chunks, one
+  per sequence, ``q [P, S, Hq, D]`` at absolute positions ``q_offsets[p] +
+  i``, each attending causally to its own paged K/V up to ``kv_lens[p]``
+  through ``block_tables[p]``, GQA, optional sliding ``window``.
+  ``kv_lens[p] == 0`` marks a padded row.
+- ``paged_attention_prefill`` (K3b) replaces ``paged_attention_prefill_tpu``:
+  the same for one chunk, ``q [S, Hq, D]`` with 0-d ``q_offset`` and
+  ``kv_len`` on the device. It launches K3's kernel with one chunk, under
+  its own launch counter.
+
+Query rows past a chunk's ``kv_len - q_offset`` tokens (bucket padding)
+and padded rows come out as zeros, in the kernels and in their plain
+versions alike. The TPU kernels differ there: their mask
+``(kv_idx <= row_pos) & (kv_idx < kv_len)`` lets a padding row (``row_pos
+>= kv_len``) attend to all of ``[0, kv_len)``. No served result reads
+those rows (logits and scores come from real rows, writers store only real
+rows), so the port skips their work.
 
 Quantized caches (int8 codes or float8_e4m3fn; q and the output stay bf16
 or f32): P is rounded to bf16 before P.V, as in the TPU kernel, in the
-kernel and its plain version alike.
+kernel and its plain version alike, each against its running maximum
+after each page, as the TPU kernel's walk does (after each tile of 64
+positions where a page is longer than that or does not divide it:
+``page_segment``).
 
 Bound on the card: operations for long chunks (S = 2048), bytes for
 short ragged ones; see the CUDA source.
@@ -30,8 +44,20 @@ TPU_KERNEL = (
     "xllm_tpu/ops/pallas/prefill_attention.py:309 "
     "paged_attention_prefill_batched_tpu"
 )
+ONE_NAME = "prefill_attention"
+ONE_TPU_KERNEL = (
+    "xllm_tpu/ops/pallas/prefill_attention.py:390 paged_attention_prefill_tpu"
+)
 _SOURCE = "prefill_attention"
 _MAX_GROUP = 64  # query rows per block in the kernel
+_TILE = 64  # KV positions per shared-memory tile in the kernel
+
+
+def page_segment(block_size: int) -> int:
+    """Positions between two updates of the running maximum against which a
+    quantized cache's P is rounded: a page, when it divides the CUDA
+    kernel's 64-position tile, else the tile."""
+    return block_size if block_size < _TILE and _TILE % block_size == 0 else _TILE
 
 
 def paged_attention_prefill_batched_plain(
@@ -71,11 +97,26 @@ def paged_attention_prefill_batched_plain(
         probs = torch.nan_to_num(torch.softmax(scores, dim=-1))
         out = torch.einsum("pkgqs,pksd->pqkgd", probs, v).reshape(p, s, hq, d)
         return out.to(q.dtype)
-    # quantized cache: P rounded to bf16 before P.V, l of the unrounded P
-    m = scores.amax(-1, keepdim=True)
-    probs = torch.exp(scores - torch.where(torch.isfinite(m), m, 0.0))
-    l = probs.sum(-1)  # 0 for a row without a real token
-    out = torch.einsum("pkgqs,pksd->pqkgd", probs.bfloat16().float(), v)
+    # quantized cache: P rounded to bf16 before P.V, as the TPU kernel's
+    # online softmax rounds it: against the running maximum after each page
+    # (after each 64 positions, the CUDA kernel's tile, for pages longer
+    # than that or not dividing it). Block i's P.V then carries the weight
+    # exp(m_i - m_last) that the kernel's later rescales give it; l sums the
+    # unrounded P.
+    seg = page_segment(k_all.shape[3])
+    pad = -scores.shape[-1] % seg
+    if pad:
+        scores = torch.nn.functional.pad(scores, (0, pad), value=float("-inf"))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    paged = scores.unflatten(-1, (-1, seg))  # [P, Hkv, G, S, blocks, seg]
+    m_run = torch.cummax(paged.amax(-1), dim=-1).values  # [P, Hkv, G, S, NB]
+    seen = torch.isfinite(m_run)
+    m_run = torch.where(seen, m_run, 0.0)
+    weight = torch.where(seen, torch.exp(m_run - m_run[..., -1:]), 0.0)
+    probs = torch.exp(paged - m_run[..., None])  # masked positions: 0
+    l = (probs.sum(-1) * weight).sum(-1)  # 0 for a row without a real token
+    probs = (probs.bfloat16().float() * weight[..., None]).flatten(-2)
+    out = torch.einsum("pkgqs,pksd->pqkgd", probs, v)
     l = l.permute(0, 3, 1, 2)[..., None]  # [P, S, Hkv, G, 1]
     out = torch.where(l > 0, out / l, 0.0).reshape(p, s, hq, d)
     return out.to(q.dtype)
@@ -98,6 +139,44 @@ def _load() -> ctypes.CDLL:
     return _lib
 
 
+def paged_attention_prefill_plain(
+    q: torch.Tensor,  # [S, Hq, D]
+    k_all: torch.Tensor,  # [L, NB, Hkv, bs, D]
+    v_all: torch.Tensor,
+    layer_idx: int,
+    block_table: torch.Tensor,  # [NBmax] int32
+    q_offset: torch.Tensor,  # [] int32
+    kv_len: torch.Tensor,  # [] int32
+    scale: float,
+    window: int = 0,
+) -> torch.Tensor:
+    """Plain PyTorch version of K3b (K3's at one chunk) -> [S, Hq, D]."""
+    return paged_attention_prefill_batched_plain(
+        q[None], k_all, v_all, layer_idx, block_table[None], q_offset.reshape(1),
+        kv_len.reshape(1), scale, window,
+    )[0]
+
+
+def paged_attention_prefill(
+    q: torch.Tensor,
+    k_all: torch.Tensor,
+    v_all: torch.Tensor,
+    layer_idx: int,
+    block_table: torch.Tensor,
+    q_offset: torch.Tensor,
+    kv_len: torch.Tensor,
+    scale: float,
+    window: int = 0,
+) -> torch.Tensor:
+    """K3b -> out [S, Hq, D] in q's dtype."""
+    if q.device.type == "cpu":
+        return paged_attention_prefill_plain(
+            q, k_all, v_all, layer_idx, block_table, q_offset, kv_len, scale, window,
+        )
+    return _launch(ONE_NAME, q[None], k_all, v_all, layer_idx, block_table[None],
+                   q_offset.reshape(1), kv_len.reshape(1), scale, window)[0]
+
+
 def paged_attention_prefill_batched(
     q: torch.Tensor,
     k_all: torch.Tensor,
@@ -109,14 +188,21 @@ def paged_attention_prefill_batched(
     scale: float,
     window: int = 0,
 ) -> torch.Tensor:
-    """-> out [P, S, Hq, D] in q's dtype."""
+    """K3 -> out [P, S, Hq, D] in q's dtype."""
     if q.device.type == "cpu":
         return paged_attention_prefill_batched_plain(
             q, k_all, v_all, layer_idx, block_tables, q_offsets, kv_lens,
             scale, window,
         )
+    return _launch(NAME, q, k_all, v_all, layer_idx, block_tables, q_offsets, kv_lens,
+                   scale, window)
+
+
+def _launch(name, q, k_all, v_all, layer_idx, block_tables, q_offsets, kv_lens,
+            scale, window) -> torch.Tensor:
+    """K3's kernel over P chunks, counted under ``name`` -> [P, S, Hq, D]."""
     if q.device.type != "cuda":
-        raise ValueError(f"{NAME}: unsupported device {q.device}")
+        raise ValueError(f"{name}: unsupported device {q.device}")
     p, s, hq, d = q.shape
     nl, nb, hkv, bs, d_cache = k_all.shape
     _build.check_head_dim(d)
@@ -125,22 +211,22 @@ def paged_attention_prefill_batched(
     work = q.dtype if _build.is_quantized(k_all.dtype) else k_all.dtype
     qtype = _build.dtype_code(work)
     if _build.is_quantized(work):
-        raise ValueError(f"{NAME}: q must be bfloat16 or float32, not {q.dtype}")
+        raise ValueError(f"{name}: q must be bfloat16 or float32, not {q.dtype}")
     if d_cache != d or hq % hkv or v_all.shape != k_all.shape:
-        raise ValueError(f"{NAME}: q {tuple(q.shape)} vs cache {tuple(k_all.shape)}")
+        raise ValueError(f"{name}: q {tuple(q.shape)} vs cache {tuple(k_all.shape)}")
     if hq // hkv > _MAX_GROUP:
-        raise NotImplementedError(f"{NAME}: more than {_MAX_GROUP} query heads per kv head")
+        raise NotImplementedError(f"{name}: more than {_MAX_GROUP} query heads per kv head")
     if not (k_all.is_contiguous() and v_all.is_contiguous()):
-        raise ValueError(f"{NAME}: caches must be contiguous")
+        raise ValueError(f"{name}: caches must be contiguous")
     for t in (block_tables, q_offsets, kv_lens):
         if t.dtype != torch.int32 or not t.is_contiguous() or t.device != q.device:
-            raise ValueError(f"{NAME}: index arrays must be contiguous int32 on {q.device}")
+            raise ValueError(f"{name}: index arrays must be contiguous int32 on {q.device}")
     qk = q.to(work).contiguous()
     out = torch.empty_like(qk)
     if p == 0 or s == 0:
         return out.to(q.dtype)
     lib = _load()
-    _build.count_launch(NAME)
+    _build.count_launch(name)
     err = lib.xllm_prefill_attention(
         q.device.index or 0, _build.ptr(qk), _build.ptr(k_all),
         _build.ptr(v_all), _build.ptr(block_tables), _build.ptr(q_offsets),
@@ -148,5 +234,5 @@ def paged_attention_prefill_batched(
         nb, hkv, bs, block_tables.shape[1], hq // hkv, float(scale),
         int(window), _build.stream_of(q),
     )
-    _build.check(lib, err, NAME)
+    _build.check(lib, err, name)
     return out.to(q.dtype)

@@ -9,7 +9,9 @@ a CPU tensor takes its plain PyTorch version.
 Kernel choice, as in the JAX dispatch:
 - decode: K11a (``ops/cuda/mla_attention.mla_decode_attention_write``);
 - batched prefill with chunk bucket ``S <= block_size``: K11d writer (chunks
-  may start mid-page), else K11c (page-aligned chunks); then K11b.
+  may start mid-page), else K11c (page-aligned chunks); then K11b;
+- single-chunk prefill (prompt scoring, embeddings): K11g for a chunk
+  bucket ``S_pad <= block_size``, else K11f; then K11e.
 """
 
 from __future__ import annotations
@@ -17,13 +19,18 @@ from __future__ import annotations
 import torch
 
 from xllm_tpu_torch.ops.cuda.kv_write import (
+    latent_write_prefill,
     latent_write_prefill_batched,
+    latent_write_rmw,
     latent_write_rmw_batched,
 )
 from xllm_tpu_torch.ops.cuda.mla_attention import (
     mla_decode_attention_write as _decode_kernel,
 )
-from xllm_tpu_torch.ops.cuda.mla_attention import mla_prefill_attention_batched
+from xllm_tpu_torch.ops.cuda.mla_attention import (
+    mla_prefill_attention,
+    mla_prefill_attention_batched,
+)
 
 
 def mla_decode_attention_write(
@@ -64,4 +71,26 @@ def mla_prefill_attention_write_batched(
     writer(lat_new, cache, layer_idx, block_tables, q_offsets, ntoks)
     out = mla_prefill_attention_batched(q_eff, cache, layer_idx, block_tables,
                                         q_offsets, kv_lens, scale, dv)
+    return out, cache
+
+
+def mla_prefill_attention_write(
+    q_eff: torch.Tensor,  # [S, H, Dk]
+    lat_new: torch.Tensor,  # [S, Dk]
+    cache: torch.Tensor,  # [L, NB, 1, bs, Dk]
+    layer_idx: int,
+    slot_mapping: torch.Tensor,  # [S] (kept for the JAX signature)
+    block_table: torch.Tensor,  # [NBmax] int32
+    q_offset: torch.Tensor,  # [] int32
+    kv_len: torch.Tensor,  # [] int32
+    scale: float,
+    dv: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One latent chunk written + attended. -> (out [S, H, dv], cache)."""
+    del slot_mapping
+    ntok = kv_len - q_offset
+    writer = latent_write_rmw if lat_new.shape[0] <= cache.shape[3] else latent_write_prefill
+    writer(lat_new, cache, layer_idx, block_table, q_offset, ntok)
+    out = mla_prefill_attention(q_eff, cache, layer_idx, block_table, q_offset, kv_len,
+                                scale, dv)
     return out, cache

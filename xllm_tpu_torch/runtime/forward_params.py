@@ -14,6 +14,21 @@ from typing import Any
 
 
 @dataclass
+class PrefillInput:
+    """One sequence's prompt chunk, padded to a token bucket (prompt
+    scoring and embeddings). ``kv_len`` counts all KV tokens of the
+    sequence including this chunk; ``positions[0] == q_offset``."""
+
+    token_ids: Any  # [S] int32
+    positions: Any  # [S] int32 (padding repeats the last position)
+    slot_mapping: Any  # [S] int32 (padding -> 0 = null block)
+    block_table: Any  # [NB] int32
+    kv_len: Any  # [] int32
+    q_offset: Any  # [] int32 absolute position of token 0
+    logits_idx: Any  # [] int32 row of the last real token
+
+
+@dataclass
 class BatchedPrefillInput:
     """P prompt chunks, one per sequence, in one dispatch."""
 

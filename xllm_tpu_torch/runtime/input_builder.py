@@ -1,13 +1,14 @@
 """Host-side forward-input assembly (numpy, allocation-light).
 
 Copy of the parts of ``xllm_tpu/runtime/input_builder.py`` that the served
-dense path uses: batched prefill, decode (with its incremental
-``DecodeStepCache``) and sampling inputs, padded to the same buckets so
-that both packages batch identically and the kernels see the padded rows
-(``seq_len``/``kv_len`` 0) their contract covers. Left out with the
-features that raise in this slice: the VLM fields and the context-parallel
-zigzag of batched prefill, the single-chunk and speculative-verify builders,
-and the decode page maps that only the TPU kernel's global page ring read.
+dense path uses: batched prefill, the single chunk of prompt scoring and
+embeddings, decode (with its incremental ``DecodeStepCache``) and sampling
+inputs, padded to the same buckets so that both packages batch identically
+and the kernels see the padded rows (``seq_len``/``kv_len`` 0) their
+contract covers. Left out with the features that raise in this slice: the
+VLM fields and the context-parallel zigzag of batched prefill, the
+speculative-verify builder, and the decode page maps that only the TPU
+kernel's global page ring read.
 """
 
 from __future__ import annotations
@@ -18,9 +19,47 @@ from xllm_tpu_torch.framework.request import Sequence
 from xllm_tpu_torch.runtime.forward_params import (
     BatchedPrefillInput,
     DecodeInput,
+    PrefillInput,
     SamplingInput,
 )
 from xllm_tpu_torch.utils import next_bucket
+
+
+def build_prefill_input(
+    seq: Sequence,
+    num_new_tokens: int,
+    block_size: int,
+    token_buckets: list[int],
+    num_block_table_cols: int,
+) -> tuple[PrefillInput, bool]:
+    """One sequence's prompt chunk -> (input, samples_token):
+    ``samples_token`` is True when the chunk reaches the last known token."""
+    start = seq.num_computed_tokens
+    end = start + num_new_tokens
+    assert end <= seq.num_tokens
+    s_pad = next_bucket(token_buckets, num_new_tokens)
+
+    token_ids = np.zeros(s_pad, np.int32)
+    token_ids[:num_new_tokens] = seq.token_ids[start:end]
+    positions = np.full(s_pad, max(end - 1, 0), np.int32)
+    positions[:num_new_tokens] = np.arange(start, end, dtype=np.int32)
+    pos = np.arange(start, end)
+    blocks = np.asarray(seq.block_ids, np.int64)
+    slot_mapping = np.zeros(s_pad, np.int32)
+    slot_mapping[:num_new_tokens] = blocks[pos // block_size] * block_size + pos % block_size
+    block_table = np.zeros(num_block_table_cols, np.int32)
+    block_table[: len(seq.block_ids)] = seq.block_ids
+
+    inp = PrefillInput(
+        token_ids=token_ids,
+        positions=positions,
+        slot_mapping=slot_mapping,
+        block_table=block_table,
+        kv_len=np.asarray(end, np.int32),
+        q_offset=np.asarray(start, np.int32),
+        logits_idx=np.asarray(num_new_tokens - 1, np.int32),
+    )
+    return inp, end == seq.num_tokens
 
 
 def group_prefill_items(

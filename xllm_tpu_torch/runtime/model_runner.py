@@ -2,7 +2,9 @@
 
 Counterpart of the subset of ``xllm_tpu/runtime/model_runner.py`` that
 serves the dense, MoE and MLA main paths on one device: ``load_model``, ``initialize_kv_cache``,
-``run_prefill_batched`` and ``run_decode``. The device-resident
+``run_prefill_batched`` and ``run_decode``, and the single-chunk passes of
+prompt scoring (``run_score_chunk``) and embeddings (``run_prefill_embed``),
+which read their result back synchronously, as the JAX runner does. The device-resident
 ``last_tokens`` ring (each slot holds its sequence's last sampled token, so
 the next decode reads it without a host round trip) and the ``token_hist``
 ring (the sampler's penalty history) are kept. There is no jit, no warmup
@@ -22,16 +24,18 @@ from xllm_tpu_torch.models.registry import MLA_FAMILIES, MOE_FAMILIES, create_mo
 from xllm_tpu_torch.runtime.forward_params import (
     BatchedPrefillInput,
     DecodeInput,
+    PrefillInput,
     SamplingInput,
 )
 from xllm_tpu_torch.runtime.input_builder import (
     DecodeStepCache,
     build_batched_prefill_input,
     build_decode_input,
+    build_prefill_input,
     build_sampling_input,
 )
 from xllm_tpu_torch.runtime.sampler import gumbel_noise, sample
-from xllm_tpu_torch.utils import cdiv, get_logger
+from xllm_tpu_torch.utils import cdiv, get_logger, next_bucket
 
 logger = get_logger(__name__)
 
@@ -260,16 +264,19 @@ class ModelRunner:
     # ------------------------------------------------------------------
     def _upload(self, arrays: dict) -> dict:
         """numpy arrays -> device tensors of the same shapes and dtypes
-        (int32 or float32), in ONE non-blocking copy from pinned memory."""
+        (int32 or float32), in ONE non-blocking copy from pinned memory.
+        A 0-d array arrives as a 0-d tensor."""
         if self.device.type == "cpu":
-            return {k: torch.from_numpy(np.ascontiguousarray(a)) for k, a in arrays.items()}
+            return {k: torch.from_numpy(np.ascontiguousarray(a).reshape(np.shape(a)))
+                    for k, a in arrays.items()}
         flat, meta, off = [], [], 0
         for name, a in arrays.items():
+            shape = np.shape(a)
             a = np.ascontiguousarray(a)
             is_float = a.dtype == np.float32
             f = a.view(np.int32) if is_float else a.astype(np.int32, copy=False)
             flat.append(f.ravel())
-            meta.append((name, a.shape, is_float, off, a.size))
+            meta.append((name, shape, is_float, off, a.size))
             off += a.size
         host = torch.empty(off, dtype=torch.int32, pin_memory=True)
         np.concatenate(flat, out=host.numpy())
@@ -383,6 +390,52 @@ class ModelRunner:
         tops = out[2:] if num_top else (None, None)
         self.last_tokens[slot_ids] = tokens
         return tokens, logprobs, rows, tops
+
+    def _chunk_input(self, seq: Sequence, num_new_tokens: int, **extra):
+        """One sequence's next chunk as a device ``PrefillInput`` (and the
+        ``extra`` arrays, uploaded with it) -> (input, extra tensors,
+        samples_token)."""
+        inp_np, samples_token = build_prefill_input(
+            seq, num_new_tokens, self.block_size,
+            self.config.scheduler.prefill_token_buckets, self.max_blocks_per_seq,
+        )
+        dev = self._upload({**vars(inp_np), **extra})
+        inp = PrefillInput(**{k: dev[k] for k in vars(inp_np)})
+        return inp, {k: dev[k] for k in extra}, samples_token
+
+    @torch.inference_mode()
+    def run_prefill_embed(self, seq: Sequence, num_new_tokens: int) -> np.ndarray:
+        """The final prompt chunk of an embed request -> its pooled hidden
+        state: the last token's final-norm hidden state in f32, divided by
+        max(its L2 norm, 1e-12). Synchronous read-back."""
+        inp, _, samples_token = self._chunk_input(seq, num_new_tokens)
+        assert samples_token, "embed must run on the final chunk"
+        hidden, _, _ = self.model.prefill(self.k_cache, self.v_cache, inp)
+        vec = hidden[0].float()
+        vec = vec / torch.clamp(torch.linalg.vector_norm(vec), min=1e-12)
+        return vec.cpu().numpy()
+
+    @torch.inference_mode()
+    def run_score_chunk(self, seq: Sequence, num_new_tokens: int) -> np.ndarray:
+        """Next-token logprobs of one prompt chunk (scoring, perplexity) ->
+        lp [num_new_tokens] f32: lp[i] is the logprob of the prompt token
+        after chunk row i (the final prompt position, which has no next
+        token, scores token 0; ``score_prompt`` drops it). The chosen logit is taken in the model's
+        dtype, then cast to f32, minus the logsumexp of the logits in f32,
+        as the JAX runner computes it. Synchronous read-back."""
+        start = seq.num_computed_tokens
+        s_pad = next_bucket(self.config.scheduler.prefill_token_buckets, num_new_tokens)
+        nxt = np.zeros(s_pad, np.int32)
+        j = np.arange(start + 1, start + num_new_tokens + 1)
+        j = j[j < seq.num_tokens]
+        nxt[: len(j)] = np.asarray(seq.token_ids)[j]
+        inp, extra, _ = self._chunk_input(seq, num_new_tokens, next_tokens=nxt)
+        hidden, _, _ = self.model.prefill(self.k_cache, self.v_cache, inp,
+                                          num_logits=s_pad)
+        logits = self.model.compute_logits(hidden)  # [S_pad, V], model dtype
+        logz = torch.logsumexp(logits.float(), dim=-1)
+        chosen = logits.gather(1, extra["next_tokens"].long()[:, None])[:, 0].float()
+        return (chosen - logz)[:num_new_tokens].cpu().numpy()
 
     def _need_lp(self, seqs) -> bool:
         """The exact logsumexp pass runs only when some request reports
