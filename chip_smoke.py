@@ -33,7 +33,15 @@ phase raises on failure, so a non-zero exit means a phase failed:
    kernels of prompt scoring and embeddings, K2b, K4b and K3b at
    qwen3-1.7B's shapes (K3b at S 2048 from q_offset 0 and 2048, 300 tokens
    in the 512 bucket, 52 at q_offset 2048 in the 64 bucket, and with a
-   window; also on int8 and fp8 caches) and K11e-g at DeepSeek-V2-Lite's.
+   window; also on int8 and fp8 caches) and K11e-g at DeepSeek-V2-Lite's;
+   the fp8 instances of the quantized MoE and MLA families: K10 with fp8
+   expert stacks at both MoE models' shapes (bf16 and f32 lhs; the MoE block
+   with fp8 experts once under the sync debug mode "error") and K11a-g on an
+   fp8 latent cache at DeepSeek-V2-Lite's (bf16 and f32 q; the writers cast
+   e4m3 edge values); and the P-rounding repairs (faults F1-F4): K1, K3,
+   K3b on bf16, int8 and fp8 caches and K11a, K11b, K11e on bf16 and fp8
+   latent caches at block_size 16, 32, 64 and 128, with and without a
+   window.
    Then the kernel, the plain version and one PyTorch library call
    (the yardstick, never used by the port) are timed with CUDA events,
    queued behind a device-side sleep so that the device's time is timed
@@ -68,7 +76,13 @@ phase raises on failure, so a non-zero exit means a phase failed:
    qwen3-1.7B engine once more under ``XLLM_BF16_MM=pallas`` (every pass of
    at most 256 tokens launches K7 five times per layer, 140); each
    Qwen3-8B engine also scores a 2,100-token prompt (K2b, K3b, K4b on its
-   int8 or fp8 cache);
+   int8 or fp8 cache); then Qwen3-30B-A3B (48 layers, ~31 GB) with fp8
+   weights and an fp8 KV cache and DeepSeek-V2-Lite (27 layers, ~17 GB)
+   with fp8 weights and an fp8 latent cache, at full width and depth with
+   their weights drawn in e4m3, under ``XLLM_QMM_KERNEL=pallas``: every
+   pass launches K6 once per ``*_proj_w`` (96 and 162), K10 (fp8 rhs) twice
+   per MoE layer and the fp8 attention kernels once per layer; each scores
+   a 2,100-token prompt;
 7. parity: small f32 qwen3, qwen3-moe, glm4-moe (sigmoid routing with a
    non-zero router bias, a shared expert, a dense first layer and partial
    rope), deepseek_v2 (q_lora_rank 0, YaRN, latent padded from 144 to 256
@@ -78,8 +92,11 @@ phase raises on failure, so a non-zero exit means a phase failed:
    greedy tokens, and the qwen3 and deepseek_v2 models the same scores and
    embeddings within 1e-4; the small qwen3 with int8 weights and an int8 KV
    cache under ``XLLM_QMM_KERNEL=pallas`` (K5 and the int8-cache K1-K4);
-   then ``AsyncLLMEngine`` on the card, whose concurrent generate, embed
-   and score calls must equal the same requests run alone.
+   the small qwen3_moe and deepseek_v2 with fp8 weights and an fp8 KV /
+   latent cache and deepseek_v2 with int8 weights, all under
+   ``XLLM_QMM_KERNEL=pallas`` (K6 / K5, K10's fp8 instance, the fp8 K1-K4
+   and K11a-g); then ``AsyncLLMEngine`` on the card, whose concurrent
+   generate, embed and score calls must equal the same requests run alone.
 
 ``python3 chip_smoke.py --phases kernels`` (a comma list of build, kernels,
 engines, quant, parity) runs a subset and prints no result line.
@@ -120,7 +137,7 @@ from xllm_tpu_torch.ops.cuda import kv_write as k24
 from xllm_tpu_torch.ops.cuda import mla_attention as k11
 from xllm_tpu_torch.ops.cuda import prefill_attention as k3
 from xllm_tpu_torch.ops.cuda import quant_matmul as qmm
-from xllm_tpu_torch.ops.quant import to_e4m3
+from xllm_tpu_torch.ops.quant import quantize_fp8, to_e4m3
 from xllm_tpu_torch.ops.rope import rope_mscale
 from xllm_tpu_torch.runtime.model_runner import ModelRunner
 from xllm_tpu_torch.server.async_engine import AsyncLLMEngine
@@ -274,7 +291,9 @@ def time_ms(fn, iters: int = 40, warmup: int = 3) -> tuple[float, bool]:
     serial_s = time.perf_counter() - t0  # bounds one call's host time
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(min(2 * iters * serial_s, 0.5) * SLEEP_CYCLES_PER_S))
+    # four times the calls' serial time, and at least 20 ms: one serial
+    # call of a short kernel can undercount a later call's host time
+    torch.cuda._sleep(int(min(max(4 * iters * serial_s, 0.02), 0.5) * SLEEP_CYCLES_PER_S))
     start.record()
     for i in range(iters):
         fn(i)
@@ -348,10 +367,16 @@ def i32(a, dev):
 # quantized KV caches: "int8" (codes; the model folds the per-head scales
 # outside the kernels) or "fp8_e4m3" (values); None is the model dtype
 QUANT_CACHES = ("int8", "fp8_e4m3")
+# K1, K3, K3b on a bf16 cache round P to bf16 as on an int8 / fp8 one; on
+# random inputs an ulp of a score can flip a rounding, on grid inputs
+# (``GRID_TOL``) it cannot
+ROUND_TOL = ("bf16, random inputs: |out - ref| <= 1e-5 + 2^-7 (|ref| + sum_j p_j |v_j|) "
+             "(P rounded to bf16 on both sides, where an ulp of a score can flip a "
+             "rounding); grid inputs: 1e-5 + 2^-7 |ref|; f32: 1e-4")
 QUANT_TOL = ("int8 / fp8 cache: |out - ref| <= 1e-5 + 2^-7 (|ref| + sum_j p_j |v_j|) "
-             "(both round P to bf16 against the same running maximum: K1 after each "
-             "64-position tile of a context split, K3 / K3b after each page, where an ulp "
-             "of exp can still flip a rounding); writers: byte-equal caches")
+             "(both round P to bf16 against the same running maximum, the TPU kernels': "
+             "K1 after each tile of 4 pages, K3 / K3b after each page, where an ulp of exp "
+             "can still flip a rounding); writers: byte-equal caches")
 
 
 def kv_tensor(g, dev, shape, dtype, cache):
@@ -382,6 +407,40 @@ def same_bytes(a: torch.Tensor, b: torch.Tensor) -> bool:
     if a.element_size() == 1:
         return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
     return torch.equal(a, b)
+
+
+# Grid inputs, on which both sides of a check round each P alike: q and K
+# on a grid (model-dtype values multiples of 2^-3 in [-3, 3]; int8 codes
+# and e4m3 values integers in [-8, 8]) make every score exact in f32
+# whatever the order of the dot, and a power-of-two softmax scale keeps it
+# exact. A kernel that rounds P against another running maximum than its
+# plain version (or keeps it in f32) then shows in outputs off by more than
+# one bf16 ulp; the P-rounding checks (faults F1-F4) hold each kernel there
+# to ``TOL`` at every output.
+GRID_TOL = "grid inputs: bf16 out |out - ref| <= 1e-5 + 2^-7 |ref|; f32 out 1e-4"
+
+
+def grid_tensor(g, dev, shape, dtype, cache=None, unit: float = 1.0) -> torch.Tensor:
+    """q or K on the grid: values of ``dtype``, or int8 codes / e4m3
+    values (``cache``) ``unit`` times an integer in [-8, 8]."""
+    if cache is None:
+        return (torch.randint(-24, 25, shape, generator=g, device=dev) * 0.125).to(dtype)
+    x = torch.randint(-8, 9, shape, generator=g, device=dev)
+    return x.to(torch.int8) if cache == "int8" else to_e4m3(x.float() * unit)
+
+
+def grid_values(g, dev, shape, dtype, cache=None) -> torch.Tensor:
+    """V beside grid keys, of about unit size: int8 codes in [-2, 2], else
+    N(0, 1) in the cache dtype."""
+    if cache == "int8":
+        return torch.randint(-2, 3, shape, generator=g, device=dev, dtype=torch.int8)
+    x = torch.randn(shape, generator=g, device=dev)
+    return to_e4m3(x) if cache == "fp8_e4m3" else x.to(dtype)
+
+
+def grid_scale(cache=None, mla: bool = False) -> float:
+    """A power-of-two softmax scale that spreads grid scores by about 2."""
+    return 2.0 ** -4 if cache is None and not mla else 2.0 ** -5
 
 
 def check_quant_close(out, ref, pv, what: str) -> float:
@@ -423,9 +482,9 @@ def check_decode(rng, dev, dtype, timed: bool, cache=None) -> dict:
     ref = k1.paged_decode_attention_write_plain(q, kn, vn, kp, vp, layer, sm, btt, sl, scale)
     sync()
     what = f"K1 {dtype} cache {cache or dtype}"
-    if cache is None:
+    if cache is None and dtype == torch.float32:
         err = check_close(out, ref, what)
-    else:  # sum_j p_j |v_j| from an f32 softmax over the written caches
+    else:  # P rounded: sum_j p_j |v_j| from an f32 softmax over the written caches
         pv = k1.paged_decode_attention_write_plain(
             q.float(), kn.float(), vn.float().abs(), kp.float(), vp.float().abs(), layer,
             sm, btt, sl, scale)
@@ -483,7 +542,8 @@ DECODE_VARIANTS = [(128, 16, 8, 64, 64, 100), (64, 8, 2, 16, 40, 37),
 def check_decode_variants(rng, dev, dtype) -> float:
     """K1 against its plain version with sliding windows, head_dim 64 and
     contexts up to 8,192 tokens, three launches in a row (the split
-    counters must re-arm) -> the largest max-abs error."""
+    counters must re-arm), on grid inputs within ``TOL`` -> the largest
+    max-abs error."""
     worst = 0.0
     for d, hq, hkv, bs, nbmax, window in DECODE_VARIANTS:
         lens = rng.integers(0, nbmax * bs + 1, 24)
@@ -496,11 +556,11 @@ def check_decode_variants(rng, dev, dtype) -> float:
         slots = [bt[i, (n - 1) // bs] * bs + (n - 1) % bs if n else 0
                  for i, n in enumerate(lens)]
         g = torch.Generator(device=dev).manual_seed(4)
-        kc = torch.randn(2, nb, hkv, bs, d, generator=g, device=dev).to(dtype)
-        vc = torch.randn(2, nb, hkv, bs, d, generator=g, device=dev).to(dtype)
-        q, kn, vn = (torch.randn(len(lens), h, d, generator=g, device=dev).to(dtype)
-                     for h in (hq, hkv, hkv))
-        args = (1, i32(slots, dev), i32(bt, dev), i32(lens, dev), d ** -0.5, window)
+        kc = grid_tensor(g, dev, (2, nb, hkv, bs, d), dtype)
+        vc = grid_values(g, dev, (2, nb, hkv, bs, d), dtype)
+        q, kn = (grid_tensor(g, dev, (len(lens), h, d), dtype) for h in (hq, hkv))
+        vn = grid_values(g, dev, (len(lens), hkv, d), dtype)
+        args = (1, i32(slots, dev), i32(bt, dev), i32(lens, dev), grid_scale(), window)
         kk, vk = kc.clone(), vc.clone()
         for _ in range(3):
             out = k1.paged_decode_attention_write(q, kn, vn, kk, vk, *args)
@@ -574,26 +634,33 @@ def prefill_fns(single: bool):
 
 def check_prefill_shape(rng, dev, dtype, timed: bool, s: int, rows,
                         hq: int = HQ, hkv: int = HKV, cache=None, single: bool = False,
-                        window: int = 0) -> dict:
-    """K3 over P chunks, or K3b (``single``) over one chunk of ``rows``."""
+                        window: int = 0, grid: bool = False) -> dict:
+    """K3 over P chunks, or K3b (``single``) over one chunk of ``rows``;
+    ``grid``: on grid inputs, within ``TOL``."""
     p = len(rows)
     assert p == 1 or not single
     kernel, plain = prefill_fns(single)
     nb, btt, qo, _, kvl = _chunk_tables(rng, rows, dev)
     g = torch.Generator(device=dev).manual_seed(2)
     shape = (LAYERS, nb, hkv, BS, D)
-    kc = kv_tensor(g, dev, shape, dtype, cache)
-    vc = kv_tensor(g, dev, shape, dtype, cache)
-    q = (torch.randn(p, s, hq, D, generator=g, device=dev) * q_scale(cache)).to(dtype)
-    scale = D ** -0.5
+    if grid:
+        kc = grid_tensor(g, dev, shape, dtype, cache)
+        vc = grid_values(g, dev, shape, dtype, cache)
+        q = grid_tensor(g, dev, (p, s, hq, D), dtype)
+        scale = grid_scale(cache)
+    else:
+        kc = kv_tensor(g, dev, shape, dtype, cache)
+        vc = kv_tensor(g, dev, shape, dtype, cache)
+        q = (torch.randn(p, s, hq, D, generator=g, device=dev) * q_scale(cache)).to(dtype)
+        scale = D ** -0.5
     out = kernel(q, kc, vc, 5, btt, qo, kvl, scale, window)
     ref = plain(q, kc, vc, 5, btt, qo, kvl, scale, window)
     sync()
     what = (f"{'K3b' if single else 'K3'} {dtype} cache {cache or dtype} S={s} {rows} "
             f"Hq {hq} Hkv {hkv} window {window}")
-    if cache is None:
+    if grid or (cache is None and dtype == torch.float32):
         err = check_close(out, ref, what)
-    else:
+    else:  # P rounded to bf16: the bound takes sum_j p_j |v_j|
         pv = k3.paged_attention_prefill_batched_plain(
             q.float(), kc.float(), vc.float().abs(), 5, btt, qo, kvl, scale, window)
         err = check_quant_close(out, ref, pv, what)
@@ -895,6 +962,70 @@ def check_gmm(dev, g, model: str) -> tuple[list[dict], float]:
     return results, worst_f32
 
 
+def check_gmm_fp8(dev, g, model: str) -> list[dict]:
+    """K10 with fp8 expert stacks (float8_e4m3fn, quantized per (expert,
+    channel) as the model stores them) at ``model``'s served shapes: bf16
+    lhs timed, f32 lhs checked, both against the plain version. Yardstick:
+    the weights upcast to bf16, then ``torch._grouped_mm`` (one upcast and
+    one grouped GEMM). Bound: the bytes with the weights at one byte."""
+    spec = GMM_MODELS[model]
+    e, topk, weights = spec["experts"], spec["topk"], spec["weights"]
+    w = moe_weights(dev, g, spec)
+    w8 = {name: quantize_fp8(w[name])[0] for name in weights}
+    del w["gate_up"], w["down"]
+    results = []
+    for phase, tokens in GMM_TOKENS.items():
+        x = torch.randn(tokens, weights["gate_up"][0], generator=g, device=dev).bfloat16()
+        _, topi = moe.route(x, w["router"], topk, True)
+        order, offs = moe.group_by_expert(topi, e)
+        m = order.numel()
+        lhs_of = {"gate_up": x[order // topk],
+                  "down": torch.randn(m, weights["down"][0], generator=g,
+                                      device=dev).bfloat16()}
+        touched = int((offs[1:] > offs[:-1]).sum())
+        for name, (k, n) in weights.items():
+            lhs, rhs = lhs_of[name], w8[name]
+            what = f"K10 fp8 rhs {model} {phase} {name} M={m} K={k} N={n}"
+            res = {"max_abs_err": check_gmm_close(k10.gmm(lhs, rhs, offs), lhs, rhs, offs,
+                                                  what),
+                   "max_abs_err_f32": check_gmm_close(k10.gmm(lhs.float(), rhs, offs),
+                                                      lhs.float(), rhs, offs, what + " f32")}
+            res.update(time_three(
+                lambda i: k10.gmm(lhs, rhs, offs),
+                lambda i: k10.gmm_plain(lhs, rhs, offs),
+                lambda i: torch._grouped_mm(lhs, rhs.to(torch.bfloat16), offs=offs[1:]),
+                plain_iters=5,
+            ))
+            res["library"] = "rhs.to(bfloat16) + torch._grouped_mm"
+            res["row_tile"] = k10.row_tile(m, e)
+            res["shape"] = (f"{model} {phase}: {tokens} tokens x top-{topk} -> M={m} rows "
+                            f"over {touched} of {e} experts, K {k}, N {n}, bf16 lhs, fp8 "
+                            f"rhs, row tile {res['row_tile']}")
+            nbytes = m * k * 2 + touched * k * n + m * n * 4
+            res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 2.0 * m * k * n)
+            results.append(res)
+    assert {r["row_tile"] for r in results} == set(k10.ROW_TILES), results
+    return results
+
+
+def check_moe_fp8_no_host_sync(dev, g) -> None:
+    """The MoE block with fp8 expert stacks and their scales at a decode
+    step's shape under the CUDA sync debug mode "error"."""
+    w = moe_weights(dev, g, GMM_MODELS["Qwen3-30B-A3B"])
+    (gu, gus), (dn, dns) = quantize_fp8(w["gate_up"]), quantize_fp8(w["down"])
+    del w["gate_up"], w["down"]
+    x = torch.randn(16, GMM_WEIGHTS["gate_up"][0], generator=g, device=dev).bfloat16()
+    kw = dict(gate_up_scale=gus, down_scale=dns)
+    moe.moe_mlp(x, w["router"], gu, dn, TOPK, True, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = moe.moe_mlp(x, w["router"], gu, dn, TOPK, True, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.shape == x.shape and bool(torch.isfinite(out.float()).all())
+
+
 def check_gmm_edges(dev, w: dict, g) -> float:
     """K10 with empty experts and one expert holding every row, and with
     rows outside every group at both ends (they come out as zeros), M 1000
@@ -947,12 +1078,12 @@ MLA_TOL = ("bf16: |out - ref| <= 1e-5 + 2^-7 |ref| + 2^-7 sum_j p_j |v_j| (each 
            "off by up to 2^-8 |x|); f32: 1e-4; writers: byte-equal caches")
 
 
-def latent_rand(g, dev, dtype, *shape) -> torch.Tensor:
+def latent_rand(g, dev, dtype, *shape, cache=None) -> torch.Tensor:
     """Random latent rows or queries whose pad lanes (576:640) are zeros,
-    as the model pads them."""
+    as the model pads them; ``cache`` fp8_e4m3: e4m3 values of N(0, 4)."""
     x = torch.randn(*shape, generator=g, device=dev)
     x[..., MLA_DK_LIVE:] = 0
-    return x.to(dtype)
+    return to_e4m3(x * 2.0) if cache == "fp8_e4m3" else x.to(dtype)
 
 
 def pv_abs(q3, lat, limits, scale) -> torch.Tensor:
@@ -966,10 +1097,12 @@ def pv_abs(q3, lat, limits, scale) -> torch.Tensor:
     return torch.einsum("nrk,nkd->nrd", probs, lat[..., :MLA_DV].float().abs())
 
 
-def check_mla_close(out, ref, pv, what: str) -> float:
-    """K11a/b against the plain version within ``MLA_TOL`` -> max abs err."""
+def check_mla_close(out, ref, pv, what: str, rounds: bool = False) -> float:
+    """K11a/b against the plain version within ``MLA_TOL`` -> max abs err;
+    ``rounds``: an f32 q against an fp8 cache, whose P is rounded to bf16,
+    takes the bf16 bound."""
     diff = (out.float() - ref.float()).abs()
-    if ref.dtype == torch.bfloat16:
+    if ref.dtype == torch.bfloat16 or rounds:
         lim = 1e-5 + 2.0 ** -7 * (ref.float().abs() + pv)
     else:
         lim = torch.full_like(diff, TOL[torch.float32][0])
@@ -994,16 +1127,18 @@ def sdpa_backend(call) -> str:
     return "none"
 
 
-def check_mla_decode(rng, dev, dtype, timed: bool, h: int = MLA_H) -> dict:
+def check_mla_decode(rng, dev, dtype, timed: bool, h: int = MLA_H, cache=None) -> dict:
     """K11a at B=16 over ``MLA_DECODE_LENS``: the written caches byte-equal,
-    padded rows zeros."""
+    padded rows zeros; ``cache`` fp8_e4m3 for an fp8 latent cache (q in
+    ``dtype``)."""
     lens = MLA_DECODE_LENS
     b = len(lens)
     nb = 1 + sum(-(-n // BS) for n in lens) + 8
     bt = page_tables(rng, lens, nb)
     slots = [bt[i, (n - 1) // BS] * BS + (n - 1) % BS if n else 0 for i, n in enumerate(lens)]
     g = torch.Generator(device=dev).manual_seed(11)
-    cache = latent_rand(g, dev, dtype, LAYERS, nb, 1, BS, MLA_DK)
+    kind = cache
+    cache = latent_rand(g, dev, dtype, LAYERS, nb, 1, BS, MLA_DK, cache=kind)
     q = latent_rand(g, dev, dtype, b, h, MLA_DK)
     lat_new = latent_rand(g, dev, dtype, b, MLA_DK)
     sm, btt, sl = i32(slots, dev), i32(bt, dev), i32(lens, dev)
@@ -1014,22 +1149,26 @@ def check_mla_decode(rng, dev, dtype, timed: bool, h: int = MLA_H) -> dict:
     ref = k11.mla_decode_attention_write_plain(q, lat_new, cp, layer, sm, btt, sl,
                                                MLA_SCALE, MLA_DV)
     sync()
-    what = f"K11a {dtype} H {h}"
-    assert torch.equal(ck, cp), f"{what}: caches differ"
+    what = f"K11a {dtype} H {h} cache {kind or dtype}"
+    assert same_bytes(ck, cp), f"{what}: caches differ"
     pv = pv_abs(q, k11._gather_latent(cp, layer, btt), sl.long()[:, None].expand(-1, h),
                 MLA_SCALE)
-    res = {"max_abs_err": check_mla_close(out, ref, pv, what)}
+    res = {"max_abs_err": check_mla_close(out, ref, pv, what, rounds=kind is not None)}
     assert not out[-2:].float().abs().any(), f"{what}: padded rows must be zeros"
     if not timed:
         return res
-    el = cache.element_size()
+    el, qel = cache.element_size(), q.element_size()
     ntok = sum(lens)
     live = sum(1 for n in lens if n)
-    nbytes = (b * h * MLA_DK + 2 * live * MLA_DK + ntok * MLA_DK + b * h * MLA_DV) * el
+    # q, the new rows and the output in q's dtype; the new rows written and
+    # the context read in the cache's
+    nbytes = ((b * h * MLA_DK + live * MLA_DK + b * h * MLA_DV) * qel
+              + (live * MLA_DK + ntok * MLA_DK) * el)
     flops = 2.0 * ntok * h * (MLA_DK_LIVE + MLA_DV)
     lmax = -(-max(lens) // BS) * BS
     idx = btt[:, : lmax // BS].long()
-    kg = [cache[l][idx].reshape(b, 1, lmax, MLA_DK) for l in range(LAYERS)]
+    # the yardstick's pages gathered (an fp8 cache upcast to q's dtype)
+    kg = [cache[l][idx].reshape(b, 1, lmax, MLA_DK).to(dtype) for l in range(LAYERS)]
     vg = [k[..., :MLA_DV].contiguous() for k in kg]
     mask = (torch.arange(lmax, device=dev)[None, :] < sl[:, None].long())[:, None, None, :]
     q4 = q[:, :, None, :]
@@ -1063,40 +1202,43 @@ def mla_prefill_fns(single: bool):
 
 
 def check_mla_prefill_shape(rng, dev, dtype, timed: bool, s: int, rows,
-                            h: int = MLA_H, trim: bool = False, single: bool = False) -> dict:
+                            h: int = MLA_H, trim: bool = False, single: bool = False,
+                            cache=None) -> dict:
     """K11b over one bucket's chunks (K11e with ``single``): rows past ntok
     and padded rows zeros. ``trim``: block tables only as wide as the
-    chunks need (the plain version's scores then fit at H 128)."""
+    chunks need (the plain version's scores then fit at H 128); ``cache``
+    fp8_e4m3 for an fp8 latent cache."""
     p = len(rows)
     kernel, plain = mla_prefill_fns(single)
     nb, btt, qo, _, kvl = _chunk_tables(rng, rows, dev)
     if trim:
         btt = btt[:, : -(-max(a + n for a, n in rows) // BS)].contiguous()
     g = torch.Generator(device=dev).manual_seed(12)
-    cache = latent_rand(g, dev, dtype, LAYERS, nb, 1, BS, MLA_DK)
+    kind = cache
+    cache = latent_rand(g, dev, dtype, LAYERS, nb, 1, BS, MLA_DK, cache=kind)
     q = latent_rand(g, dev, dtype, p, s, h, MLA_DK)
     out = kernel(q, cache, 5, btt, qo, kvl, MLA_SCALE, MLA_DV)
     ref = plain(q, cache, 5, btt, qo, kvl, MLA_SCALE, MLA_DV)
     sync()
-    what = f"{'K11e' if single else 'K11b'} {dtype} S={s} {rows} H {h}"
+    what = f"{'K11e' if single else 'K11b'} {dtype} cache {kind or dtype} S={s} {rows} H {h}"
     limits = k11.prefill_row_limits(s, h, qo, kvl)
     pv = pv_abs(q.reshape(p, s * h, MLA_DK), k11._gather_latent(cache, 5, btt), limits,
                 MLA_SCALE).reshape(out.shape)
-    res = {"max_abs_err": check_mla_close(out, ref, pv, what)}
+    res = {"max_abs_err": check_mla_close(out, ref, pv, what, rounds=kind is not None)}
     del pv, ref
     for i, (_, n) in enumerate(rows):
         assert not out[i, n:].float().abs().any(), f"{what}: row {i} past ntok not zero"
     if not timed:
         return res
-    el = cache.element_size()
+    el, qel = cache.element_size(), q.element_size()
     ntok = sum(n for _, n in rows)
     kv_rows = sum(a + n for a, n in rows if n)
     pairs = sum(sum(a + i + 1 for i in range(n)) for a, n in rows)
-    nbytes = (ntok * h * MLA_DK + kv_rows * MLA_DK + ntok * h * MLA_DV) * el
+    nbytes = (ntok * h * MLA_DK + ntok * h * MLA_DV) * qel + kv_rows * MLA_DK * el
     flops = 2.0 * pairs * h * (MLA_DK_LIVE + MLA_DV)
     lmax = -(-max(a + n for a, n in rows) // BS) * BS
     idx = btt[:, : lmax // BS].long()
-    kg = [cache[l][idx].reshape(p, 1, lmax, MLA_DK) for l in range(LAYERS)]
+    kg = [cache[l][idx].reshape(p, 1, lmax, MLA_DK).to(dtype) for l in range(LAYERS)]
     vg = [k[..., :MLA_DV].contiguous() for k in kg]
     qpos = qo.long()[:, None] + torch.arange(s, device=dev)[None, :]
     kvi = torch.arange(lmax, device=dev)
@@ -1117,10 +1259,10 @@ def check_mla_prefill_shape(rng, dev, dtype, timed: bool, s: int, rows,
     return res
 
 
-def check_mla_prefill(rng, dev, dtype, timed: bool) -> dict:
+def check_mla_prefill(rng, dev, dtype, timed: bool, cache=None) -> dict:
     """K11b at every chunk bucket of ``K3_SHAPES`` -> the 2048 bucket's
     result, with every bucket's in ``by_shape``."""
-    results = [check_mla_prefill_shape(rng, dev, dtype, timed, s, rows)
+    results = [check_mla_prefill_shape(rng, dev, dtype, timed, s, rows, cache=cache)
                for s, rows in K3_SHAPES.items()]
     res = dict(results[0])
     res["max_abs_err"] = max(r["max_abs_err"] for r in results)
@@ -1129,10 +1271,11 @@ def check_mla_prefill(rng, dev, dtype, timed: bool) -> dict:
     return res
 
 
-def check_mla_single_prefill(rng, dev, dtype, timed: bool) -> dict:
+def check_mla_single_prefill(rng, dev, dtype, timed: bool, cache=None) -> dict:
     """K11e at every bucket of ``SINGLE_SHAPES`` -> the first's result,
     every bucket's in ``by_shape``."""
-    results = [check_mla_prefill_shape(rng, dev, dtype, timed, s, rows, single=True)
+    results = [check_mla_prefill_shape(rng, dev, dtype, timed, s, rows, single=True,
+                                       cache=cache)
                for s, rows in SINGLE_SHAPES]
     res = dict(results[0])
     res["max_abs_err"] = max(r["max_abs_err"] for r in results)
@@ -1158,51 +1301,60 @@ def latent_writer_fns(rmw: bool, single: bool):
     return one(k24.latent_write_prefill), one(k24.latent_write_prefill_plain)
 
 
-def check_single_latent_writer(rng, dev, dtype, timed: bool, rmw: bool) -> dict:
+def check_single_latent_writer(rng, dev, dtype, timed: bool, rmw: bool, cache=None) -> dict:
     """K11f or K11g at every chunk of ``SINGLE_WRITES`` -> the first's
     result (timed), each checked byte for byte."""
     shapes = SINGLE_WRITES[rmw]
     res = check_latent_writer(rng, dev, dtype, timed, rmw, rows=shapes[0][1],
-                              s=shapes[0][0], single=True)
+                              s=shapes[0][0], single=True, cache=cache)
     for s, rows in shapes[1:]:
-        check_latent_writer(rng, dev, dtype, False, rmw, rows=rows, s=s, single=True)
+        check_latent_writer(rng, dev, dtype, False, rmw, rows=rows, s=s, single=True,
+                            cache=cache)
     return res
 
 
 def check_latent_writer(rng, dev, dtype, timed: bool, rmw: bool, rows=None, s: int = 0,
-                        single: bool = False) -> dict:
+                        single: bool = False, cache=None) -> dict:
     """K11c (S=512, page-aligned chunks) or K11d (S=64: mid-page starts, a
     chunk across a page boundary), or with ``single`` K11f / K11g over the
-    one chunk of ``rows``: caches byte-equal to the plain version's."""
+    one chunk of ``rows``: caches byte-equal to the plain version's;
+    ``cache`` fp8_e4m3: ``dtype`` rows cast to e4m3 by the kernel
+    (``E4M3_EDGES`` among them)."""
     if rows is None:
         rows, s = (RMW_ROWS, RMW_S) if rmw else (PREFILL_ROWS, PREFILL_S)
     p = len(rows)
     nb, btt, qo, nt, _ = _chunk_tables(rng, rows, dev)
     g = torch.Generator(device=dev).manual_seed(13)
-    cache = latent_rand(g, dev, dtype, LAYERS, nb, 1, BS, MLA_DK)
-    src = latent_rand(g, dev, dtype, p, s, MLA_DK)
+    kind = cache
+    cache = latent_rand(g, dev, dtype, LAYERS, nb, 1, BS, MLA_DK, cache=kind)
+    src = latent_rand(g, dev, dtype, p, s, MLA_DK) * (100.0 if kind else 1.0)
+    if kind == "fp8_e4m3":  # the kernel's cast where torch's own differs
+        src[0, 0, :len(E4M3_EDGES)] = torch.tensor(E4M3_EDGES, dtype=dtype, device=dev)
     fn, plain = latent_writer_fns(rmw, single)
     ck, cp = cache.clone(), cache.clone()
     fn(src, ck, 2, btt, qo, nt)
     plain(src, cp, 2, btt, qo, nt)
     sync()
     name = ("K11g" if single else "K11d") if rmw else ("K11f" if single else "K11c")
-    assert torch.equal(ck, cp), f"{name} {dtype}: caches differ"
-    assert not torch.equal(ck, cache), f"{name}: nothing was written"
-    res = {"max_abs_err": max_err(ck, cp)}
+    assert same_bytes(ck, cp), f"{name} {dtype} cache {kind or dtype}: caches differ"
+    assert not same_bytes(ck, cache), f"{name}: nothing was written"
+    res = {"max_abs_err": 0.0}  # the bytes are equal (an fp8 cache holds NaN)
     if not timed:
         return res
-    el = cache.element_size()
     ntok = sum(n for _, n in rows)
-    nbytes = 2 * ntok * MLA_DK * el  # each row read once, written once
+    # each row read once (as given), written once (in the cache dtype)
+    nbytes = ntok * MLA_DK * (src.element_size() + cache.element_size())
     pos = [(i, a + j) for i, (a, n) in enumerate(rows) for j in range(n)]
     bt_np = btt.cpu().numpy()
     blk = i32([bt_np[i, ps // BS] for i, ps in pos], dev).long()
     off = i32([ps % BS for _, ps in pos], dev).long()
     sel = torch.stack([src[i, j] for i, (_, n) in enumerate(rows) for j in range(n)])
+    lc = cache
+    if kind == "fp8_e4m3":  # the rows' bytes cast beforehand (the cast left out)
+        lc, sel = cache.view(torch.uint8), to_e4m3(sel).view(torch.uint8)
 
     def library(i):
-        cache[i % LAYERS, blk, 0, off, :] = sel
+        lc[i % LAYERS, blk, 0, off, :] = sel
 
     res.update(time_three(
         lambda i: fn(src, cache, i % LAYERS, btt, qo, nt),
@@ -1212,7 +1364,8 @@ def check_latent_writer(rng, dev, dtype, timed: bool, rmw: bool, rows=None, s: i
     ))
     res["library"] = "index assign"
     res["shape"] = (f"{'one chunk' if single else f'P={p} chunks'} of S={s} (q_offset, "
-                    f"ntok) {rows}, Dk {MLA_DK}, bs {BS}")
+                    f"ntok) {rows}, Dk {MLA_DK}, bs {BS}, {dtype} rows, cache "
+                    f"{kind or dtype}")
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 0.0)
     return res
 
@@ -1433,8 +1586,8 @@ def check_prefill_short_pages(rng, dev) -> float:
     """K3 and K3b on int8 and fp8 caches with pages of 16 and 32 positions,
     shorter than the kernel's 64-position tile (P then rounds against the
     running maximum after each page, as in the TPU kernel and the plain
-    version), bf16 and f32 q, against the plain versions within
-    ``QUANT_TOL`` -> worst error."""
+    version), bf16 and f32 q, on grid inputs against the plain versions
+    within ``TOL`` -> worst error."""
     worst, s = 0.0, 256
     rows = [(0, 200), (96, 100), (0, 0)]
     for bs in (16, 32):
@@ -1449,22 +1602,18 @@ def check_prefill_short_pages(rng, dev) -> float:
         g = torch.Generator(device=dev).manual_seed(6)
         for cache in QUANT_CACHES:
             for dtype in (torch.float32, torch.bfloat16):
-                kc = kv_tensor(g, dev, (2, nb, HKV, bs, D), dtype, cache)
-                vc = kv_tensor(g, dev, (2, nb, HKV, bs, D), dtype, cache)
-                q = (torch.randn(len(rows), s, HQ, D, generator=g, device=dev)
-                     * q_scale(cache)).to(dtype)
-                args = (1, btt, qo, kvl, D ** -0.5)
-                pv = k3.paged_attention_prefill_batched_plain(
-                    q.float(), kc.float(), vc.float().abs(), *args)
+                kc = grid_tensor(g, dev, (2, nb, HKV, bs, D), dtype, cache)
+                vc = grid_values(g, dev, (2, nb, HKV, bs, D), dtype, cache)
+                q = grid_tensor(g, dev, (len(rows), s, HQ, D), dtype)
                 for single in (False, True):
                     kernel, plain = prefill_fns(single)
                     sel = slice(1, 2) if single else slice(None)
-                    a = (1, btt[sel], qo[sel], kvl[sel], D ** -0.5)
+                    a = (1, btt[sel], qo[sel], kvl[sel], grid_scale(cache))
                     out, ref = kernel(q[sel], kc, vc, *a), plain(q[sel], kc, vc, *a)
                     sync()
                     what = (f"{'K3b' if single else 'K3'} {dtype} cache {cache} block_size "
                             f"{bs}")
-                    worst = max(worst, check_quant_close(out, ref, pv[sel], what))
+                    worst = max(worst, check_close(out, ref, what))
     return worst
 
 
@@ -1500,7 +1649,189 @@ def phase_quant_caches(rng, dev) -> dict:
     err = check_prefill_short_pages(rng, dev)
     log(f"[kernels] {k3.NAME} and {k3.ONE_NAME} on int8 and fp8 caches with block_size 16 "
         f"and 32 (P rounded against the running maximum after each page), bf16 and f32 q: "
-        f"worst err {err:.3g} ({QUANT_TOL})")
+        f"worst err {err:.3g} ({GRID_TOL})")
+    return out
+
+
+# the P-rounding repairs at every page size the kernels take: (sequence
+# lengths of a decode batch, prefill chunks (q_offset, ntok) in the 512
+# bucket and in the 64 bucket)
+PAGE_SIZES = (16, 32, 64, 128)
+PAGE_LENS = [1, 17, 100, 700, 2100, 65, 4095, 0]
+PAGE_ROWS = {512: [(0, 300), (96, 100), (0, 0)], 64: [(2048, 52), (37, 27)]}
+
+
+def _paged(rng, lens, bs, nbmax, extra: int = 2):
+    """Disjoint random pages of ``bs`` positions per sequence -> (block
+    tables [N, nbmax] int32, number of blocks)."""
+    nb = 1 + sum(-(-n // bs) for n in lens) + extra
+    free = rng.permutation(np.arange(1, nb)).tolist()
+    bt = np.zeros((len(lens), nbmax), np.int32)
+    for i, n in enumerate(lens):
+        bt[i, : -(-n // bs)] = [free.pop() for _ in range(-(-n // bs))]
+    return bt, nb
+
+
+def mla_grid(g, dev, dtype, *shape, cache=None) -> torch.Tensor:
+    """Latent rows or queries on the grid, pad lanes (576:640) zeros; an
+    fp8 cache's values are quarters in [-2, 2]."""
+    if cache:
+        x = torch.randint(-8, 9, shape, generator=g, device=dev) * 0.25
+    else:
+        x = grid_tensor(g, dev, shape, dtype)
+    x[..., MLA_DK_LIVE:] = 0
+    return to_e4m3(x) if cache else x
+
+
+def check_page_sizes(rng, dev) -> dict:
+    """The P-rounding repairs (faults F1-F4) at every page size: K1, K3, K3b
+    at qwen3-1.7B's heads and K11a, K11b, K11e at DeepSeek-V2-Lite's on
+    pages of 16, 32, 64 and 128 positions, bf16 q on bf16, int8 and fp8
+    caches (K11: bf16 and fp8), f32 q on f32 and fp8 caches, on grid
+    inputs: each kernel against its plain version within ``TOL`` at every
+    output -> {kernel: worst error}."""
+    worst: dict[str, float] = {}
+    g = torch.Generator(device=dev).manual_seed(21)
+
+    def note(name, err):
+        worst[name] = max(worst.get(name, 0.0), err)
+
+    gqa = [(torch.bfloat16, None), (torch.bfloat16, "int8"), (torch.bfloat16, "fp8_e4m3"),
+           (torch.float32, None), (torch.float32, "fp8_e4m3")]
+    for bs in PAGE_SIZES:
+        nbmax = 4096 // bs
+        for dtype, cache in gqa:
+            # new K/V rows as the model hands them over: int8 codes or values
+            new = "int8" if cache == "int8" else None
+            scale = grid_scale(cache)
+            # K1: a decode batch over contexts of 1 to 4,095 tokens, one padded
+            bt, nb = _paged(rng, PAGE_LENS, bs, nbmax)
+            shape = (2, nb, HKV, bs, D)
+            kc, vc = grid_tensor(g, dev, shape, dtype, cache), grid_values(g, dev, shape, dtype,
+                                                                          cache)
+            b = len(PAGE_LENS)
+            q = grid_tensor(g, dev, (b, HQ, D), dtype)
+            kn = grid_tensor(g, dev, (b, HKV, D), dtype, new)
+            vn = grid_values(g, dev, (b, HKV, D), dtype, new)
+            sm = i32([bt[i, (n - 1) // bs] * bs + (n - 1) % bs if n else 0
+                      for i, n in enumerate(PAGE_LENS)], dev)
+            a = (1, sm, i32(bt, dev), i32(PAGE_LENS, dev), scale)
+            for window in (0, 100):
+                kk, vk, kp, vp = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+                out = k1.paged_decode_attention_write(q, kn, vn, kk, vk, *a, window)
+                ref = k1.paged_decode_attention_write_plain(q, kn, vn, kp, vp, *a, window)
+                sync()
+                what = f"K1 bs {bs} {dtype} cache {cache or dtype} window {window}"
+                assert same_bytes(kk, kp) and same_bytes(vk, vp), f"{what}: caches differ"
+                note(k1.NAME, check_close(out, ref, what))
+            # K3 and K3b: chunks in the 512 and 64 buckets
+            for s, rows in PAGE_ROWS.items():
+                lens = [a_ + n for a_, n in rows]
+                bt, nb = _paged(rng, lens, bs, nbmax)
+                shape = (2, nb, HKV, bs, D)
+                kc = grid_tensor(g, dev, shape, dtype, cache)
+                vc = grid_values(g, dev, shape, dtype, cache)
+                q = grid_tensor(g, dev, (len(rows), s, HQ, D), dtype)
+                args = (1, i32(bt, dev), i32([a_ for a_, _ in rows], dev),
+                        i32([a_ + n if n else 0 for a_, n in rows], dev), scale)
+                for single in (False, True):
+                    kernel, plain = prefill_fns(single)
+                    sel = slice(0, 1) if single else slice(None)
+                    a_ = (1,) + tuple(t[sel] for t in args[1:4]) + (args[4],)
+                    out, ref = kernel(q[sel], kc, vc, *a_), plain(q[sel], kc, vc, *a_)
+                    sync()
+                    name = k3.ONE_NAME if single else k3.NAME
+                    note(name, check_close(out, ref, f"{name} bs {bs} {dtype} cache "
+                                           f"{cache or dtype} S {s}"))
+        free_device_memory()
+        for dtype, cache in ((torch.bfloat16, None), (torch.bfloat16, "fp8_e4m3"),
+                             (torch.float32, None), (torch.float32, "fp8_e4m3")):
+            scale = grid_scale(cache, mla=True)
+            lens = [n for n in PAGE_LENS if n] + [0]
+            bt, nb = _paged(rng, lens, bs, nbmax)
+            c = mla_grid(g, dev, dtype, 2, nb, 1, bs, MLA_DK, cache=cache)
+            b = len(lens)
+            q = mla_grid(g, dev, dtype, b, MLA_H, MLA_DK)
+            ln = mla_grid(g, dev, dtype, b, MLA_DK)  # cast to e4m3 on an fp8 cache
+            btt, sl = i32(bt, dev), i32(lens, dev)
+            sm = i32([bt[i, (n - 1) // bs] * bs + (n - 1) % bs if n else 0
+                      for i, n in enumerate(lens)], dev)
+            ck, cp = c.clone(), c.clone()
+            out = k11.mla_decode_attention_write(q, ln, ck, 1, sm, btt, sl, scale, MLA_DV)
+            ref = k11.mla_decode_attention_write_plain(q, ln, cp, 1, sm, btt, sl, scale, MLA_DV)
+            sync()
+            what = f"K11a bs {bs} {dtype} cache {cache or dtype}"
+            assert same_bytes(ck, cp), f"{what}: caches differ"
+            note(k11.DECODE_NAME, check_close(out, ref, what))
+            for s, rows in PAGE_ROWS.items():
+                lens = [a_ + n for a_, n in rows]
+                bt, nb = _paged(rng, lens, bs, nbmax)
+                c = mla_grid(g, dev, dtype, 2, nb, 1, bs, MLA_DK, cache=cache)
+                q = mla_grid(g, dev, dtype, len(rows), s, MLA_H, MLA_DK)
+                btt = i32(bt, dev)
+                qo = i32([a_ for a_, _ in rows], dev)
+                kvl = i32([a_ + n if n else 0 for a_, n in rows], dev)
+                for single in (False, True):
+                    kernel, plain = mla_prefill_fns(single)
+                    sel = slice(0, 1) if single else slice(None)
+                    out = kernel(q[sel], c, 1, btt[sel], qo[sel], kvl[sel], scale, MLA_DV)
+                    ref = plain(q[sel], c, 1, btt[sel], qo[sel], kvl[sel], scale, MLA_DV)
+                    sync()
+                    name = k11.ONE_PREFILL_NAME if single else k11.PREFILL_NAME
+                    note(name, check_close(out, ref, f"{name} bs {bs} {dtype} cache "
+                                           f"{cache or dtype} S {s}"))
+            free_device_memory()
+    return worst
+
+
+def phase_fp8_kernels(rng, dev) -> dict:
+    """This slice's fp8 instances: K10 with fp8 expert stacks at
+    Qwen3-30B-A3B's and DeepSeek-V2-Lite's shapes, and K11a-g on an fp8
+    latent cache at DeepSeek-V2-Lite's (bf16 q timed, f32 q checked) ->
+    {kernel name: result of the fp8 instance}."""
+    g = torch.Generator(device=dev).manual_seed(20)
+    by_shape = []
+    for model in GMM_MODELS:
+        by_shape += check_gmm_fp8(dev, g, model)
+        free_device_memory()
+    out = {k10.NAME: dict(by_shape[0], max_abs_err=max(r["max_abs_err"] for r in by_shape),
+                          max_abs_err_f32=max(r["max_abs_err_f32"] for r in by_shape),
+                          by_shape=by_shape)}
+    log(f"[qkernels] {k10.NAME} with an fp8 rhs: bf16 lhs err {out[k10.NAME]['max_abs_err']:.3g}"
+        f", f32 lhs err {out[k10.NAME]['max_abs_err_f32']:.3g} ({GMM_TOL})")
+    for r in by_shape:
+        log(f"[qkernels]   {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
+            f"(serial: it syncs), library ({r['library']}) {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    check_moe_fp8_no_host_sync(dev, g)
+    log("[qkernels] MoE block with fp8 experts at decode shape under sync debug mode "
+        "'error': no host sync")
+    checks = {
+        k11.DECODE_NAME: lambda dt, t: check_mla_decode(rng, dev, dt, t, cache="fp8_e4m3"),
+        k11.PREFILL_NAME: lambda dt, t: check_mla_prefill(rng, dev, dt, t, cache="fp8_e4m3"),
+        k11.ONE_PREFILL_NAME: lambda dt, t: check_mla_single_prefill(rng, dev, dt, t,
+                                                                     cache="fp8_e4m3"),
+        k24.LATENT_PREFILL_NAME: lambda dt, t: check_latent_writer(
+            rng, dev, dt, t, rmw=False, cache="fp8_e4m3"),
+        k24.LATENT_RMW_NAME: lambda dt, t: check_latent_writer(
+            rng, dev, dt, t, rmw=True, cache="fp8_e4m3"),
+        k24.ONE_LATENT_PREFILL_NAME: lambda dt, t: check_single_latent_writer(
+            rng, dev, dt, t, rmw=False, cache="fp8_e4m3"),
+        k24.ONE_LATENT_RMW_NAME: lambda dt, t: check_single_latent_writer(
+            rng, dev, dt, t, rmw=True, cache="fp8_e4m3"),
+    }
+    for name, check in checks.items():
+        f32 = check(torch.float32, False)
+        res = check(torch.bfloat16, True)
+        res["max_abs_err_f32"] = f32["max_abs_err"]
+        out[name] = res
+        log(f"[qkernels] {name} on an fp8 latent cache: bf16 inputs err "
+            f"{res['max_abs_err']:.3g}, f32 inputs err {f32['max_abs_err']:.3g} ({MLA_TOL})")
+        for r in res.get("by_shape", [res]):
+            log(f"[qkernels]   {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, library ({r.get('library', 'index assign')}) "
+                f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        free_device_memory()
     return out
 
 
@@ -1525,10 +1856,11 @@ def phase_kernels(dev) -> dict:
         k24.ONE_LATENT_RMW_NAME: lambda dt, t: check_single_latent_writer(
             rng, dev, dt, t, rmw=True),
     }
-    tol_of = {name: MLA_TOL for name in (k11.DECODE_NAME, k11.PREFILL_NAME,
+    tol_of = {name: ROUND_TOL for name in (k1.NAME, k3.NAME, k3.ONE_NAME)}
+    tol_of.update({name: MLA_TOL for name in (k11.DECODE_NAME, k11.PREFILL_NAME,
                                          k24.LATENT_PREFILL_NAME, k24.LATENT_RMW_NAME,
                                          k11.ONE_PREFILL_NAME, k24.ONE_LATENT_PREFILL_NAME,
-                                         k24.ONE_LATENT_RMW_NAME)}
+                                         k24.ONE_LATENT_RMW_NAME)})
     results = {}
     for name, check in checks.items():
         f32 = check(torch.float32, False)
@@ -1549,12 +1881,13 @@ def phase_kernels(dev) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         err = check_decode_variants(rng, dev, dtype)
         log(f"[kernels] {k1.NAME} variants {DECODE_VARIANTS} (head_dim, Hq, Hkv, bs, "
-            f"table width, window), {dtype}: worst err {err:.3g} ({tol_text(dtype)})")
+            f"table width, window), {dtype}: worst err {err:.3g} ({GRID_TOL})")
         # K3 at Qwen3-30B-A3B's GQA group (G = 8)
-        err = max(check_prefill_shape(rng, dev, dtype, False, s, rows, hq=32, hkv=4)["max_abs_err"]
+        err = max(check_prefill_shape(rng, dev, dtype, False, s, rows, hq=32, hkv=4,
+                                      grid=True)["max_abs_err"]
                   for s, rows in K3_SHAPES.items())
         log(f"[kernels] {k3.NAME} at Hq 32, Hkv 4, every chunk bucket, {dtype}: "
-            f"worst err {err:.3g} ({tol_text(dtype)})")
+            f"worst err {err:.3g} ({GRID_TOL})")
         err = check_mla_heads(rng, dev, dtype)
         log(f"[kernels] {k11.DECODE_NAME} and {k11.PREFILL_NAME} at H 20 (every chunk "
             f"bucket) and H 128 (buckets 64, 512), {dtype}: worst err {err:.3g} ({MLA_TOL})")
@@ -1584,6 +1917,13 @@ def phase_kernels(dev) -> dict:
         f"outside every group, M 1000: worst err {err:.3g} ({GMM_TOL})")
     check_moe_no_host_sync(dev, w, g)
     log("[kernels] MoE block at decode shape under sync debug mode 'error': no host sync")
+    del w
+    free_device_memory()
+    worst = check_page_sizes(rng, dev)
+    log(f"[kernels] P-rounding repairs (F1-F4) at block_size {PAGE_SIZES}: {k1.NAME}, "
+        f"{k3.NAME}, {k3.ONE_NAME} on bf16 / int8 / fp8 caches and {k11.DECODE_NAME}, "
+        f"{k11.PREFILL_NAME}, {k11.ONE_PREFILL_NAME} on bf16 / fp8 latent caches, bf16 and "
+        f"f32 q: worst errors {worst} ({GRID_TOL})")
     return results
 
 
@@ -1675,7 +2015,8 @@ def count_per_pass(runner) -> list[tuple[str, int, dict]]:
 
 
 def pass_launches(layers: int, moe_layers: int, mla: bool, kind: str, rows: int,
-                  qmm_name: str = "", qmm_max_rows: int = 0) -> list[dict]:
+                  qmm_name: str = "", qmm_max_rows: int = 0,
+                  qmm_per_pass: int = 0) -> list[dict]:
     """The launches a model pass of ``kind`` over ``rows`` tokens must make
     (one of the dicts returned): a decode pass K1 (K11a in an MLA model)
     once per layer; a prefill pass K3 (K11b) once per layer and one of the
@@ -1684,12 +2025,13 @@ def pass_launches(layers: int, moe_layers: int, mla: bool, kind: str, rows: int,
     once per layer and one of K2b / K4b (K11f / K11g) once per layer; in a
     MoE model each also K10 twice per MoE
     layer (gate_up and down); with ``qmm_name`` (K5, K6 or K7) that kernel
-    five times per layer (qkv, o, gate, up, down) if the pass has at most
-    ``qmm_max_rows`` rows (0: in every pass), else not at all; nothing
-    else."""
+    ``qmm_per_pass`` times (once for each ``*_proj_w`` of the model: qkv, o,
+    gate, up, down of a dense layer; q, kv_a, o of an MLA layer; the shared
+    experts' three) if the pass has at most ``qmm_max_rows`` rows (0: in
+    every pass), else not at all; nothing else."""
     extra = {k10.NAME: 2 * moe_layers} if moe_layers else {}
     if qmm_name and (not qmm_max_rows or rows <= qmm_max_rows):
-        extra[qmm_name] = 5 * layers
+        extra[qmm_name] = qmm_per_pass
     decode, prefill, writers = (
         (k11.DECODE_NAME, k11.PREFILL_NAME, (k24.LATENT_PREFILL_NAME, k24.LATENT_RMW_NAME))
         if mla else (k1.NAME, k3.NAME, (k24.PREFILL_NAME, k24.RMW_NAME)))
@@ -1804,8 +2146,8 @@ def phase_engine(model_kw=QWEN3_1P7B, num_blocks: int = 1024,
                  qmm_name: str = "", qmm_max_rows: int = 0, score_lens=(),
                  embed_lens=()) -> tuple[dict, dict]:
     """Serve ``model_kw`` on the card (see the module docstring); with
-    ``qmm_name`` every model pass must also launch that kernel five times
-    per layer (``pass_launches``). Then, with ``score_lens``, score prompts
+    ``qmm_name`` every model pass must also launch that kernel once per
+    ``*_proj_w`` of the model (``pass_launches``). Then, with ``score_lens``, score prompts
     and embed (``drive_scoring``): ``info["score"]`` holds that run's
     (launches, info)."""
     cfg = engine_config(model_kw, num_blocks=num_blocks, quant=quant,
@@ -1857,10 +2199,12 @@ def phase_engine(model_kw=QWEN3_1P7B, num_blocks: int = 1024,
     layers = cfg.model.num_hidden_layers
     moe_layers = (layers - cfg.model.first_k_dense_replace) if cfg.model.num_experts else 0
     mla = cfg.model.kv_lora_rank > 0
+    projections = sum(1 for n, _ in eng.runner.model.named_parameters()
+                      if n.endswith("_proj_w"))
 
     def want(kind, rows):
         return pass_launches(layers, moe_layers, mla, kind, rows, qmm_name=qmm_name,
-                             qmm_max_rows=qmm_max_rows)
+                             qmm_max_rows=qmm_max_rows, qmm_per_pass=projections)
 
     per_pass = per_pass_summary(deltas, launches, want)
     if qmm_max_rows:  # the passes that take torch's product, by their rows
@@ -2122,9 +2466,11 @@ def main() -> int:
     kern, qcache, runs = {}, {}, {}
     if "kernels" in phases:
         kern.update(timed_phase("kernels", phase_kernels, dev))
+    fp8 = {}
     if "qkernels" in phases:
         kern.update(timed_phase("qkernels", check_qmm, dev))
         qcache = timed_phase("qkernels", phase_quant_caches, np.random.default_rng(1), dev)
+        fp8 = timed_phase("qkernels", phase_fp8_kernels, np.random.default_rng(2), dev)
     if "engines" in phases:
         # scores of 2,100 tokens (chunks of 2048 and 52: K2b and K4b) and
         # 300 (K2b in the 512 bucket); embeds of 40 (K4b) and 700 (K2b)
@@ -2146,12 +2492,27 @@ def main() -> int:
             runs["bf16mm"] = timed_phase(
                 "bf16mm-engine", phase_engine, tag="bf16mm-engine", qmm_name=qmm.BF16_NAME,
                 qmm_max_rows=256)
+        # the quantized MoE and MLA families: fp8 expert stacks through K10's
+        # fp8 instance, the projections through K6, an fp8 KV / latent cache
+        with environ(XLLM_QMM_KERNEL="pallas"):
+            runs["fp8_moe"] = timed_phase(
+                "fp8-moe-engine", phase_engine, QWEN3_30B_A3B, num_blocks=512,
+                tag="fp8-moe-engine", quant="fp8_e4m3", kv_cache_dtype="fp8_e4m3",
+                qmm_name=qmm.FP8_NAME, score_lens=(2100,))
+            runs["fp8_mla"] = timed_phase(
+                "fp8-mla-engine", phase_engine, DEEPSEEK_V2_LITE, num_blocks=512,
+                tag="fp8-mla-engine", quant="fp8_e4m3", kv_cache_dtype="fp8_e4m3",
+                qmm_name=qmm.FP8_NAME, score_lens=(2100,))
     if "parity" in phases:
         t0 = time.perf_counter()
         for name, model_kw in PARITY_MODELS.items():
             phase_parity(name, model_kw, scores=name in ("qwen3", "deepseek_v2"))
         with environ(XLLM_QMM_KERNEL="pallas"):
             phase_parity("qwen3", PARITY_DENSE, quant="int8", kv_cache_dtype="int8")
+            for name in ("qwen3_moe", "deepseek_v2"):  # fp8 experts, fp8 KV / latent
+                phase_parity(name, PARITY_MODELS[name], quant="fp8_e4m3",
+                             kv_cache_dtype="fp8_e4m3")
+            phase_parity("deepseek_v2", PARITY_MODELS["deepseek_v2"], quant="int8")
         phase_async()
         log(f"[parity] done in {time.perf_counter() - t0:.1f} s")
     if phases != set(PHASES):
@@ -2228,6 +2589,21 @@ def main() -> int:
         }
         if "by_shape" in res:
             row["by_shape"] = [{k: r[k] for k in keys if k in r} for r in res["by_shape"]]
+        if name == k10.NAME and fp8:
+            r = fp8[name]
+            row["by_rhs"] = {"fp8_e4m3": dict(
+                {k: r[k] for k in keys if k in r}, library=r["library"],
+                launches=runs["fp8_moe"][0][name],
+                launches_per_step=runs["fp8_moe"][1]["per_pass"][name]["launches_per_step"],
+                launches_mla_engine=runs["fp8_mla"][0][name],
+                by_shape=[{k: x[k] for k in keys if k in x} for x in r["by_shape"]])}
+        if name in fp8 and name != k10.NAME:  # the fp8 latent cache
+            r = fp8[name]
+            launches, info = run_of(runs["fp8_mla"], name)
+            row["by_cache"] = {"fp8_e4m3": dict(
+                {k: r[k] for k in keys if k in r}, launches=launches[name],
+                launches_per_step=info["per_pass"][name]["launches_per_step"],
+                by_shape=[{k: x[k] for k in keys if k in x} for x in r.get("by_shape", [])])}
         if name in qcache:
             row["by_cache"] = {
                 cache: dict({k: r[k] for k in keys if k in r},

@@ -2,14 +2,16 @@
 """Where an engine step of the PyTorch/CUDA port spends its time, on one GPU.
 
     python3 scripts/profile_torch_step.py
-        [--model qwen3-1.7b|qwen3-30b-a3b|deepseek-v2-lite|qwen3-8b|qwen3-8b-int8|qwen3-8b-fp8]
+        [--model qwen3-1.7b|qwen3-30b-a3b|deepseek-v2-lite|qwen3-8b|qwen3-8b-int8|qwen3-8b-fp8
+                 |qwen3-30b-a3b-fp8|deepseek-v2-lite-fp8]
         [--prompt-len 512] [--steps 16]
 
 Serves a config of ``chip_smoke.py`` (the qwen3-1.7B-class dense model, 28
 layers; Qwen3-30B-A3B, 48 layers with 128 experts; DeepSeek-V2-Lite, 27
 MLA layers with 64 experts; Qwen3-8B, 36 layers, with bf16 weights, or
 int8 weights and an int8 KV cache, or fp8 weights and an fp8 KV cache;
-random weights) through ``xllm_tpu_torch.engine.LLMEngine`` on the card.
+Qwen3-30B-A3B with fp8 weights, experts included, and an fp8 KV cache;
+DeepSeek-V2-Lite with fp8 weights and an fp8 latent cache; random weights) through ``xllm_tpu_torch.engine.LLMEngine`` on the card.
 A quantized model runs twice, one engine after the other in one process:
 with the dequant default, then with ``XLLM_QMM_KERNEL=pallas`` (K5 / K6).
 Each engine:
@@ -54,6 +56,7 @@ BATCH = 16
 # kernel-name fragments of the port's hand-written kernels (csrc/*.cu)
 OWN_KERNELS = {
     "decode_attention_write_kernel": "K1 decode_attention_write",
+    "decode_granule_max_kernel": "K1 decode_attention_write",
     "kv_write_rows_kernel": "K2/K4 kv_write_rows",
     "prefill_attention_kernel": "K3 prefill_attention_batched",
     "gmm_bf16_kernel": "K10 gmm",
@@ -72,6 +75,8 @@ MODELS = {
     "qwen3-8b": (chip_smoke.QWEN3_8B, 1024, "", "auto"),
     "qwen3-8b-int8": (chip_smoke.QWEN3_8B, 1024, "int8", "int8"),
     "qwen3-8b-fp8": (chip_smoke.QWEN3_8B, 1024, "fp8_e4m3", "fp8_e4m3"),
+    "qwen3-30b-a3b-fp8": (chip_smoke.QWEN3_30B_A3B, 512, "fp8_e4m3", "fp8_e4m3"),
+    "deepseek-v2-lite-fp8": (chip_smoke.DEEPSEEK_V2_LITE, 512, "fp8_e4m3", "fp8_e4m3"),
 }
 GEMM_MARKS = ("gemm", "xmma", "cutlass", "cublas", "sm90_", "nvjet")
 

@@ -134,12 +134,16 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     [
         {"cache": {"kv_layout": "interleaved"}},
         {"cache": {"kv_layout": "interleaved_rm"}},
-        # quantized weights and KV serve for the dense families now; the
-        # MoE and MLA families still raise for them
-        pytest.param({"model": _MOE, "cache": {"kv_cache_dtype": "int8"}}, id="int8_0"),
-        pytest.param({"model": _MLA, "cache": {"kv_cache_dtype": "fp8_e4m3"}},
+        # quantized weights and KV serve for every family now
+        # (tests/test_torch_quant_moe_mla.py); with a knob that is not
+        # ported they still raise, and an int8 latent cache raises as in JAX
+        pytest.param({"model": _MOE, "cache": {"kv_cache_dtype": "int8",
+                                               "kv_layout": "interleaved"}}, id="int8_0"),
+        pytest.param({"model": _MLA, "cache": {"kv_cache_dtype": "fp8_e4m3",
+                                               "kv_layout": "interleaved"}},
                      id="fp8_e4m3"),
-        pytest.param({"model": _MLA, "quant": {"method": "int8"}}, id="int8_1"),
+        pytest.param({"model": _MLA, "quant": {"method": "int8"},
+                      "cache": {"kv_cache_dtype": "int8"}}, id="int8_1"),
         {"speculative": {"method": "suffix"}},
         {"parallel": {"tp_size": 2}},
         {"parallel": {"dp_size": 2}},
@@ -155,7 +159,8 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         pytest.param({"model": _MOE, "eplb": {"enable_eplb": True}}, id="qwen3_moe-4"),
         {"model": _MOE, "eplb": {"redundant_experts": 2}},
         {"model": _MOE, "parallel": {"ep_size": 2}},
-        {"model": _MOE, "quant": {"method": "fp8_e4m3"}},
+        pytest.param({"model": _MOE, "quant": {"method": "fp8_e4m3"},
+                      "parallel": {"ep_size": 2}}, id="qwen3_moe-4-2-16-fp8_e4m3"),
         pytest.param({"model": _MLA, "cache": {"kv_cache_dtype": "int8"}},
                      id="deepseek_v3-4-2-16-32"),
     ],

@@ -22,8 +22,8 @@ package's, on the CPU, from numpy seeds.
   to the same requests run alone; CUDA tensors with a failed build raise
   instead of taking a plain version;
 - on a quantized cache, K1's plain version rounds P against the running
-  maximum of the CUDA kernel's walk (so the card and the CPU round the same
-  P), held against that walk written out step by step.
+  maximum of the TPU kernel's walk (tiles of 4 pages, opened at the new
+  token), held against that walk written out step by step.
 """
 
 import asyncio
@@ -681,16 +681,14 @@ def test_embed_and_score_requests_serve():
 
 
 # ---------------------------------------------------------------------------
-# where P is rounded on a quantized cache: as the kernels walk
+# where P is rounded on a quantized cache: as the TPU kernel walks
 # ---------------------------------------------------------------------------
 def _decode_walk(q, k_new, v_new, k_all, v_all, block_tables, seq_lens, scale, window):
-    """K1's walk on a quantized cache, written as the CUDA kernel runs it:
-    each context split (``_split_plan``) from the tile below the window's
-    edge, a 64-position tile at a time, the last split starting at the new
-    token (m = its score, l = 1, acc = v_new); P rounded to bf16 against the
-    running maximum; the splits merged by their maxima."""
-    from xllm_tpu_torch.ops.cuda.decode_attention import _split_plan
-
+    """K1's walk on a quantized cache, written as the TPU kernel (v9) runs
+    it, one sequence at a time: the softmax opens at the new token (m = its
+    score, l = 1, acc = v_new), then the cached positions in tiles of 4
+    pages from position 0 (masked below the window's edge), P rounded to
+    bf16 against the running maximum after each tile."""
     b, hq, d = q.shape
     hkv, bs = k_all.shape[2], k_all.shape[3]
     bt = block_tables.long()
@@ -698,40 +696,27 @@ def _decode_walk(q, k_new, v_new, k_all, v_all, block_tables, seq_lens, scale, w
     v = v_all[1][bt].float().permute(0, 2, 1, 3, 4).reshape(b, hkv, -1, d)
     qg = q.float().reshape(b, hkv, hq // hkv, d)
     sc = torch.einsum("bkgd,bksd->bkgs", qg, k) * scale
-    chunk, _ = _split_plan(bt.shape[1] * bs)
     out = torch.zeros(b, hkv, hq // hkv, d)
     for i, n in enumerate(seq_lens.tolist()):
         if n <= 0:
             continue
         lo = max(n - window, 0) if window else 0
-        base = lo // 64 * 64
-        nsp = -(-(n - base) // chunk)
-        s_new = (qg[i] * k_new[i].float()[:, None, :]).sum(-1) * scale
-        parts = []
-        for s in range(nsp):
-            t_begin = base + s * chunk
-            t_walk = min(t_begin + chunk, n - 1)
-            if s == nsp - 1:
-                m, l = s_new.clone(), torch.ones_like(s_new)
-                acc = v_new[i].float()[:, None, :].expand(-1, hq // hkv, -1).clone()
-            else:
-                m = torch.full_like(s_new, float("-inf"))
-                l, acc = torch.zeros_like(s_new), torch.zeros(hkv, hq // hkv, d)
-            for t0 in range(t_begin, t_walk, 64):
-                lo_j, hi_j = max(lo, t0), min(t_walk, t0 + 64)
-                st = sc[i, :, :, lo_j:hi_j]
-                m_new = torch.maximum(m, st.amax(-1))
-                alpha = torch.exp(m - m_new)
-                p = torch.exp(st - m_new[..., None])
-                l = l * alpha + p.sum(-1)
-                acc = acc * alpha[..., None] + torch.einsum(
-                    "kgs,ksd->kgd", p.bfloat16().float(), v[i, :, lo_j:hi_j])
-                m = m_new
-            parts.append((m, l, acc))
-        top = torch.stack([m for m, _, _ in parts]).amax(0)
-        num = sum(a * torch.exp(m - top)[..., None] for m, _, a in parts)
-        den = sum(ll * torch.exp(m - top) for m, ll, _ in parts)
-        out[i] = num / den[..., None]
+        m = (qg[i] * k_new[i].float()[:, None, :]).sum(-1) * scale
+        l = torch.ones_like(m)
+        acc = v_new[i].float()[:, None, :].expand(-1, hq // hkv, -1).clone()
+        for t0 in range(0, n - 1, 4 * bs):
+            lo_j, hi_j = max(lo, t0), min(n - 1, t0 + 4 * bs)
+            if lo_j >= hi_j:
+                continue
+            st = sc[i, :, :, lo_j:hi_j]
+            m_new = torch.maximum(m, st.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(st - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "kgs,ksd->kgd", p.bfloat16().float(), v[i, :, lo_j:hi_j])
+            m = m_new
+        out[i] = acc / l[..., None]
     return out.reshape(b, hq, d)
 
 
@@ -739,9 +724,10 @@ def _decode_walk(q, k_new, v_new, k_all, v_all, block_tables, seq_lens, scale, w
                                              (64, 64, 100)])
 def test_quantized_decode_plain_rounds_as_the_kernel_walks(bs, nbmax, window):
     """K1's plain version on an int8 cache rounds P against the running
-    maximum of the kernel's walk (1 to 16 context splits, windows), so that
-    the card and the CPU round the same P: equal to the walk within f32
-    summation order."""
+    maximum of the TPU kernel's walk (tiles of 4 pages, windows; the CUDA
+    kernel reaches the same maxima across its context splits), so that the
+    card, the CPU and the TPU round the same P: equal to the walk within
+    f32 summation order."""
     from xllm_tpu_torch.ops.cuda.decode_attention import paged_decode_attention_write_plain
 
     g = torch.Generator().manual_seed(3)

@@ -54,6 +54,9 @@ struct TileOf<e4m3> {
 };
 template <typename C>
 constexpr bool kQuantCache = sizeof(C) == 1;
+// P is rounded to bf16 wherever the V tile is bf16: every cache but f32
+template <typename C>
+constexpr bool kRoundP = sizeof(typename TileOf<C>::type) == 2;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -74,7 +77,8 @@ __device__ __forceinline__ e4m3 to_cache<e4m3>(float x) {
   return e4m3{static_cast<uint8_t>(__nv_cvt_float_to_fp8(x, __NV_NOSAT, __NV_E4M3))};
 }
 
-// P rounded to bf16 before P.V, as the TPU kernels do on quantized caches
+// P rounded to bf16 before P.V, as the TPU kernels do on bf16 and
+// quantized caches (their P is cast to the dtype of the upcast V tile)
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
@@ -96,6 +100,18 @@ __device__ __forceinline__ uint32_t upcast2<e4m3>(uint32_t two) {
       __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(two & 0xffffu), __NV_E4M3);
   const float2 f = __half22float2(__half2(h));
   return bf16x2_bits(f.x, f.y);
+}
+
+// 16 one-byte values -> 16 bf16 at dst (4-byte aligned)
+template <typename C>
+__device__ __forceinline__ void upcast16(__nv_bfloat16* dst, uint4 raw) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+  uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    d[2 * i] = upcast2<C>(w[i]);
+    d[2 * i + 1] = upcast2<C>(w[i] >> 16);
+  }
 }
 
 template <typename T>
@@ -129,6 +145,94 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Running maxima for P rounded against a walk's maximum after each "page"
+// (K1: the TPU kernel's tile of 4 pages; K3, K11: a page) when a block
+// does not walk from position 0 (context splits) or a page is longer than
+// its tile: a first pass writes each row's maximum per granule of
+// min(page, tile) positions, and the walk reads them back.
+// Granules of a row that the tile of `tile` positions at t0 needs: its
+// own and, for a page longer than the tile, the rest of that page's (at
+// most 32).
+__device__ __forceinline__ int tile_granules(int t0, int tile, int bs, int gran, int gend) {
+  return min(((t0 + tile - 1) / bs + 1) * bs / gran, gend) - t0 / gran;
+}
+// One warp's view of a row's running maxima over that tile: lane k holds
+// the maximum of mrun (the granules before the tile) and the row's
+// granules t0 / gran .. t0 / gran + k, read one a lane from gt (the row's
+// granule t0 / gran first); a key at pos then takes lane page_lane(pos),
+// the last granule of its page.
+__device__ __forceinline__ float granule_prefix(const float* gt, float mrun, int t0,
+                                                int tile, int bs, int gran, int gend,
+                                                int lane) {
+  const int ng = tile_granules(t0, tile, bs, gran, gend);
+  float pre = lane < ng ? gt[lane] : -INFINITY;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float x = __shfl_up_sync(0xffffffffu, pre, o);
+    if (lane >= o) pre = fmaxf(pre, x);
+  }
+  return fmaxf(pre, mrun);
+}
+__device__ __forceinline__ int page_lane(int t0, int pos, int bs, int gran, int gend) {
+  return min((pos / bs + 1) * bs / gran, gend) - t0 / gran - 1;
+}
+// the lane holding the maximum over the tile's own granules (the running
+// maximum before the next tile)
+__device__ __forceinline__ int tile_lane(int t0, int tile, int gran, int gend) {
+  return min((t0 + tile) / gran, gend) - t0 / gran - 1;
+}
+
+// The walk's own running maxima when a tile holds whole pages of bs <= 32
+// CPL keys: each key's page maximum and the maxima of the tile's pages
+// before it (v[u] at column lane + 32 u, -inf where not visible) ->
+// mk[u]; the caller adds the maximum before the tile.
+template <int CPL>
+__device__ __forceinline__ void walk_page_maxima(const float (&v)[CPL], float (&mk)[CPL],
+                                                 int bs, int lane) {
+  const int seg = bs < 32 ? bs : 32;
+#pragma unroll
+  for (int u = 0; u < CPL; ++u) {
+    mk[u] = v[u];
+    for (int o = seg / 2; o > 0; o >>= 1)
+      mk[u] = fmaxf(mk[u], __shfl_xor_sync(0xffffffffu, mk[u], o));
+  }
+  if (bs > 32) {  // a page spans both halves of the 64 keys
+    if constexpr (CPL == 2) mk[0] = mk[1] = fmaxf(mk[0], mk[1]);
+    return;
+  }
+#pragma unroll
+  for (int u = 0; u < CPL; ++u)
+    for (int o = 1; o < 32; o <<= 1) {
+      const float x = __shfl_up_sync(0xffffffffu, mk[u], o);
+      if (lane >= o) mk[u] = fmaxf(mk[u], x);
+    }
+  if constexpr (CPL == 2) mk[1] = fmaxf(mk[1], __shfl_sync(0xffffffffu, mk[0], 31));
+}
+
+// Granule maxima of one row's tile of 32 * CPL scores (v[u] at column
+// lane + 32 u, -inf where not visible), a warp a row: lanes whose column
+// starts a granule write its maximum to gr[t0 / gran + ...].
+template <int CPL>
+__device__ __forceinline__ void write_granules(float* gr, const float (&v)[CPL], int t0,
+                                               int gran, int lane) {
+  float m[CPL];
+#pragma unroll
+  for (int u = 0; u < CPL; ++u) m[u] = v[u];
+  const int seg = gran < 32 ? gran : 32;
+#pragma unroll
+  for (int u = 0; u < CPL; ++u)
+    for (int o = seg / 2; o > 0; o >>= 1) m[u] = fmaxf(m[u], __shfl_xor_sync(0xffffffffu, m[u], o));
+  if (gran <= 32) {
+    if (lane % gran == 0)
+#pragma unroll
+      for (int u = 0; u < CPL; ++u) gr[(t0 + 32 * u + lane) / gran] = m[u];
+  } else if constexpr (CPL >= 2) {  // gran spans 32-column halves: 64 = the tile
+    if (lane == 0)
+#pragma unroll
+      for (int u = 0; u + 1 < CPL; u += 2) gr[(t0 + 32 * u) / gran] = fmaxf(m[u], m[u + 1]);
+  }
+}
+
 __host__ __device__ __forceinline__ size_t cache_row(int layer, int num_blocks,
                                                      int hkv, int bs, int blk,
                                                      int h, int off, int d) {
@@ -140,7 +244,8 @@ __host__ __device__ __forceinline__ size_t cache_row(int layer, int num_blocks,
 // pages through the sequence's block-table row. 16-byte global loads,
 // 4-byte shared stores (padded rows are 4-byte aligned only). Plain loads,
 // not the read-only path: the decode kernel reads a row it wrote itself.
-template <typename T, int D>
+// kV false loads the K rows only (vs untouched).
+template <typename T, int D, bool kV = true>
 __device__ __forceinline__ void load_kv_tile(T* ks, T* vs, const T* k_cache,
                                              const T* v_cache,
                                              const int* bt_row, int layer,
@@ -158,17 +263,19 @@ __device__ __forceinline__ void load_kv_tile(T* ks, T* vs, const T* k_cache,
     const size_t src =
         cache_row(layer, num_blocks, hkv, bs, blk, h, pos % bs, D) + c * kVec;
     const uint4 kv = *reinterpret_cast<const uint4*>(k_cache + src);
-    const uint4 vv = *reinterpret_cast<const uint4*>(v_cache + src);
     uint32_t* kd = reinterpret_cast<uint32_t*>(ks + j * (D + kPad) + c * kVec);
-    uint32_t* vd = reinterpret_cast<uint32_t*>(vs + j * (D + kPad) + c * kVec);
     kd[0] = kv.x; kd[1] = kv.y; kd[2] = kv.z; kd[3] = kv.w;
-    vd[0] = vv.x; vd[1] = vv.y; vd[2] = vv.z; vd[3] = vv.w;
+    if constexpr (kV) {
+      const uint4 vv = *reinterpret_cast<const uint4*>(v_cache + src);
+      uint32_t* vd = reinterpret_cast<uint32_t*>(vs + j * (D + kPad) + c * kVec);
+      vd[0] = vv.x; vd[1] = vv.y; vd[2] = vv.z; vd[3] = vv.w;
+    }
   }
 }
 
 // The same for a 1-byte cache C (int8 or e4m3): 16 values per 16-byte
 // load, upcast to bf16 on their way into the padded bf16 tiles.
-template <typename C, int D>
+template <typename C, int D, bool kV = true>
 __device__ __forceinline__ void load_kv_tile_upcast(__nv_bfloat16* ks, __nv_bfloat16* vs,
                                                     const C* k_cache, const C* v_cache,
                                                     const int* bt_row, int layer,
@@ -185,22 +292,15 @@ __device__ __forceinline__ void load_kv_tile_upcast(__nv_bfloat16* ks, __nv_bflo
     const size_t src =
         cache_row(layer, num_blocks, hkv, bs, blk, h, pos % bs, D) + c * kVec;
     const uint4 kv = *reinterpret_cast<const uint4*>(k_cache + src);
-    const uint4 vv = *reinterpret_cast<const uint4*>(v_cache + src);
-    const uint32_t kw[4] = {kv.x, kv.y, kv.z, kv.w}, vw[4] = {vv.x, vv.y, vv.z, vv.w};
-    uint32_t* kd = reinterpret_cast<uint32_t*>(ks + j * (D + kPad) + c * kVec);
-    uint32_t* vd = reinterpret_cast<uint32_t*>(vs + j * (D + kPad) + c * kVec);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      kd[2 * i] = upcast2<C>(kw[i]);
-      kd[2 * i + 1] = upcast2<C>(kw[i] >> 16);
-      vd[2 * i] = upcast2<C>(vw[i]);
-      vd[2 * i + 1] = upcast2<C>(vw[i] >> 16);
-    }
+    upcast16<C>(ks + j * (D + kPad) + c * kVec, kv);
+    if constexpr (kV)
+      upcast16<C>(vs + j * (D + kPad) + c * kVec,
+                  *reinterpret_cast<const uint4*>(v_cache + src));
   }
 }
 
 // Either loader, by the cache type: S is the tile type (TileOf<C>::type).
-template <typename C, int D>
+template <typename C, int D, bool kV = true>
 __device__ __forceinline__ void load_tile(typename TileOf<C>::type* ks,
                                           typename TileOf<C>::type* vs,
                                           const C* k_cache, const C* v_cache,
@@ -208,11 +308,11 @@ __device__ __forceinline__ void load_tile(typename TileOf<C>::type* ks,
                                           int hkv, int h, int bs, int t0, int jlo,
                                           int jhi) {
   if constexpr (kQuantCache<C>)
-    load_kv_tile_upcast<C, D>(ks, vs, k_cache, v_cache, bt_row, layer, num_blocks, hkv,
-                              h, bs, t0, jlo, jhi);
+    load_kv_tile_upcast<C, D, kV>(ks, vs, k_cache, v_cache, bt_row, layer, num_blocks,
+                                  hkv, h, bs, t0, jlo, jhi);
   else
-    load_kv_tile<C, D>(ks, vs, k_cache, v_cache, bt_row, layer, num_blocks, hkv, h, bs,
-                       t0, jlo, jhi);
+    load_kv_tile<C, D, kV>(ks, vs, k_cache, v_cache, bt_row, layer, num_blocks, hkv, h,
+                           bs, t0, jlo, jhi);
 }
 
 // ---------------------------------------------------------------------------
@@ -226,6 +326,13 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool ok
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
+}
+// 4 bytes (a granule maximum); !ok leaves 0 (never read)
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool ok) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int src_size = ok ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_size));
 }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {

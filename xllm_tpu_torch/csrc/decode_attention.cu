@@ -20,27 +20,40 @@
 //   instead of one long serial walk per (sequence, head): the latency of
 //   one block's tile loads hides behind the others' math;
 // - the walk starts at the window's lower edge and stops at seq_len, so no
-//   dead page is read; the softmax is online (f32 m/l/acc in shared
-//   memory); a split publishes (m, l, acc) to a small f32 scratch and the
-//   last split of a (sequence, head) to finish merges them (a
-//   threadfence reduction on a per-(sequence, head) counter that the
-//   merging block re-arms to 0), so one launch does the whole op.
+//   dead page is read; l and acc (f32, shared memory) are kept in a frame
+//   m per row (below); a split publishes (m, l, acc) to a small f32
+//   scratch and the last split of a (sequence, head) to finish adds them
+//   up with weights exp(m - max m) (a threadfence reduction on a
+//   per-(sequence, head) counter that the merging block re-arms to 0).
 // Not yet done: a cp.async/TMA ring inside a block.
 //
-// Write, then read: the split that holds position seq_len - 1 first
-// stores the new row, then __syncthreads() makes that global store visible
-// to the whole block, and its tile walk reads the row back from the cache
-// like every other position; no other split reads that position.
-// Sequences never share a page that is written (shared prefix pages are
-// full and read-only), so no other block touches the row.
+// An f32 cache rounds nothing: its walk is one pass with an online
+// maximum, the frame m being the split's running maximum (acc and l
+// rescaled by exp(m_old - m_new) where a tile raises it).
 //
-// Quantized caches (int8 codes or e4m3, 1 byte a value; q, the new rows and
-// the output stay bf16 or f32): the tiles are upcast to bf16 on their way
-// into shared memory, and two rules of the TPU kernel hold: the new token is
-// attended as given, not as stored (the last split starts its softmax at
-// m = q.k_new * scale, l = 1, acc = v_new and walks the cached positions
-// [.., seq_len - 1) only; it writes the row cast to the cache dtype), and P
-// is rounded to bf16 before P.V (l sums the unrounded P).
+// Rounding P (every other cache, whose V tile is bf16): the TPU
+// kernel walks a sequence in one program, in tiles of 4 pages from
+// position 0, opens its softmax at the new token (m = q.k_new * scale,
+// l = 1, acc = v_new: the new token is attended as given, never read back
+// from the cache) and rounds the unnormalised P of each tile to bf16
+// against its running maximum after that tile. A context split does not
+// see the maxima of the splits before it, so the op runs in two passes:
+// - pass 1 (decode_granule_max_kernel) computes the maximum score of each
+//   (query row, granule) of the cached positions, a granule being
+//   min(64, 4 * block_size) positions, so each is written by one block;
+// - pass 2 (the walk) takes, for each position, the running maximum M of
+//   its 4-page tile (the new token's score and every granule up to the
+//   tile's end) and the row's final maximum M_f, and adds
+//   bf16(exp(s - M)) * exp(M - M_f) to P, exp(s - M) * exp(M - M_f) to l,
+//   in the final frame (m = M_f in every split, so the merge weights are
+//   all exp(0) = 1).
+// Pass 1 reads K a second time: a correct kernel first; folding the
+// granule maxima into one pass is later work (PERF.md).
+//
+// Write, then read: no block reads position seq_len - 1 (the new token is
+// attended as given), so the split that holds it stores the new row
+// (cast to the cache dtype) at any point. Sequences never share a page
+// that is written (shared prefix pages are full and read-only).
 #include "common.cuh"
 
 namespace xllm {
@@ -58,13 +71,89 @@ __device__ __forceinline__ float dot_q_k(const float* q, const T* k) {
   return s;
 }
 
+// Scores of the G query rows against the tile's rows [jlo, jhi) into
+// ss [G, kTile] (-inf elsewhere). Both passes call it on the same inputs,
+// so pass 1's maxima are bit-equal to pass 2's scores.
+template <typename S, int D>
+__device__ __forceinline__ void tile_scores(float* ss, const float* qs, const S* ks,
+                                            int group, int jlo, int jhi, float scale) {
+  for (int i = threadIdx.x; i < group * kTile; i += blockDim.x) {
+    const int g = i / kTile, j = i % kTile;
+    ss[i] = (j >= jlo && j < jhi)
+                ? dot_q_k<S, D>(qs + g * D, ks + j * (D + kPad)) * scale
+                : -INFINITY;
+  }
+}
+
+// A block's share of a sequence: the split-th chunk of the live positions
+// [lo, seq_len), from the tile below the window's edge.
+struct SplitRange {
+  int lo, base, nsp, t_begin, t_end;
+};
+__device__ __forceinline__ SplitRange split_range(int seq_len, int window, int chunk,
+                                                  int split) {
+  SplitRange r;
+  r.lo = window > 0 ? max(seq_len - window, 0) : 0;
+  r.base = (r.lo / kTile) * kTile;
+  r.nsp = (seq_len - r.base + chunk - 1) / chunk;  // splits with work
+  r.t_begin = r.base + split * chunk;
+  r.t_end = min(r.t_begin + chunk, seq_len);
+  return r;
+}
+
 template <typename S, int D>
 size_t decode_smem_bytes(int group) {
   return 2 * (size_t)kTile * (D + kPad) * sizeof(S) +
-         ((size_t)group * (2 * D + kTile) + 3 * group) * sizeof(float);
+         ((size_t)group * (2 * D + kTile) + 4 * group) * sizeof(float);
 }
 
-// T: q / new rows / output; C: the cache (T itself, or int8 / e4m3)
+// Pass 1: gmax[b, hq, k] = the largest score of query row hq over the
+// cached positions of granule k (-inf for none). Each block writes the
+// granules of its split's tiles, the tile holding seq_len - 1 included.
+template <typename T, typename C, int D>
+__global__ void __launch_bounds__(kThreads)
+    decode_granule_max_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
+                              const int* __restrict__ block_tables,
+                              const int* __restrict__ seq_lens,
+                              float* __restrict__ gmax,  // [B, Hq, ngran]
+                              int layer, int num_blocks, int hkv, int bs, int nbmax,
+                              int group, float scale, int window, int chunk, int gran,
+                              int ngran) {
+  using S = typename TileOf<C>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  S* ks = reinterpret_cast<S*>(smem);
+  float* qs = reinterpret_cast<float*>(ks + 2 * kTile * (D + kPad));  // [G, D]
+  float* ss = qs + 2 * group * D;                                     // [G, kTile]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nwarps = blockDim.x / 32;
+
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int hq = hkv * group;
+  const int seq_len = seq_lens[b];
+  if (seq_len <= 0) return;
+  const SplitRange r = split_range(seq_len, window, chunk, split);
+  if (split >= r.nsp) return;
+  const size_t qrow = ((size_t)b * hq + (size_t)h * group) * D;
+  for (int i = threadIdx.x; i < group * D; i += blockDim.x) qs[i] = to_float(q[qrow + i]);
+  float* gm = gmax + ((size_t)b * hq + (size_t)h * group) * ngran;
+  const int* bt = block_tables + (size_t)b * nbmax;
+  for (int t0 = r.t_begin; t0 < r.t_end; t0 += kTile) {
+    const int jlo = max(r.lo - t0, 0);
+    const int jhi = max(min(seq_len - 1 - t0, kTile), 0);  // cached positions
+    if (jhi > jlo)
+      load_tile<C, D, false>(ks, nullptr, k_cache, nullptr, bt, layer, num_blocks, hkv,
+                             h, bs, t0, jlo, jhi);
+    __syncthreads();
+    tile_scores<S, D>(ss, qs, ks, group, jlo, jhi, scale);
+    __syncthreads();
+    for (int g = warp; g < group; g += nwarps) {  // a warp a row
+      const float v[2] = {ss[g * kTile + lane], ss[g * kTile + lane + 32]};
+      write_granules<2>(gm + (size_t)g * ngran, v, t0, gran, lane);
+    }
+    __syncthreads();
+  }
+}
+
+// Pass 2: the walk (see the head of this file).
 template <typename T, typename C, int D>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_write_kernel(const T* __restrict__ q,      // [B, Hq, D]
@@ -74,27 +163,30 @@ __global__ void __launch_bounds__(kThreads)
                                   const int* __restrict__ slot_mapping,  // [B]
                                   const int* __restrict__ block_tables,  // [B, nbmax]
                                   const int* __restrict__ seq_lens,      // [B]
-                                  T* __restrict__ out,                   // [B, Hq, D]
+                                  const float* __restrict__ gmax,  // [B, Hq, ngran]
+                                  T* __restrict__ out,             // [B, Hq, D]
                                   float* part,    // [B, Hkv, nsplit, G, 2 + D]
                                   int* counters,  // [B * Hkv], 0 between launches
                                   int layer, int num_blocks, int hkv, int bs,
-                                  int nbmax, int group, float scale,
-                                  int window, int chunk, int nsplit) {
+                                  int nbmax, int group, float scale, int window,
+                                  int chunk, int nsplit, int gran, int ngran) {
   using S = typename TileOf<C>::type;
-  constexpr bool kQuant = kQuantCache<C>;
   extern __shared__ __align__(16) unsigned char smem[];
   S* ks = reinterpret_cast<S*>(smem);
   S* vs = ks + kTile * (D + kPad);
   float* qs = reinterpret_cast<float*>(vs + kTile * (D + kPad));  // [G, D]
   float* acc = qs + group * D;                                    // [G, D]
   float* ss = acc + group * D;                                    // [G, kTile]
-  float* ms = ss + group * kTile;                                 // [G]
-  float* ls = ms + group;
-  float* alpha_s = ls + group;
+  float* mpre = ss + group * kTile;  // [G] running maximum before the tile
+  float* mfin = mpre + group;  // [G] the frame m: the row's final maximum (rounding P)
+                               // or the split's running maximum (f32 cache)
+  float* ls = mfin + group;    // [G] l, in that frame
+  float* wnew = ls + group;    // [G] the new token's weight, then acc's rescale (f32)
   __shared__ int is_last;
 
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int nwarps = blockDim.x / 32;
   const int hq = hkv * group;
   const int seq_len = seq_lens[b];
   const size_t qrow = ((size_t)b * hq + (size_t)h * group) * D;
@@ -104,24 +196,18 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = tid; i < group * D; i += blockDim.x) o[i] = from_float<T>(0.f);
     return;
   }
-  // this block's share of the live positions [lo, seq_len): split-th chunk
-  const int lo = window > 0 ? max(seq_len - window, 0) : 0;
-  const int base = (lo / kTile) * kTile;
-  const int nsp = (seq_len - base + chunk - 1) / chunk;  // splits with work
-  if (split >= nsp) return;
-  const int t_begin = base + split * chunk;
-  const int t_end = min(t_begin + chunk, seq_len);
+  const SplitRange r = split_range(seq_len, window, chunk, split);
+  if (split >= r.nsp) return;
+  const int t_walk = min(r.t_end, seq_len - 1);  // cached positions only
 
-  // 1. the split holding the last position writes the new K/V row first
-  const bool last = split == nsp - 1;
   const T* kn = k_new + ((size_t)b * hkv + h) * D;
   const T* vn = v_new + ((size_t)b * hkv + h) * D;
-  if (last) {
+  if (split == r.nsp - 1) {  // the new row, cast to the cache dtype
     const int slot = slot_mapping[b];
     const size_t wrow =
         cache_row(layer, num_blocks, hkv, bs, slot / bs, h, slot % bs, D);
     for (int d = tid; d < D; d += blockDim.x) {
-      if constexpr (kQuant) {
+      if constexpr (kQuantCache<C>) {
         k_cache[wrow + d] = to_cache<C>(to_float(kn[d]));
         v_cache[wrow + d] = to_cache<C>(to_float(vn[d]));
       } else {
@@ -130,109 +216,141 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-  for (int i = tid; i < group * D; i += blockDim.x) {
-    qs[i] = to_float(q[qrow + i]);
-    acc[i] = 0.f;
-  }
-  for (int g = tid; g < group; g += blockDim.x) {
-    ms[g] = -INFINITY;
-    ls[g] = 0.f;
-  }
-  __syncthreads();  // the new row is visible to the whole block from here
-  const int nwarps = blockDim.x / 32;
-  if (kQuant && last) {
-    // the new token as given: m = q.k_new * scale, l = 1, acc = v_new
-    for (int g = warp; g < group; g += nwarps) {
-      float s = 0.f;
-      for (int d = lane; d < D; d += 32) s = fmaf(qs[g * D + d], to_float(kn[d]), s);
-      s = warp_sum(s);
-      if (lane == 0) {
-        ms[g] = s * scale;
-        ls[g] = 1.f;
-      }
-    }
-    for (int i = tid; i < group * D; i += blockDim.x) acc[i] = to_float(vn[i % D]);
-    __syncthreads();
-  }
+  for (int i = tid; i < group * D; i += blockDim.x) qs[i] = to_float(q[qrow + i]);
+  __syncthreads();
 
-  // 2. online-softmax walk over [t_begin, t_end), kTile at a time (on a
-  //    quantized cache over the cached positions, below seq_len - 1); every
-  //    tile of a split that starts at m = -inf holds a live position, so m
-  //    stays finite
+  // per row: the new token's score opens the running maximum. Rounding P:
+  // the final maximum and the maximum before this split's first tile from
+  // pass 1; an f32 cache: split 0's frame opens at the new token, the
+  // others' at the first tile
+  const float* gm = gmax + ((size_t)b * hq + (size_t)h * group) * ngran;
+  const int g0 = r.base / gran;
+  const int gend = (seq_len + kTile - 1) / kTile * kTile / gran;  // pass 1 wrote [g0, gend)
+  for (int g = warp; g < group; g += nwarps) {
+    float s = 0.f;
+    for (int d = lane; d < D; d += 32) s = fmaf(qs[g * D + d], to_float(kn[d]), s);
+    s = warp_sum(s) * scale;
+    float mf = split == 0 ? s : -INFINITY, mp = s;
+    if constexpr (kRoundP<C>) {
+      mf = mp = -INFINITY;
+      for (int k = g0 + lane; k < gend; k += 32) {
+        const float x = gm[(size_t)g * ngran + k];
+        mf = fmaxf(mf, x);
+        if (k < r.t_begin / gran) mp = fmaxf(mp, x);
+      }
+      mf = fmaxf(warp_max(mf), s);
+      mp = fmaxf(warp_max(mp), s);
+    }
+    if (lane == 0) {
+      mfin[g] = mf;
+      mpre[g] = mp;
+      wnew[g] = split == 0 ? expf(s - mf) : 0.f;  // split 0 adds the new token
+      ls[g] = wnew[g];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < group * D; i += blockDim.x)
+    acc[i] = wnew[i / D] * to_float(vn[i % D]);
+
+  // walk [t_begin, t_walk), kTile at a time
   const int* bt = block_tables + (size_t)b * nbmax;
-  const int t_walk = kQuant ? min(t_end, seq_len - 1) : t_end;
-  for (int t0 = t_begin; t0 < t_walk; t0 += kTile) {
-    const int jlo = max(lo - t0, 0);
+  const int vt = 4 * bs;  // the TPU kernel's tile of positions
+  for (int t0 = r.t_begin; t0 < t_walk; t0 += kTile) {
+    const int jlo = max(r.lo - t0, 0);
     const int jhi = min(t_walk - t0, kTile);
     load_tile<C, D>(ks, vs, k_cache, v_cache, bt, layer, num_blocks, hkv, h, bs, t0,
                     jlo, jhi);
     __syncthreads();
-    for (int i = tid; i < group * kTile; i += blockDim.x) {
-      const int g = i / kTile, j = i % kTile;
-      ss[i] = (j >= jlo && j < jhi)
-                  ? dot_q_k<S, D>(qs + g * D, ks + j * (D + kPad)) * scale
-                  : -INFINITY;
-    }
+    tile_scores<S, D>(ss, qs, ks, group, jlo, jhi, scale);
     __syncthreads();
     for (int g = warp; g < group; g += nwarps) {
       float* srow = ss + g * kTile;
-      const float a = srow[lane], c = srow[lane + 32];
-      const float m_old = ms[g];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(a, c)));
-      const float p0 = expf(a - m_new), p1 = expf(c - m_new);
-      srow[lane] = kQuant ? round_bf16(p0) : p0;
-      srow[lane + 32] = kQuant ? round_bf16(p1) : p1;
-      const float sum = warp_sum(p0 + p1);
+      if constexpr (!kRoundP<C>) {  // the frame moves to the tile's maximum
+        const float x0 = srow[lane], x1 = srow[lane + 32];
+        const float mo = mfin[g], mn = fmaxf(mo, warp_max(fmaxf(x0, x1)));
+        const float p0 = x0 == -INFINITY ? 0.f : expf(x0 - mn);
+        const float p1 = x1 == -INFINITY ? 0.f : expf(x1 - mn);
+        srow[lane] = p0;
+        srow[lane + 32] = p1;
+        const float lsum = warp_sum(p0 + p1);
+        if (lane == 0) {
+          const float alpha = mn == -INFINITY ? 1.f : expf(mo - mn);
+          ls[g] = ls[g] * alpha + lsum;
+          mfin[g] = mn;
+          wnew[g] = alpha;  // acc's rescale, below
+        }
+        continue;
+      }
+      // lane k: the running maximum through granule t0 / gran + k
+      const float pre = granule_prefix(gm + (size_t)g * ngran + t0 / gran, mpre[g], t0,
+                                       kTile, vt, gran, gend, lane);
+      const float mf = mfin[g];
+      float lsum = 0.f;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int j = lane + 32 * u, pos = t0 + j;
+        const float sc = srow[j];
+        // the running maximum at the end of pos's 4-page tile
+        const float m = __shfl_sync(0xffffffffu, pre, page_lane(t0, pos, vt, gran, gend));
+        float p = 0.f;
+        if (sc != -INFINITY) {
+          const float pe = expf(sc - m), w = expf(m - mf);
+          lsum += pe * w;
+          p = round_bf16(pe) * w;
+        }
+        srow[j] = p;
+      }
+      lsum = warp_sum(lsum);
+      // this tile's granules join the prefix
+      const float mt = __shfl_sync(0xffffffffu, pre, tile_lane(t0, kTile, gran, gend));
       if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        ms[g] = m_new;
-        ls[g] = ls[g] * alpha + sum;
-        alpha_s[g] = alpha;
+        ls[g] += lsum;
+        mpre[g] = mt;
       }
     }
     __syncthreads();
     for (int i = tid; i < group * D; i += blockDim.x) {
       const int g = i / D, d = i % D;
       const float* p = ss + g * kTile;
-      float a = acc[i] * alpha_s[g];
+      float a = acc[i];
+      if constexpr (!kRoundP<C>) a *= wnew[g];
       for (int j = jlo; j < jhi; ++j) a = fmaf(p[j], to_float(vs[j * (D + kPad) + d]), a);
       acc[i] = a;
     }
     __syncthreads();
   }
-  if (nsp == 1) {
+  __syncthreads();
+  if (r.nsp == 1) {
     for (int i = tid; i < group * D; i += blockDim.x)
       o[i] = from_float<T>(acc[i] / ls[i / D]);
     return;
   }
 
-  // 3. several splits: publish (m, l, acc); the last split to finish
-  //    merges them (threadfence-reduction pattern) and re-arms the counter
+  // several splits: publish (m, l, acc); the last split to finish adds
+  // them up (threadfence-reduction pattern) and re-arms the counter
   float* pb = part + (((size_t)b * hkv + h) * nsplit) * group * (2 + D);
   float* pp = pb + (size_t)split * group * (2 + D);
   for (int i = tid; i < group * D; i += blockDim.x)
     pp[(i / D) * (2 + D) + 2 + i % D] = acc[i];
   for (int g = tid; g < group; g += blockDim.x) {
-    pp[g * (2 + D)] = ms[g];
+    pp[g * (2 + D)] = mfin[g];
     pp[g * (2 + D) + 1] = ls[g];
   }
   __threadfence();
   __syncthreads();
-  if (tid == 0) is_last = atomicAdd(&counters[b * hkv + h], 1) == nsp - 1;
+  if (tid == 0) is_last = atomicAdd(&counters[b * hkv + h], 1) == r.nsp - 1;
   __syncthreads();
   if (!is_last) return;
   __threadfence();
   for (int i = tid; i < group * D; i += blockDim.x) {
     const int g = i / D, d = i % D;
-    float m = -INFINITY;
-    for (int s = 0; s < nsp; ++s)
-      m = fmaxf(m, __ldcg(pb + ((size_t)s * group + g) * (2 + D)));
-    float l = 0.f, a = 0.f;
-    for (int s = 0; s < nsp; ++s) {
+    float m = -INFINITY, l = 0.f, a = 0.f;
+    for (int s = 0; s < r.nsp; ++s) m = fmaxf(m, __ldcg(pb + ((size_t)s * group + g) * (2 + D)));
+    for (int s = 0; s < r.nsp; ++s) {
       const float* ps = pb + ((size_t)s * group + g) * (2 + D);
-      const float w = expf(__ldcg(ps) - m);
-      l = fmaf(__ldcg(ps + 1), w, l);
-      a = fmaf(__ldcg(ps + 2 + d), w, a);
+      const float w = expf(__ldcg(ps) - m);  // split 0's frame is finite
+      l += __ldcg(ps + 1) * w;
+      a += __ldcg(ps + 2 + d) * w;
     }
     o[i] = from_float<T>(a / l);
   }
@@ -242,48 +360,66 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, typename C, int D>
 cudaError_t launch_decode(const void* q, const void* k_new, const void* v_new,
                           void* k_cache, void* v_cache, const int* slot_mapping,
-                          const int* block_tables, const int* seq_lens,
+                          const int* block_tables, const int* seq_lens, float* gmax,
                           void* out, float* part, int* counters, int batch,
                           int layer, int num_blocks, int hkv, int bs, int nbmax,
                           int group, float scale, int window, int chunk,
-                          int nsplit, cudaStream_t stream) {
-  auto kernel = decode_attention_write_kernel<T, C, D>;
-  const size_t smem = decode_smem_bytes<typename TileOf<C>::type, D>(group);
-  cudaError_t e = allow_smem(kernel, smem);
+                          int nsplit, int gran, int ngran, cudaStream_t stream) {
+  using S = typename TileOf<C>::type;
+  const size_t smem = decode_smem_bytes<S, D>(group);
+  auto pass2 = decode_attention_write_kernel<T, C, D>;
+  cudaError_t e = allow_smem(pass2, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(nsplit, hkv, batch), kThreads, smem, stream>>>(
+  const dim3 grid(nsplit, hkv, batch);
+  if constexpr (kRoundP<C>) {  // an f32 cache rounds nothing: no pass 1
+    auto pass1 = decode_granule_max_kernel<T, C, D>;
+    e = allow_smem(pass1, smem);
+    if (e != cudaSuccess) return e;
+    pass1<<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const C*>(k_cache), block_tables, seq_lens,
+        gmax, layer, num_blocks, hkv, bs, nbmax, group, scale, window, chunk, gran, ngran);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  pass2<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_new),
       static_cast<const T*>(v_new), static_cast<C*>(k_cache),
-      static_cast<C*>(v_cache), slot_mapping, block_tables, seq_lens,
+      static_cast<C*>(v_cache), slot_mapping, block_tables, seq_lens, gmax,
       static_cast<T*>(out), part, counters, layer, num_blocks, hkv, bs, nbmax,
-      group, scale, window, chunk, nsplit);
+      group, scale, window, chunk, nsplit, gran, ngran);
   return cudaGetLastError();
 }
 
 }  // namespace xllm
 
+// gran: min(64, 4 * bs) positions, where 4 * bs divides 64 or 64 divides
+// 4 * bs; ngran: gmax's columns, at least ceil(nbmax * bs / 64) * 64 / gran.
 extern "C" int xllm_decode_attention_write(
     int device, const void* q, const void* k_new, const void* v_new,
     void* k_cache, void* v_cache, const void* slot_mapping,
-    const void* block_tables, const void* seq_lens, void* out, void* part,
+    const void* block_tables, const void* seq_lens, void* gmax, void* out, void* part,
     void* counters, int dtype, int qtype, int head_dim, int batch, int layer,
     int num_blocks, int hkv, int bs, int nbmax, int group, float scale,
-    int window, int chunk, int nsplit, void* stream) {
+    int window, int chunk, int nsplit, int gran, int ngran, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (chunk <= 0 || chunk % xllm::kTile || batch > 65535)
+  if (chunk <= 0 || chunk % xllm::kTile || batch > 65535 || gran <= 0 ||
+      xllm::kTile % gran || (4 * bs) % gran || gran != (4 * bs < xllm::kTile ? 4 * bs : xllm::kTile) ||
+      (long long)ngran * gran < ((long long)nbmax * bs + xllm::kTile - 1) / xllm::kTile * xllm::kTile)
     return (int)cudaErrorInvalidValue;
   const int* sm = static_cast<const int*>(slot_mapping);
   const int* bt = static_cast<const int*>(block_tables);
   const int* sl = static_cast<const int*>(seq_lens);
   float* pt = static_cast<float*>(part);
+  float* gm = static_cast<float*>(gmax);
   int* ct = static_cast<int*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define XLLM_LAUNCH(T, C, D)                                                     \
   return (int)xllm::launch_decode<T, C, D>(q, k_new, v_new, k_cache, v_cache, sm, \
-                                           bt, sl, out, pt, ct, batch, layer,     \
+                                           bt, sl, gm, out, pt, ct, batch, layer, \
                                            num_blocks, hkv, bs, nbmax, group,     \
-                                           scale, window, chunk, nsplit, s)
+                                           scale, window, chunk, nsplit, gran,    \
+                                           ngran, s)
 #define XLLM_HEAD_DIMS(T, C)                      \
   if (head_dim == 128) XLLM_LAUNCH(T, C, 128);     \
   if (head_dim == 64) XLLM_LAUNCH(T, C, 64);

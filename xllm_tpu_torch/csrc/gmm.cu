@@ -29,6 +29,14 @@
 // past the last tile exits at once. Nothing is read back to the host, and
 // an empty expert costs one scan and no load.
 //
+// fp8 rhs (e4m3 expert stacks, weight-only; the TPU kernel upcasts the
+// rhs tiles to the lhs dtype on load): the B tiles stream through the same
+// ring at one byte an element, and each stage is upcast to bf16 (exact for
+// e4m3) in shared memory before its products, or to f32 as the f32 lhs
+// reads it. The per-(expert, channel) scales stay outside, on the f32
+// output rows (ops/moe.py), as in the JAX package. Bound: bytes, with the
+// weights at one byte.
+//
 // bf16: mma.sync m16n8k16 on the tensor cores with f32 accumulators; A and
 // B tiles stream through a 3-stage cp.async ring, fragments come from
 // ldmatrix (B through .trans: rhs is [K, N] row-major). The row tile BM is
@@ -117,19 +125,24 @@ constexpr int kAStride = kBK + 8;  // bf16 elements; rows 80 bytes apart
 constexpr int kBStride = kBN + 8;  // rows 272 bytes apart: ldmatrix rows
                                    // of one phase hit distinct banks
 
-template <int BM>
+constexpr int kB8Stride = kBN + 16;  // bytes of an e4m3 B row in a stage
+
+// R: the rhs element type (bf16, or e4m3 staged as bytes and upcast)
+template <int BM, typename R>
 constexpr size_t bf16_smem_bytes() {
+  if constexpr (sizeof(R) == 1)
+    return (size_t)kStages * (BM * kAStride * 2 + kBK * kB8Stride) + kBK * kBStride * 2;
   return (size_t)kStages * (BM * kAStride + kBK * kBStride) * 2;
 }
 
 // BM x 128 output tile, 4 warps as WARPS_M x (4 / WARPS_M); each warp owns
 // a (BM / WARPS_M) x (128 / WARPS_N) block of m16n8 accumulators.
-template <int BM, int WARPS_M>
+template <int BM, int WARPS_M, typename R>
 __global__ void __launch_bounds__(kThreadsG)
-    gmm_bf16_kernel(const __nv_bfloat16* __restrict__ lhs,
-                    const __nv_bfloat16* __restrict__ rhs,
+    gmm_bf16_kernel(const __nv_bfloat16* __restrict__ lhs, const R* __restrict__ rhs,
                     const int* __restrict__ offsets, float* __restrict__ out,
                     int m, int k, int n, int e) {
+  constexpr bool kFp8 = sizeof(R) == 1;
   constexpr int WARPS_N = 4 / WARPS_M;
   constexpr int WM = BM / WARPS_M, WN = kBN / WARPS_N;
   constexpr int MT = WM / 16, NT = WN / 8;
@@ -148,9 +161,13 @@ __global__ void __launch_bounds__(kThreadsG)
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  // bf16 rhs: kStages B stages; e4m3: kStages byte stages, then one bf16
+  // tile that each stage is upcast into
   __nv_bfloat16* bs = as + kStages * A_STAGE;
+  uint8_t* b8 = reinterpret_cast<uint8_t*>(bs);
+  __nv_bfloat16* bup = reinterpret_cast<__nv_bfloat16*>(b8 + kStages * kBK * kB8Stride);
   const __nv_bfloat16* a_g = lhs + (size_t)tile.row0 * k;
-  const __nv_bfloat16* b_g = rhs + (size_t)expert * k * n;
+  const R* b_g = rhs + (size_t)expert * k * n;
   const int tid = threadIdx.x;
 
   auto load_stage = [&](int stage, int k0) {
@@ -160,12 +177,22 @@ __global__ void __launch_bounds__(kThreadsG)
       const bool ok = r < rows && k0 + kc < k;
       cp_async16(ad + r * kAStride + kc, ok ? a_g + (size_t)r * k + k0 + kc : lhs, ok);
     }
-    __nv_bfloat16* bd = bs + stage * B_STAGE;
-    for (int c = tid; c < kBK * (kBN / 8); c += kThreadsG) {
-      const int r = c / (kBN / 8), nc = (c % (kBN / 8)) * 8;
-      const bool ok = k0 + r < k && n0 + nc < n;
-      cp_async16(bd + r * kBStride + nc,
-                 ok ? b_g + (size_t)(k0 + r) * n + n0 + nc : rhs, ok);
+    if constexpr (kFp8) {
+      uint8_t* bd = b8 + stage * kBK * kB8Stride;
+      for (int c = tid; c < kBK * (kBN / 16); c += kThreadsG) {
+        const int r = c / (kBN / 16), nc = (c % (kBN / 16)) * 16;
+        const bool ok = k0 + r < k && n0 + nc < n;
+        cp_async16(bd + r * kB8Stride + nc,
+                   ok ? b_g + (size_t)(k0 + r) * n + n0 + nc : rhs, ok);
+      }
+    } else {
+      __nv_bfloat16* bd = bs + stage * B_STAGE;
+      for (int c = tid; c < kBK * (kBN / 8); c += kThreadsG) {
+        const int r = c / (kBN / 8), nc = (c % (kBN / 8)) * 8;
+        const bool ok = k0 + r < k && n0 + nc < n;
+        cp_async16(bd + r * kBStride + nc,
+                   ok ? b_g + (size_t)(k0 + r) * n + n0 + nc : rhs, ok);
+      }
     }
   };
 
@@ -194,6 +221,16 @@ __global__ void __launch_bounds__(kThreadsG)
 
     const __nv_bfloat16* at = as + (kt % kStages) * A_STAGE;
     const __nv_bfloat16* bt = bs + (kt % kStages) * B_STAGE;
+    if constexpr (kFp8) {  // upcast this stage's bytes into the bf16 tile
+      const uint8_t* bsrc = b8 + (kt % kStages) * kBK * kB8Stride;
+      for (int c = tid; c < kBK * (kBN / 16); c += kThreadsG) {
+        const int r = c / (kBN / 16), nc = (c % (kBN / 16)) * 16;
+        upcast16<e4m3>(bup + r * kBStride + nc,
+                       *reinterpret_cast<const uint4*>(bsrc + r * kB8Stride + nc));
+      }
+      __syncthreads();
+      bt = bup;
+    }
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 16) {
       uint32_t af[MT][4];
@@ -241,12 +278,25 @@ __global__ void __launch_bounds__(kThreadsG)
 // ---------------------------------------------------------------------------
 constexpr int kFBM = 64, kFBN = 64, kFBK = 16;
 constexpr int kFAStride = kFBK + 4;  // floats; 16-byte aligned rows
-constexpr int kFBStride = kFBN + 4;
+
+// four consecutive rhs values as f32: a float4, or four e4m3 bytes upcast
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const e4m3* p) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+  const float2 lo = __half22float2(__half2(
+      __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(w & 0xffffu), __NV_E4M3)));
+  const float2 hi = __half22float2(__half2(
+      __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(w >> 16), __NV_E4M3)));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
 
 // 64 x 64 output tile; thread (ty, tx) = (tid / 16, tid % 16) owns rows
-// 8 ty .. 8 ty + 7 and cols 4 tx .. 4 tx + 3.
+// 8 ty .. 8 ty + 7 and cols 4 tx .. 4 tx + 3. R: f32 or e4m3 rhs.
+template <typename R>
 __global__ void __launch_bounds__(kThreadsG)
-    gmm_f32_kernel(const float* __restrict__ lhs, const float* __restrict__ rhs,
+    gmm_f32_kernel(const float* __restrict__ lhs, const R* __restrict__ rhs,
                    const int* __restrict__ offsets, float* __restrict__ out,
                    int m, int k, int n, int e) {
   const Tile tile = find_tile(offsets, e, m, kFBM, blockIdx.x);
@@ -258,9 +308,11 @@ __global__ void __launch_bounds__(kThreadsG)
   }
   const int rows = tile.rows;
   __shared__ __align__(16) float as[kStages][kFBM * kFAStride];
-  __shared__ __align__(16) float bs[kStages][kFBK * kFBStride];
+  // rhs rows of kFBN elements (bytes or floats), padded by 16 bytes
+  constexpr int kRStride = kFBN + 16 / (int)sizeof(R);
+  __shared__ __align__(16) R bs[kStages][kFBK * kRStride];
   const float* a_g = lhs + (size_t)tile.row0 * k;
-  const float* b_g = rhs + (size_t)(tile.seg - 1) * k * n;
+  const R* b_g = rhs + (size_t)(tile.seg - 1) * k * n;
   const int tid = threadIdx.x;
 
   auto load_stage = [&](int stage, int k0) {
@@ -270,10 +322,11 @@ __global__ void __launch_bounds__(kThreadsG)
       cp_async16(&as[stage][r * kFAStride + kc],
                  ok ? a_g + (size_t)r * k + k0 + kc : lhs, ok);
     }
-    for (int c = tid; c < kFBK * (kFBN / 4); c += kThreadsG) {
-      const int r = c / (kFBN / 4), nc = (c % (kFBN / 4)) * 4;
+    constexpr int kPer16 = 16 / (int)sizeof(R);  // elements per 16 bytes
+    for (int c = tid; c < kFBK * (kFBN / kPer16); c += kThreadsG) {
+      const int r = c / (kFBN / kPer16), nc = (c % (kFBN / kPer16)) * kPer16;
       const bool ok = k0 + r < k && n0 + nc < n;
-      cp_async16(&bs[stage][r * kFBStride + nc],
+      cp_async16(&bs[stage][r * kRStride + nc],
                  ok ? b_g + (size_t)(k0 + r) * n + n0 + nc : rhs, ok);
     }
   };
@@ -298,10 +351,10 @@ __global__ void __launch_bounds__(kThreadsG)
     if (next < kt_n) load_stage(next % kStages, next * kFBK);
     cp_async_commit();
     const float* at = as[kt % kStages];
-    const float* bt = bs[kt % kStages];
+    const R* bt = bs[kt % kStages];
 #pragma unroll
     for (int kk = 0; kk < kFBK; ++kk) {
-      const float4 b = *reinterpret_cast<const float4*>(bt + kk * kFBStride + tx * 4);
+      const float4 b = load4(bt + kk * kRStride + tx * 4);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const float a = at[(ty * 8 + i) * kFAStride + kk];
@@ -324,44 +377,58 @@ __global__ void __launch_bounds__(kThreadsG)
   }
 }
 
-template <int BM, int WARPS_M>
+template <int BM, int WARPS_M, typename R>
 cudaError_t launch_bf16(const void* lhs, const void* rhs, const int* offsets,
                         float* out, int m, int k, int n, int e,
                         cudaStream_t stream) {
-  const size_t smem = bf16_smem_bytes<BM>();
-  cudaError_t err = allow_smem(gmm_bf16_kernel<BM, WARPS_M>, smem);
+  const size_t smem = bf16_smem_bytes<BM, R>();
+  cudaError_t err = allow_smem(gmm_bf16_kernel<BM, WARPS_M, R>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((m + BM - 1) / BM + e + 2, (n + kBN - 1) / kBN);
-  gmm_bf16_kernel<BM, WARPS_M><<<grid, kThreadsG, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(lhs),
-      static_cast<const __nv_bfloat16*>(rhs), offsets, out, m, k, n, e);
+  gmm_bf16_kernel<BM, WARPS_M, R><<<grid, kThreadsG, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(lhs), static_cast<const R*>(rhs), offsets, out,
+      m, k, n, e);
+  return cudaGetLastError();
+}
+
+template <typename R>
+cudaError_t launch_f32(const void* lhs, const void* rhs, const int* offsets, float* out,
+                       int m, int k, int n, int e, cudaStream_t stream) {
+  const dim3 grid((m + kFBM - 1) / kFBM + e + 2, (n + kFBN - 1) / kFBN);
+  gmm_f32_kernel<R><<<grid, kThreadsG, 0, stream>>>(
+      static_cast<const float*>(lhs), static_cast<const R*>(rhs), offsets, out, m, k, n, e);
   return cudaGetLastError();
 }
 
 }  // namespace gmm
 }  // namespace xllm
 
-// bm: the bf16 row tile (16 or 128); the f32 instance always uses 64.
+// dtype: lhs (bf16 or f32); rtype: rhs (the lhs dtype, or e4m3 with n a
+// multiple of 16); bm: the bf16 row tile (16 or 128); the f32 instance
+// always uses 64.
 extern "C" int xllm_gmm(int device, const void* lhs, const void* rhs,
-                        const void* offsets, void* out, int dtype, int m, int k,
-                        int n, int e, int bm, void* stream) {
+                        const void* offsets, void* out, int dtype, int rtype, int m,
+                        int k, int n, int e, int bm, void* stream) {
   using namespace xllm::gmm;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int* offs = static_cast<const int*>(offsets);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rtype == XLLM_DTYPE_E4M3 && n % 16) return (int)cudaErrorInvalidValue;
   if (dtype == XLLM_DTYPE_BF16) {
-    if (bm == 16) return (int)launch_bf16<16, 1>(lhs, rhs, offs, o, m, k, n, e, st);
-    if (bm == 128) return (int)launch_bf16<128, 2>(lhs, rhs, offs, o, m, k, n, e, st);
+#define XLLM_ROW_TILES(R)                                                              \
+  if (bm == 16) return (int)launch_bf16<16, 1, R>(lhs, rhs, offs, o, m, k, n, e, st);   \
+  if (bm == 128) return (int)launch_bf16<128, 2, R>(lhs, rhs, offs, o, m, k, n, e, st);
+    if (rtype == XLLM_DTYPE_BF16) { XLLM_ROW_TILES(__nv_bfloat16) }
+    if (rtype == XLLM_DTYPE_E4M3) { XLLM_ROW_TILES(xllm::e4m3) }
+#undef XLLM_ROW_TILES
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == XLLM_DTYPE_F32) {
-    const dim3 grid((m + kFBM - 1) / kFBM + e + 2, (n + kFBN - 1) / kFBN);
-    gmm_f32_kernel<<<grid, kThreadsG, 0, st>>>(static_cast<const float*>(lhs),
-                                               static_cast<const float*>(rhs),
-                                               offs, o, m, k, n, e);
-    return (int)cudaGetLastError();
+    if (rtype == XLLM_DTYPE_F32) return (int)launch_f32<float>(lhs, rhs, offs, o, m, k, n, e, st);
+    if (rtype == XLLM_DTYPE_E4M3)
+      return (int)launch_f32<xllm::e4m3>(lhs, rhs, offs, o, m, k, n, e, st);
   }
   return (int)cudaErrorInvalidValue;
 }

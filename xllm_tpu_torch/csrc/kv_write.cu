@@ -98,12 +98,13 @@ cudaError_t launch_rows(const void* k_src, const void* v_src, long long sp,
 // never-read tail of the last one with padding) and
 // latent_write_rmw_batched_tpu (K11d, S <= block_size at any alignment,
 // read-patch-write of at most two pages). Here exactly the ntok valid rows
-// of each chunk are written. Bound: bytes.
-template <typename T>
+// of each chunk are written. Bound: bytes. An e4m3 latent cache takes bf16
+// or f32 rows cast here with to_cache, as the K2 / K4 rows.
+template <typename S, typename C>
 __global__ void __launch_bounds__(kThreads)
-    latent_write_rows_kernel(const T* __restrict__ src, long long stride_p,
+    latent_write_rows_kernel(const S* __restrict__ src, long long stride_p,
                              long long stride_s,  // element strides; Dk is unit
-                             T* cache,            // [L, NB, 1, bs, Dk]
+                             C* cache,            // [L, NB, 1, bs, Dk]
                              const int* __restrict__ block_tables,  // [P, nbmax]
                              const int* __restrict__ q_offsets,     // [P]
                              const int* __restrict__ ntoks,         // [P]
@@ -115,19 +116,19 @@ __global__ void __launch_bounds__(kThreads)
   if (require_aligned) assert(q_offset % bs == 0);
   const int pos = q_offset + j;
   const int blk = block_tables[(size_t)p * nbmax + pos / bs];
-  const T* s = src + (size_t)p * stride_p + (size_t)j * stride_s;
-  T* d = cache + cache_row(layer, num_blocks, 1, bs, blk, 0, pos % bs, dk);
-  for (int i = threadIdx.x; i < dk; i += blockDim.x) d[i] = s[i];
+  const S* s = src + (size_t)p * stride_p + (size_t)j * stride_s;
+  C* d = cache + cache_row(layer, num_blocks, 1, bs, blk, 0, pos % bs, dk);
+  for (int i = threadIdx.x; i < dk; i += blockDim.x) d[i] = as_cache<C>(s[i]);
 }
 
-template <typename T>
+template <typename S, typename C>
 cudaError_t launch_latent_rows(const void* src, long long sp, long long ss,
                                void* cache, const int* block_tables,
                                const int* q_offsets, const int* ntoks, int p, int s,
                                int layer, int num_blocks, int bs, int dk, int nbmax,
                                int require_aligned, cudaStream_t stream) {
-  latent_write_rows_kernel<T><<<dim3(p, s), kThreads, 0, stream>>>(
-      static_cast<const T*>(src), sp, ss, static_cast<T*>(cache), block_tables,
+  latent_write_rows_kernel<S, C><<<dim3(p, s), kThreads, 0, stream>>>(
+      static_cast<const S*>(src), sp, ss, static_cast<C*>(cache), block_tables,
       q_offsets, ntoks, layer, num_blocks, bs, dk, nbmax, require_aligned);
   return cudaGetLastError();
 }
@@ -137,8 +138,8 @@ cudaError_t launch_latent_rows(const void* src, long long sp, long long ss,
 extern "C" int xllm_latent_write_rows(int device, const void* src, long long stride_p,
                                       long long stride_s, void* cache,
                                       const void* block_tables, const void* q_offsets,
-                                      const void* ntoks, int dtype, int p, int s,
-                                      int layer, int num_blocks, int bs, int dk,
+                                      const void* ntoks, int src_dtype, int dtype, int p,
+                                      int s, int layer, int num_blocks, int bs, int dk,
                                       int nbmax, int require_aligned, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -147,14 +148,20 @@ extern "C" int xllm_latent_write_rows(int device, const void* src, long long str
   const int* qo = static_cast<const int*>(q_offsets);
   const int* nt = static_cast<const int*>(ntoks);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == XLLM_DTYPE_BF16)
-    return (int)xllm::launch_latent_rows<__nv_bfloat16>(
-        src, stride_p, stride_s, cache, bt, qo, nt, p, s, layer, num_blocks, bs, dk,
-        nbmax, require_aligned, st);
-  if (dtype == XLLM_DTYPE_F32)
-    return (int)xllm::launch_latent_rows<float>(src, stride_p, stride_s, cache, bt, qo,
-                                                nt, p, s, layer, num_blocks, bs, dk,
-                                                nbmax, require_aligned, st);
+#define XLLM_ROWS(S, C)                                                               \
+  return (int)xllm::launch_latent_rows<S, C>(src, stride_p, stride_s, cache, bt, qo, \
+                                             nt, p, s, layer, num_blocks, bs, dk,    \
+                                             nbmax, require_aligned, st);
+  if (src_dtype == dtype) {  // a copy (of bytes, for an e4m3 cache)
+    if (dtype == XLLM_DTYPE_BF16) { XLLM_ROWS(__nv_bfloat16, __nv_bfloat16) }
+    if (dtype == XLLM_DTYPE_F32) { XLLM_ROWS(float, float) }
+    if (dtype == XLLM_DTYPE_E4M3) { XLLM_ROWS(uint8_t, uint8_t) }
+  }
+  if (dtype == XLLM_DTYPE_E4M3) {  // the e4m3 cast of a bf16 / f32 row
+    if (src_dtype == XLLM_DTYPE_BF16) { XLLM_ROWS(__nv_bfloat16, xllm::e4m3) }
+    if (src_dtype == XLLM_DTYPE_F32) { XLLM_ROWS(float, xllm::e4m3) }
+  }
+#undef XLLM_ROWS
   return (int)cudaErrorInvalidValue;
 }
 

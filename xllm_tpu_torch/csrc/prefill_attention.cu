@@ -29,15 +29,22 @@
 // tiles, and overlapping the next tile's load with this tile's math.
 //
 // Quantized caches (int8 codes or e4m3; q and the output stay bf16 or f32):
-// the K/V tiles are upcast to bf16 on their way into shared memory and, as
-// in the TPU kernel, P is rounded to bf16 before P.V (l sums the unrounded
-// P). The chunk's own rows are read back from the cache, as stored. The TPU
-// kernel rounds P against its running maximum after each page; so does this
-// one when a page is shorter than a tile (block_size 16 or 32): each page
-// of the tile takes the running maximum up to its end (a prefix maximum
-// over the warp's lanes), its rounded P then carries exp(m_page - m_tile)
-// in f32, as the TPU kernel's later rescales carry it. At block_size 64 a
-// tile is a page.
+// the K/V tiles are upcast to bf16 on their way into shared memory. The
+// chunk's own rows are read back from the cache, as stored.
+//
+// Rounding P, on every cache but f32 (whose V tile is not bf16): as in the
+// TPU kernel, P is rounded to bf16 before P.V (l sums the unrounded P),
+// against the running maximum after each page of the walk:
+// - a page shorter than the 64-position tile (block_size 16 or 32): each
+//   page of the tile takes the running maximum up to its end (a prefix
+//   maximum over the warp's lanes), and its rounded P carries
+//   exp(m_page - m_tile) in f32, as the TPU kernel's later rescales carry
+//   it;
+// - block_size 64: a tile is a page;
+// - a page longer than the tile (a multiple of 64): at the page's first
+//   tile the block computes the rows' maxima over the whole page (K only,
+//   the same score code, so the same bits), and every tile of the page
+//   rounds against that maximum. The page's K is read twice.
 #include "common.cuh"
 
 namespace xllm {
@@ -47,7 +54,7 @@ constexpr int kRowsPerWarp = kRows / (kThreads / 32);  // 16
 
 template <typename S, int D>
 size_t prefill_smem_bytes() {
-  return ((size_t)kRows * D + (size_t)kRows * kTile + 3 * kRows) * sizeof(float) +
+  return ((size_t)kRows * D + (size_t)kRows * kTile + 4 * kRows) * sizeof(float) +
          2 * (size_t)kTile * (D + kPad) * sizeof(S);
 }
 
@@ -64,8 +71,9 @@ __global__ void __launch_bounds__(kThreads)
                              int layer, int num_blocks, int hkv, int bs,
                              int nbmax, int seq, int group, int tq, float scale,
                              int window, int seg) {  // seg: page length < kTile, or kTile
+  // (bs: a divisor or a multiple of kTile, checked by the C entry)
   using S = typename TileOf<C>::type;
-  constexpr bool kQuant = kQuantCache<C>;
+  constexpr bool kRound = kRoundP<C>;
   constexpr int kPairs = D / 64;  // column pairs per lane: 2 * lane + 64 * c
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);  // [kRows, D]
@@ -73,7 +81,8 @@ __global__ void __launch_bounds__(kThreads)
   float* ms = ps + kRows * kTile;               // [kRows]
   float* ls = ms + kRows;
   float* alpha_s = ls + kRows;
-  S* ks = reinterpret_cast<S*>(alpha_s + kRows);  // [kTile, D + kPad]
+  float* pm = alpha_s + kRows;  // [kRows] a long page's maxima
+  S* ks = reinterpret_cast<S*>(pm + kRows);  // [kTile, D + kPad]
   S* vs = ks + kTile * (D + kPad);
 
   const int p = blockIdx.x, h = blockIdx.y, s0 = blockIdx.z * tq;
@@ -119,15 +128,8 @@ __global__ void __launch_bounds__(kThreads)
   const int* bt = block_tables + (size_t)p * nbmax;
   __syncthreads();
 
-  for (int t0 = (lo / kTile) * kTile; t0 < hi; t0 += kTile) {
-    const int jlo = max(lo - t0, 0);
-    const int jhi = min(hi - t0, kTile);
-    load_tile<C, D>(ks, vs, k_cache, v_cache, bt, layer, num_blocks, hkv, h, bs, t0,
-                    jlo, jhi);
-    __syncthreads();
-
-    // scores: rows warp + 4 * i, keys lane and lane + 32
-    float sc[kRowsPerWarp][2];
+  // scores of the tile in ks: rows warp + 4 * i, keys lane and lane + 32
+  auto tile_scores = [&](float (&sc)[kRowsPerWarp][2]) {
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) sc[i][0] = sc[i][1] = 0.f;
     const S* k0 = ks + lane * (D + kPad);
@@ -142,26 +144,69 @@ __global__ void __launch_bounds__(kThreads)
         sc[i][1] = fmaf(qv.x, b.x, fmaf(qv.y, b.y, sc[i][1]));
       }
     }
+  };
+  // is key j of the tile at t0 visible to row r (live rows only)?
+  auto visible = [&](int r, int t0, int j, int jlo, int jhi) {
+    const int pos = q_offset + s0 + r % tq, kv = t0 + j;
+    return r < rows && r % tq < nvalid && j >= jlo && j < jhi && kv <= pos &&
+           (window <= 0 || kv > pos - window);
+  };
+  const bool long_pages = kRound && bs > kTile;
+  const int t_first = (lo / kTile) * kTile;
+
+  for (int t0 = t_first; t0 < hi; t0 += kTile) {
+    const int jlo = max(lo - t0, 0);
+    const int jhi = min(hi - t0, kTile);
+    if (long_pages && (t0 % bs == 0 || t0 == t_first)) {
+      // the rows' maxima over this page's tiles from t0 (K only)
+      const int page_end = min((t0 / bs + 1) * bs, hi);
+      float pmax[kRowsPerWarp];
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) pmax[i] = -INFINITY;
+      for (int u0 = t0; u0 < page_end; u0 += kTile) {
+        const int ulo = max(lo - u0, 0), uhi = min(hi - u0, kTile);
+        load_tile<C, D, false>(ks, nullptr, k_cache, nullptr, bt, layer, num_blocks, hkv,
+                               h, bs, u0, ulo, uhi);
+        __syncthreads();
+        float sc[kRowsPerWarp][2];
+        tile_scores(sc);
+#pragma unroll
+        for (int i = 0; i < kRowsPerWarp; ++i) {
+          const int r = warp + 4 * i;
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            if (visible(r, u0, lane + 32 * u, ulo, uhi))
+              pmax[i] = fmaxf(pmax[i], sc[i][u] * scale);
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        const float m = warp_max(pmax[i]);
+        if (lane == 0) pm[warp + 4 * i] = m;
+      }
+    }
+    load_tile<C, D>(ks, vs, k_cache, v_cache, bt, layer, num_blocks, hkv, h, bs, t0,
+                    jlo, jhi);
+    __syncthreads();
+
+    float sc[kRowsPerWarp][2];
+    tile_scores(sc);
     // mask + online softmax, one warp per row
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) {
       const int r = warp + 4 * i;
-      const bool live = r < rows && r % tq < nvalid;
-      const int pos = q_offset + s0 + r % tq;
       float s2[2];
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int j = lane + 32 * u, kv = t0 + j;
-        const bool ok = live && j >= jlo && j < jhi && kv <= pos &&
-                        (window <= 0 || kv > pos - window);
-        s2[u] = ok ? sc[i][u] * scale : -INFINITY;
-      }
+      for (int u = 0; u < 2; ++u)
+        s2[u] = visible(r, t0, lane + 32 * u, jlo, jhi) ? sc[i][u] * scale : -INFINITY;
       const float m_old = ms[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s2[0], s2[1])));
+      float m_new = fmaxf(m_old, warp_max(fmaxf(s2[0], s2[1])));
+      if (long_pages) m_new = fmaxf(m_new, pm[r]);  // the page's maximum
       const bool none = m_new == -INFINITY;  // nothing visible yet
       float p0 = none ? 0.f : expf(s2[0] - m_new);
       float p1 = none ? 0.f : expf(s2[1] - m_new);
-      if (kQuant && seg < kTile) {
+      if (kRound && seg < kTile) {
         // page maxima (keys of a page: seg neighbouring lanes), then the
         // running maximum at the end of each key's page
         float run0 = s2[0], run1 = s2[1];
@@ -191,8 +236,8 @@ __global__ void __launch_bounds__(kThreads)
         p0 = q0 * w0;
         p1 = q1 * w1;
       } else {
-        ps[r * kTile + lane] = kQuant ? round_bf16(p0) : p0;
-        ps[r * kTile + lane + 32] = kQuant ? round_bf16(p1) : p1;
+        ps[r * kTile + lane] = kRound ? round_bf16(p0) : p0;
+        ps[r * kTile + lane + 32] = kRound ? round_bf16(p1) : p1;
       }
       const float sum = warp_sum(p0 + p1);
       if (lane == 0) {
@@ -281,7 +326,9 @@ extern "C" int xllm_prefill_attention(int device, const void* q,
                                       int window, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (group < 1 || group > xllm::kRows) return (int)cudaErrorInvalidValue;
+  if (group < 1 || group > xllm::kRows ||
+      (bs > xllm::kTile ? bs % xllm::kTile : xllm::kTile % bs))
+    return (int)cudaErrorInvalidValue;
   const int* bt = static_cast<const int*>(block_tables);
   const int* qo = static_cast<const int*>(q_offsets);
   const int* kl = static_cast<const int*>(kv_lens);

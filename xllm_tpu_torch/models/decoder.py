@@ -70,6 +70,21 @@ def _param(*shape, dtype, device) -> nn.Parameter:
 QUANT_WEIGHT_DTYPES = {"int8": torch.int8, "fp8_e4m3": torch.float8_e4m3fn}
 
 
+def make_proj(layer: nn.Module, dtype, device, quant: str):
+    """-> proj(name, k, n): adds the ``[k, n]`` projection ``name`` to
+    ``layer``; with ``quant`` in int8 or float8_e4m3fn beside its f32
+    ``<name>_scale [n]``."""
+
+    def proj(name: str, k: int, n: int) -> None:
+        if not quant:
+            setattr(layer, name, _param(k, n, dtype=dtype, device=device))
+            return
+        setattr(layer, name, _param(k, n, dtype=QUANT_WEIGHT_DTYPES[quant], device=device))
+        setattr(layer, name + "_scale", _param(n, dtype=torch.float32, device=device))
+
+    return proj
+
+
 class DecoderLayer(nn.Module):
     """One layer's parameters, named as the JAX parameter tree's keys.
     ``dense_mlp=False`` leaves out the dense MLP (a MoE layer). With
@@ -84,21 +99,15 @@ class DecoderLayer(nn.Module):
         d, i = cfg.hidden_size, cfg.intermediate_size
         kw = dict(dtype=dtype, device=device)
 
-        def proj(name: str, k: int, n: int) -> None:
-            if not quant:
-                setattr(self, name, _param(k, n, **kw))
-                return
-            setattr(self, name, _param(k, n, dtype=QUANT_WEIGHT_DTYPES[quant], device=device))
-            setattr(self, name + "_scale", _param(n, dtype=torch.float32, device=device))
-
+        self.proj = make_proj(self, dtype, device, quant)
         self.input_layernorm = _param(d, **kw)
         self.post_attention_layernorm = _param(d, **kw)
-        proj("qkv_proj_w", d, hkv * (g + 2) * dh)
-        proj("o_proj_w", hq * dh, d)
+        self.proj("qkv_proj_w", d, hkv * (g + 2) * dh)
+        self.proj("o_proj_w", hq * dh, d)
         if dense_mlp:
-            proj("gate_proj_w", d, i)
-            proj("up_proj_w", d, i)
-            proj("down_proj_w", i, d)
+            self.proj("gate_proj_w", d, i)
+            self.proj("up_proj_w", d, i)
+            self.proj("down_proj_w", i, d)
         if cfg.attention_bias:
             self.qkv_proj_b = _param(hkv * (g + 2) * dh, **kw)
         if cfg.qk_norm:
@@ -112,6 +121,7 @@ class DecoderLayer(nn.Module):
 class DenseDecoderModel(nn.Module):
     kv_layout = "split"
     supports_batched_prefill = True
+    supports_int8_kv = True  # the per-head scales fold outside the kernels
 
     def __init__(self, cfg: ModelConfig, device="cpu", quant: str = "") -> None:
         super().__init__()

@@ -14,7 +14,14 @@ indexer is not ported yet). As there:
 - the first ``first_k_dense_replace`` layers (every layer when there are no
   experts) keep the dense MLP, the rest run the MoE block (routed experts x
   ``routed_scaling_factor`` plus the shared experts, ``moe_decoder.py``);
-- the softmax scale is ``(qk_nope + qk_rope)^-0.5 x mscale^2`` (YaRN).
+- the softmax scale is ``(qk_nope + qk_rope)^-0.5 x mscale^2`` (YaRN);
+- quantized (``quant="int8" | "fp8_e4m3"``) with the JAX runner's
+  eligibility: every ``*_proj_w`` (q / q_a / q_b / kv_a / o, the dense
+  MLP, the shared experts) is int8 or float8_e4m3fn with its ``*_scale``
+  and goes through ``_linear``; ``kv_b_nope_w`` / ``kv_b_v_w`` and the
+  router never are; the routed experts only under fp8 (``moe_decoder``).
+  The latent cache may be float8_e4m3fn (``kv_cache_dtype="fp8_e4m3"``);
+  an int8 latent cache raises, as in the JAX runner.
 
 The JAX ``lax.scan`` over the ``dense_layers`` and ``moe_layers`` stacks is
 one Python loop over ``MlaLayer`` modules; ``weights.py`` carries the two
@@ -28,8 +35,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from xllm_tpu_torch.config import ModelConfig
-from xllm_tpu_torch.models.decoder import DenseDecoderModel, _param
-from xllm_tpu_torch.models.moe_decoder import MoeDecoderModel
+from xllm_tpu_torch.models.decoder import DenseDecoderModel, _param, make_proj
+from xllm_tpu_torch.models.moe_decoder import MoeDecoderModel, add_experts
 from xllm_tpu_torch.ops.linear import bmm_round_once
 from xllm_tpu_torch.ops.mla import (
     mla_decode_attention_write,
@@ -60,54 +67,45 @@ class MlaLayer(nn.Module):
     """One layer's parameters, named as the JAX tree's keys: the MLA
     attention, then the dense MLP or (``moe=True``) the expert block."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device, moe: bool) -> None:
+    def __init__(self, cfg: ModelConfig, dtype, device, moe: bool, quant: str = "") -> None:
         super().__init__()
         h, d = cfg.num_attention_heads, cfg.hidden_size
         qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
         nope, rope, vh = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
         kw = dict(dtype=dtype, device=device)
+        proj = make_proj(self, dtype, device, quant)
         self.input_layernorm = _param(d, **kw)
         self.post_attention_layernorm = _param(d, **kw)
-        self.kv_a_proj_w = _param(d, kvr + rope, **kw)
+        proj("kv_a_proj_w", d, kvr + rope)
         self.kv_a_norm = _param(kvr, **kw)
         self.kv_b_nope_w = _param(h, kvr, nope, **kw)
         self.kv_b_v_w = _param(h, kvr, vh, **kw)
-        self.o_proj_w = _param(h * vh, d, **kw)
+        proj("o_proj_w", h * vh, d)
         if qr > 0:
-            self.q_a_proj_w = _param(d, qr, **kw)
+            proj("q_a_proj_w", d, qr)
             self.q_a_norm = _param(qr, **kw)
-            self.q_b_proj_w = _param(qr, h * (nope + rope), **kw)
+            proj("q_b_proj_w", qr, h * (nope + rope))
         else:
-            self.q_proj_w = _param(d, h * (nope + rope), **kw)
+            proj("q_proj_w", d, h * (nope + rope))
         if not moe:
             i = cfg.intermediate_size
-            self.gate_proj_w = _param(d, i, **kw)
-            self.up_proj_w = _param(d, i, **kw)
-            self.down_proj_w = _param(i, d, **kw)
+            proj("gate_proj_w", d, i)
+            proj("up_proj_w", d, i)
+            proj("down_proj_w", i, d)
             return
-        e, mi = cfg.num_experts, cfg.moe_intermediate_size
-        self.router_w = _param(d, e, **kw)
-        if cfg.scoring_func == "sigmoid":
-            self.router_bias = _param(e, dtype=torch.float32, device=device)
-        self.experts_gate_up = _param(e, d, 2 * mi, **kw)
-        self.experts_down = _param(e, mi, d, **kw)
-        if cfg.n_shared_experts > 0:
-            si = cfg.n_shared_experts * mi
-            self.shared_gate_proj_w = _param(d, si, **kw)
-            self.shared_up_proj_w = _param(d, si, **kw)
-            self.shared_down_proj_w = _param(si, d, **kw)
+        add_experts(self, cfg, dtype, device, quant, proj)
 
 
 class MlaDecoderModel(DenseDecoderModel):
-    # the latent cache has its own layout and no int8 scales (JAX:
-    # supports_int8_kv = supports_interleaved_kv = False; the runner
-    # raises for both)
+    # the latent cache has its own layout and no int8 scales (as the JAX
+    # model; the runner raises for an int8 KV, and for any layout but split)
+    supports_int8_kv = False
     moe_group = "moe_layers"  # the JAX tree's key of the MoE layer stacks
     # rope on the qk_rope dims: "interleaved" (deepseek complex pairs) or
     # "neox" (glm4-moe-lite's rotate-half)
     mla_rope_style = "interleaved"
 
-    def __init__(self, cfg: ModelConfig, device="cpu") -> None:
+    def __init__(self, cfg: ModelConfig, device="cpu", quant: str = "") -> None:
         if cfg.kv_lora_rank <= 0:
             raise ValueError("MlaDecoderModel requires kv_lora_rank > 0")
         if cfg.index_topk > 0:
@@ -115,7 +113,7 @@ class MlaDecoderModel(DenseDecoderModel):
                 "DSA (index_topk > 0: deepseek-v3.2 / glm5 sparse attention) "
                 "is not ported yet"
             )
-        super().__init__(cfg, device=device)
+        super().__init__(cfg, device=device, quant=quant)
         self.n_dense = _dense_layers(cfg)
         self.dk = cfg.kv_lora_rank + cfg.qk_rope_head_dim
         self.dk_pad = -(-self.dk // 128) * 128 if self.dk > 128 else self.dk
@@ -128,7 +126,7 @@ class MlaDecoderModel(DenseDecoderModel):
 
     def _make_layer(self, layer_idx: int) -> nn.Module:
         moe = layer_idx >= _dense_layers(self.cfg)
-        return MlaLayer(self.cfg, self.dtype, self.device, moe=moe)
+        return MlaLayer(self.cfg, self.dtype, self.device, moe=moe, quant=self.quant)
 
     # ------------------------------------------------------------------
     # latent KV cache
@@ -156,14 +154,15 @@ class MlaDecoderModel(DenseDecoderModel):
         c = self.cfg
         t = h.shape[0]
         nope, rope, kvr = c.qk_nope_head_dim, c.qk_rope_head_dim, c.kv_lora_rank
+        dt = h.dtype
         if c.q_lora_rank > 0:
-            qa = rms_norm(torch.matmul(h, lp.q_a_proj_w), lp.q_a_norm, c.rms_norm_eps)
-            q = torch.matmul(qa, lp.q_b_proj_w)
+            qa = rms_norm(self._linear(lp, "q_a_proj_w", h, dt), lp.q_a_norm, c.rms_norm_eps)
+            q = self._linear(lp, "q_b_proj_w", qa, dt)
         else:
-            q = torch.matmul(h, lp.q_proj_w)
+            q = self._linear(lp, "q_proj_w", h, dt)
         q = q.reshape(t, c.num_attention_heads, nope + rope)
         q_nope, q_pe = q[..., :nope], q[..., nope:]
-        kv_a = torch.matmul(h, lp.kv_a_proj_w)
+        kv_a = self._linear(lp, "kv_a_proj_w", h, dt)
         c_kv = rms_norm(kv_a[:, :kvr], lp.kv_a_norm, c.rms_norm_eps)
         k_pe = kv_a[:, kvr:].reshape(t, 1, rope)
         rope_fn = apply_rope if self.mla_rope_style == "neox" else apply_rope_interleaved
@@ -183,7 +182,7 @@ class MlaDecoderModel(DenseDecoderModel):
         """[T, H, kvr] latent attention output -> [T, D]."""
         t = out_lat.shape[0]
         out = bmm_round_once(out_lat.transpose(0, 1), lp.kv_b_v_w).transpose(0, 1)
-        return torch.matmul(out.reshape(t, -1), lp.o_proj_w)
+        return self._linear(lp, "o_proj_w", out.reshape(t, -1), out_lat.dtype)
 
     def _mlp(self, lp: MlaLayer, x: torch.Tensor) -> torch.Tensor:
         if hasattr(lp, "router_w"):

@@ -68,7 +68,7 @@ def get_model_class(model_type: str) -> type:
 
 
 def create_model(cfg: ModelConfig, device="cpu", quant: str = ""):
-    """``quant`` ("int8" | "fp8_e4m3") stores the dense families' projections
-    quantized; the runner refuses it for the other families."""
+    """``quant`` ("int8" | "fp8_e4m3") stores every family's ``*_proj_w``
+    quantized (and, under fp8, the MoE families' routed expert stacks)."""
     kw = {"quant": quant} if quant else {}
     return get_model_class(cfg.model_type)(cfg, device=device, **kw)

@@ -8,15 +8,15 @@ tokens (current one included) through ``block_tables`` with an f32 softmax
 and an optional sliding ``window``. A row with ``seq_len == 0`` writes
 nothing and outputs zeros.
 
-Quantized caches (int8 codes or float8_e4m3fn; q, the new rows and the
-output stay bf16 or f32) follow the TPU kernel, in the kernel and its plain
-version alike: the new token is attended as given (its row is not read
-back from the cache) and written cast to the cache dtype, and P is rounded
-to bf16 before P.V, against the running maximum of the kernel's walk
-(64-position tiles within each context split, ``_quantized_row``), so that
-the card and the CPU round the same P. (The JAX package's portable CPU path differs on both
-points: it writes first and attends to the stored row, and keeps P in q's
-dtype.)
+The kernel and its plain version walk as the TPU kernel does: the softmax
+opens at the new token (its score, l = 1, acc = v_new: the new token is
+attended as given and written cast to the cache dtype, never read back),
+the cached positions follow in tiles of 4 pages from position 0, and on
+every cache but f32 (int8 codes and float8_e4m3fn upcast to bf16; q, the
+new rows and the output stay bf16 or f32) the unnormalised P of each tile
+is rounded to bf16 against the running maximum after that tile
+(``_v9_walk``). (The JAX package's portable CPU path differs: it writes
+first, attends to the stored row, and keeps P in q's dtype.)
 
 Bound on the card: bytes (every live K/V row is read once per step); the
 design notes are in the CUDA source. ``paged_decode_attention_write`` takes
@@ -54,7 +54,7 @@ def paged_decode_attention_write_plain(
     window: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same in-place write, same
-    zeros for padded rows, same rules on a quantized cache)."""
+    zeros for padded rows, same walk)."""
     layer = int(layer_idx)
     bs = k_all.shape[3]
     live = seq_lens > 0
@@ -65,6 +65,9 @@ def paged_decode_attention_write_plain(
             cache, rows = cache.view(torch.uint8), rows.view(torch.uint8)
         cache[layer, slot // bs, :, slot % bs, :] = rows
 
+    # q and the new rows in the kernel's working dtype (the cache's, or
+    # q's own on a quantized cache)
+    work = q.dtype if _build.is_quantized(k_all.dtype) else k_all.dtype
     b, hq, d = q.shape
     hkv = k_all.shape[2]
     bt = block_tables.long()
@@ -72,73 +75,45 @@ def paged_decode_attention_write_plain(
     v = v_all[layer][bt].float()
     k = k.permute(0, 2, 1, 3, 4).reshape(b, hkv, -1, d)
     v = v.permute(0, 2, 1, 3, 4).reshape(b, hkv, -1, d)
-    qg = q.float().reshape(b, hkv, hq // hkv, d)
+    qg = q.to(work).float().reshape(b, hkv, hq // hkv, d)
     scores = torch.einsum("bkgd,bksd->bkgs", qg, k) * scale
     kv_idx = torch.arange(k.shape[2], device=q.device)
     lens = seq_lens.long()[:, None, None, None]
-    if not _build.is_quantized(k_all.dtype):
-        mask = kv_idx < lens
-        if window > 0:
-            mask = mask & (kv_idx >= lens - window)
-        probs = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
-        probs = torch.nan_to_num(probs)  # fully masked (padded) rows -> 0
-        out = torch.einsum("bkgs,bksd->bkgd", probs, v).reshape(b, hq, d)
-        return out.to(q.dtype)
-    # quantized cache: the cached positions [.., seq_len - 1) from the
-    # cache, the new token as given; P rounded to bf16 before P.V
-    mask = kv_idx < lens - 1
+    mask = kv_idx < lens - 1  # the cached positions; the new token as given
     if window > 0:
         mask = mask & (kv_idx >= lens - window)
     scores = scores.masked_fill(~mask, float("-inf"))
-    s_new = (qg * k_new.float()[:, :, None, :]).sum(-1) * scale  # [B, Hkv, G]
-    chunk, _ = _split_plan(block_tables.shape[1] * bs)
-    out = torch.zeros(b, hkv, hq // hkv, d, device=q.device)
-    for i in torch.nonzero(live).flatten().tolist():
-        out[i] = _quantized_row(scores[i], v[i], s_new[i], v_new[i].float(),
-                                int(seq_lens[i]), window, chunk)
+    s_new = (qg * k_new.to(work).float()[:, :, None, :]).sum(-1) * scale  # [B, Hkv, G]
+    out = _v9_walk(scores, v, s_new, v_new.to(work).float(), 4 * bs,
+                   k_all.dtype != torch.float32)
+    out = torch.where(live[:, None, None, None], out, 0.0)
     return out.reshape(b, hq, d).to(q.dtype)
 
 
-def _quantized_row(scores, v, s_new, v_new, seq_len: int, window: int,
-                   chunk: int) -> torch.Tensor:
-    """One sequence's attention on a quantized cache, P rounded as the
-    kernel rounds it: the context splits of ``chunk`` positions from the
-    tile below the window's edge, each walked a 64-position tile at a time,
-    P rounded to bf16 against the split's running maximum after each tile
-    (the last split's starts at the new token's score, with l = 1 and acc =
-    v_new), then the splits merged by their maxima. scores [Hkv, G, S]
-    (masked to the cached positions), v [Hkv, S, D], s_new [Hkv, G], v_new
-    [Hkv, D] -> [Hkv, G, D]."""
-    lo = max(seq_len - window, 0) if window > 0 else 0
-    base = lo // _TILE * _TILE
-    nsp = -(-(seq_len - base) // chunk)
-    span = nsp * chunk
-    sc = scores[..., base:base + span]
-    vv = v[:, base:base + span]
-    pad = span - sc.shape[-1]
-    if pad:  # past the table's width: masked positions
-        sc = torch.nn.functional.pad(sc, (0, pad), value=float("-inf"))
-        vv = torch.nn.functional.pad(vv, (0, 0, 0, pad))
-    tiles = sc.unflatten(-1, (nsp, chunk // _TILE, _TILE))  # [Hkv, G, split, tile, 64]
-    m_init = torch.full(tiles.shape[:3], float("-inf"), device=sc.device)
-    m_init[..., -1] = s_new
-    m_run = torch.maximum(torch.cummax(tiles.amax(-1), dim=-1).values, m_init[..., None])
-    m_split = m_run[..., -1]  # [Hkv, G, split]
-    seen = torch.isfinite(m_run)
-    m_run = torch.where(seen, m_run, 0.0)
-    weight = torch.where(seen, torch.exp(m_run - m_split[..., None]), 0.0)
-    p = torch.exp(tiles - m_run[..., None])  # masked positions: 0
-    l = (p.sum(-1) * weight).sum(-1)  # [Hkv, G, split]
-    pr = (p.bfloat16().float() * weight[..., None]).flatten(-3)  # [Hkv, G, span]
-    acc = torch.einsum("kgns,knsd->kgnd", pr.unflatten(-1, (nsp, chunk)),
-                       vv.unflatten(1, (nsp, chunk)))  # [Hkv, G, split, D]
-    w_new = torch.exp(s_new - m_split[..., -1])  # the new token, last split
-    acc[..., -1, :] += w_new[..., None] * v_new[:, None, :]
-    l[..., -1] += w_new
-    # merge the splits by their maxima (a split without a position has none)
-    top = m_split.amax(-1, keepdim=True)
-    ws = torch.where(torch.isfinite(m_split), torch.exp(m_split - top), 0.0)
-    return (acc * ws[..., None]).sum(-2) / (l * ws).sum(-1)[..., None]
+def _v9_walk(scores, v, s_new, v_new, tile: int, round_p: bool) -> torch.Tensor:
+    """The TPU kernel's softmax walk. scores [B, Hkv, G, S] (-inf where not
+    attended), v [B, Hkv, S, D], the new token's s_new [B, Hkv, G] and
+    v_new [B, Hkv, D]; tiles of ``tile`` positions from 0 -> [B, Hkv, G, D].
+    The running maximum opens at s_new and takes each tile's maximum; P of
+    a tile (rounded to bf16 if ``round_p``) carries exp(m_tile - m_final),
+    as the TPU kernel's later rescales give it; l sums the unrounded P."""
+    pad = -scores.shape[-1] % tile
+    if pad:
+        scores = torch.nn.functional.pad(scores, (0, pad), value=float("-inf"))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    tiles = scores.unflatten(-1, (-1, tile))  # [B, Hkv, G, T, tile]
+    m_run = torch.maximum(torch.cummax(tiles.amax(-1), dim=-1).values, s_new[..., None])
+    m_fin = m_run[..., -1]
+    weight = torch.exp(m_run - m_fin[..., None])  # [B, Hkv, G, T]
+    p = torch.exp(tiles - m_run[..., None])  # not attended: 0
+    w_new = torch.exp(s_new - m_fin)
+    l = (p.sum(-1) * weight).sum(-1) + w_new
+    if round_p:
+        p = p.bfloat16().float()
+    acc = torch.einsum("bkgts,bktsd->bkgd", p * weight[..., None],
+                       v.unflatten(2, (-1, tile)))
+    acc = acc + w_new[..., None] * v_new[:, :, None, :]
+    return acc / l[..., None]
 
 
 _lib = None
@@ -154,8 +129,8 @@ def _load() -> ctypes.CDLL:
         lib = _build.load(_SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.xllm_decode_attention_write.argtypes = [
-            i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
-            ctypes.c_float, i, i, i, p,
+            i, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
+            ctypes.c_float, i, i, i, i, i, p,
         ]
         lib.xllm_decode_attention_write.restype = i
         _lib = lib
@@ -168,6 +143,19 @@ def _split_plan(max_ctx: int) -> tuple[int, int]:
     tiles = -(-max_ctx // _TILE)
     chunk = _TILE * max(1, -(-tiles // _MAX_SPLITS))
     return chunk, max(1, -(-max_ctx // chunk))
+
+
+def granule(block_size: int) -> int:
+    """Positions of a granule of the kernel's first pass: the TPU kernel's
+    tile of 4 pages, or the 64-position tile if that is shorter. One must
+    divide the other."""
+    vt = 4 * block_size
+    if vt % _TILE and _TILE % vt:
+        raise NotImplementedError(
+            f"{NAME}: block_size {block_size} (4 pages must divide or be a "
+            f"multiple of {_TILE} positions)"
+        )
+    return min(vt, _TILE)
 
 
 def _split_counters(device: torch.device, n: int) -> torch.Tensor:
@@ -232,16 +220,21 @@ def paged_decode_attention_write(
         (b, hkv, nsplit, group, 2 + d) if nsplit > 1 else (1,),
         dtype=torch.float32, device=q.device,
     )
+    gran = granule(bs)
+    ngran = -(-block_tables.shape[1] * bs // _TILE) * _TILE // gran
+    # pass 1's granule maxima; an f32 cache rounds nothing and skips it
+    gmax = torch.empty((b, hq, ngran) if k_all.dtype != torch.float32 else (1,),
+                       dtype=torch.float32, device=q.device)
     counters = _split_counters(q.device, b * hkv)
     lib = _load()
-    _build.count_launch(NAME)
+    _build.count_launch(NAME)  # one count for the op's one or two passes
     err = lib.xllm_decode_attention_write(
         q.device.index or 0, _build.ptr(qk), _build.ptr(kn), _build.ptr(vn),
         _build.ptr(k_all), _build.ptr(v_all), _build.ptr(slot_mapping),
-        _build.ptr(block_tables), _build.ptr(seq_lens), _build.ptr(out),
-        _build.ptr(part), _build.ptr(counters), dtype, qtype, d, b, int(layer_idx),
-        nb, hkv, bs, block_tables.shape[1], group, float(scale), int(window),
-        chunk, nsplit, _build.stream_of(q),
+        _build.ptr(block_tables), _build.ptr(seq_lens), _build.ptr(gmax),
+        _build.ptr(out), _build.ptr(part), _build.ptr(counters), dtype, qtype, d, b,
+        int(layer_idx), nb, hkv, bs, block_tables.shape[1], group, float(scale),
+        int(window), chunk, nsplit, gran, ngran, _build.stream_of(q),
     )
     _build.check(lib, err, NAME)
     return out.to(q.dtype)

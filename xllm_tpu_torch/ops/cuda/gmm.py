@@ -8,9 +8,13 @@ rhs[expert of r]`` accumulated in f32. Rows outside every group come out
 as zeros. Unlike the TPU kernel it takes any M and N (K and N multiples of
 8), so the caller pads no rows: ``group_offsets[-1] == M``.
 
+``rhs`` may also be float8_e4m3fn (fp8 expert stacks, weight-only): as in
+the TPU kernel its tiles are upcast to the lhs dtype (bf16 or f32, exact)
+on load, and the per-(expert, channel) scales stay outside, on the f32
+output (``ops/moe.py``). The kernel then takes N a multiple of 16.
+
 Bound on the card: bytes, at decode and at the 2048-token prefill bucket
-alike; see the CUDA source. fp8 ``rhs`` (the TPU kernel's weight-only
-upcast, for fp8 expert stacks) is not ported yet.
+alike (the weights at one byte an element for fp8); see the CUDA source.
 """
 
 from __future__ import annotations
@@ -67,7 +71,7 @@ def _load() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load(_SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.xllm_gmm.argtypes = [i, p, p, p, p, i, i, i, i, i, i, p]
+        lib.xllm_gmm.argtypes = [i, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.xllm_gmm.restype = i
         _lib = lib
     return _lib
@@ -85,13 +89,11 @@ def gmm(
         raise ValueError(f"{NAME}: unsupported device {lhs.device}")
     m, k = lhs.shape
     e, k2, n = rhs.shape
-    if rhs.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
-        raise NotImplementedError(
-            f"{NAME}: fp8 expert weights (the fp8-rhs instance) are not ported yet"
-        )
-    if lhs.dtype != rhs.dtype:
+    fp8 = rhs.dtype == torch.float8_e4m3fn
+    if lhs.dtype not in (torch.bfloat16, torch.float32) or not (fp8 or lhs.dtype == rhs.dtype):
         raise ValueError(f"{NAME}: lhs {lhs.dtype} vs rhs {rhs.dtype}")
-    dtype = _build.dtype_code(rhs.dtype)
+    if fp8 and n % 16:
+        raise ValueError(f"{NAME}: an fp8 rhs needs N a multiple of 16, not {n}")
     if k != k2 or k % 8 or n % 8:
         raise ValueError(
             f"{NAME}: lhs {tuple(lhs.shape)} vs rhs {tuple(rhs.shape)} "
@@ -109,7 +111,8 @@ def gmm(
     _build.count_launch(NAME)
     err = lib.xllm_gmm(
         lhs.device.index or 0, _build.ptr(lhs), _build.ptr(rhs),
-        _build.ptr(group_offsets), _build.ptr(out), dtype, m, k, n, e,
+        _build.ptr(group_offsets), _build.ptr(out), _build.dtype_code(lhs.dtype),
+        _build.dtype_code(rhs.dtype), m, k, n, e,
         row_tile(m, e), _build.stream_of(lhs),
     )
     _build.check(lib, err, NAME)

@@ -122,7 +122,7 @@ def _load() -> ctypes.CDLL:
         ]
         lib.xllm_kv_write_rows.restype = i
         lib.xllm_latent_write_rows.argtypes = [
-            i, p, ll, ll, p, p, p, p, i, i, i, i, i, i, i, i, i, p,
+            i, p, ll, ll, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p,
         ]
         lib.xllm_latent_write_rows.restype = i
         _lib = lib
@@ -308,7 +308,10 @@ def latent_write_rows_plain(
     page = torch.where(valid, pos // bs, 0)
     blk = torch.gather(block_tables.long(), 1, page)[valid]
     off = (pos % bs)[valid]
-    cache[int(layer_idx), blk, 0, off, :] = rows[valid].to(cache.dtype)
+    rows = cast_to(rows[valid], cache.dtype)
+    if _build.is_quantized(cache.dtype):  # write the bytes
+        cache, rows = cache.view(torch.uint8), rows.view(torch.uint8)
+    cache[int(layer_idx), blk, 0, off, :] = rows
 
 
 def _launch_latent(name, rows, cache, layer_idx, block_tables, q_offsets,
@@ -328,14 +331,18 @@ def _launch_latent(name, rows, cache, layer_idx, block_tables, q_offsets,
     if p == 0 or s == 0:
         return
     lib = _load()  # a failed build raises here, before any copy
-    rows = rows.to(cache.dtype)
+    # bf16 / f32 rows bound for an fp8 cache are cast in the kernel
+    if not (cache.dtype == torch.float8_e4m3fn
+            and rows.dtype in (torch.bfloat16, torch.float32)):
+        rows = rows.to(cache.dtype)
     if rows.stride(2) != 1:
         rows = rows.contiguous()
     _build.count_launch(name)
     err = lib.xllm_latent_write_rows(
         cache.device.index or 0, _build.ptr(rows), rows.stride(0), rows.stride(1),
         _build.ptr(cache), _build.ptr(block_tables), _build.ptr(q_offsets),
-        _build.ptr(ntoks), dtype, p, s, int(layer_idx), nb, bs, dk,
+        _build.ptr(ntoks), _build.dtype_code(rows.dtype), dtype, p, s, int(layer_idx),
+        nb, bs, dk,
         block_tables.shape[1], int(require_aligned), _build.stream_of(cache),
     )
     _build.check(lib, err, name)

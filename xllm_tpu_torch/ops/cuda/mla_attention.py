@@ -16,9 +16,12 @@
   own launch counter.
 
 Scores take all Dk lanes of a cached row, values its first ``dv`` lanes
-(absorbed MLA: an MQA over one latent head). The softmax is f32 and the
-probabilities are rounded to the cache dtype before the value product, as
-in the TPU kernels and ``ops/mla_ref``. A row with ``seq_len``/``kv_len``
+(absorbed MLA: an MQA over one latent head). The softmax is f32. On a bf16
+or a float8_e4m3fn cache (whose pages are upcast to bf16, as in the TPU
+kernels; q and the output keep their dtype, bf16 or f32) the unnormalised
+probabilities are rounded to bf16 before the value product against the
+row's running maximum after each page, as the TPU kernels' walk rounds
+them, in the kernels and their plain versions alike. A row with ``seq_len``/``kv_len``
 0 (a padded row) and a query row past its chunk's ``kv_len - q_offset``
 (bucket padding) come out as zeros (the TPU kernels attend a padding
 row to all of ``[0, kv_len)``; nothing reads it). Bound on the card: bytes at decode,
@@ -34,6 +37,7 @@ import ctypes
 import torch
 
 from xllm_tpu_torch.ops.cuda import _build
+from xllm_tpu_torch.ops.quant import cast_to
 
 DECODE_NAME = "mla_decode_attention_write"
 PREFILL_NAME = "mla_prefill_attention_batched"
@@ -51,19 +55,38 @@ _SOURCE = "mla_attention"
 TC_VALUE_DIMS = (128, 256, 512)  # dv of the bf16 (tensor-core) builds
 
 
-def _attend_plain(q, lat, limits, scale, dv, cache_dtype):
+def _work_dtype(q, cache) -> torch.dtype:
+    """The dtype q enters the kernel in: the cache's, or q's own (bf16 or
+    f32) on an fp8 cache, whose pages are upcast to bf16 as in the TPU
+    kernels."""
+    return q.dtype if cache.dtype == torch.float8_e4m3fn else cache.dtype
+
+
+def _attend_plain(q, lat, limits, scale, dv, bs: int, round_p: bool):
     """q [N, R, Dk], lat [N, KV, Dk], limits [N, R] (row r sees positions
-    < limits[n, r]) -> [N, R, dv] in q's dtype; rows with limit 0 are
-    zeros."""
+    < limits[n, r]) -> [N, R, dv] f32; rows with limit 0 are zeros. With
+    ``round_p`` (a bf16 or fp8 cache) P is rounded to bf16 before the value
+    product, as the TPU kernels round it: unnormalised, against the row's
+    running maximum after each page of ``bs`` positions; page i's P then
+    carries exp(m_i - m_last), l sums the unrounded P."""
     scores = torch.einsum("nrd,nkd->nrk", q.float(), lat.float()) * scale
     kv_idx = torch.arange(lat.shape[1], device=q.device)
     mask = kv_idx[None, None, :] < limits[..., None]
-    probs = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
-    probs = torch.nan_to_num(probs)  # fully masked rows -> 0
-    # probabilities rounded to the cache dtype before the value product
-    probs = probs.to(cache_dtype).float()
-    out = torch.einsum("nrk,nkd->nrd", probs, lat[..., :dv].float())
-    return out.to(q.dtype)
+    scores = scores.masked_fill(~mask, float("-inf"))
+    v = lat[..., :dv].float()
+    if not round_p:
+        probs = torch.nan_to_num(torch.softmax(scores, dim=-1))  # fully masked rows -> 0
+        return torch.einsum("nrk,nkd->nrd", probs, v)
+    paged = scores.unflatten(-1, (-1, bs))  # [N, R, pages, bs]
+    m_run = torch.cummax(paged.amax(-1), dim=-1).values
+    seen = torch.isfinite(m_run)
+    m_run = torch.where(seen, m_run, 0.0)
+    weight = torch.where(seen, torch.exp(m_run - m_run[..., -1:]), 0.0)
+    probs = torch.exp(paged - m_run[..., None])  # masked positions: 0
+    l = (probs.sum(-1) * weight).sum(-1)[..., None]
+    probs = (probs.bfloat16().float() * weight[..., None]).flatten(-2)
+    out = torch.einsum("nrk,nkd->nrd", probs, v)
+    return torch.where(l > 0, out / l, 0.0)
 
 
 def _gather_latent(cache, layer: int, block_tables) -> torch.Tensor:
@@ -89,10 +112,14 @@ def mla_decode_attention_write_plain(
     layer = int(layer_idx)
     bs = cache.shape[3]
     slots = slot_mapping[seq_lens > 0].long()
-    cache[layer, slots // bs, 0, slots % bs, :] = lat_new[seq_lens > 0].to(cache.dtype)
+    rows = cast_to(lat_new[seq_lens > 0], cache.dtype)
+    dst = cache.view(torch.uint8) if cache.dtype == torch.float8_e4m3fn else cache
+    dst[layer, slots // bs, 0, slots % bs, :] = rows.view(dst.dtype)
     lat = _gather_latent(cache, layer, block_tables)
     limits = seq_lens.long()[:, None].expand(-1, q.shape[1])
-    return _attend_plain(q, lat, limits, scale, dv, cache.dtype)
+    out = _attend_plain(q.to(_work_dtype(q, cache)), lat, limits, scale, dv, bs,
+                        cache.dtype != torch.float32)
+    return out.to(q.dtype)
 
 
 def prefill_row_limits(s: int, h: int, q_offsets, kv_lens) -> torch.Tensor:
@@ -120,8 +147,10 @@ def mla_prefill_attention_batched_plain(
     p, s, h, dk = q.shape
     lat = _gather_latent(cache, int(layer_idx), block_tables)
     limits = prefill_row_limits(s, h, q_offsets, kv_lens)
-    out = _attend_plain(q.reshape(p, s * h, dk), lat, limits, scale, dv, cache.dtype)
-    return out.reshape(p, s, h, dv)
+    qw = q.to(_work_dtype(q, cache)).reshape(p, s * h, dk)
+    out = _attend_plain(qw, lat, limits, scale, dv, cache.shape[3],
+                        cache.dtype != torch.float32)
+    return out.reshape(p, s, h, dv).to(q.dtype)
 
 
 def mla_prefill_attention_plain(
@@ -154,8 +183,8 @@ def _load() -> ctypes.CDLL:
         lib = _build.load(_SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.xllm_mla_attention.argtypes = [
-            i, i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
-            ctypes.c_float, i, i, p,
+            i, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i,
+            ctypes.c_float, i, i, i, i, p,
         ]
         lib.xllm_mla_attention.restype = i
         _lib = lib
@@ -193,17 +222,29 @@ def _split_counters(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
-def _check(name, q, cache, dv, index_arrays) -> tuple[int, int]:
-    """Shape, dtype and layout checks of a CUDA launch -> (dtype code, Dk)."""
+_F32_TILE = 32  # kFT of the f32 kernel
+
+
+def _check(name, q, cache, dv, index_arrays) -> tuple[torch.dtype, int]:
+    """Shape, dtype and layout checks of a CUDA launch -> (q's working
+    dtype, Dk)."""
     nl, nb, one, bs, dk = cache.shape
-    dtype = _build.dtype_code(cache.dtype)
+    _build.dtype_code(cache.dtype)
+    work = _work_dtype(q, cache)
+    if work not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: q must be bfloat16 or float32, not {q.dtype}")
+    if cache.dtype == torch.int8:
+        raise NotImplementedError(f"{name}: the latent cache is bf16, f32 or fp8, not int8")
     if one != 1 or q.shape[-1] != dk or not 0 < dv <= dk:
         raise ValueError(f"{name}: q {tuple(q.shape)} vs cache {tuple(cache.shape)}, dv {dv}")
-    if cache.dtype == torch.bfloat16 and (dk % 16 or dv not in TC_VALUE_DIMS):
+    if work == torch.bfloat16 and (dk % 16 or dv not in TC_VALUE_DIMS or not 16 <= bs <= 512):
         raise NotImplementedError(
-            f"{name}: the bf16 kernel takes Dk a multiple of 16 and dv in "
-            f"{TC_VALUE_DIMS}, not Dk {dk}, dv {dv}"
+            f"{name}: the bf16 kernel takes Dk a multiple of 16, dv in "
+            f"{TC_VALUE_DIMS} and block_size 16-512, not Dk {dk}, dv {dv}, bs {bs}"
         )
+    tile = _TILE if work == torch.bfloat16 else _F32_TILE
+    if bs > tile and bs % tile or bs < tile and tile % bs:
+        raise NotImplementedError(f"{name}: block_size {bs} must divide or be a multiple of {tile}")
     if not cache.is_contiguous():
         raise ValueError(f"{name}: the cache must be contiguous")
     for t in index_arrays:
@@ -211,7 +252,22 @@ def _check(name, q, cache, dv, index_arrays) -> tuple[int, int]:
             raise ValueError(f"{name}: index arrays must be contiguous int32 on {cache.device}")
         if t.shape[0] != q.shape[0]:
             raise ValueError(f"{name}: index arrays must have one row per q row ({q.shape[0]})")
-    return dtype, dk
+    return work, dk
+
+
+def _granules(work, cache, nbmax: int, rows: int, nsplit: int,
+              device) -> tuple[torch.Tensor, int, int]:
+    """The first pass's per-(row, granule) maxima -> (gmax [rows, ngran]
+    f32, gran, ngran). A 1-element dummy where the kernel runs no first
+    pass: an f32 cache (no rounding), or one walk over pages no longer than
+    the tile (the walk takes its own page maxima)."""
+    bs = cache.shape[3]
+    tile = _TILE if work == torch.bfloat16 else _F32_TILE
+    gran = min(bs, tile)
+    ngran = -(-nbmax * bs // tile) * tile // gran
+    if cache.dtype == torch.float32 or (nsplit == 1 and bs <= tile):
+        return torch.empty(1, dtype=torch.float32, device=device), gran, ngran
+    return torch.empty(rows, ngran, dtype=torch.float32, device=device), gran, ngran
 
 
 def mla_decode_attention_write(
@@ -234,17 +290,17 @@ def mla_decode_attention_write(
     if q.device.type != "cuda":
         raise ValueError(f"{DECODE_NAME}: unsupported device {q.device}")
     b, h, _ = q.shape
-    dtype, dk = _check(DECODE_NAME, q, cache, dv, (slot_mapping, block_tables, seq_lens))
+    work, dk = _check(DECODE_NAME, q, cache, dv, (slot_mapping, block_tables, seq_lens))
     if lat_new.shape != (b, dk):
         raise ValueError(f"{DECODE_NAME}: lat_new {tuple(lat_new.shape)} is not [B, Dk]")
     if b == 0:
         return torch.empty(0, h, dv, dtype=q.dtype, device=q.device)
     lib = _load()  # a failed build raises here, before any allocation
-    qk = q.to(cache.dtype).contiguous()
-    ln = lat_new.to(cache.dtype).contiguous()
-    out = torch.empty(b, h, dv, dtype=cache.dtype, device=q.device)
+    qk = q.to(work).contiguous()
+    ln = cast_to(lat_new, cache.dtype).contiguous()  # attended as stored
+    out = torch.empty(b, h, dv, dtype=work, device=q.device)
     bs, nbmax = cache.shape[3], block_tables.shape[1]
-    if cache.dtype == torch.bfloat16:
+    if work == torch.bfloat16:
         chunk, nsplit = split_plan(nbmax * bs)
         row_tiles = -(-h // 16)
     else:  # the f32 kernel does not split the context
@@ -253,14 +309,16 @@ def mla_decode_attention_write(
         (b, row_tiles, nsplit, 16, 4 + dv) if nsplit > 1 else (1,),
         dtype=torch.float32, device=q.device,
     )
+    gmax, gran, ngran = _granules(work, cache, nbmax, b * h, nsplit, q.device)
     counters = _split_counters(q.device, b * max(row_tiles, 1))
-    _build.count_launch(DECODE_NAME)
+    _build.count_launch(DECODE_NAME)  # one count for the op (one or two kernels)
     err = lib.xllm_mla_attention(
         q.device.index or 0, 1, _build.ptr(qk), _build.ptr(ln), _build.ptr(cache),
         _build.ptr(slot_mapping), _build.ptr(block_tables), None,
-        _build.ptr(seq_lens), _build.ptr(out), _build.ptr(part),
-        _build.ptr(counters), dtype, b, 1, h, dk, dv, int(layer_idx),
-        cache.shape[1], bs, nbmax, float(scale), chunk, nsplit, _build.stream_of(q),
+        _build.ptr(seq_lens), _build.ptr(gmax), _build.ptr(out), _build.ptr(part),
+        _build.ptr(counters), _build.dtype_code(cache.dtype), _build.dtype_code(work),
+        b, 1, h, dk, dv, int(layer_idx), cache.shape[1], bs, nbmax, float(scale),
+        chunk, nsplit, gran, ngran, _build.stream_of(q),
     )
     _build.check(lib, err, DECODE_NAME)
     return out.to(q.dtype)
@@ -309,29 +367,31 @@ def _launch_prefill(name, q, cache, layer_idx, block_tables, q_offsets, kv_lens,
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     p, s, h, _ = q.shape
-    dtype, dk = _check(name, q, cache, dv, (block_tables, q_offsets, kv_lens))
+    work, dk = _check(name, q, cache, dv, (block_tables, q_offsets, kv_lens))
     if q.numel() == 0:
         return torch.empty(p, s, h, dv, dtype=q.dtype, device=q.device)
     lib = _load()  # a failed build raises here, before any allocation
-    out = torch.empty(p, s, h, dv, dtype=cache.dtype, device=q.device)
-    qk = q.to(cache.dtype).contiguous()
+    out = torch.empty(p, s, h, dv, dtype=work, device=q.device)
+    qk = q.to(work).contiguous()
     bs, nbmax = cache.shape[3], block_tables.shape[1]
     chunk, nsplit = nbmax * bs, 1
-    if cache.dtype == torch.bfloat16:
+    if work == torch.bfloat16:
         chunk, nsplit = split_plan(nbmax * bs, prefill_splits(p, s, h))
     row_tiles = -(-s * h // _PREFILL_ROWS)
     part = torch.empty(
         (p, row_tiles, nsplit, _PREFILL_ROWS, 4 + dv) if nsplit > 1 else (1,),
         dtype=torch.float32, device=q.device,
     )
+    gmax, gran, ngran = _granules(work, cache, nbmax, p * s * h, nsplit, q.device)
     counters = _split_counters(q.device, p * row_tiles)
-    _build.count_launch(name)
+    _build.count_launch(name)  # one count for the op (one or two kernels)
     err = lib.xllm_mla_attention(
         q.device.index or 0, 0, _build.ptr(qk), None, _build.ptr(cache), None,
         _build.ptr(block_tables), _build.ptr(q_offsets), _build.ptr(kv_lens),
-        _build.ptr(out), _build.ptr(part), _build.ptr(counters), dtype, p, s, h, dk,
-        dv, int(layer_idx), cache.shape[1], bs, nbmax, float(scale), chunk, nsplit,
-        _build.stream_of(q),
+        _build.ptr(gmax), _build.ptr(out), _build.ptr(part), _build.ptr(counters),
+        _build.dtype_code(cache.dtype), _build.dtype_code(work), p, s, h, dk, dv,
+        int(layer_idx), cache.shape[1], bs, nbmax, float(scale), chunk, nsplit, gran,
+        ngran, _build.stream_of(q),
     )
     _build.check(lib, err, name)
     return out.to(q.dtype)

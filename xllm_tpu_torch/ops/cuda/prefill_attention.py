@@ -20,12 +20,10 @@ versions alike. The TPU kernels differ there: their mask
 those rows (logits and scores come from real rows, writers store only real
 rows), so the port skips their work.
 
-Quantized caches (int8 codes or float8_e4m3fn; q and the output stay bf16
-or f32): P is rounded to bf16 before P.V, as in the TPU kernel, in the
-kernel and its plain version alike, each against its running maximum
-after each page, as the TPU kernel's walk does (after each tile of 64
-positions where a page is longer than that or does not divide it:
-``page_segment``).
+P is rounded to bf16 before P.V on every cache but f32 (bf16, and int8
+codes or float8_e4m3fn upcast to bf16; q and the output stay bf16 or f32),
+as in the TPU kernel, in the kernel and its plain version alike: the
+unnormalised P of each page against the running maximum after that page.
 
 Bound on the card: operations for long chunks (S = 2048), bytes for
 short ragged ones; see the CUDA source.
@@ -53,13 +51,6 @@ _MAX_GROUP = 64  # query rows per block in the kernel
 _TILE = 64  # KV positions per shared-memory tile in the kernel
 
 
-def page_segment(block_size: int) -> int:
-    """Positions between two updates of the running maximum against which a
-    quantized cache's P is rounded: a page, when it divides the CUDA
-    kernel's 64-position tile, else the tile."""
-    return block_size if block_size < _TILE and _TILE % block_size == 0 else _TILE
-
-
 def paged_attention_prefill_batched_plain(
     q: torch.Tensor,  # [P, S, Hq, D]
     k_all: torch.Tensor,  # [L, NB, Hkv, bs, D]
@@ -81,7 +72,10 @@ def paged_attention_prefill_batched_plain(
     v = v_all[layer][bt].float()
     k = k.permute(0, 2, 1, 3, 4).reshape(p, hkv, -1, d)
     v = v.permute(0, 2, 1, 3, 4).reshape(p, hkv, -1, d)
-    qg = q.float().reshape(p, s, hkv, hq // hkv, d)
+    # q in the kernel's working dtype (the cache's, or q's own on a
+    # quantized cache)
+    work = q.dtype if _build.is_quantized(k_all.dtype) else k_all.dtype
+    qg = q.to(work).float().reshape(p, s, hkv, hq // hkv, d)
     scores = torch.einsum("pqkgd,pksd->pkgqs", qg, k) * scale
     q_pos = q_offsets.long()[:, None] + torch.arange(s, device=q.device)  # [P, S]
     kv_idx = torch.arange(k.shape[2], device=q.device)
@@ -93,22 +87,16 @@ def paged_attention_prefill_batched_plain(
     live = q_pos < kv_lens.long()[:, None]  # rows holding a real token
     mask = mask & live[:, :, None]
     scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
-    if not _build.is_quantized(k_all.dtype):
+    if k_all.dtype == torch.float32:
         probs = torch.nan_to_num(torch.softmax(scores, dim=-1))
         out = torch.einsum("pkgqs,pksd->pqkgd", probs, v).reshape(p, s, hq, d)
         return out.to(q.dtype)
-    # quantized cache: P rounded to bf16 before P.V, as the TPU kernel's
-    # online softmax rounds it: against the running maximum after each page
-    # (after each 64 positions, the CUDA kernel's tile, for pages longer
-    # than that or not dividing it). Block i's P.V then carries the weight
-    # exp(m_i - m_last) that the kernel's later rescales give it; l sums the
-    # unrounded P.
-    seg = page_segment(k_all.shape[3])
-    pad = -scores.shape[-1] % seg
-    if pad:
-        scores = torch.nn.functional.pad(scores, (0, pad), value=float("-inf"))
-        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
-    paged = scores.unflatten(-1, (-1, seg))  # [P, Hkv, G, S, blocks, seg]
+    # P rounded to bf16 before P.V, as the TPU kernel's online softmax
+    # rounds it: against the running maximum after each page. Page i's P.V
+    # then carries the weight exp(m_i - m_last) that the kernel's later
+    # rescales give it; l sums the unrounded P.
+    bs = k_all.shape[3]
+    paged = scores.unflatten(-1, (-1, bs))  # [P, Hkv, G, S, pages, bs]
     m_run = torch.cummax(paged.amax(-1), dim=-1).values  # [P, Hkv, G, S, NB]
     seen = torch.isfinite(m_run)
     m_run = torch.where(seen, m_run, 0.0)
@@ -225,6 +213,10 @@ def _launch(name, q, k_all, v_all, layer_idx, block_tables, q_offsets, kv_lens,
     out = torch.empty_like(qk)
     if p == 0 or s == 0:
         return out.to(q.dtype)
+    if bs > _TILE and bs % _TILE or bs < _TILE and _TILE % bs:
+        raise NotImplementedError(
+            f"{name}: block_size {bs} must divide or be a multiple of {_TILE}"
+        )
     lib = _load()
     _build.count_launch(name)
     err = lib.xllm_prefill_attention(

@@ -17,7 +17,11 @@ Counterpart of ``xllm_tpu/ops/moe.py`` (single-device subset):
   and raise.
 
 Weight layout: gate_up ``[E, D, 2I]`` (gate columns, then up columns, per
-expert), down ``[E, I, D]``.
+expert), down ``[E, I, D]``. fp8 expert stacks (float8_e4m3fn, weight-only)
+come with f32 per-(expert, channel) scales ``gate_up_scale [E, 2I]`` /
+``down_scale [E, D]``: K10 upcasts the weights and the scales multiply its
+f32 output rows by each row's expert, before the activation and before the
+combine, as the JAX ``deq`` does.
 
 On the card nothing between the router and the combine reads back to the
 host: expert counts come from ``scatter_add_`` (``bincount`` would read the
@@ -117,6 +121,8 @@ def moe_mlp_gmm(
     down: torch.Tensor,  # [E, I, D]
     num_experts_per_tok: int,
     norm_topk_prob: bool,
+    gate_up_scale: torch.Tensor | None = None,  # [E, 2I] f32 (fp8 experts)
+    down_scale: torch.Tensor | None = None,  # [E, D] f32
     **route_kw,
 ) -> torch.Tensor:
     """Sorted grouped-GEMM path: only the routed pairs are computed."""
@@ -126,10 +132,15 @@ def moe_mlp_gmm(
     k = num_experts_per_tok
     topv, topi = route(x, router_w, k, norm_topk_prob, **route_kw)
     order, offsets = group_by_expert(topi, e)  # pair p is token p // k
+    expert_of_pair = topi.reshape(-1)[order]
+
+    def deq(o, scales):  # weight-only scales on the f32 GEMM rows
+        return o if scales is None else o * scales[expert_of_pair]
+
     xs = x[order // k]  # [T*k, D] rows gathered in expert order
-    gu = gmm(xs, gate_up, offsets)  # [T*k, 2I] f32
+    gu = deq(gmm(xs, gate_up, offsets), gate_up_scale)  # [T*k, 2I] f32
     act = (F.silu(gu[:, :i]) * gu[:, i:]).to(x.dtype)
-    od = gmm(act, down, offsets)  # [T*k, D] f32
+    od = deq(gmm(act, down, offsets), down_scale)  # [T*k, D] f32
     # combine without atomics: un-sort the k rows of each token, weight
     # them and sum over k in a fixed order
     pos = torch.empty_like(order)
@@ -149,6 +160,8 @@ def moe_mlp(
     placement: torch.Tensor | None = None,
     return_counts: bool = False,
     mesh=None,
+    gate_up_scale: torch.Tensor | None = None,
+    down_scale: torch.Tensor | None = None,
     **route_kw,
 ) -> torch.Tensor:
     """The MoE block of one layer on one device -> [T, D] in x's dtype.
@@ -164,5 +177,6 @@ def moe_mlp(
     if return_counts:
         raise NotImplementedError("expert-load counts (EPLB) are not ported yet")
     return moe_mlp_gmm(
-        x, router_w, gate_up, down, num_experts_per_tok, norm_topk_prob, **route_kw
+        x, router_w, gate_up, down, num_experts_per_tok, norm_topk_prob,
+        gate_up_scale=gate_up_scale, down_scale=down_scale, **route_kw
     )

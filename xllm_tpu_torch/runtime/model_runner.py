@@ -68,19 +68,8 @@ def reject_unported(config: EngineConfig) -> None:
         raise NotImplementedError(
             f"kv_layout={c.cache.kv_layout!r}: only the split layout is ported"
         )
-    quant_kv = c.cache.kv_cache_dtype in ("int8", "fp8_e4m3")
     if c.quant.method not in ("", "int8", "fp8_e4m3"):
         raise ValueError(f"quant.method={c.quant.method!r}: one of '', int8, fp8_e4m3")
-    if c.model.model_type in MOE_FAMILIES and (c.quant.method or quant_kv):
-        raise NotImplementedError(
-            "quantized MoE families are not ported yet: fp8 expert stacks wait for "
-            "K10's fp8-rhs instance, int8 weights and KV for the MoE block's quantized path"
-        )
-    if c.model.model_type in MLA_FAMILIES and (c.quant.method or quant_kv):
-        raise NotImplementedError(
-            "quantized MLA families are not ported yet: an fp8 latent cache waits for "
-            "K11a/b's fp8 instances, quantized weights for the MLA projections' path"
-        )
     if c.speculative.method:
         raise NotImplementedError("speculative decoding is not ported yet")
     p = c.parallel
@@ -182,25 +171,37 @@ class ModelRunner:
         )
 
     # matmul weights eligible for weight-only quantization (the JAX
-    # runner's rule): every "*_proj_w" of a layer group but these
+    # runner's rule): every "*_proj_w" of a layer group but these, and the
+    # routed expert stacks under fp8 only (int8 experts would need int8
+    # activations through the grouped GEMM; fp8 ones are upcast in K10)
     _QUANT_SKIP = ("router_w", "merger_proj_w")
+    _EXPERT_STACKS = ("experts_gate_up", "experts_down")
+
+    @classmethod
+    def quant_eligible(cls, name: str, method: str) -> bool:
+        """Whether the JAX runner quantizes a tree's stack ``name``."""
+        is_expert = name in cls._EXPERT_STACKS
+        return ((name.endswith("_proj_w") or (is_expert and method != "int8"))
+                and name not in cls._QUANT_SKIP)
 
     def _quantize_params(self, params: dict) -> dict:
-        """Quantize every eligible bf16 / f32 ``*_proj_w`` stack of a
-        JAX-layout tree with ``ops.quant`` (the JAX ``_quantize_params``:
-        same eligibility, same bytes). Embeddings, lm_head, norms and
-        routers stay as they are; stacks already quantized are kept."""
+        """Quantize every eligible bf16 / f32 stack of a JAX-layout tree
+        with ``ops.quant`` (the JAX ``_quantize_params``: same eligibility,
+        same bytes). Embeddings, lm_head, norms, routers and the MLA
+        ``kv_b_*`` stacks stay as they are; stacks already quantized are
+        kept."""
         from xllm_tpu_torch.ops.quant import QUANTIZERS
         from xllm_tpu_torch.weights import as_tensor
 
-        quantize = QUANTIZERS[self.config.quant.method]
+        method = self.config.quant.method
+        quantize = QUANTIZERS[method]
         out = dict(params)
         for group_name, group in params.items():
             if not isinstance(group, dict):
                 continue
             new_group = dict(group)
             for name, w in group.items():
-                if not name.endswith("_proj_w") or name in self._QUANT_SKIP:
+                if not self.quant_eligible(name, method):
                     continue
                 w = as_tensor(w)
                 if w.dtype not in (torch.bfloat16, torch.float32):
@@ -219,6 +220,11 @@ class ModelRunner:
         """Allocate the paged pool; returns num_blocks."""
         self.num_blocks = num_blocks or self._derive_num_blocks()
         kv_dtype = self._resolve_kv_dtype()
+        if kv_dtype == torch.int8 and not self.model.supports_int8_kv:
+            raise NotImplementedError(
+                "int8 KV needs the GQA decoder's scale folding; this family "
+                "lacks it (MLA uses its own fp8 latent cache)"
+            )
         if kv_dtype == torch.int8 and self.model.kv_scales is None:
             cc = self.config.cache
             self.model.set_kv_scales(cc.kv_scale_k, cc.kv_scale_v)

@@ -25,8 +25,10 @@ are ``kv_a_proj_w``, ``kv_a_norm``, ``kv_b_nope_w [H, kvr, nope]``,
 ``q_a_proj_w`` / ``q_a_norm`` / ``q_b_proj_w``.
 
 A quantized tree (the JAX runner's ``_quantize_params``) holds int8 or
-float8_e4m3fn ``*_proj_w`` stacks beside f32 ``*_scale`` stacks; it loads
-into a model built with the same ``quant`` method, byte for byte. numpy has
+float8_e4m3fn ``*_proj_w`` stacks beside f32 ``*_scale`` stacks (under fp8
+also the MoE groups' ``experts_gate_up`` / ``experts_down`` with their
+``[L, E, N]`` scales); it loads into a model built with the same ``quant``
+method, byte for byte. numpy has
 no float8 type of its own: a JAX float8 array arrives as an ml_dtypes array
 and is carried through its bytes, so the port never imports ml_dtypes.
 """
