@@ -98,8 +98,34 @@ phase raises on failure, so a non-zero exit means a phase failed:
    and K11a-g); then ``AsyncLLMEngine`` on the card, whose concurrent
    generate, embed and score calls must equal the same requests run alone.
 
+8. layouts: the interleaved KV layouts' kernels against their plain
+   versions at qwen3-1.7B's shapes, bf16 and f32 q: K8 (v11 decode, the
+   two interleaved writers, the interleaved prefill) on bf16, f32, int8 and
+   fp8 caches, K9 (v12 decode with row-major tail pages, the two
+   row-major writers, the prefill's row-major tail) on bf16, f32 and fp8
+   caches, on inputs whose scores are exact in f32 within ``TOL`` at every
+   output and caches byte-equal after each call: padded rows, new tokens
+   that open or complete a page (K9 then rewrites the page canonical),
+   tails after ``nfull % 4 != 0`` full pages, random and block-contiguous
+   page tables, chunks at q_offset > 0 in each prefill bucket ending
+   mid-page, RMW chunks that complete their first page and cross into the
+   next, a window; and at block_size 16, 32, 64 and 128. Each is timed (at
+   K1-K4's own shapes first) beside its plain version and a yardstick;
+9. layout engines: the qwen3-1.7B engine on ``kv_layout="interleaved_rm"``
+   (the JAX bench's default), whose every decode pass launches K9's decode
+   and every prefill, score and embed pass K8's prefill and one of K9's
+   writers once per layer and no K1-K4; Qwen3-8B with int8 weights and an
+   int8 KV cache asking for interleaved_rm, which resolves to interleaved
+   (K8 once per layer, K5 180 times a pass, no K9); card = CPU greedy
+   tokens for qwen3 on interleaved_rm (scores and embeddings within 1e-4)
+   and interleaved, qwen3_moe asking for interleaved_rm (resolved to
+   interleaved; scores and embeddings too), int8 qwen3 on interleaved and
+   fp8-KV qwen3 on
+   interleaved_rm, each asserting its resolved layout.
+
 ``python3 chip_smoke.py --phases kernels`` (a comma list of build, kernels,
-engines, quant, parity) runs a subset and prints no result line.
+qkernels, engines, quant, parity, layouts, layout-engines) runs a subset
+and prints no result line.
 
 The line before the last is ``{"kernels": [...]}`` (errors, times, bounds
 and launch counts); the last line is ``{"ok": true, "device": {...}}``.
@@ -301,6 +327,20 @@ def time_ms(fn, iters: int = 40, warmup: int = 3) -> tuple[float, bool]:
     queued = not start.query()
     end.synchronize()
     return start.elapsed_time(end) / iters, queued
+
+
+def host_us(fn, iters: int = 100) -> float:
+    """Host time per call of ``fn(i)`` in microseconds, the device left to
+    catch up after: a wrapper's Python, allocation and launch cost, which
+    an eager engine step pays once per layer."""
+    fn(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(i)
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e6
 
 
 def time_three(kernel, plain, library, plain_iters: int) -> dict:
@@ -1928,18 +1968,371 @@ def phase_kernels(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# K8 and K9: the interleaved layouts, [L, NB, 2, Hkv, bs, D]
+# ---------------------------------------------------------------------------
+# a decode batch of 16 over the served contexts: padded rows, new tokens
+# that open a page (seq_len 1, 65, 193, 449: n_win 0), that complete one
+# (64, 320, 2112: w == bs - 1; K9 then rewrites the page canonical), full
+# pages nfull % 4 != 0 before a tail (130, 716, 1000, 4095), up to 4,095
+ILV_LENS = [56, 316, 716, 2116, 65, 1, 64, 320, 449, 2112, 4095, 193, 130, 1000, 0, 0]
+# timed first at K1's own batch (check_decode), for a comparison at equal work
+ILV_TIMED_LENS = [56, 316, 716, 2116] * 3 + [56, 316] + [0, 0]
+# the caches each layout serves: K8 (interleaved) also int8, K9 not
+ILV_CACHES = {False: (None, "int8", "fp8_e4m3"), True: (None, "fp8_e4m3")}
+# writers: (S, chunks (q_offset, ntok)) in each bucket, the first timed;
+# the full-page writers at S 512 and 2048 with chunks at q_offset > 0 that
+# end mid-page; the RMW writers at S 64 with chunks that start mid-page,
+# complete the first page (37 + 27 = 64) and cross a page boundary
+ILV_WRITES = {False: [(PREFILL_S, PREFILL_ROWS), (2048, [(0, 2048), (2048, 1500), (0, 0)])],
+              True: [(RMW_S, RMW_ROWS), (RMW_S, [(0, 64), (63, 1), (1, 63), (0, 0)])]}
+# K8's prefill at each bucket (chunks at q_offset > 0 ending mid-page); the
+# first two timed, the first at K3's own timed shape
+ILV_PREFILL = [(2048, K3_SHAPES[2048]), (2048, [(0, 2048), (2048, 1500), (0, 0)]),
+               (PREFILL_S, PREFILL_ROWS), (64, [(2048, 52), (37, 27), (0, 0)])]
+ILV_WINDOW = 100
+ILV_TOL = ("grid inputs: bf16 out |out - ref| <= 1e-5 + 2^-7 |ref|, f32 out 1e-4, at every "
+           "output; caches byte-equal")
+
+
+def ilv_tables(rng, lens, bs, nbmax, contiguous: bool):
+    """Each sequence's pages: distinct random blocks, or (``contiguous``)
+    consecutive ones -> (block tables [N, nbmax] int32, number of blocks)."""
+    if not contiguous:
+        return _paged(rng, lens, bs, nbmax)
+    bt = np.zeros((len(lens), nbmax), np.int32)
+    nxt = 1
+    for i, n in enumerate(lens):
+        k = -(-n // bs)
+        bt[i, :k] = np.arange(nxt, nxt + k)
+        nxt += k
+    return bt, nxt + 2
+
+
+def ilv_decode_fns(rm: bool):
+    if rm:
+        return k1.paged_decode_attention_write_rm, k1.paged_decode_attention_write_rm_plain
+    return k1.paged_decode_attention_write_ilv, k1.paged_decode_attention_write_ilv_plain
+
+
+def ilv_name(kind: str, rm: bool) -> str:
+    """The kernels line's name of K8's / K9's decode or writers."""
+    return {("decode", False): k1.ILV_NAME, ("decode", True): k1.RM_NAME,
+            ("prefill", False): k24.ILV_PREFILL_NAME, ("prefill", True): k24.RM_PREFILL_NAME,
+            ("rmw", False): k24.ILV_RMW_NAME, ("rmw", True): k24.RM_RMW_NAME}[(kind, rm)]
+
+
+def gathered(kv, l, idx, half, dtype):
+    """Layer l's pages ``idx`` [N, n] of one half (0: K, 1: V) of an
+    interleaved cache, contiguous [N, Hkv, n * bs, D] in ``dtype`` (the
+    SDPA yardstick's K / V; row-major tails are read as canonical, which
+    costs the same)."""
+    pages = kv[l][idx][:, :, half]  # [N, n, Hkv, bs, D]
+    n, npg, hkv, bs, d = pages.shape
+    return pages.permute(0, 2, 1, 3, 4).reshape(n, hkv, npg * bs, d).to(dtype)
+
+
+def check_ilv_decode(rng, dev, g, dtype, cache, rm: bool, bs: int = BS, lens=ILV_LENS,
+                     contiguous: bool = False, window: int = 0, timed: bool = False) -> dict:
+    """K8, or K9 with ``rm``, against its plain version on grid inputs (q and
+    K on the grid, a power-of-two scale) within ``TOL`` at every output; the
+    caches byte-equal after the call (K9's new rows token-major, its
+    completed pages canonical); padded rows zeros."""
+    kernel, plain = ilv_decode_fns(rm)
+    nbmax = 4096 // bs
+    bt, nb = ilv_tables(rng, lens, bs, nbmax, contiguous)
+    layers = LAYERS if timed else 2
+    kc = grid_tensor(g, dev, (layers, nb, 2, HKV, bs, D), dtype, cache)
+    b = len(lens)
+    new = "int8" if cache == "int8" else None
+    q = grid_tensor(g, dev, (b, HQ, D), dtype)
+    kn = grid_tensor(g, dev, (b, HKV, D), dtype, new)
+    vn = grid_values(g, dev, (b, HKV, D), dtype, new)
+    sm = i32([bt[i, (n - 1) // bs] * bs + (n - 1) % bs if n else 0
+              for i, n in enumerate(lens)], dev)
+    btt, sl, scale = i32(bt, dev), i32(lens, dev), grid_scale(cache)
+    kk, kp = kc.clone(), kc.clone()
+    out = kernel(q, kn, vn, kk, 1, sm, btt, sl, scale, window)
+    ref = plain(q, kn, vn, kp, 1, sm, btt, sl, scale, window)
+    sync()
+    what = (f"{ilv_name('decode', rm)} {dtype} cache {cache or dtype} bs {bs} window {window}"
+            f"{' contiguous pages' if contiguous else ''}")
+    err = check_close(out, ref, what)
+    assert same_bytes(kk, kp), f"{what}: caches differ"
+    assert not out[[i for i, n in enumerate(lens) if not n]].float().abs().any(), (
+        f"{what}: padded rows must be zeros")
+    res = {"max_abs_err": err}
+    if not timed:
+        return res
+    q_el, c_el, n_el = q.element_size(), kc.element_size(), kn.element_size()
+    live = [n for n in lens if n]
+    ntok = sum(n - 1 for n in live)  # cached rows read once
+    done = sum(1 for n in live if rm and n % bs == 0)  # K9's completed pages
+    nbytes = (2 * b * HQ * D * q_el + 2 * len(live) * HKV * D * n_el
+              + 2 * ntok * HKV * D * c_el
+              + 2 * (len(live) - done) * HKV * D * c_el  # new rows written
+              + done * 2 * HKV * bs * D * c_el)  # completed pages written whole
+    flops = 4.0 * sum(live) * HQ * D
+    lmax = -(-max(lens) // bs) * bs
+    idx = btt[:, : lmax // bs].long()
+    kg = [gathered(kc, l, idx, 0, dtype) for l in range(layers)]
+    vg = [gathered(kc, l, idx, 1, dtype) for l in range(layers)]
+    mask = (torch.arange(lmax, device=dev)[None, :] < sl[:, None].long())[:, None, None, :]
+    q4 = q[:, :, None, :]
+    res.update(time_three(
+        lambda i: kernel(q, kn, vn, kc, i % layers, sm, btt, sl, scale),
+        lambda i: plain(q, kn, vn, kc, i % layers, sm, btt, sl, scale),
+        lambda i: sdpa(q4, kg[i % layers], vg[i % layers], mask, scale),
+        plain_iters=10,
+    ))
+    res["shape"] = (f"B={b} ({b - len(live)} padded), seq_lens {sorted(set(live))}, Hq {HQ}, "
+                    f"Hkv {HKV}, D {D}, bs {bs}, random pages")
+    # host cost per call, beside K1's on the same rows in two split caches
+    ks, vs = kc[:, :, 0].contiguous(), kc[:, :, 1].contiguous()
+    res["host_us"] = host_us(lambda i: kernel(q, kn, vn, kc, i % layers, sm, btt, sl, scale))
+    res["host_us_k1"] = host_us(lambda i: k1.paged_decode_attention_write(
+        q, kn, vn, ks, vs, i % layers, sm, btt, sl, scale))
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops)
+    return res
+
+
+def ilv_writer_fns(rmw: bool, rm: bool):
+    """-> (kernel, plain) of K8's / K9's writers, each called as f(kn, vn,
+    kv_all, layer, block_tables, q_offsets, ntoks, kv_lens), the source
+    token-major [P, S, Hkv, D] (RMW) or head-major [P, Hkv, S, D]."""
+    def tok(kn, vn):
+        return (kn, vn) if rmw else (kn.transpose(1, 2), vn.transpose(1, 2))
+
+    if rm:
+        fn = k24.kv_write_rmw_batched_rm if rmw else k24.kv_write_prefill_batched_rm
+
+        def plain(kn, vn, kv, layer, btt, qo, nt, kvl):
+            k24.kv_write_rm_plain(*tok(kn, vn), kv, layer, btt, qo, nt, kvl)
+
+        return fn, plain
+    fn = k24.kv_write_rmw_batched_ilv if rmw else k24.kv_write_prefill_batched_ilv
+
+    def plain(kn, vn, kv, layer, btt, qo, nt, kvl):
+        k24.kv_write_rows_plain(*tok(kn, vn), kv[:, :, 0], kv[:, :, 1], layer, btt, qo, nt)
+
+    return (lambda kn, vn, kv, layer, btt, qo, nt, kvl: fn(kn, vn, kv, layer, btt, qo, nt)), plain
+
+
+def check_ilv_writer(rng, dev, g, dtype, cache, rmw: bool, rm: bool, s: int, rows,
+                     timed: bool = False) -> dict:
+    """K8's or K9's full-page (``rmw`` False) or RMW writer against its
+    plain version: caches byte-equal after the call, e4m3 edge values cast
+    in the kernel on an fp8 cache."""
+    p = len(rows)
+    nb, btt, qo, nt, kvl = _chunk_tables(rng, rows, dev)
+    layers = LAYERS if timed else 2
+    kc = kv_tensor(g, dev, (layers, nb, 2, HKV, BS, D), dtype, cache)
+    src_shape = (p, s, HKV, D) if rmw else (p, HKV, s, D)
+    kn = new_rows(g, dev, src_shape, dtype, cache)
+    vn = new_rows(g, dev, src_shape, dtype, cache)
+    if cache == "fp8_e4m3":
+        kn[0, 0, 0, :len(E4M3_EDGES)] = torch.tensor(E4M3_EDGES, dtype=dtype, device=dev)
+        vn[0, 0, 0, :len(E4M3_EDGES)] = -torch.tensor(E4M3_EDGES, dtype=dtype, device=dev)
+    kernel, plain = ilv_writer_fns(rmw, rm)
+    kk, kp = kc.clone(), kc.clone()
+    kernel(kn, vn, kk, 1, btt, qo, nt, kvl)
+    plain(kn, vn, kp, 1, btt, qo, nt, kvl)
+    sync()
+    name = ilv_name("rmw" if rmw else "prefill", rm)
+    what = f"{name} {dtype} cache {cache or dtype} S={s} {rows}"
+    assert same_bytes(kk, kp), f"{what}: caches differ"
+    assert not same_bytes(kk, kc), f"{what}: nothing was written"
+    res = {"max_abs_err": 0.0}
+    if not timed:
+        return res
+    ntok = sum(n for _, n in rows)
+    src_el, c_el = kn.element_size(), kc.element_size()
+    nbytes = 2 * ntok * HKV * D * (src_el + c_el)
+    if rm and rmw:  # a completed page: its earlier rows read, the page written whole
+        for a, n in rows:
+            for pg in range(a // BS, -(-(a + n) // BS) if n else 0):
+                if (pg + 1) * BS <= a + n:
+                    old = max(a - pg * BS, 0)
+                    nbytes += 2 * HKV * D * c_el * (2 * old)
+    # library yardstick: one advanced-index row assignment into each half,
+    # the row indices computed beforehand (an fp8 cache takes the rows'
+    # bytes, cast beforehand)
+    pos = [(i, a + j) for i, (a, n) in enumerate(rows) for j in range(n)]
+    bt_np = btt.cpu().numpy()
+    blk = i32([bt_np[i, ps // BS] for i, ps in pos], dev).long()
+    off = i32([ps % BS for _, ps in pos], dev).long()
+    sel = [(i, j) for i, (_, n) in enumerate(rows) for j in range(n)]
+    src_k = kn if rmw else kn.transpose(1, 2)
+    src_v = vn if rmw else vn.transpose(1, 2)
+    rk = torch.stack([src_k[i, j] for i, j in sel])
+    rv = torch.stack([src_v[i, j] for i, j in sel])
+    lc = kc
+    if cache is not None:
+        rk, rv = (to_e4m3(r) if cache == "fp8_e4m3" else r for r in (rk, rv))
+        lc, rk, rv = (t.view(torch.uint8) for t in (kc, rk, rv))
+
+    def library(i):
+        lc[i % layers, blk, 0, :, off, :] = rk
+        lc[i % layers, blk, 1, :, off, :] = rv
+
+    res.update(time_three(
+        lambda i: kernel(kn, vn, kc, i % layers, btt, qo, nt, kvl),
+        lambda i: plain(kn, vn, kc, i % layers, btt, qo, nt, kvl),
+        library,
+        plain_iters=20,
+    ))
+    res["shape"] = (f"P={p} chunks of S={s} (q_offset, ntok) {rows}, "
+                    f"{'token' if rmw else 'head'}-major, Hkv {HKV}, D {D}, bs {BS}")
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 0.0)
+    return res
+
+
+def check_ilv_prefill(rng, dev, g, dtype, cache, rm: bool, s: int, rows, bs: int = BS,
+                      window: int = 0, timed: bool = False) -> dict:
+    """K8's prefill (K9's row-major tails with ``rm``) against its plain
+    version on grid inputs within ``TOL`` at every output; rows past a
+    chunk's tokens zeros."""
+    lens = [a + n for a, n in rows]
+    bt, nb = _paged(rng, lens, bs, max(4096 // bs, -(-max(lens) // bs)))
+    btt = i32(bt, dev)
+    qo = i32([a for a, _ in rows], dev)
+    kvl = i32([a + n if n else 0 for a, n in rows], dev)
+    layers = LAYERS if timed else 2
+    kc = grid_tensor(g, dev, (layers, nb, 2, HKV, bs, D), dtype, cache)
+    q = grid_tensor(g, dev, (len(rows), s, HQ, D), dtype)
+    scale = grid_scale(cache)
+    args = (btt, qo, kvl, scale, window, rm)
+    out = k3.paged_attention_prefill_batched_ilv(q, kc, 1, *args)
+    ref = k3.paged_attention_prefill_batched_ilv_plain(q, kc, 1, *args)
+    sync()
+    what = (f"{k3.ILV_NAME} {dtype} cache {cache or dtype} rowmajor_tail {rm} bs {bs} S={s} "
+            f"{rows} window {window}")
+    err = check_close(out, ref, what)
+    for i, (_, n) in enumerate(rows):
+        assert not out[i, n:].float().abs().any(), f"{what}: row {i} past ntok not zero"
+    res = {"max_abs_err": err}
+    if not timed:
+        return res
+    q_el, c_el = q.element_size(), kc.element_size()
+    ntok = sum(n for _, n in rows)
+    kv_rows = sum(a + n for a, n in rows if n)
+    pairs = sum(sum(min(a + i + 1, window or a + i + 1) for i in range(n)) for a, n in rows)
+    nbytes = 2 * ntok * HQ * D * q_el + 2 * kv_rows * HKV * D * c_el
+    flops = 4.0 * pairs * HQ * D
+    lmax = -(-max(lens) // bs) * bs
+    idx = btt[:, : lmax // bs].long()
+    kg = [gathered(kc, l, idx, 0, dtype) for l in range(layers)]
+    vg = [gathered(kc, l, idx, 1, dtype) for l in range(layers)]
+    qpos = qo.long()[:, None] + torch.arange(s, device=dev)[None, :]
+    kvi = torch.arange(lmax, device=dev)
+    mask = ((kvi[None, None, :] <= qpos[:, :, None])
+            & (kvi[None, None, :] < kvl.long()[:, None, None]))[:, None]
+    qt = q.transpose(1, 2)
+    res.update(time_three(
+        lambda i: k3.paged_attention_prefill_batched_ilv(q, kc, i % layers, *args),
+        lambda i: k3.paged_attention_prefill_batched_ilv_plain(q, kc, i % layers, *args),
+        lambda i: sdpa(qt, kg[i % layers], vg[i % layers], mask, scale),
+        plain_iters=5,
+    ))
+    res["shape"] = (f"P={len(rows)} chunks of S={s} (q_offset, ntok) {rows}, Hq {HQ}, "
+                    f"Hkv {HKV}, D {D}, bs {bs}")
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops)
+    return res
+
+
+def phase_layouts(dev) -> dict:
+    """K8 and K9 against their plain versions at qwen3-1.7B's shapes (Hq
+    16, Hkv 8, D 128, bs 64), bf16 and f32 q, on each cache the layout
+    serves (``ILV_CACHES``; f32 q on the f32 cache), with random and
+    block-contiguous page tables and a window; the P-rounding grid checks
+    at block_size 16, 32, 64 and 128; each kernel timed (bf16 q) on its
+    layout's caches -> {kernel name: the bf16 cache's result, the others in
+    ``by_cache``} (K8's prefill: K9's path, row-major tails, on the bf16
+    cache; its other instances by "layout cache")."""
+    rng = np.random.default_rng(7)
+    g = torch.Generator(device=dev).manual_seed(30)
+    timed: dict[str, dict] = {}  # name -> {instance: result}
+    worst: dict[str, float] = {}
+
+    def note(name, res):
+        worst[name] = max(worst.get(name, 0.0), res["max_abs_err"])
+        return res
+
+    for rm in (False, True):
+        layout = "interleaved_rm" if rm else "interleaved"
+        for cache in ILV_CACHES[rm]:
+            for dtype in (torch.bfloat16, torch.float32):
+                t = dtype == torch.bfloat16
+                name = ilv_name("decode", rm)
+                res = note(name, check_ilv_decode(rng, dev, g, dtype, cache, rm,
+                                                  lens=ILV_TIMED_LENS, timed=t))
+                alt = note(name, check_ilv_decode(rng, dev, g, dtype, cache, rm, timed=t))
+                if t:
+                    res["by_shape"] = [dict(res), alt]
+                    timed.setdefault(name, {})[cache or "bf16"] = res
+                note(name, check_ilv_decode(rng, dev, g, dtype, cache, rm, contiguous=True,
+                                            window=ILV_WINDOW))
+                for rmw in (False, True):
+                    name = ilv_name("rmw" if rmw else "prefill", rm)
+                    for n, (s, rows) in enumerate(ILV_WRITES[rmw]):
+                        res = note(name, check_ilv_writer(rng, dev, g, dtype, cache, rmw, rm,
+                                                          s, rows, timed=t and n == 0))
+                        if t and n == 0:
+                            timed.setdefault(name, {})[cache or "bf16"] = res
+                by_shape = []
+                for n, (s, rows) in enumerate(ILV_PREFILL):
+                    by_shape.append(note(k3.ILV_NAME, check_ilv_prefill(
+                        rng, dev, g, dtype, cache, rm, s, rows, timed=t and n < 2)))
+                if t:
+                    res = dict(by_shape[0], by_shape=by_shape[:2])
+                    timed.setdefault(k3.ILV_NAME, {})[f"{layout} {cache or 'bf16'}"] = res
+                note(k3.ILV_NAME, check_ilv_prefill(rng, dev, g, dtype, cache, rm, PREFILL_S,
+                                                    [(512, 300)], window=ILV_WINDOW))
+                free_device_memory()
+    # the P-rounding grid checks at every page size the kernels take
+    for bs in PAGE_SIZES:
+        for rm in (False, True):
+            for dtype, cache in ((torch.bfloat16, None), (torch.bfloat16, "int8"),
+                                 (torch.bfloat16, "fp8_e4m3"), (torch.float32, "fp8_e4m3")):
+                if rm and cache == "int8":
+                    continue
+                for window in (0, ILV_WINDOW):
+                    note(ilv_name("decode", rm), check_ilv_decode(
+                        rng, dev, g, dtype, cache, rm, bs=bs, lens=PAGE_LENS, window=window))
+                for s, rows in PAGE_ROWS.items():
+                    note(k3.ILV_NAME, check_ilv_prefill(rng, dev, g, dtype, cache, rm, s, rows,
+                                                        bs=bs))
+            free_device_memory()
+    results = {}
+    for name, by in timed.items():
+        main = "interleaved_rm bf16" if name == k3.ILV_NAME else "bf16"
+        res = dict(by[main], max_abs_err=worst[name],
+                   by_cache={k: r for k, r in by.items() if k != main})
+        results[name] = res
+        log(f"[layouts] {name}: worst err {worst[name]:.3g} over every case ({ILV_TOL})")
+        for inst, res_i in by.items():
+            for r in res_i.get("by_shape", [res_i]):
+                host = (f"; host {r['host_us']:.1f} us a call (K1 {r['host_us_k1']:.1f})"
+                        if "host_us" in r else "")
+                log(f"[layouts]   {inst} cache, {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+                    f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
+                    f"{r['bound_ms']:.4f} ms ({r['bound_by']}){host}")
+    return results
+
+
+# ---------------------------------------------------------------------------
 # phases 3 and 4: the engines at full width
 # ---------------------------------------------------------------------------
 def engine_config(model_kw=QWEN3_1P7B, batch: int = 16,
                   num_blocks: int = 1024, quant: str = "",
-                  kv_cache_dtype: str = "auto") -> EngineConfig:
-    """The served configuration: split layout, block_size 64, ``batch``
-    sequences, max_model_len 4096, prefill chunks of at most 2048 tokens;
-    ``quant`` and ``kv_cache_dtype`` for the quantized engines."""
+                  kv_cache_dtype: str = "auto", kv_layout: str = "split") -> EngineConfig:
+    """The served configuration: block_size 64, ``batch`` sequences,
+    max_model_len 4096, prefill chunks of at most 2048 tokens, the split
+    KV layout unless ``kv_layout``; ``quant`` and ``kv_cache_dtype`` for
+    the quantized engines."""
     cfg = EngineConfig(
         model=ModelConfig(**model_kw),
         cache=CacheConfig(block_size=BS, num_blocks=num_blocks,
-                          kv_cache_dtype=kv_cache_dtype),
+                          kv_cache_dtype=kv_cache_dtype, kv_layout=kv_layout),
         scheduler=SchedulerConfig(
             max_seqs_per_batch=batch,
             max_model_len=4096,
@@ -2016,7 +2409,7 @@ def count_per_pass(runner) -> list[tuple[str, int, dict]]:
 
 def pass_launches(layers: int, moe_layers: int, mla: bool, kind: str, rows: int,
                   qmm_name: str = "", qmm_max_rows: int = 0,
-                  qmm_per_pass: int = 0) -> list[dict]:
+                  qmm_per_pass: int = 0, layout: str = "split") -> list[dict]:
     """The launches a model pass of ``kind`` over ``rows`` tokens must make
     (one of the dicts returned): a decode pass K1 (K11a in an MLA model)
     once per layer; a prefill pass K3 (K11b) once per layer and one of the
@@ -2028,7 +2421,10 @@ def pass_launches(layers: int, moe_layers: int, mla: bool, kind: str, rows: int,
     ``qmm_per_pass`` times (once for each ``*_proj_w`` of the model: qkv, o,
     gate, up, down of a dense layer; q, kv_a, o of an MLA layer; the shared
     experts' three) if the pass has at most ``qmm_max_rows`` rows (0: in
-    every pass), else not at all; nothing else."""
+    every pass), else not at all; nothing else. On an interleaved
+    ``layout`` a decode pass launches K8 (K9 on ``interleaved_rm``) and
+    every other pass, score and embed passes too, K8's prefill and one of
+    the layout's two writers."""
     extra = {k10.NAME: 2 * moe_layers} if moe_layers else {}
     if qmm_name and (not qmm_max_rows or rows <= qmm_max_rows):
         extra[qmm_name] = qmm_per_pass
@@ -2039,6 +2435,10 @@ def pass_launches(layers: int, moe_layers: int, mla: bool, kind: str, rows: int,
         prefill, writers = (
             (k11.ONE_PREFILL_NAME, (k24.ONE_LATENT_PREFILL_NAME, k24.ONE_LATENT_RMW_NAME))
             if mla else (k3.ONE_NAME, (k24.ONE_PREFILL_NAME, k24.ONE_RMW_NAME)))
+    if layout != "split":
+        rm = layout == "interleaved_rm"
+        decode, prefill = ilv_name("decode", rm), k3.ILV_NAME
+        writers = (ilv_name("prefill", rm), ilv_name("rmw", rm))
     if kind == "decode":
         return [{decode: layers, **extra}]
     return [{prefill: layers, w: layers, **extra} for w in writers]
@@ -2144,21 +2544,26 @@ def drive_scoring(eng: LLMEngine, rng, deltas, want, tag: str, score_lens,
 def phase_engine(model_kw=QWEN3_1P7B, num_blocks: int = 1024,
                  tag: str = "engine", quant: str = "", kv_cache_dtype: str = "auto",
                  qmm_name: str = "", qmm_max_rows: int = 0, score_lens=(),
-                 embed_lens=()) -> tuple[dict, dict]:
+                 embed_lens=(), kv_layout: str = "split",
+                 resolved: str = "") -> tuple[dict, dict]:
     """Serve ``model_kw`` on the card (see the module docstring); with
     ``qmm_name`` every model pass must also launch that kernel once per
     ``*_proj_w`` of the model (``pass_launches``). Then, with ``score_lens``, score prompts
     and embed (``drive_scoring``): ``info["score"]`` holds that run's
-    (launches, info)."""
+    (launches, info). ``kv_layout`` is asked for; the runner must resolve
+    it to ``resolved`` (default: itself)."""
     cfg = engine_config(model_kw, num_blocks=num_blocks, quant=quant,
-                        kv_cache_dtype=kv_cache_dtype)
+                        kv_cache_dtype=kv_cache_dtype, kv_layout=kv_layout)
     t0 = time.perf_counter()
     eng = LLMEngine(cfg, device="cuda")
     sync()
+    layout = eng.runner.model.kv_layout
+    assert layout == (resolved or kv_layout), f"{tag}: kv_layout resolved to {layout}"
     log(f"[{tag}] {model_kw['model_type']}, {model_kw['num_hidden_layers']} layers, "
         f"hidden {model_kw['hidden_size']}, {model_kw.get('num_experts', 0)} experts, "
         f"{model_kw['dtype']}, weights {quant or model_kw['dtype']} (random), KV cache "
-        f"{kv_cache_dtype}, {num_blocks} KV blocks: built in "
+        f"{kv_cache_dtype}, {num_blocks} KV blocks, {layout} layout (asked for "
+        f"{kv_layout}): built in "
         f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
         "allocated")
     rng = np.random.default_rng(0)
@@ -2204,7 +2609,8 @@ def phase_engine(model_kw=QWEN3_1P7B, num_blocks: int = 1024,
 
     def want(kind, rows):
         return pass_launches(layers, moe_layers, mla, kind, rows, qmm_name=qmm_name,
-                             qmm_max_rows=qmm_max_rows, qmm_per_pass=projections)
+                             qmm_max_rows=qmm_max_rows, qmm_per_pass=projections,
+                             layout=layout)
 
     per_pass = per_pass_summary(deltas, launches, want)
     if qmm_max_rows:  # the passes that take torch's product, by their rows
@@ -2216,6 +2622,7 @@ def phase_engine(model_kw=QWEN3_1P7B, num_blocks: int = 1024,
         "model": model_kw["model_type"],
         "quant": quant,
         "kv_cache_dtype": kv_cache_dtype,
+        "kv_layout": layout,
         "layers": layers,
         "requests": len(reqs),
         "prompt_lens": sorted(set(lens)),
@@ -2278,6 +2685,10 @@ PARITY_MODELS.update({
 })
 
 
+# the row-major tail layout needs 16 | 2 * Hkv and 2 * Hkv | block_size
+# (else it resolves to plain interleaved): Hkv 8 at block_size 16
+PARITY_RM = dict(PARITY_DENSE, num_attention_heads=16, num_key_value_heads=8)
+
 # parity of scoring and embeddings (block_size 16, chunks of 64, buckets
 # 16 and 64): scores of 70 tokens (64 + 6: K2b / K11f, then K4b / K11g), 40
 # and 10; embeds of 100 (a batched first chunk, then 36 tokens at q_offset
@@ -2286,10 +2697,12 @@ SCORE_PARITY = {"score": (70, 40, 10), "embed": (100, 10)}
 PARITY_SCORE_TOL = 1e-4
 
 
-def parity_config(model_kw: dict, quant: str = "", kv_cache_dtype: str = "auto"):
+def parity_config(model_kw: dict, quant: str = "", kv_cache_dtype: str = "auto",
+                  kv_layout: str = "split"):
     cfg = EngineConfig(
         model=ModelConfig(**model_kw),
-        cache=CacheConfig(block_size=16, num_blocks=128, kv_cache_dtype=kv_cache_dtype),
+        cache=CacheConfig(block_size=16, num_blocks=128, kv_cache_dtype=kv_cache_dtype,
+                          kv_layout=kv_layout),
         scheduler=SchedulerConfig(max_seqs_per_batch=4, max_model_len=256,
                                   max_tokens_per_chunk_for_prefill=64,
                                   prefill_token_buckets=[16, 64],
@@ -2369,11 +2782,14 @@ def parity_scores(eng: LLMEngine, rng_seed: int = 2) -> tuple[list, list]:
 
 
 def phase_parity(name: str, model_kw: dict, devices=("cuda", "cpu"), quant: str = "",
-                 kv_cache_dtype: str = "auto", scores: bool = False) -> int:
+                 kv_cache_dtype: str = "auto", scores: bool = False,
+                 kv_layout: str = "split", resolved: str = "") -> int:
     """Greedy tokens of the card equal the CPU's; with ``scores`` also the
-    scores and embeddings of ``SCORE_PARITY``, within ``PARITY_SCORE_TOL``."""
+    scores and embeddings of ``SCORE_PARITY``, within ``PARITY_SCORE_TOL``.
+    ``kv_layout`` is asked for and must resolve to ``resolved`` (default:
+    itself) on both devices."""
     def make():
-        return parity_config(model_kw, quant, kv_cache_dtype)
+        return parity_config(model_kw, quant, kv_cache_dtype, kv_layout)
 
     tree = random_param_tree(make().model, seed=7)
     rng = np.random.default_rng(1)
@@ -2391,6 +2807,8 @@ def phase_parity(name: str, model_kw: dict, devices=("cuda", "cpu"), quant: str 
         runner = ModelRunner(cfg, device=dev)
         runner.load_model(params=tree)
         eng = LLMEngine(cfg, runner=runner)
+        assert runner.model.kv_layout == (resolved or kv_layout), (
+            f"{name}: kv_layout {kv_layout} resolved to {runner.model.kv_layout}")
         ids = [eng.add_request(prompt_token_ids=p, sampling_params=sp).request_id
                for p in prompts]
         outs = {ro.request_id: ro.outputs[0].token_ids for ro in eng.generate_all()}
@@ -2410,7 +2828,8 @@ def phase_parity(name: str, model_kw: dict, devices=("cuda", "cpu"), quant: str 
             f"of {SCORE_PARITY['embed']} on {' and '.join(devices)} within "
             f"{PARITY_SCORE_TOL:g} (max abs diff {max(errs):.3g})")
     log(f"[parity] f32 {name} (2 layers, bs 16{', ' + quant + ' weights' if quant else ''}"
-        f"{', ' + kv_cache_dtype + ' KV' if kv_cache_dtype != 'auto' else ''}): "
+        f"{', ' + kv_cache_dtype + ' KV' if kv_cache_dtype != 'auto' else ''}"
+        f"{', ' + (resolved or kv_layout) + ' layout' if kv_layout != 'split' else ''}): "
         f"{len(prompts)} requests x 16 greedy tokens identical on {' and '.join(devices)}")
     return len(prompts)
 
@@ -2421,7 +2840,27 @@ def free_device_memory() -> None:
     torch.cuda.empty_cache()
 
 
-PHASES = ("build", "kernels", "qkernels", "engines", "quant", "parity")
+PHASES = ("build", "kernels", "qkernels", "engines", "quant", "parity", "layouts",
+          "layout-engines")
+
+
+def phase_layout_parity() -> None:
+    """Card = CPU greedy tokens on the interleaved layouts, each run
+    asserting the layout it resolved: qwen3 at Hkv 8 on interleaved_rm
+    and on interleaved; qwen3_moe asking for interleaved_rm, which its Hkv
+    2 resolves to interleaved (both rm runs: scores and embeddings too,
+    within ``PARITY_SCORE_TOL``); qwen3 with
+    int8 weights and an int8 KV cache on interleaved under
+    ``XLLM_QMM_KERNEL=pallas``; qwen3 at Hkv 8 with an fp8 KV cache on
+    interleaved_rm."""
+    phase_parity("qwen3", PARITY_RM, kv_layout="interleaved_rm", scores=True)
+    phase_parity("qwen3", PARITY_RM, kv_layout="interleaved")
+    phase_parity("qwen3_moe", PARITY_MODELS["qwen3_moe"], kv_layout="interleaved_rm",
+                 resolved="interleaved", scores=True)
+    with environ(XLLM_QMM_KERNEL="pallas"):
+        phase_parity("qwen3", PARITY_DENSE, quant="int8", kv_cache_dtype="int8",
+                     kv_layout="interleaved")
+    phase_parity("qwen3", PARITY_RM, kv_cache_dtype="fp8_e4m3", kv_layout="interleaved_rm")
 
 
 def timed_phase(label: str, fn, *args, **kw):
@@ -2430,6 +2869,59 @@ def timed_phase(label: str, fn, *args, **kw):
     free_device_memory()
     log(f"[{label}] done in {time.perf_counter() - t0:.1f} s")
     return out
+
+
+def ilv_rows(ilv: dict, runs: dict, keys) -> list[dict]:
+    """The kernels line's rows of K8 and K9: times from ``phase_layouts``,
+    launches from the run of each one's engine path, counters zeroed just
+    before it: K9's (and K8's prefill) the qwen3-1.7B engine on
+    interleaved_rm, K8's decode and writers the int8 Qwen3-8B engine, which
+    interleaved_rm resolves to interleaved (its int8 instances)."""
+    meta = {
+        k1.ILV_NAME: (k1.ILV_TPU_KERNEL, "decode_attention.cu", "int8_ilv"),
+        k1.RM_NAME: (k1.RM_TPU_KERNEL, "decode_attention.cu", "rm"),
+        k24.ILV_PREFILL_NAME: (k24.ILV_PREFILL_TPU_KERNEL, "kv_write.cu", "int8_ilv"),
+        k24.ILV_RMW_NAME: (k24.ILV_RMW_TPU_KERNEL, "kv_write.cu", "int8_ilv"),
+        k24.RM_PREFILL_NAME: (k24.RM_PREFILL_TPU_KERNEL, "kv_write.cu", "rm"),
+        k24.RM_RMW_NAME: (k24.RM_RMW_TPU_KERNEL, "kv_write.cu", "rm"),
+        k3.ILV_NAME: (k3.ILV_TPU_KERNEL, "prefill_attention.cu", "rm"),
+    }
+    rows = []
+    for name, res in ilv.items():
+        tpu, src, run = meta[name]
+        where, func = tpu.split()
+        launches, info = runs[run]
+        row = {
+            "name": name,
+            "route": "cuda",
+            "source": f"xllm_tpu_torch/csrc/{src}",
+            "replaces": where,
+            "tpu_counterpart": func,
+            "launches": launches[name],
+            "launches_engine": info["model"] + ("-int8-interleaved" if run == "int8_ilv"
+                                                else "-interleaved_rm"),
+            "launches_per_step": info["per_pass"][name]["launches_per_step"],
+            "passes": info["per_pass"][name]["passes"],
+            "launches_score_run": info["score"][0].get(name, 0),
+            **{k: res[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "shape")},
+            **{k: res[k] for k in ("host_us", "host_us_k1") if k in res},
+            "library": "SDPA" if "attention" in name else "index assign",
+            "by_cache": {inst: dict({k: r[k] for k in keys if k in r},
+                                    **({"by_shape": [{k: x[k] for k in keys if k in x}
+                                                     for x in r["by_shape"]]}
+                                       if "by_shape" in r else {}))
+                         for inst, r in res["by_cache"].items()},
+        }
+        if "by_shape" in res:
+            row["by_shape"] = [{k: x[k] for k in keys if k in x} for x in res["by_shape"]]
+        if name == k3.ILV_NAME:  # K8's own path: the int8 Qwen3-8B engine
+            row["launches_int8_engine"] = runs["int8_ilv"][0][name]
+            row["by_cache"]["interleaved int8"]["launches"] = runs["int8_ilv"][0][name]
+        elif run == "int8_ilv":  # the int8 instance is the one that engine runs
+            row["by_cache"]["int8"]["launches"] = launches[name]
+        rows.append(row)
+    return rows
 
 
 def main() -> int:
@@ -2515,6 +3007,21 @@ def main() -> int:
             phase_parity("deepseek_v2", PARITY_MODELS["deepseek_v2"], quant="int8")
         phase_async()
         log(f"[parity] done in {time.perf_counter() - t0:.1f} s")
+    ilv = {}
+    if "layouts" in phases:
+        ilv = timed_phase("layouts", phase_layouts, dev)
+    if "layout-engines" in phases:
+        # the JAX bench's default deployment: qwen3-1.7B on interleaved_rm
+        runs["rm"] = timed_phase("rm-engine", phase_engine, tag="rm-engine",
+                                 kv_layout="interleaved_rm", score_lens=SCORE_LENS,
+                                 embed_lens=EMBED_LENS)
+        # its int8 phase: rm asked for, interleaved served (int8 KV)
+        with environ(XLLM_QMM_KERNEL="pallas"):
+            runs["int8_ilv"] = timed_phase(
+                "int8-ilv-engine", phase_engine, QWEN3_8B, tag="int8-ilv-engine",
+                quant="int8", kv_cache_dtype="int8", qmm_name=qmm.W8A8_NAME,
+                score_lens=(2100,), kv_layout="interleaved_rm", resolved="interleaved")
+        timed_phase("layout-parity", phase_layout_parity)
     if phases != set(PHASES):
         log(card)
         log(f"chip_smoke: partial run ({', '.join(sorted(phases))}); no result line")
@@ -2614,6 +3121,7 @@ def main() -> int:
                                       for x in r.get("by_shape", [])])
                 for cache, r in qcache[name].items()}
         rows.append(row)
+    rows += ilv_rows(ilv, runs, keys)
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,7 @@
         [--model qwen3-1.7b|qwen3-30b-a3b|deepseek-v2-lite|qwen3-8b|qwen3-8b-int8|qwen3-8b-fp8
                  |qwen3-30b-a3b-fp8|deepseek-v2-lite-fp8]
         [--prompt-len 512] [--steps 16]
+        [--kv-layout split|interleaved|interleaved_rm[,...]]
 
 Serves a config of ``chip_smoke.py`` (the qwen3-1.7B-class dense model, 28
 layers; Qwen3-30B-A3B, 48 layers with 128 experts; DeepSeek-V2-Lite, 27
@@ -14,7 +15,10 @@ Qwen3-30B-A3B with fp8 weights, experts included, and an fp8 KV cache;
 DeepSeek-V2-Lite with fp8 weights and an fp8 latent cache; random weights) through ``xllm_tpu_torch.engine.LLMEngine`` on the card.
 A quantized model runs twice, one engine after the other in one process:
 with the dequant default, then with ``XLLM_QMM_KERNEL=pallas`` (K5 / K6).
-Each engine:
+``--kv-layout`` takes a comma list of KV layouts (default split), each
+served by an engine of its own, one after the other in the listed order
+(``split,interleaved_rm,interleaved_rm,split`` compares two layouts in
+turns, on one card). Each engine:
 16 greedy requests of ``--prompt-len`` tokens, after two warm-up requests
 (first calls load CUDA modules and pick GEMM algorithms). Two windows are
 traced with ``torch.profiler``:
@@ -55,10 +59,12 @@ from xllm_tpu_torch.ops.cuda import _build  # noqa: E402
 BATCH = 16
 # kernel-name fragments of the port's hand-written kernels (csrc/*.cu)
 OWN_KERNELS = {
-    "decode_attention_write_kernel": "K1 decode_attention_write",
-    "decode_granule_max_kernel": "K1 decode_attention_write",
-    "kv_write_rows_kernel": "K2/K4 kv_write_rows",
-    "prefill_attention_kernel": "K3 prefill_attention_batched",
+    "decode_attention_write_kernel": "K1/K8/K9 decode_attention_write",
+    "decode_granule_max_kernel": "K1/K8/K9 decode_attention_write",
+    "rm_complete_kernel": "K9 decode_attention_write_rm (page rewrite)",
+    "kv_write_rows_kernel": "K2/K4/K8/K9 kv_write_rows",
+    "kv_write_rmw_rm_kernel": "K9 kv_write_rmw_batched_rm",
+    "prefill_attention_kernel": "K3/K8 prefill_attention",
     "gmm_bf16_kernel": "K10 gmm",
     "mla_attention_tc_kernel<1": "K11a mla_decode_attention_write",
     "mla_attention_tc_kernel<2": "K11b mla_prefill_attention_batched",
@@ -153,11 +159,12 @@ def traced(eng: LLMEngine, n_steps: int | None, until=None) -> dict:
     return out
 
 
-def profile_engine(args, model: str) -> dict:
-    """Serve ``model`` once and trace its prefill and decode windows."""
+def profile_engine(args, model: str, kv_layout: str = "split") -> dict:
+    """Serve ``model`` once on ``kv_layout`` and trace its prefill and
+    decode windows."""
     model_kw, num_blocks, quant, kv = MODELS[model]
     cfg = chip_smoke.engine_config(model_kw, batch=BATCH, num_blocks=num_blocks,
-                                   quant=quant, kv_cache_dtype=kv)
+                                   quant=quant, kv_cache_dtype=kv, kv_layout=kv_layout)
     eng = LLMEngine(cfg, device="cuda")
     rng = np.random.default_rng(0)
     chip_smoke.warm_up(eng, rng)
@@ -189,7 +196,7 @@ def profile_engine(args, model: str) -> dict:
     while eng.has_unfinished():
         eng.step()
     assert eng.block_manager.num_used_blocks == 0, "KV blocks leaked"
-    return {"prefill": prefill, "decode": decode}
+    return {"kv_layout": eng.runner.model.kv_layout, "prefill": prefill, "decode": decode}
 
 
 def main() -> int:
@@ -197,32 +204,43 @@ def main() -> int:
     ap.add_argument("--model", choices=sorted(MODELS), default="qwen3-1.7b")
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--kv-layout", default="split",
+                    help="comma list of split, interleaved, interleaved_rm: one engine "
+                    "each, in this order")
     args = ap.parse_args()
+    layouts = args.kv_layout.split(",")
+    if not set(layouts) <= {"split", "interleaved", "interleaved_rm"}:
+        raise SystemExit(f"unknown kv layouts in {args.kv_layout!r}")
     if not torch.cuda.is_available():
         print("profile_torch_step: needs a CUDA card", file=sys.stderr)
         return 2
     card = chip_smoke.card_line()
     print(card, flush=True)
     _build.build_all()
-    variants = ["default", "pallas"] if MODELS[args.model][2] else ["default"]
+    kernels = ["default", "pallas"] if MODELS[args.model][2] else ["default"]
     results = {}
-    for variant in variants:
-        env = {"XLLM_QMM_KERNEL": "pallas" if variant == "pallas" else ""}
-        with chip_smoke.environ(**env):
-            results[variant] = profile_engine(args, args.model)
-        gc.collect()
-        torch.cuda.empty_cache()
-        for name in ("prefill", "decode"):
-            res = results[variant][name]
-            print(f"[{variant} {name}] {res['steps']} steps: host "
-                  f"{res['host_ms_per_step_traced']:.3f} ms/step (traced), device busy "
-                  f"{res['device_busy_ms_per_step']:.3f} ms/step, idle share "
-                  f"{res['device_idle_share']:.3f}", flush=True)
-            for g, ms in res["device_ms_per_step_by_group"].items():
-                print(f"[{variant} {name}]   device {g}: {ms:.4f} ms/step", flush=True)
-            for op, ms, n in res["top_host_ops_ms_per_step"]:
-                print(f"[{variant} {name}]   host {op}: {ms:.4f} ms/step over {n:.0f} calls",
-                      flush=True)
+    for i, layout in enumerate(layouts):
+        for kernel in kernels:
+            # a variant: the matmul kernels, and the layout when several are asked
+            variant = kernel if len(layouts) == 1 else f"{kernel} {layout} #{i + 1}"
+            env = {"XLLM_QMM_KERNEL": "pallas" if kernel == "pallas" else ""}
+            with chip_smoke.environ(**env):
+                results[variant] = profile_engine(args, args.model, layout)
+            gc.collect()
+            torch.cuda.empty_cache()
+            for name in ("prefill", "decode"):
+                res = results[variant][name]
+                untraced = (f", untraced {res['host_ms_per_step_untraced']:.3f} ms/step"
+                            if name == "decode" else "")
+                print(f"[{variant} {name}] {res['steps']} steps: host "
+                      f"{res['host_ms_per_step_traced']:.3f} ms/step (traced){untraced}, "
+                      f"device busy {res['device_busy_ms_per_step']:.3f} ms/step, idle "
+                      f"share {res['device_idle_share']:.3f}", flush=True)
+                for g, ms in res["device_ms_per_step_by_group"].items():
+                    print(f"[{variant} {name}]   device {g}: {ms:.4f} ms/step", flush=True)
+                for op, ms, n in res["top_host_ops_ms_per_step"]:
+                    print(f"[{variant} {name}]   host {op}: {ms:.4f} ms/step over "
+                          f"{n:.0f} calls", flush=True)
     print(card, flush=True)
     print(json.dumps({"card": card, "model": args.model, "batch": BATCH,
                       "prompt_len": args.prompt_len, "variants": results}), flush=True)

@@ -132,16 +132,9 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 @pytest.mark.parametrize(
     "over",
     [
-        {"cache": {"kv_layout": "interleaved"}},
-        {"cache": {"kv_layout": "interleaved_rm"}},
         # quantized weights and KV serve for every family now
         # (tests/test_torch_quant_moe_mla.py); with a knob that is not
         # ported they still raise, and an int8 latent cache raises as in JAX
-        pytest.param({"model": _MOE, "cache": {"kv_cache_dtype": "int8",
-                                               "kv_layout": "interleaved"}}, id="int8_0"),
-        pytest.param({"model": _MLA, "cache": {"kv_cache_dtype": "fp8_e4m3",
-                                               "kv_layout": "interleaved"}},
-                     id="fp8_e4m3"),
         pytest.param({"model": _MLA, "quant": {"method": "int8"},
                       "cache": {"kv_cache_dtype": "int8"}}, id="int8_1"),
         {"speculative": {"method": "suffix"}},
@@ -153,8 +146,6 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         pytest.param({"model": dict(_MLA, model_type="deepseek_v32", index_topk=8)},
                      id="deepseek_v3"),
         pytest.param({"model": dict(_MLA, index_topk=8)}, id="deepseek_v3-dsa"),
-        pytest.param({"model": _MLA, "cache": {"kv_layout": "interleaved"}},
-                     id="deepseek_v3-interleaved"),
         # MoE serves on one device now; what it still lacks raises
         pytest.param({"model": _MOE, "eplb": {"enable_eplb": True}}, id="qwen3_moe-4"),
         {"model": _MOE, "eplb": {"redundant_experts": 2}},
@@ -169,6 +160,58 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 def test_unported_knobs_raise(over):
     with pytest.raises(NotImplementedError):
         LLMEngine(_tiny(**over), device="cpu")
+
+
+def _jax_layout(over) -> str:
+    """The KV layout the JAX runner resolves for ``_tiny(**over)``."""
+    import xllm_tpu.config as jcfg
+    from xllm_tpu.runtime.model_runner import ModelRunner as JRunner
+
+    cfg = _tiny(**over)
+    jc = jcfg.EngineConfig(
+        model=jcfg.ModelConfig(**vars(cfg.model)),
+        cache=jcfg.CacheConfig(**vars(cfg.cache)),
+        scheduler=jcfg.SchedulerConfig(**vars(cfg.scheduler)),
+    )
+    jc.quant.method = cfg.quant.method
+    runner = JRunner(jc)
+    runner.initialize_kv_cache(cfg.cache.num_blocks)
+    return runner.model.kv_layout
+
+
+@pytest.mark.parametrize(
+    "over,layout",
+    [
+        # the interleaved layouts serve (K8, K9); at Hkv 1 interleaved_rm
+        # resolves to interleaved, as in JAX (16 must divide 2 * Hkv)
+        ({"cache": {"kv_layout": "interleaved"}}, "interleaved"),
+        ({"cache": {"kv_layout": "interleaved_rm"}}, "interleaved"),
+        ({"model": {"num_attention_heads": 16, "num_key_value_heads": 8, "head_dim": 128,
+                    "hidden_size": 64},
+          "cache": {"kv_layout": "interleaved_rm", "block_size": 16}}, "interleaved_rm"),
+        # an int8 KV cache keeps plain interleaved
+        pytest.param({"model": _MOE, "cache": {"kv_cache_dtype": "int8",
+                                               "kv_layout": "interleaved"}},
+                     "interleaved", id="int8_0"),
+        # the MLA latent cache keeps split, with a warning
+        pytest.param({"model": _MLA, "cache": {"kv_cache_dtype": "fp8_e4m3",
+                                               "kv_layout": "interleaved"}},
+                     "split", id="fp8_e4m3"),
+        pytest.param({"model": _MLA, "cache": {"kv_layout": "interleaved"}}, "split",
+                     id="deepseek_v3-interleaved"),
+    ],
+    ids=lambda o: "-".join(f"{k}" for g in o.values() for k in g.values())
+    if isinstance(o, dict) else o,
+)
+def test_ported_knobs_serve(over, layout):
+    """Knobs that once raised here and serve now: each engine serves on the
+    CPU, on the KV layout the JAX runner resolves for the same config."""
+    eng = LLMEngine(_tiny(**over), device="cpu")
+    assert eng.runner.model.kv_layout == _jax_layout(over) == layout
+    eng.add_request(prompt_token_ids=[1, 2, 3, 4, 5],
+                    sampling_params=SamplingParams(max_tokens=3, ignore_eos=True))
+    assert len(eng.generate_all()[0].outputs[0].token_ids) == 3
+    assert eng.block_manager.num_used_blocks == 0
 
 
 @pytest.mark.parametrize(

@@ -349,15 +349,30 @@ def test_cuda_tensor_with_failed_build_raises(kernel, monkeypatch):
 
 
 def test_interleaved_cache_raises():
-    q = torch.zeros(4, 2, 16)
-    kv = torch.zeros(4, 1, 16)
-    ilv = torch.zeros(1, 4, 2, 1, 4, 16)  # [L, NB, 2, Hkv, bs, D]
-    i0 = torch.tensor(0, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="interleaved"):
-        tattention.prefill_attention_write(q, kv, kv, ilv, torch.zeros(1), 0,
-                                           torch.zeros(4, dtype=torch.int32),
-                                           torch.zeros(4, dtype=torch.int32), i0,
-                                           torch.tensor(4, dtype=torch.int32), 0.25)
+    """The interleaved layouts serve (K8, K9): a single-chunk pass on an
+    interleaved cache rides the batched kernels with P = 1, as in JAX, on
+    both layouts; what still raises is a layout that does not exist."""
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((4, 16, 128)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((4, 8, 128)).astype(np.float32))
+            for _ in range(2))
+    ilv = torch.from_numpy(rng.standard_normal((1, 4, 2, 8, 16, 128)).astype(np.float32))
+    bt = torch.tensor([1, 2, 0, 0], dtype=torch.int32)
+    qo, kvl = torch.tensor(16, dtype=torch.int32), torch.tensor(20, dtype=torch.int32)
+    sm = torch.arange(2 * 16, 2 * 16 + 4, dtype=torch.int32)
+    for rm in (False, True):
+        one, batched = ilv.clone(), ilv.clone()
+        out, _, _ = tattention.prefill_attention_write(
+            q, k, v, one, torch.zeros(1), 0, sm, bt, qo, kvl, 0.125, rowmajor_tail=rm)
+        want, _, _ = tattention.prefill_attention_write_batched(
+            q[None], k[None], v[None], batched, torch.zeros(1), 0, sm[None], bt[None],
+            qo.reshape(1), kvl.reshape(1), 0.125, rowmajor_tail=rm)
+        assert torch.equal(out, want[0]) and torch.equal(one, batched)
+        assert not torch.equal(one, ilv)
+    cfg = tcfg.EngineConfig(model=tcfg.ModelConfig(model_type="qwen3", dtype="float32"),
+                            cache=tcfg.CacheConfig(kv_layout="paged"))
+    with pytest.raises(ValueError, match="interleaved"):
+        TEngine(cfg, device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,14 @@
 // Split paged KV cache layout, all layers stacked (the JAX package's):
 //   k_cache, v_cache: [L, num_blocks, Hkv, block_size, D]
 // A token's row of one head is D contiguous elements; one (layer, block,
-// head) page is a contiguous [block_size, D] tile.
+// head) page is a contiguous [block_size, D] tile. The interleaved layout
+// (kv_layout="interleaved", K8) keeps a page's K and V together in one
+// array [L, num_blocks, 2, Hkv, block_size, D]; with row-major tails
+// ("interleaved_rm", K9) a sequence's incomplete last page holds its
+// content token-major (PageLayout below).
 #pragma once
+
+#include <climits>
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -239,15 +245,46 @@ __host__ __device__ __forceinline__ size_t cache_row(int layer, int num_blocks,
   return ((((size_t)layer * num_blocks + blk) * hkv + h) * bs + off) * d;
 }
 
+// Where a page's rows live. A (layer, block) page starts `page` elements
+// after the previous one: Hkv * bs * D in the split arrays (K and V in two
+// arrays), 2 * Hkv * bs * D in the interleaved array, whose V pointer is
+// its K pointer plus Hkv * bs * D. Canonical rows: head h of slot w at
+// (h * bs + w) * D in the page. Positions >= tail_from (K9: a sequence's
+// incomplete last page, whose first position is a multiple of bs) sit in
+// token-major content: slot w's row at w * 2 * Hkv * D holds the token's K
+// heads, then its V heads, so V is read from the K pointer.
+struct PageLayout {
+  long long page;  // elements from one (layer, block) page to the next
+  int tail_from;   // first token-major position of the sequence (INT_MAX: none)
+};
+
+// The K and V rows (D elements each) of kv head h at position pos in block blk.
+template <typename T>
+__device__ __forceinline__ void kv_rows(const PageLayout& lay, T* k_cache, T* v_cache,
+                                        int layer, int num_blocks, int hkv, int bs, int d,
+                                        int blk, int h, int pos, T*& krow, T*& vrow) {
+  const size_t pb = ((size_t)layer * num_blocks + blk) * lay.page;
+  const int w = pos % bs;
+  if (pos >= lay.tail_from) {
+    krow = k_cache + pb + ((size_t)w * 2 * hkv + h) * d;
+    vrow = krow + (size_t)hkv * d;
+  } else {
+    const size_t o = pb + ((size_t)h * bs + w) * d;
+    krow = k_cache + o;
+    vrow = v_cache + o;
+  }
+}
+
 // Loads the K and V rows of kv head `h` for positions t0 + [jlo, jhi) into
 // padded shared tiles ks/vs (row j at j * (D + kPad)). Positions map to
-// pages through the sequence's block-table row. 16-byte global loads,
-// 4-byte shared stores (padded rows are 4-byte aligned only). Plain loads,
-// not the read-only path: the decode kernel reads a row it wrote itself.
-// kV false loads the K rows only (vs untouched).
+// pages through the sequence's block-table row, rows to addresses through
+// `lay`. 16-byte global loads, 4-byte shared stores (padded rows are
+// 4-byte aligned only). Plain loads, not the read-only path: the decode
+// kernel reads a row it wrote itself. kV false loads the K rows only (vs
+// untouched).
 template <typename T, int D, bool kV = true>
 __device__ __forceinline__ void load_kv_tile(T* ks, T* vs, const T* k_cache,
-                                             const T* v_cache,
+                                             const T* v_cache, const PageLayout& lay,
                                              const int* bt_row, int layer,
                                              int num_blocks, int hkv, int h,
                                              int bs, int t0, int jlo,
@@ -259,14 +296,14 @@ __device__ __forceinline__ void load_kv_tile(T* ks, T* vs, const T* k_cache,
     const int j = jlo + idx / kChunks;
     const int c = idx % kChunks;
     const int pos = t0 + j;
-    const int blk = bt_row[pos / bs];
-    const size_t src =
-        cache_row(layer, num_blocks, hkv, bs, blk, h, pos % bs, D) + c * kVec;
-    const uint4 kv = *reinterpret_cast<const uint4*>(k_cache + src);
+    const T *krow, *vrow;
+    kv_rows(lay, k_cache, v_cache, layer, num_blocks, hkv, bs, D, bt_row[pos / bs], h,
+            pos, krow, vrow);
+    const uint4 kv = *reinterpret_cast<const uint4*>(krow + c * kVec);
     uint32_t* kd = reinterpret_cast<uint32_t*>(ks + j * (D + kPad) + c * kVec);
     kd[0] = kv.x; kd[1] = kv.y; kd[2] = kv.z; kd[3] = kv.w;
     if constexpr (kV) {
-      const uint4 vv = *reinterpret_cast<const uint4*>(v_cache + src);
+      const uint4 vv = *reinterpret_cast<const uint4*>(vrow + c * kVec);
       uint32_t* vd = reinterpret_cast<uint32_t*>(vs + j * (D + kPad) + c * kVec);
       vd[0] = vv.x; vd[1] = vv.y; vd[2] = vv.z; vd[3] = vv.w;
     }
@@ -278,6 +315,7 @@ __device__ __forceinline__ void load_kv_tile(T* ks, T* vs, const T* k_cache,
 template <typename C, int D, bool kV = true>
 __device__ __forceinline__ void load_kv_tile_upcast(__nv_bfloat16* ks, __nv_bfloat16* vs,
                                                     const C* k_cache, const C* v_cache,
+                                                    const PageLayout& lay,
                                                     const int* bt_row, int layer,
                                                     int num_blocks, int hkv, int h,
                                                     int bs, int t0, int jlo, int jhi) {
@@ -288,14 +326,14 @@ __device__ __forceinline__ void load_kv_tile_upcast(__nv_bfloat16* ks, __nv_bflo
     const int j = jlo + idx / kChunks;
     const int c = idx % kChunks;
     const int pos = t0 + j;
-    const int blk = bt_row[pos / bs];
-    const size_t src =
-        cache_row(layer, num_blocks, hkv, bs, blk, h, pos % bs, D) + c * kVec;
-    const uint4 kv = *reinterpret_cast<const uint4*>(k_cache + src);
-    upcast16<C>(ks + j * (D + kPad) + c * kVec, kv);
+    const C *krow, *vrow;
+    kv_rows(lay, k_cache, v_cache, layer, num_blocks, hkv, bs, D, bt_row[pos / bs], h,
+            pos, krow, vrow);
+    upcast16<C>(ks + j * (D + kPad) + c * kVec,
+                *reinterpret_cast<const uint4*>(krow + c * kVec));
     if constexpr (kV)
       upcast16<C>(vs + j * (D + kPad) + c * kVec,
-                  *reinterpret_cast<const uint4*>(v_cache + src));
+                  *reinterpret_cast<const uint4*>(vrow + c * kVec));
   }
 }
 
@@ -304,15 +342,15 @@ template <typename C, int D, bool kV = true>
 __device__ __forceinline__ void load_tile(typename TileOf<C>::type* ks,
                                           typename TileOf<C>::type* vs,
                                           const C* k_cache, const C* v_cache,
-                                          const int* bt_row, int layer, int num_blocks,
-                                          int hkv, int h, int bs, int t0, int jlo,
-                                          int jhi) {
+                                          const PageLayout& lay, const int* bt_row,
+                                          int layer, int num_blocks, int hkv, int h, int bs,
+                                          int t0, int jlo, int jhi) {
   if constexpr (kQuantCache<C>)
-    load_kv_tile_upcast<C, D, kV>(ks, vs, k_cache, v_cache, bt_row, layer, num_blocks,
-                                  hkv, h, bs, t0, jlo, jhi);
+    load_kv_tile_upcast<C, D, kV>(ks, vs, k_cache, v_cache, lay, bt_row, layer,
+                                  num_blocks, hkv, h, bs, t0, jlo, jhi);
   else
-    load_kv_tile<C, D, kV>(ks, vs, k_cache, v_cache, bt_row, layer, num_blocks, hkv, h,
-                           bs, t0, jlo, jhi);
+    load_kv_tile<C, D, kV>(ks, vs, k_cache, v_cache, lay, bt_row, layer, num_blocks, hkv,
+                           h, bs, t0, jlo, jhi);
 }
 
 // ---------------------------------------------------------------------------

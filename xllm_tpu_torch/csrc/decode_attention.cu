@@ -54,6 +54,36 @@
 // attended as given), so the split that holds it stores the new row
 // (cast to the cache dtype) at any point. Sequences never share a page
 // that is written (shared prefix pages are full and read-only).
+//
+// K8 and K9: the same kernels serve the interleaved cache [L, NB, 2, Hkv,
+// bs, D] (PageLayout in common.cuh: another page stride, V Hkv * bs * D
+// after K):
+// - K8 replaces decode_attention.py paged_decode_attention_write_v11_tpu,
+//   K1's contract and walk on that cache (the TPU kernel's one-DMA pages
+//   and block-contiguous bursts are its design, not its contract);
+// - K9 replaces paged_decode_attention_write_v12_tpu (rm = 1): a
+//   sequence's incomplete tail page, from position nfull * bs (nfull =
+//   (seq_len - 1) / bs complete pages), holds token-major content, read
+//   through PageLayout::tail_from. The TPU walk takes tiles of 4 full
+//   pages, then the tail page as a tile of its own, so the running maximum
+//   of a position is that at the end of its 4-page tile clipped to nfull *
+//   bs, or, in the tail, the row's final one. Pass 1's granules are then a
+//   page (or 64 positions, if shorter), so that nfull * bs is a granule
+//   boundary. The new row goes to row w = slot % bs of its page seen as
+//   [bs, 2 * Hkv, D] (each head block writes its own two D-vectors, which
+//   no block of the launch reads: they are the position seq_len - 1).
+//   When the row completes the page (w == bs - 1) the page must be
+//   rewritten canonical, [2, Hkv, bs, D]. That moves every head's rows,
+//   which the other head blocks and context splits of the sequence are
+//   still reading token-major, so no block of the walk writes the page:
+//   the block that would write head h's new row instead stages head h's
+//   canonical K and V planes (its bs - 1 cached rows, read, and the new
+//   row) in a scratch page of the sequence's own, and a third launch
+//   (rm_complete_kernel, several blocks per sequence) copies the scratch
+//   page over the page. It starts only once the walk's launch has ended
+//   (the same stream), so every read of the token-major page is done:
+//   race-free by stream order. Each head block writes only its own planes
+//   of the scratch page.
 #include "common.cuh"
 
 namespace xllm {
@@ -101,6 +131,23 @@ __device__ __forceinline__ SplitRange split_range(int seq_len, int window, int c
   return r;
 }
 
+// K9's first token-major position: the start of the tail page, after the
+// nfull = (seq_len - 1) / bs complete pages (INT_MAX for K1 / K8)
+__device__ __forceinline__ int tail_start(int seq_len, int bs, int rm) {
+  return rm ? (seq_len - 1) / bs * bs : INT_MAX;
+}
+
+// The lane of granule_prefix's view that holds pos's running maximum: the
+// end of its 4-page tile (vt positions), clipped, for K9, to the full
+// pages; in K9's tail the row's last granule.
+__device__ __forceinline__ int end_lane(int t0, int pos, int vt, int gran, int gend,
+                                        int tail_from) {
+  const int end = pos >= tail_from
+                      ? gend
+                      : min((pos / vt + 1) * vt / gran, min(gend, tail_from / gran));
+  return end - t0 / gran - 1;
+}
+
 template <typename S, int D>
 size_t decode_smem_bytes(int group) {
   return 2 * (size_t)kTile * (D + kPad) * sizeof(S) +
@@ -118,7 +165,7 @@ __global__ void __launch_bounds__(kThreads)
                               float* __restrict__ gmax,  // [B, Hq, ngran]
                               int layer, int num_blocks, int hkv, int bs, int nbmax,
                               int group, float scale, int window, int chunk, int gran,
-                              int ngran) {
+                              int ngran, long long page, int rm) {
   using S = typename TileOf<C>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   S* ks = reinterpret_cast<S*>(smem);
@@ -132,6 +179,7 @@ __global__ void __launch_bounds__(kThreads)
   if (seq_len <= 0) return;
   const SplitRange r = split_range(seq_len, window, chunk, split);
   if (split >= r.nsp) return;
+  const PageLayout lay{page, tail_start(seq_len, bs, rm)};
   const size_t qrow = ((size_t)b * hq + (size_t)h * group) * D;
   for (int i = threadIdx.x; i < group * D; i += blockDim.x) qs[i] = to_float(q[qrow + i]);
   float* gm = gmax + ((size_t)b * hq + (size_t)h * group) * ngran;
@@ -140,8 +188,8 @@ __global__ void __launch_bounds__(kThreads)
     const int jlo = max(r.lo - t0, 0);
     const int jhi = max(min(seq_len - 1 - t0, kTile), 0);  // cached positions
     if (jhi > jlo)
-      load_tile<C, D, false>(ks, nullptr, k_cache, nullptr, bt, layer, num_blocks, hkv,
-                             h, bs, t0, jlo, jhi);
+      load_tile<C, D, false>(ks, nullptr, k_cache, nullptr, lay, bt, layer, num_blocks,
+                             hkv, h, bs, t0, jlo, jhi);
     __syncthreads();
     tile_scores<S, D>(ss, qs, ks, group, jlo, jhi, scale);
     __syncthreads();
@@ -159,7 +207,7 @@ __global__ void __launch_bounds__(kThreads)
     decode_attention_write_kernel(const T* __restrict__ q,      // [B, Hq, D]
                                   const T* __restrict__ k_new,  // [B, Hkv, D]
                                   const T* __restrict__ v_new,
-                                  C* k_cache, C* v_cache,  // [L, NB, Hkv, bs, D]
+                                  C* k_cache, C* v_cache,  // pages: PageLayout
                                   const int* __restrict__ slot_mapping,  // [B]
                                   const int* __restrict__ block_tables,  // [B, nbmax]
                                   const int* __restrict__ seq_lens,      // [B]
@@ -169,7 +217,9 @@ __global__ void __launch_bounds__(kThreads)
                                   int* counters,  // [B * Hkv], 0 between launches
                                   int layer, int num_blocks, int hkv, int bs,
                                   int nbmax, int group, float scale, int window,
-                                  int chunk, int nsplit, int gran, int ngran) {
+                                  int chunk, int nsplit, int gran, int ngran,
+                                  long long page, int rm,
+                                  C* scratch) {  // [B, page] (K9 completions)
   using S = typename TileOf<C>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   S* ks = reinterpret_cast<S*>(smem);
@@ -199,20 +249,51 @@ __global__ void __launch_bounds__(kThreads)
   const SplitRange r = split_range(seq_len, window, chunk, split);
   if (split >= r.nsp) return;
   const int t_walk = min(r.t_end, seq_len - 1);  // cached positions only
+  const PageLayout lay{page, tail_start(seq_len, bs, rm)};
 
   const T* kn = k_new + ((size_t)b * hkv + h) * D;
   const T* vn = v_new + ((size_t)b * hkv + h) * D;
-  if (split == r.nsp - 1) {  // the new row, cast to the cache dtype
-    const int slot = slot_mapping[b];
-    const size_t wrow =
-        cache_row(layer, num_blocks, hkv, bs, slot / bs, h, slot % bs, D);
+  const int slot = slot_mapping[b];
+  if (split == r.nsp - 1 && rm && slot % bs == bs - 1) {
+    // K9, the row completes its page: head h's canonical K and V planes
+    // (rows read token-major, the new row cast in) to scratch[b], which
+    // rm_complete_kernel copies over the page after this launch
+    constexpr int kVec = 16 / sizeof(C);  // elements per 16 bytes
+    constexpr int kRowVecs = D / kVec;
+    const C* pg = k_cache + ((size_t)layer * num_blocks + slot / bs) * page;
+    C* st = scratch + (size_t)b * page;
+    for (int i = tid; i < 2 * bs * kRowVecs; i += blockDim.x) {
+      const int half = i / (bs * kRowVecs), w = i / kRowVecs % bs, u = i % kRowVecs;
+      const int c = half * hkv + h;  // the plane: K heads, then V heads
+      uint4* dst = reinterpret_cast<uint4*>(st + ((size_t)c * bs + w) * D) + u;
+      if (w < bs - 1) {
+        *dst = reinterpret_cast<const uint4*>(pg + ((size_t)w * 2 * hkv + c) * D)[u];
+      } else {
+        const T* src = (half ? vn : kn) + u * kVec;
+        alignas(16) C vals[kVec];
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          if constexpr (kQuantCache<C>)
+            vals[e] = to_cache<C>(to_float(src[e]));
+          else
+            vals[e] = src[e];
+        }
+        *dst = *reinterpret_cast<const uint4*>(vals);
+      }
+    }
+  } else if (split == r.nsp - 1) {  // the new row, cast to the cache dtype
+    // (K9: token-major at its slot)
+    const PageLayout wl{page, rm ? 0 : INT_MAX};
+    C *kw, *vw;
+    kv_rows(wl, k_cache, v_cache, layer, num_blocks, hkv, bs, D, slot / bs, h, slot, kw,
+            vw);
     for (int d = tid; d < D; d += blockDim.x) {
       if constexpr (kQuantCache<C>) {
-        k_cache[wrow + d] = to_cache<C>(to_float(kn[d]));
-        v_cache[wrow + d] = to_cache<C>(to_float(vn[d]));
+        kw[d] = to_cache<C>(to_float(kn[d]));
+        vw[d] = to_cache<C>(to_float(vn[d]));
       } else {
-        k_cache[wrow + d] = kn[d];
-        v_cache[wrow + d] = vn[d];
+        kw[d] = kn[d];
+        vw[d] = vn[d];
       }
     }
   }
@@ -258,7 +339,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int t0 = r.t_begin; t0 < t_walk; t0 += kTile) {
     const int jlo = max(r.lo - t0, 0);
     const int jhi = min(t_walk - t0, kTile);
-    load_tile<C, D>(ks, vs, k_cache, v_cache, bt, layer, num_blocks, hkv, h, bs, t0,
+    load_tile<C, D>(ks, vs, k_cache, v_cache, lay, bt, layer, num_blocks, hkv, h, bs, t0,
                     jlo, jhi);
     __syncthreads();
     tile_scores<S, D>(ss, qs, ks, group, jlo, jhi, scale);
@@ -290,8 +371,9 @@ __global__ void __launch_bounds__(kThreads)
       for (int u = 0; u < 2; ++u) {
         const int j = lane + 32 * u, pos = t0 + j;
         const float sc = srow[j];
-        // the running maximum at the end of pos's 4-page tile
-        const float m = __shfl_sync(0xffffffffu, pre, page_lane(t0, pos, vt, gran, gend));
+        // the running maximum at the end of pos's 4-page tile (K9: or tail)
+        const float m = __shfl_sync(0xffffffffu, pre,
+                                    end_lane(t0, pos, vt, gran, gend, lay.tail_from));
         float p = 0.f;
         if (sc != -INFINITY) {
           const float pe = expf(sc - m), w = expf(m - mf);
@@ -357,6 +439,27 @@ __global__ void __launch_bounds__(kThreads)
   if (tid == 0) counters[b * hkv + h] = 0;
 }
 
+constexpr int kCompleteThreads = 256;
+constexpr int kCompleteBlocks = 16;  // blocks per sequence
+
+// K9's completion rewrite (the head of this file): for each sequence whose
+// new row completes its page, the staged canonical page scratch[b] over the
+// page, 16 bytes a thread and step, kCompleteBlocks blocks a sequence.
+__global__ void __launch_bounds__(kCompleteThreads)
+    rm_complete_kernel(uint4* kv_cache,  // [L, NB, 2, Hkv, bs, D] as 16-byte units
+                       const int* __restrict__ slot_mapping,
+                       const int* __restrict__ seq_lens, const uint4* __restrict__ scratch,
+                       int layer, int num_blocks, int bs, long long page_units) {
+  const int b = blockIdx.x;
+  const int slot = slot_mapping[b];
+  if (seq_lens[b] <= 0 || slot % bs != bs - 1) return;
+  uint4* pg = kv_cache + ((size_t)layer * num_blocks + slot / bs) * page_units;
+  const uint4* st = scratch + (size_t)b * page_units;
+  for (long long i = blockIdx.y * blockDim.x + threadIdx.x; i < page_units;
+       i += (long long)gridDim.y * blockDim.x)
+    pg[i] = st[i];
+}
+
 template <typename T, typename C, int D>
 cudaError_t launch_decode(const void* q, const void* k_new, const void* v_new,
                           void* k_cache, void* v_cache, const int* slot_mapping,
@@ -364,7 +467,8 @@ cudaError_t launch_decode(const void* q, const void* k_new, const void* v_new,
                           void* out, float* part, int* counters, int batch,
                           int layer, int num_blocks, int hkv, int bs, int nbmax,
                           int group, float scale, int window, int chunk,
-                          int nsplit, int gran, int ngran, cudaStream_t stream) {
+                          int nsplit, int gran, int ngran, long long page, int rm,
+                          void* scratch, cudaStream_t stream) {
   using S = typename TileOf<C>::type;
   const size_t smem = decode_smem_bytes<S, D>(group);
   auto pass2 = decode_attention_write_kernel<T, C, D>;
@@ -377,7 +481,8 @@ cudaError_t launch_decode(const void* q, const void* k_new, const void* v_new,
     if (e != cudaSuccess) return e;
     pass1<<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const C*>(k_cache), block_tables, seq_lens,
-        gmax, layer, num_blocks, hkv, bs, nbmax, group, scale, window, chunk, gran, ngran);
+        gmax, layer, num_blocks, hkv, bs, nbmax, group, scale, window, chunk, gran, ngran,
+        page, rm);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
@@ -386,26 +491,38 @@ cudaError_t launch_decode(const void* q, const void* k_new, const void* v_new,
       static_cast<const T*>(v_new), static_cast<C*>(k_cache),
       static_cast<C*>(v_cache), slot_mapping, block_tables, seq_lens, gmax,
       static_cast<T*>(out), part, counters, layer, num_blocks, hkv, bs, nbmax,
-      group, scale, window, chunk, nsplit, gran, ngran);
+      group, scale, window, chunk, nsplit, gran, ngran, page, rm, static_cast<C*>(scratch));
+  e = cudaGetLastError();
+  if (e != cudaSuccess || !rm) return e;
+  rm_complete_kernel<<<dim3(batch, kCompleteBlocks), kCompleteThreads, 0, stream>>>(
+      static_cast<uint4*>(k_cache), slot_mapping, seq_lens,
+      static_cast<const uint4*>(scratch), layer, num_blocks, bs,
+      page * (long long)sizeof(C) / 16);
   return cudaGetLastError();
 }
 
 }  // namespace xllm
 
-// gran: min(64, 4 * bs) positions, where 4 * bs divides 64 or 64 divides
-// 4 * bs; ngran: gmax's columns, at least ceil(nbmax * bs / 64) * 64 / gran.
+// gran: min(64, 4 * bs) positions (K9, rm: min(64, bs)), where 4 * bs
+// (bs) divides 64 or 64 divides it; ngran: gmax's columns, at least
+// ceil(nbmax * bs / 64) * 64 / gran. page: elements from one (layer,
+// block) page to the next (PageLayout); rm: K9's row-major tails, whose
+// completed pages are staged in scratch [batch, page] (else unused).
 extern "C" int xllm_decode_attention_write(
     int device, const void* q, const void* k_new, const void* v_new,
     void* k_cache, void* v_cache, const void* slot_mapping,
     const void* block_tables, const void* seq_lens, void* gmax, void* out, void* part,
     void* counters, int dtype, int qtype, int head_dim, int batch, int layer,
     int num_blocks, int hkv, int bs, int nbmax, int group, float scale,
-    int window, int chunk, int nsplit, int gran, int ngran, void* stream) {
+    int window, int chunk, int nsplit, int gran, int ngran, long long page, int rm,
+    void* scratch, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
+  const int span = rm ? bs : 4 * bs;  // a granule divides it
   if (chunk <= 0 || chunk % xllm::kTile || batch > 65535 || gran <= 0 ||
-      xllm::kTile % gran || (4 * bs) % gran || gran != (4 * bs < xllm::kTile ? 4 * bs : xllm::kTile) ||
-      (long long)ngran * gran < ((long long)nbmax * bs + xllm::kTile - 1) / xllm::kTile * xllm::kTile)
+      xllm::kTile % gran || span % gran || gran != (span < xllm::kTile ? span : xllm::kTile) ||
+      (long long)ngran * gran < ((long long)nbmax * bs + xllm::kTile - 1) / xllm::kTile * xllm::kTile ||
+      page < (long long)hkv * bs * head_dim)
     return (int)cudaErrorInvalidValue;
   const int* sm = static_cast<const int*>(slot_mapping);
   const int* bt = static_cast<const int*>(block_tables);
@@ -419,7 +536,7 @@ extern "C" int xllm_decode_attention_write(
                                            bt, sl, gm, out, pt, ct, batch, layer, \
                                            num_blocks, hkv, bs, nbmax, group,     \
                                            scale, window, chunk, nsplit, gran,    \
-                                           ngran, s)
+                                           ngran, page, rm, scratch, s)
 #define XLLM_HEAD_DIMS(T, C)                      \
   if (head_dim == 128) XLLM_LAUNCH(T, C, 128);     \
   if (head_dim == 64) XLLM_LAUNCH(T, C, 64);

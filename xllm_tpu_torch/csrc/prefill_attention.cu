@@ -45,6 +45,17 @@
 //   tile the block computes the rows' maxima over the whole page (K only,
 //   the same score code, so the same bits), and every tile of the page
 //   rounds against that maximum. The page's K is read twice.
+//
+// K8 (and K9's prefill): the same kernel replaces prefill_attention.py
+// paged_attention_prefill_batched_ilv_tpu on the interleaved cache [L, NB,
+// 2, Hkv, bs, D] (PageLayout in common.cuh: another page stride, V Hkv *
+// bs * D after K). With rm (rowmajor_tail, kv_layout="interleaved_rm") a
+// chunk's sequence whose length kv_len is not a multiple of bs keeps its
+// last page, from (kv_len / bs) * bs, token-major; the loaders read those
+// positions from it (the long-page maxima above too). The TPU kernel
+// takes that page out of its page walk and attends it after the walk; it
+// is the last page in position order, so the walk and its rounding are
+// the same.
 #include "common.cuh"
 
 namespace xllm {
@@ -63,14 +74,15 @@ template <typename T, typename C, int D>
 __global__ void __launch_bounds__(kThreads)
     prefill_attention_kernel(const T* __restrict__ q,  // [P, S, Hq, D]
                              const C* __restrict__ k_cache,
-                             const C* __restrict__ v_cache,  // [L, NB, Hkv, bs, D]
+                             const C* __restrict__ v_cache,  // pages: PageLayout
                              const int* __restrict__ block_tables,  // [P, nbmax]
                              const int* __restrict__ q_offsets,     // [P]
                              const int* __restrict__ kv_lens,       // [P]
                              T* __restrict__ out,                   // [P, S, Hq, D]
                              int layer, int num_blocks, int hkv, int bs,
                              int nbmax, int seq, int group, int tq, float scale,
-                             int window, int seg) {  // seg: page length < kTile, or kTile
+                             int window, int seg,  // seg: page length < kTile, or kTile
+                             long long page, int rm) {
   // (bs: a divisor or a multiple of kTile, checked by the C entry)
   using S = typename TileOf<C>::type;
   constexpr bool kRound = kRoundP<C>;
@@ -92,6 +104,7 @@ __global__ void __launch_bounds__(kThreads)
   const int q_offset = q_offsets[p];
   const int kv_len = kv_lens[p];
   const int ntok = kv_len - q_offset;
+  const PageLayout lay{page, rm && kv_len % bs ? kv_len / bs * bs : INT_MAX};
   // query positions of this tile that hold real tokens
   const int nvalid = kv_len > 0 ? min(tq, min(seq, ntok) - s0) : 0;
 
@@ -165,8 +178,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = 0; i < kRowsPerWarp; ++i) pmax[i] = -INFINITY;
       for (int u0 = t0; u0 < page_end; u0 += kTile) {
         const int ulo = max(lo - u0, 0), uhi = min(hi - u0, kTile);
-        load_tile<C, D, false>(ks, nullptr, k_cache, nullptr, bt, layer, num_blocks, hkv,
-                               h, bs, u0, ulo, uhi);
+        load_tile<C, D, false>(ks, nullptr, k_cache, nullptr, lay, bt, layer, num_blocks,
+                               hkv, h, bs, u0, ulo, uhi);
         __syncthreads();
         float sc[kRowsPerWarp][2];
         tile_scores(sc);
@@ -186,7 +199,7 @@ __global__ void __launch_bounds__(kThreads)
         if (lane == 0) pm[warp + 4 * i] = m;
       }
     }
-    load_tile<C, D>(ks, vs, k_cache, v_cache, bt, layer, num_blocks, hkv, h, bs, t0,
+    load_tile<C, D>(ks, vs, k_cache, v_cache, lay, bt, layer, num_blocks, hkv, h, bs, t0,
                     jlo, jhi);
     __syncthreads();
 
@@ -298,7 +311,7 @@ cudaError_t launch_prefill(const void* q, const void* k_cache,
                            const int* q_offsets, const int* kv_lens, void* out,
                            int p, int seq, int layer, int num_blocks, int hkv,
                            int bs, int nbmax, int group, float scale, int window,
-                           cudaStream_t stream) {
+                           long long page, int rm, cudaStream_t stream) {
   auto kernel = prefill_attention_kernel<T, C, D>;
   const size_t smem = prefill_smem_bytes<typename TileOf<C>::type, D>();
   cudaError_t e = allow_smem(kernel, smem);
@@ -309,7 +322,7 @@ cudaError_t launch_prefill(const void* q, const void* k_cache,
       static_cast<const T*>(q), static_cast<const C*>(k_cache),
       static_cast<const C*>(v_cache), block_tables, q_offsets, kv_lens,
       static_cast<T*>(out), layer, num_blocks, hkv, bs, nbmax, seq, group, tq,
-      scale, window, bs < kTile && kTile % bs == 0 ? bs : kTile);
+      scale, window, bs < kTile && kTile % bs == 0 ? bs : kTile, page, rm);
   return cudaGetLastError();
 }
 
@@ -323,11 +336,12 @@ extern "C" int xllm_prefill_attention(int device, const void* q,
                                       int p,
                                       int seq, int layer, int num_blocks, int hkv,
                                       int bs, int nbmax, int group, float scale,
-                                      int window, void* stream) {
+                                      int window, long long page, int rm, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (group < 1 || group > xllm::kRows ||
-      (bs > xllm::kTile ? bs % xllm::kTile : xllm::kTile % bs))
+      (bs > xllm::kTile ? bs % xllm::kTile : xllm::kTile % bs) ||
+      page < (long long)hkv * bs * head_dim)
     return (int)cudaErrorInvalidValue;
   const int* bt = static_cast<const int*>(block_tables);
   const int* qo = static_cast<const int*>(q_offsets);
@@ -336,7 +350,7 @@ extern "C" int xllm_prefill_attention(int device, const void* q,
 #define XLLM_LAUNCH(T, C, D)                                                        \
   return (int)xllm::launch_prefill<T, C, D>(q, k_cache, v_cache, bt, qo, kl, out, p, \
                                             seq, layer, num_blocks, hkv, bs, nbmax,  \
-                                            group, scale, window, s)
+                                            group, scale, window, page, rm, s)
 #define XLLM_HEAD_DIMS(T, C)                  \
   if (head_dim == 128) XLLM_LAUNCH(T, C, 128); \
   if (head_dim == 64) XLLM_LAUNCH(T, C, 64);

@@ -119,9 +119,16 @@ class DecoderLayer(nn.Module):
 
 
 class DenseDecoderModel(nn.Module):
+    # "split": separate K and V caches [L, NB, Hkv, bs, D]. "interleaved":
+    # ONE cache [L, NB, 2, Hkv, bs, D], a page's K and V together (K8), the
+    # v cache a rank-1 placeholder. "interleaved_rm": interleaved with
+    # row-major tail pages, a sequence's incomplete last page holding its
+    # rows token-major (K9). The runner resolves the layout
+    # (``ModelRunner.initialize_kv_cache``) before the cache is made.
     kv_layout = "split"
     supports_batched_prefill = True
     supports_int8_kv = True  # the per-head scales fold outside the kernels
+    supports_interleaved_kv = True  # the GQA cache takes the interleaved layouts
 
     def __init__(self, cfg: ModelConfig, device="cpu", quant: str = "") -> None:
         super().__init__()
@@ -198,8 +205,15 @@ class DenseDecoderModel(nn.Module):
     # ------------------------------------------------------------------
     # KV cache
     # ------------------------------------------------------------------
+    @property
+    def _rm_tail(self) -> bool:
+        return self.kv_layout == "interleaved_rm"
+
     def kv_cache_shape(self, num_blocks: int, block_size: int) -> tuple[int, ...]:
         c = self.cfg
+        if self.kv_layout.startswith("interleaved"):
+            return (c.num_hidden_layers, num_blocks, 2, c.num_kv_heads, block_size,
+                    c.head_dim)
         return (c.num_hidden_layers, num_blocks, c.num_kv_heads, block_size,
                 c.head_dim)
 
@@ -215,6 +229,10 @@ class DenseDecoderModel(nn.Module):
     ) -> tuple[torch.Tensor, torch.Tensor]:
         shape = self.kv_cache_shape(num_blocks, block_size)
         dt = dtype or self.dtype
+        if self.kv_layout.startswith("interleaved"):
+            # the v cache is a rank-1 placeholder: K and V share the array
+            return (torch.zeros(shape, dtype=dt, device=self.device),
+                    torch.zeros((1,), dtype=dt, device=self.device))
         return (
             torch.zeros(shape, dtype=dt, device=self.device),
             torch.zeros(shape, dtype=dt, device=self.device),
@@ -383,6 +401,7 @@ class DenseDecoderModel(nn.Module):
                 v.reshape(p, s, *v.shape[1:]),
                 k_all, v_all, layer_idx, inp.slot_mapping, inp.block_tables,
                 inp.q_offsets, inp.kv_lens, self.scale, window=self.window,
+                rowmajor_tail=self._rm_tail,
             )
             return self._kv_quant_out(out.reshape(p * s, *out.shape[2:]), layer_idx)
 
@@ -396,6 +415,7 @@ class DenseDecoderModel(nn.Module):
             out, _, _ = prefill_attention_write(
                 q, k, v, k_all, v_all, layer_idx, inp.slot_mapping, inp.block_table,
                 inp.q_offset, inp.kv_len, self.scale, window=self.window,
+                rowmajor_tail=self._rm_tail,
             )
             return self._kv_quant_out(out, layer_idx)
 
@@ -409,6 +429,7 @@ class DenseDecoderModel(nn.Module):
             out, _, _ = decode_attention_write(
                 q, k, v, k_all, v_all, layer_idx, inp.slot_mapping,
                 inp.block_tables, inp.seq_lens, self.scale, window=self.window,
+                rowmajor_tail=self._rm_tail,
             )
             return self._kv_quant_out(out, layer_idx)
 

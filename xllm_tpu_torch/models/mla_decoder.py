@@ -98,8 +98,10 @@ class MlaLayer(nn.Module):
 
 class MlaDecoderModel(DenseDecoderModel):
     # the latent cache has its own layout and no int8 scales (as the JAX
-    # model; the runner raises for an int8 KV, and for any layout but split)
+    # model: the runner raises for an int8 KV, and keeps the split layout,
+    # with a warning, when an interleaved one is asked for)
     supports_int8_kv = False
+    supports_interleaved_kv = False
     moe_group = "moe_layers"  # the JAX tree's key of the MoE layer stacks
     # rope on the qk_rope dims: "interleaved" (deepseek complex pairs) or
     # "neox" (glm4-moe-lite's rotate-half)

@@ -1,6 +1,6 @@
-"""Fused write+attend paged-attention entry points (split KV layout).
+"""Fused write+attend paged-attention entry points.
 
-Counterpart of the split-layout half of ``xllm_tpu/ops/attention.py``. The
+Counterpart of ``xllm_tpu/ops/attention.py``'s dispatch. The
 KV-cache write is part of the attention op, as in the JAX package; here the
 caches are updated in place (JAX donates them) and returned for parity of
 signatures. Each call goes through the kernel wrappers of ``ops/cuda/``:
@@ -14,26 +14,59 @@ Kernel choice, as in the JAX dispatch:
 - batched prefill with ``S <= block_size``: K4 writer (chunks may start
   mid-page) then K3;
 - single-chunk prefill (prompt scoring, embeddings): K4b when the chunk
-  bucket ``S_pad <= block_size``, else K2b, then K3b. The interleaved
-  layouts, which JAX routes through its batched kernels with P = 1, are
-  not ported (K8, K9) and raise.
+  bucket ``S_pad <= block_size``, else K2b, then K3b.
+
+The interleaved layouts (``kv_layout="interleaved"`` / ``"interleaved_rm"``)
+keep one cache ``k_all [L, NB, 2, Hkv, bs, D]``, a page's K and V
+together; ``v_all`` is then a rank-1 placeholder that threads through:
+- decode: K9 (``rowmajor_tail``: row-major tail pages) or K8;
+- batched prefill: for ``S <= block_size`` K9's or K8's RMW writer, else
+  K9's or K8's full-page writer, then K8's prefill (reading the row-major
+  tail with ``rowmajor_tail``);
+- single-chunk prefill: the batched kernels with P = 1, as in JAX.
+As in JAX, ``rowmajor_tail`` holds only where the JAX package runs its
+kernels, at a head_dim that is a multiple of 128; at another head_dim
+(whose caches JAX writes in canonical pages) the interleaved_rm layout
+runs K8 and keeps canonical pages.
 """
 
 from __future__ import annotations
 
 import torch
 
-from xllm_tpu_torch.ops.cuda.decode_attention import paged_decode_attention_write
+from xllm_tpu_torch.ops.cuda.decode_attention import (
+    paged_decode_attention_write,
+    paged_decode_attention_write_ilv,
+    paged_decode_attention_write_rm,
+)
 from xllm_tpu_torch.ops.cuda.kv_write import (
     kv_write_prefill,
     kv_write_prefill_batched,
+    kv_write_prefill_batched_ilv,
+    kv_write_prefill_batched_rm,
     kv_write_rmw,
     kv_write_rmw_batched,
+    kv_write_rmw_batched_ilv,
+    kv_write_rmw_batched_rm,
 )
 from xllm_tpu_torch.ops.cuda.prefill_attention import (
     paged_attention_prefill,
     paged_attention_prefill_batched,
+    paged_attention_prefill_batched_ilv,
 )
+
+
+def is_interleaved(k_all: torch.Tensor) -> bool:
+    """True for the interleaved cache [L, NB, 2, Hkv, bs, D] (``v_all`` is a
+    rank-1 placeholder)."""
+    return k_all.dim() == 6
+
+
+def _rowmajor(rowmajor_tail: bool, head_dim: int) -> bool:
+    """Row-major tails where the JAX package keeps them: its kernels run at
+    a head_dim that is a multiple of 128, its portable path writes
+    canonical pages."""
+    return rowmajor_tail and head_dim % 128 == 0
 
 
 def decode_attention_write(
@@ -48,8 +81,15 @@ def decode_attention_write(
     seq_lens: torch.Tensor,  # [B] int32 (including current token)
     scale: float,
     window: int = 0,
+    rowmajor_tail: bool = False,  # interleaved_rm: row-major tail pages
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Write each sequence's new K/V row, then attend. -> (out, k, v)."""
+    if is_interleaved(k_all):
+        fn = (paged_decode_attention_write_rm if _rowmajor(rowmajor_tail, q.shape[-1])
+              else paged_decode_attention_write_ilv)
+        out = fn(q, k_new, v_new, k_all, layer_idx, slot_mapping, block_tables, seq_lens,
+                 scale, window)
+        return out, k_all, v_all
     out = paged_decode_attention_write(
         q, k_new, v_new, k_all, v_all, layer_idx, slot_mapping, block_tables,
         seq_lens, scale, window,
@@ -71,11 +111,29 @@ def prefill_attention_write_batched(
     kv_lens: torch.Tensor,  # [P] int32 (0 = padded row)
     scale: float,
     window: int = 0,
+    rowmajor_tail: bool = False,  # interleaved_rm: row-major tail pages
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """P prompt chunks (one per sequence) written + attended. -> (out, k, v)."""
     del slot_mapping
     s = q.shape[1]
     ntoks = kv_lens - q_offsets
+    if is_interleaved(k_all):
+        rm = _rowmajor(rowmajor_tail, q.shape[-1])
+        args = (k_all, layer_idx, block_tables, q_offsets, ntoks)
+        if s <= k_all.shape[4]:
+            if rm:
+                kv_write_rmw_batched_rm(k_new, v_new, *args, kv_lens)
+            else:
+                kv_write_rmw_batched_ilv(k_new, v_new, *args)
+        elif rm:
+            kv_write_prefill_batched_rm(k_new.transpose(1, 2), v_new.transpose(1, 2), *args,
+                                        kv_lens)
+        else:
+            kv_write_prefill_batched_ilv(k_new.transpose(1, 2), v_new.transpose(1, 2), *args)
+        out = paged_attention_prefill_batched_ilv(
+            q, k_all, layer_idx, block_tables, q_offsets, kv_lens, scale, window, rm,
+        )
+        return out, k_all, v_all
     # the writers cast the new rows to the cache dtype (JAX casts them here;
     # an fp8 cache's cast runs inside the kernel, with the same bytes)
     if s <= k_all.shape[3]:
@@ -110,14 +168,17 @@ def prefill_attention_write(
     kv_len: torch.Tensor,  # [] int32
     scale: float,
     window: int = 0,
+    rowmajor_tail: bool = False,  # interleaved_rm: row-major tail pages
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One sequence's prompt chunk written + attended. -> (out, k, v)."""
-    del slot_mapping
-    if k_all.dim() == 6:  # [L, NB, 2, Hkv, bs, D]
-        raise NotImplementedError(
-            "prefill_attention_write: the interleaved KV layouts (kernels K8, K9) "
-            "are not ported yet"
+    if is_interleaved(k_all):  # the batched kernels with P = 1, as in JAX
+        out, k_all, v_all = prefill_attention_write_batched(
+            q[None], k_new[None], v_new[None], k_all, v_all, layer_idx, slot_mapping[None],
+            block_table[None], q_offset.reshape(1), kv_len.reshape(1), scale,
+            window=window, rowmajor_tail=rowmajor_tail,
         )
+        return out[0], k_all, v_all
+    del slot_mapping
     ntok = kv_len - q_offset
     if k_new.shape[0] <= k_all.shape[3]:
         # a chunk of at most one page may start mid-page: token-major writer

@@ -1,5 +1,5 @@
-"""K2, K4 and their single-chunk twins K2b, K4b: paged KV-cache writers
-(``csrc/kv_write.cu``).
+"""K2, K4, their single-chunk twins K2b, K4b, and K8's / K9's writers:
+paged KV-cache writers (``csrc/kv_write.cu``).
 
 One row-scatter kernel serves four contracts through four wrappers, each
 with its own launch counter and plain version:
@@ -28,6 +28,19 @@ counters:
 - ``latent_write_prefill`` (K11f) and ``latent_write_rmw`` (K11g) replace
   ``latent_write_prefill_tpu`` and ``latent_write_rmw_tpu``: the same for
   one chunk ``[S, Dk]``.
+
+The interleaved cache ``[L, NB, 2, Hkv, bs, D]`` (a page's K and V
+together) takes four more, each with its own wrapper, counter and plain
+version: ``kv_write_prefill_batched_ilv`` and ``kv_write_rmw_batched_ilv``
+(K8) replace ``kv_write_prefill_batched_ilv_tpu`` and
+``kv_write_rmw_batched_ilv_tpu``, K2's and K4's row scatter with another
+page stride; ``kv_write_prefill_batched_rm`` and ``kv_write_rmw_batched_rm``
+(K9, ``kv_layout="interleaved_rm"``) replace ``kv_write_prefill_batched_rm_tpu``
+and ``kv_write_rmw_batched_rm_tpu``: a row of a page the sequence does not
+complete (``(page + 1) * bs > kv_len``) goes token-major, to row ``pos %
+bs`` of the page seen as ``[bs, 2 * Hkv, D]`` (K heads, then V heads), and
+a page the chunk completes is written canonical, its earlier token-major
+rows included (the RMW writer's own kernel).
 
 A single-chunk writer is its batched twin's kernel launched with one chunk
 (the contracts are the batched ones at P = 1): ``q_offset`` and ``ntok``
@@ -78,6 +91,14 @@ ONE_LATENT_PREFILL_TPU_KERNEL = (
     "xllm_tpu/ops/pallas/kv_write.py:595 latent_write_prefill_tpu"
 )
 ONE_LATENT_RMW_TPU_KERNEL = "xllm_tpu/ops/pallas/kv_write.py:675 latent_write_rmw_tpu"
+ILV_PREFILL_NAME = "kv_write_prefill_batched_ilv"
+ILV_PREFILL_TPU_KERNEL = "xllm_tpu/ops/pallas/kv_write.py:945 kv_write_prefill_batched_ilv_tpu"
+ILV_RMW_NAME = "kv_write_rmw_batched_ilv"
+ILV_RMW_TPU_KERNEL = "xllm_tpu/ops/pallas/kv_write.py:1059 kv_write_rmw_batched_ilv_tpu"
+RM_PREFILL_NAME = "kv_write_prefill_batched_rm"
+RM_PREFILL_TPU_KERNEL = "xllm_tpu/ops/pallas/kv_write.py:1209 kv_write_prefill_batched_rm_tpu"
+RM_RMW_NAME = "kv_write_rmw_batched_rm"
+RM_RMW_TPU_KERNEL = "xllm_tpu/ops/pallas/kv_write.py:1351 kv_write_rmw_batched_rm_tpu"
 _SOURCE = "kv_write"
 
 
@@ -118,9 +139,14 @@ def _load() -> ctypes.CDLL:
         lib = _build.load(_SOURCE)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.xllm_kv_write_rows.argtypes = [
-            i, p, p, ll, ll, ll, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p,
+            i, p, p, ll, ll, ll, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i,
+            ll, i, p,
         ]
         lib.xllm_kv_write_rows.restype = i
+        lib.xllm_kv_write_rmw_rm.argtypes = [
+            i, p, p, ll, ll, ll, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p,
+        ]
+        lib.xllm_kv_write_rmw_rm.restype = i
         lib.xllm_latent_write_rows.argtypes = [
             i, p, ll, ll, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p,
         ]
@@ -130,24 +156,39 @@ def _load() -> ctypes.CDLL:
 
 
 def _launch(name, k_rows, v_rows, k_all, v_all, layer_idx, block_tables,
-            q_offsets, ntoks, require_aligned: bool) -> None:
+            q_offsets, ntoks, require_aligned: bool, kv_lens=None,
+            rmw_rm: bool = False) -> None:
     """k_rows / v_rows: token-major views [P, S, Hkv, D] with unit stride
-    in D (a head-major input arrives as a transposed view)."""
+    in D (a head-major input arrives as a transposed view). ``v_all``
+    None: ``k_all`` is the interleaved cache [L, NB, 2, Hkv, bs, D]; with
+    ``kv_lens`` its row-major tails are kept (K9), by the row scatter or,
+    with ``rmw_rm``, by the RMW kernel that rewrites completed pages."""
     p, s, hkv, d = k_rows.shape
-    nl, nb, hkv_c, bs, d_c = k_all.shape
+    if v_all is None:
+        if k_all.dim() != 6 or k_all.shape[2] != 2:
+            raise ValueError(f"{name}: the cache must be [L, NB, 2, Hkv, bs, D], not "
+                             f"{tuple(k_all.shape)}")
+        nl, nb, _, hkv_c, bs, d_c = k_all.shape
+        page, v_base, v_off = 2 * hkv_c * bs * d_c, k_all, hkv_c * bs * d_c
+    else:
+        nl, nb, hkv_c, bs, d_c = k_all.shape
+        page, v_base, v_off = hkv_c * bs * d_c, v_all, 0
+        if k_all.dtype != v_all.dtype or not v_all.is_contiguous():
+            raise ValueError(f"{name}: K and V caches must share a dtype and be contiguous")
     dtype = _build.dtype_code(k_all.dtype)
     if (hkv, d) != (hkv_c, d_c) or v_rows.shape != k_rows.shape:
         raise ValueError(f"{name}: rows {tuple(k_rows.shape)} vs cache {tuple(k_all.shape)}")
-    if not (k_all.is_contiguous() and v_all.is_contiguous()):
+    if not k_all.is_contiguous():
         raise ValueError(f"{name}: caches must be contiguous")
-    for t in (block_tables, q_offsets, ntoks):
+    index = (block_tables, q_offsets, ntoks) + ((kv_lens,) if kv_lens is not None else ())
+    for t in index:
         if t.dtype != torch.int32 or not t.is_contiguous() or t.device != k_all.device:
             raise ValueError(f"{name}: index arrays must be contiguous int32 on {k_all.device}")
-    if k_rows.dtype != v_rows.dtype or k_all.dtype != v_all.dtype:
-        raise ValueError(f"{name}: K and V rows (and caches) must share a dtype")
+    if k_rows.dtype != v_rows.dtype:
+        raise ValueError(f"{name}: K and V rows must share a dtype")
     if not (k_all.dtype == torch.float8_e4m3fn
             and k_rows.dtype in (torch.bfloat16, torch.float32)):
-        k_rows, v_rows = k_rows.to(k_all.dtype), v_rows.to(v_all.dtype)
+        k_rows, v_rows = k_rows.to(k_all.dtype), v_rows.to(k_all.dtype)
     if k_rows.stride(3) != 1 or k_rows.stride() != v_rows.stride():
         k_rows = k_rows.contiguous()
         v_rows = v_rows.contiguous()
@@ -155,15 +196,28 @@ def _launch(name, k_rows, v_rows, k_all, v_all, layer_idx, block_tables,
         return
     lib = _load()
     sp, ss, sh, _ = k_rows.stride()
-    _build.count_launch(name)
-    err = lib.xllm_kv_write_rows(
-        k_all.device.index or 0, _build.ptr(k_rows), _build.ptr(v_rows),
-        sp, ss, sh, _build.ptr(k_all), _build.ptr(v_all),
-        _build.ptr(block_tables), _build.ptr(q_offsets), _build.ptr(ntoks),
-        _build.dtype_code(k_rows.dtype), dtype, p, s, int(layer_idx), nb, hkv, bs, d,
-        block_tables.shape[1],
-        int(require_aligned), _build.stream_of(k_all),
-    )
+    dev = k_all.device.index or 0
+    v_ptr = ctypes.c_void_p(v_base.data_ptr() + v_off * v_base.element_size())
+    src = _build.dtype_code(k_rows.dtype)
+    lens = _build.ptr(kv_lens) if kv_lens is not None else ctypes.c_void_p(0)
+    if rmw_rm:
+        # a completed page is staged here before its canonical rewrite
+        scratch = torch.empty((p, page), dtype=k_all.dtype, device=k_all.device)
+        _build.count_launch(name)
+        err = lib.xllm_kv_write_rmw_rm(
+            dev, _build.ptr(k_rows), _build.ptr(v_rows), sp, ss, sh, _build.ptr(k_all),
+            _build.ptr(block_tables), _build.ptr(q_offsets), _build.ptr(ntoks), lens,
+            _build.ptr(scratch), src, dtype, p, s, int(layer_idx), nb, hkv, bs, d,
+            block_tables.shape[1], _build.stream_of(k_all),
+        )
+    else:
+        _build.count_launch(name)
+        err = lib.xllm_kv_write_rows(
+            dev, _build.ptr(k_rows), _build.ptr(v_rows), sp, ss, sh, _build.ptr(k_all),
+            v_ptr, _build.ptr(block_tables), _build.ptr(q_offsets), _build.ptr(ntoks),
+            lens, src, dtype, p, s, int(layer_idx), nb, hkv, bs, d, block_tables.shape[1],
+            int(require_aligned), page, int(kv_lens is not None), _build.stream_of(k_all),
+        )
     _build.check(lib, err, name)
 
 
@@ -285,6 +339,138 @@ def kv_write_rmw(
         _launch(ONE_RMW_NAME, kt[None], vt[None], k_all, v_all, layer_idx,
                 *_one_chunk(block_table, q_offset, ntok), require_aligned=False)
     return k_all, v_all
+
+
+# ---------------------------------------------------------------------------
+# K8 + K9: the interleaved cache [L, NB, 2, Hkv, bs, D]
+# ---------------------------------------------------------------------------
+def kv_write_rm_plain(
+    k_rows: torch.Tensor,  # [P, S, Hkv, D] token-major (any strides)
+    v_rows: torch.Tensor,
+    kv_all: torch.Tensor,  # [L, NB, 2, Hkv, bs, D], updated in place
+    layer_idx: int,
+    block_tables: torch.Tensor,  # [P, NBmax] int32
+    q_offsets: torch.Tensor,  # [P] int32
+    ntoks: torch.Tensor,  # [P] int32 (0 = padded row)
+    kv_lens: torch.Tensor,  # [P] int32 the sequence's length after the chunk
+) -> None:
+    """Plain PyTorch version of the row-major-tail writers: each valid row
+    goes token-major to row ``pos % bs`` of its page seen as ``[bs, 2 * Hkv,
+    D]`` (K heads, then V heads); then every page the chunk wrote that the
+    sequence completes (``(page + 1) * bs <= kv_len``) is rewritten
+    canonical, the rows written before the chunk included."""
+    p, s, hkv, d = k_rows.shape
+    bs = kv_all.shape[4]
+    j = torch.arange(s, device=k_rows.device)
+    valid = j[None, :] < ntoks.long()[:, None]  # [P, S]
+    pos = q_offsets.long()[:, None] + j[None, :]
+    page = torch.where(valid, pos // bs, 0)
+    blk = torch.gather(block_tables.long(), 1, page)
+    done = (valid & ((page + 1) * bs <= kv_lens.long()[:, None]))
+    rows = torch.cat([cast_to(k_rows[valid], kv_all.dtype),
+                      cast_to(v_rows[valid], kv_all.dtype)], dim=1)  # [N, 2 * Hkv, D]
+    cache = kv_all
+    if _build.is_quantized(kv_all.dtype):  # write the bytes
+        cache, rows = kv_all.view(torch.uint8), rows.view(torch.uint8)
+    layer = int(layer_idx)
+    tok = cache.view(*cache.shape[:2], bs, 2 * hkv, d)  # every page token-major
+    tok[layer, blk[valid], (pos % bs)[valid]] = rows
+    full = torch.unique(blk[done])
+    cache[layer, full] = tok[layer, full].transpose(1, 2).reshape(-1, 2, hkv, bs, d)
+
+
+def kv_write_prefill_batched_ilv(
+    kt: torch.Tensor,  # [P, Hkv, S, D] head-major new K per chunk
+    vt: torch.Tensor,
+    kv_all: torch.Tensor,  # [L, NB, 2, Hkv, bs, D], updated in place
+    layer_idx: int,
+    block_tables: torch.Tensor,  # [P, NBmax] int32
+    q_offsets: torch.Tensor,  # [P] int32, page-aligned
+    ntoks: torch.Tensor,  # [P] int32 (0 = padded row)
+) -> torch.Tensor:
+    """K8, replaces ``kv_write_prefill_batched_ilv_tpu`` (whose ``kvt [P,
+    2, Hkv, S, D]`` is ``(kt, vt)`` stacked): K2 on the interleaved cache.
+    -> kv_all, updated in place."""
+    k_rows, v_rows = kt.transpose(1, 2), vt.transpose(1, 2)  # views
+    if kv_all.device.type == "cpu":
+        _assert_aligned(q_offsets, ntoks, kv_all.shape[4])
+        kv_write_rows_plain(k_rows, v_rows, kv_all[:, :, 0], kv_all[:, :, 1], layer_idx,
+                            block_tables, q_offsets, ntoks)
+    else:
+        _launch(ILV_PREFILL_NAME, k_rows, v_rows, kv_all, None, layer_idx, block_tables,
+                q_offsets, ntoks, require_aligned=True)
+    return kv_all
+
+
+def kv_write_rmw_batched_ilv(
+    kt: torch.Tensor,  # [P, S, Hkv, D] token-major, S <= block_size
+    vt: torch.Tensor,
+    kv_all: torch.Tensor,
+    layer_idx: int,
+    block_tables: torch.Tensor,  # [P, NBmax] int32
+    q_offsets: torch.Tensor,  # [P] int32, any alignment
+    ntoks: torch.Tensor,  # [P] int32 (0 = padded row)
+) -> torch.Tensor:
+    """K8, replaces ``kv_write_rmw_batched_ilv_tpu``: K4 on the interleaved
+    cache. -> kv_all, updated in place."""
+    if kt.shape[1] > kv_all.shape[4]:
+        raise ValueError("RMW writer covers chunks of at most one page")
+    if kv_all.device.type == "cpu":
+        kv_write_rows_plain(kt, vt, kv_all[:, :, 0], kv_all[:, :, 1], layer_idx,
+                            block_tables, q_offsets, ntoks)
+    else:
+        _launch(ILV_RMW_NAME, kt, vt, kv_all, None, layer_idx, block_tables, q_offsets,
+                ntoks, require_aligned=False)
+    return kv_all
+
+
+def kv_write_prefill_batched_rm(
+    kt: torch.Tensor,  # [P, Hkv, S, D] head-major new K per chunk
+    vt: torch.Tensor,
+    kv_all: torch.Tensor,
+    layer_idx: int,
+    block_tables: torch.Tensor,  # [P, NBmax] int32
+    q_offsets: torch.Tensor,  # [P] int32, page-aligned
+    ntoks: torch.Tensor,  # [P] int32 (0 = padded row)
+    kv_lens: torch.Tensor,  # [P] int32
+) -> torch.Tensor:
+    """K9, replaces ``kv_write_prefill_batched_rm_tpu`` (whose head-major
+    ``kvt`` and token-major ``kvt_tok [P, S, 2 * Hkv, D]`` are both ``(kt,
+    vt)`` read another way): pages the sequence completes are written
+    canonical, its final incomplete page token-major. -> kv_all, in place."""
+    k_rows, v_rows = kt.transpose(1, 2), vt.transpose(1, 2)  # views
+    if kv_all.device.type == "cpu":
+        _assert_aligned(q_offsets, ntoks, kv_all.shape[4])
+        kv_write_rm_plain(k_rows, v_rows, kv_all, layer_idx, block_tables, q_offsets,
+                          ntoks, kv_lens)
+    else:
+        _launch(RM_PREFILL_NAME, k_rows, v_rows, kv_all, None, layer_idx, block_tables,
+                q_offsets, ntoks, require_aligned=True, kv_lens=kv_lens)
+    return kv_all
+
+
+def kv_write_rmw_batched_rm(
+    kt: torch.Tensor,  # [P, S, Hkv, D] token-major, S <= block_size
+    vt: torch.Tensor,
+    kv_all: torch.Tensor,
+    layer_idx: int,
+    block_tables: torch.Tensor,  # [P, NBmax] int32
+    q_offsets: torch.Tensor,  # [P] int32, any alignment
+    ntoks: torch.Tensor,  # [P] int32 (0 = padded row)
+    kv_lens: torch.Tensor,  # [P] int32
+) -> torch.Tensor:
+    """K9, replaces ``kv_write_rmw_batched_rm_tpu``: rows merge into their
+    page's token-major content; a page the sequence completes is rewritten
+    canonical. -> kv_all, updated in place."""
+    if kt.shape[1] > kv_all.shape[4]:
+        raise ValueError("RMW writer covers chunks of at most one page")
+    if kv_all.device.type == "cpu":
+        kv_write_rm_plain(kt, vt, kv_all, layer_idx, block_tables, q_offsets, ntoks,
+                          kv_lens)
+    else:
+        _launch(RM_RMW_NAME, kt, vt, kv_all, None, layer_idx, block_tables, q_offsets,
+                ntoks, require_aligned=False, kv_lens=kv_lens, rmw_rm=True)
+    return kv_all
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""K3 and K3b: causal flash attention over paged KV (``csrc/prefill_attention.cu``).
+"""K3, K3b and K8's prefill: causal flash attention over paged KV (``csrc/prefill_attention.cu``).
 
 - ``paged_attention_prefill_batched`` (K3) replaces
   ``xllm_tpu/ops/pallas/prefill_attention.py``
@@ -25,6 +25,16 @@ codes or float8_e4m3fn upcast to bf16; q and the output stay bf16 or f32),
 as in the TPU kernel, in the kernel and its plain version alike: the
 unnormalised P of each page against the running maximum after that page.
 
+- ``paged_attention_prefill_batched_ilv`` (K8) replaces
+  ``paged_attention_prefill_batched_ilv_tpu``: K3 on the interleaved cache
+  ``[L, NB, 2, Hkv, bs, D]``, launched as K3's kernel with another page
+  stride and V offset. With ``rowmajor_tail`` (``kv_layout=
+  "interleaved_rm"``, K9's layout) a sequence's final incomplete page is
+  read from its token-major content (``[bs, 2 * Hkv, D]``: K heads, then
+  V heads); it is the walk's last page, so the rounding is K3's. The
+  single-chunk passes of the interleaved layouts run this kernel with P =
+  1, as the JAX package runs its batched kernels.
+
 Bound on the card: operations for long chunks (S = 2048), bytes for
 short ragged ones; see the CUDA source.
 """
@@ -46,6 +56,11 @@ ONE_NAME = "prefill_attention"
 ONE_TPU_KERNEL = (
     "xllm_tpu/ops/pallas/prefill_attention.py:390 paged_attention_prefill_tpu"
 )
+ILV_NAME = "prefill_attention_batched_ilv"
+ILV_TPU_KERNEL = (
+    "xllm_tpu/ops/pallas/prefill_attention.py:628 "
+    "paged_attention_prefill_batched_ilv_tpu"
+)
 _SOURCE = "prefill_attention"
 _MAX_GROUP = 64  # query rows per block in the kernel
 _TILE = 64  # KV positions per shared-memory tile in the kernel
@@ -64,17 +79,26 @@ def paged_attention_prefill_batched_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same zeros for rows without a
     real token)."""
-    p, s, hq, d = q.shape
-    hkv = k_all.shape[2]
+    p, d, hkv = q.shape[0], q.shape[3], k_all.shape[2]
     layer = int(layer_idx)
     bt = block_tables.long()
     k = k_all[layer][bt].float()  # [P, NB, Hkv, bs, D]
     v = v_all[layer][bt].float()
     k = k.permute(0, 2, 1, 3, 4).reshape(p, hkv, -1, d)
     v = v.permute(0, 2, 1, 3, 4).reshape(p, hkv, -1, d)
+    return _prefill_plain(q, k, v, k_all.dtype, k_all.shape[3], q_offsets, kv_lens,
+                          scale, window)
+
+
+def _prefill_plain(q, k, v, cache_dtype, bs: int, q_offsets, kv_lens, scale,
+                   window) -> torch.Tensor:
+    """The kernel's arithmetic over the gathered pages of each chunk, k / v
+    [P, Hkv, NBmax * bs, D] in f32 (cached values) -> [P, S, Hq, D]."""
+    p, s, hq, d = q.shape
+    hkv = k.shape[1]
     # q in the kernel's working dtype (the cache's, or q's own on a
     # quantized cache)
-    work = q.dtype if _build.is_quantized(k_all.dtype) else k_all.dtype
+    work = q.dtype if _build.is_quantized(cache_dtype) else cache_dtype
     qg = q.to(work).float().reshape(p, s, hkv, hq // hkv, d)
     scores = torch.einsum("pqkgd,pksd->pkgqs", qg, k) * scale
     q_pos = q_offsets.long()[:, None] + torch.arange(s, device=q.device)  # [P, S]
@@ -87,7 +111,7 @@ def paged_attention_prefill_batched_plain(
     live = q_pos < kv_lens.long()[:, None]  # rows holding a real token
     mask = mask & live[:, :, None]
     scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
-    if k_all.dtype == torch.float32:
+    if cache_dtype == torch.float32:
         probs = torch.nan_to_num(torch.softmax(scores, dim=-1))
         out = torch.einsum("pkgqs,pksd->pqkgd", probs, v).reshape(p, s, hq, d)
         return out.to(q.dtype)
@@ -95,7 +119,6 @@ def paged_attention_prefill_batched_plain(
     # rounds it: against the running maximum after each page. Page i's P.V
     # then carries the weight exp(m_i - m_last) that the kernel's later
     # rescales give it; l sums the unrounded P.
-    bs = k_all.shape[3]
     paged = scores.unflatten(-1, (-1, bs))  # [P, Hkv, G, S, pages, bs]
     m_run = torch.cummax(paged.amax(-1), dim=-1).values  # [P, Hkv, G, S, NB]
     seen = torch.isfinite(m_run)
@@ -110,6 +133,35 @@ def paged_attention_prefill_batched_plain(
     return out.to(q.dtype)
 
 
+def paged_attention_prefill_batched_ilv_plain(
+    q: torch.Tensor,  # [P, S, Hq, D]
+    kv_all: torch.Tensor,  # [L, NB, 2, Hkv, bs, D]
+    layer_idx: int,
+    block_tables: torch.Tensor,  # [P, NBmax] int32
+    q_offsets: torch.Tensor,  # [P] int32
+    kv_lens: torch.Tensor,  # [P] int32 (0 = padded row)
+    scale: float,
+    window: int = 0,
+    rowmajor_tail: bool = False,
+) -> torch.Tensor:
+    """Plain PyTorch version of K8's prefill: K3's arithmetic over the
+    interleaved cache; with ``rowmajor_tail`` (K9's layout) a sequence's
+    final incomplete page (``kv_len % bs != 0``) is read from its
+    token-major content."""
+    p = q.shape[0]
+    _, _, _, hkv, bs, d = kv_all.shape
+    pages = kv_all[int(layer_idx)][block_tables.long()].float()  # [P, NB, 2, Hkv, bs, D]
+    if rowmajor_tail:
+        kvl = kv_lens.long()
+        rows = torch.arange(p, device=q.device)[kvl % bs != 0]
+        last = (kvl // bs)[kvl % bs != 0]
+        tail = pages[rows, last].reshape(-1, bs, 2 * hkv, d)
+        pages[rows, last] = tail.permute(0, 2, 1, 3).reshape(-1, 2, hkv, bs, d)
+    k = pages[:, :, 0].permute(0, 2, 1, 3, 4).reshape(p, hkv, -1, d)
+    v = pages[:, :, 1].permute(0, 2, 1, 3, 4).reshape(p, hkv, -1, d)
+    return _prefill_plain(q, k, v, kv_all.dtype, bs, q_offsets, kv_lens, scale, window)
+
+
 _lib = None
 
 
@@ -120,7 +172,7 @@ def _load() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.xllm_prefill_attention.argtypes = [
             i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i,
-            ctypes.c_float, i, p,
+            ctypes.c_float, i, ctypes.c_longlong, i, p,
         ]
         lib.xllm_prefill_attention.restype = i
         _lib = lib
@@ -161,8 +213,8 @@ def paged_attention_prefill(
         return paged_attention_prefill_plain(
             q, k_all, v_all, layer_idx, block_table, q_offset, kv_len, scale, window,
         )
-    return _launch(ONE_NAME, q[None], k_all, v_all, layer_idx, block_table[None],
-                   q_offset.reshape(1), kv_len.reshape(1), scale, window)[0]
+    return _launch_split(ONE_NAME, q[None], k_all, v_all, layer_idx, block_table[None],
+                         q_offset.reshape(1), kv_len.reshape(1), scale, window)[0]
 
 
 def paged_attention_prefill_batched(
@@ -182,30 +234,72 @@ def paged_attention_prefill_batched(
             q, k_all, v_all, layer_idx, block_tables, q_offsets, kv_lens,
             scale, window,
         )
-    return _launch(NAME, q, k_all, v_all, layer_idx, block_tables, q_offsets, kv_lens,
-                   scale, window)
+    return _launch_split(NAME, q, k_all, v_all, layer_idx, block_tables, q_offsets,
+                         kv_lens, scale, window)
 
 
-def _launch(name, q, k_all, v_all, layer_idx, block_tables, q_offsets, kv_lens,
-            scale, window) -> torch.Tensor:
-    """K3's kernel over P chunks, counted under ``name`` -> [P, S, Hq, D]."""
+def paged_attention_prefill_batched_ilv(
+    q: torch.Tensor,
+    kv_all: torch.Tensor,
+    layer_idx: int,
+    block_tables: torch.Tensor,
+    q_offsets: torch.Tensor,
+    kv_lens: torch.Tensor,
+    scale: float,
+    window: int = 0,
+    rowmajor_tail: bool = False,
+) -> torch.Tensor:
+    """K8 (and, with ``rowmajor_tail``, K9's prefill) -> out [P, S, Hq, D]
+    in q's dtype."""
+    if q.device.type == "cpu":
+        return paged_attention_prefill_batched_ilv_plain(
+            q, kv_all, layer_idx, block_tables, q_offsets, kv_lens, scale, window,
+            rowmajor_tail,
+        )
+    if kv_all.dim() != 6 or kv_all.shape[2] != 2:
+        raise ValueError(f"{ILV_NAME}: the cache must be [L, NB, 2, Hkv, bs, D], not "
+                         f"{tuple(kv_all.shape)}")
+    if not kv_all.is_contiguous():
+        raise ValueError(f"{ILV_NAME}: the cache must be contiguous")
+    _, nb, _, hkv, bs, d = kv_all.shape
+    return _launch(ILV_NAME, q, kv_all, kv_all, hkv * bs * d, nb, hkv, bs, d,
+                   2 * hkv * bs * d, rowmajor_tail, layer_idx, block_tables, q_offsets,
+                   kv_lens, scale, window)
+
+
+def _launch_split(name, q, k_all, v_all, layer_idx, block_tables, q_offsets, kv_lens,
+                  scale, window) -> torch.Tensor:
+    """K3's kernel over the split cache, counted under ``name``."""
+    nl, nb, hkv, bs, d = k_all.shape
+    if v_all.shape != k_all.shape:
+        raise ValueError(f"{name}: caches {tuple(k_all.shape)} vs {tuple(v_all.shape)}")
+    if not (k_all.is_contiguous() and v_all.is_contiguous()):
+        raise ValueError(f"{name}: caches must be contiguous")
+    return _launch(name, q, k_all, v_all, 0, nb, hkv, bs, d, hkv * bs * d, False,
+                   layer_idx, block_tables, q_offsets, kv_lens, scale, window)
+
+
+def _launch(name, q, k_base, v_base, v_off: int, nb: int, hkv: int, bs: int,
+            d_cache: int, page: int, rm: bool, layer_idx, block_tables, q_offsets,
+            kv_lens, scale, window) -> torch.Tensor:
+    """K3's kernel over P chunks, counted under ``name`` -> [P, S, Hq, D]:
+    K at ``k_base``, V ``v_off`` elements into ``v_base``, ``page``
+    elements from one (layer, block) page to the next, row-major tails if
+    ``rm``."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     p, s, hq, d = q.shape
-    nl, nb, hkv, bs, d_cache = k_all.shape
     _build.check_head_dim(d)
-    dtype = _build.dtype_code(k_all.dtype)
+    dtype = _build.dtype_code(k_base.dtype)
     # q and the output in the cache dtype; on a quantized cache in q's own
-    work = q.dtype if _build.is_quantized(k_all.dtype) else k_all.dtype
+    work = q.dtype if _build.is_quantized(k_base.dtype) else k_base.dtype
     qtype = _build.dtype_code(work)
     if _build.is_quantized(work):
         raise ValueError(f"{name}: q must be bfloat16 or float32, not {q.dtype}")
-    if d_cache != d or hq % hkv or v_all.shape != k_all.shape:
-        raise ValueError(f"{name}: q {tuple(q.shape)} vs cache {tuple(k_all.shape)}")
+    if d_cache != d or hq % hkv:
+        raise ValueError(f"{name}: q {tuple(q.shape)} vs cache {tuple(k_base.shape)}")
     if hq // hkv > _MAX_GROUP:
         raise NotImplementedError(f"{name}: more than {_MAX_GROUP} query heads per kv head")
-    if not (k_all.is_contiguous() and v_all.is_contiguous()):
-        raise ValueError(f"{name}: caches must be contiguous")
     for t in (block_tables, q_offsets, kv_lens):
         if t.dtype != torch.int32 or not t.is_contiguous() or t.device != q.device:
             raise ValueError(f"{name}: index arrays must be contiguous int32 on {q.device}")
@@ -220,11 +314,12 @@ def _launch(name, q, k_all, v_all, layer_idx, block_tables, q_offsets, kv_lens,
     lib = _load()
     _build.count_launch(name)
     err = lib.xllm_prefill_attention(
-        q.device.index or 0, _build.ptr(qk), _build.ptr(k_all),
-        _build.ptr(v_all), _build.ptr(block_tables), _build.ptr(q_offsets),
+        q.device.index or 0, _build.ptr(qk), _build.ptr(k_base),
+        ctypes.c_void_p(v_base.data_ptr() + v_off * v_base.element_size()),
+        _build.ptr(block_tables), _build.ptr(q_offsets),
         _build.ptr(kv_lens), _build.ptr(out), dtype, qtype, d, p, s, int(layer_idx),
         nb, hkv, bs, block_tables.shape[1], hq // hkv, float(scale),
-        int(window), _build.stream_of(q),
+        int(window), page, int(rm), _build.stream_of(q),
     )
     _build.check(lib, err, name)
     return out.to(q.dtype)

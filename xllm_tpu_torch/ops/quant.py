@@ -131,7 +131,9 @@ def calibrate_kv_scales(engine, prompts: list[list[int]], margin: float = 1.25):
     Runs the prompts through a full-precision-KV engine, reduces the live
     cache to the absmax of each (layer, kv head) and returns ``(s_k, s_v)``
     as [L, Hkv] float32 numpy arrays, ``scale = amax * margin / 127``, for
-    ``ModelRunner.set_kv_scales`` of an int8-KV engine. Split layout only.
+    ``ModelRunner.set_kv_scales`` of an int8-KV engine. The interleaved
+    cache [L, NB, 2, Hkv, bs, D] reduces its K and V halves, as in JAX (a
+    row-major tail page's rows fall under the halves its bytes sit in).
     """
     from xllm_tpu_torch.framework.sampling_params import SamplingParams
 
@@ -141,8 +143,10 @@ def calibrate_kv_scales(engine, prompts: list[list[int]], margin: float = 1.25):
             "calibrate on a full-precision-KV engine (kv_cache_dtype "
             "auto/bfloat16/float32), then install the scales on the int8 engine"
         )
-    if runner.k_cache.ndim != 5 or runner.k_cache.shape != runner.v_cache.shape:
-        raise NotImplementedError("KV-scale calibration covers the split GQA cache")
+    interleaved = runner.k_cache.ndim == 6
+    if not interleaved and (runner.k_cache.ndim != 5
+                            or runner.k_cache.shape != runner.v_cache.shape):
+        raise NotImplementedError("KV-scale calibration covers the paged GQA cache layouts")
     sp = SamplingParams(temperature=0.0, max_tokens=1, ignore_eos=True)
     for i, ids in enumerate(prompts):
         engine.add_request(prompt_token_ids=list(ids), sampling_params=sp,
@@ -152,7 +156,10 @@ def calibrate_kv_scales(engine, prompts: list[list[int]], margin: float = 1.25):
     def amax(cache):  # [L, NB, Hkv, bs, D] -> [L, Hkv]
         return cache.float().abs().amax(dim=(1, 3, 4)).cpu().numpy()
 
-    ak, av = amax(runner.k_cache), amax(runner.v_cache)
+    if interleaved:
+        ak, av = amax(runner.k_cache[:, :, 0]), amax(runner.k_cache[:, :, 1])
+    else:
+        ak, av = amax(runner.k_cache), amax(runner.v_cache)
     s_k = np.maximum(ak * margin / 127.0, 1e-6).astype(np.float32)
     s_v = np.maximum(av * margin / 127.0, 1e-6).astype(np.float32)
     return s_k, s_v

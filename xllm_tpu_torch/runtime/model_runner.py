@@ -64,9 +64,9 @@ def reject_unported(config: EngineConfig) -> None:
     """Knobs whose code paths are not ported yet raise instead of
     degrading quietly."""
     c = config
-    if c.cache.kv_layout != "split":
-        raise NotImplementedError(
-            f"kv_layout={c.cache.kv_layout!r}: only the split layout is ported"
+    if c.cache.kv_layout not in ("split", "interleaved", "interleaved_rm"):
+        raise ValueError(
+            f"kv_layout={c.cache.kv_layout!r}: one of split, interleaved, interleaved_rm"
         )
     if c.quant.method not in ("", "int8", "fp8_e4m3"):
         raise ValueError(f"quant.method={c.quant.method!r}: one of '', int8, fp8_e4m3")
@@ -228,14 +228,40 @@ class ModelRunner:
         if kv_dtype == torch.int8 and self.model.kv_scales is None:
             cc = self.config.cache
             self.model.set_kv_scales(cc.kv_scale_k, cc.kv_scale_v)
+        self.model.kv_layout = self.resolve_kv_layout(kv_dtype)
         self.k_cache, self.v_cache = self.model.new_kv_cache(
             self.num_blocks, self.block_size, kv_dtype
         )
         logger.info(
-            "KV cache: %d blocks x %d tokens (%s, %s)",
-            self.num_blocks, self.block_size, kv_dtype, self.device,
+            "KV cache: %d blocks x %d tokens (%s, %s, %s layout)",
+            self.num_blocks, self.block_size, kv_dtype, self.device, self.model.kv_layout,
         )
         return self.num_blocks
+
+    def resolve_kv_layout(self, kv_dtype: torch.dtype) -> str:
+        """The cache layout served for ``cache.kv_layout``, by the JAX
+        runner's rules: a family without ``supports_interleaved_kv`` (MLA)
+        keeps split, with a warning; ``interleaved_rm`` becomes plain
+        ``interleaved`` for an int8 cache, or when ``2 * Hkv`` is not a
+        multiple of 16 or does not divide ``block_size`` (its token-major
+        row of ``[2 * Hkv, D]`` must tile the TPU page). The port's kernels
+        have no such tile rule; the rules stay because the layout decides
+        the cache's bytes, which another JAX or CUDA node may read."""
+        layout = self.config.cache.kv_layout
+        if not layout.startswith("interleaved"):
+            return layout
+        if not self.model.supports_interleaved_kv:
+            logger.warning("kv_layout=%s unsupported for %s; using split", layout,
+                           type(self.model).__name__)
+            return "split"
+        two_h = 2 * self.config.model.num_kv_heads
+        if layout == "interleaved_rm" and (
+            two_h % 16 or self.block_size % two_h or kv_dtype == torch.int8
+        ):
+            logger.info("kv_layout=interleaved_rm ineligible (int8 KV or head/page "
+                        "tiling); using interleaved")
+            return "interleaved"
+        return layout
 
     def _resolve_kv_dtype(self) -> torch.dtype:
         """The cache's storage dtype. int8 holds codes whose per-head scales
