@@ -122,10 +122,32 @@ phase raises on failure, so a non-zero exit means a phase failed:
    interleaved; scores and embeddings too), int8 qwen3 on interleaved and
    fp8-KV qwen3 on
    interleaved_rm, each asserting its resolved layout.
+10. grammar: the decode functions ``XLLM_DECODE_KERNEL`` selects, each as
+   ``ops/attention.resolve_decode_kernel`` resolves its name: K1b (v5),
+   K12a-g (v1, v3, v4, v6, v7, v8c2, v10t2) and the tile instances v9t2,
+   v9t3 (K1), v11t2 (K8) and v12t2 (K9) against their plain versions at
+   qwen3-1.7B's heads, block_size 16, 32, 64 and 128, bf16 / int8 / fp8
+   caches (bf16 q) and f32 / fp8 ones (f32 q), with and without a window
+   (v1 takes none), on grid inputs within ``TOL`` at every output, caches
+   byte-equal, padded rows zeros, three launches in a row (K9: one, its
+   completed pages move); each timed at K1's shapes beside its plain
+   version, SDPA and its bound, K1 (v9t4) in the same call. Then the
+   backend rules (fault F5): at head_dim 64, and under
+   ``XLLM_ATTENTION_BACKEND=ref`` at 128, decode and prefill launch no
+   kernel and give JAX's portable function; ``interpret`` raises on a CUDA
+   tensor;
+11. grammar engines: the qwen3-1.7B engine (full width and depth) serves
+   16 greedy requests x 32 tokens under each of v5, v1, v3, v4, v6, v7,
+   v8c2, v10t2 and v9t2 (one engine, the variable switched between runs),
+   and on an interleaved and an interleaved_rm engine under v11t2 and
+   v12t2: every decode pass launches the name's kernel once per layer and
+   no other decode kernel (K1 only under v9*); card = CPU greedy tokens on
+   the f32 parity qwen3 under each name, and at head_dim 64 (no attention
+   kernel launched: fault F5).
 
 ``python3 chip_smoke.py --phases kernels`` (a comma list of build, kernels,
-qkernels, engines, quant, parity, layouts, layout-engines) runs a subset
-and prints no result line.
+qkernels, engines, quant, parity, layouts, layout-engines, grammar,
+grammar-engines) runs a subset and prints no result line.
 
 The line before the last is ``{"kernels": [...]}`` (errors, times, bounds
 and launch counts); the last line is ``{"ok": true, "device": {...}}``.
@@ -156,13 +178,14 @@ from xllm_tpu_torch.config import (
 from xllm_tpu_torch.engine import LLMEngine
 from xllm_tpu_torch.framework.sampling_params import SamplingParams
 from xllm_tpu_torch.ops.cuda import _build
-from xllm_tpu_torch.ops import moe
+from xllm_tpu_torch.ops import attention, attention_ref, moe
 from xllm_tpu_torch.ops.cuda import decode_attention as k1
 from xllm_tpu_torch.ops.cuda import gmm as k10
 from xllm_tpu_torch.ops.cuda import kv_write as k24
 from xllm_tpu_torch.ops.cuda import mla_attention as k11
 from xllm_tpu_torch.ops.cuda import prefill_attention as k3
 from xllm_tpu_torch.ops.cuda import quant_matmul as qmm
+from xllm_tpu_torch.ops.kv_cache_ops import write_kv
 from xllm_tpu_torch.ops.quant import quantize_fp8, to_e4m3
 from xllm_tpu_torch.ops.rope import rope_mscale
 from xllm_tpu_torch.runtime.model_runner import ModelRunner
@@ -2032,11 +2055,13 @@ def gathered(kv, l, idx, half, dtype):
 
 
 def check_ilv_decode(rng, dev, g, dtype, cache, rm: bool, bs: int = BS, lens=ILV_LENS,
-                     contiguous: bool = False, window: int = 0, timed: bool = False) -> dict:
+                     contiguous: bool = False, window: int = 0, timed: bool = False,
+                     tile: int = 4) -> dict:
     """K8, or K9 with ``rm``, against its plain version on grid inputs (q and
     K on the grid, a power-of-two scale) within ``TOL`` at every output; the
     caches byte-equal after the call (K9's new rows token-major, its
-    completed pages canonical); padded rows zeros."""
+    completed pages canonical); padded rows zeros. ``tile``: the pages of
+    its rounding tile (``XLLM_DECODE_KERNEL=v11tT`` / ``v12tT``)."""
     kernel, plain = ilv_decode_fns(rm)
     nbmax = 4096 // bs
     bt, nb = ilv_tables(rng, lens, bs, nbmax, contiguous)
@@ -2051,11 +2076,11 @@ def check_ilv_decode(rng, dev, g, dtype, cache, rm: bool, bs: int = BS, lens=ILV
               for i, n in enumerate(lens)], dev)
     btt, sl, scale = i32(bt, dev), i32(lens, dev), grid_scale(cache)
     kk, kp = kc.clone(), kc.clone()
-    out = kernel(q, kn, vn, kk, 1, sm, btt, sl, scale, window)
-    ref = plain(q, kn, vn, kp, 1, sm, btt, sl, scale, window)
+    out = kernel(q, kn, vn, kk, 1, sm, btt, sl, scale, window, tile)
+    ref = plain(q, kn, vn, kp, 1, sm, btt, sl, scale, window, tile)
     sync()
     what = (f"{ilv_name('decode', rm)} {dtype} cache {cache or dtype} bs {bs} window {window}"
-            f"{' contiguous pages' if contiguous else ''}")
+            f" tile {tile}{' contiguous pages' if contiguous else ''}")
     err = check_close(out, ref, what)
     assert same_bytes(kk, kp), f"{what}: caches differ"
     assert not out[[i for i, n in enumerate(lens) if not n]].float().abs().any(), (
@@ -2079,8 +2104,8 @@ def check_ilv_decode(rng, dev, g, dtype, cache, rm: bool, bs: int = BS, lens=ILV
     mask = (torch.arange(lmax, device=dev)[None, :] < sl[:, None].long())[:, None, None, :]
     q4 = q[:, :, None, :]
     res.update(time_three(
-        lambda i: kernel(q, kn, vn, kc, i % layers, sm, btt, sl, scale),
-        lambda i: plain(q, kn, vn, kc, i % layers, sm, btt, sl, scale),
+        lambda i: kernel(q, kn, vn, kc, i % layers, sm, btt, sl, scale, 0, tile),
+        lambda i: plain(q, kn, vn, kc, i % layers, sm, btt, sl, scale, 0, tile),
         lambda i: sdpa(q4, kg[i % layers], vg[i % layers], mask, scale),
         plain_iters=10,
     ))
@@ -2377,8 +2402,13 @@ def count_per_pass(runner) -> list[tuple[str, int, dict]]:
     ``(kind, rows, launch-count delta)`` to the list returned; ``rows`` is
     the token count of the pass's hidden state, the row count of each of
     its projections. The engine calls them through the instance, so the
-    wrappers see every pass."""
+    wrappers see every pass. A runner already wrapped keeps its wrappers;
+    its list is emptied and returned."""
+    if hasattr(runner, "pass_deltas"):
+        del runner.pass_deltas[:]
+        return runner.pass_deltas
     deltas: list[tuple[str, int, dict]] = []
+    runner.pass_deltas = deltas
     model = runner.model
     rows = []
     run_layers = model._run_layers
@@ -2409,7 +2439,8 @@ def count_per_pass(runner) -> list[tuple[str, int, dict]]:
 
 def pass_launches(layers: int, moe_layers: int, mla: bool, kind: str, rows: int,
                   qmm_name: str = "", qmm_max_rows: int = 0,
-                  qmm_per_pass: int = 0, layout: str = "split") -> list[dict]:
+                  qmm_per_pass: int = 0, layout: str = "split",
+                  decode_name: str = "") -> list[dict]:
     """The launches a model pass of ``kind`` over ``rows`` tokens must make
     (one of the dicts returned): a decode pass K1 (K11a in an MLA model)
     once per layer; a prefill pass K3 (K11b) once per layer and one of the
@@ -2424,7 +2455,8 @@ def pass_launches(layers: int, moe_layers: int, mla: bool, kind: str, rows: int,
     every pass), else not at all; nothing else. On an interleaved
     ``layout`` a decode pass launches K8 (K9 on ``interleaved_rm``) and
     every other pass, score and embed passes too, K8's prefill and one of
-    the layout's two writers."""
+    the layout's two writers. ``decode_name``: the decode kernel that
+    ``XLLM_DECODE_KERNEL`` selects, in place of the layout's default."""
     extra = {k10.NAME: 2 * moe_layers} if moe_layers else {}
     if qmm_name and (not qmm_max_rows or rows <= qmm_max_rows):
         extra[qmm_name] = qmm_per_pass
@@ -2440,7 +2472,7 @@ def pass_launches(layers: int, moe_layers: int, mla: bool, kind: str, rows: int,
         decode, prefill = ilv_name("decode", rm), k3.ILV_NAME
         writers = (ilv_name("prefill", rm), ilv_name("rmw", rm))
     if kind == "decode":
-        return [{decode: layers, **extra}]
+        return [{decode_name or decode: layers, **extra}]
     return [{prefill: layers, w: layers, **extra} for w in writers]
 
 
@@ -2545,28 +2577,36 @@ def phase_engine(model_kw=QWEN3_1P7B, num_blocks: int = 1024,
                  tag: str = "engine", quant: str = "", kv_cache_dtype: str = "auto",
                  qmm_name: str = "", qmm_max_rows: int = 0, score_lens=(),
                  embed_lens=(), kv_layout: str = "split",
-                 resolved: str = "") -> tuple[dict, dict]:
+                 resolved: str = "", engine: LLMEngine | None = None,
+                 decode_name: str = "", seed: int = 0) -> tuple[dict, dict]:
     """Serve ``model_kw`` on the card (see the module docstring); with
     ``qmm_name`` every model pass must also launch that kernel once per
     ``*_proj_w`` of the model (``pass_launches``). Then, with ``score_lens``, score prompts
     and embed (``drive_scoring``): ``info["score"]`` holds that run's
     (launches, info). ``kv_layout`` is asked for; the runner must resolve
-    it to ``resolved`` (default: itself)."""
-    cfg = engine_config(model_kw, num_blocks=num_blocks, quant=quant,
-                        kv_cache_dtype=kv_cache_dtype, kv_layout=kv_layout)
+    it to ``resolved`` (default: itself). ``engine``: serve on this engine
+    (built from ``model_kw`` and the rest) instead of a new one;
+    ``decode_name``: the decode kernel every decode pass must launch, in
+    place of the layout's default (``XLLM_DECODE_KERNEL``); ``seed``: of the
+    prompts (another than an earlier run's on the same engine, whose
+    prefix cache would otherwise serve them)."""
     t0 = time.perf_counter()
-    eng = LLMEngine(cfg, device="cuda")
+    eng = engine or LLMEngine(engine_config(model_kw, num_blocks=num_blocks, quant=quant,
+                                            kv_cache_dtype=kv_cache_dtype,
+                                            kv_layout=kv_layout), device="cuda")
+    cfg = eng.config
     sync()
     layout = eng.runner.model.kv_layout
     assert layout == (resolved or kv_layout), f"{tag}: kv_layout resolved to {layout}"
-    log(f"[{tag}] {model_kw['model_type']}, {model_kw['num_hidden_layers']} layers, "
-        f"hidden {model_kw['hidden_size']}, {model_kw.get('num_experts', 0)} experts, "
-        f"{model_kw['dtype']}, weights {quant or model_kw['dtype']} (random), KV cache "
-        f"{kv_cache_dtype}, {num_blocks} KV blocks, {layout} layout (asked for "
-        f"{kv_layout}): built in "
-        f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
-        "allocated")
-    rng = np.random.default_rng(0)
+    if engine is None:
+        log(f"[{tag}] {model_kw['model_type']}, {model_kw['num_hidden_layers']} layers, "
+            f"hidden {model_kw['hidden_size']}, {model_kw.get('num_experts', 0)} experts, "
+            f"{model_kw['dtype']}, weights {quant or model_kw['dtype']} (random), KV cache "
+            f"{kv_cache_dtype}, {num_blocks} KV blocks, {layout} layout (asked for "
+            f"{kv_layout}): built in "
+            f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.1f} "
+            "GiB allocated")
+    rng = np.random.default_rng(seed)
     warm_up(eng, rng)  # before the counters are zeroed
     # 40 -> K4; 300, 700 -> K2; 2100 -> chunks of 2048 (K2) + 52 (K4, K3 at
     # q_offset 2048 over the first chunk's 32 pages)
@@ -2610,7 +2650,7 @@ def phase_engine(model_kw=QWEN3_1P7B, num_blocks: int = 1024,
     def want(kind, rows):
         return pass_launches(layers, moe_layers, mla, kind, rows, qmm_name=qmm_name,
                              qmm_max_rows=qmm_max_rows, qmm_per_pass=projections,
-                             layout=layout)
+                             layout=layout, decode_name=decode_name)
 
     per_pass = per_pass_summary(deltas, launches, want)
     if qmm_max_rows:  # the passes that take torch's product, by their rows
@@ -2841,7 +2881,7 @@ def free_device_memory() -> None:
 
 
 PHASES = ("build", "kernels", "qkernels", "engines", "quant", "parity", "layouts",
-          "layout-engines")
+          "layout-engines", "grammar", "grammar-engines")
 
 
 def phase_layout_parity() -> None:
@@ -2861,6 +2901,253 @@ def phase_layout_parity() -> None:
         phase_parity("qwen3", PARITY_DENSE, quant="int8", kv_cache_dtype="int8",
                      kv_layout="interleaved")
     phase_parity("qwen3", PARITY_RM, kv_cache_dtype="fp8_e4m3", kv_layout="interleaved_rm")
+
+
+# ---------------------------------------------------------------------------
+# K1b and K12: the decode-kernel grammar (XLLM_DECODE_KERNEL)
+# ---------------------------------------------------------------------------
+# the names the qwen3-1.7B engine serves under on the split layout (K1b,
+# K12a-g, a K1 tile instance), and on each interleaved layout (K8's and
+# K9's tile instances)
+GRAMMAR_NAMES = ("v5", "v1", "v3", "v4", "v6", "v7", "v8c2", "v10t2", "v9t2")
+GRAMMAR_ILV = (("interleaved", "v11t2"), ("interleaved_rm", "v12t2"))
+# the instances held to their plain versions: those, and K1 at a tile of 3
+# pages (48 positions at bs 16: neither a divisor nor a multiple of the
+# 64-position tile)
+GRAMMAR_CHECKS = ([(n, "split") for n in GRAMMAR_NAMES + ("v9t3",)]
+                  + [(n, layout) for layout, n in GRAMMAR_ILV])
+GRAMMAR_CACHES = ((torch.bfloat16, None), (torch.bfloat16, "int8"),
+                  (torch.bfloat16, "fp8_e4m3"), (torch.float32, None),
+                  (torch.float32, "fp8_e4m3"))
+GRAMMAR_WINDOW = 37
+
+
+def grammar_fns(kver: str, layout: str):
+    """``XLLM_DECODE_KERNEL=kver`` on ``layout``, as the dispatch resolves it
+    -> (kernel, plain, tile, counter name)."""
+    fn, tile = attention.resolve_decode_kernel(kver, layout, 0)
+    if layout == "split":
+        return fn, fn.plain, tile, fn.name
+    rm = layout == "interleaved_rm"
+    kernel, plain = ilv_decode_fns(rm)
+    return kernel, plain, tile, ilv_name("decode", rm)
+
+
+def check_grammar_split(rng, dev, g, kver, dtype, cache, bs: int = BS, lens=PAGE_LENS,
+                        window: int = 0, timed: bool = False) -> dict:
+    """A split-layout instance of the grammar against its plain version on
+    grid inputs within ``TOL`` at every output, after three launches in a
+    row (the split counters re-arm; the writes repeat), caches byte-equal,
+    padded rows zeros; ``timed``: then timed at K1's shapes beside its plain
+    version and SDPA."""
+    kernel, plain, tile, name = grammar_fns(kver, "split")
+    nbmax = 4096 // bs
+    bt, nb = _paged(rng, lens, bs, nbmax)
+    layers = LAYERS if timed else 2
+    shape = (layers, nb, HKV, bs, D)
+    kc, vc = grid_tensor(g, dev, shape, dtype, cache), grid_values(g, dev, shape, dtype, cache)
+    b = len(lens)
+    new = "int8" if cache == "int8" else None
+    q = grid_tensor(g, dev, (b, HQ, D), dtype)
+    kn = grid_tensor(g, dev, (b, HKV, D), dtype, new)
+    vn = grid_values(g, dev, (b, HKV, D), dtype, new)
+    sm = i32([bt[i, (n - 1) // bs] * bs + (n - 1) % bs if n else 0
+              for i, n in enumerate(lens)], dev)
+    btt, sl, scale = i32(bt, dev), i32(lens, dev), grid_scale(cache)
+    kk, vk, kp, vp = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    for _ in range(3):
+        out = kernel(q, kn, vn, kk, vk, 1, sm, btt, sl, scale, window, tile)
+    ref = plain(q, kn, vn, kp, vp, 1, sm, btt, sl, scale, window, tile)
+    sync()
+    what = f"{name} ({kver}) {dtype} cache {cache or dtype} bs {bs} window {window}"
+    err = check_close(out, ref, what)
+    assert same_bytes(kk, kp) and same_bytes(vk, vp), f"{what}: caches differ"
+    assert not out[[i for i, n in enumerate(lens) if not n]].float().abs().any(), (
+        f"{what}: padded rows must be zeros")
+    res = {"max_abs_err": err}
+    if not timed:
+        return res
+    q_el, c_el, n_el = q.element_size(), kc.element_size(), kn.element_size()
+    live = [n for n in lens if n]
+    nbytes = (2 * b * HQ * D * q_el + 2 * len(live) * HKV * D * (n_el + c_el)
+              + 2 * sum(n - 1 for n in live) * HKV * D * c_el)
+    flops = 4.0 * sum(live) * HQ * D
+    lmax = -(-max(lens) // bs) * bs
+    idx = btt[:, : lmax // bs].long()
+    kg = [kc[l][idx].permute(0, 2, 1, 3, 4).reshape(b, HKV, lmax, D).to(dtype)
+          for l in range(layers)]
+    vg = [vc[l][idx].permute(0, 2, 1, 3, 4).reshape(b, HKV, lmax, D).to(dtype)
+          for l in range(layers)]
+    mask = (torch.arange(lmax, device=dev)[None, :] < sl[:, None].long())[:, None, None, :]
+    q4 = q[:, :, None, :]
+    res.update(time_three(
+        lambda i: kernel(q, kn, vn, kc, vc, i % layers, sm, btt, sl, scale, 0, tile),
+        lambda i: plain(q, kn, vn, kc, vc, i % layers, sm, btt, sl, scale, 0, tile),
+        lambda i: sdpa(q4, kg[i % layers], vg[i % layers], mask, scale),
+        plain_iters=10,
+    ))
+    res["shape"] = (f"B={b} ({b - len(live)} padded), seq_lens {sorted(set(live))}, Hq {HQ}, "
+                    f"Hkv {HKV}, D {D}, bs {bs}, grid inputs")
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops)
+    return res
+
+
+def check_backend_settings(dev) -> None:
+    """The dispatch's backend rules on the card (fault F5): at head_dim 64,
+    and under ``XLLM_ATTENTION_BACKEND=ref`` at 128, decode and prefill
+    launch no kernel and compute JAX's portable function (``attention_ref``
+    over the scattered caches, bit for bit: the same PyTorch ops); under
+    ``interpret`` a CUDA tensor raises ValueError."""
+    g = torch.Generator(device=dev).manual_seed(41)
+    rng = np.random.default_rng(9)
+    lens = [1, 100, 700, 0]
+    bt, nb = _paged(rng, lens, BS, 16)
+    sm = i32([bt[i, (n - 1) // BS] * BS + (n - 1) % BS if n else 0
+              for i, n in enumerate(lens)], dev)
+    btt, sl = i32(bt, dev), i32(lens, dev)
+    for d, env in ((64, {}), (128, {"XLLM_ATTENTION_BACKEND": "ref"})):
+        shape = (2, nb, HKV, BS, d)
+        kc, vc = grid_tensor(g, dev, shape, torch.bfloat16), grid_values(g, dev, shape,
+                                                                         torch.bfloat16)
+        q = grid_tensor(g, dev, (len(lens), HQ, d), torch.bfloat16)
+        kn = grid_tensor(g, dev, (len(lens), HKV, d), torch.bfloat16)
+        vn = grid_values(g, dev, (len(lens), HKV, d), torch.bfloat16)
+        kk, vk, kp, vp = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        _build.reset_launch_counts()
+        with environ(**env):
+            out, _, _ = attention.decode_attention_write(q, kn, vn, kk, vk, 1, sm, btt, sl,
+                                                         grid_scale())
+            qp = grid_tensor(g, dev, (1, 2 * BS, HQ, d), torch.bfloat16)
+            knp = grid_tensor(g, dev, (1, 2 * BS, HKV, d), torch.bfloat16)
+            smp = i32([[bt[2, j // BS] * BS + j % BS for j in range(2 * BS)]], dev)
+            attention.prefill_attention_write_batched(
+                qp, knp, knp, kk, vk, 1, smp, btt[2:3], i32([0], dev), i32([2 * BS], dev),
+                grid_scale())
+        sync()
+        assert not any(_build.launch_counts.values()), (d, env, _build.launch_counts)
+        write_kv(kp, vp, 1, kn, vn, sm)
+        ref = attention_ref.paged_attention_decode_ref(q, kp, vp, 1, btt, sl, grid_scale())
+        assert torch.equal(out, ref), f"head_dim {d} {env}: not the portable function"
+    q = grid_tensor(g, dev, (len(lens), HQ, D), torch.bfloat16)
+    with environ(XLLM_ATTENTION_BACKEND="interpret"):
+        try:
+            attention.decode_attention_write(q, q[:, :HKV], q[:, :HKV], kc, vc, 1, sm, btt,
+                                             sl, 1.0)
+        except ValueError as e:
+            assert "XLLM_ATTENTION_BACKEND=interpret" in str(e)
+        else:
+            raise AssertionError("interpret on a CUDA tensor did not raise")
+
+
+def phase_grammar(dev) -> dict:
+    """K1b, K12a-g and the tile instances of K1, K8 and K9 (``GRAMMAR_CHECKS``)
+    against their plain versions at qwen3-1.7B's heads, at block_size 16,
+    32, 64 and 128, on bf16, int8 and fp8 caches (bf16 q) and f32 and fp8
+    ones (f32 q), with and without a window (v1 takes none), padded rows and
+    seq_len 1; each timed at K1's shapes, K1 (v9t4) too in the same call;
+    then the backend rules (F5) -> {XLLM_DECODE_KERNEL name: result}."""
+    rng = np.random.default_rng(8)
+    g = torch.Generator(device=dev).manual_seed(40)
+    results = {}
+    for kver, layout in GRAMMAR_CHECKS + [("v9t4", "split")]:
+        _, _, tile, name = grammar_fns(kver, layout)
+        worst = 0.0
+        for bs in PAGE_SIZES if kver != "v9t4" else ():
+            for dtype, cache in GRAMMAR_CACHES:
+                if layout == "interleaved_rm" and cache == "int8":
+                    continue  # an int8 cache resolves rm to interleaved
+                for window in (0,) if kver == "v1" else (0, GRAMMAR_WINDOW):
+                    if layout == "split":
+                        r = check_grammar_split(rng, dev, g, kver, dtype, cache, bs,
+                                                window=window)
+                    else:
+                        r = check_ilv_decode(rng, dev, g, dtype, cache,
+                                             layout == "interleaved_rm", bs=bs,
+                                             lens=PAGE_LENS, window=window, tile=tile)
+                    worst = max(worst, r["max_abs_err"])
+            free_device_memory()
+        if layout == "split":
+            res = check_grammar_split(rng, dev, g, kver, torch.bfloat16, None,
+                                      lens=ILV_TIMED_LENS, timed=True)
+        else:
+            res = check_ilv_decode(rng, dev, g, torch.bfloat16, None,
+                                   layout == "interleaved_rm", lens=ILV_TIMED_LENS,
+                                   timed=True, tile=tile)
+        res.update(max_abs_err=max(worst, res["max_abs_err"]), counter=name, tile=tile,
+                   layout=layout)
+        results[kver] = res
+        log(f"[grammar] {kver} on {layout}: {name}, tile {tile}; worst err {worst:.3g} "
+            f"at block_size {PAGE_SIZES} ({GRID_TOL}; caches byte-equal); {res['shape']}: "
+            f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, SDPA "
+            f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+        free_device_memory()
+    check_backend_settings(dev)
+    log("[grammar] head_dim 64, and XLLM_ATTENTION_BACKEND=ref at 128: no kernel launched, "
+        "JAX's portable function bit for bit; interpret on a CUDA tensor raises ValueError")
+    return results
+
+
+def phase_grammar_engines() -> dict:
+    """The qwen3-1.7B engine at full width and depth serves 16 greedy
+    requests x 32 tokens under each name of ``GRAMMAR_NAMES`` (one engine,
+    the variable switched between runs) and, on an engine of each
+    interleaved layout, under its ``GRAMMAR_ILV`` name: every decode pass
+    launches that name's kernel once per layer and no other decode kernel
+    (K1 only under v9*). Then card = CPU greedy tokens on the f32 parity
+    qwen3 under each name, and at head_dim 64, where no attention kernel
+    may launch (F5) -> {name: (launches, info)}."""
+    runs = {}
+    for layout, names in (("split", GRAMMAR_NAMES),) + tuple((l, (n,)) for l, n in GRAMMAR_ILV):
+        eng = LLMEngine(engine_config(kv_layout=layout), device="cuda")
+        for seed, kver in enumerate(names):
+            with environ(XLLM_DECODE_KERNEL=kver):
+                runs[kver] = phase_engine(tag=f"grammar {kver}", kv_layout=layout, engine=eng,
+                                          decode_name=grammar_fns(kver, layout)[3], seed=seed)
+        del eng
+        free_device_memory()
+    for kver, layout in [(n, "split") for n in GRAMMAR_NAMES] + [
+            (n, layout) for layout, n in GRAMMAR_ILV]:
+        with environ(XLLM_DECODE_KERNEL=kver):
+            phase_parity("qwen3", PARITY_DENSE if layout == "split" else PARITY_RM,
+                         kv_layout=layout)
+        log(f"[grammar] parity above: XLLM_DECODE_KERNEL={kver} on {layout}")
+    # F5: at head_dim 64 the engine runs JAX's portable attention (a dense
+    # f32 model launches no other kernel)
+    _build.reset_launch_counts()
+    phase_parity("qwen3", dict(PARITY_DENSE, head_dim=64))
+    launched = {k: n for k, n in _build.launch_counts.items() if n}
+    assert not launched, f"head_dim 64 launched kernels {launched}"
+    log("[grammar] parity above: head_dim 64, no attention kernel or cache writer "
+        "launched on the card")
+    return runs
+
+
+def grammar_rows(gram: dict, runs: dict, rows: list) -> list[dict]:
+    """The kernels line's rows of K1b and K12a-g, each with its launches
+    from its own engine run (counters zeroed just before it); the tile
+    instances of K1, K8 and K9 join those kernels' rows as ``by_tile``."""
+    keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    by_name = {r["name"]: r for r in rows}
+    new = []
+    for kver, res in gram.items():
+        name = res["counter"]
+        launches, info = runs.get(kver, ({}, {"per_pass": {}}))
+        inst = {k: res[k] for k in keys}
+        if kver in runs:
+            inst.update(launches=launches[name],
+                        launches_per_step=info["per_pass"][name]["launches_per_step"],
+                        passes=info["per_pass"][name]["passes"])
+        if name in by_name:  # K1 / K8 / K9 at another tile (v9t4: K1 in this call)
+            by_name[name].setdefault("by_tile", {})[kver] = inst
+            continue
+        fn = grammar_fns(kver, "split")[0]
+        where, func = fn.tpu_kernel.split()
+        new.append({"name": name, "route": "cuda",
+                    "source": "xllm_tpu_torch/csrc/decode_attention.cu", "replaces": where,
+                    "tpu_counterpart": func, "decode_kernel": kver, "mode": fn.mode,
+                    "rounding_tile_pages": fn.pages or res["tile"], "library": "SDPA",
+                    **inst})
+    return new
 
 
 def timed_phase(label: str, fn, *args, **kw):
@@ -3022,6 +3309,11 @@ def main() -> int:
                 quant="int8", kv_cache_dtype="int8", qmm_name=qmm.W8A8_NAME,
                 score_lens=(2100,), kv_layout="interleaved_rm", resolved="interleaved")
         timed_phase("layout-parity", phase_layout_parity)
+    gram, gram_runs = {}, {}
+    if "grammar" in phases:
+        gram = timed_phase("grammar", phase_grammar, dev)
+    if "grammar-engines" in phases:
+        gram_runs = timed_phase("grammar-engines", phase_grammar_engines)
     if phases != set(PHASES):
         log(card)
         log(f"chip_smoke: partial run ({', '.join(sorted(phases))}); no result line")
@@ -3122,6 +3414,7 @@ def main() -> int:
                 for cache, r in qcache[name].items()}
         rows.append(row)
     rows += ilv_rows(ilv, runs, keys)
+    rows += grammar_rows(gram, gram_runs, rows)
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,11 +2,10 @@
 CPU, on the same numpy inputs made from a seed.
 
 Both sides compute in f32 at full matmul precision, so results agree to
-1e-5 (summation order only; the trig of the rope tables to 1e-6). Padded
-rows are excluded where the two sides differ by design: the JAX oracles
-give the mean of V for an empty mask, the port's kernels (and their plain
-versions) zeros. Caches are compared outside block 0, where the portable
-path drops padded tokens.
+1e-5 (summation order only; the trig of the rope tables to 1e-6). At this
+head_dim (64) both packages run their portable attention path: padded rows
+give the mean of V on both sides. Caches are compared outside block 0,
+where the portable path scatters padded tokens.
 """
 
 import jax
@@ -150,8 +149,8 @@ def test_decode_oracle_and_entry_point(window):
     ot, kt, vt = tattn.decode_attention_write(
         _t(q), _t(kn), _t(vn), _t(k_all.copy()), _t(v_all.copy()), 1, _t(slots),
         _t(bt), _t(sl), scale, window=window)
-    np.testing.assert_allclose(_np(ot)[live], _np(oj)[live], rtol=TOL, atol=TOL)
-    assert not _np(ot)[1].any()
+    assert lens[1] == 0 and 1 not in live
+    np.testing.assert_allclose(_np(ot), _np(oj), rtol=TOL, atol=TOL)  # padded rows too
     np.testing.assert_array_equal(_np(kt)[:, 1:], _np(kj)[:, 1:])
     np.testing.assert_array_equal(_np(vt)[:, 1:], _np(vj)[:, 1:])
 
@@ -200,9 +199,10 @@ def test_prefill_oracle_and_entry_point(s, specs, window):
     ot, kt, vt = tattn.prefill_attention_write_batched(
         _t(q), _t(kn), _t(vn), _t(k_all.copy()), _t(v_all.copy()), 1, _t(slots),
         _t(bt), _t(qo), _t(kvl), scale, window=window)
-    for i, (a, b) in enumerate(specs):
-        n = min(s, b - a)
-        np.testing.assert_allclose(_np(ot)[i, :n], _np(oj)[i, :n], rtol=TOL, atol=TOL)
-        assert not _np(ot)[i, n:].any()
+    # every row of the live chunks, bucket padding too (the portable path);
+    # the padded chunk averages V over the null block, whose row 0 holds
+    # whichever padded token either scatter wrote last
+    live = kvl > 0
+    np.testing.assert_allclose(_np(ot)[live], _np(oj)[live], rtol=TOL, atol=TOL)
     np.testing.assert_array_equal(_np(kt)[:, 1:], _np(kj)[:, 1:])
     np.testing.assert_array_equal(_np(vt)[:, 1:], _np(vj)[:, 1:])

@@ -83,6 +83,12 @@ __device__ __forceinline__ e4m3 to_cache<e4m3>(float x) {
   return e4m3{static_cast<uint8_t>(__nv_cvt_float_to_fp8(x, __NV_NOSAT, __NV_E4M3))};
 }
 
+// A 1-byte cache value as the walk reads it (exact in bf16 and f32)
+__device__ __forceinline__ float cache_to_float(int8_t x) { return (float)x; }
+__device__ __forceinline__ float cache_to_float(e4m3 x) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(x.bits, __NV_E4M3)));
+}
+
 // P rounded to bf16 before P.V, as the TPU kernels do on bf16 and
 // quantized caches (their P is cast to the dtype of the upcast V tile)
 __device__ __forceinline__ float round_bf16(float x) {
@@ -152,10 +158,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Running maxima for P rounded against a walk's maximum after each "page"
-// (K1: the TPU kernel's tile of 4 pages; K3, K11: a page) when a block
-// does not walk from position 0 (context splits) or a page is longer than
-// its tile: a first pass writes each row's maximum per granule of
-// min(page, tile) positions, and the walk reads them back.
+// (K1 and its variants: the TPU kernel's tile of G pages; K3, K11: a
+// page) when a block does not walk from position 0 (context splits) or a
+// page is longer than its tile: a first pass writes each row's maximum
+// per granule of gcd(page, tile) positions, and the walk reads them back.
 // Granules of a row that the tile of `tile` positions at t0 needs: its
 // own and, for a page longer than the tile, the rest of that page's (at
 // most 32).

@@ -7,6 +7,28 @@
 // block_tables with an f32 softmax and an optional sliding window; a row
 // with seq_len 0 writes nothing and outputs zeros).
 //
+// K1b and K12 (decode_attention.py paged_decode_attention_write_v5_tpu;
+// legacy/decode_attention.py v1, v3, v4, v6, v7, v8, v10) have the same
+// contract and differ from K1 in two parameters of the walk below, which
+// the kernels take: the rounding tile of vt = G * block_size positions
+// (v9: G = 4, or T of v9tT), and where the new token joins the softmax
+// (MODE, a template parameter):
+// - kModeOpen (v5-v10): the softmax opens at the new token (below);
+// - kModeLast (v3, v4): the walk opens empty over the cached positions
+//   (its running maxima exclude the new token's score); the new token
+//   joins after them as one unrounded f32 column, exp(s_new - M_f);
+// - kModeCache (v1, no window): the new row is written and attended at
+//   position seq_len - 1 like a cached one, with the bytes the writer
+//   stores, cast to the cache dtype and upcast back. Blocks take them from
+//   the inputs (put_new_row): another block or split may not have written
+//   the row yet. Pass 1's maxima then include that position.
+// A granule (pass 1) divides both the 64-position tile and vt:
+// gcd(vt, 64) positions (K9: gcd(bs, 64)). A tile wholly masked before
+// the walk's first attended position (kModeLast below a window, or a lone
+// tail page at seq_len 1) is empty: its running maximum is -inf and its
+// scores too (the TPU's -1e30 mask gives it P = 1, which the next finite
+// maximum's rescale exp(-1e30 - m) = 0 washes out: the same result).
+//
 // What bounds it: bytes. One decode step reads every live K/V row once
 // (B x ctx x Hkv x D x 2 tensors) and does ~4 flops per byte, far below the
 // ~295 flops/byte at which an H100's tensor cores would take over, so the
@@ -32,17 +54,17 @@
 // rescaled by exp(m_old - m_new) where a tile raises it).
 //
 // Rounding P (every other cache, whose V tile is bf16): the TPU
-// kernel walks a sequence in one program, in tiles of 4 pages from
-// position 0, opens its softmax at the new token (m = q.k_new * scale,
+// kernel walks a sequence in one program, in tiles of vt = G pages (v9:
+// 4) from position 0, opens its softmax at the new token (m = q.k_new * scale,
 // l = 1, acc = v_new: the new token is attended as given, never read back
 // from the cache) and rounds the unnormalised P of each tile to bf16
 // against its running maximum after that tile. A context split does not
 // see the maxima of the splits before it, so the op runs in two passes:
 // - pass 1 (decode_granule_max_kernel) computes the maximum score of each
 //   (query row, granule) of the cached positions, a granule being
-//   min(64, 4 * block_size) positions, so each is written by one block;
+//   gcd(vt, 64) positions, so each is written by one block;
 // - pass 2 (the walk) takes, for each position, the running maximum M of
-//   its 4-page tile (the new token's score and every granule up to the
+//   its rounding tile (the new token's score and every granule up to the
 //   tile's end) and the row's final maximum M_f, and adds
 //   bf16(exp(s - M)) * exp(M - M_f) to P, exp(s - M) * exp(M - M_f) to l,
 //   in the final frame (m = M_f in every split, so the merge weights are
@@ -50,8 +72,9 @@
 // Pass 1 reads K a second time: a correct kernel first; folding the
 // granule maxima into one pass is later work (PERF.md).
 //
-// Write, then read: no block reads position seq_len - 1 (the new token is
-// attended as given), so the split that holds it stores the new row
+// Write, then read: no block reads position seq_len - 1 from the cache
+// (the new token is attended as given, or kModeCache's taken from the
+// inputs), so the split that holds it stores the new row
 // (cast to the cache dtype) at any point. Sequences never share a page
 // that is written (shared prefix pages are full and read-only).
 //
@@ -64,12 +87,11 @@
 // - K9 replaces paged_decode_attention_write_v12_tpu (rm = 1): a
 //   sequence's incomplete tail page, from position nfull * bs (nfull =
 //   (seq_len - 1) / bs complete pages), holds token-major content, read
-//   through PageLayout::tail_from. The TPU walk takes tiles of 4 full
+//   through PageLayout::tail_from. The TPU walk takes tiles of G full
 //   pages, then the tail page as a tile of its own, so the running maximum
-//   of a position is that at the end of its 4-page tile clipped to nfull *
-//   bs, or, in the tail, the row's final one. Pass 1's granules are then a
-//   page (or 64 positions, if shorter), so that nfull * bs is a granule
-//   boundary. The new row goes to row w = slot % bs of its page seen as
+//   of a position is that at the end of its tile clipped to nfull * bs,
+//   or, in the tail, the row's final one. Pass 1's granules are then
+//   gcd(bs, 64) positions, so that nfull * bs is a granule boundary. The new row goes to row w = slot % bs of its page seen as
 //   [bs, 2 * Hkv, D] (each head block writes its own two D-vectors, which
 //   no block of the launch reads: they are the position seq_len - 1).
 //   When the row completes the page (w == bs - 1) the page must be
@@ -138,7 +160,7 @@ __device__ __forceinline__ int tail_start(int seq_len, int bs, int rm) {
 }
 
 // The lane of granule_prefix's view that holds pos's running maximum: the
-// end of its 4-page tile (vt positions), clipped, for K9, to the full
+// end of its rounding tile (vt positions), clipped, for K9, to the full
 // pages; in K9's tail the row's last granule.
 __device__ __forceinline__ int end_lane(int t0, int pos, int vt, int gran, int gend,
                                         int tail_from) {
@@ -148,6 +170,24 @@ __device__ __forceinline__ int end_lane(int t0, int pos, int vt, int gran, int g
   return end - t0 / gran - 1;
 }
 
+constexpr int kModeOpen = 0, kModeLast = 1, kModeCache = 2;
+
+// kModeCache: tile row j holds position seq_len - 1, the new token's K
+// (and V) row as the writer stores it (cast to the cache dtype C) and the
+// walk reads it (upcast to the tile type S), taken from the inputs.
+template <typename T, typename C, typename S, int D>
+__device__ __forceinline__ void put_new_row(S* ks, S* vs, const T* kn, const T* vn, int j) {
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    if constexpr (kQuantCache<C>) {
+      ks[j * (D + kPad) + d] = from_float<S>(cache_to_float(to_cache<C>(to_float(kn[d]))));
+      if (vs) vs[j * (D + kPad) + d] = from_float<S>(cache_to_float(to_cache<C>(to_float(vn[d]))));
+    } else {
+      ks[j * (D + kPad) + d] = kn[d];
+      if (vs) vs[j * (D + kPad) + d] = vn[d];
+    }
+  }
+}
+
 template <typename S, int D>
 size_t decode_smem_bytes(int group) {
   return 2 * (size_t)kTile * (D + kPad) * sizeof(S) +
@@ -155,11 +195,13 @@ size_t decode_smem_bytes(int group) {
 }
 
 // Pass 1: gmax[b, hq, k] = the largest score of query row hq over the
-// cached positions of granule k (-inf for none). Each block writes the
-// granules of its split's tiles, the tile holding seq_len - 1 included.
-template <typename T, typename C, int D>
+// attended positions of granule k (-inf for none): the cached ones
+// (kModeCache: and seq_len - 1). Each block writes the granules of its
+// split's tiles, the tile holding seq_len - 1 included.
+template <typename T, typename C, int D, int MODE>
 __global__ void __launch_bounds__(kThreads)
-    decode_granule_max_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
+    decode_granule_max_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
+                              const C* __restrict__ k_cache,
                               const int* __restrict__ block_tables,
                               const int* __restrict__ seq_lens,
                               float* __restrict__ gmax,  // [B, Hq, ngran]
@@ -184,12 +226,15 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = threadIdx.x; i < group * D; i += blockDim.x) qs[i] = to_float(q[qrow + i]);
   float* gm = gmax + ((size_t)b * hq + (size_t)h * group) * ngran;
   const int* bt = block_tables + (size_t)b * nbmax;
+  const T* kn = k_new + ((size_t)b * hkv + h) * D;
   for (int t0 = r.t_begin; t0 < r.t_end; t0 += kTile) {
     const int jlo = max(r.lo - t0, 0);
-    const int jhi = max(min(seq_len - 1 - t0, kTile), 0);  // cached positions
-    if (jhi > jlo)
+    const int jc = max(min(seq_len - 1 - t0, kTile), 0);  // cached positions
+    const int jhi = MODE == kModeCache ? min(seq_len - t0, kTile) : jc;
+    if (jc > jlo)
       load_tile<C, D, false>(ks, nullptr, k_cache, nullptr, lay, bt, layer, num_blocks,
-                             hkv, h, bs, t0, jlo, jhi);
+                             hkv, h, bs, t0, jlo, jc);
+    if (jhi > jc) put_new_row<T, C, S, D>(ks, nullptr, kn, nullptr, jc);
     __syncthreads();
     tile_scores<S, D>(ss, qs, ks, group, jlo, jhi, scale);
     __syncthreads();
@@ -202,7 +247,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Pass 2: the walk (see the head of this file).
-template <typename T, typename C, int D>
+template <typename T, typename C, int D, int MODE>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_write_kernel(const T* __restrict__ q,      // [B, Hq, D]
                                   const T* __restrict__ k_new,  // [B, Hkv, D]
@@ -218,7 +263,7 @@ __global__ void __launch_bounds__(kThreads)
                                   int layer, int num_blocks, int hkv, int bs,
                                   int nbmax, int group, float scale, int window,
                                   int chunk, int nsplit, int gran, int ngran,
-                                  long long page, int rm,
+                                  long long page, int rm, int vt,
                                   C* scratch) {  // [B, page] (K9 completions)
   using S = typename TileOf<C>::type;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -248,7 +293,8 @@ __global__ void __launch_bounds__(kThreads)
   }
   const SplitRange r = split_range(seq_len, window, chunk, split);
   if (split >= r.nsp) return;
-  const int t_walk = min(r.t_end, seq_len - 1);  // cached positions only
+  // the cached positions (kModeCache: and the new one)
+  const int t_walk = MODE == kModeCache ? r.t_end : min(r.t_end, seq_len - 1);
   const PageLayout lay{page, tail_start(seq_len, bs, rm)};
 
   const T* kn = k_new + ((size_t)b * hkv + h) * D;
@@ -300,10 +346,11 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = tid; i < group * D; i += blockDim.x) qs[i] = to_float(q[qrow + i]);
   __syncthreads();
 
-  // per row: the new token's score opens the running maximum. Rounding P:
-  // the final maximum and the maximum before this split's first tile from
-  // pass 1; an f32 cache: split 0's frame opens at the new token, the
-  // others' at the first tile
+  // per row: the new token's score opens the running maximum (kModeLast:
+  // joins the final one; kModeCache: neither, the position is walked).
+  // Rounding P: the final maximum and the maximum before this split's
+  // first tile from pass 1; an f32 cache: split 0's frame opens at the new
+  // token, the others' (and kModeCache's) at the first tile
   const float* gm = gmax + ((size_t)b * hq + (size_t)h * group) * ngran;
   const int g0 = r.base / gran;
   const int gend = (seq_len + kTile - 1) / kTile * kTile / gran;  // pass 1 wrote [g0, gend)
@@ -311,7 +358,7 @@ __global__ void __launch_bounds__(kThreads)
     float s = 0.f;
     for (int d = lane; d < D; d += 32) s = fmaf(qs[g * D + d], to_float(kn[d]), s);
     s = warp_sum(s) * scale;
-    float mf = split == 0 ? s : -INFINITY, mp = s;
+    float mf = split == 0 && MODE != kModeCache ? s : -INFINITY, mp = s;
     if constexpr (kRoundP<C>) {
       mf = mp = -INFINITY;
       for (int k = g0 + lane; k < gend; k += 32) {
@@ -319,13 +366,16 @@ __global__ void __launch_bounds__(kThreads)
         mf = fmaxf(mf, x);
         if (k < r.t_begin / gran) mp = fmaxf(mp, x);
       }
-      mf = fmaxf(warp_max(mf), s);
-      mp = fmaxf(warp_max(mp), s);
+      mf = warp_max(mf);
+      mp = warp_max(mp);
+      if (MODE != kModeCache) mf = fmaxf(mf, s);
+      if (MODE == kModeOpen) mp = fmaxf(mp, s);
     }
     if (lane == 0) {
       mfin[g] = mf;
       mpre[g] = mp;
-      wnew[g] = split == 0 ? expf(s - mf) : 0.f;  // split 0 adds the new token
+      // split 0 adds the new token (not kModeCache: it is walked)
+      wnew[g] = split == 0 && MODE != kModeCache ? expf(s - mf) : 0.f;
       ls[g] = wnew[g];
     }
   }
@@ -335,12 +385,13 @@ __global__ void __launch_bounds__(kThreads)
 
   // walk [t_begin, t_walk), kTile at a time
   const int* bt = block_tables + (size_t)b * nbmax;
-  const int vt = 4 * bs;  // the TPU kernel's tile of positions
   for (int t0 = r.t_begin; t0 < t_walk; t0 += kTile) {
     const int jlo = max(r.lo - t0, 0);
     const int jhi = min(t_walk - t0, kTile);
+    const int jc = MODE == kModeCache ? max(min(seq_len - 1 - t0, jhi), 0) : jhi;
     load_tile<C, D>(ks, vs, k_cache, v_cache, lay, bt, layer, num_blocks, hkv, h, bs, t0,
-                    jlo, jhi);
+                    jlo, jc);
+    if (jhi > jc) put_new_row<T, C, S, D>(ks, vs, kn, vn, jc);
     __syncthreads();
     tile_scores<S, D>(ss, qs, ks, group, jlo, jhi, scale);
     __syncthreads();
@@ -371,7 +422,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int u = 0; u < 2; ++u) {
         const int j = lane + 32 * u, pos = t0 + j;
         const float sc = srow[j];
-        // the running maximum at the end of pos's 4-page tile (K9: or tail)
+        // the running maximum at the end of pos's rounding tile (K9: or tail)
         const float m = __shfl_sync(0xffffffffu, pre,
                                     end_lane(t0, pos, vt, gran, gend, lay.tail_from));
         float p = 0.f;
@@ -460,7 +511,7 @@ __global__ void __launch_bounds__(kCompleteThreads)
     pg[i] = st[i];
 }
 
-template <typename T, typename C, int D>
+template <typename T, typename C, int D, int MODE>
 cudaError_t launch_decode(const void* q, const void* k_new, const void* v_new,
                           void* k_cache, void* v_cache, const int* slot_mapping,
                           const int* block_tables, const int* seq_lens, float* gmax,
@@ -468,19 +519,20 @@ cudaError_t launch_decode(const void* q, const void* k_new, const void* v_new,
                           int layer, int num_blocks, int hkv, int bs, int nbmax,
                           int group, float scale, int window, int chunk,
                           int nsplit, int gran, int ngran, long long page, int rm,
-                          void* scratch, cudaStream_t stream) {
+                          int vt, void* scratch, cudaStream_t stream) {
   using S = typename TileOf<C>::type;
   const size_t smem = decode_smem_bytes<S, D>(group);
-  auto pass2 = decode_attention_write_kernel<T, C, D>;
+  auto pass2 = decode_attention_write_kernel<T, C, D, MODE>;
   cudaError_t e = allow_smem(pass2, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(nsplit, hkv, batch);
   if constexpr (kRoundP<C>) {  // an f32 cache rounds nothing: no pass 1
-    auto pass1 = decode_granule_max_kernel<T, C, D>;
+    auto pass1 = decode_granule_max_kernel<T, C, D, MODE>;
     e = allow_smem(pass1, smem);
     if (e != cudaSuccess) return e;
     pass1<<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const C*>(k_cache), block_tables, seq_lens,
+        static_cast<const T*>(q), static_cast<const T*>(k_new),
+        static_cast<const C*>(k_cache), block_tables, seq_lens,
         gmax, layer, num_blocks, hkv, bs, nbmax, group, scale, window, chunk, gran, ngran,
         page, rm);
     e = cudaGetLastError();
@@ -491,7 +543,8 @@ cudaError_t launch_decode(const void* q, const void* k_new, const void* v_new,
       static_cast<const T*>(v_new), static_cast<C*>(k_cache),
       static_cast<C*>(v_cache), slot_mapping, block_tables, seq_lens, gmax,
       static_cast<T*>(out), part, counters, layer, num_blocks, hkv, bs, nbmax,
-      group, scale, window, chunk, nsplit, gran, ngran, page, rm, static_cast<C*>(scratch));
+      group, scale, window, chunk, nsplit, gran, ngran, page, rm, vt,
+      static_cast<C*>(scratch));
   e = cudaGetLastError();
   if (e != cudaSuccess || !rm) return e;
   rm_complete_kernel<<<dim3(batch, kCompleteBlocks), kCompleteThreads, 0, stream>>>(
@@ -503,11 +556,12 @@ cudaError_t launch_decode(const void* q, const void* k_new, const void* v_new,
 
 }  // namespace xllm
 
-// gran: min(64, 4 * bs) positions (K9, rm: min(64, bs)), where 4 * bs
-// (bs) divides 64 or 64 divides it; ngran: gmax's columns, at least
+// vt: the rounding tile, G * bs positions; gran: gcd(vt, 64) positions
+// (K9, rm: gcd(bs, 64)); ngran: gmax's columns, at least
 // ceil(nbmax * bs / 64) * 64 / gran. page: elements from one (layer,
 // block) page to the next (PageLayout); rm: K9's row-major tails, whose
-// completed pages are staged in scratch [batch, page] (else unused).
+// completed pages are staged in scratch [batch, page] (else unused). mode:
+// kModeOpen, kModeLast or kModeCache (no window, not rm).
 extern "C" int xllm_decode_attention_write(
     int device, const void* q, const void* k_new, const void* v_new,
     void* k_cache, void* v_cache, const void* slot_mapping,
@@ -515,14 +569,21 @@ extern "C" int xllm_decode_attention_write(
     void* counters, int dtype, int qtype, int head_dim, int batch, int layer,
     int num_blocks, int hkv, int bs, int nbmax, int group, float scale,
     int window, int chunk, int nsplit, int gran, int ngran, long long page, int rm,
-    void* scratch, void* stream) {
+    int vt, int mode, void* scratch, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const int span = rm ? bs : 4 * bs;  // a granule divides it
-  if (chunk <= 0 || chunk % xllm::kTile || batch > 65535 || gran <= 0 ||
-      xllm::kTile % gran || span % gran || gran != (span < xllm::kTile ? span : xllm::kTile) ||
+  const int span = rm ? bs : vt;  // a granule divides it and the tile
+  int g = xllm::kTile;
+  for (int a = span; a % g;) {  // gcd(span, kTile)
+    const int t = a % g;
+    a = g;
+    g = t;
+  }
+  if (chunk <= 0 || chunk % xllm::kTile || batch > 65535 || vt <= 0 || vt % bs ||
+      gran != g || (xllm::kTile + vt - gran) / gran > 32 ||
       (long long)ngran * gran < ((long long)nbmax * bs + xllm::kTile - 1) / xllm::kTile * xllm::kTile ||
-      page < (long long)hkv * bs * head_dim)
+      page < (long long)hkv * bs * head_dim || mode < xllm::kModeOpen ||
+      mode > xllm::kModeCache || (mode == xllm::kModeCache && (window > 0 || rm)))
     return (int)cudaErrorInvalidValue;
   const int* sm = static_cast<const int*>(slot_mapping);
   const int* bt = static_cast<const int*>(block_tables);
@@ -531,12 +592,18 @@ extern "C" int xllm_decode_attention_write(
   float* gm = static_cast<float*>(gmax);
   int* ct = static_cast<int*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define XLLM_LAUNCH(T, C, D)                                                     \
-  return (int)xllm::launch_decode<T, C, D>(q, k_new, v_new, k_cache, v_cache, sm, \
-                                           bt, sl, gm, out, pt, ct, batch, layer, \
-                                           num_blocks, hkv, bs, nbmax, group,     \
-                                           scale, window, chunk, nsplit, gran,    \
-                                           ngran, page, rm, scratch, s)
+#define XLLM_LAUNCH_MODE(T, C, D, M)                                              \
+  return (int)xllm::launch_decode<T, C, D, M>(q, k_new, v_new, k_cache, v_cache, sm, \
+                                              bt, sl, gm, out, pt, ct, batch, layer, \
+                                              num_blocks, hkv, bs, nbmax, group,     \
+                                              scale, window, chunk, nsplit, gran,    \
+                                              ngran, page, rm, vt, scratch, s)
+#define XLLM_LAUNCH(T, C, D)                                             \
+  {                                                                      \
+    if (mode == xllm::kModeOpen) XLLM_LAUNCH_MODE(T, C, D, xllm::kModeOpen); \
+    if (mode == xllm::kModeLast) XLLM_LAUNCH_MODE(T, C, D, xllm::kModeLast); \
+    XLLM_LAUNCH_MODE(T, C, D, xllm::kModeCache);                           \
+  }
 #define XLLM_HEAD_DIMS(T, C)                      \
   if (head_dim == 128) XLLM_LAUNCH(T, C, 128);     \
   if (head_dim == 64) XLLM_LAUNCH(T, C, 64);
@@ -551,5 +618,6 @@ extern "C" int xllm_decode_attention_write(
 #undef XLLM_CACHES
 #undef XLLM_HEAD_DIMS
 #undef XLLM_LAUNCH
+#undef XLLM_LAUNCH_MODE
   return (int)cudaErrorInvalidValue;
 }

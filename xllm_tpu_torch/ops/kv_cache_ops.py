@@ -8,16 +8,29 @@ and the interleaved one, a page's K and V together (``write_kv_interleaved``):
 
     kv_cache: [L, num_blocks, 2, num_kv_heads, block_size, head_dim]
 
-``write_kv`` is the portable oracle for the cache writers: every token,
-padded ones included, lands at ``slot_mapping`` (block_id * block_size +
-offset; padded tokens carry slot 0 and land in the reserved null block 0).
-The served path writes through the kernels in ``ops/cuda/`` instead, which
-skip padded tokens; the caches are updated in place either way.
+``write_kv`` is JAX's portable scatter and the oracle for the cache
+writers: every token, padded ones included, lands at ``slot_mapping``
+(block_id * block_size + offset; padded tokens carry slot 0 and land in
+the reserved null block 0), cast to the cache dtype. ``ops/attention.py``
+runs it where the JAX package runs its portable path; elsewhere the
+kernels in ``ops/cuda/`` write, skipping padded tokens. The caches are
+updated in place either way.
 """
 
 from __future__ import annotations
 
 import torch
+
+from xllm_tpu_torch.ops.quant import cast_to
+
+
+def _put(cache: torch.Tensor, index: tuple, rows: torch.Tensor) -> None:
+    """``cache[index] = rows`` cast to the cache dtype (fp8 with the JAX
+    package's bytes), as bytes on a 1-byte cache."""
+    rows = cast_to(rows, cache.dtype)
+    if cache.element_size() == 1:
+        cache, rows = cache.view(torch.uint8), rows.view(torch.uint8)
+    cache[index] = rows
 
 
 def write_kv(
@@ -32,8 +45,8 @@ def write_kv(
     slot = slot_mapping.long()
     block_idx = slot // block_size
     offset = slot % block_size
-    k_all[int(layer_idx), block_idx, :, offset, :] = k_new.to(k_all.dtype)
-    v_all[int(layer_idx), block_idx, :, offset, :] = v_new.to(v_all.dtype)
+    _put(k_all, (int(layer_idx), block_idx, slice(None), offset), k_new)
+    _put(v_all, (int(layer_idx), block_idx, slice(None), offset), v_new)
     return k_all, v_all
 
 
@@ -51,6 +64,6 @@ def write_kv_interleaved(
     ``ops/cuda/kv_write.py``)."""
     bs = kv_all.shape[4]
     slot = slot_mapping.long()
-    new = torch.stack([k_new, v_new], dim=1).to(kv_all.dtype)  # [T, 2, Hkv, D]
-    kv_all[int(layer_idx), slot // bs, :, :, slot % bs, :] = new
+    new = torch.stack([k_new, v_new], dim=1)  # [T, 2, Hkv, D]
+    _put(kv_all, (int(layer_idx), slot // bs, slice(None), slice(None), slot % bs), new)
     return kv_all

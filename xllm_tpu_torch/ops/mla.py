@@ -6,6 +6,11 @@ returned for parity of signatures. Each call goes through the kernel
 wrappers of ``ops/cuda/``: a CUDA tensor launches the hand-written kernel,
 a CPU tensor takes its plain PyTorch version.
 
+Under ``XLLM_ATTENTION_BACKEND=ref`` (``ops/attention._use_kernels``, which
+JAX's MLA dispatch asks at head_dim 128) each entry point computes JAX's
+portable function instead, in plain PyTorch on whatever device holds the
+tensors: the latent scatter, then ``mla_ref``.
+
 Kernel choice, as in the JAX dispatch:
 - decode: K11a (``ops/cuda/mla_attention.mla_decode_attention_write``);
 - batched prefill with chunk bucket ``S <= block_size``: K11d writer (chunks
@@ -18,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from xllm_tpu_torch.ops import mla_ref
+from xllm_tpu_torch.ops.attention import _use_kernels
 from xllm_tpu_torch.ops.cuda.kv_write import (
     latent_write_prefill,
     latent_write_prefill_batched,
@@ -31,6 +38,15 @@ from xllm_tpu_torch.ops.cuda.mla_attention import (
     mla_prefill_attention,
     mla_prefill_attention_batched,
 )
+from xllm_tpu_torch.ops.kv_cache_ops import _put
+
+
+def _write_latent_scatter(cache, layer_idx, lat_new, slot_mapping) -> None:
+    """JAX's portable latent write: every row (padded ones into the null
+    block) into the single-head cache, cast to its dtype."""
+    bs = cache.shape[3]
+    slot = slot_mapping.long()
+    _put(cache, (int(layer_idx), slot // bs, 0, slot % bs), lat_new)
 
 
 def mla_decode_attention_write(
@@ -45,6 +61,10 @@ def mla_decode_attention_write(
     dv: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Write each sequence's new latent row, then attend. -> (out, cache)."""
+    if not _use_kernels(128, q_eff.device):
+        _write_latent_scatter(cache, layer_idx, lat_new, slot_mapping)
+        return mla_ref.mla_decode_ref(q_eff, cache, layer_idx, block_tables, seq_lens, scale,
+                                      dv), cache
     out = _decode_kernel(q_eff, lat_new, cache, layer_idx, slot_mapping,
                          block_tables, seq_lens, scale, dv)
     return out, cache
@@ -55,7 +75,7 @@ def mla_prefill_attention_write_batched(
     lat_new: torch.Tensor,  # [P, S, Dk]
     cache: torch.Tensor,  # [L, NB, 1, bs, Dk]
     layer_idx: int,
-    slot_mapping: torch.Tensor,  # [P, S] (kept for the JAX signature; the
+    slot_mapping: torch.Tensor,  # [P, S] (the portable path's; the kernels'
     # writers place rows from block_tables + q_offsets)
     block_tables: torch.Tensor,  # [P, NBmax] int32
     q_offsets: torch.Tensor,  # [P] int32
@@ -64,7 +84,13 @@ def mla_prefill_attention_write_batched(
     dv: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """P latent chunks written + attended. -> (out [P, S, H, dv], cache)."""
-    del slot_mapping
+    if not _use_kernels(128, q_eff.device):
+        p, s = lat_new.shape[:2]
+        _write_latent_scatter(cache, layer_idx, lat_new.reshape(p * s, -1),
+                              slot_mapping.reshape(p * s))
+        return torch.stack([
+            mla_ref.mla_prefill_ref(q_eff[i], cache, layer_idx, block_tables[i], q_offsets[i],
+                                    kv_lens[i], scale, dv) for i in range(p)]), cache
     ntoks = kv_lens - q_offsets
     writer = (latent_write_rmw_batched if lat_new.shape[1] <= cache.shape[3]
               else latent_write_prefill_batched)
@@ -79,7 +105,7 @@ def mla_prefill_attention_write(
     lat_new: torch.Tensor,  # [S, Dk]
     cache: torch.Tensor,  # [L, NB, 1, bs, Dk]
     layer_idx: int,
-    slot_mapping: torch.Tensor,  # [S] (kept for the JAX signature)
+    slot_mapping: torch.Tensor,  # [S] (the portable path's)
     block_table: torch.Tensor,  # [NBmax] int32
     q_offset: torch.Tensor,  # [] int32
     kv_len: torch.Tensor,  # [] int32
@@ -87,7 +113,10 @@ def mla_prefill_attention_write(
     dv: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One latent chunk written + attended. -> (out [S, H, dv], cache)."""
-    del slot_mapping
+    if not _use_kernels(128, q_eff.device):
+        _write_latent_scatter(cache, layer_idx, lat_new, slot_mapping)
+        return mla_ref.mla_prefill_ref(q_eff, cache, layer_idx, block_table, q_offset, kv_len,
+                                       scale, dv), cache
     ntok = kv_len - q_offset
     writer = latent_write_rmw if lat_new.shape[0] <= cache.shape[3] else latent_write_prefill
     writer(lat_new, cache, layer_idx, block_table, q_offset, ntok)

@@ -1,5 +1,6 @@
 """Plain MLA absorbed attention over the latent paged cache: the oracles
-of the tests (counterpart of ``xllm_tpu/ops/mla_ref.py``).
+of the tests and, under ``XLLM_ATTENTION_BACKEND=ref``, the portable path
+of ``ops/mla.py`` (counterpart of ``xllm_tpu/ops/mla_ref.py``).
 
 Absorbed MLA is an MQA over one shared latent head:
 
@@ -62,9 +63,10 @@ def mla_prefill_ref(
     lat = _gather_pages(cache, layer_idx, block_table[None])[0]  # [Skv, Dk]
     s_q, s_kv = q_eff.shape[0], lat.shape[0]
     scores = torch.einsum("qhd,sd->hqs", q_eff.float(), lat.float()) * scale
-    q_pos = int(q_offset) + torch.arange(s_q, device=lat.device)
+    q_pos = torch.as_tensor(q_offset, device=lat.device) + torch.arange(s_q, device=lat.device)
     kv_idx = torch.arange(s_kv, device=lat.device)
-    mask = (kv_idx[None, :] <= q_pos[:, None]) & (kv_idx[None, :] < int(kv_len))
+    mask = (kv_idx[None, :] <= q_pos[:, None]) & (
+        kv_idx[None, :] < torch.as_tensor(kv_len, device=lat.device))
     scores = torch.where(mask[None], scores, _NEG_INF)
     probs = _softmax(scores).to(lat.dtype).float()
     out = torch.einsum("hqs,sd->qhd", probs, lat[:, :dv].float())
