@@ -41,7 +41,13 @@ phase raises on failure, so a non-zero exit means a phase failed:
    e4m3 edge values); and the P-rounding repairs (faults F1-F4): K1, K3,
    K3b on bf16, int8 and fp8 caches and K11a, K11b, K11e on bf16 and fp8
    latent caches at block_size 16, 32, 64 and 128, with and without a
-   window.
+   window; and K3 / K3b launches that split their context (a chunk deep in
+   its prompt in the 64 bucket) at the GQA groups 2, 4 and 8 (Hq 16 / Hkv 8,
+   32 / 8, 32 / 4), block_size 16, 64 and 128, on bf16, int8 and fp8 caches,
+   with and without a window whose lower edge falls inside a split, each on
+   grid inputs against the unsplit plain version and against the split
+   model with the kernel's own plan (each launch's split count printed);
+   K3 is also timed at Qwen3-8B's group (Hq 32, Hkv 8) at S 2048.
    Then the kernel, the plain version and one PyTorch library call
    (the yardstick, never used by the port) are timed with CUDA events,
    queued behind a device-side sleep so that the device's time is timed
@@ -673,6 +679,9 @@ def check_prefill(rng, dev, dtype, timed: bool, cache=None) -> dict:
     ``by_shape``."""
     results = [check_prefill_shape(rng, dev, dtype, timed, s, rows, cache=cache)
                for s, rows in K3_SHAPES.items()]
+    if timed and cache is None:  # Qwen3-8B's group (Hq 32, Hkv 8) at S 2048
+        results.append(check_prefill_shape(rng, dev, dtype, timed, 2048, [(0, 2048)],
+                                           hq=32, hkv=8))
     res = dict(results[0])
     res["max_abs_err"] = max(r["max_abs_err"] for r in results)
     if timed:
@@ -1680,6 +1689,61 @@ def check_prefill_short_pages(rng, dev) -> float:
     return worst
 
 
+# context splits of the tensor-core kernel (the wrapper's plan splits a
+# launch of few blocks): a chunk deep in its prompt in the 64 bucket at
+# each GQA group the served models have (2: qwen3-1.7B, 4: Qwen3-8B, 8:
+# Qwen3-30B-A3B), at block_size 16, 64 and 128, on bf16, int8 and fp8
+# caches, with and without a window whose lower edge falls inside a split
+SPLIT_GROUPS = ((16, 8), (32, 8), (32, 4))
+SPLIT_PAGES = (16, 64, 128)
+SPLIT_ROWS = {True: [(2048, 52)], False: [(2048, 52), (37, 27), (0, 0)]}
+SPLIT_WINDOW = 300
+
+
+def check_prefill_splits(rng, dev) -> dict:
+    """K3 and K3b launches that split their context, on grid inputs: each
+    against the unsplit plain version and against the split model with the
+    kernel's own plan (``k3.split_plan``), within ``TOL`` at every output
+    -> {kernel name: worst error}; prints each launch's split count."""
+    worst: dict[str, float] = {}
+    g = torch.Generator(device=dev).manual_seed(40)
+    s = RMW_S
+    for hq, hkv in SPLIT_GROUPS:
+        for bs in SPLIT_PAGES:
+            nbmax = 4096 // bs
+            for cache in (None, "int8", "fp8_e4m3"):
+                for single in (True, False):
+                    rows = SPLIT_ROWS[single]
+                    bt, nb = _paged(rng, [a + n for a, n in rows], bs, nbmax)
+                    shape = (2, nb, hkv, bs, D)
+                    kc = grid_tensor(g, dev, shape, torch.bfloat16, cache)
+                    vc = grid_values(g, dev, shape, torch.bfloat16, cache)
+                    q = grid_tensor(g, dev, (len(rows), s, hq, D), torch.bfloat16)
+                    chunk, nsplit = k3.split_plan(len(rows), s, hq, hkv, nbmax * bs, bs)
+                    assert nsplit > 1, f"Hq {hq} Hkv {hkv} bs {bs}: the plan does not split"
+                    kernel, plain = prefill_fns(single)
+                    name = k3.ONE_NAME if single else k3.NAME
+                    for window in (0, SPLIT_WINDOW):
+                        a = (1, i32(bt, dev), i32([a_ for a_, _ in rows], dev),
+                             i32([a_ + n if n else 0 for a_, n in rows], dev),
+                             grid_scale(cache), window)
+                        out = kernel(q, kc, vc, *a)
+                        ref = plain(q, kc, vc, *a)
+                        model = k3.paged_attention_prefill_batched_plain(q, kc, vc, *a, chunk)
+                        sync()
+                        what = (f"{name} Hq {hq} Hkv {hkv} bs {bs} cache {cache or 'bf16'} "
+                                f"window {window}, {nsplit} splits of {chunk}")
+                        err = max(check_close(out, ref, what),
+                                  check_close(out, model, what + " (split model)"))
+                        for i, (_, n) in enumerate(rows):
+                            assert not out[i, n:].float().abs().any(), f"{what}: row {i} past ntok"
+                        worst[name] = max(worst.get(name, 0.0), err)
+                    log(f"[kernels]   split launch: {name} Hq {hq} Hkv {hkv} bs {bs} cache "
+                        f"{cache or 'bf16'} {rows}: {nsplit} splits of {chunk} positions")
+            free_device_memory()
+    return worst
+
+
 def phase_quant_caches(rng, dev) -> dict:
     """K1-K4 on int8 and fp8 caches at qwen3-1.7B's shapes: bf16 q timed,
     f32 q checked -> {kernel name: {cache: result}}."""
@@ -1982,6 +2046,11 @@ def phase_kernels(dev) -> dict:
     log("[kernels] MoE block at decode shape under sync debug mode 'error': no host sync")
     del w
     free_device_memory()
+    worst = check_prefill_splits(rng, dev)
+    log(f"[kernels] context splits of {k3.NAME} and {k3.ONE_NAME} at Hq / Hkv {SPLIT_GROUPS}, "
+        f"block_size {SPLIT_PAGES}, bf16 / int8 / fp8 caches, window 0 and {SPLIT_WINDOW}, "
+        f"against the unsplit plain version and the split model: worst errors {worst} "
+        f"({GRID_TOL})")
     worst = check_page_sizes(rng, dev)
     log(f"[kernels] P-rounding repairs (F1-F4) at block_size {PAGE_SIZES}: {k1.NAME}, "
         f"{k3.NAME}, {k3.ONE_NAME} on bf16 / int8 / fp8 caches and {k11.DECODE_NAME}, "

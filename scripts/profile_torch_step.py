@@ -65,6 +65,7 @@ OWN_KERNELS = {
     "kv_write_rows_kernel": "K2/K4/K8/K9 kv_write_rows",
     "kv_write_rmw_rm_kernel": "K9 kv_write_rmw_batched_rm",
     "prefill_attention_kernel": "K3/K8 prefill_attention",
+    "prefill_tc_kernel": "K3/K8 prefill_attention",
     "gmm_bf16_kernel": "K10 gmm",
     "mla_attention_tc_kernel<1": "K11a mla_decode_attention_write",
     "mla_attention_tc_kernel<2": "K11b mla_prefill_attention_batched",

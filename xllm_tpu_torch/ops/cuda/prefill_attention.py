@@ -35,6 +35,10 @@ unnormalised P of each page against the running maximum after that page.
   single-chunk passes of the interleaved layouts run this kernel with P =
   1, as the JAX package runs its batched kernels.
 
+Two kernels, chosen by q's dtype: bf16 q at head_dim 128 runs on the
+tensor cores and, where its (chunk, kv head, row tile) blocks are too few
+for the card, splits each chunk's key range (``split_plan``, from shapes
+alone) and merges the splits; f32 q and head_dim 64 run on the CUDA cores.
 Bound on the card: operations for long chunks (S = 2048), bytes for
 short ragged ones; see the CUDA source.
 """
@@ -62,8 +66,14 @@ ILV_TPU_KERNEL = (
     "paged_attention_prefill_batched_ilv_tpu"
 )
 _SOURCE = "prefill_attention"
-_MAX_GROUP = 64  # query rows per block in the kernel
+_MAX_GROUP = 64  # query rows per block of the CUDA-core kernel
 _TILE = 64  # KV positions per shared-memory tile in the kernel
+_TC_ROWS = 128  # query rows per block of the tensor-core kernel
+_MAX_SPLITS = 32  # kMaxSplits of csrc/prefill_attention.cu
+_BUSY_BLOCKS = 256  # about two blocks for each of an H100's 132 SMs
+_MIN_SPLIT_UNITS = 4  # key tiles (or pages, if longer) a split walks at least
+# per-device int32 split counters; the kernel leaves them at 0
+_counters: dict[torch.device, torch.Tensor] = {}
 
 
 def paged_attention_prefill_batched_plain(
@@ -76,9 +86,10 @@ def paged_attention_prefill_batched_plain(
     kv_lens: torch.Tensor,  # [P] int32 (0 = padded row)
     scale: float,
     window: int = 0,
+    chunk: int | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same zeros for rows without a
-    real token)."""
+    real token); ``chunk`` models a context split (``_prefill_plain``)."""
     p, d, hkv = q.shape[0], q.shape[3], k_all.shape[2]
     layer = int(layer_idx)
     bt = block_tables.long()
@@ -87,22 +98,30 @@ def paged_attention_prefill_batched_plain(
     k = k.permute(0, 2, 1, 3, 4).reshape(p, hkv, -1, d)
     v = v.permute(0, 2, 1, 3, 4).reshape(p, hkv, -1, d)
     return _prefill_plain(q, k, v, k_all.dtype, k_all.shape[3], q_offsets, kv_lens,
-                          scale, window)
+                          scale, window, chunk)
 
 
 def _prefill_plain(q, k, v, cache_dtype, bs: int, q_offsets, kv_lens, scale,
-                   window) -> torch.Tensor:
+                   window, chunk: int | None = None) -> torch.Tensor:
     """The kernel's arithmetic over the gathered pages of each chunk, k / v
-    [P, Hkv, NBmax * bs, D] in f32 (cached values) -> [P, S, Hq, D]."""
+    [P, Hkv, NBmax * bs, D] in f32 (cached values) -> [P, S, Hq, D].
+
+    ``chunk`` models the kernel's context split: splits of ``chunk``
+    positions (a multiple of ``bs``), each walked on its own and published
+    as (m, l, acc), then merged with weights exp(m_i - max m). On every
+    cache but f32 a split starts its running maximum at the maximum of the
+    earlier splits' scores (the kernel's first pass), so each page rounds P
+    against the single walk's running maximum; on f32 each split starts
+    afresh. None is the single walk."""
     p, s, hq, d = q.shape
-    hkv = k.shape[1]
+    hkv, width = k.shape[1], k.shape[2]
     # q in the kernel's working dtype (the cache's, or q's own on a
     # quantized cache)
     work = q.dtype if _build.is_quantized(cache_dtype) else cache_dtype
     qg = q.to(work).float().reshape(p, s, hkv, hq // hkv, d)
     scores = torch.einsum("pqkgd,pksd->pkgqs", qg, k) * scale
     q_pos = q_offsets.long()[:, None] + torch.arange(s, device=q.device)  # [P, S]
-    kv_idx = torch.arange(k.shape[2], device=q.device)
+    kv_idx = torch.arange(width, device=q.device)
     mask = (kv_idx[None, None, :] <= q_pos[:, :, None]) & (
         kv_idx[None, None, :] < kv_lens.long()[:, None, None]
     )  # [P, S, S_kv]
@@ -111,10 +130,28 @@ def _prefill_plain(q, k, v, cache_dtype, bs: int, q_offsets, kv_lens, scale,
     live = q_pos < kv_lens.long()[:, None]  # rows holding a real token
     mask = mask & live[:, :, None]
     scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
+    nsplit = 1
+    if chunk is not None:
+        if chunk <= 0 or chunk % bs:
+            raise ValueError(f"a context split of {chunk} positions at block_size {bs}")
+        nsplit = -(-width // chunk)
+        pad = nsplit * chunk - width
+        scores = torch.nn.functional.pad(scores, (0, pad), value=float("-inf"))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
     if cache_dtype == torch.float32:
-        probs = torch.nan_to_num(torch.softmax(scores, dim=-1))
-        out = torch.einsum("pkgqs,pksd->pqkgd", probs, v).reshape(p, s, hq, d)
-        return out.to(q.dtype)
+        if chunk is None:
+            probs = torch.nan_to_num(torch.softmax(scores, dim=-1))
+            out = torch.einsum("pkgqs,pksd->pqkgd", probs, v).reshape(p, s, hq, d)
+            return out.to(q.dtype)
+        # each split an online softmax of its own, from -inf
+        split = scores.unflatten(-1, (nsplit, chunk))  # [P, Hkv, G, S, n, chunk]
+        m = split.amax(-1)
+        seen = torch.isfinite(m)
+        m = torch.where(seen, m, 0.0)
+        probs = torch.exp(split - m[..., None])
+        l_i = probs.sum(-1)
+        acc = torch.einsum("pkgqnc,pkncd->pkgqnd", probs, v.unflatten(2, (nsplit, chunk)))
+        return _merge(acc, l_i, m, seen, q.dtype)
     # P rounded to bf16 before P.V, as the TPU kernel's online softmax
     # rounds it: against the running maximum after each page. Page i's P.V
     # then carries the weight exp(m_i - m_last) that the kernel's later
@@ -123,14 +160,40 @@ def _prefill_plain(q, k, v, cache_dtype, bs: int, q_offsets, kv_lens, scale,
     m_run = torch.cummax(paged.amax(-1), dim=-1).values  # [P, Hkv, G, S, NB]
     seen = torch.isfinite(m_run)
     m_run = torch.where(seen, m_run, 0.0)
-    weight = torch.where(seen, torch.exp(m_run - m_run[..., -1:]), 0.0)
     probs = torch.exp(paged - m_run[..., None])  # masked positions: 0
-    l = (probs.sum(-1) * weight).sum(-1)  # 0 for a row without a real token
-    probs = (probs.bfloat16().float() * weight[..., None]).flatten(-2)
-    out = torch.einsum("pkgqs,pksd->pqkgd", probs, v)
-    l = l.permute(0, 3, 1, 2)[..., None]  # [P, S, Hkv, G, 1]
-    out = torch.where(l > 0, out / l, 0.0).reshape(p, s, hq, d)
-    return out.to(q.dtype)
+    if chunk is None:
+        weight = torch.where(seen, torch.exp(m_run - m_run[..., -1:]), 0.0)
+        l = (probs.sum(-1) * weight).sum(-1)  # 0 for a row without a real token
+        probs = (probs.bfloat16().float() * weight[..., None]).flatten(-2)
+        out = torch.einsum("pkgqs,pksd->pqkgd", probs, v)
+        l = l.permute(0, 3, 1, 2)[..., None]  # [P, S, Hkv, G, 1]
+        out = torch.where(l > 0, out / l, 0.0).reshape(p, s, hq, d)
+        return out.to(q.dtype)
+    # split i's frame: the running maximum after its last page (the walk
+    # that started at the earlier splits' maximum); its pages weighted into
+    # that frame
+    per = chunk // bs
+    m_i = m_run.unflatten(-1, (nsplit, per))[..., -1]  # [P, Hkv, G, S, n]
+    seen_i = seen.unflatten(-1, (nsplit, per))[..., -1]
+    weight = torch.where(seen, torch.exp(m_run - m_i.repeat_interleave(per, -1)), 0.0)
+    l_i = (probs.sum(-1) * weight).unflatten(-1, (nsplit, per)).sum(-1)
+    probs = (probs.bfloat16().float() * weight[..., None]).unflatten(-2, (nsplit, per))
+    acc = torch.einsum("pkgqnc,pkncd->pkgqnd", probs.flatten(-2),
+                       v.unflatten(2, (nsplit, chunk)))
+    return _merge(acc, l_i, m_i, seen_i, q.dtype)
+
+
+def _merge(acc, l_i, m_i, seen_i, dtype) -> torch.Tensor:
+    """The splits' partials acc [P, Hkv, G, S, n, D], l_i and m_i [P, Hkv,
+    G, S, n] (seen_i: m_i holds a score) -> out [P, S, Hq, D]: each split
+    weighted by exp(m_i - max m), as the kernel's last split merges them."""
+    p, hkv, grp, s, _, d = acc.shape
+    m = torch.where(seen_i, m_i, float("-inf")).amax(-1, keepdim=True)
+    w = torch.where(seen_i, torch.exp(m_i - torch.where(torch.isfinite(m), m, 0.0)), 0.0)
+    l = (l_i * w).sum(-1)[..., None]
+    out = (acc * w[..., None]).sum(-2)
+    out = torch.where(l > 0, out / l, 0.0)  # [P, Hkv, G, S, D]
+    return out.permute(0, 3, 1, 2, 4).reshape(p, s, hkv * grp, d).to(dtype)
 
 
 def paged_attention_prefill_batched_ilv_plain(
@@ -143,11 +206,12 @@ def paged_attention_prefill_batched_ilv_plain(
     scale: float,
     window: int = 0,
     rowmajor_tail: bool = False,
+    chunk: int | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of K8's prefill: K3's arithmetic over the
     interleaved cache; with ``rowmajor_tail`` (K9's layout) a sequence's
     final incomplete page (``kv_len % bs != 0``) is read from its
-    token-major content."""
+    token-major content. ``chunk`` as in K3's."""
     p = q.shape[0]
     _, _, _, hkv, bs, d = kv_all.shape
     pages = kv_all[int(layer_idx)][block_tables.long()].float()  # [P, NB, 2, Hkv, bs, D]
@@ -159,7 +223,8 @@ def paged_attention_prefill_batched_ilv_plain(
         pages[rows, last] = tail.permute(0, 2, 1, 3).reshape(-1, 2, hkv, bs, d)
     k = pages[:, :, 0].permute(0, 2, 1, 3, 4).reshape(p, hkv, -1, d)
     v = pages[:, :, 1].permute(0, 2, 1, 3, 4).reshape(p, hkv, -1, d)
-    return _prefill_plain(q, k, v, kv_all.dtype, bs, q_offsets, kv_lens, scale, window)
+    return _prefill_plain(q, k, v, kv_all.dtype, bs, q_offsets, kv_lens, scale, window,
+                          chunk)
 
 
 _lib = None
@@ -171,12 +236,48 @@ def _load() -> ctypes.CDLL:
         lib = _build.load(_SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.xllm_prefill_attention.argtypes = [
-            i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i,
-            ctypes.c_float, i, ctypes.c_longlong, i, p,
+            i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i,
+            ctypes.c_float, i, ctypes.c_longlong, i, i, i, i, i, p,
         ]
         lib.xllm_prefill_attention.restype = i
         _lib = lib
     return _lib
+
+
+def key_tile(block_size: int) -> int:
+    """Key positions per tile of the tensor-core kernel: a page never spans
+    two tiles up to block_size 128; longer pages take their maxima from a
+    first pass."""
+    return 128 if block_size == 128 else _TILE
+
+
+def split_plan(p: int, s: int, hq: int, hkv: int, width: int,
+               block_size: int) -> tuple[int, int]:
+    """-> (chunk, nsplit) of a tensor-core launch, from shapes alone (the
+    launch reads nothing back from the card): P chunks of S query tokens,
+    Hq / Hkv heads, a block table of ``width`` positions. No split while
+    the (chunk, kv head, 128-row tile) blocks number about two for each
+    streaming multiprocessor (a chunk of 2048 tokens, or four of 512, at
+    qwen3's groups); else splits of ``chunk`` positions, a multiple of the
+    key tile and of the page, enough of them (at most ``_MAX_SPLITS``, each
+    at least four tiles long) to reach that count over the whole table
+    width. A split past a chunk's kv_len exits at once."""
+    blocks = p * hkv * -(-s // (_TC_ROWS // (hq // hkv)))
+    unit = max(key_tile(block_size), block_size)
+    units = -(-width // unit)
+    want = 1 if blocks >= _BUSY_BLOCKS else min(_MAX_SPLITS, -(-_BUSY_BLOCKS // blocks))
+    # at least _MIN_SPLIT_UNITS units a split: the last split merges every
+    # split's partial rows alone
+    chunk = unit * max(-(-units // want), min(_MIN_SPLIT_UNITS, units))
+    return chunk, -(-width // chunk)
+
+
+def _split_counters(device: torch.device, n: int) -> torch.Tensor:
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[device] = buf
+    return buf
 
 
 def paged_attention_prefill_plain(
@@ -189,11 +290,12 @@ def paged_attention_prefill_plain(
     kv_len: torch.Tensor,  # [] int32
     scale: float,
     window: int = 0,
+    chunk: int | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of K3b (K3's at one chunk) -> [S, Hq, D]."""
     return paged_attention_prefill_batched_plain(
         q[None], k_all, v_all, layer_idx, block_table[None], q_offset.reshape(1),
-        kv_len.reshape(1), scale, window,
+        kv_len.reshape(1), scale, window, chunk,
     )[0]
 
 
@@ -312,14 +414,32 @@ def _launch(name, q, k_base, v_base, v_off: int, nb: int, hkv: int, bs: int,
             f"{name}: block_size {bs} must divide or be a multiple of {_TILE}"
         )
     lib = _load()
-    _build.count_launch(name)
+    nbmax = block_tables.shape[1]
+    width = nbmax * bs
+    chunk, nsplit, seg = width, 1, width
+    # placeholders where a launch reads none: the CUDA-core kernel, or one
+    # tensor-core walk over pages no longer than its tile
+    gmax = part = counters = out
+    if work == torch.bfloat16 and d == 128:  # the tensor-core kernel
+        kt = key_tile(bs)
+        chunk, nsplit = split_plan(p, s, hq, hkv, width, bs)
+        seg = bs if bs > kt else chunk  # the first pass's maxima: per page or per split
+        rows = p * hkv * -(-s // (_TC_ROWS // (hq // hkv))) * _TC_ROWS  # every block's
+        if nsplit > 1 or bs > kt:
+            gmax = torch.empty(rows, -(-width // seg), dtype=torch.float32, device=q.device)
+        if nsplit > 1:
+            part = torch.empty(rows, nsplit, 4 + d, dtype=torch.float32, device=q.device)
+            counters = _split_counters(q.device, rows // _TC_ROWS)
+    _build.count_launch(name)  # one count for the op (one or two kernels)
     err = lib.xllm_prefill_attention(
         q.device.index or 0, _build.ptr(qk), _build.ptr(k_base),
         ctypes.c_void_p(v_base.data_ptr() + v_off * v_base.element_size()),
         _build.ptr(block_tables), _build.ptr(q_offsets),
-        _build.ptr(kv_lens), _build.ptr(out), dtype, qtype, d, p, s, int(layer_idx),
-        nb, hkv, bs, block_tables.shape[1], hq // hkv, float(scale),
-        int(window), page, int(rm), _build.stream_of(q),
+        _build.ptr(kv_lens), _build.ptr(gmax), _build.ptr(out), _build.ptr(part),
+        _build.ptr(counters), dtype, qtype, d, p, s, int(layer_idx),
+        nb, hkv, bs, nbmax, hq // hkv, float(scale),
+        int(window), page, int(rm), chunk, nsplit, seg, -(-width // seg),
+        _build.stream_of(q),
     )
     _build.check(lib, err, name)
     return out.to(q.dtype)
