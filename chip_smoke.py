@@ -1475,8 +1475,16 @@ QMM_EDGE_ROWS = (5, 24, 52, 64, 192)
 # largest pass, checked at the row counts of its other prefill passes
 QMM_SHAPES_1P7B = [("qkv", 2048, 4096), ("o", 2048, 2048), ("gate_up", 2048, 6144),
                    ("down", 6144, 2048)]
-QMM_ROWS_1P7B = (16, 256)
+QMM_ROWS_1P7B = (16, 64, 256)
 QMM_EDGE_ROWS_1P7B = (52, 64, 128, 192)
+# K6's own path, Qwen3-8B fp8 under XLLM_QMM_KERNEL=pallas, runs every pass
+# size: a decode step, the 64, 512 and 2048 buckets
+QMM_ROWS_FP8 = (16, 64, 512, 2048)
+# K6 / K7 launches under forced plans (M, K, N, row tile, splits): part-filled
+# row and column tiles, a last stage shorter than 64, 1-5 splits
+QMM_SPLITS = [(5, 320, 144, 64, 2), (52, 320, 144, 64, 5), (64, 1024, 256, 64, 3),
+              (130, 512, 384, 128, 2), (200, 4096, 128, 128, 5), (300, 384, 256, 256, 1),
+              (600, 2048, 512, 256, 3), (16, 4096, 4096, 64, 4), (256, 6144, 2048, 128, 4)]
 QMM_LAYERS = 4
 QMM_TOL = ("K5: bit-equal to its plain version; K6, K7: |out - ref| <= K 2^-24 "
            "(|x| @ |w|) |s| + 1e-6 (exact products, f32 sums in another order)")
@@ -1493,7 +1501,7 @@ QMM_KINDS = {
 # kind -> [(model, shapes, timed rows, checked rows)]
 QMM_MODELS = {
     "int8": [("Qwen3-8B", QMM_SHAPES, QMM_ROWS, QMM_EDGE_ROWS)],
-    "fp8_e4m3": [("Qwen3-8B", QMM_SHAPES, QMM_ROWS, QMM_EDGE_ROWS)],
+    "fp8_e4m3": [("Qwen3-8B", QMM_SHAPES, QMM_ROWS_FP8, QMM_EDGE_ROWS)],
     "bf16": [("Qwen3-8B", QMM_SHAPES, QMM_ROWS, QMM_EDGE_ROWS),
              ("qwen3-1.7B", QMM_SHAPES_1P7B, QMM_ROWS_1P7B, QMM_EDGE_ROWS_1P7B)],
 }
@@ -1593,6 +1601,11 @@ def check_qmm_shape(g, dev, kind, model, proj, k, n, rows, edge_rows):
                 return torch.mm(x, w[i % QMM_LAYERS], out_dtype=torch.float32)
             lib_name = "torch.mm(out_dtype=f32)"
         res = {"max_abs_err": err}
+        if kind != "int8":  # the launch's plan, and its split model
+            p = qmm.plan(m, k, n, kind, qmm.device_sms(x.device))
+            check_qmm_close(out, qmm.split_model(x, w[1], scale(1), p), x, w[1], scale(1),
+                            False, what + " split model")
+            res["plan"] = f"{p.path} {p.bm}x{p.bn}, {p.splits} splits, {p.units} units"
         res.update(time_three(
             lambda i: stacked(x, w, s, i % QMM_LAYERS),
             lambda i: plain(x, w[i % QMM_LAYERS], scale(i % QMM_LAYERS)),
@@ -1612,7 +1625,7 @@ def check_qmm_shape(g, dev, kind, model, proj, k, n, rows, edge_rows):
                   + (0 if s is None else n * 4) + (m * 4 if kind == "int8" else 0))
         res["bound_ms"], res["bound_by"] = bound_ms(
             nbytes, 2.0 * m * k * n, PEAK_INT8 if kind == "int8" else PEAK_BF16)
-        res["row_tile"] = qmm.row_tile(m)
+        res["row_tile"] = qmm.row_tile(m) if kind == "int8" else p.bm
         res["shape"] = (f"{model} {proj}: M={m} ({'decode' if m == 16 else 'prefill'}), "
                         f"K {k}, N {n}, {kind} weights, bf16 x")
         timed.append(res)
@@ -1621,12 +1634,52 @@ def check_qmm_shape(g, dev, kind, model, proj, k, n, rows, edge_rows):
     return timed, worst_f32, worst_edge
 
 
+def check_qmm_splits(dev, g) -> dict:
+    """K6 and K7 under the forced plans of ``QMM_SPLITS``, bf16 and f32 x,
+    against the plain version and the split model; K6 also on weights with
+    e4m3 NaN bytes (NaN columns where the plain version has them) -> {kernel
+    name: worst error}."""
+    worst = {}
+    for kind in ("fp8_e4m3", "bf16"):
+        name, _, unstacked, plain = QMM_KINDS[kind]
+        worst[name] = 0.0
+        for m, k, n, bm, splits in QMM_SPLITS:
+            w, s = qmm_weights(g, dev, kind, k, n)
+            sl = None if s is None else s[1]
+            p = qmm.layout(m, k, n, splits, bm, qmm.device_sms(dev))
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+                out = qmm.launch_prepared(name, x.bfloat16().contiguous(), None, w, s, 1, p)
+                what = f"{name} M={m} K={k} N={n} row tile {bm}, {splits} splits, {dtype} x"
+                err = check_qmm_close(out, plain(x, w[1], sl), x, w[1], sl, False, what)
+                check_qmm_close(out, qmm.split_model(x, w[1], sl, p), x, w[1], sl, False,
+                                what + " split model")
+                worst[name] = max(worst[name], err)
+            del w, s
+    w, s = qmm_weights(g, dev, "fp8_e4m3", 512, 256)
+    w.view(torch.uint8)[1, 3, 5] = 0x7F  # e4m3 NaN bytes
+    w.view(torch.uint8)[1, 300, 130] = 0xFF
+    x = torch.randn(16, 512, generator=g, device=dev).bfloat16()
+    out, ref = qmm.quant_matmul_fp8(x, w[1], s[1]), qmm.quant_matmul_fp8_plain(x, w[1], s[1])
+    assert torch.equal(out.isnan(), ref.isnan()) and out[:, 5].isnan().all(), "e4m3 NaN"
+    keep = ~ref.isnan()
+    check_qmm_close(torch.where(keep, out, 0.0), torch.where(keep, ref, 0.0), x,
+                    w[1].float().nan_to_num(), s[1], False, "quant_matmul_fp8 beside NaN weights")
+    log(f"[kernels] K6 / K7 under {len(QMM_SPLITS)} forced plans x bf16 / f32 x: worst err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f" against the plain version and the split model ({QMM_TOL}); e4m3 NaN bytes "
+        "upcast to NaN")
+    return worst
+
+
 def check_qmm(dev) -> dict:
     """K5, K6, K7 at every shape of ``QMM_MODELS``: bf16 x at the timed
-    and the edge rows, f32 x at the timed rows -> {kernel name: the first
-    (Qwen3-8B decode qkv) result with every timed shape's in ``by_shape``}."""
+    and the edge rows, f32 x at the timed rows, K6 / K7 also under forced
+    plans -> {kernel name: the first (Qwen3-8B decode qkv) result with
+    every timed shape's in ``by_shape``}."""
     g = torch.Generator(device=dev).manual_seed(20)
     results = {}
+    split_err = check_qmm_splits(dev, g)
     for kind, models in QMM_MODELS.items():
         name = QMM_KINDS[kind][0]
         by_shape, worst_f32, worst_edge, edges = [], 0.0, 0.0, []
@@ -1640,6 +1693,8 @@ def check_qmm(dev) -> dict:
         row = dict(by_shape[0], by_shape=by_shape, max_abs_err_f32=worst_f32,
                    max_abs_err_edge_rows=worst_edge,
                    max_abs_err=max([worst_edge] + [r["max_abs_err"] for r in by_shape]))
+        if name in split_err:
+            row["max_abs_err_splits"] = split_err[name]
         results[name] = row
         log(f"[kernels] {name}: bf16 x err {row['max_abs_err']:.3g} (part-filled row "
             f"tiles, {'; '.join(edges)}: {worst_edge:.3g}), f32 x err {worst_f32:.3g} "
@@ -1648,8 +1703,9 @@ def check_qmm(dev) -> dict:
             lib = ("n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms")
             alone = (f" (the launch alone {r['kernel_only_ms']:.4f} ms)"
                      if "kernel_only_ms" in r else "")
-            log(f"[kernels]   {r['shape']}: kernel {r['ms']:.4f} ms{alone} (row tile "
-                f"{r['row_tile']}), plain {r['plain_ms']:.4f} ms, library ({r['library']}) "
+            tile = r.get("plan", f"row tile {r['row_tile']}")
+            log(f"[kernels]   {r['shape']}: kernel {r['ms']:.4f} ms{alone} ({tile}), "
+                f"plain {r['plain_ms']:.4f} ms, library ({r['library']}) "
                 f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return results
 
@@ -3427,7 +3483,8 @@ def main() -> int:
     def run_of(run, name):
         return run[1]["score"] if name in single else run
     keys = ("shape", "max_abs_err", "max_abs_err_f32", "ms", "kernel_only_ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "library", "row_tile", "ms_by_row_tile")
+            "bound_ms", "bound_by", "library_ms", "library", "row_tile", "ms_by_row_tile",
+            "plan")
     rows = []
     for name, res in kern.items():
         tpu, src = meta[name]
@@ -3446,7 +3503,8 @@ def main() -> int:
             "max_abs_err": res["max_abs_err"],
             "max_abs_err_f32": res["max_abs_err_f32"],
             "ms": res["ms"],
-            **{k: res[k] for k in ("kernel_only_ms", "max_abs_err_edge_rows") if k in res},
+            **{k: res[k] for k in ("kernel_only_ms", "max_abs_err_edge_rows",
+                                   "max_abs_err_splits", "plan") if k in res},
             "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"],

@@ -6,6 +6,7 @@
                  |qwen3-30b-a3b-fp8|deepseek-v2-lite-fp8]
         [--prompt-len 512] [--steps 16]
         [--kv-layout split|interleaved|interleaved_rm[,...]]
+        [--qmm default,pallas] [--bf16-mm default|pallas] [--requests 16]
 
 Serves a config of ``chip_smoke.py`` (the qwen3-1.7B-class dense model, 28
 layers; Qwen3-30B-A3B, 48 layers with 128 experts; DeepSeek-V2-Lite, 27
@@ -14,17 +15,22 @@ int8 weights and an int8 KV cache, or fp8 weights and an fp8 KV cache;
 Qwen3-30B-A3B with fp8 weights, experts included, and an fp8 KV cache;
 DeepSeek-V2-Lite with fp8 weights and an fp8 latent cache; random weights) through ``xllm_tpu_torch.engine.LLMEngine`` on the card.
 A quantized model runs twice, one engine after the other in one process:
-with the dequant default, then with ``XLLM_QMM_KERNEL=pallas`` (K5 / K6).
+with the dequant default, then with ``XLLM_QMM_KERNEL=pallas`` (K5 / K6);
+``--qmm pallas`` keeps the second only. ``--bf16-mm pallas`` serves a bf16
+model under ``XLLM_BF16_MM=pallas``: its passes of at most 256 token rows
+(decode steps; prefill passes of up to four 64-token chunks) take K7 for
+every projection.
 ``--kv-layout`` takes a comma list of KV layouts (default split), each
 served by an engine of its own, one after the other in the listed order
 (``split,interleaved_rm,interleaved_rm,split`` compares two layouts in
 turns, on one card). Each engine:
-16 greedy requests of ``--prompt-len`` tokens, after two warm-up requests
-(first calls load CUDA modules and pick GEMM algorithms). Two windows are
+``--requests`` (16) greedy requests of ``--prompt-len`` tokens, after two
+warm-up requests (first calls load CUDA modules and pick GEMM algorithms). Two windows are
 traced with ``torch.profiler``:
 
 - prefill: from the first step until every prompt has been computed;
-- decode: ``--steps`` steady decode steps (all 16 sequences running),
+- decode: ``--steps`` steady decode steps (every request running, the
+  decode batch padded to 16 rows),
   after a few warm-up steps.
 
 For each window it reports the host-clock time per step (between two
@@ -73,6 +79,8 @@ OWN_KERNELS = {
     "qmm_int8_kernel": "K5 quant_matmul_int8",
     "qmm_bf16_kernel<true": "K6 quant_matmul_fp8",
     "qmm_bf16_kernel<false": "K7 matmul_bf16",
+    "qmm_ws_kernel<true": "K6 quant_matmul_fp8",
+    "qmm_ws_kernel<false": "K7 matmul_bf16",
 }
 # --model -> (chip_smoke model config, KV blocks, quant method, KV dtype)
 MODELS = {
@@ -175,12 +183,12 @@ def profile_engine(args, model: str, kv_layout: str = "split") -> dict:
     reqs = [eng.add_request(prompt_token_ids=rng.integers(1, cfg.model.vocab_size,
                                                           args.prompt_len).tolist(),
                             sampling_params=sp)
-            for _ in range(BATCH)]
+            for _ in range(args.requests)]
     seqs = [r.sequences[0] for r in reqs]
 
     prefill = traced(eng, None, until=lambda: all(
         s.num_computed_tokens >= s.num_prompt_tokens for s in seqs))
-    prefill["prompt_tokens"] = BATCH * args.prompt_len
+    prefill["prompt_tokens"] = args.requests * args.prompt_len
     for _ in range(8):  # past the prefill-drain depth, steady decode
         eng.step()
     torch.cuda.synchronize()
@@ -191,7 +199,7 @@ def profile_engine(args, model: str, kv_layout: str = "split") -> dict:
     host_ms = (time.perf_counter() - t0) / args.steps * 1e3
     decode = traced(eng, args.steps)
     decode["host_ms_per_step_untraced"] = host_ms
-    decode["tok_per_s_untraced"] = BATCH / host_ms * 1e3
+    decode["tok_per_s_untraced"] = args.requests / host_ms * 1e3
     decode["device_idle_share_untraced"] = 1.0 - decode["device_busy_ms_per_step"] / host_ms
     decode["context_tokens_at_end"] = sorted({int(s.num_computed_tokens) for s in seqs})
     while eng.has_unfinished():
@@ -205,9 +213,17 @@ def main() -> int:
     ap.add_argument("--model", choices=sorted(MODELS), default="qwen3-1.7b")
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--requests", type=int, default=BATCH,
+                    help="prompts served together (at most the batch of 16; 4 prompts of "
+                    "40 tokens make one 256-row prefill pass)")
     ap.add_argument("--kv-layout", default="split",
                     help="comma list of split, interleaved, interleaved_rm: one engine "
                     "each, in this order")
+    ap.add_argument("--qmm", default="default,pallas",
+                    help="a quantized model's matmuls: comma list of default (dequant) "
+                    "and pallas (K5 / K6)")
+    ap.add_argument("--bf16-mm", choices=("default", "pallas"), default="default",
+                    help="pallas: a bf16 model's passes of <= 256 rows through K7")
     args = ap.parse_args()
     layouts = args.kv_layout.split(",")
     if not set(layouts) <= {"split", "interleaved", "interleaved_rm"}:
@@ -218,13 +234,17 @@ def main() -> int:
     card = chip_smoke.card_line()
     print(card, flush=True)
     _build.build_all()
-    kernels = ["default", "pallas"] if MODELS[args.model][2] else ["default"]
+    kernels = args.qmm.split(",") if MODELS[args.model][2] else ["default"]
+    if not set(kernels) <= {"default", "pallas"}:
+        raise SystemExit(f"unknown --qmm {args.qmm!r}")
+    bf16_mm = "pallas" if args.bf16_mm == "pallas" and not MODELS[args.model][2] else ""
     results = {}
     for i, layout in enumerate(layouts):
         for kernel in kernels:
             # a variant: the matmul kernels, and the layout when several are asked
             variant = kernel if len(layouts) == 1 else f"{kernel} {layout} #{i + 1}"
-            env = {"XLLM_QMM_KERNEL": "pallas" if kernel == "pallas" else ""}
+            env = {"XLLM_QMM_KERNEL": "pallas" if kernel == "pallas" else "",
+                   "XLLM_BF16_MM": bf16_mm}
             with chip_smoke.environ(**env):
                 results[variant] = profile_engine(args, args.model, layout)
             gc.collect()
@@ -244,7 +264,9 @@ def main() -> int:
                           f"{n:.0f} calls", flush=True)
     print(card, flush=True)
     print(json.dumps({"card": card, "model": args.model, "batch": BATCH,
-                      "prompt_len": args.prompt_len, "variants": results}), flush=True)
+                      "requests": args.requests,
+                      "prompt_len": args.prompt_len, "bf16_mm": bf16_mm or "default",
+                      "variants": results}), flush=True)
     return 0
 
 

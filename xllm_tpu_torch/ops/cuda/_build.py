@@ -139,7 +139,8 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 
 def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+    """A tensor's device address (None: a null pointer)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def stream_of(t) -> ctypes.c_void_p:
