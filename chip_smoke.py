@@ -17,8 +17,10 @@ phase raises on failure, so a non-zero exit means a phase failed:
    K3 also at Qwen3-30B-A3B's group (Hq 32, Hkv 4); K10 (grouped GEMM) at
    Qwen3-30B-A3B's expert shapes (gate_up and down, for a 16-token decode
    step and a full chunk of each prefill bucket, routed by a random
-   router; each bf16 row tile at each shape), and with empty experts, one expert holding every row and rows outside every
-   group; K10 also at DeepSeek-V2-Lite's expert shapes (64 experts, top-6,
+   router; each bf16-lhs instance at each shape: the TMA + wgmma kernel and
+   the 16-row mma.sync one), and with empty experts, one expert holding
+   every row, experts of more than 256 rows and rows outside every group
+   under every instance (bf16, e4m3 and f32 rhs); K10 also at DeepSeek-V2-Lite's expert shapes (64 experts, top-6,
    gate_up K 2048 / N 2816, down K 1408 / N 2048); K11a-d (latent decode,
    latent batched prefill, the two latent writers) at DeepSeek-V2-Lite's
    shapes (16 heads, Dk 640 of which 576 live, dv 512, block_size 64) with
@@ -52,9 +54,10 @@ phase raises on failure, so a non-zero exit means a phase failed:
    (the yardstick, never used by the port) are timed with CUDA events,
    queued behind a device-side sleep so that the device's time is timed
    and not the host's launch rate, rotating over cache layers so that
-   reads come from device memory and not from L2. The MoE block runs once
-   with the CUDA sync debug mode set to "error": nothing between its
-   router and its combine reads back to the host;
+   reads come from device memory and not from L2. The MoE block runs at a
+   decode step's and a 512-token chunk's shape with the CUDA sync debug
+   mode set to "error": nothing between its router and its combine reads
+   back to the host;
 3. engine: ``LLMEngine(device="cuda")`` at the full width of the
    qwen3-1.7B config (28 layers, bf16, random weights from a seed) serves
    two warm-up requests, then 16 greedy requests whose prompts take every
@@ -115,7 +118,9 @@ phase raises on failure, so a non-zero exit means a phase failed:
    tails after ``nfull % 4 != 0`` full pages, random and block-contiguous
    page tables, chunks at q_offset > 0 in each prefill bucket ending
    mid-page, RMW chunks that complete their first page and cross into the
-   next, a window; and at block_size 16, 32, 64 and 128. Each is timed (at
+   next, a window; and at block_size 16, 32, 64 and 128 (K9's RMW writer,
+   one launch a call, there on bf16, f32 and fp8 caches with a page
+   completed from its first and by its last row). Each is timed (at
    K1-K4's own shapes first) beside its plain version and a yardstick;
 9. layout engines: the qwen3-1.7B engine on ``kv_layout="interleaved_rm"``
    (the JAX bench's default), whose every decode pass launches K9's decode
@@ -170,7 +175,6 @@ import os
 import subprocess
 import sys
 import time
-from unittest import mock
 
 import numpy as np
 import torch
@@ -418,13 +422,13 @@ def tol_text(dtype) -> str:
     return f"atol {atol:g} + rtol {rtol:g} |ref|"
 
 
-def page_tables(rng, lens, nb_total):
+def page_tables(rng, lens, nb_total, bs: int = BS):
     """Disjoint random pages for each sequence (block 0 stays the null
     block) -> block_tables [N, NB_MAX] int32."""
     free = rng.permutation(np.arange(1, nb_total)).tolist()
     bt = np.zeros((len(lens), NB_MAX), np.int32)
     for i, n in enumerate(lens):
-        for j in range(-(-n // BS)):
+        for j in range(-(-n // bs)):
             bt[i, j] = free.pop()
     return bt
 
@@ -663,10 +667,10 @@ RMW_ROWS = [(2048, 52), (37, 27), (100, 60), (0, 0)]
 RMW_S = 64
 
 
-def _chunk_tables(rng, rows, dev):
+def _chunk_tables(rng, rows, dev, bs: int = BS):
     lens = [qo + n for qo, n in rows]
-    nb = 1 + sum(-(-n // BS) for n in lens) + 8
-    bt = page_tables(rng, lens, nb)
+    nb = 1 + sum(-(-n // bs) for n in lens) + 8
+    bt = page_tables(rng, lens, nb, bs)
     qo = i32([r[0] for r in rows], dev)
     nt = i32([r[1] for r in rows], dev)
     kvl = i32([qo_ + n if n else 0 for qo_, n in rows], dev)
@@ -972,10 +976,27 @@ def moe_weights(dev, g, spec: dict) -> dict:
     }
 
 
-def forced_row_tile(bm: int):
-    """K10's bf16 wrapper with its row tile forced to ``bm``, to check and
-    time each build at every shape, whichever the wrapper would pick."""
-    return mock.patch.object(k10, "row_tile", lambda m, e: bm)
+# the builds ``k10.plan`` picks for a bf16 lhs (each forced at every shape)
+GMM_BF16_INSTANCES = ("ws256", "ws128", "mma16")
+
+
+def gmm_instances(dev, lhs, rhs, offs, what: str) -> tuple[dict, float]:
+    """K10 under each bf16-lhs build forced (``k10.layout``), whichever the
+    wrapper would pick at this shape: each held to the plain version and
+    timed -> ({build: ms}, worst error)."""
+    m, e, n = lhs.shape[0], rhs.shape[0], rhs.shape[2]
+    sms = _build.device_sms(dev)
+    plans = [k10.layout("mma16", m, n, e)]
+    if rhs.shape[1] % 64 == 0:
+        plans += [k10.layout("ws", m, n, e, sms, bm=bm) for bm in k10.WS_ROWS]
+    times, worst = {}, 0.0
+    for p in plans:
+        worst = max(worst, check_gmm_close(k10.gmm(lhs, rhs, offs, p), lhs, rhs, offs,
+                                           f"{what} instance {p.name}"))
+        ms, queued = time_ms(lambda i: k10.gmm(lhs, rhs, offs, p))
+        assert queued, "a kernel wrapper waited on the device"
+        times[p.name] = ms
+    return times, worst
 
 
 def check_gmm(dev, g, model: str) -> tuple[list[dict], float]:
@@ -1014,23 +1035,18 @@ def check_gmm(dev, g, model: str) -> tuple[list[dict], float]:
                 lambda i: torch._grouped_mm(lhs, rhs, offs=offs[1:]),
                 plain_iters=5,
             ))
-            res["row_tile"] = k10.row_tile(m, e)
-            res["ms_by_row_tile"] = {}
-            for bm in k10.ROW_TILES:
-                with forced_row_tile(bm):
-                    res["max_abs_err"] = max(res["max_abs_err"], check_gmm_close(
-                        k10.gmm(lhs, rhs, offs), lhs, rhs, offs, f"{what} row tile {bm}"))
-                    ms, queued = time_ms(lambda i: k10.gmm(lhs, rhs, offs))
-                assert queued, "a kernel wrapper waited on the device"
-                res["ms_by_row_tile"][str(bm)] = ms
+            res["instance"] = k10.plan(m, k, n, e, lhs.dtype, rhs.dtype,
+                                       _build.device_sms(dev)).name
+            res["ms_by_instance"], err = gmm_instances(dev, lhs, rhs, offs, what)
+            res["max_abs_err"] = max(res["max_abs_err"], err)
             res["shape"] = (f"{model} {phase}: {tokens} tokens x top-{topk} -> M={m} rows "
                             f"over {touched} of {e} experts, K {k}, N {n}, bf16, "
-                            f"row tile {res['row_tile']}")
+                            f"instance {res['instance']}")
             nbytes = m * k * 2 + touched * k * n * 2 + m * n * 4
             res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 2.0 * m * k * n)
             results.append(res)
-    # every bf16 build the wrapper can pick runs at a served shape
-    assert {r["row_tile"] for r in results} == set(k10.ROW_TILES), results
+    # the bf16-rhs builds the wrapper can pick each run at a served shape
+    assert {r["instance"] for r in results} == {"ws256", "mma16"}, results
     return results, worst_f32
 
 
@@ -1069,14 +1085,18 @@ def check_gmm_fp8(dev, g, model: str) -> list[dict]:
                 plain_iters=5,
             ))
             res["library"] = "rhs.to(bfloat16) + torch._grouped_mm"
-            res["row_tile"] = k10.row_tile(m, e)
+            res["instance"] = k10.plan(m, k, n, e, lhs.dtype, rhs.dtype,
+                                       _build.device_sms(dev)).name
+            res["ms_by_instance"], err = gmm_instances(dev, lhs, rhs, offs, what)
+            res["max_abs_err"] = max(res["max_abs_err"], err)
             res["shape"] = (f"{model} {phase}: {tokens} tokens x top-{topk} -> M={m} rows "
                             f"over {touched} of {e} experts, K {k}, N {n}, bf16 lhs, fp8 "
-                            f"rhs, row tile {res['row_tile']}")
+                            f"rhs, instance {res['instance']}")
             nbytes = m * k * 2 + touched * k * n + m * n * 4
             res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 2.0 * m * k * n)
             results.append(res)
-    assert {r["row_tile"] for r in results} == set(k10.ROW_TILES), results
+    # ... and the e4m3-rhs ones (128-row tiles at the 512-token chunks)
+    assert {r["instance"] for r in results} == set(GMM_BF16_INSTANCES), results
     return results
 
 
@@ -1099,40 +1119,56 @@ def check_moe_fp8_no_host_sync(dev, g) -> None:
 
 
 def check_gmm_edges(dev, w: dict, g) -> float:
-    """K10 with empty experts and one expert holding every row, and with
-    rows outside every group at both ends (they come out as zeros), M 1000
-    (no multiple of any row tile), bf16 and f32 -> the largest max-abs
-    error."""
+    """K10 with empty experts, one expert holding every row, experts of
+    more than 256 rows (two tiles of the TMA + wgmma instance), and rows
+    outside every group at both ends (they come out as zeros), M 1000 (no
+    multiple of any row tile); bf16 lhs under each bf16 instance with bf16
+    and e4m3 rhs, f32 lhs (the FMA instance) with f32 and e4m3 rhs -> the
+    largest max-abs error."""
     m = 1000
     lhs = torch.randn(m, GMM_WEIGHTS["gate_up"][0], generator=g, device=dev).bfloat16()
     one = [0] * 6 + [m] * (E_MOE - 5)  # expert 5 owns every row
     gaps = [3] + [3 + 7 * i for i in range(1, E_MOE)] + [m - 5]
+    big = [0] * 3 + [300, 300, 301, 600] + [600 + 3 * i for i in range(1, E_MOE - 6)] + [m]
+    rh8 = quantize_fp8(w["gate_up"])[0]
     worst = 0.0
-    for offs in (one, gaps):
+    for offs in (one, gaps, big):
+        assert len(offs) == E_MOE + 1 and offs == sorted(offs), offs
         offs = i32(offs, dev)
-        for dt in (torch.bfloat16, torch.float32):
-            lh, rh = lhs.to(dt), w["gate_up"].to(dt)
-            out = k10.gmm(lh, rh, offs)
-            worst = max(worst, check_gmm_close(out, lh, rh, offs, f"K10 edges {dt}"))
-            lo, hi = int(offs[0]), int(offs[-1])
-            assert not out[:lo].any() and not out[hi:].any(), "K10: rows outside groups not zero"
+        lo, hi = int(offs[0]), int(offs[-1])
+        for lh, rh in ((lhs, w["gate_up"]), (lhs, rh8), (lhs.float(), w["gate_up"].float()),
+                       (lhs.float(), rh8)):
+            if lh.dtype == torch.float32:
+                out = k10.gmm(lh, rh, offs)
+                worst = max(worst, check_gmm_close(out, lh, rh, offs, f"K10 edges f32 {rh.dtype}"))
+                assert not out[:lo].any() and not out[hi:].any(), "K10: rows outside not zero"
+                continue
+            sms = _build.device_sms(dev)
+            for p in [k10.layout("mma16", m, rh.shape[2], E_MOE)] + [
+                    k10.layout("ws", m, rh.shape[2], E_MOE, sms, bm=bm) for bm in k10.WS_ROWS]:
+                out = k10.gmm(lh, rh, offs, p)
+                worst = max(worst, check_gmm_close(out, lh, rh, offs,
+                                                   f"K10 edges {p.name} {rh.dtype}"))
+                assert not out[:lo].any() and not out[hi:].any(), "K10: rows outside not zero"
     return worst
 
 
 def check_moe_no_host_sync(dev, w: dict, g) -> None:
-    """One MoE block at a decode step's shape with the CUDA sync debug mode
-    set to "error": any read back to the host between the router and the
-    combine raises."""
-    x = torch.randn(16, GMM_WEIGHTS["gate_up"][0], generator=g, device=dev).bfloat16()
+    """One MoE block at a decode step's shape and at a 512-token chunk's
+    (K10's mma.sync and TMA + wgmma instances) with the CUDA sync debug
+    mode set to "error": any read back to the host between the router and
+    the combine raises."""
     rw, gu, dn = w["router"], w["gate_up"], w["down"]
-    moe.moe_mlp(x, rw, gu, dn, TOPK, True)  # first calls (cuBLAS set-up)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        out = moe.moe_mlp(x, rw, gu, dn, TOPK, True)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    assert out.shape == x.shape and bool(torch.isfinite(out.float()).all())
+    for tokens in (16, 512):
+        x = torch.randn(tokens, GMM_WEIGHTS["gate_up"][0], generator=g, device=dev).bfloat16()
+        moe.moe_mlp(x, rw, gu, dn, TOPK, True)  # first calls (cuBLAS set-up)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = moe.moe_mlp(x, rw, gu, dn, TOPK, True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert out.shape == x.shape and bool(torch.isfinite(out.float()).all())
 
 
 # K11a-d at DeepSeek-V2-Lite's latent shapes: 16 heads, rows of 576 live
@@ -1602,7 +1638,7 @@ def check_qmm_shape(g, dev, kind, model, proj, k, n, rows, edge_rows):
             lib_name = "torch.mm(out_dtype=f32)"
         res = {"max_abs_err": err}
         if kind != "int8":  # the launch's plan, and its split model
-            p = qmm.plan(m, k, n, kind, qmm.device_sms(x.device))
+            p = qmm.plan(m, k, n, kind, _build.device_sms(x.device))
             check_qmm_close(out, qmm.split_model(x, w[1], scale(1), p), x, w[1], scale(1),
                             False, what + " split model")
             res["plan"] = f"{p.path} {p.bm}x{p.bn}, {p.splits} splits, {p.units} units"
@@ -1646,7 +1682,7 @@ def check_qmm_splits(dev, g) -> dict:
         for m, k, n, bm, splits in QMM_SPLITS:
             w, s = qmm_weights(g, dev, kind, k, n)
             sl = None if s is None else s[1]
-            p = qmm.layout(m, k, n, splits, bm, qmm.device_sms(dev))
+            p = qmm.layout(m, k, n, splits, bm, _build.device_sms(dev))
             for dtype in (torch.bfloat16, torch.float32):
                 x = torch.randn(m, k, generator=g, device=dev).to(dtype)
                 out = qmm.launch_prepared(name, x.bfloat16().contiguous(), None, w, s, 1, p)
@@ -1983,7 +2019,9 @@ def phase_fp8_kernels(rng, dev) -> dict:
     log(f"[qkernels] {k10.NAME} with an fp8 rhs: bf16 lhs err {out[k10.NAME]['max_abs_err']:.3g}"
         f", f32 lhs err {out[k10.NAME]['max_abs_err_f32']:.3g} ({GMM_TOL})")
     for r in by_shape:
-        log(f"[qkernels]   {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
+        tiles = ", ".join(f"{kn}: {t:.4f}" for kn, t in r["ms_by_instance"].items())
+        log(f"[qkernels]   {r['shape']}: kernel {r['ms']:.4f} ms (by instance {tiles}), "
+            f"plain {r['plain_ms']:.4f} ms "
             f"(serial: it syncs), library ({r['library']}) {r['library_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     check_moe_fp8_no_host_sync(dev, g)
@@ -2090,16 +2128,18 @@ def phase_kernels(dev) -> dict:
     log(f"[kernels] {k10.NAME}: bf16 err {res['max_abs_err']:.3g}, f32 err "
         f"{res['max_abs_err_f32']:.3g} ({GMM_TOL})")
     for r in res["by_shape"]:
-        tiles = ", ".join(f"{bm}: {t:.4f}" for bm, t in r["ms_by_row_tile"].items())
-        log(f"[kernels]   {r['shape']}: kernel {r['ms']:.4f} ms (by row tile {tiles}), "
+        tiles = ", ".join(f"{kn}: {t:.4f}" for kn, t in r["ms_by_instance"].items())
+        log(f"[kernels]   {r['shape']}: kernel {r['ms']:.4f} ms (by instance {tiles}), "
             f"plain {r['plain_ms']:.4f} ms (serial: it syncs), library "
             f"(torch._grouped_mm, bf16 out) {r['library_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     err = check_gmm_edges(dev, w, g)
-    log(f"[kernels] {k10.NAME} with empty experts, one expert holding every row, rows "
-        f"outside every group, M 1000: worst err {err:.3g} ({GMM_TOL})")
+    log(f"[kernels] {k10.NAME} with empty experts, one expert holding every row, experts "
+        f"of > 256 rows, rows outside every group, M 1000, each instance, bf16 / e4m3 / f32 "
+        f"rhs: worst err {err:.3g} ({GMM_TOL})")
     check_moe_no_host_sync(dev, w, g)
-    log("[kernels] MoE block at decode shape under sync debug mode 'error': no host sync")
+    log("[kernels] MoE block at decode and 512-token shapes under sync debug mode 'error': "
+        "no host sync")
     del w
     free_device_memory()
     worst = check_prefill_splits(rng, dev)
@@ -2133,6 +2173,14 @@ ILV_CACHES = {False: (None, "int8", "fp8_e4m3"), True: (None, "fp8_e4m3")}
 # complete the first page (37 + 27 = 64) and cross a page boundary
 ILV_WRITES = {False: [(PREFILL_S, PREFILL_ROWS), (2048, [(0, 2048), (2048, 1500), (0, 0)])],
               True: [(RMW_S, RMW_ROWS), (RMW_S, [(0, 64), (63, 1), (1, 63), (0, 0)])]}
+
+
+def rm_rmw_rows(bs: int) -> list[tuple[int, int]]:
+    """K9's RMW writer at block size ``bs``: a page completed from its
+    first row (w0 = 0), one completed by its last row (w0 = bs - 1), a
+    chunk that completes one page from row 3 and opens the next (two pages,
+    one left incomplete), a page left incomplete, a padded row."""
+    return [(0, bs), (bs - 1, 1), (bs + 3, bs - 1), (5 * bs, bs // 2), (0, 0)]
 # K8's prefill at each bucket (chunks at q_offset > 0 ending mid-page); the
 # first two timed, the first at K3's own timed shape
 ILV_PREFILL = [(2048, K3_SHAPES[2048]), (2048, [(0, 2048), (2048, 1500), (0, 0)]),
@@ -2268,14 +2316,14 @@ def ilv_writer_fns(rmw: bool, rm: bool):
 
 
 def check_ilv_writer(rng, dev, g, dtype, cache, rmw: bool, rm: bool, s: int, rows,
-                     timed: bool = False) -> dict:
+                     timed: bool = False, bs: int = BS) -> dict:
     """K8's or K9's full-page (``rmw`` False) or RMW writer against its
     plain version: caches byte-equal after the call, e4m3 edge values cast
-    in the kernel on an fp8 cache."""
+    in the kernel on an fp8 cache, one launch a call."""
     p = len(rows)
-    nb, btt, qo, nt, kvl = _chunk_tables(rng, rows, dev)
+    nb, btt, qo, nt, kvl = _chunk_tables(rng, rows, dev, bs)
     layers = LAYERS if timed else 2
-    kc = kv_tensor(g, dev, (layers, nb, 2, HKV, BS, D), dtype, cache)
+    kc = kv_tensor(g, dev, (layers, nb, 2, HKV, bs, D), dtype, cache)
     src_shape = (p, s, HKV, D) if rmw else (p, HKV, s, D)
     kn = new_rows(g, dev, src_shape, dtype, cache)
     vn = new_rows(g, dev, src_shape, dtype, cache)
@@ -2284,11 +2332,13 @@ def check_ilv_writer(rng, dev, g, dtype, cache, rmw: bool, rm: bool, s: int, row
         vn[0, 0, 0, :len(E4M3_EDGES)] = -torch.tensor(E4M3_EDGES, dtype=dtype, device=dev)
     kernel, plain = ilv_writer_fns(rmw, rm)
     kk, kp = kc.clone(), kc.clone()
+    name = ilv_name("rmw" if rmw else "prefill", rm)
+    before = _build.launch_counts.get(name, 0)
     kernel(kn, vn, kk, 1, btt, qo, nt, kvl)
+    assert _build.launch_counts[name] == before + 1, f"{name}: not one launch a call"
     plain(kn, vn, kp, 1, btt, qo, nt, kvl)
     sync()
-    name = ilv_name("rmw" if rmw else "prefill", rm)
-    what = f"{name} {dtype} cache {cache or dtype} S={s} {rows}"
+    what = f"{name} {dtype} cache {cache or dtype} S={s} bs {bs} {rows}"
     assert same_bytes(kk, kp), f"{what}: caches differ"
     assert not same_bytes(kk, kc), f"{what}: nothing was written"
     res = {"max_abs_err": 0.0}
@@ -2452,6 +2502,11 @@ def phase_layouts(dev) -> dict:
                     note(k3.ILV_NAME, check_ilv_prefill(rng, dev, g, dtype, cache, rm, s, rows,
                                                         bs=bs))
             free_device_memory()
+        # K9's RMW writer (one cluster a page) on each cache the layout serves
+        for dtype, cache in ((torch.bfloat16, None), (torch.float32, None),
+                             (torch.bfloat16, "fp8_e4m3"), (torch.float32, "fp8_e4m3")):
+            note(ilv_name("rmw", True), check_ilv_writer(rng, dev, g, dtype, cache, True, True,
+                                                         bs, rm_rmw_rows(bs), bs=bs))
     results = {}
     for name, by in timed.items():
         main = "interleaved_rm bf16" if name == k3.ILV_NAME else "bf16"
@@ -3483,8 +3538,8 @@ def main() -> int:
     def run_of(run, name):
         return run[1]["score"] if name in single else run
     keys = ("shape", "max_abs_err", "max_abs_err_f32", "ms", "kernel_only_ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "library", "row_tile", "ms_by_row_tile",
-            "plan")
+            "bound_ms", "bound_by", "library_ms", "library", "row_tile", "instance",
+            "ms_by_instance", "plan")
     rows = []
     for name, res in kern.items():
         tpu, src = meta[name]

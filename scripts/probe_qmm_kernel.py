@@ -112,7 +112,7 @@ def time_shapes(cs, qmm, dev, shapes, library: bool) -> list[dict]:
             row["library_ms"] = cs.time_ms(lib)[0]
             nbytes = m * k * 2 + k * n * w.element_size() + m * n * 4 + (0 if s is None else n * 4)
             row["bound_ms"], row["bound_by"] = cs.bound_ms(nbytes, 2.0 * m * k * n)
-            p = qmm.plan(m, k, n, kind, qmm.device_sms(dev))
+            p = qmm.plan(m, k, n, kind, cs._build.device_sms(dev))
             row["plan"] = f"{p.path} {p.bm}x{p.bn}, {p.splits} splits, {p.units} units"
         out.append(row)
         del w, s, x
@@ -147,7 +147,7 @@ def check(cs, qmm, dev) -> float:
             sl = None if s is None else s[1]
             for xdt in (torch.bfloat16, torch.float32):
                 x = torch.randn(m, k, generator=g, device=dev).to(xdt)
-                p = qmm.layout(m, k, n, sp, bm, qmm.device_sms(dev))
+                p = qmm.layout(m, k, n, sp, bm, cs._build.device_sms(dev))
                 xin = x.to(torch.bfloat16).contiguous()
                 out = qmm.launch_prepared(name, xin, None, w, s, 1, p)
                 what = f"{name} M {m} K {k} N {n} bm {bm} splits {sp} x {xdt}"
@@ -171,7 +171,7 @@ def check(cs, qmm, dev) -> float:
             out = stacked(x, w, s, 2)
             what = f"{name} {model} {proj} M {m}"
             close(out, plain(x, w[2], sl), x, w[2], sl, what)
-            p = qmm.plan(m, k, n, kind, qmm.device_sms(dev))
+            p = qmm.plan(m, k, n, kind, cs._build.device_sms(dev))
             close(out, qmm.split_model(x, w[2], sl, p), x, w[2], sl, what + " split model")
             assert torch.equal(out, unstacked(x, w[2], sl)), f"{what}: stacked != unstacked"
             assert torch.equal(out, stacked(x, w, s, 2)), f"{what}: not deterministic"
@@ -198,7 +198,7 @@ def sweep(cs, qmm, dev) -> list[dict]:
         _, _, _, name = wrappers(qmm, kind)
         w, s = weights(g, dev, kind, k, n)
         x = torch.randn(m, k, generator=g, device=dev).bfloat16()
-        sms = qmm.device_sms(dev)
+        sms = cs._build.device_sms(dev)
         picked = qmm.plan(m, k, n, kind, sms)
         # (row tile, splits): more splits up to 256 rows, the other row
         # tiles above

@@ -73,6 +73,8 @@ OWN_KERNELS = {
     "prefill_attention_kernel": "K3/K8 prefill_attention",
     "prefill_tc_kernel": "K3/K8 prefill_attention",
     "gmm_bf16_kernel": "K10 gmm",
+    "gmm_ws_kernel": "K10 gmm",
+    "gmm_f32_kernel": "K10 gmm",
     "mla_attention_tc_kernel<1": "K11a mla_decode_attention_write",
     "mla_attention_tc_kernel<2": "K11b mla_prefill_attention_batched",
     "latent_write_rows_kernel": "K11c/K11d latent_write_rows",

@@ -5,7 +5,7 @@
 - K10's plain version ``gmm_plain`` against the Pallas ``gmm`` in
   interpret mode: tiles that straddle expert boundaries, an empty expert,
   and an M that is no multiple of the TPU's tile on the port's side;
-- the row tile K10's wrapper picks at each served shape;
+- the row tile and instance K10's wrapper picks at each served shape;
 - ``moe_mlp`` (the sorted grouped-GEMM path the card runs, with K10's
   plain version) against JAX ``moe_mlp_gmm`` (Pallas, interpret mode) and
   the dense oracle ``moe_mlp_ref``, within 2e-4 as ``tests/test_moe.py``;
@@ -42,7 +42,7 @@ from xllm_tpu_torch.llm import LLM
 from xllm_tpu_torch.models.registry import create_model as tcreate
 from xllm_tpu_torch.ops import moe as tmoe
 from xllm_tpu_torch.ops import rope as trope
-from xllm_tpu_torch.ops.cuda.gmm import ROW_TILES, gmm, gmm_plain, row_tile
+from xllm_tpu_torch.ops.cuda.gmm import gmm, gmm_plain, plan
 from xllm_tpu_torch.runtime import forward_params as tfp
 from xllm_tpu_torch.weights import load_param_tree, random_param_tree
 
@@ -116,13 +116,15 @@ def test_gmm_plain_matches_pallas():
         gmm_plain(_t(lhs), _t(rhs), _t(offs[::-1].copy()))
 
 
-@pytest.mark.parametrize("tokens, tile", [(16, 16), (64, 16), (512, 128), (2048, 128)])
-def test_gmm_row_tile_at_served_shapes(tokens, tile):
-    """K10's bf16 row tile at Qwen3-30B-A3B's 128 experts, top-8: a decode
-    step of 16 and a full chunk of each prefill bucket. ``chip_smoke.py``
-    times both builds at these shapes; each build is picked at one."""
-    assert row_tile(tokens * 8, 128) == tile
-    assert tile in ROW_TILES
+@pytest.mark.parametrize("tokens, tile, instance", [(16, 16, "mma16"), (64, 16, "mma16"),
+                                                     (512, 256, "ws256"), (2048, 256, "ws256")])
+def test_gmm_row_tile_at_served_shapes(tokens, tile, instance):
+    """K10's bf16 row tile at Qwen3-30B-A3B's 128 experts, top-8, gate_up
+    (K 2048, N 1536): a decode step of 16 and a full chunk of each prefill
+    bucket. ``chip_smoke.py`` times every build at these shapes; each
+    bf16-rhs build is picked at one."""
+    p = plan(tokens * 8, 2048, 1536, 128)
+    assert (p.bm, p.name) == (tile, instance)
 
 
 @pytest.mark.parametrize("scoring", ["softmax", "sigmoid"])

@@ -83,6 +83,21 @@ __device__ __forceinline__ e4m3 to_cache<e4m3>(float x) {
   return e4m3{static_cast<uint8_t>(__nv_cvt_float_to_fp8(x, __NV_NOSAT, __NV_E4M3))};
 }
 
+// Two values -> two e4m3 bytes (a in the low byte) with the JAX package's
+// bytes, through the hardware's paired cast: cvt.rn.satfinite.e4m3x2.f32
+// rounds to nearest even and clamps to +-448 (PTX converts to e4m3 only
+// with .satfinite; to_cache's NOSAT form is a software sequence), then a
+// select writes the NaN byte 0x7f with the sign of x where the JAX
+// package's cast gives NaN: a magnitude above 464, infinities and NaN
+// inputs. ops/cuda/kv_write.e4m3_pair_model is this in PyTorch.
+__device__ __forceinline__ uint32_t e4m3_jax_byte(float x, uint32_t sat) {
+  return fabsf(x) <= 464.f ? sat : (signbit(x) ? 0xffu : 0x7fu);  // NaN fails <=
+}
+__device__ __forceinline__ uint32_t to_e4m3x2(float a, float b) {
+  const uint32_t v = __nv_cvt_float2_to_fp8x2(make_float2(a, b), __NV_SATFINITE, __NV_E4M3);
+  return e4m3_jax_byte(a, v & 0xffu) | e4m3_jax_byte(b, (v >> 8) & 0xffu) << 8;
+}
+
 // A 1-byte cache value as the walk reads it (exact in bf16 and f32)
 __device__ __forceinline__ float cache_to_float(int8_t x) { return (float)x; }
 __device__ __forceinline__ float cache_to_float(e4m3 x) {
@@ -416,6 +431,8 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+constexpr int kSmemMax = 232448;  // an H100 block's dynamic shared memory (227 KB)
+
 // Opts a kernel into more than the default 48 KB of dynamic shared memory.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {
@@ -423,6 +440,22 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
 }
+
+// allow_smem once per device (a launch function keeps one of these static
+// for its kernel): the attribute stays set, and setting it costs host time
+// at every launch
+struct AllowSmemOnce {
+  bool done[64] = {};
+  template <typename K>
+  cudaError_t operator()(K kernel, size_t bytes) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
+    err = allow_smem(kernel, bytes);
+    if (err == cudaSuccess && dev < 64) done[dev] = true;
+    return err;
+  }
+};
 
 }  // namespace xllm
 

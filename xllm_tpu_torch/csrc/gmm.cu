@@ -13,38 +13,52 @@
 // ~0.77 GB a layer, with ~0.1 GFLOP of work; a 2048-token prefill chunk
 // (16,384 rows) touches every expert: 155 GFLOP over 1.21 GB, 128 FLOP a
 // byte, below the ~295 FLOP/byte at which bf16 tensor cores become the
-// limit, so bound by bytes as well.
+// limit, so bound by bytes as well -- if x is read about once and each
+// expert's weights about once.
 //
-// Design (not the TPU's): the TPU kernel walks a scalar-prefetched step map
+// Work (not the TPU's): the TPU kernel walks a scalar-prefetched step map
 // in which an m-tile may straddle two experts, masks its rows and keeps the
-// output block resident in VMEM between revisits. Here every block owns
-// one (row tile, n tile) pair whose rows all belong to ONE segment: the
-// rows before offsets[0], each expert's rows, the rows after offsets[E].
-// A row tile starts at its segment's first row, so there is no straddle
-// mask and no read-modify-write: each output element is written once, by
-// one block, and the result does not depend on scheduling. The tile list
-// is built on the device: the launch has the static upper bound
-// ceil(M / BM) + E + 2 row-tile slots; warp 0 of each block scans the
-// segments' tile counts and finds its own (segment, first row), and a block
-// past the last tile exits at once. Nothing is read back to the host, and
-// an empty expert costs one scan and no load.
+// output block resident in VMEM between revisits. Here the rows are cut
+// into segments -- the rows before offsets[0], each expert's rows, the
+// rows after offsets[E] -- and each segment into row tiles from its first
+// row, so a tile never straddles: no mask, no read-modify-write, each
+// output element written once by one block, the result independent of
+// scheduling. The tile list is found on the device from the offsets (a
+// scan of the segments' tile counts); nothing is read back to the host,
+// and an empty expert costs nothing. Tiles of the two outer segments are
+// written as zeros. ops/cuda/gmm.py work_list models it.
 //
-// fp8 rhs (e4m3 expert stacks, weight-only; the TPU kernel upcasts the
-// rhs tiles to the lhs dtype on load): the B tiles stream through the same
-// ring at one byte an element, and each stage is upcast to bf16 (exact for
-// e4m3) in shared memory before its products, or to f32 as the f32 lhs
-// reads it. The per-(expert, channel) scales stay outside, on the f32
-// output rows (ops/moe.py), as in the JAX package. Bound: bytes, with the
-// weights at one byte.
-//
-// bf16: mma.sync m16n8k16 on the tensor cores with f32 accumulators; A and
-// B tiles stream through a 3-stage cp.async ring, fragments come from
-// ldmatrix (B through .trans: rhs is [K, N] row-major). The row tile BM is
-// chosen by the wrapper from the rows per expert: 16 for decode (one MMA
-// row block, so few wasted products per streamed weight), 128 for prefill
-// (each expert's weights streamed once per 128 rows). f32: plain FMA on the CUDA cores, no TF32, so it matches an f32
-// matmul to f32 summation order.
+// Three instances, picked by ops/cuda/gmm.plan from the shapes:
+// - prefill rows, bf16 lhs (gmm_ws_kernel): TMA + wgmma, warp-specialised
+//   and persistent, built from csrc/hopper.cuh as K6 / K7. Row tiles of up
+//   to 256 rows -- four 64-row wgmma blocks, of which only those holding
+//   rows of the tile are loaded (one TMA box) and multiplied -- so an
+//   expert with at most 256 rows streams its weights once (128-row tiles,
+//   two blocks, for e4m3 weights at a few rows an expert: a deeper ring).
+//   The persistent grid walks work units (row tile, 128-column tile) with
+//   the column tile fastest: the column tiles of one row tile run on
+//   neighbouring SMs at once and share its x in L2, so x is read from
+//   device memory about once. A producer thread keeps a ring of stages (x
+//   [rows x 64 k] K-major, the weight [64 k x 128 n] as it lies) in flight
+//   under full / empty mbarriers; two consumer warpgroups run wgmma
+//   m64n128k16 (64-row blocks 0 and 2 on the first, 1 and 3 on the second)
+//   and free each stage as soon as its products are done; for e4m3 weights
+//   a converter warpgroup upcasts each stage into bf16 (exact). Every block
+//   scans the segments' tile counts once into shared memory and finds each
+//   unit's segment there by bisection. H100 timings and what did not help
+//   (an x multicast, deeper rings of thinner stages): PERF.md section 6.
+// - decode rows and the 64-token bucket, bf16 lhs (gmm_bf16_kernel, BM 16):
+//   mma.sync m16n8k16 with f32 accumulators from a 3-stage cp.async ring,
+//   fragments from ldmatrix (B through .trans: rhs is [K, N] row-major);
+//   one block per (16-row tile, 128 columns): a few rows an expert, so
+//   few wasted products per streamed weight. An e4m3 stage is upcast to
+//   bf16 in shared memory before its products.
+// - f32 lhs (gmm_f32_kernel): plain FMA on the CUDA cores, no TF32, so it
+//   matches an f32 matmul to f32 summation order; e4m3 rhs upcast on read.
+// The per-(expert, channel) scales of e4m3 stacks stay outside, on the f32
+// output rows (ops/moe.py), as in the JAX package.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace xllm {
 namespace gmm {
@@ -117,7 +131,7 @@ __device__ __forceinline__ void zero_rows(float* out, int row0, int rows, int n0
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16 at decode rows: mma.sync
 // ---------------------------------------------------------------------------
 constexpr int kBN = 128;
 constexpr int kBK = 32;
@@ -377,6 +391,279 @@ __global__ void __launch_bounds__(kThreadsG)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at prefill rows: TMA + wgmma, warp-specialised, persistent
+// ---------------------------------------------------------------------------
+constexpr int kWsBK = 64;  // k a stage: one 128-byte swizzled row of bf16 x
+constexpr int kWsBN = hopper::kStageBN;
+constexpr int kWsBlockA = 64 * kWsBK * 2;  // bytes of one 64-row x block
+constexpr int kWsBlockB = kWsBK * 128;     // bytes of one 64-column bf16 weight block
+constexpr int kWsNC = 2;                  // consumer warpgroups
+
+// MI 64-row wgmma blocks a consumer: row tiles of BM = 128 MI rows
+template <bool kFp8, int MI>
+struct WsGmm {
+  static constexpr int BM = 64 * kWsNC * MI;
+  // consumers, for e4m3 weights a converter, then the producer warpgroup
+  static constexpr int kThreads = 128 * (kWsNC + (kFp8 ? 2 : 1));
+  static constexpr int kA = BM * kWsBK * 2;                   // x blocks
+  static constexpr int kB = 2 * kWsBlockB;                    // bf16 weight (wgmma reads)
+  static constexpr int kRaw = kFp8 ? kWsBK * kWsBN : 0;       // e4m3 bytes as TMA lands them
+  static constexpr int kStage = kA + kB + kRaw;               // a multiple of 1024
+  static constexpr uint32_t kTxW = kFp8 ? kRaw : kB;          // weight bytes a stage
+  // 1024 of alignment slack, the stages, three barriers a stage, the
+  // segments' first tiles (e + 3 ints)
+  static size_t smem(int stages, int e) {
+    return 1024 + (size_t)stages * kStage + 3 * stages * sizeof(uint64_t) + (e + 3) * sizeof(int);
+  }
+  static int stages(int e) {
+    const long long room = kSmemMax - 1024 - (e + 3) * (long long)sizeof(int);
+    const int s = (int)(room / (kStage + 3 * (int)sizeof(uint64_t)));
+    return s > 8 ? 8 : s;
+  }
+};
+
+// Warp 0 writes tstart[s], the first row tile of segment s (tiles of BM
+// rows from the segment's first row), for s = 0 .. e + 2: tstart[e + 2] is
+// the number of row tiles. An inclusive scan, 32 segments at a time.
+template <int BM>
+__device__ void scan_tiles(const int* offsets, int e, int m, int* tstart) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x, nseg = e + 2;
+  int before = 0;
+  for (int c = 0; c < nseg; c += 32) {
+    const int s = c + lane;
+    int t = 0;
+    if (s < nseg) {
+      const int lo = bound(offsets, s, e, m), hi = bound(offsets, s + 1, e, m);
+      t = hi > lo ? (hi - lo + BM - 1) / BM : 0;
+    }
+    int incl = t;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
+    }
+    if (s < nseg) tstart[s] = before + incl - t;
+    before += __shfl_sync(0xffffffffu, incl, 31);
+  }
+  if (lane == 0) tstart[nseg] = before;
+}
+
+struct WsUnit {
+  int seg;   // 0 and e + 1: rows outside every group (written as zeros)
+  int row0;  // first row
+  int rows;  // rows of the tile (<= BM)
+  int n0;    // first column
+};
+// unit u: row tile u / tiles_n of BM rows (its segment by bisection of
+// tstart), column tile u % tiles_n
+template <int BM>
+__device__ __forceinline__ WsUnit ws_unit(int u, const int* tstart, const int* offsets, int e,
+                                          int m, int tiles_n) {
+  const int t = u / tiles_n;
+  int lo = 0, hi = e + 1;  // the last segment s with tstart[s] <= t
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (tstart[mid] <= t) lo = mid;
+    else hi = mid - 1;
+  }
+  WsUnit w;
+  w.seg = lo;
+  w.row0 = bound(offsets, lo, e, m) + (t - tstart[lo]) * BM;
+  w.rows = min(BM, bound(offsets, lo + 1, e, m) - w.row0);
+  w.n0 = (u - t * tiles_n) * kWsBN;
+  return w;
+}
+
+// x [M, K] bf16 through boxes of 64, 128, 192 and 256 rows: a tile's live
+// 64-row blocks land in one load
+struct XMaps {
+  CUtensorMap box[4];
+};
+
+template <bool kFp8, int MI>
+__global__ void __launch_bounds__(WsGmm<kFp8, MI>::kThreads, 1)
+    gmm_ws_kernel(const __grid_constant__ XMaps xmaps,
+                  const __grid_constant__ CUtensorMap wmap,  // bf16 / e4m3 [E K, N]
+                  const int* __restrict__ offsets, float* __restrict__ out, int m, int k,
+                  int n, int e, int tiles_n, int stages) {
+  using namespace hopper;
+  using T = WsGmm<kFp8, MI>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + (size_t)stages * T::kStage);
+  uint64_t* empty = full + stages;
+  uint64_t* conv = empty + stages;
+  int* tstart = reinterpret_cast<int*>(conv + stages);
+
+  const int tid = threadIdx.x;
+  if (tid == 32) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWsNC);
+      mbar_init(&conv[s], 128);
+    }
+    mbar_fence_init();
+  }
+  scan_tiles<T::BM>(offsets, e, m, tstart);
+  __syncthreads();
+
+  const int units = tstart[e + 2] * tiles_n;
+  const int kb_all = (k + kWsBK - 1) / kWsBK;
+  const int wg = tid / 128;
+  auto outside = [&](const WsUnit& w) { return w.seg == 0 || w.seg == e + 1; };
+
+  if (wg == kWsNC + (kFp8 ? 1 : 0)) {
+    // ---- producer warpgroup: one thread issues every TMA load
+    setmaxnreg_dec<40>();
+    if (tid % 128 == 0) {
+      for (int i = 0; i < T::BM / 64; ++i) tma_prefetch_map(&xmaps.box[i]);
+      tma_prefetch_map(&wmap);
+      int s = 0;
+      uint32_t ph = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const WsUnit w = ws_unit<T::BM>(u, tstart, offsets, e, m, tiles_n);
+        if (outside(w)) continue;
+        const int live = (w.rows + 63) / 64;  // 64-row blocks holding rows of the tile
+        const int wrow = (w.seg - 1) * k;     // the expert's first weight row
+        for (int kb = 0; kb < kb_all; ++kb) {
+          mbar_wait(&empty[s], ph ^ 1);
+          unsigned char* st = base + (size_t)s * T::kStage;
+          mbar_expect_tx(&full[s], live * kWsBlockA + T::kTxW);
+          tma_load_2d(st, &xmaps.box[live - 1], &full[s], kb * kWsBK, w.row0);
+          if constexpr (kFp8) {
+            tma_load_2d(st + T::kA + T::kB, &wmap, &full[s], w.n0, wrow + kb * kWsBK);
+          } else {
+            tma_load_2d(st + T::kA, &wmap, &full[s], w.n0, wrow + kb * kWsBK);
+            tma_load_2d(st + T::kA + kWsBlockB, &wmap, &full[s], w.n0 + 64, wrow + kb * kWsBK);
+          }
+          if (++s == stages) s = 0, ph ^= 1;
+        }
+      }
+    }
+  } else if (kFp8 && wg == kWsNC) {
+    // ---- converter warpgroup: each stage's e4m3 bytes -> bf16 blocks
+    setmaxnreg_dec<80>();
+    int s = 0;
+    uint32_t ph = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const WsUnit w = ws_unit<T::BM>(u, tstart, offsets, e, m, tiles_n);
+      if (outside(w)) continue;
+      for (int kb = 0; kb < kb_all; ++kb) {
+        mbar_wait(&full[s], ph);
+        unsigned char* st = base + (size_t)s * T::kStage;
+        e4m3_stage_to_bf16(st + T::kA + T::kB, st + T::kA, tid % 128);
+        fence_async_shared();
+        mbar_arrive(&conv[s]);
+        if (++s == stages) s = 0, ph ^= 1;
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64-row blocks wg, wg + 2, ... of each tile
+    setmaxnreg_inc<kFp8 ? 192 : 224>();
+    const int t = tid % 128, warp = t / 32, lane = t % 32;
+    float acc[MI][64];
+    int s = 0;
+    uint32_t ph = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const WsUnit w = ws_unit<T::BM>(u, tstart, offsets, e, m, tiles_n);
+      if (outside(w)) {
+        const int quads = min(kWsBN, n - w.n0) / 4;  // n % 8 == 0
+        for (int i = wg * 128 + t; i < w.rows * quads; i += kWsNC * 128)
+          *reinterpret_cast<float4*>(out + (size_t)(w.row0 + i / quads) * n + w.n0 +
+                                     (i % quads) * 4) = make_float4(0.f, 0.f, 0.f, 0.f);
+        continue;
+      }
+      const int live = (w.rows + 63) / 64;
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[mi][i] = 0.f;
+      for (int kb = 0; kb < kb_all; ++kb) {
+        mbar_wait(&full[s], ph);
+        if constexpr (kFp8) mbar_wait(&conv[s], ph);
+        const unsigned char* st = base + (size_t)s * T::kStage;
+        const uint32_t a0 = smem_u32(st), b0 = smem_u32(st + T::kA);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) fence_regs(acc[mi]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWsBK / 16; ++kk)
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi)
+            if (wg + kWsNC * mi < live)
+              wgmma_m64n128k16_bf16(
+                  acc[mi], gmma_desc(a0 + (wg + kWsNC * mi) * kWsBlockA + 32 * kk, 16, 1024),
+                  gmma_desc(b0 + 2048 * kk, kWsBlockB, 1024));
+        wgmma_commit();
+        wgmma_wait<0>();  // this stage is read: free it at once
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) fence_regs(acc[mi]);
+        if (t == 0) mbar_arrive(&empty[s]);
+        if (++s == stages) s = 0, ph ^= 1;
+      }
+
+      // epilogue: fragments (row 16 warp + lane / 4 + 8 h of a 64-row
+      // block, column 8 j + 2 (lane % 4) + e) -> the tile's rows
+      const int col0 = w.n0 + 2 * (lane % 4);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        const int blk = wg + kWsNC * mi;
+        if (blk >= live) continue;
+        const int r0 = blk * 64 + warp * 16 + lane / 4;
+#pragma unroll
+        for (int j = 0; j < kWsBN / 8; ++j) {
+          const int col = col0 + 8 * j;
+          if (col >= n) continue;  // n % 8 == 0: col + 1 < n as well
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = r0 + 8 * h;
+            if (r < w.rows)
+              *reinterpret_cast<float2*>(out + (size_t)(w.row0 + r) * n + col) =
+                  make_float2(acc[mi][4 * j + 2 * h], acc[mi][4 * j + 2 * h + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// x [M, K] bf16 through 64-row boxes, the weights as [E K, N] (K a
+// multiple of 64, so a stage never crosses into the next expert's rows);
+// `grid` persistent blocks
+template <bool kFp8, int MI>
+cudaError_t launch_ws(const void* lhs, const void* rhs, const int* offsets, float* out,
+                      int m, int k, int n, int e, int grid, cudaStream_t stream) {
+  using hopper::encode_2d_cached;
+  using T = WsGmm<kFp8, MI>;
+  if (k % kWsBK || grid < 1 || (reinterpret_cast<uintptr_t>(lhs) % 16) ||
+      (reinterpret_cast<uintptr_t>(rhs) % 16))
+    return cudaErrorInvalidValue;
+  const int stages = T::stages(e);
+  if (stages < 2) return cudaErrorInvalidValue;
+  XMaps xmaps;
+  CUtensorMap wmap;
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < T::BM / 64 && err == cudaSuccess; ++i)
+    err = encode_2d_cached(&xmaps.box[i], lhs, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, m, k,
+                           64 * (i + 1), kWsBK, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  err = kFp8 ? encode_2d_cached(&wmap, rhs, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, (uint64_t)e * k, n,
+                                kWsBK, kWsBN, CU_TENSOR_MAP_SWIZZLE_NONE)
+             : encode_2d_cached(&wmap, rhs, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, (uint64_t)e * k,
+                                n, kWsBK, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  auto kernel = gmm_ws_kernel<kFp8, MI>;
+  static AllowSmemOnce allow;  // the most, once
+  err = allow(kernel, kSmemMax);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, T::kThreads, T::smem(stages, e), stream>>>(
+      xmaps, wmap, offsets, out, m, k, n, e, (n + kWsBN - 1) / kWsBN, stages);
+  return cudaGetLastError();
+}
+
 template <int BM, int WARPS_M, typename R>
 cudaError_t launch_bf16(const void* lhs, const void* rhs, const int* offsets,
                         float* out, int m, int k, int n, int e,
@@ -404,11 +691,12 @@ cudaError_t launch_f32(const void* lhs, const void* rhs, const int* offsets, flo
 }  // namespace xllm
 
 // dtype: lhs (bf16 or f32); rtype: rhs (the lhs dtype, or e4m3 with n a
-// multiple of 16); bm: the bf16 row tile (16 or 128); the f32 instance
+// multiple of 16); bm: the bf16 instance, 16 (mma.sync) or 128 / 256 (TMA
+// + wgmma, `grid` persistent blocks; K a multiple of 64); the f32 instance
 // always uses 64.
 extern "C" int xllm_gmm(int device, const void* lhs, const void* rhs,
                         const void* offsets, void* out, int dtype, int rtype, int m,
-                        int k, int n, int e, int bm, void* stream) {
+                        int k, int n, int e, int bm, int grid, void* stream) {
   using namespace xllm::gmm;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -417,12 +705,17 @@ extern "C" int xllm_gmm(int device, const void* lhs, const void* rhs,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rtype == XLLM_DTYPE_E4M3 && n % 16) return (int)cudaErrorInvalidValue;
   if (dtype == XLLM_DTYPE_BF16) {
-#define XLLM_ROW_TILES(R)                                                              \
-  if (bm == 16) return (int)launch_bf16<16, 1, R>(lhs, rhs, offs, o, m, k, n, e, st);   \
-  if (bm == 128) return (int)launch_bf16<128, 2, R>(lhs, rhs, offs, o, m, k, n, e, st);
-    if (rtype == XLLM_DTYPE_BF16) { XLLM_ROW_TILES(__nv_bfloat16) }
-    if (rtype == XLLM_DTYPE_E4M3) { XLLM_ROW_TILES(xllm::e4m3) }
-#undef XLLM_ROW_TILES
+    const bool fp8 = rtype == XLLM_DTYPE_E4M3;
+    if (!fp8 && rtype != XLLM_DTYPE_BF16) return (int)cudaErrorInvalidValue;
+    if (bm == 16)
+      return fp8 ? (int)launch_bf16<16, 1, xllm::e4m3>(lhs, rhs, offs, o, m, k, n, e, st)
+                 : (int)launch_bf16<16, 1, __nv_bfloat16>(lhs, rhs, offs, o, m, k, n, e, st);
+    if (bm == 128)
+      return fp8 ? (int)launch_ws<true, 1>(lhs, rhs, offs, o, m, k, n, e, grid, st)
+                 : (int)launch_ws<false, 1>(lhs, rhs, offs, o, m, k, n, e, grid, st);
+    if (bm == 256)
+      return fp8 ? (int)launch_ws<true, 2>(lhs, rhs, offs, o, m, k, n, e, grid, st)
+                 : (int)launch_ws<false, 2>(lhs, rhs, offs, o, m, k, n, e, grid, st);
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == XLLM_DTYPE_F32) {

@@ -1,8 +1,8 @@
 // Hopper building blocks (sm_90a): mbarriers, TMA tile loads, wgmma
 // descriptors and the bf16 m64n128k16 product, register hand-over between
-// warpgroups, and the host-side tensor-map encoder. Inline PTX, no
-// library. Used by csrc/quant_matmul.cu (K6, K7); written for the other
-// GEMM-shaped kernels (K10, the prefill attention) to share.
+// warpgroups, the e4m3 -> bf16 stage upcast, and the host-side tensor-map
+// encoder. Inline PTX, no library. Used by csrc/quant_matmul.cu (K6, K7)
+// and csrc/gmm.cu (K10).
 //
 // Shared-memory tiles that wgmma reads are in the 128-byte swizzle that
 // TMA writes (CU_TENSOR_MAP_SWIZZLE_128B): rows of 128 bytes, the 16-byte
@@ -14,6 +14,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "common.cuh"
 
 namespace xllm {
 namespace hopper {
@@ -45,11 +47,14 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                "r"(bytes)
                : "memory");
 }
-// waits until the barrier's phase with parity `parity` has completed
+// waits until the barrier's phase with parity `parity` has completed; a
+// wait of some 2^28 polls (seconds) traps, so that a pipeline fault ends the
+// launch with an error instead of holding the card
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
-  uint32_t done;
+  uint32_t done, polls = 0;
   do {
+    if (++polls == (1u << 28)) __trap();
     asm volatile(
         "{\n"
         ".reg .pred p;\n"
@@ -84,6 +89,12 @@ __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// every thread of every block of the cluster arrives (its earlier memory
+// operations released), then waits for all of them (acquiring theirs)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
 // named barrier over `count` threads (a multiple of 32); id 0 is __syncthreads
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
@@ -162,6 +173,82 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// e4m3 weights: a stage of [64 k x 128 n] bytes -> two swizzled bf16 blocks
+// ---------------------------------------------------------------------------
+// 4 e4m3 bytes -> 4 bf16 (two bf16x2 words, the low bytes first), exact:
+// each byte's exponent and mantissa are shifted into bf16's fields and the
+// pair is scaled by 2^120 (bf16's bias 127 less e4m3's 7), exact for every
+// finite e4m3 value, subnormals included (bf16 products keep subnormal
+// inputs). Integer and bf16x2 operations only, no cvt (the conversion
+// unit's quarter rate). NaN bytes (0x7f, 0xff) are left to the caller.
+__device__ __forceinline__ void e4m3x4_to_bf16(uint32_t in, uint32_t& lo, uint32_t& hi) {
+  const uint32_t x0 = __byte_perm(in, 0, 0x1404);  // b1 << 24 | b0 << 8
+  const uint32_t x1 = __byte_perm(in, 0, 0x3424);  // b3 << 24 | b2 << 8
+  uint32_t a = ((x0 >> 4) & 0x07F007F0u) | (x0 & 0x80008000u);
+  uint32_t b = ((x1 >> 4) & 0x07F007F0u) | (x1 & 0x80008000u);
+  const uint32_t k2 = 0x7B807B80u;  // (2^120, 2^120)
+  const __nv_bfloat162 ka = __hmul2(*reinterpret_cast<__nv_bfloat162*>(&a),
+                                    *reinterpret_cast<const __nv_bfloat162*>(&k2));
+  const __nv_bfloat162 kb = __hmul2(*reinterpret_cast<__nv_bfloat162*>(&b),
+                                    *reinterpret_cast<const __nv_bfloat162*>(&k2));
+  lo = *reinterpret_cast<const uint32_t*>(&ka);
+  hi = *reinterpret_cast<const uint32_t*>(&kb);
+}
+// nonzero when a byte of the 16 is an e4m3 NaN (low seven bits all set)
+__device__ __forceinline__ uint32_t e4m3_nan_bytes(uint4 v) {
+  const uint32_t m = 0x7F7F7F7Fu, one = 0x01010101u;
+  return (((v.x & m) + one) | ((v.y & m) + one) | ((v.z & m) + one) | ((v.w & m) + one)) &
+         0x80808080u;
+}
+
+constexpr int kStageBK = 64;               // k of a weight stage
+constexpr int kStageBN = 128;              // n of a weight stage: two 64-column blocks
+constexpr int kStageBlock = kStageBK * 128;  // bytes of one swizzled [64 x 64] bf16 block
+
+// Thread c (0-127) of a converter warpgroup upcasts its four 16-byte chunks
+// (a row's 16 columns each) of the stage's e4m3 bytes `raw` ([64 k x 128 n]
+// as TMA lands them, rows of 128 bytes) into the two swizzled [64 x 64]
+// bf16 blocks at `dst` that wgmma reads: loads first, then the four
+// conversions in one straight line; NaN bytes through upcast2 (exact, NaN
+// kept). The caller fences (fence_async_shared) and signals.
+__device__ __forceinline__ void e4m3_stage_to_bf16(const unsigned char* raw, unsigned char* dst,
+                                                   int c) {
+  constexpr int kSteps = kStageBK * kStageBN / 16 / 128;
+  uint4 v[kSteps];
+#pragma unroll
+  for (int i = 0; i < kSteps; ++i) {
+    const int q = c + i * 128;
+    v[i] = *reinterpret_cast<const uint4*>(raw + (q >> 3) * kStageBN + (q & 7) * 16);
+  }
+  bool nan = false;
+#pragma unroll
+  for (int i = 0; i < kSteps; ++i) nan |= e4m3_nan_bytes(v[i]) != 0;
+#pragma unroll
+  for (int i = 0; i < kSteps; ++i) {
+    const int q = c + i * 128, r = q >> 3, cb = (q & 7) * 16;
+    uint32_t o[8];
+    if (!nan) {
+      e4m3x4_to_bf16(v[i].x, o[0], o[1]);
+      e4m3x4_to_bf16(v[i].y, o[2], o[3]);
+      e4m3x4_to_bf16(v[i].z, o[4], o[5]);
+      e4m3x4_to_bf16(v[i].w, o[6], o[7]);
+    } else {
+      const uint32_t in[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        o[2 * j] = upcast2<e4m3>(in[j]);
+        o[2 * j + 1] = upcast2<e4m3>(in[j] >> 16);
+      }
+    }
+    unsigned char* row = dst + (cb >> 6) * kStageBlock + r * 128;
+    const int ch = (cb & 63) >> 3;  // first 16-byte chunk of the row
+    *reinterpret_cast<uint4*>(row + ((ch ^ (r & 7)) << 4)) = make_uint4(o[0], o[1], o[2], o[3]);
+    *reinterpret_cast<uint4*>(row + (((ch + 1) ^ (r & 7)) << 4)) =
+        make_uint4(o[4], o[5], o[6], o[7]);
+  }
 }
 
 // ---------------------------------------------------------------------------

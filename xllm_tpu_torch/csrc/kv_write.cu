@@ -46,15 +46,18 @@
 // K9's RMW writer (kv_write_rmw_batched_rm_tpu, kv_write_rmw_rm_kernel
 // below) is a kernel of its own: a chunk of at most bs rows may complete a
 // page whose earlier rows sit token-major, and the whole page is then
-// rewritten canonical. The blocks of a (chunk, page) -- at most two pages
-// a chunk -- take their page, so no two chunks touch one page; a first
-// launch stages the page's earlier rows in a scratch page of the chunk's
-// own, a second writes every row of the page canonical: the stream orders
-// the reads of the old rows before any write over them.
+// rewritten canonical. One launch: a thread-block cluster per (chunk,
+// page) -- at most two pages a chunk, no two chunks on one page -- whose
+// blocks each stage, in their own shared memory, the earlier rows of their
+// share of the canonical page, meet at a cluster barrier (in place of a
+// launch boundary: every old row is read before any is overwritten), then
+// write their share. No global scratch. An e4m3 cache takes its rows
+// through the paired hardware cast (to_e4m3x2), 16 values a unit.
 #include <cassert>
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace xllm {
 
@@ -102,20 +105,60 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// K9's RMW writer (the head of this file), two launches of one kernel on
-// the stream: blocks (p, k, y) share the chunk's first (k = 0) or last (k =
-// 1) page, kRmwSplit of them. Phase 0: a page the sequence does not
-// complete takes the chunk's rows token-major; of a page it completes, the
-// rows before the chunk (token-major, the first page's q_offset % bs) are
-// staged in scratch[p]. Phase 1, once every block of phase 0 has ended:
-// every row of a completed page goes to its canonical place, from scratch
-// or from the chunk. The page moves in 16-byte units, each a piece of one
-// head's D-vector.
+// K9's RMW writer (the head of this file): one cluster of kRmwCluster
+// blocks (blockIdx.x its rank) per (chunk p = blockIdx.z, the chunk's first
+// (k = blockIdx.y = 0) or last (k = 1) page). The page moves in 16-byte
+// units, each a piece of one head's D-vector. A page the sequence does not
+// complete takes the chunk's rows token-major (no barrier). A page it
+// completes is rewritten canonical: block r owns the canonical units [r
+// per, (r + 1) per) (per = the page's units / kRmwCluster, rounded up); it
+// stages the units of its share that lie in the rows before the chunk (the
+// page's first w0 rows, token-major) in its shared memory, the cluster
+// meets at its barrier, and each block writes its share, earlier rows from
+// its own staging and the chunk's rows from the source. Every staged unit
+// is read back by the block that staged it (ops/cuda/kv_write.
+// rmw_cluster_share models the partition); the barrier orders every read
+// of an old token-major unit before any canonical write over it. w0 = 0:
+// nothing staged, no barrier.
 constexpr int kRmwThreads = 256;
-constexpr int kRmwSplit = 8;
+constexpr int kRmwCluster = 8;
+
+// 16 bytes of cache values from the 16 / sizeof(C) source values at x
+// (16-byte aligned): a copy, or the e4m3 cast in pairs
+template <typename S, typename C>
+__device__ __forceinline__ uint4 cache_unit(const S* x) {
+  if constexpr (sizeof(S) == sizeof(C)) {
+    return *reinterpret_cast<const uint4*>(x);
+  } else {
+    float f[16];
+    if constexpr (std::is_same_v<S, float>) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 v = reinterpret_cast<const float4*>(x)[i];
+        f[4 * i] = v.x, f[4 * i + 1] = v.y, f[4 * i + 2] = v.z, f[4 * i + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint4 v = reinterpret_cast<const uint4*>(x)[i];
+        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 t = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+          f[8 * i + 2 * j] = t.x, f[8 * i + 2 * j + 1] = t.y;
+        }
+      }
+    }
+    uint32_t o[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      o[i] = to_e4m3x2(f[4 * i], f[4 * i + 1]) | to_e4m3x2(f[4 * i + 2], f[4 * i + 3]) << 16;
+    return make_uint4(o[0], o[1], o[2], o[3]);
+  }
+}
 
 template <typename S, typename C>
-__global__ void __launch_bounds__(kRmwThreads)
+__global__ void __cluster_dims__(kRmwCluster, 1, 1) __launch_bounds__(kRmwThreads)
     kv_write_rmw_rm_kernel(const S* __restrict__ k_src, const S* __restrict__ v_src,
                            long long stride_p, long long stride_s,
                            long long stride_h,  // element strides; d is unit
@@ -124,11 +167,12 @@ __global__ void __launch_bounds__(kRmwThreads)
                            const int* __restrict__ q_offsets,     // [P]
                            const int* __restrict__ ntoks,         // [P]
                            const int* __restrict__ kv_lens,       // [P]
-                           C* scratch,                            // [P, page]
                            int layer, int num_blocks, int hkv, int bs, int head_dim,
-                           int nbmax, int phase) {
+                           int nbmax) {
   constexpr int kVec = 16 / sizeof(C);  // cache elements per 16-byte unit
-  const int p = blockIdx.x, k = blockIdx.y;
+  extern __shared__ uint4 staged[];     // this block's share: the units before the chunk
+  const int rank = blockIdx.x, k = blockIdx.y, p = blockIdx.z;
+  // every branch below is the same for all blocks of the cluster
   const int ntok = ntoks[p];
   if (ntok <= 0) return;
   const int q_offset = q_offsets[p];
@@ -139,34 +183,45 @@ __global__ void __launch_bounds__(kRmwThreads)
   const size_t page = (size_t)2 * hkv * bs * head_dim;
   uint4* dst = reinterpret_cast<uint4*>(
       cache + ((size_t)layer * num_blocks + block_tables[(size_t)p * nbmax + pg]) * page);
-  uint4* st = reinterpret_cast<uint4*>(scratch + (size_t)p * page);
   const int w0 = max(q_offset - pg * bs, 0);          // the chunk's first row here
   const int w1 = min(q_offset + ntok - pg * bs, bs);  // and its end
   const int units = head_dim / kVec;                  // units of a head's D-vector
   const int row = 2 * hkv * units;                    // units of a token-major row
-  const int i0 = blockIdx.z * blockDim.x + threadIdx.x, step = gridDim.z * blockDim.x;
   // unit u of head c (K heads, then V heads) of the page's row w, from the chunk
   auto src = [&](int w, int c, int u) -> uint4 {
     const S* x = (c < hkv ? k_src + (size_t)c * stride_h : v_src + (size_t)(c - hkv) * stride_h) +
                  (size_t)p * stride_p + (size_t)(pg * bs + w - q_offset) * stride_s + u * kVec;
-    alignas(16) C vals[kVec];
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) vals[e] = as_cache<C>(x[e]);
-    return *reinterpret_cast<const uint4*>(vals);
+    return cache_unit<S, C>(x);
   };
-  if (phase == 0 && !complete) {  // the rows token-major
+  if (!complete) {  // the rows token-major
+    const int i0 = rank * kRmwThreads + threadIdx.x, step = kRmwCluster * kRmwThreads;
     for (int i = i0; i < (w1 - w0) * row; i += step) {
       const int w = w0 + i / row, c = i % row / units, u = i % units;
       dst[(size_t)w * row + c * units + u] = src(w, c, u);
     }
-  } else if (phase == 0) {  // stage the rows before the chunk
-    for (int i = i0; i < w0 * row; i += step) st[i] = dst[i];
-  } else if (complete) {  // the whole page canonical
-    for (int i = i0; i < bs * row; i += step) {
-      const int c = i / (bs * units), w = i / units % bs, u = i % units;
-      dst[i] = w < w0 ? st[(size_t)w * row + c * units + u] : src(w, c, u);
-    }
+    return;
   }
+  const int total = bs * row;
+  const int per = (total + kRmwCluster - 1) / kRmwCluster;
+  const int lo = rank * per, hi = min(total, lo + per);
+  // canonical unit i: head c = i / (bs units), row w = i / units % bs, u = i % units
+  if (w0 > 0) {
+    for (int i = lo + threadIdx.x; i < hi; i += kRmwThreads) {
+      const int c = i / (bs * units), w = i / units % bs, u = i % units;
+      if (w < w0) staged[i - lo] = dst[(size_t)w * row + c * units + u];
+    }
+    hopper::cluster_sync();
+  }
+  for (int i = lo + threadIdx.x; i < hi; i += kRmwThreads) {
+    const int c = i / (bs * units), w = i / units % bs, u = i % units;
+    dst[i] = w < w0 ? staged[i - lo] : src(w, c, u);
+  }
+}
+
+// the shared memory a block of the RMW writer's cluster stages at most
+size_t rmw_share_bytes(int hkv, int bs, int head_dim, int elem) {
+  const size_t units = (size_t)2 * hkv * bs * head_dim * elem / 16;
+  return (units + kRmwCluster - 1) / kRmwCluster * 16;
 }
 
 template <typename S, typename C>
@@ -188,18 +243,24 @@ cudaError_t launch_rows(const void* k_src, const void* v_src, long long sp,
 template <typename S, typename C>
 cudaError_t launch_rmw_rm(const void* k_src, const void* v_src, long long sp,
                           long long ss, long long sh, void* cache, const int* block_tables,
-                          const int* q_offsets, const int* ntoks, const int* kv_lens,
-                          void* scratch, int p, int layer, int num_blocks, int hkv, int bs,
-                          int head_dim, int nbmax, cudaStream_t stream) {
-  for (int phase = 0; phase < 2; ++phase) {
-    kv_write_rmw_rm_kernel<S, C><<<dim3(p, 2, kRmwSplit), kRmwThreads, 0, stream>>>(
-        static_cast<const S*>(k_src), static_cast<const S*>(v_src), sp, ss, sh,
-        static_cast<C*>(cache), block_tables, q_offsets, ntoks, kv_lens,
-        static_cast<C*>(scratch), layer, num_blocks, hkv, bs, head_dim, nbmax, phase);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-  }
-  return cudaSuccess;
+                          const int* q_offsets, const int* ntoks, const int* kv_lens, int p,
+                          int layer, int num_blocks, int hkv, int bs, int head_dim, int nbmax,
+                          cudaStream_t stream) {
+  constexpr int kSrcVec = 16 / sizeof(C);  // source elements a unit
+  if (sp % kSrcVec || ss % kSrcVec || sh % kSrcVec || head_dim % kSrcVec ||
+      reinterpret_cast<uintptr_t>(k_src) % 16 || reinterpret_cast<uintptr_t>(v_src) % 16 ||
+      p > 65535)
+    return cudaErrorInvalidValue;
+  const size_t smem = rmw_share_bytes(hkv, bs, head_dim, sizeof(C));
+  if (smem > (size_t)kSmemMax) return cudaErrorInvalidValue;
+  static AllowSmemOnce allow;  // the most, once
+  const cudaError_t err = allow(kv_write_rmw_rm_kernel<S, C>, kSmemMax);
+  if (err != cudaSuccess) return err;
+  kv_write_rmw_rm_kernel<S, C><<<dim3(kRmwCluster, 2, p), kRmwThreads, smem, stream>>>(
+      static_cast<const S*>(k_src), static_cast<const S*>(v_src), sp, ss, sh,
+      static_cast<C*>(cache), block_tables, q_offsets, ntoks, kv_lens, layer, num_blocks, hkv,
+      bs, head_dim, nbmax);
+  return cudaGetLastError();
 }
 
 // K11c + K11d: the latent (MLA) writers. The same row scatter into the
@@ -315,16 +376,16 @@ extern "C" int xllm_kv_write_rows(int device, const void* k_src,
   return (int)cudaErrorInvalidValue;
 }
 
-// K9's RMW writer: cache [L, NB, 2, Hkv, bs, D]; scratch [P, 2 * Hkv * bs * D]
-// in the cache dtype
+// K9's RMW writer: cache [L, NB, 2, Hkv, bs, D]; the sources' base and
+// strides 16-byte aligned (in elements: multiples of 16 / the cache's
+// element size)
 extern "C" int xllm_kv_write_rmw_rm(int device, const void* k_src, const void* v_src,
                                     long long stride_p, long long stride_s,
                                     long long stride_h, void* cache,
                                     const void* block_tables, const void* q_offsets,
-                                    const void* ntoks, const void* kv_lens, void* scratch,
-                                    int src_dtype, int dtype, int p, int s, int layer,
-                                    int num_blocks, int hkv, int bs, int head_dim,
-                                    int nbmax, void* stream) {
+                                    const void* ntoks, const void* kv_lens, int src_dtype,
+                                    int dtype, int p, int s, int layer, int num_blocks,
+                                    int hkv, int bs, int head_dim, int nbmax, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (s > bs) return (int)cudaErrorInvalidValue;  // at most two pages a chunk
@@ -335,8 +396,8 @@ extern "C" int xllm_kv_write_rmw_rm(int device, const void* k_src, const void* v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define XLLM_RMW(S, C)                                                                 \
   return (int)xllm::launch_rmw_rm<S, C>(k_src, v_src, stride_p, stride_s, stride_h,   \
-                                        cache, bt, qo, nt, kl, scratch, p, layer,     \
-                                        num_blocks, hkv, bs, head_dim, nbmax, st);
+                                        cache, bt, qo, nt, kl, p, layer, num_blocks,  \
+                                        hkv, bs, head_dim, nbmax, st);
   if (src_dtype == dtype) {  // a copy (of bytes, for a 1-byte cache)
     if (dtype == XLLM_DTYPE_BF16) { XLLM_RMW(__nv_bfloat16, __nv_bfloat16) }
     if (dtype == XLLM_DTYPE_F32) { XLLM_RMW(float, float) }

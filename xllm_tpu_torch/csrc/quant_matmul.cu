@@ -76,7 +76,6 @@ constexpr int kWsBK = 64;    // k a stage: one 128-byte swizzled row of bf16 x
 constexpr int kWsBN = 128;   // output columns a tile: two 64-column weight blocks
 constexpr int kWsBlockB = kWsBK * 128;  // bytes of one 64-column bf16 block
 constexpr int kWsBlockA = 64 * 128;     // bytes of 64 rows of x
-constexpr int kConvSteps = kWsBK * kWsBN / 16 / 128;  // 16-byte chunks a converter thread
 
 // NC consumer warpgroups of MI x 64 rows each, for e4m3 weights a
 // converter warpgroup, then a producer warpgroup
@@ -113,32 +112,6 @@ __device__ __forceinline__ Unit unit_of(int u, int tiles_m, int tiles, int split
   w.kb0 = (int)((long long)w.split * kb_all / splits);
   w.kb1 = (int)((long long)(w.split + 1) * kb_all / splits);
   return w;
-}
-
-// 4 e4m3 bytes -> 4 bf16 (two bf16x2 words, the low bytes first), exact:
-// each byte's exponent and mantissa are shifted into bf16's fields and the
-// pair is scaled by 2^120 (bf16's bias 127 less e4m3's 7), exact for every
-// finite e4m3 value, subnormals included (bf16 products keep subnormal
-// inputs). Integer and bf16x2 operations only, no cvt (the conversion
-// unit's quarter rate). NaN bytes (0x7f, 0xff) are left to the caller.
-__device__ __forceinline__ void e4m3x4_to_bf16(uint32_t in, uint32_t& lo, uint32_t& hi) {
-  const uint32_t x0 = __byte_perm(in, 0, 0x1404);  // b1 << 24 | b0 << 8
-  const uint32_t x1 = __byte_perm(in, 0, 0x3424);  // b3 << 24 | b2 << 8
-  uint32_t a = ((x0 >> 4) & 0x07F007F0u) | (x0 & 0x80008000u);
-  uint32_t b = ((x1 >> 4) & 0x07F007F0u) | (x1 & 0x80008000u);
-  const uint32_t k2 = 0x7B807B80u;  // (2^120, 2^120)
-  const __nv_bfloat162 ka = __hmul2(*reinterpret_cast<__nv_bfloat162*>(&a),
-                                    *reinterpret_cast<const __nv_bfloat162*>(&k2));
-  const __nv_bfloat162 kb = __hmul2(*reinterpret_cast<__nv_bfloat162*>(&b),
-                                    *reinterpret_cast<const __nv_bfloat162*>(&k2));
-  lo = *reinterpret_cast<const uint32_t*>(&ka);
-  hi = *reinterpret_cast<const uint32_t*>(&kb);
-}
-// nonzero when a byte of the 16 is an e4m3 NaN (low seven bits all set)
-__device__ __forceinline__ uint32_t e4m3_nan_bytes(uint4 v) {
-  const uint32_t m = 0x7F7F7F7Fu, one = 0x01010101u;
-  return (((v.x & m) + one) | ((v.y & m) + one) | ((v.z & m) + one) | ((v.w & m) + one)) &
-         0x80808080u;
 }
 
 template <bool kFp8, int NC, int MI>
@@ -214,39 +187,7 @@ __global__ void __launch_bounds__(WsTiles<kFp8, NC, MI>::kThreads, 1)
         const int s = it % S;
         mbar_wait(&full[s], (it / S) & 1);
         unsigned char* st = base + (size_t)s * T::kStage;
-        const unsigned char* raw = st + T::kA + T::kB;
-        uint4 v[kConvSteps];
-#pragma unroll
-        for (int i = 0; i < kConvSteps; ++i) {
-          const int q = c + i * 128;
-          v[i] = *reinterpret_cast<const uint4*>(raw + (q >> 3) * kWsBN + (q & 7) * 16);
-        }
-        const bool nan = e4m3_nan_bytes(v[0]) | e4m3_nan_bytes(v[1]) |
-                         e4m3_nan_bytes(v[2]) | e4m3_nan_bytes(v[3]);
-#pragma unroll
-        for (int i = 0; i < kConvSteps; ++i) {
-          const int q = c + i * 128, r = q >> 3, cb = (q & 7) * 16;
-          uint32_t o[8];
-          if (!nan) {
-            e4m3x4_to_bf16(v[i].x, o[0], o[1]);
-            e4m3x4_to_bf16(v[i].y, o[2], o[3]);
-            e4m3x4_to_bf16(v[i].z, o[4], o[5]);
-            e4m3x4_to_bf16(v[i].w, o[6], o[7]);
-          } else {
-            const uint32_t in[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              o[2 * j] = upcast2<e4m3>(in[j]);  // exact, NaN kept
-              o[2 * j + 1] = upcast2<e4m3>(in[j] >> 16);
-            }
-          }
-          unsigned char* row = st + T::kA + (cb >> 6) * kWsBlockB + r * 128;
-          const int ch = (cb & 63) >> 3;  // first 16-byte chunk of the row
-          *reinterpret_cast<uint4*>(row + ((ch ^ (r & 7)) << 4)) =
-              make_uint4(o[0], o[1], o[2], o[3]);
-          *reinterpret_cast<uint4*>(row + (((ch + 1) ^ (r & 7)) << 4)) =
-              make_uint4(o[4], o[5], o[6], o[7]);
-        }
+        e4m3_stage_to_bf16(st + T::kA + T::kB, st + T::kA, c);
         fence_async_shared();
         mbar_arrive(&conv[s]);
       }
@@ -382,15 +323,9 @@ cudaError_t launch_ws(const CUtensorMap& xmap, const CUtensorMap& wmap, const fl
                       int splits, int grid, cudaStream_t stream) {
   using T = WsTiles<kFp8, NC, MI>;
   auto kernel = qmm_ws_kernel<kFp8, NC, MI>;
-  static bool smem_set[64] = {};  // per device: set the attribute once
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static AllowSmemOnce allow;
+  const cudaError_t err = allow(kernel, T::smem());
   if (err != cudaSuccess) return err;
-  if (dev >= 64 || !smem_set[dev]) {
-    err = allow_smem(kernel, T::smem());
-    if (err != cudaSuccess) return err;
-    if (dev < 64) smem_set[dev] = true;
-  }
   const int tiles_m = (m + T::BM - 1) / T::BM, tiles_n = (n + kWsBN - 1) / kWsBN;
   kernel<<<grid, T::kThreads, T::smem(), stream>>>(xmap, wmap, sw, out, part, tile_count,
                                                     m, k, n, tiles_m, tiles_n, splits);

@@ -12,9 +12,12 @@ block hashing in prefix_cache/block_hasher.cpp). Design differences for TPU:
 - Prefix cache and allocator are fused: a freed block keeps its content hash
   and sits in an LRU "free but cached" queue; allocation evicts from the LRU
   tail exactly like the reference's PrefixCache LRU eviction.
-- Hashing is a chained 64-bit blake2b over (parent_hash, block token ids),
-  the same chain structure as the reference's murmur3 block chains (the JAX
-  package uses xxhash64; blake2b comes with the standard library).
+- Hashing is a chained xxhash64 (seed 17) over (parent_hash, block token
+  ids), the same chain structure as the reference's murmur3 block chains and
+  the same digests as the JAX package, so a global KV store shared with a
+  JAX node hits across the two. The ``xxhash`` package computes it where it
+  imports, else ``utils/xxh64.py`` in the standard library alone; the choice
+  is made once, at import, and both give the same digests.
 
 Pure host logic — unit-tested without any device (SURVEY.md §4 fake-engine
 pattern).
@@ -22,20 +25,35 @@ pattern).
 
 from __future__ import annotations
 
-import hashlib
 from collections import OrderedDict
 
 from xllm_tpu_torch.framework.request import Sequence
 from xllm_tpu_torch.utils import cdiv
+from xllm_tpu_torch.utils.xxh64 import xxh64
+
+HASH_SEED = 17
+
+
+def _xxh64_stdlib(data: bytes) -> int:
+    return xxh64(data, HASH_SEED)
+
+
+try:
+    import xxhash
+except ImportError:
+    XXH64_IMPL = "stdlib"
+    _xxh64 = _xxh64_stdlib
+else:
+    XXH64_IMPL = "xxhash"
+
+    def _xxh64(data: bytes) -> int:
+        return xxhash.xxh64_intdigest(data, HASH_SEED)
 
 
 def hash_block(parent_hash: int, token_ids: list[int], extra: bytes = b"") -> int:
-    h = hashlib.blake2b(digest_size=8)
-    h.update(parent_hash.to_bytes(8, "little", signed=False))
-    h.update(b"".join(t.to_bytes(4, "little", signed=True) for t in token_ids))
-    if extra:
-        h.update(extra)
-    return int.from_bytes(h.digest(), "little")
+    return _xxh64(parent_hash.to_bytes(8, "little", signed=False)
+                  + b"".join(t.to_bytes(4, "little", signed=True) for t in token_ids)
+                  + extra)
 
 
 class BlockManager:

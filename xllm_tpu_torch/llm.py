@@ -63,5 +63,6 @@ class LLM:
         return [outs[rid] for rid in order]
 
     def score(self, prompt_token_ids: list[int]):
-        """Per-token logprobs of a prompt (not ported yet: raises)."""
+        """Per-token logprobs of the prompt's tokens after the first: f32
+        ``[n - 1]`` (``LLMEngine.score_prompt``)."""
         return self.engine.score_prompt(prompt_token_ids)

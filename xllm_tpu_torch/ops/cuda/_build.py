@@ -156,6 +156,19 @@ DTYPE_I8 = 2
 DTYPE_E4M3 = 3
 
 
+_sms: dict[int, int] = {}
+
+
+def device_sms(dev) -> int:
+    """The SMs of a CUDA device (read once)."""
+    import torch
+
+    idx = dev.index or 0
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
+
+
 def dtype_code(dtype) -> int:
     import torch
 

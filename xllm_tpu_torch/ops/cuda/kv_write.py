@@ -40,7 +40,8 @@ and ``kv_write_rmw_batched_rm_tpu``: a row of a page the sequence does not
 complete (``(page + 1) * bs > kv_len``) goes token-major, to row ``pos %
 bs`` of the page seen as ``[bs, 2 * Hkv, D]`` (K heads, then V heads), and
 a page the chunk completes is written canonical, its earlier token-major
-rows included (the RMW writer's own kernel).
+rows included (the RMW writer's own kernel: one launch, a thread-block
+cluster a page, ``rmw_cluster_share`` its partition).
 
 A single-chunk writer is its batched twin's kernel launched with one chunk
 (the contracts are the batched ones at P = 1): ``q_offset`` and ``ntok``
@@ -55,7 +56,9 @@ whole pages.) Rows in another dtype than the cache's are cast to it: bf16
 or f32 rows bound for an fp8 cache by the kernel itself, with the JAX
 package's bytes (``ops.quant.to_e4m3`` in the plain version), any other
 pair by ``Tensor.to`` before the launch; int8 codes are copied as bytes.
-Bound on the card: bytes; see the CUDA source.
+The RMW writer casts to e4m3 through the paired hardware cast and a NaN
+select (``e4m3_pair_model``). Bound on the card: bytes; see the CUDA
+source.
 """
 
 from __future__ import annotations
@@ -101,6 +104,49 @@ RM_RMW_NAME = "kv_write_rmw_batched_rm"
 RM_RMW_TPU_KERNEL = "xllm_tpu/ops/pallas/kv_write.py:1351 kv_write_rmw_batched_rm_tpu"
 _SOURCE = "kv_write"
 
+# K9's RMW writer (csrc/kv_write.cu kv_write_rmw_rm_kernel)
+RMW_CLUSTER = 8  # blocks a page: the portable cluster size
+RMW_SMEM_MAX = 232448  # an H100 block's dynamic shared memory
+
+
+def rmw_cluster_smem(hkv: int, bs: int, head_dim: int, elem: int) -> int:
+    """Bytes of shared memory a block of the RMW writer's cluster stages
+    at most: its share of the page's 16-byte units."""
+    units = 2 * hkv * bs * head_dim * elem // 16
+    return -(-units // RMW_CLUSTER) * 16
+
+
+def rmw_cluster_share(hkv: int, bs: int, head_dim: int, elem: int, w0: int,
+                      rank: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Block ``rank``'s part in rewriting a completed page canonical whose
+    first ``w0`` rows were written token-major before the chunk, in 16-byte
+    units of an ``elem``-byte cache: -> (the canonical units it writes, in
+    order; the staging slots it fills; the token-major unit each slot
+    holds). Canonical unit i is head c = i // (bs U), row w = i // U % bs,
+    piece u = i % U (U units a head row); its token-major place is w (2 Hkv
+    U) + c U + u. The block that writes i stages it in slot i - lo when w
+    < w0."""
+    per_head = head_dim * elem // 16
+    total = 2 * hkv * bs * per_head
+    per = -(-total // RMW_CLUSTER)
+    i = torch.arange(rank * per, min(total, (rank + 1) * per))
+    c, w, u = i // (bs * per_head), i // per_head % bs, i % per_head
+    early = w < w0
+    token_major = w * (2 * hkv * per_head) + c * per_head + u
+    return i, (i - rank * per)[early], token_major[early]
+
+
+def e4m3_pair_model(x: torch.Tensor) -> torch.Tensor:
+    """The RMW writer's e4m3 cast in PyTorch: the hardware's satfinite
+    cast (clamp to +-448, round to nearest even: PyTorch's cast of the
+    clamped value), then the NaN byte 0x7f with the sign of x where the
+    magnitude exceeds 464 or x is NaN. -> float8_e4m3fn, the bytes of
+    ``ops.quant.to_e4m3``."""
+    xf = x.float()
+    codes = xf.clamp(-448.0, 448.0).to(torch.float8_e4m3fn).view(torch.uint8)
+    nan = torch.where(torch.signbit(xf), 0xFF, 0x7F).to(torch.uint8)
+    return torch.where(xf.abs() <= 464.0, codes, nan).view(torch.float8_e4m3fn)
+
 
 def kv_write_rows_plain(
     k_rows: torch.Tensor,  # [P, S, Hkv, D] token-major (any strides)
@@ -144,7 +190,7 @@ def _load() -> ctypes.CDLL:
         ]
         lib.xllm_kv_write_rows.restype = i
         lib.xllm_kv_write_rmw_rm.argtypes = [
-            i, p, p, ll, ll, ll, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p,
+            i, p, p, ll, ll, ll, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p,
         ]
         lib.xllm_kv_write_rmw_rm.restype = i
         lib.xllm_latent_write_rows.argtypes = [
@@ -201,13 +247,19 @@ def _launch(name, k_rows, v_rows, k_all, v_all, layer_idx, block_tables,
     src = _build.dtype_code(k_rows.dtype)
     lens = _build.ptr(kv_lens) if kv_lens is not None else ctypes.c_void_p(0)
     if rmw_rm:
-        # a completed page is staged here before its canonical rewrite
-        scratch = torch.empty((p, page), dtype=k_all.dtype, device=k_all.device)
+        if rmw_cluster_smem(hkv, bs, d, k_all.element_size()) > RMW_SMEM_MAX:
+            raise ValueError(f"{name}: a page of {tuple(k_all.shape[3:])} x "
+                             f"{k_all.element_size()} bytes outgrows the cluster's staging")
+        vec = 16 // k_all.element_size()  # source elements a 16-byte cache unit
+        if any(x % vec for x in (sp, ss, sh)) or k_rows.data_ptr() % 16 \
+                or v_rows.data_ptr() % 16:
+            k_rows, v_rows = k_rows.contiguous(), v_rows.contiguous()
+            sp, ss, sh, _ = k_rows.stride()
         _build.count_launch(name)
         err = lib.xllm_kv_write_rmw_rm(
             dev, _build.ptr(k_rows), _build.ptr(v_rows), sp, ss, sh, _build.ptr(k_all),
             _build.ptr(block_tables), _build.ptr(q_offsets), _build.ptr(ntoks), lens,
-            _build.ptr(scratch), src, dtype, p, s, int(layer_idx), nb, hkv, bs, d,
+            src, dtype, p, s, int(layer_idx), nb, hkv, bs, d,
             block_tables.shape[1], _build.stream_of(k_all),
         )
     else:

@@ -210,7 +210,6 @@ def _load() -> ctypes.CDLL:
 
 
 _split_bufs: dict[tuple[torch.device, int], tuple[torch.Tensor, torch.Tensor]] = {}
-_sms: dict[int, int] = {}
 
 
 def _split_buffers(dev: torch.device, stream: int, partials: int, tiles: int):
@@ -226,14 +225,6 @@ def _split_buffers(dev: torch.device, stream: int, partials: int, tiles: int):
         count = torch.zeros(max(tiles, 4096), dtype=torch.int32, device=dev)
     _split_bufs[(dev, stream)] = (ws, count)
     return ws, count
-
-
-def device_sms(dev: torch.device) -> int:
-    """The SMs of a CUDA device (read once)."""
-    idx = dev.index or 0
-    if idx not in _sms:
-        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _sms[idx]
 
 
 def _matmul(name: str, x, w, scale, layer: int | None) -> torch.Tensor:
@@ -297,7 +288,7 @@ def launch_prepared(name: str, xin, sx, w, scale, layer: int | None,
         _build.check(lib, err, name)
         return out
     if p is None:
-        p = plan(m, k, n, _KIND[name], device_sms(xin.device))
+        p = plan(m, k, n, _KIND[name], _build.device_sms(xin.device))
     if xin.data_ptr() % 16:  # TMA reads from 16-byte aligned bases
         xin = xin.clone()
     stream = _build.stream_of(xin)
