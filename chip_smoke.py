@@ -607,9 +607,12 @@ def check_decode(rng, dev, dtype, timed: bool, cache=None) -> dict:
 
 
 # K1 variants beside the served shape: (head_dim, Hq, Hkv, block_size,
-# block-table width, window); the widths give 1 to 16 context splits
+# block-table width, window); the widths give clusters of 10 and 16 context
+# splits, and the last (G 8 over 32,768 positions) the long-table path,
+# whose scores outgrow shared memory (ops/cuda/decode_attention.plan)
 DECODE_VARIANTS = [(128, 16, 8, 64, 64, 100), (64, 8, 2, 16, 40, 37),
-                   (128, 32, 4, 64, 128, 0), (128, 16, 8, 64, 64, 4096)]
+                   (128, 32, 4, 64, 128, 0), (128, 16, 8, 64, 64, 4096),
+                   (128, 32, 4, 64, 512, 0)]
 
 
 def check_decode_variants(rng, dev, dtype) -> float:

@@ -65,9 +65,7 @@ from xllm_tpu_torch.ops.cuda import _build  # noqa: E402
 BATCH = 16
 # kernel-name fragments of the port's hand-written kernels (csrc/*.cu)
 OWN_KERNELS = {
-    "decode_attention_write_kernel": "K1/K8/K9 decode_attention_write",
-    "decode_granule_max_kernel": "K1/K8/K9 decode_attention_write",
-    "rm_complete_kernel": "K9 decode_attention_write_rm (page rewrite)",
+    "decode_attention_kernel": "K1/K8/K9 decode_attention_write",
     "kv_write_rows_kernel": "K2/K4/K8/K9 kv_write_rows",
     "kv_write_rmw_rm_kernel": "K9 kv_write_rmw_batched_rm",
     "prefill_attention_kernel": "K3/K8 prefill_attention",
@@ -110,13 +108,15 @@ def kernel_group(name: str) -> str:
 
 def device_breakdown(prof, steps: int) -> dict:
     """Per-step device numbers from a profiler trace."""
-    spans, by_name = [], {}
+    spans, by_name, launches = [], {}, {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         t0, t1 = e.time_range.start, e.time_range.end
         spans.append((t0, t1))
         by_name[e.name] = by_name.get(e.name, 0.0) + (t1 - t0)
+        g = kernel_group(e.name)
+        launches[g] = launches.get(g, 0) + 1
     if not spans:
         raise RuntimeError("the profiler recorded no device activity")
     spans.sort()
@@ -138,6 +138,7 @@ def device_breakdown(prof, steps: int) -> dict:
         key=lambda kv: -kv[1],
     )[:10]
     return {
+        "launches_per_step_by_group": {g: n / steps for g, n in launches.items()},
         "top_host_ops_ms_per_step": [
             [name[:60], us / 1e3 / steps, n / steps] for name, us, n in host
         ],
@@ -260,7 +261,9 @@ def main() -> int:
                       f"device busy {res['device_busy_ms_per_step']:.3f} ms/step, idle "
                       f"share {res['device_idle_share']:.3f}", flush=True)
                 for g, ms in res["device_ms_per_step_by_group"].items():
-                    print(f"[{variant} {name}]   device {g}: {ms:.4f} ms/step", flush=True)
+                    n = res["launches_per_step_by_group"].get(g, 0)
+                    print(f"[{variant} {name}]   device {g}: {ms:.4f} ms/step, {n:.1f} "
+                          f"launches/step", flush=True)
                 for op, ms, n in res["top_host_ops_ms_per_step"]:
                     print(f"[{variant} {name}]   host {op}: {ms:.4f} ms/step over "
                           f"{n:.0f} calls", flush=True)

@@ -71,9 +71,14 @@ contracts, each with its own wrapper, launch counter and plain version:
   page that holds it; when it completes the page (``w == bs - 1``) the
   whole page is rewritten canonical, ``[2, Hkv, bs, D]``.
 
-Bound on the card: bytes (every live K/V row is read once per step); the
-design notes are in the CUDA source. Each wrapper takes the kernel for a
-CUDA tensor and the plain version for a CPU tensor.
+Bound on the card: bytes. Every call is one launch of one kernel on every
+cache and layout: a thread-block cluster per (sequence, kv head) whose
+blocks are the context splits, each reading its K and V rows from HBM once
+(``plan`` is the launch's shape, a pure function of the block-table width;
+``partition`` the kernel's cut of one sequence; ``split_model`` its
+arithmetic in plain PyTorch). The design notes are in the CUDA source. Each
+wrapper takes the kernel for a CUDA tensor and the plain version for a CPU
+tensor.
 """
 
 from __future__ import annotations
@@ -309,9 +314,26 @@ def _tile_walk(scores, v, s_new, v_new, tile_of, ntiles: int,
 
 _lib = None
 _TILE = 64  # kTile of csrc/common.cuh: a context split is a multiple of it
-_MAX_SPLITS = 16
-# per-device [B * Hkv] int32 split counters; the kernel leaves them at 0
-_counters: dict[torch.device, torch.Tensor] = {}
+_MAX_SPLITS = 16  # the largest cluster (csrc kMaxCluster; non-portable on Hopper)
+# clusters are sized so that a launch's blocks fill the card about once at
+# this many blocks an SM: every block of a cluster, idle splits included,
+# holds its SM until the cluster ends
+_BLOCKS_PER_SM = 8
+# the least 64-position tiles of a split of the table where the launch
+# would give every SM a block without it (cluster_floor): once the card is
+# full, a block's fixed cost (ring start, three cluster barriers, merge)
+# outweighs a split of a few tiles, and every block of a cluster, idle ones
+# included, holds its SM until the cluster ends (H100 scans at 1, 4 and 16
+# sequences of 300-4,096 tokens: 6 beat 1, 2, 4, 8, 12 and 16 in sum)
+_SPLIT_TILES = 6
+_SCORE_SMEM = 32 * 1024  # a block keeps its scores in shared memory up to this
+_RING_BYTES = 32 * 1024  # csrc kRingBytes: a block's ring of 64-row K / V tiles
+_SMEM_MAX = 232448  # csrc kSmemMax: an H100 block's dynamic shared memory
+_INT_MAX = 2 ** 31 - 1
+# per-device-and-stream workspaces, grown on demand and reused by every
+# call on that stream: K9's per-sequence counters (the kernel leaves them
+# at 0), its staged pages, and the scores of the long-table path
+_workspaces: dict[tuple, torch.Tensor] = {}
 
 
 def _load() -> ctypes.CDLL:
@@ -321,18 +343,22 @@ def _load() -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.xllm_decode_attention_write.argtypes = [
             i, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
-            ctypes.c_float, i, i, i, i, i, ll, i, i, i, p, p,
+            ctypes.c_float, i, i, i, i, ll, i, i, i, ll, ll, p,
         ]
         lib.xllm_decode_attention_write.restype = i
         _lib = lib
     return _lib
 
 
-def _split_plan(max_ctx: int) -> tuple[int, int]:
+def _split_plan(max_ctx: int, cap: int = _MAX_SPLITS, least: int = 1,
+                floor: int = _MAX_SPLITS) -> tuple[int, int]:
     """-> (chunk, nsplit): context splits of ``chunk`` positions, a multiple
-    of the tile, at most ``_MAX_SPLITS`` of them over ``max_ctx``."""
+    of the tile, at most ``cap`` of them over ``max_ctx``, and of at least
+    ``least`` tiles unless that leaves fewer than ``floor`` splits.
+    ``nsplit`` is the kernel's cluster size: the blocks of one (sequence,
+    kv head)."""
     tiles = -(-max_ctx // _TILE)
-    chunk = _TILE * max(1, -(-tiles // _MAX_SPLITS))
+    chunk = _TILE * max(1, -(-tiles // cap), min(least, -(-tiles // max(floor, 1))))
     return chunk, max(1, -(-max_ctx // chunk))
 
 
@@ -342,26 +368,256 @@ def _tile_pages(name: str, tile: int) -> int:
     return int(tile)
 
 
-def granule(block_size: int, rm: bool = False, pages: int = 4) -> int:
-    """Positions of a granule of the kernel's first pass: a granule
-    boundary falls at every 64-position tile and at every end of a
+def granule(block_size: int, rm: bool = False, pages: int = 4, rounds: bool = True) -> int:
+    """Positions of a granule, the unit of the maxima a split publishes: a
+    granule boundary falls at every 64-position tile and at every end of a
     rounding tile of ``pages`` pages (K9, ``rm``: of every page, where its
-    tail may start), so a granule is their gcd. The walk's view of one
-    64-position tile spans at most 32 granules."""
-    span = block_size if rm else pages * block_size
-    gran = math.gcd(span, _TILE)
-    if (_TILE + pages * block_size - gran) // gran > 32:
+    tail may start), so a granule is their gcd. An f32 cache (``rounds``
+    false) rounds nothing and publishes only its maximum: 64."""
+    if not rounds:
+        return _TILE
+    return math.gcd(block_size if rm else pages * block_size, _TILE)
+
+
+def group_rows(group: int) -> int:
+    """The kernel instance's query rows a kv head (GMAX): the least of 2, 4,
+    8, 16, 32 that holds ``group``."""
+    for rows in (2, 4, 8, 16, 32):
+        if group <= rows:
+            return rows
+    raise NotImplementedError(f"{NAME}: {group} query heads a kv head (at most 32)")
+
+
+def _stage_bytes(head_dim: int, elem: int) -> int:
+    """csrc Ring::kTileBytes: 64 rows."""
+    return _TILE * head_dim * elem
+
+
+def ring_stages(head_dim: int, elem: int) -> int:
+    """csrc Ring::kStages: 64-row tiles of ``elem``-byte values in the ring."""
+    return min(8, max(2, _RING_BYTES // _stage_bytes(head_dim, elem)))
+
+
+def smem_bytes(elem: int, head_dim: int, group: int, chunk: int, gran: int,
+               smem_scores: bool) -> int:
+    """csrc decode_smem_bytes: a block's shared memory."""
+    gmax = group_rows(group)
+    floats = (gmax * head_dim + (chunk * gmax if smem_scores else 0)
+              + 2 * (chunk // gran) * gmax + 12 * gmax + (chunk // 16) * gmax)
+    pages = 8 * (chunk // 16 + 2 + 8)  # the split's page rows, the stages' mbarriers
+    return (1024 + ring_stages(head_dim, elem) * _stage_bytes(head_dim, elem) + pages
+            + 4 * floats + 16)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """A launch's shape, a pure function of the block-table width and the
+    heads (no read of seq_lens): ``cluster`` blocks a (sequence, kv head),
+    each a context split of at most ``chunk`` positions (the kernel cuts
+    each sequence's own split from its seq_len, ``partition``); granules of
+    ``gran`` positions; ``gmax`` query rows an instance; the scores in
+    shared memory or (``smem_scores`` false: the long-table path) in a
+    global scratch of ``cluster * chunk * gmax`` floats a (sequence, kv
+    head); ``smem`` bytes of shared memory a block."""
+
+    cluster: int
+    chunk: int
+    gran: int
+    gmax: int
+    smem_scores: bool
+    smem: int
+
+
+def cluster_cap(heads: int, sms: int = 132) -> int:
+    """The most blocks a cluster of a launch over ``heads`` (sequence, kv
+    head) pairs: enough that the launch fills ``sms`` SMs about once, at
+    least 1, at most 16."""
+    return min(_MAX_SPLITS, max(1, _BLOCKS_PER_SM * sms // max(heads, 1)))
+
+
+def cluster_floor(heads: int, sms: int = 132) -> int:
+    """The blocks a cluster of a launch over ``heads`` pairs may take
+    whatever its splits hold: about one block an SM (at least 1, at most
+    16), so a launch over few heads splits its table as far as it can."""
+    return min(_MAX_SPLITS, max(1, sms // max(heads, 1)))
+
+
+def plan(nbmax: int, bs: int, group: int, head_dim: int, cache_dtype, rm: bool = False,
+         pages: int = 4, heads: int = 1, sms: int = 132) -> Plan:
+    """The launch of a table of ``nbmax`` pages of ``bs`` positions over
+    ``heads`` (sequence, kv head) pairs on ``sms`` SMs: clusters of at most
+    ``cluster_cap`` blocks, whose splits hold at least ``_SPLIT_TILES``
+    tiles beyond ``cluster_floor`` blocks (one pair: up to 16 blocks,
+    however short their splits)."""
+    chunk, cluster = _split_plan(nbmax * bs, cluster_cap(heads, sms), _SPLIT_TILES,
+                                 cluster_floor(heads, sms))
+    gran = granule(bs, rm, pages, cache_dtype != torch.float32)
+    gmax = group_rows(group)
+    elem = torch.empty((), dtype=cache_dtype).element_size()
+    smem_scores = chunk * gmax * 4 <= _SCORE_SMEM
+    smem = smem_bytes(elem, head_dim, group, chunk, gran, smem_scores)
+    if smem > _SMEM_MAX:
         raise NotImplementedError(
-            f"{NAME}: a rounding tile of {pages} pages of {block_size} positions "
-            f"(more than 32 granules of {gran} in one walk step)")
-    return gran
+            f"{NAME}: {smem} bytes of shared memory a block (granules of {gran} "
+            f"positions over splits of {chunk})")
+    return Plan(cluster, chunk, gran, gmax, smem_scores, smem)
 
 
-def _split_counters(device: torch.device, n: int) -> torch.Tensor:
-    buf = _counters.get(device)
+def partition(seq_len: int, window: int, mode: str, cluster: int) -> tuple[int, int, int, int]:
+    """The kernel's split of one sequence -> (base, wend, chunk, nsp): the
+    walk covers positions [base, wend) (the cached ones, ``cache``: and the
+    new one; from the 64-tile below the window's edge), cut into ``nsp``
+    splits of ``chunk`` positions (whole tiles, spread evenly over the
+    ``cluster`` blocks; the last may be shorter). At least one split, which
+    may be empty."""
+    lo = max(seq_len - window, 0) if window > 0 else 0
+    base = lo // _TILE * _TILE
+    wend = seq_len if mode == CACHE else seq_len - 1
+    tiles = -(-max(wend - base, 0) // _TILE)
+    tpr = max(1, -(-tiles // cluster))
+    return base, wend, tpr * _TILE, max(1, -(-tiles // tpr))
+
+
+def split_model(scores, v, s_new, v_new, seq_lens, window: int, mode: str, vt: int,
+                gran: int, round_p: bool, cluster: int, tail_from=None) -> torch.Tensor:
+    """What the kernel computes, split after split, in plain PyTorch:
+    scores [B, Hkv, G, S] (-inf where not attended), v [B, Hkv, S, D], the
+    new token's s_new [B, Hkv, G] and v_new [B, Hkv, D], seq_lens [B];
+    rounding tiles of ``vt`` positions, K9's tails from ``tail_from`` [B]
+    (None: no tail) -> out [B, Hkv, G, D] (zeros for padded rows).
+
+    Each split of ``partition`` publishes its granule maxima (granules of
+    ``gran`` positions) and its maximum; it takes the running maximum
+    before it from the earlier splits' (``open``: and s_new), the row's
+    final one from all, and M of its last rounding tile from the granules
+    of the next splits where that tile runs past it. A position p takes
+    M(p), the running maximum at the end of its rounding tile (K9: clipped
+    to the tail; in the tail the final maximum), and adds bf16(exp(s - M))
+    * exp(M - M_f) to P (``round_p``; else exp(s - M_f)) and exp(s - M) *
+    exp(M - M_f) to l; the splits' (l, acc), all in the frame M_f, sum up,
+    and the new token (not ``cache``) adds exp(s_new - M_f) v_new."""
+    b_, hkv, g_, _ = scores.shape
+    ninf = float("-inf")
+    out = torch.zeros(b_, hkv, g_, v.shape[-1])
+    for b in range(b_):
+        n = int(seq_lens[b])
+        if n <= 0:
+            continue
+        base, wend, chunk, nsp = partition(n, window, mode, cluster)
+        tail = _INT_MAX if tail_from is None else int(tail_from[b])
+        splits = []
+        for r in range(nsp):
+            cs = base + r * chunk
+            ce = max(min(cs + chunk, wend), cs)
+            width = -(-(ce - cs) // _TILE) * _TILE
+            sc = torch.full((hkv, g_, width), ninf)
+            sc[..., : ce - cs] = scores[b, :, :, cs:ce].float()
+            gm = sc.unflatten(-1, (-1, gran)).amax(-1)  # [Hkv, G, granules]
+            lp = torch.cummax(gm, dim=-1).values if gm.shape[-1] else gm
+            smax = gm.amax(-1) if gm.shape[-1] else torch.full((hkv, g_), ninf)
+            splits.append((cs, ce, sc, gm, lp, smax))
+        smaxes = torch.stack([x[5] for x in splits])  # [nsp, Hkv, G]
+        fin = smaxes.amax(0)
+        if mode != CACHE:
+            fin = torch.maximum(fin, s_new[b].float())
+        l = torch.zeros(hkv, g_)
+        acc = torch.zeros(hkv, g_, v.shape[-1])
+        for r, (cs, ce, sc, gm, lp, smax) in enumerate(splits):
+            pre = smaxes[:r].amax(0) if r else torch.full((hkv, g_), ninf)
+            if mode == OPEN:
+                pre = torch.maximum(pre, s_new[b].float())
+            plast = min(ce, tail) - 1
+            e_over = min(min((plast // vt + 1) * vt, tail) if plast >= cs else 0, wend)
+            over = torch.full((hkv, g_), ninf)
+            for p in range(ce, e_over, gran):  # granules of the next splits
+                s2 = (p - base) // chunk
+                over = torch.maximum(over, splits[s2][3][..., (p - base - s2 * chunk) // gran])
+            mover = torch.maximum(torch.maximum(pre, smax), over)
+            width = sc.shape[-1]
+            if width == 0:
+                continue
+            pos = cs + torch.arange(width)
+            e = torch.minimum((pos // vt + 1) * vt, torch.full_like(pos, tail))
+            k = ((e - cs) // gran - 1).clamp(0, max(gm.shape[-1] - 1, 0))
+            m = torch.where(e <= ce, torch.maximum(pre[..., None], lp[..., k]), mover[..., None])
+            m = torch.where(pos >= tail, fin[..., None], m)
+            live = sc != ninf
+            if round_p:
+                pe = torch.where(live, torch.exp(sc - torch.where(live, m, 0.0)), 0.0)
+                w = torch.where(live, torch.exp(torch.where(live, m, 0.0) - fin[..., None]), 0.0)
+                l = l + (pe * w).sum(-1)
+                p = pe.bfloat16().float() * w
+            else:
+                p = torch.where(live, torch.exp(sc - fin[..., None]), 0.0)
+                l = l + p.sum(-1)
+            vs = torch.zeros(hkv, width, v.shape[-1])
+            vs[:, : ce - cs] = v[b, :, cs:ce].float()
+            acc = acc + torch.einsum("kgs,ksd->kgd", p, vs)
+        w_new = (torch.exp(s_new[b].float() - fin) if mode != CACHE
+                 else torch.zeros(hkv, g_))
+        acc = acc + w_new[..., None] * v_new[b].float()[:, None, :]
+        out[b] = acc / (l + w_new)[..., None]
+    return out
+
+
+def split_reference(q, k_new, v_new, k_all, v_all, layer_idx, block_tables, seq_lens, scale,
+                    window: int = 0, pages: int = 4, mode: str = OPEN, cluster: int = _MAX_SPLITS,
+                    rm: bool = False) -> torch.Tensor:
+    """``split_model`` on a call's inputs (on the CPU), the caches as they
+    are before the call (untouched): the split cache ``[L, NB, Hkv, bs,
+    D]``, or with ``rm`` K9's interleaved cache ``k_all`` (``v_all``
+    unused) whose tail pages are token-major -> out [B, Hq, D] in q's
+    dtype."""
+    layer = int(layer_idx)
+    cache_dtype = k_all.dtype
+    work = q.dtype if _build.is_quantized(cache_dtype) else cache_dtype
+    b, hq, d = q.shape
+    lens = seq_lens.long()
+    bt = block_tables.long()
+    if rm:
+        _, _, _, hkv, bs, _ = k_all.shape
+        nfull = (lens - 1).clamp(min=0) // bs
+        pages_kv = k_all[layer][bt].float()  # [B, NB, 2, Hkv, bs, D]
+        rows = torch.arange(b)
+        tail = pages_kv[rows, nfull].reshape(b, bs, 2 * hkv, d)
+        pages_kv[rows, nfull] = tail.permute(0, 2, 1, 3).reshape(b, 2, hkv, bs, d)
+        k, v = pages_kv[:, :, 0], pages_kv[:, :, 1]
+        tail_from = nfull * bs
+    else:
+        hkv, bs = k_all.shape[2], k_all.shape[3]
+        k, v = k_all[layer][bt].float(), v_all[layer][bt].float()
+        tail_from = None
+    k = k.permute(0, 2, 1, 3, 4).reshape(b, hkv, -1, d)
+    v = v.permute(0, 2, 1, 3, 4).reshape(b, hkv, -1, d)
+    if mode == CACHE:  # position seq_len - 1: the new row as the writer stores it
+        live = lens > 0
+        idx = torch.arange(b)[live]
+        at = lens[live] - 1
+        k[idx, :, at] = cast_to(k_new[live], cache_dtype).float()
+        v[idx, :, at] = cast_to(v_new[live], cache_dtype).float()
+    qg = q.to(work).float().reshape(b, hkv, hq // hkv, d)
+    scores = torch.einsum("bkgd,bksd->bkgs", qg, k) * scale
+    pos = torch.arange(k.shape[2])
+    mask = pos < (lens if mode == CACHE else lens - 1)[:, None]
+    if window > 0:
+        mask = mask & (pos >= (lens - window)[:, None])
+    scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
+    s_new = (qg * k_new.to(work).float()[:, :, None, :]).sum(-1) * scale
+    rounds = cache_dtype != torch.float32
+    out = split_model(scores, v, s_new, v_new.to(work).float(), lens, window, mode, pages * bs,
+                      granule(bs, rm, pages, rounds), rounds, cluster, tail_from)
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def _workspace(device: torch.device, stream: int, kind: str, dtype, n: int) -> torch.Tensor:
+    """A buffer of at least ``n`` elements for launches on ``stream`` of
+    ``device``, kept for later calls (zeros when made: K9's counters must
+    start at 0)."""
+    key = (device, stream, kind)
+    buf = _workspaces.get(key)
     if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _counters[device] = buf
+        buf = torch.zeros(max(n, 1024), dtype=dtype, device=device)
+        _workspaces[key] = buf
     return buf
 
 
@@ -541,38 +797,35 @@ def _launch(name, q, k_new, v_new, k_base, v_base, v_off: int, nb: int, hkv: int
     for t in (slot_mapping, block_tables, seq_lens):
         if t.dtype != torch.int32 or not t.is_contiguous() or t.device != q.device:
             raise ValueError(f"{name}: index arrays must be contiguous int32 on {q.device}")
-    gran = granule(bs, rm, pages)
     if b == 0:
         return torch.empty_like(q)
     lib = _load()  # a failed build raises here, before any allocation
+    # the launch is a function of the shapes (the block-table width, the
+    # heads), not of seq_lens, so it needs no device-to-host read
+    p = plan(block_tables.shape[1], bs, hq // hkv, d, k_base.dtype, rm, pages, b * hkv,
+             _build.device_sms(q.device))
     qk = q.to(work).contiguous()
     kn = k_new.to(work).contiguous()
     vn = v_new.to(work).contiguous()
     out = torch.empty_like(qk)
-    group = hq // hkv
-    # splits are sized from the block-table width, not from seq_lens, so
-    # the launch needs no device-to-host read
-    chunk, nsplit = _split_plan(block_tables.shape[1] * bs)
-    part = torch.empty(
-        (b, hkv, nsplit, group, 2 + d) if nsplit > 1 else (1,),
-        dtype=torch.float32, device=q.device,
-    )
-    ngran = -(-block_tables.shape[1] * bs // _TILE) * _TILE // gran
-    # pass 1's granule maxima; an f32 cache rounds nothing and skips it
-    gmax = torch.empty((b, hq, ngran) if k_base.dtype != torch.float32 else (1,),
-                       dtype=torch.float32, device=q.device)
-    # K9's page rewrites stage a completed page here (csrc: the third launch)
-    scratch = torch.empty((b, page) if rm else (1,), dtype=k_base.dtype, device=q.device)
-    counters = _split_counters(q.device, b * hkv)
-    _build.count_launch(name)  # one count for the op's passes
+    stream = _build.stream_of(q)
+    scores = (None if p.smem_scores else
+              _workspace(q.device, stream.value, "scores", torch.float32,
+                         b * hkv * p.cluster * p.chunk * p.gmax))
+    # K9: a completed page is staged here and copied by the sequence's last cluster
+    counters = _workspace(q.device, stream.value, "counters", torch.int32, b) if rm else None
+    scratch = (_workspace(q.device, stream.value, "scratch", torch.uint8,
+                          b * page * k_base.element_size()) if rm else None)
+    _build.count_launch(name)
     err = lib.xllm_decode_attention_write(
         q.device.index or 0, _build.ptr(qk), _build.ptr(kn), _build.ptr(vn),
         _build.ptr(k_base), ctypes.c_void_p(v_base.data_ptr() + v_off * v_base.element_size()),
         _build.ptr(slot_mapping), _build.ptr(block_tables), _build.ptr(seq_lens),
-        _build.ptr(gmax), _build.ptr(out), _build.ptr(part), _build.ptr(counters), dtype,
-        qtype, d, b, int(layer_idx), nb, hkv, bs, block_tables.shape[1], group,
-        float(scale), int(window), chunk, nsplit, gran, ngran, page, int(rm),
-        pages * bs, _MODE_CODE[mode], _build.ptr(scratch), _build.stream_of(q),
+        _build.ptr(out), _build.ptr(scores), _build.ptr(counters), _build.ptr(scratch), dtype,
+        qtype, d, b, int(layer_idx), nb, hkv, bs, block_tables.shape[1], hq // hkv,
+        float(scale), int(window), p.cluster, p.chunk, p.gran.bit_length() - 1, page, int(rm),
+        pages * bs, _MODE_CODE[mode], k_base.numel() // d, (v_base.numel() - v_off) // d,
+        stream,
     )
     _build.check(lib, err, name)
     return out.to(q.dtype)
