@@ -912,18 +912,20 @@ def check_writer(rng, dev, dtype, timed: bool, rmw: bool, cache=None, rows=None,
     sel = [(i, j) for i, (_, n) in enumerate(rows) for j in range(n)]
     src_k = kn if rmw else kn.transpose(1, 2)
     src_v = vn if rmw else vn.transpose(1, 2)
-    # (a quantized cache takes the rows' bytes, cast beforehand: the
-    # yardstick's time leaves out the e4m3 cast that the kernel does)
+    # (an int8 cache takes the codes as given; an fp8 one PyTorch's e4m3
+    # cast inside the timed call, which saturates above 464 where JAX's
+    # bytes are NaN: no row here is that large)
     rk = torch.stack([src_k[i, j] for i, j in sel])  # [N, Hkv, D]
     rv = torch.stack([src_v[i, j] for i, j in sel])
-    lk, lv = kc, vc
-    if cache is not None:
-        rk, rv = (to_e4m3(r) if cache == "fp8_e4m3" else r for r in (rk, rv))
-        lk, lv, rk, rv = (t.view(torch.uint8) for t in (kc, vc, rk, rv))
+    fp8 = cache == "fp8_e4m3"
+    lk, lv = (t.view(torch.uint8) if fp8 else t for t in (kc, vc))
+
+    def cast(r):
+        return r.to(torch.float8_e4m3fn).view(torch.uint8) if fp8 else r
 
     def library(i):
-        lk[i % LAYERS, blk, :, off, :] = rk
-        lv[i % LAYERS, blk, :, off, :] = rv
+        lk[i % LAYERS, blk, :, off, :] = cast(rk)
+        lv[i % LAYERS, blk, :, off, :] = cast(rv)
 
     res.update(time_three(
         lambda i: fn(kn, vn, kc, vc, i % LAYERS, btt, qo, nt),
@@ -1460,12 +1462,14 @@ def check_latent_writer(rng, dev, dtype, timed: bool, rmw: bool, rows=None, s: i
     blk = i32([bt_np[i, ps // BS] for i, ps in pos], dev).long()
     off = i32([ps % BS for _, ps in pos], dev).long()
     sel = torch.stack([src[i, j] for i, (_, n) in enumerate(rows) for j in range(n)])
-    lc = cache
-    if kind == "fp8_e4m3":  # the rows' bytes cast beforehand (the cast left out)
-        lc, sel = cache.view(torch.uint8), to_e4m3(sel).view(torch.uint8)
+    # an fp8 cache: PyTorch's e4m3 cast inside the timed call (it saturates
+    # above 464 where JAX's bytes are NaN; no row here is that large)
+    fp8 = kind == "fp8_e4m3"
+    lc = cache.view(torch.uint8) if fp8 else cache
 
     def library(i):
-        lc[i % LAYERS, blk, 0, off, :] = sel
+        lc[i % LAYERS, blk, 0, off, :] = (sel.to(torch.float8_e4m3fn).view(torch.uint8)
+                                          if fp8 else sel)
 
     res.update(time_three(
         lambda i: fn(src, cache, i % LAYERS, btt, qo, nt),
@@ -1516,14 +1520,21 @@ QMM_SHAPES_1P7B = [("qkv", 2048, 4096), ("o", 2048, 2048), ("gate_up", 2048, 614
                    ("down", 6144, 2048)]
 QMM_ROWS_1P7B = (16, 64, 256)
 QMM_EDGE_ROWS_1P7B = (52, 64, 128, 192)
-# K6's own path, Qwen3-8B fp8 under XLLM_QMM_KERNEL=pallas, runs every pass
-# size: a decode step, the 64, 512 and 2048 buckets
+# K5's and K6's own paths, Qwen3-8B int8 / fp8 under XLLM_QMM_KERNEL=pallas,
+# run every pass size: a decode step, the 64, 512 and 2048 buckets
 QMM_ROWS_FP8 = (16, 64, 512, 2048)
 # K6 / K7 launches under forced plans (M, K, N, row tile, splits): part-filled
 # row and column tiles, a last stage shorter than 64, 1-5 splits
 QMM_SPLITS = [(5, 320, 144, 64, 2), (52, 320, 144, 64, 5), (64, 1024, 256, 64, 3),
               (130, 512, 384, 128, 2), (200, 4096, 128, 128, 5), (300, 384, 256, 256, 1),
               (600, 2048, 512, 256, 3), (16, 4096, 4096, 64, 4), (256, 6144, 2048, 128, 4)]
+# K5 launches under forced plans (M, K, N, tokens a tile, splits): split
+# and unsplit, part-filled token and column tiles, a last stage shorter
+# than 128 (K 400, 2064), 1-8 splits
+QMM_S8_SPLITS = [(5, 400, 144, 16, 1), (5, 400, 144, 16, 3), (16, 4096, 4096, 16, 4),
+                 (24, 2064, 272, 64, 5), (24, 2064, 272, 64, 2), (52, 1024, 256, 64, 2),
+                 (130, 400, 384, 128, 1), (200, 4096, 128, 128, 5), (300, 2064, 256, 256, 2),
+                 (600, 2048, 512, 256, 1), (16, 12288, 4096, 16, 8)]
 QMM_LAYERS = 4
 QMM_TOL = ("K5: bit-equal to its plain version; K6, K7: |out - ref| <= K 2^-24 "
            "(|x| @ |w|) |s| + 1e-6 (exact products, f32 sums in another order)")
@@ -1539,7 +1550,7 @@ QMM_KINDS = {
 }
 # kind -> [(model, shapes, timed rows, checked rows)]
 QMM_MODELS = {
-    "int8": [("Qwen3-8B", QMM_SHAPES, QMM_ROWS, QMM_EDGE_ROWS)],
+    "int8": [("Qwen3-8B", QMM_SHAPES, QMM_ROWS_FP8, QMM_EDGE_ROWS)],
     "fp8_e4m3": [("Qwen3-8B", QMM_SHAPES, QMM_ROWS_FP8, QMM_EDGE_ROWS)],
     "bf16": [("Qwen3-8B", QMM_SHAPES, QMM_ROWS, QMM_EDGE_ROWS),
              ("qwen3-1.7B", QMM_SHAPES_1P7B, QMM_ROWS_1P7B, QMM_EDGE_ROWS_1P7B)],
@@ -1557,6 +1568,31 @@ def qmm_weights(g, dev, kind, k, n):
         w = to_e4m3(torch.randn(shape, generator=g, device=dev) * 64.0)
         return w, spread * (0.02 / 64.0)
     return (torch.randn(shape, generator=g, device=dev) * 0.02).bfloat16(), None
+
+
+QUANT_EDGES = "ties (x / sx at half integers), zero rows, signed zeros, the row maximum"
+
+
+def int8_edge_x(g, dev, m, k, dtype) -> torch.Tensor:
+    """x for K5 and its quantizer, rows cycling through four kinds: (0)
+    row maximum 127 2^e, so sx = 2^e exactly (f32(127 x f32(1/127)) = 1),
+    the rest (j + 1/2) 2^e, exact ties that round to even, and -127 2^e
+    (code -127); (1) random values with +0 and -0 among them; (2) zeros
+    (sx 1e-10, codes 0); (3) random values scaled by 2^(i % 7 - 3). Every
+    value is exact in bf16."""
+    x = torch.randn(m, k, generator=g, device=dev)
+    i = torch.arange(m, device=dev)[:, None]
+    e = (2.0 ** (i % 5 - 2)).float()
+    j = torch.randint(-127, 127, (m, k), generator=g, device=dev).float()
+    ties = (j + 0.5) * e
+    ties[:, 0], ties[:, -1] = 127.0 * e[:, 0], -127.0 * e[:, 0]
+    zeros = torch.rand(m, k, generator=g, device=dev) < 0.3
+    signed = torch.where(zeros, torch.where(x > 0, 0.0, -0.0), x)
+    scaled = x * (2.0 ** (i % 7 - 3)).float()
+    kind = i % 4
+    x = torch.where(kind == 0, ties, torch.where(kind == 1, signed, torch.where(
+        kind == 2, torch.zeros_like(x), scaled)))
+    return x.to(torch.bfloat16).to(dtype)
 
 
 def check_qmm_close(out, ref, x, w, s, exact: bool, what: str) -> float:
@@ -1612,7 +1648,8 @@ def check_qmm_shape(g, dev, kind, model, proj, k, n, rows, edge_rows):
 
     timed, worst_f32, worst_edge = [], 0.0, 0.0
     for m in edge_rows:
-        x = torch.randn(m, k, generator=g, device=dev).bfloat16()
+        x = (int8_edge_x(g, dev, m, k, torch.bfloat16) if exact
+             else torch.randn(m, k, generator=g, device=dev).bfloat16())
         what = f"{name} {model} {proj} M={m} K={k} N={n}"
         worst_edge = max(worst_edge, check_qmm_close(
             stacked(x, w, s, 3), plain(x, w[3], scale(3)), x, w[3], scale(3), exact, what))
@@ -1640,11 +1677,15 @@ def check_qmm_shape(g, dev, kind, model, proj, k, n, rows, edge_rows):
                 return torch.mm(x, w[i % QMM_LAYERS], out_dtype=torch.float32)
             lib_name = "torch.mm(out_dtype=f32)"
         res = {"max_abs_err": err}
-        if kind != "int8":  # the launch's plan, and its split model
-            p = qmm.plan(m, k, n, kind, _build.device_sms(x.device))
+        sms = _build.device_sms(x.device)
+        if exact:  # the launch's plan, and its split model
+            p = qmm.int8_plan(m, k, n, sms)
+            assert torch.equal(out, qmm.int8_split_model(x, w[1], scale(1), p)), what
+        else:
+            p = qmm.plan(m, k, n, kind, sms)
             check_qmm_close(out, qmm.split_model(x, w[1], scale(1), p), x, w[1], scale(1),
                             False, what + " split model")
-            res["plan"] = f"{p.path} {p.bm}x{p.bn}, {p.splits} splits, {p.units} units"
+        res["plan"] = f"{p.path} {p.bm}x{p.bn}, {p.splits} splits, {p.units} units"
         res.update(time_three(
             lambda i: stacked(x, w, s, i % QMM_LAYERS),
             lambda i: plain(x, w[i % QMM_LAYERS], scale(i % QMM_LAYERS)),
@@ -1652,19 +1693,21 @@ def check_qmm_shape(g, dev, kind, model, proj, k, n, rows, edge_rows):
             plain_iters=5,
         ))
         if kind == "int8":
-            # the kernel alone, on activations quantized beforehand (the
-            # wrapper's time above includes that quantization, in PyTorch)
-            xq, sx = qmm.quantize_activations(x)
+            # the GEMM alone, on activations quantized beforehand, and the
+            # quantizer alone (the wrapper's time above is the two launches)
+            xq, sx = qmm.quantize_rows(x)
             assert torch.equal(qmm.launch_prepared(name, xq, sx, w, s, 1), out), what
             res["kernel_only_ms"], queued = time_ms(
                 lambda i: qmm.launch_prepared(name, xq, sx, w, s, i % QMM_LAYERS))
             assert queued, f"{what}: the launch waited on the device"
+            res["quant_ms"], queued = time_ms(lambda i: qmm.quantize_rows(x))
+            assert queued, f"{what}: the quantizer waited on the device"
         res["library"] = lib_name
         nbytes = (m * k * x.element_size() + k * n * w.element_size() + m * n * 4
                   + (0 if s is None else n * 4) + (m * 4 if kind == "int8" else 0))
         res["bound_ms"], res["bound_by"] = bound_ms(
             nbytes, 2.0 * m * k * n, PEAK_INT8 if kind == "int8" else PEAK_BF16)
-        res["row_tile"] = qmm.row_tile(m) if kind == "int8" else p.bm
+        res["row_tile"] = p.bm
         res["shape"] = (f"{model} {proj}: M={m} ({'decode' if m == 16 else 'prefill'}), "
                         f"K {k}, N {n}, {kind} weights, bf16 x")
         timed.append(res)
@@ -1711,6 +1754,64 @@ def check_qmm_splits(dev, g) -> dict:
     return worst
 
 
+def check_s8_splits(dev, g) -> int:
+    """K5 under the forced plans of ``QMM_S8_SPLITS``, bf16 and f32 x on
+    ``int8_edge_x`` rows, bit-equal to the plain version and the split
+    model -> the launches checked."""
+    sms = _build.device_sms(dev)
+    for m, k, n, bt, splits in QMM_S8_SPLITS:
+        w, s = qmm_weights(g, dev, "int8", k, n)
+        p = qmm.int8_layout(m, k, n, splits, bt, sms)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = int8_edge_x(g, dev, m, k, dtype)
+            xq, sx = qmm.quantize_rows(x)
+            out = qmm.launch_prepared(qmm.W8A8_NAME, xq, sx, w, s, 1, p)
+            what = f"{qmm.W8A8_NAME} M={m} K={k} N={n} tile {bt}, {splits} splits, {dtype} x"
+            check_qmm_close(out, qmm.quant_matmul_int8_plain(x, w[1], s[1]), x, w[1], s[1],
+                            True, what)
+            check_qmm_close(out, qmm.int8_split_model(x, w[1], s[1], p), x, w[1], s[1], True,
+                            what + " split model")
+        del w, s
+    log(f"[kernels] K5 under {len(QMM_S8_SPLITS)} forced plans (tokens a tile 16-256, 1-8 "
+        "splits, part-filled tiles, a short last stage) x bf16 / f32 x: bit-equal to the "
+        "plain version and the split model")
+    return 2 * len(QMM_S8_SPLITS)
+
+
+def check_quantizer(dev, g) -> dict:
+    """K5's quantizer byte-equal to ``quantize_activations`` on
+    ``int8_edge_x`` rows at every row count and K of K5's checks, bf16 and
+    f32 x; timed at Qwen3-8B's two K (4096: qkv, o, gate, up; 12,288: down)
+    at each row count of ``QMM_ROWS_FP8`` -> the kernels line's row."""
+    shapes = sorted({(m, k) for m in QMM_ROWS_FP8 + QMM_EDGE_ROWS for _, k, _ in QMM_SHAPES}
+                    | {(m, k) for m, k, *_ in QMM_S8_SPLITS})
+    for m, k in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = int8_edge_x(g, dev, m, k, dtype)
+            xq, sx = qmm.quantize_rows(x)
+            rq, rs = qmm.quantize_activations(x)
+            assert torch.equal(xq, rq) and same_bytes(sx, rs), (
+                f"{qmm.QUANT_NAME} M={m} K={k} {dtype}: not byte-equal")
+    by_shape = []
+    for k in sorted({k for _, k, _ in QMM_SHAPES}):
+        for m in QMM_ROWS_FP8:
+            x = torch.randn(m, k, generator=g, device=dev).bfloat16()
+            ms, queued = time_ms(lambda i: qmm.quantize_rows(x))
+            assert queued, f"{qmm.QUANT_NAME}: the wrapper waited on the device"
+            plain_ms, plain_queued = time_ms(lambda i: qmm.quantize_activations(x), iters=20)
+            res = dict(ms=ms, plain_ms=plain_ms, plain_queued=plain_queued,
+                       library_ms=None, max_abs_err=0.0)  # no one PyTorch call does it
+            res["bound_ms"], res["bound_by"] = bound_ms(m * k * 2 + m * k + m * 4, 0.0)
+            res["shape"] = f"Qwen3-8B K {k}: M={m}, bf16 x -> int8 codes and f32 row scales"
+            by_shape.append(res)
+    log(f"[kernels] {qmm.QUANT_NAME}: byte-equal to quantize_activations at {len(shapes)} "
+        f"(M, K) x bf16 / f32 x ({QUANT_EDGES})")
+    for r in by_shape:
+        log(f"[kernels]   {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return dict(by_shape[0], by_shape=by_shape, max_abs_err_f32=0.0, library="none")
+
+
 def check_qmm(dev) -> dict:
     """K5, K6, K7 at every shape of ``QMM_MODELS``: bf16 x at the timed
     and the edge rows, f32 x at the timed rows, K6 / K7 also under forced
@@ -1719,6 +1820,8 @@ def check_qmm(dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(20)
     results = {}
     split_err = check_qmm_splits(dev, g)
+    check_s8_splits(dev, g)
+    split_err[qmm.W8A8_NAME] = 0.0
     for kind, models in QMM_MODELS.items():
         name = QMM_KINDS[kind][0]
         by_shape, worst_f32, worst_edge, edges = [], 0.0, 0.0, []
@@ -1740,12 +1843,13 @@ def check_qmm(dev) -> dict:
             f"({QMM_TOL})")
         for r in by_shape:
             lib = ("n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms")
-            alone = (f" (the launch alone {r['kernel_only_ms']:.4f} ms)"
-                     if "kernel_only_ms" in r else "")
+            alone = (f" (the GEMM launch alone {r['kernel_only_ms']:.4f} ms, the quantizer "
+                     f"{r['quant_ms']:.4f} ms)" if "kernel_only_ms" in r else "")
             tile = r.get("plan", f"row tile {r['row_tile']}")
             log(f"[kernels]   {r['shape']}: kernel {r['ms']:.4f} ms{alone} ({tile}), "
                 f"plain {r['plain_ms']:.4f} ms, library ({r['library']}) "
                 f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    results[qmm.QUANT_NAME] = check_quantizer(dev, g)
     return results
 
 
@@ -2357,8 +2461,9 @@ def check_ilv_writer(rng, dev, g, dtype, cache, rmw: bool, rm: bool, s: int, row
                     old = max(a - pg * BS, 0)
                     nbytes += 2 * HKV * D * c_el * (2 * old)
     # library yardstick: one advanced-index row assignment into each half,
-    # the row indices computed beforehand (an fp8 cache takes the rows'
-    # bytes, cast beforehand)
+    # the row indices computed beforehand (an fp8 cache: PyTorch's e4m3 cast
+    # inside the timed call, saturating above 464 where JAX's bytes are NaN;
+    # no row here is that large)
     pos = [(i, a + j) for i, (a, n) in enumerate(rows) for j in range(n)]
     bt_np = btt.cpu().numpy()
     blk = i32([bt_np[i, ps // BS] for i, ps in pos], dev).long()
@@ -2368,14 +2473,15 @@ def check_ilv_writer(rng, dev, g, dtype, cache, rmw: bool, rm: bool, s: int, row
     src_v = vn if rmw else vn.transpose(1, 2)
     rk = torch.stack([src_k[i, j] for i, j in sel])
     rv = torch.stack([src_v[i, j] for i, j in sel])
-    lc = kc
-    if cache is not None:
-        rk, rv = (to_e4m3(r) if cache == "fp8_e4m3" else r for r in (rk, rv))
-        lc, rk, rv = (t.view(torch.uint8) for t in (kc, rk, rv))
+    fp8 = cache == "fp8_e4m3"
+    lc = kc.view(torch.uint8) if fp8 else kc
+
+    def cast(r):
+        return r.to(torch.float8_e4m3fn).view(torch.uint8) if fp8 else r
 
     def library(i):
-        lc[i % layers, blk, 0, :, off, :] = rk
-        lc[i % layers, blk, 1, :, off, :] = rv
+        lc[i % layers, blk, 0, :, off, :] = cast(rk)
+        lc[i % layers, blk, 1, :, off, :] = cast(rv)
 
     res.update(time_three(
         lambda i: kernel(kn, vn, kc, i % layers, btt, qo, nt, kvl),
@@ -2635,7 +2741,8 @@ def pass_launches(layers: int, moe_layers: int, mla: bool, kind: str, rows: int,
     ``qmm_per_pass`` times (once for each ``*_proj_w`` of the model: qkv, o,
     gate, up, down of a dense layer; q, kv_a, o of an MLA layer; the shared
     experts' three) if the pass has at most ``qmm_max_rows`` rows (0: in
-    every pass), else not at all; nothing else. On an interleaved
+    every pass), else not at all (K5 with as many launches of its
+    quantizer); nothing else. On an interleaved
     ``layout`` a decode pass launches K8 (K9 on ``interleaved_rm``) and
     every other pass, score and embed passes too, K8's prefill and one of
     the layout's two writers. ``decode_name``: the decode kernel that
@@ -2643,6 +2750,8 @@ def pass_launches(layers: int, moe_layers: int, mla: bool, kind: str, rows: int,
     extra = {k10.NAME: 2 * moe_layers} if moe_layers else {}
     if qmm_name and (not qmm_max_rows or rows <= qmm_max_rows):
         extra[qmm_name] = qmm_per_pass
+        if qmm_name == qmm.W8A8_NAME:  # K5's activation quantizer, a launch a call
+            extra[qmm.QUANT_NAME] = qmm_per_pass
     decode, prefill, writers = (
         (k11.DECODE_NAME, k11.PREFILL_NAME, (k24.LATENT_PREFILL_NAME, k24.LATENT_RMW_NAME))
         if mla else (k1.NAME, k3.NAME, (k24.PREFILL_NAME, k24.RMW_NAME)))
@@ -3513,6 +3622,7 @@ def main() -> int:
         k24.LATENT_PREFILL_NAME: (k24.LATENT_PREFILL_TPU_KERNEL, "kv_write.cu"),
         k24.LATENT_RMW_NAME: (k24.LATENT_RMW_TPU_KERNEL, "kv_write.cu"),
         qmm.W8A8_NAME: (qmm.W8A8_TPU_KERNEL, "quant_matmul.cu"),
+        qmm.QUANT_NAME: (qmm.QUANT_TPU_KERNEL, "quant_matmul.cu"),
         qmm.FP8_NAME: (qmm.FP8_TPU_KERNEL, "quant_matmul.cu"),
         qmm.BF16_NAME: (qmm.BF16_TPU_KERNEL, "quant_matmul.cu"),
         k24.ONE_PREFILL_NAME: (k24.ONE_PREFILL_TPU_KERNEL, "kv_write.cu"),
@@ -3524,11 +3634,13 @@ def main() -> int:
     }
     # each kernel's launches come from the run of its own slice's path, with
     # the counters zeroed just before it: K1-K4 the dense engine phase, K10
-    # the MoE engine phase, K11a-d the MLA engine phase, K5 and K6 the int8
-    # and fp8 Qwen3-8B phases, K7 the qwen3-1.7B phase under XLLM_BF16_MM
-    # (and each quantized-cache row of K1-K4 its cache's Qwen3-8B phase)
+    # the MoE engine phase, K11a-d the MLA engine phase, K5 (and its
+    # quantizer) and K6 the int8 and fp8 Qwen3-8B phases, K7 the qwen3-1.7B
+    # phase under XLLM_BF16_MM (and each quantized-cache row of K1-K4 its
+    # cache's Qwen3-8B phase)
     path_of = {k10.NAME: runs["moe"], qmm.W8A8_NAME: runs["int8"],
-               qmm.FP8_NAME: runs["fp8_e4m3"], qmm.BF16_NAME: runs["bf16mm"]}
+               qmm.QUANT_NAME: runs["int8"], qmm.FP8_NAME: runs["fp8_e4m3"],
+               qmm.BF16_NAME: runs["bf16mm"]}
     path_of.update({name: runs["mla"] for name in meta
                     if name.startswith(("mla_", "latent_"))})
     # the single-chunk kernels' launches come from the scoring and embedding
@@ -3540,7 +3652,8 @@ def main() -> int:
 
     def run_of(run, name):
         return run[1]["score"] if name in single else run
-    keys = ("shape", "max_abs_err", "max_abs_err_f32", "ms", "kernel_only_ms", "plain_ms",
+    keys = ("shape", "max_abs_err", "max_abs_err_f32", "ms", "kernel_only_ms", "quant_ms",
+            "plain_ms",
             "bound_ms", "bound_by", "library_ms", "library", "row_tile", "instance",
             "ms_by_instance", "plan")
     rows = []
@@ -3561,7 +3674,7 @@ def main() -> int:
             "max_abs_err": res["max_abs_err"],
             "max_abs_err_f32": res["max_abs_err_f32"],
             "ms": res["ms"],
-            **{k: res[k] for k in ("kernel_only_ms", "max_abs_err_edge_rows",
+            **{k: res[k] for k in ("kernel_only_ms", "quant_ms", "max_abs_err_edge_rows",
                                    "max_abs_err_splits", "plan") if k in res},
             "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"],

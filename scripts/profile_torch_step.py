@@ -76,7 +76,9 @@ OWN_KERNELS = {
     "mla_attention_tc_kernel<1": "K11a mla_decode_attention_write",
     "mla_attention_tc_kernel<2": "K11b mla_prefill_attention_batched",
     "latent_write_rows_kernel": "K11c/K11d latent_write_rows",
-    "qmm_int8_kernel": "K5 quant_matmul_int8",
+    "qmm_s8_kernel": "K5 quant_matmul_int8",
+    "quantize_rows_kernel": "K5 quantize_rows_int8",
+    "qmm_int8_kernel": "K5 quant_matmul_int8",  # before the s8 wgmma kernel (a parent tree)
     "qmm_bf16_kernel<true": "K6 quant_matmul_fp8",
     "qmm_bf16_kernel<false": "K7 matmul_bf16",
     "qmm_ws_kernel<true": "K6 quant_matmul_fp8",

@@ -1,8 +1,9 @@
 // Hopper building blocks (sm_90a): mbarriers, TMA tile loads, wgmma
-// descriptors and the bf16 m64n128k16 product, register hand-over between
-// warpgroups, the e4m3 -> bf16 stage upcast, and the host-side tensor-map
-// encoder. Inline PTX, no library. Used by csrc/quant_matmul.cu (K6, K7)
-// and csrc/gmm.cu (K10).
+// descriptors, the bf16 m64n128k16 and s8 m64nNk32 products and the s8 A
+// fragment of an MN-major tile, register hand-over between warpgroups, the
+// e4m3 -> bf16 stage upcast, and the host-side tensor-map encoder. Inline
+// PTX, no library. Used by csrc/quant_matmul.cu (K5, K6, K7) and
+// csrc/gmm.cu (K10).
 //
 // Shared-memory tiles that wgmma reads are in the 128-byte swizzle that
 // TMA writes (CU_TENSOR_MAP_SWIZZLE_128B): rows of 128 bytes, the 16-byte
@@ -174,6 +175,117 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1));
 }
+
+// int accumulators: as fence_regs
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// ---------------------------------------------------------------------------
+// s8 wgmma (K5): d[64 x N] += A[64 x 32] . B[32 x N], int8 in, exact s32
+// accumulators, both operands K-major (8-bit wgmma has no transpose). "rs":
+// A from registers (the fragment of s8_frag_mn below), B from a K-major
+// 128-byte-swizzled tile. Accumulator fragments as the bf16 product's:
+// d[4j + 2h + e] is row 16 w + l / 4 + 8 h, column 8 j + 2 (l % 4) + e.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void wgmma_m64n16k32_s8_rs(int* d, const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_m64n64k32_s8_rs(int* d, const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_m64n128k32_s8_rs(int* d, const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The s8 A fragment of m64nNk32 for one warp's 16 rows, read from an
+// MN-major tile: a weight stage [k rows of 128 bytes, n contiguous] in the
+// 128-byte swizzle, as TMA lands the [K, N] row-major weight. wgmma wants
+// A K-major: a thread's register holds 4 consecutive k of one row. One
+// ldmatrix.x4.trans moves 2-byte (n, n + 1) pairs of four 8 x 8 matrices
+// whose rows are k rows; each thread gets (k, k + 1) x (n, n + 1) byte
+// blocks, and two byte permutes turn two of them into (k .. k + 3) of n and
+// of n + 1. So A's rows are the warp's 16 columns in the order
+// 2 g + h <-> row g + 8 h (g = lane / 4): row r = g + 8 h of the fragment is
+// column 2 g + h of the warp's 16 (s8_frag_col).
+// Matrix rows: k {0, 1, 4, 5, 10, 11, 14, 15} and {2, 3, 6, 7, 8, 9, 12, 13}
+// (then + 16): a thread (lane % 4 = q) gets rows 2 q, 2 q + 1 of each, k
+// 4 q .. 4 q + 3 between the two, and each matrix's eight k rows fall in
+// eight different swizzle phases, so the 16-byte rows hit distinct banks.
+// s8_frag_offset(ch, lane): the lane's byte offset in the stage for the
+// warp's 16 columns, chunk ch (n / 16) of the 128-byte row; + 4096 kk for
+// the k32 step kk.
+__device__ __forceinline__ uint32_t s8_frag_offset(int ch, int lane) {
+  const int i = lane >> 3, j = lane & 7;
+  const int ka = (j & 1) + 4 * (j >> 1) + (j >= 4 ? 2 : 0);  // 0 1 4 5 10 11 14 15
+  const int kr = 16 * (i >> 1) + ((i & 1) ? (ka ^ 2) : ka);
+  return (uint32_t)(kr * 128 + ((ch ^ (kr & 7)) << 4));
+}
+__device__ __forceinline__ void s8_frag_mn(uint32_t (&a)[4], const unsigned char* p, int lane) {
+  uint32_t r[4];
+  ldmatrix_x4_trans(r, p);
+  const bool swap = lane & 2;  // lanes q = 2, 3 find k 4q, 4q + 1 in the second matrix
+  const uint32_t lo0 = swap ? r[1] : r[0], hi0 = swap ? r[0] : r[1];
+  const uint32_t lo1 = swap ? r[3] : r[2], hi1 = swap ? r[2] : r[3];
+  a[0] = __byte_perm(lo0, hi0, 0x6420);  // row g (column 2 g), k 4q .. 4q + 3
+  a[1] = __byte_perm(lo0, hi0, 0x7531);  // row g + 8 (column 2 g + 1)
+  a[2] = __byte_perm(lo1, hi1, 0x6420);  // row g, k 16 + 4q ..
+  a[3] = __byte_perm(lo1, hi1, 0x7531);  // row g + 8, k 16 + 4q ..
+}
+// the weight column (of the warp's 16) of fragment row g + 8 h
+__device__ __forceinline__ int s8_frag_col(int g, int h) { return 2 * g + h; }
 
 // ---------------------------------------------------------------------------
 // e4m3 weights: a stage of [64 k x 128 n] bytes -> two swizzled bf16 blocks

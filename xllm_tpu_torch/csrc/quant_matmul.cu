@@ -2,10 +2,11 @@
 // of a stack [L, K, N]) against activations x [M, K] -> f32 out [M, N].
 //
 // Replaces the nine Pallas functions of xllm_tpu/ops/pallas/quant_matmul.py
-// with two kernels and three contracts:
+// with three kernels and three contracts:
 //   K5 w8a8 (quant_matmul_int8, _int8_v2, _int8_v2_stacked): x quantized per
-//      token outside the kernel (xq int8, sx [M] f32); int8 x int8 products
-//      summed exactly in int32; out = (float(acc) * sx[m]) * sw[n];
+//      token (xq int8, sx [M] f32) by quantize_rows_kernel, the JAX
+//      package's quantizer outside pallas_call; int8 x int8 products summed
+//      exactly in int32 by qmm_s8_kernel; out = (float(acc) * sx[m]) * sw[n];
 //   K6 fp8 weight-only (quant_matmul_fp8, _fp8_v2, _fp8_v2_stacked,
 //      _fp8_stacked): x in bf16, e4m3 weights upcast to bf16 (exact), f32
 //      sums, out = acc * sw[n];
@@ -20,54 +21,47 @@
 // a full prefill chunk (M = 2048). The TPU kernels split each weight tile's
 // DMA four ways and keep K resident in VMEM.
 //
-// K6 / K7 (qmm_ws_kernel): one warp-specialised kernel for every M, its
-// shape planned by ops/cuda/quant_matmul.plan:
+// All three GEMMs share one shape, planned in ops/cuda/quant_matmul.py
+// (plan for K6 / K7, int8_plan for K5):
 // - a producer warpgroup whose first thread keeps TMA loads in flight into
-//   a ring of 4-8 stages (x [BM x 64] K-major and the weight [64 x 128] as
-//   it lies, both in the 128-byte swizzle), guarded by full / empty
-//   mbarriers;
-// - consumer warpgroups run wgmma m64n128k16 bf16 -> f32 from shared
-//   memory, B read MN-major through wgmma's transpose bit, one product
-//   group kept in flight: BM 64 (one warpgroup; every M up to 64), 128
-//   (two of 64 rows) or 256 (two of 128 rows, two products a k16 step);
-// - e4m3 weights land as bytes; a converter warpgroup upcasts each stage
-//   once into the swizzled bf16 tile the consumers read (integer and bf16
-//   operations, exact; NaN bytes through upcast2<e4m3>), while the
-//   consumers multiply the stage before;
+//   a ring of stages (both operands in the 128-byte swizzle), guarded by
+//   full / empty mbarriers;
+// - consumer warpgroups run wgmma from shared memory (and, for K5, from
+//   registers), one stage at a time;
 // - a persistent grid (at most one block an SM) walks work units: output
 //   tiles, each split over K into `splits` ranges of whole stages when the
-//   plan asks (few tiles). A split unit writes its f32 partial to a
-//   workspace; the last unit of a tile to finish (a counter it resets)
-//   sums the partials in split order and scales once, so the result does
-//   not depend on which block finishes last.
+//   plan asks (few tiles). A split unit writes its partial to a workspace;
+//   the last unit of a tile to finish (a counter it resets) sums the
+//   partials in split order and scales once, so the result does not depend
+//   on which block finishes last.
 // Rows past M and columns past N are zero-filled by TMA and masked at the
-// stores. Registers: with two consumer warpgroups, setmaxnreg moves the
-// producer's (and the converter's) registers to the consumers.
+// stores; so is a last stage past K. setmaxnreg moves the producer's (and a
+// converter's) registers to the consumers.
 //
-// K5 (qmm_int8_kernel): m16n8k32 s8 MMAs with s32 accumulators from a
-// 3-stage cp.async ring. The MMA takes B in column-major fragments (4
-// consecutive k of one column n in a register), the weight is [K, N]
-// row-major and sm_90 has no ldmatrix.trans for 8-bit elements, so each
-// stage's [64 x BN] byte tile is transposed in shared memory, 4 x 4 bytes at
-// a time with byte permutes (prmt), into [BN x 64]; both operands'
-// fragments are then plain 32-bit loads. Tiles: BM 16 x BN 64 with 256 k a
-// stage for decode-sized M, else BM 128 x BN 128 with 64 k a stage.
+// K6 / K7 (qmm_ws_kernel): x [BM x 64] K-major and the weight [64 x 128] as
+// it lies; wgmma m64n128k16 bf16 -> f32, B read MN-major through wgmma's
+// transpose bit, one product group kept in flight: BM 64 (one consumer
+// warpgroup; every M up to 64), 128 (two of 64 rows) or 256 (two of 128
+// rows, two products a k16 step). e4m3 weights land as bytes; a converter
+// warpgroup upcasts each stage once into the swizzled bf16 tile the
+// consumers read (integer and bf16 operations, exact; NaN bytes through
+// upcast2<e4m3>), while the consumers multiply the stage before.
+//
+// K5 (qmm_s8_kernel): 8-bit wgmma reads A and B only K-major, and the weight
+// lies N-major, so the kernel computes out^T = W^T . xq^T: 128 weight
+// columns a tile, 64 a consumer warpgroup, are wgmma's A (m64), built in
+// registers from the TMA-landed [128 k x 128 n] stage by ldmatrix.trans
+// and byte permutes (hopper.cuh s8_frag_mn; no pass through shared memory);
+// the tokens are its N (16 a tile for a decode step, 64, 128 or 256 for
+// prefill chunks), xq [NT x 128 k] read K-major from shared memory as TMA
+// lands it. m64nNk32 .s32.s8.s8, exact int32 sums; a split's partials are
+// int32 too. (A converter warpgroup that stores the same fragments as a
+// K-major tile for A from shared memory measured about 2x slower: PERF.md.)
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace xllm {
 namespace qmm {
-
-constexpr int kThreadsQ = 128;
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // ---------------------------------------------------------------------------
 // K6 / K7: TMA + wgmma, warp-specialised, persistent, split over K
@@ -333,196 +327,345 @@ cudaError_t launch_ws(const CUtensorMap& xmap, const CUtensorMap& wmap, const fl
 }
 
 // ---------------------------------------------------------------------------
-// K5: int8 tensor cores
+// K5: the per-token activation quantizer and the s8 TMA + wgmma kernel
 // ---------------------------------------------------------------------------
-// BK: k bytes per stage (a multiple of 32, one m16n8k32 step each)
-template <int BM, int BN, int BK, int STAGES>
-struct Int8Tiles {
-  static constexpr int kAStride = BK + 16;  // bytes; 16-byte aligned rows
-  static constexpr int kWStride = BN + 16;  // bytes of a staged [k][n] row
-  static constexpr int kTStride = BK + 16;  // bytes of a transposed [n][k] row
-  static constexpr int kAStage = BM * kAStride;
-  static constexpr int kWStage = BK * kWStride;
+// One block a row: x [M, K] (f32 or bf16) -> codes xq [M, K] int8 and sx [M]
+// f32, byte-equal to ops/cuda/quant_matmul.quantize_activations (the JAX
+// package's per-token quantizer as XLA compiles it): sx = max(amax |x| *
+// f32(1/127), f32(1e-10)), codes clamp(rint(x / sx), -127, 127) with an
+// IEEE division (no --use_fast_math) and ties to even. Each thread keeps
+// its chunks of 8 values in registers as they were loaded (16 bytes of
+// bf16, 32 of f32), so x is read once and a block stays small in
+// registers (several blocks an SM at K 12,288).
+constexpr int kQuantChunks = 8;  // chunks of 8 values a thread, at most
+
+template <typename T>
+__device__ __forceinline__ void unpack8(const uint4 (&raw)[sizeof(T) / 2], float (&v)[8]) {
+  if constexpr (sizeof(T) == 2) {
+    const uint32_t w[4] = {raw[0].x, raw[0].y, raw[0].z, raw[0].w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[2 * j] = __uint_as_float(w[j] << 16);  // bf16 -> f32, exact
+      v[2 * j + 1] = __uint_as_float(w[j] & 0xFFFF0000u);
+    }
+  } else {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      v[4 * h] = __uint_as_float(raw[h].x), v[4 * h + 1] = __uint_as_float(raw[h].y);
+      v[4 * h + 2] = __uint_as_float(raw[h].z), v[4 * h + 3] = __uint_as_float(raw[h].w);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(512)
+    quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
+                         float* __restrict__ sx, int k) {
+  constexpr int W = sizeof(T) / 2;  // 16-byte words a chunk
+  __shared__ float warp_amax[32];
+  const int row = blockIdx.x, tid = threadIdx.x, chunks = k / 8;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * k);
+  uint4 raw[kQuantChunks][W];
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < kQuantChunks; ++i) {
+    const int c = tid + i * blockDim.x;
+    if (c >= chunks) continue;
+#pragma unroll
+    for (int h = 0; h < W; ++h) raw[i][h] = __ldg(xr + W * c + h);
+    float v[8];
+    unpack8<T>(raw[i], v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(v[j]));
+  }
+  amax = warp_max(amax);
+  if (tid % 32 == 0) warp_amax[tid / 32] = amax;
+  __syncthreads();
+  if (tid < 32) {
+    amax = tid < (int)(blockDim.x / 32) ? warp_amax[tid] : 0.f;
+    amax = warp_max(amax);
+    if (tid == 0) warp_amax[0] = amax;
+  }
+  __syncthreads();
+  const float s = fmaxf(__fmul_rn(warp_amax[0], (float)(1.0 / 127.0)), (float)1e-10);
+  if (tid == 0) sx[row] = s;
+#pragma unroll
+  for (int i = 0; i < kQuantChunks; ++i) {
+    const int c = tid + i * blockDim.x;
+    if (c >= chunks) continue;
+    float v[8];
+    unpack8<T>(raw[i], v);
+    uint32_t q[2] = {0u, 0u};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float r = fminf(fmaxf(rintf(__fdiv_rn(v[j], s)), -127.f), 127.f);
+      q[j / 4] |= ((uint32_t)__float2int_rn(r) & 0xFFu) << (8 * (j % 4));
+    }
+    *reinterpret_cast<uint2*>(xq + (size_t)row * k + 8 * c) = make_uint2(q[0], q[1]);
+  }
+}
+
+// The GEMM computes the transposed product, out^T [N, M] = W^T . xq^T: the
+// weight is wgmma's A (64 weight columns a consumer warpgroup), the tokens
+// its N (NT a tile: 16 for a decode step, up to 256). 8-bit wgmma reads
+// both operands K-major only, and the weight lies N-major ([K, N] row-major),
+// so each consumer thread builds its A fragment from the TMA-landed weight
+// stage with ldmatrix.trans and byte permutes (hopper.cuh s8_frag_mn), A
+// from registers; xq [M, K] is K-major as it lies and is B straight from
+// shared memory.
+// A's rows are the weight columns in s8_frag_col's order, so accumulator
+// row g + 8 h of warp w is column 16 w + 2 g + h of the warpgroup's 64.
+// (Tiles of 256 columns, each weight row read as 256 contiguous bytes,
+// measured slower at decode on an H100: PERF.md.)
+constexpr int kS8BK = 128;            // k a stage: one 128-byte swizzled row
+constexpr int kS8BN = 128;            // weight columns a tile: two warpgroups of 64
+constexpr int kS8W = kS8BK * kS8BN;   // weight bytes a stage: one TMA box
+
+// two consumer warpgroups, then a producer warpgroup
+template <int NT>
+struct S8Tiles {
+  static constexpr int kThreads = 128 * 3;
+  static constexpr int kX = NT * kS8BK;     // xq tile, bytes
+  static constexpr int kStage = kS8W + kX;  // a multiple of 1024
+  static constexpr int kRing = 224 * 1024 / kStage;
+  static constexpr int kStages = kRing > 8 ? 8 : kRing;
+  static constexpr uint32_t kTx = kStage;
   static constexpr size_t smem() {
-    return (size_t)STAGES * (kAStage + kWStage) + (size_t)BN * kTStride;
+    return 1024 + (size_t)kStages * kStage + 2 * kStages * sizeof(uint64_t) + 16;
   }
 };
 
-// 4 x 4 byte transpose: r[i] holds bytes (k + i, n .. n + 3); c[j] gets
-// bytes (k .. k + 3, n + j)
-__device__ __forceinline__ void transpose4x4(const uint32_t (&r)[4], uint32_t (&c)[4]) {
-  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);  // r0.b0 r1.b0 r0.b1 r1.b1
-  const uint32_t t1 = __byte_perm(r[2], r[3], 0x5140);  // r2.b0 r3.b0 r2.b1 r3.b1
-  const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362);  // r0.b2 r1.b2 r0.b3 r1.b3
-  const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
-  c[0] = __byte_perm(t0, t1, 0x5410);
-  c[1] = __byte_perm(t0, t1, 0x7632);
-  c[2] = __byte_perm(t2, t3, 0x5410);
-  c[3] = __byte_perm(t2, t3, 0x7632);
+// acc[64 x NT] += A (registers) . xq tile, four k32 steps of a stage; NT 256
+// is two n128 products on the tile's halves
+template <int NT>
+__device__ __forceinline__ void s8_stage_rs(int (&acc)[NT / 2], const uint32_t (&a)[4][4],
+                                            uint32_t xs) {
+  using namespace hopper;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = gmma_desc(xs + 32 * kk, 16, 1024);
+    if constexpr (NT == 16) wgmma_m64n16k32_s8_rs(acc, a[kk], db);
+    if constexpr (NT == 64) wgmma_m64n64k32_s8_rs(acc, a[kk], db);
+    if constexpr (NT == 128) wgmma_m64n128k32_s8_rs(acc, a[kk], db);
+    if constexpr (NT == 256) {
+      wgmma_m64n128k32_s8_rs(acc, a[kk], db);
+      wgmma_m64n128k32_s8_rs(acc + 64, a[kk], gmma_desc(xs + 128 * kS8BK + 32 * kk, 16, 1024));
+    }
+  }
 }
+template <int NT>
+__global__ void __launch_bounds__(S8Tiles<NT>::kThreads, 1)
+    qmm_s8_kernel(const __grid_constant__ CUtensorMap xmap,  // int8 xq [M, K]
+                  const __grid_constant__ CUtensorMap wmap,  // int8 [K, N]
+                  const float* __restrict__ sx,              // [M]
+                  const float* __restrict__ sw,              // [N]
+                  float* __restrict__ out,                   // [M, N]
+                  int* __restrict__ part,                    // [splits, M, N] if splits > 1
+                  int* __restrict__ tile_count,              // [tiles], zero between launches
+                  int m, int k, int n, int tiles_m, int tiles_n, int splits) {
+  using namespace hopper;
+  using T = S8Tiles<NT>;
+  constexpr int S = T::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + (size_t)S * T::kStage);
+  uint64_t* empty = full + S;
+  volatile int* last_flag = reinterpret_cast<volatile int*>(empty + S);
 
-template <int BM, int BN, int WARPS_M, int BK, int STAGES>
-__global__ void __launch_bounds__(kThreadsQ)
-    qmm_int8_kernel(const int8_t* __restrict__ xq,   // [M, K]
-                    const float* __restrict__ sx,    // [M]
-                    const int8_t* __restrict__ w,    // [K, N]
-                    const float* __restrict__ sw,    // [N]
-                    float* __restrict__ out, int m, int k, int n) {
-  using T = Int8Tiles<BM, BN, BK, STAGES>;
-  constexpr int WARPS_N = 4 / WARPS_M;
-  constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
-  constexpr int MT = WM / 16, NT = WN / 8;
-  static_assert(MT >= 1 && NT >= 1, "warp tile");
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* as = smem_raw;
-  unsigned char* ws = as + (size_t)STAGES * T::kAStage;
-  unsigned char* wt = ws + (size_t)STAGES * T::kWStage;  // [BN][BK]
-
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int rows = min(BM, m - m0);
-  const int8_t* a_g = xq + (size_t)m0 * k;
   const int tid = threadIdx.x;
-
-  auto load_stage = [&](int stage, int k0) {
-    unsigned char* ad = as + stage * T::kAStage;
-    for (int c = tid; c < BM * (BK / 16); c += kThreadsQ) {
-      const int r = c / (BK / 16), kc = (c % (BK / 16)) * 16;
-      const bool ok = r < rows && k0 + kc < k;  // k % 16 == 0
-      cp_async16(ad + r * T::kAStride + kc, ok ? a_g + (size_t)r * k + k0 + kc : xq, ok);
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
     }
-    unsigned char* wd = ws + stage * T::kWStage;
-    for (int c = tid; c < BK * (BN / 16); c += kThreadsQ) {
-      const int r = c / (BN / 16), cb = (c % (BN / 16)) * 16;
-      const bool ok = k0 + r < k && n0 + cb < n;  // n % 16 == 0
-      cp_async16(wd + r * T::kWStride + cb, ok ? w + (size_t)(k0 + r) * n + n0 + cb : w, ok);
-    }
-  };
-  auto transpose_stage = [&](int stage) {
-    const unsigned char* src = ws + stage * T::kWStage;
-    for (int c = tid; c < (BK / 4) * (BN / 4); c += kThreadsQ) {
-      const int nb = c % (BN / 4), kb = c / (BN / 4);
-      uint32_t r[4], t[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        r[i] = *reinterpret_cast<const uint32_t*>(src + (4 * kb + i) * T::kWStride + 4 * nb);
-      transpose4x4(r, t);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<uint32_t*>(wt + (4 * nb + j) * T::kTStride + 4 * kb) = t[j];
-    }
-  };
-
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int g = lane / 4, tq = lane % 4;
-  int acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0;
-
-  const int kt_n = (k + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < kt_n) load_stage(s, s * BK);
-    cp_async_commit();
+    mbar_fence_init();
   }
-  for (int kt = 0; kt < kt_n; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage kt landed; the last MMAs on wt are done
-    const int next = kt + STAGES - 1;
-    if (next < kt_n) load_stage(next % STAGES, next * BK);
-    cp_async_commit();
-    transpose_stage(kt % STAGES);
-    __syncthreads();
+  __syncthreads();
 
-    const unsigned char* at = as + (kt % STAGES) * T::kAStage;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      // fragments of m16n8k32 (g = lane / 4, tq = lane % 4): a0 (row g,
-      // k 4tq..4tq+3), a1 (row g + 8), a2 (row g, k + 16), a3 (row g + 8,
-      // k + 16); b0 (k 4tq..4tq+3, col g), b1 (k + 16)
-      uint32_t af[MT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const unsigned char* a0 = at + (wm * WM + i * 16 + g) * T::kAStride + kk + 4 * tq;
-        af[i][0] = *reinterpret_cast<const uint32_t*>(a0);
-        af[i][1] = *reinterpret_cast<const uint32_t*>(a0 + 8 * T::kAStride);
-        af[i][2] = *reinterpret_cast<const uint32_t*>(a0 + 16);
-        af[i][3] = *reinterpret_cast<const uint32_t*>(a0 + 8 * T::kAStride + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const unsigned char* b = wt + (wn * WN + j * 8 + g) * T::kTStride + kk + 4 * tq;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(b);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(b + 16);
-#pragma unroll
-        for (int i = 0; i < MT; ++i) mma_s8(acc[i][j], af[i], b0, b1);
+  const int tiles = tiles_m * tiles_n, units = tiles * splits;
+  const int kb_all = (k + kS8BK - 1) / kS8BK;
+  const int wg = tid / 128, lane = tid % 32, warp = (tid % 128) / 32;
+
+  if (wg == 2) {
+    // ---- producer warpgroup: one thread issues every TMA load
+    setmaxnreg_dec<40>();
+    if (tid % 128 == 0) {
+      tma_prefetch_map(&xmap);
+      tma_prefetch_map(&wmap);
+      int it = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const Unit w = unit_of(u, tiles_m, tiles, splits, kb_all);
+        for (int kb = w.kb0; kb < w.kb1; ++kb, ++it) {
+          const int s = it % S;
+          mbar_wait(&empty[s], ((it / S) & 1) ^ 1);
+          unsigned char* st = base + (size_t)s * T::kStage;
+          mbar_expect_tx(&full[s], T::kTx);
+          tma_load_2d(st, &wmap, &full[s], w.tn * kS8BN, kb * kS8BK);
+          tma_load_2d(st + kS8W, &xmap, &full[s], kb * kS8BK, w.tm * NT);
+        }
       }
     }
-  }
-  cp_async_wait<0>();
-
-  // out = (float(acc) * sx[row]) * sw[col], in that order: an exact int32
-  // sum, one rounding to f32, two f32 products
+  } else {
+    // ---- consumer warpgroups: weight columns [64 wg, 64 wg + 64) of each tile
+    setmaxnreg_inc<232>();
+    const int t = tid % 128, g = lane / 4, q = lane % 4;
+    const uint32_t frag = s8_frag_offset(4 * wg + warp, lane);
+    int acc[NT / 2];
+    int it = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const Unit w = unit_of(u, tiles_m, tiles, splits, kb_all);
 #pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    const int r = wm * WM + i * 16 + g;
+      for (int i = 0; i < NT / 2; ++i) acc[i] = 0;
+      for (int kb = w.kb0; kb < w.kb1; ++kb, ++it) {
+        const int s = it % S;
+        mbar_wait(&full[s], (it / S) & 1);
+        const unsigned char* st = base + (size_t)s * T::kStage;
+        uint32_t a[4][4];
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c = n0 + wn * WN + j * 8 + tq * 2;
-      if (c >= n) continue;
-      const float s0 = sw[c], s1 = sw[c + 1];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int rr = r + 8 * h;
-        if (rr >= rows) continue;
-        const float sr = sx[m0 + rr];
-        const float v0 = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][2 * h]), sr), s0);
-        const float v1 = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][2 * h + 1]), sr), s1);
-        *reinterpret_cast<float2*>(out + (size_t)(m0 + rr) * n + c) = make_float2(v0, v1);
+        for (int kk = 0; kk < 4; ++kk) s8_frag_mn(a[kk], st + 4096 * kk + frag, lane);
+        fence_regs(acc);
+        wgmma_fence();
+        s8_stage_rs<NT>(acc, a, smem_u32(st + kS8W));
+        wgmma_commit();
+        wgmma_wait<0>();  // A's registers and the stage are free again
+        fence_regs(acc);
+        if (t == 0) mbar_arrive(&empty[s]);
       }
+
+      // epilogue: acc[4 j + 2 h + e] is token 8 j + 2 q + e of the tile,
+      // weight column 64 wg + 16 warp + s8_frag_col(g, h); out = (float(acc)
+      // * sx[token]) * sw[column], or this split's int32 partial
+      const int col = w.tn * kS8BN + 64 * wg + 16 * warp + s8_frag_col(g, 0);
+      if (col < n) {  // n % 16 == 0: col + 1 < n as well
+        const float s0 = sw[col], s1 = sw[col + 1];
+#pragma unroll
+        for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int tok = w.tm * NT + 8 * j + 2 * q + e;
+            if (tok >= m) continue;
+            const int v0 = acc[4 * j + e], v1 = acc[4 * j + 2 + e];
+            if (splits == 1) {
+              const float r = sx[tok];
+              *reinterpret_cast<float2*>(out + (size_t)tok * n + col) =
+                  make_float2(__fmul_rn(__fmul_rn(__int2float_rn(v0), r), s0),
+                              __fmul_rn(__fmul_rn(__int2float_rn(v1), r), s1));
+            } else {
+              *reinterpret_cast<int2*>(part + ((size_t)w.split * m + tok) * n + col) =
+                  make_int2(v0, v1);
+            }
+          }
+      }
+      if (splits == 1) continue;
+      // the tile's last split to finish sums the int32 partials in split
+      // order (exact in any order; this one keeps the launch deterministic
+      // in form too), then scales once
+      __threadfence();
+      named_sync(1, 256);
+      if (tid == 0) *last_flag = atomicAdd(&tile_count[w.tile], 1) == splits - 1;
+      named_sync(1, 256);
+      if (!*last_flag) continue;
+      __threadfence();
+      const int r_base = w.tm * NT, c_base = w.tn * kS8BN;
+      const int rows = min(NT, m - r_base), quads = min(kS8BN, n - c_base) / 4;
+      const size_t plane = (size_t)m * n;
+      for (int qd = tid; qd < rows * quads; qd += 256) {
+        const int tok = r_base + qd / quads, c = c_base + (qd % quads) * 4;
+        const int* p = part + (size_t)tok * n + c;
+        int4 a = __ldcg(reinterpret_cast<const int4*>(p));
+        for (int sp = 1; sp < splits; ++sp) {
+          const int4 b = __ldcg(reinterpret_cast<const int4*>(p + sp * plane));
+          a.x += b.x, a.y += b.y, a.z += b.z, a.w += b.w;
+        }
+        const float r = sx[tok];
+        *reinterpret_cast<float4*>(out + (size_t)tok * n + c) =
+            make_float4(__fmul_rn(__fmul_rn(__int2float_rn(a.x), r), sw[c]),
+                        __fmul_rn(__fmul_rn(__int2float_rn(a.y), r), sw[c + 1]),
+                        __fmul_rn(__fmul_rn(__int2float_rn(a.z), r), sw[c + 2]),
+                        __fmul_rn(__fmul_rn(__int2float_rn(a.w), r), sw[c + 3]));
+      }
+      if (tid == 0) tile_count[w.tile] = 0;
     }
   }
 }
 
-template <int BM, int BN, int WARPS_M, int BK, int STAGES>
-cudaError_t launch_int8(const void* xq, const float* sx, const void* w, const float* sw,
-                        float* out, int m, int k, int n, cudaStream_t stream) {
-  auto kernel = qmm_int8_kernel<BM, BN, WARPS_M, BK, STAGES>;
-  const size_t smem = Int8Tiles<BM, BN, BK, STAGES>::smem();
-  cudaError_t err = allow_smem(kernel, smem);
+template <int NT>
+cudaError_t launch_s8(const CUtensorMap& xmap, const CUtensorMap& wmap, const float* sx,
+                      const float* sw, float* out, int* part, int* tile_count, int m, int k,
+                      int n, int splits, int grid, cudaStream_t stream) {
+  using T = S8Tiles<NT>;
+  auto kernel = qmm_s8_kernel<NT>;
+  static AllowSmemOnce allow;
+  const cudaError_t err = allow(kernel, T::smem());
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  kernel<<<grid, kThreadsQ, smem, stream>>>(static_cast<const int8_t*>(xq), sx,
-                                            static_cast<const int8_t*>(w), sw, out, m,
-                                            k, n);
+  const int tiles_m = (m + NT - 1) / NT, tiles_n = (n + kS8BN - 1) / kS8BN;
+  kernel<<<grid, T::kThreads, T::smem(), stream>>>(xmap, wmap, sx, sw, out, part, tile_count,
+                                                    m, k, n, tiles_m, tiles_n, splits);
   return cudaGetLastError();
 }
-
 
 }  // namespace qmm
 }  // namespace xllm
 
-// K5: xq int8 [M, K] and its row scales sx, w int8 [K, N]. bm: the row
-// tile, 16 (64 columns, deep stages) or 128 (128 columns).
-extern "C" int xllm_quant_matmul(int device, const void* x, const void* sx,
-                                 const void* w, const void* sw, void* out, int m, int k,
-                                 int n, int bm, void* stream) {
+// K5's quantizer: x [M, K] (xtype XLLM_DTYPE_F32 or _BF16, 16-byte aligned
+// rows: K a multiple of 8) -> xq int8 [M, K], sx f32 [M]; `threads` a row (a
+// multiple of 32, at most 512, with K / 8 <= 8 threads).
+extern "C" int xllm_quantize_rows(int device, const void* x, void* xq, void* sx, int xtype,
+                                  int m, int k, int threads, void* stream) {
   using namespace xllm::qmm;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (k % 16 || n % 16 || m <= 0 || (m + 15) / 16 > 65535)
+  if (m <= 0 || k <= 0 || k % 8 || threads % 32 || threads < 32 || threads > 512 ||
+      k / 8 > kQuantChunks * threads || (reinterpret_cast<uintptr_t>(x) % 16) ||
+      (reinterpret_cast<uintptr_t>(xq) % 8) || (xtype != XLLM_DTYPE_F32 && xtype != XLLM_DTYPE_BF16))
     return (int)cudaErrorInvalidValue;
-  const float* s = static_cast<const float*>(sw);
-  const float* r = static_cast<const float*>(sx);
-  float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bm == 16) return (int)launch_int8<16, 64, 1, 256, 3>(x, r, w, s, o, m, k, n, st);
-  if (bm == 128) return (int)launch_int8<128, 128, 2, 64, 3>(x, r, w, s, o, m, k, n, st);
+  int8_t* q = static_cast<int8_t*>(xq);
+  float* s = static_cast<float*>(sx);
+  if (xtype == XLLM_DTYPE_BF16)
+    quantize_rows_kernel<<<m, threads, 0, st>>>(static_cast<const __nv_bfloat16*>(x), q, s, k);
+  else
+    quantize_rows_kernel<<<m, threads, 0, st>>>(static_cast<const float*>(x), q, s, k);
+  return (int)cudaGetLastError();
+}
+
+// K5: xq int8 [M, K] and its row scales sx [M], w int8 [K, N] with its scales
+// sw [N] -> out f32 [M, N]. bt: tokens a tile (16, 64, 128 or 256),
+// `splits` ranges of K (part: an int32 [splits, M, N] workspace when
+// splits > 1), `grid` persistent blocks; tile_count holds one zero int per
+// output tile and is left zero.
+extern "C" int xllm_qmm_s8(int device, const void* xq, const void* w, const void* sx,
+                           const void* sw, void* out, void* part, void* tile_count, int m,
+                           int k, int n, int bt, int splits, int grid, void* stream) {
+  using namespace xllm::qmm;
+  using xllm::hopper::encode_2d_cached;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int kb_all = (k + kS8BK - 1) / kS8BK;
+  if (k % 16 || n % 16 || m <= 0 || k <= 0 || splits < 1 || splits > kb_all || grid < 1 ||
+      (splits > 1 && (part == nullptr || tile_count == nullptr)) ||
+      (reinterpret_cast<uintptr_t>(xq) % 16) || (reinterpret_cast<uintptr_t>(w) % 16))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap xmap, wmap;
+  err = encode_2d_cached(&xmap, xq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, m, k, bt, kS8BK,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return (int)err;
+  err = encode_2d_cached(&wmap, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, k, n, kS8BK, kS8BN,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return (int)err;
+  const float* r = static_cast<const float*>(sx);
+  const float* s = static_cast<const float*>(sw);
+  float* o = static_cast<float*>(out);
+  int* p = static_cast<int*>(part);
+  int* c = static_cast<int*>(tile_count);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (bt) {
+    case 16: return (int)launch_s8<16>(xmap, wmap, r, s, o, p, c, m, k, n, splits, grid, st);
+    case 64: return (int)launch_s8<64>(xmap, wmap, r, s, o, p, c, m, k, n, splits, grid, st);
+    case 128: return (int)launch_s8<128>(xmap, wmap, r, s, o, p, c, m, k, n, splits, grid, st);
+    case 256: return (int)launch_s8<256>(xmap, wmap, r, s, o, p, c, m, k, n, splits, grid, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,20 +1,21 @@
 """K5, K6, K7: weight-streaming matrix products (``csrc/quant_matmul.cu``).
 
-One kernel, three contracts, each with its own wrapper, launch counter and
-plain PyTorch version; x is ``[M, K]`` (bf16 or f32), the weight ``[K, N]``
-(or a stack ``[L, K, N]`` and a layer index), the output ``[M, N]`` f32:
+Three contracts, each with its own wrapper, launch counter and plain
+PyTorch version; x is ``[M, K]`` (bf16 or f32), the weight ``[K, N]`` (or a
+stack ``[L, K, N]`` and a layer index), the output ``[M, N]`` f32:
 
 - K5 ``quant_matmul_int8`` (w8a8) replaces
   ``xllm_tpu/ops/pallas/quant_matmul.py`` ``quant_matmul_int8``,
   ``quant_matmul_int8_v2`` and ``quant_matmul_int8_v2_stacked``: x is
-  quantized per token outside the kernel, as the JAX package does it
-  outside ``pallas_call`` (``sx = max(absmax(x_row) / 127, 1e-10)``, codes
+  quantized per token (``sx = max(absmax(x_row) / 127, 1e-10)``, codes
   ``clip(round(x / sx), -127, 127)``, the division by 127 a product with
-  its f32 reciprocal as XLA compiles it); int8 x int8 products are summed
-  exactly in int32; ``out = (float(acc) * sx) * sw``. The plain version
-  sums in f64 (exact: every partial sum is an integer far below 2^53),
-  converts to int32 and scales in the same order, so the kernel equals it
-  bit for bit;
+  its f32 reciprocal as XLA compiles it) by one launch of its own counter
+  (``quantize_rows``, byte-equal to ``quantize_activations``), where the
+  JAX package leaves that to XLA outside ``pallas_call``; int8 x int8
+  products are summed exactly in int32; ``out = (float(acc) * sx) * sw``.
+  The plain version sums in f64 (exact: every partial sum is an integer far
+  below 2^53), converts to int32 and scales in the same order, so the
+  kernel equals it bit for bit. A call is two launches;
 - K6 ``quant_matmul_fp8`` (weight-only) replaces ``quant_matmul_fp8``,
   ``quant_matmul_fp8_v2``, ``quant_matmul_fp8_v2_stacked`` and
   ``quant_matmul_fp8_stacked``: x in bf16 (an f32 x is rounded to bf16, as
@@ -27,14 +28,21 @@ K and N must be multiples of 16; any M. A stacked call offsets the weight
 and scale pointers by the layer. Bound on the card: bytes at decode,
 operations for a full prefill chunk; see the CUDA source.
 
-K6 and K7 run one warp-specialised TMA + wgmma kernel whose shape
-``plan(m, k, n, kind)`` picks from the shapes: 64-, 128- or 256-row tiles
-of 128 columns (64 up to 64 rows), and for few tiles (and e4m3 decode
-tiles) a split of K into ranges of whole 64-deep stages.
-A split launch writes f32 partials to a workspace that the wrapper
-allocates and sums them in split order in the kernel; it counts as one
-launch. ``split_model`` is that arithmetic in PyTorch. K5 keeps its
-mma.sync kernel with the row tiles of ``row_tile``.
+Every GEMM is a warp-specialised, persistent TMA + wgmma kernel that splits
+K into ranges of whole stages where its tiles do not fill the card; a split
+launch writes partials to a workspace that the wrapper allocates and sums
+them in split order in the kernel, and counts as one launch.
+
+- K6 and K7 (``qmm_ws_kernel``): ``plan(m, k, n, kind)`` picks 64-, 128- or
+  256-row tiles of 128 columns (64 up to 64 rows) and the splits (few
+  tiles, and e4m3 decode tiles); ``split_model`` is that arithmetic.
+- K5 (``qmm_s8_kernel``) computes the transposed product on s8 wgmma: 128
+  weight columns a tile are wgmma's A, built in registers from the landed
+  weight stage, the tokens its N. ``int8_plan(m, k, n)`` picks the tokens a
+  tile (16 for a decode step, 64, 128 or 256) and the splits (where the
+  tiles fill less than half the SMs); ``int8_layout`` forces one;
+  ``int8_split_model`` is its arithmetic (int32 partials in split order,
+  then scaled).
 """
 
 from __future__ import annotations
@@ -48,10 +56,13 @@ import torch
 from xllm_tpu_torch.ops.cuda import _build
 
 W8A8_NAME = "quant_matmul_int8"
+QUANT_NAME = "quantize_rows_int8"  # K5's activation quantizer: a launch of its own
 FP8_NAME = "quant_matmul_fp8"
 BF16_NAME = "matmul_bf16"
 _PALLAS = "xllm_tpu/ops/pallas/quant_matmul.py"
 W8A8_TPU_KERNEL = f"{_PALLAS}:45 quant_matmul_int8"  # and :296, :466 (v2, stacked)
+# not a Pallas kernel: the quantization XLA runs before K5's pallas_call
+QUANT_TPU_KERNEL = f"{_PALLAS}:56 quant_matmul_int8"  # and :250, :407
 FP8_TPU_KERNEL = f"{_PALLAS}:102 quant_matmul_fp8"  # and :303, :480, :500
 BF16_TPU_KERNEL = f"{_PALLAS}:589 matmul_bf16_v2"  # and :570 (stacked)
 _SOURCE = "quant_matmul"
@@ -78,11 +89,6 @@ LONG_K_STAGES = 64
 MIN_SPLIT_STAGES = 8  # a split walks at least this many stages
 # a wave of 64- / 256-row tiles against one of 128-row tiles (H100 timings)
 WAVE_COST = {64: 0.75, 128: 1.0, 256: 1.6}
-
-
-def row_tile(m: int) -> int:
-    """K5: 16 rows (64 columns) for decode-sized M, else 128 (128 columns)."""
-    return 16 if m <= 32 else 128
 
 
 class Plan(NamedTuple):
@@ -163,6 +169,70 @@ def split_model(x, w, scale, p: Plan) -> torch.Tensor:
     return acc if scale is None else acc * scale[None, :]
 
 
+# K5's plan (csrc/quant_matmul.cu qmm_s8_kernel)
+S8_BK = 128  # k a stage (bytes)
+S8_BN = 128  # weight columns a tile
+S8_ROWS = (16, 64, 128, 256)  # tokens a tile: wgmma's N
+S8_WAVE_COST = {128: 1.0, 256: 1.6}  # a wave of 128- / 256-token tiles
+S8_MAX_SPLITS = 8
+S8_MIN_SPLIT_STAGES = 4  # a split walks at least this many stages
+
+
+@functools.lru_cache(maxsize=4096)
+def int8_plan(m: int, k: int, n: int, sms: int = SMS) -> Plan:
+    """K5's launch shape for xq [m, k] . w [k, n].
+
+    Tokens a tile: 16 up to 16 rows (a decode step: wgmma's N is the
+    tokens, so no tile carries zero rows past 16), 64 up to 64, above that
+    the tile of 128 or 256 whose waves over the SMs cost least (weighted
+    by ``S8_WAVE_COST``). Splits: where the tiles fill less than half the
+    SMs, as many ranges of K as fit in half of them (``sms // (2 tiles)``;
+    H100 sweeps, ``scripts/probe_qmm_kernel.py --sweep``: a split unit pays
+    a partial's write and the merge, and 48-96 blocks of one unit each
+    already stream as fast as 96-132 split ones), at most
+    ``S8_MAX_SPLITS``, each at least ``S8_MIN_SPLIT_STAGES`` stages."""
+    if m <= 0 or k <= 0 or n <= 0 or k % 16 or n % 16:
+        raise ValueError(f"int8_plan: M {m}, K {k}, N {n} (K and N multiples of 16)")
+    tiles_n = -(-n // S8_BN)
+    if m <= S8_ROWS[1]:
+        bt = S8_ROWS[0] if m <= S8_ROWS[0] else S8_ROWS[1]
+    else:
+        waves = {b: -(-(-(-m // b) * tiles_n) // sms) * S8_WAVE_COST[b] for b in S8_ROWS[2:]}
+        bt = min(waves, key=lambda b: (waves[b], b))
+    tiles = -(-m // bt) * tiles_n
+    kb = -(-k // S8_BK)
+    splits = max(1, min(sms // (2 * tiles), S8_MAX_SPLITS, kb // S8_MIN_SPLIT_STAGES))
+    return int8_layout(m, k, n, splits, bt, sms)
+
+
+def int8_layout(m: int, k: int, n: int, splits: int, bt: int, sms: int = SMS) -> Plan:
+    """K5's plan of a given token tile and number of splits (``int8_plan``
+    picks them; checks and probes force others). Split i covers the stages
+    [i kb / splits, (i + 1) kb / splits) of the kb = ceil(k / 128), as the
+    kernel computes them."""
+    kb = -(-k // S8_BK)
+    if bt not in S8_ROWS or not 1 <= splits <= kb:
+        raise ValueError(f"int8_layout: token tile {bt}, {splits} splits of {kb} stages")
+    tiles = -(-m // bt) * -(-n // S8_BN)
+    ranges = tuple((min(k, (i * kb // splits) * S8_BK), min(k, ((i + 1) * kb // splits) * S8_BK))
+                   for i in range(splits))
+    units = tiles * splits
+    return Plan("decode" if bt <= S8_ROWS[1] else "prefill", bt, S8_BN, S8_BK, splits,
+                ranges, tiles, units, min(units, sms))
+
+
+def int8_split_model(x, w_q, scale, p: Plan) -> torch.Tensor:
+    """K5's arithmetic under plan ``p``, in PyTorch: the activations
+    quantized, each split's exact int32 product over its K range, the
+    partials summed in split order, then ``(float(acc) * sx) * sw``."""
+    xq, sx = quantize_activations(x)
+    acc = None
+    for k0, k1 in p.ranges:
+        part = torch.mm(xq[:, k0:k1].double(), w_q[k0:k1].double()).to(torch.int32)
+        acc = part if acc is None else acc + part
+    return (acc.float() * sx) * scale[None, :]
+
+
 def quantize_activations(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-token absmax quantization -> (int8 codes [M, K], f32 [M, 1])."""
     xf = x.float()
@@ -201,8 +271,10 @@ def _load() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load(_SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.xllm_quant_matmul.argtypes = [i, p, p, p, p, p, i, i, i, i, p]
-        lib.xllm_quant_matmul.restype = i
+        lib.xllm_quantize_rows.argtypes = [i, p, p, p, i, i, i, i, p]
+        lib.xllm_quantize_rows.restype = i
+        lib.xllm_qmm_s8.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.xllm_qmm_s8.restype = i
         lib.xllm_qmm_ws.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.xllm_qmm_ws.restype = i
         _lib = lib
@@ -259,18 +331,62 @@ def _matmul(name: str, x, w, scale, layer: int | None) -> torch.Tensor:
     if m == 0:
         return torch.empty(0, n, dtype=torch.float32, device=x.device)
     if name == W8A8_NAME:
-        xin, sx = quantize_activations(x)
+        xin, sx = quantize_rows(x)
     else:
         xin, sx = x.to(torch.bfloat16), None
     return launch_prepared(name, xin.contiguous(), sx, w, scale, layer)
 
 
+QUANT_CHUNKS = 8  # chunks of 8 values a quantizer thread keeps, at most
+QUANT_MAX_THREADS = 512
+QUANT_PER_THREAD = 4  # chunks a thread, where the row allows
+
+
+def quant_threads(k: int) -> int:
+    """The quantizer's threads a row: about ``QUANT_PER_THREAD`` chunks of
+    8 values a thread, a multiple of 32 from 64 to ``QUANT_MAX_THREADS``."""
+    chunks = k // 8
+    t = min(QUANT_MAX_THREADS, max(64, -(-chunks // QUANT_PER_THREAD // 32) * 32))
+    if chunks > QUANT_CHUNKS * t:
+        raise ValueError(f"quantize_rows: K {k} above {QUANT_CHUNKS * 8 * QUANT_MAX_THREADS}")
+    return t
+
+
+def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5's per-token activation quantizer: x [M, K] (bf16 or f32) ->
+    (int8 codes [M, K], f32 scales [M, 1]), one launch on the card,
+    byte-equal to ``quantize_activations`` (its plain version, which a CPU
+    tensor takes)."""
+    if x.device.type == "cpu":
+        return quantize_activations(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"{QUANT_NAME}: unsupported device {x.device}")
+    if x.dim() != 2 or x.dtype not in (torch.bfloat16, torch.float32) or x.shape[1] % 8:
+        raise ValueError(f"{QUANT_NAME}: x {tuple(x.shape)} {x.dtype} (bf16 or f32 [M, K], "
+                         "K a multiple of 8)")
+    m, k = x.shape
+    xq = torch.empty(m, k, dtype=torch.int8, device=x.device)
+    sx = torch.empty(m, 1, dtype=torch.float32, device=x.device)
+    if m == 0:
+        return xq, sx
+    threads = quant_threads(k)
+    if not x.is_contiguous() or x.data_ptr() % 16:  # rows of 16-byte chunks
+        x = x.clone(memory_format=torch.contiguous_format)
+    lib = _load()
+    _build.count_launch(QUANT_NAME)
+    err = lib.xllm_quantize_rows(x.device.index or 0, _build.ptr(x), _build.ptr(xq),
+                                 _build.ptr(sx), _build.dtype_code(x.dtype), m, k, threads,
+                                 _build.stream_of(x))
+    _build.check(lib, err, QUANT_NAME)
+    return xq, sx
+
+
 def launch_prepared(name: str, xin, sx, w, scale, layer: int | None,
                     p: Plan | None = None) -> torch.Tensor:
-    """The kernel alone, on operands ``_matmul`` has checked and prepared:
-    for K5 the int8 codes ``xin [M, K]`` and their f32 scales ``sx [M, 1]``,
-    for K6 and K7 a bf16 ``xin`` (``sx`` None) and the launch shape ``p``
-    (default: ``plan``'s). -> f32 [M, N]."""
+    """The GEMM alone, on operands ``_matmul`` has checked and prepared: for
+    K5 the int8 codes ``xin [M, K]`` and their f32 scales ``sx [M, 1]``, for
+    K6 and K7 a bf16 ``xin`` (``sx`` None); ``p`` the launch shape
+    (default: ``int8_plan``'s or ``plan``'s). -> f32 [M, N]."""
     k, n = w.shape[-2:]
     m = xin.shape[0]
     out = torch.empty(m, n, dtype=torch.float32, device=xin.device)
@@ -280,25 +396,26 @@ def launch_prepared(name: str, xin, sx, w, scale, layer: int | None,
     s_ptr = (ctypes.c_void_p(None) if scale is None
              else ctypes.c_void_p(scale.data_ptr() + row * n * 4))
     dev = xin.device.index or 0
-    if name == W8A8_NAME:
-        _build.count_launch(name)
-        err = lib.xllm_quant_matmul(dev, _build.ptr(xin), _build.ptr(sx), w_ptr, s_ptr,
-                                    _build.ptr(out), m, k, n, row_tile(m),
-                                    _build.stream_of(xin))
-        _build.check(lib, err, name)
-        return out
+    int8 = name == W8A8_NAME
     if p is None:
-        p = plan(m, k, n, _KIND[name], _build.device_sms(xin.device))
+        sms = _build.device_sms(xin.device)
+        p = int8_plan(m, k, n, sms) if int8 else plan(m, k, n, _KIND[name], sms)
     if xin.data_ptr() % 16:  # TMA reads from 16-byte aligned bases
         xin = xin.clone()
     stream = _build.stream_of(xin)
     part = count = None
-    if p.splits > 1:
+    if p.splits > 1:  # K5's partials are int32, of the same size as f32
         part, count = _split_buffers(xin.device, stream.value, p.splits * m * n, p.tiles)
     _build.count_launch(name)
-    err = lib.xllm_qmm_ws(dev, _build.ptr(xin), w_ptr, s_ptr, _build.ptr(out),
-                          _build.ptr(part), _build.ptr(count),
-                          _build.dtype_code(w.dtype), m, k, n, p.bm, p.splits, p.grid, stream)
+    if int8:
+        err = lib.xllm_qmm_s8(dev, _build.ptr(xin), w_ptr, _build.ptr(sx), s_ptr,
+                              _build.ptr(out), _build.ptr(part), _build.ptr(count), m, k, n,
+                              p.bm, p.splits, p.grid, stream)
+    else:
+        err = lib.xllm_qmm_ws(dev, _build.ptr(xin), w_ptr, s_ptr, _build.ptr(out),
+                              _build.ptr(part), _build.ptr(count),
+                              _build.dtype_code(w.dtype), m, k, n, p.bm, p.splits, p.grid,
+                              stream)
     _build.check(lib, err, name)
     return out
 
