@@ -26,7 +26,8 @@ phase raises on failure, so a non-zero exit means a phase failed:
    shapes (16 heads, Dk 640 of which 576 live, dv 512, block_size 64) with
    padded rows, a 4,096-token context, a new token that opens a page, each
    prefill bucket with a chunk at q_offset > 0 and a write across a page
-   boundary, K11a/b also at 20 and 128 heads; K1-K4 again on int8 and fp8
+   boundary, K11a/b also at 20 and 128 heads, K11b / K11e with bf16 q also
+   at (Dk, dv) ``MLA_WIDTHS``; K1-K4 again on int8 and fp8
    caches at qwen3-1.7B's shapes (bf16 and f32 queries); K5 (w8a8), K6
    (fp8 weight-only) and K7 (bf16 weight streaming) at Qwen3-8B's
    projection shapes (qkv K 4096 / N 6144, o 4096 / 4096, gate and up 4096 /
@@ -104,7 +105,10 @@ phase raises on failure, so a non-zero exit means a phase failed:
    the small qwen3_moe and deepseek_v2 with fp8 weights and an fp8 KV /
    latent cache and deepseek_v2 with int8 weights, all under
    ``XLLM_QMM_KERNEL=pallas`` (K6 / K5, K10's fp8 instance, the fp8 K1-K4
-   and K11a-g); then ``AsyncLLMEngine`` on the card, whose concurrent
+   and K11a-g); deepseek_v2 in bf16 (the bf16 MLA prefill kernel's dv 128
+   instance), served on the card through the kernels and under
+   ``XLLM_ATTENTION_BACKEND=ref``, identical greedy tokens and scores within
+   ``PARITY_BF16_TOL``; then ``AsyncLLMEngine`` on the card, whose concurrent
    generate, embed and score calls must equal the same requests run alone.
 
 8. layouts: the interleaved KV layouts' kernels against their plain
@@ -1199,7 +1203,7 @@ def latent_rand(g, dev, dtype, *shape, cache=None) -> torch.Tensor:
     return to_e4m3(x * 2.0) if cache == "fp8_e4m3" else x.to(dtype)
 
 
-def pv_abs(q3, lat, limits, scale) -> torch.Tensor:
+def pv_abs(q3, lat, limits, scale, dv: int = MLA_DV) -> torch.Tensor:
     """sum_j p_j |v_j| with the f32 softmax of the plain version:
     q3 [N, R, Dk], lat [N, KV, Dk], limits [N, R] -> [N, R, dv]."""
     scores = torch.einsum("nrd,nkd->nrk", q3.float(), lat.float()) * scale
@@ -1207,7 +1211,7 @@ def pv_abs(q3, lat, limits, scale) -> torch.Tensor:
     mask = kv_idx[None, None, :] < limits[..., None]
     probs = torch.nan_to_num(torch.softmax(scores.masked_fill(~mask, float("-inf")), -1))
     del scores
-    return torch.einsum("nrk,nkd->nrd", probs, lat[..., :MLA_DV].float().abs())
+    return torch.einsum("nrk,nkd->nrd", probs, lat[..., :dv].float().abs())
 
 
 def check_mla_close(out, ref, pv, what: str, rounds: bool = False) -> float:
@@ -1316,11 +1320,13 @@ def mla_prefill_fns(single: bool):
 
 def check_mla_prefill_shape(rng, dev, dtype, timed: bool, s: int, rows,
                             h: int = MLA_H, trim: bool = False, single: bool = False,
-                            cache=None) -> dict:
+                            cache=None, dk: int = MLA_DK, dv: int = MLA_DV) -> dict:
     """K11b over one bucket's chunks (K11e with ``single``): rows past ntok
     and padded rows zeros. ``trim``: block tables only as wide as the
     chunks need (the plain version's scores then fit at H 128); ``cache``
-    fp8_e4m3 for an fp8 latent cache."""
+    fp8_e4m3 for an fp8 latent cache; ``dk`` / ``dv`` other latent widths
+    (checked, not timed)."""
+    assert not timed or (dk, dv) == (MLA_DK, MLA_DV)
     p = len(rows)
     kernel, plain = mla_prefill_fns(single)
     nb, btt, qo, _, kvl = _chunk_tables(rng, rows, dev)
@@ -1328,15 +1334,16 @@ def check_mla_prefill_shape(rng, dev, dtype, timed: bool, s: int, rows,
         btt = btt[:, : -(-max(a + n for a, n in rows) // BS)].contiguous()
     g = torch.Generator(device=dev).manual_seed(12)
     kind = cache
-    cache = latent_rand(g, dev, dtype, LAYERS, nb, 1, BS, MLA_DK, cache=kind)
-    q = latent_rand(g, dev, dtype, p, s, h, MLA_DK)
-    out = kernel(q, cache, 5, btt, qo, kvl, MLA_SCALE, MLA_DV)
-    ref = plain(q, cache, 5, btt, qo, kvl, MLA_SCALE, MLA_DV)
+    cache = latent_rand(g, dev, dtype, LAYERS, nb, 1, BS, dk, cache=kind)
+    q = latent_rand(g, dev, dtype, p, s, h, dk)
+    out = kernel(q, cache, 5, btt, qo, kvl, MLA_SCALE, dv)
+    ref = plain(q, cache, 5, btt, qo, kvl, MLA_SCALE, dv)
     sync()
-    what = f"{'K11e' if single else 'K11b'} {dtype} cache {kind or dtype} S={s} {rows} H {h}"
+    what = (f"{'K11e' if single else 'K11b'} {dtype} cache {kind or dtype} S={s} {rows} H {h}"
+            f" Dk {dk} dv {dv}")
     limits = k11.prefill_row_limits(s, h, qo, kvl)
-    pv = pv_abs(q.reshape(p, s * h, MLA_DK), k11._gather_latent(cache, 5, btt), limits,
-                MLA_SCALE).reshape(out.shape)
+    pv = pv_abs(q.reshape(p, s * h, dk), k11._gather_latent(cache, 5, btt), limits,
+                MLA_SCALE, dv).reshape(out.shape)
     res = {"max_abs_err": check_mla_close(out, ref, pv, what, rounds=kind is not None)}
     del pv, ref
     for i, (_, n) in enumerate(rows):
@@ -1486,17 +1493,46 @@ def check_latent_writer(rng, dev, dtype, timed: bool, rmw: bool, rows=None, s: i
 
 
 def check_mla_heads(rng, dev, dtype) -> float:
-    """K11a and K11b at GLM-4.7-Flash's 20 heads (every chunk bucket) and
-    DeepSeek-V3's 128 (the 64 and 512 buckets, with block tables only as
-    wide as the chunks, so that the plain version fits) -> worst error."""
+    """K11a, K11b (every bucket of ``K3_SHAPES``) and K11e (every bucket of
+    ``SINGLE_SHAPES``) at GLM-4.7-Flash's 20 heads and DeepSeek-V3's 128
+    (the 64 and 512 buckets, with block tables only as wide as the chunks,
+    so that the plain version fits), on a latent cache of ``dtype`` and an
+    fp8 one -> worst error."""
     worst = 0.0
+    shapes = ([(s, rows, False) for s, rows in K3_SHAPES.items()]
+              + [(s, rows, True) for s, rows in SINGLE_SHAPES])
     for h in (20, 128):
-        worst = max(worst, check_mla_decode(rng, dev, dtype, False, h=h)["max_abs_err"])
-        for s, rows in K3_SHAPES.items():
-            if h == 128 and s == 2048:
-                continue
-            worst = max(worst, check_mla_prefill_shape(rng, dev, dtype, False, s, rows,
-                                                       h=h, trim=True)["max_abs_err"])
+        for cache in (None, "fp8_e4m3"):
+            worst = max(worst, check_mla_decode(rng, dev, dtype, False, h=h,
+                                                cache=cache)["max_abs_err"])
+            for s, rows, single in shapes:
+                if h == 128 and s == 2048:
+                    continue
+                worst = max(worst, check_mla_prefill_shape(
+                    rng, dev, dtype, False, s, rows, h=h, trim=True, single=single,
+                    cache=cache)["max_abs_err"])
+                free_device_memory()
+    return worst
+
+
+# other latent widths of the bf16 prefill kernel (Dk, dv): its dv 256 and
+# dv 128 instances, each at a Dk that is not a multiple of 64 (the TMA boxes
+# past Dk land as zeros)
+MLA_WIDTHS = ((272, 256), (144, 128))
+
+
+def check_mla_widths(rng, dev) -> float:
+    """K11b (buckets 512 and 64: one pass, and context splits with a first
+    pass) and K11e (52 tokens at q_offset 2048) at ``MLA_WIDTHS``, bf16 q,
+    bf16 and fp8 latent caches -> worst error."""
+    worst = 0.0
+    shapes = [(s, K3_SHAPES[s], False) for s in (PREFILL_S, 64)] + [SINGLE_SHAPES[-1] + (True,)]
+    for dk, dv in MLA_WIDTHS:
+        for cache in (None, "fp8_e4m3"):
+            for s, rows, single in shapes:
+                worst = max(worst, check_mla_prefill_shape(
+                    rng, dev, torch.bfloat16, False, s, rows, single=single, cache=cache,
+                    dk=dk, dv=dv)["max_abs_err"])
             free_device_memory()
     return worst
 
@@ -2011,8 +2047,9 @@ def mla_grid(g, dev, dtype, *shape, cache=None) -> torch.Tensor:
 
 def check_page_sizes(rng, dev) -> dict:
     """The P-rounding repairs (faults F1-F4) at every page size: K1, K3, K3b
-    at qwen3-1.7B's heads and K11a, K11b, K11e at DeepSeek-V2-Lite's on
-    pages of 16, 32, 64 and 128 positions, bf16 q on bf16, int8 and fp8
+    at qwen3-1.7B's heads and K11a, K11b, K11e at DeepSeek-V2-Lite's (K11b
+    and K11e also at 20 heads, and at 128 in the 64 bucket) on pages of 16,
+    32, 64 and 128 positions, bf16 q on bf16, int8 and fp8
     caches (K11: bf16 and fp8), f32 q on f32 and fp8 caches, on grid
     inputs: each kernel against its plain version within ``TOL`` at every
     output -> {kernel: worst error}."""
@@ -2089,11 +2126,13 @@ def check_page_sizes(rng, dev) -> dict:
             what = f"K11a bs {bs} {dtype} cache {cache or dtype}"
             assert same_bytes(ck, cp), f"{what}: caches differ"
             note(k11.DECODE_NAME, check_close(out, ref, what))
-            for s, rows in PAGE_ROWS.items():
+            # K11b / K11e at 16 and 20 heads, and 128 in the 64 bucket
+            for s, rows, h in [(s, rows, h) for s, rows in PAGE_ROWS.items()
+                               for h in (MLA_H, 20, 128) if h != 128 or s == 64]:
                 lens = [a_ + n for a_, n in rows]
                 bt, nb = _paged(rng, lens, bs, nbmax)
                 c = mla_grid(g, dev, dtype, 2, nb, 1, bs, MLA_DK, cache=cache)
-                q = mla_grid(g, dev, dtype, len(rows), s, MLA_H, MLA_DK)
+                q = mla_grid(g, dev, dtype, len(rows), s, h, MLA_DK)
                 btt = i32(bt, dev)
                 qo = i32([a_ for a_, _ in rows], dev)
                 kvl = i32([a_ + n if n else 0 for a_, n in rows], dev)
@@ -2105,7 +2144,7 @@ def check_page_sizes(rng, dev) -> dict:
                     sync()
                     name = k11.ONE_PREFILL_NAME if single else k11.PREFILL_NAME
                     note(name, check_close(out, ref, f"{name} bs {bs} {dtype} cache "
-                                           f"{cache or dtype} S {s}"))
+                                           f"{cache or dtype} S {s} H {h}"))
             free_device_memory()
     return worst
 
@@ -2217,8 +2256,12 @@ def phase_kernels(dev) -> dict:
         log(f"[kernels] {k3.NAME} at Hq 32, Hkv 4, every chunk bucket, {dtype}: "
             f"worst err {err:.3g} ({GRID_TOL})")
         err = check_mla_heads(rng, dev, dtype)
-        log(f"[kernels] {k11.DECODE_NAME} and {k11.PREFILL_NAME} at H 20 (every chunk "
-            f"bucket) and H 128 (buckets 64, 512), {dtype}: worst err {err:.3g} ({MLA_TOL})")
+        log(f"[kernels] {k11.DECODE_NAME}, {k11.PREFILL_NAME} and {k11.ONE_PREFILL_NAME} at "
+            f"H 20 (every chunk bucket) and H 128 (buckets 64, 512), {dtype} q, {dtype} and "
+            f"fp8 latent caches: worst err {err:.3g} ({MLA_TOL})")
+    err = check_mla_widths(rng, dev)
+    log(f"[kernels] {k11.PREFILL_NAME} and {k11.ONE_PREFILL_NAME} at (Dk, dv) {MLA_WIDTHS}, "
+        f"bf16 q, bf16 and fp8 latent caches: worst err {err:.3g} ({MLA_TOL})")
 
     g = torch.Generator(device=dev).manual_seed(10)
     by_shape, worst_f32 = [], 0.0
@@ -2257,8 +2300,8 @@ def phase_kernels(dev) -> dict:
     worst = check_page_sizes(rng, dev)
     log(f"[kernels] P-rounding repairs (F1-F4) at block_size {PAGE_SIZES}: {k1.NAME}, "
         f"{k3.NAME}, {k3.ONE_NAME} on bf16 / int8 / fp8 caches and {k11.DECODE_NAME}, "
-        f"{k11.PREFILL_NAME}, {k11.ONE_PREFILL_NAME} on bf16 / fp8 latent caches, bf16 and "
-        f"f32 q: worst errors {worst} ({GRID_TOL})")
+        f"{k11.PREFILL_NAME}, {k11.ONE_PREFILL_NAME} (H 16, 20, 128) on bf16 / fp8 latent "
+        f"caches, bf16 and f32 q: worst errors {worst} ({GRID_TOL})")
     return results
 
 
@@ -3027,6 +3070,10 @@ PARITY_RM = dict(PARITY_DENSE, num_attention_heads=16, num_key_value_heads=8)
 # 64) and 10; card and CPU within PARITY_SCORE_TOL
 SCORE_PARITY = {"score": (70, 40, 10), "embed": (100, 10)}
 PARITY_SCORE_TOL = 1e-4
+# bf16 models, the kernels against the portable attention: |x - ref| <=
+# 2^-7 + 2^-5 |ref|, eight bf16 ulps of each value (bf16 keeps 8 bits; the
+# two round P at different points and every activation is rounded to bf16)
+PARITY_BF16_TOL = (2.0 ** -7, 2.0 ** -5)
 
 
 def parity_config(model_kw: dict, quant: str = "", kv_cache_dtype: str = "auto",
@@ -3164,6 +3211,60 @@ def phase_parity(name: str, model_kw: dict, devices=("cuda", "cpu"), quant: str 
         f"{', ' + (resolved or kv_layout) + ' layout' if kv_layout != 'split' else ''}): "
         f"{len(prompts)} requests x 16 greedy tokens identical on {' and '.join(devices)}")
     return len(prompts)
+
+
+# deepseek_v2's parity shapes in bf16 (latent rows of 128 + 16 lanes padded
+# to 256, dv 128): bf16 q, so every prefill pass runs the wgmma prefill
+# kernel's dv 128 instance (K11b; K11e for the scores and embeddings)
+PARITY_MLA_BF16 = dict(PARITY_MODELS["deepseek_v2"], dtype="bfloat16")
+
+
+def phase_mla_bf16_parity() -> None:
+    """The bf16 deepseek_v2 parity model served on the card twice from the
+    same weights: through the kernels, and under
+    ``XLLM_ATTENTION_BACKEND=ref`` (the JAX package's portable MLA
+    attention in plain PyTorch, no K11 launch) with the same projections.
+    The rule: greedy tokens equal, and every score and embedding within
+    ``PARITY_BF16_TOL`` of the portable run's. The kernel run must launch
+    K11b and K11e."""
+    tree = random_param_tree(parity_config(PARITY_MLA_BF16).model, seed=7)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, 1000, n).tolist() for n in (10, 40, 100, 70, 23, 5)]
+    sp = SamplingParams(temperature=0.0, max_tokens=16, ignore_eos=True)
+    got, scored, counts = {}, {}, {}
+    for backend in ("kernels", "ref"):
+        with environ(XLLM_ATTENTION_BACKEND="auto" if backend == "kernels" else "ref"):
+            cfg = parity_config(PARITY_MLA_BF16)
+            runner = ModelRunner(cfg, device="cuda")
+            runner.load_model(params=tree)
+            eng = LLMEngine(cfg, runner=runner)
+            _build.reset_launch_counts()
+            ids = [eng.add_request(prompt_token_ids=p, sampling_params=sp).request_id
+                   for p in prompts]
+            outs = {ro.request_id: ro.outputs[0].token_ids for ro in eng.generate_all()}
+            assert eng.block_manager.num_used_blocks == 0
+            got[backend] = [outs[i] for i in ids]
+            scored[backend] = parity_scores(eng)
+            counts[backend] = {k: _build.launch_counts.get(k, 0)
+                               for k in (k11.PREFILL_NAME, k11.ONE_PREFILL_NAME)}
+        del eng, runner
+        free_device_memory()
+    assert all(counts["kernels"].values()), f"bf16 deepseek_v2: K11b / K11e not launched: {counts}"
+    assert not any(counts["ref"].values()), f"bf16 deepseek_v2 under ref launched {counts}"
+    assert got["kernels"] == got["ref"], (
+        f"bf16 deepseek_v2: greedy tokens differ:\n{got['kernels']}\n{got['ref']}")
+    errs, (atol, rtol) = [], PARITY_BF16_TOL
+    for x, y in zip(*(scored[b][0] + scored[b][1] for b in ("kernels", "ref"))):
+        x, y = np.asarray(x, np.float32), np.asarray(y, np.float32)
+        assert x.shape == y.shape
+        errs.append(float(np.abs(x - y).max()))
+        assert (np.abs(x - y) <= atol + rtol * np.abs(y)).all(), (
+            f"bf16 deepseek_v2: scores / embeddings differ by {errs[-1]}")
+    log(f"[parity] bf16 deepseek_v2 (2 layers, bs 16, Dk 256, dv 128): {len(prompts)} "
+        f"requests x 16 greedy tokens identical through the kernels ({counts['kernels']}) "
+        f"and the portable attention on the card; scores of {SCORE_PARITY['score']} tokens "
+        f"and embeddings of {SCORE_PARITY['embed']} within {atol:g} + {rtol:g} |ref| (max "
+        f"abs diff {max(errs):.3g})")
 
 
 def free_device_memory() -> None:
@@ -3584,6 +3685,7 @@ def main() -> int:
                 phase_parity(name, PARITY_MODELS[name], quant="fp8_e4m3",
                              kv_cache_dtype="fp8_e4m3")
             phase_parity("deepseek_v2", PARITY_MODELS["deepseek_v2"], quant="int8")
+        phase_mla_bf16_parity()
         phase_async()
         log(f"[parity] done in {time.perf_counter() - t0:.1f} s")
     ilv = {}
@@ -3618,7 +3720,7 @@ def main() -> int:
         k24.RMW_NAME: (k24.RMW_TPU_KERNEL, "kv_write.cu"),
         k10.NAME: (k10.TPU_KERNEL, "gmm.cu"),
         k11.DECODE_NAME: (k11.DECODE_TPU_KERNEL, "mla_attention.cu"),
-        k11.PREFILL_NAME: (k11.PREFILL_TPU_KERNEL, "mla_attention.cu"),
+        k11.PREFILL_NAME: (k11.PREFILL_TPU_KERNEL, "mla_prefill.cu"),
         k24.LATENT_PREFILL_NAME: (k24.LATENT_PREFILL_TPU_KERNEL, "kv_write.cu"),
         k24.LATENT_RMW_NAME: (k24.LATENT_RMW_TPU_KERNEL, "kv_write.cu"),
         qmm.W8A8_NAME: (qmm.W8A8_TPU_KERNEL, "quant_matmul.cu"),
@@ -3628,7 +3730,7 @@ def main() -> int:
         k24.ONE_PREFILL_NAME: (k24.ONE_PREFILL_TPU_KERNEL, "kv_write.cu"),
         k3.ONE_NAME: (k3.ONE_TPU_KERNEL, "prefill_attention.cu"),
         k24.ONE_RMW_NAME: (k24.ONE_RMW_TPU_KERNEL, "kv_write.cu"),
-        k11.ONE_PREFILL_NAME: (k11.ONE_PREFILL_TPU_KERNEL, "mla_attention.cu"),
+        k11.ONE_PREFILL_NAME: (k11.ONE_PREFILL_TPU_KERNEL, "mla_prefill.cu"),
         k24.ONE_LATENT_PREFILL_NAME: (k24.ONE_LATENT_PREFILL_TPU_KERNEL, "kv_write.cu"),
         k24.ONE_LATENT_RMW_NAME: (k24.ONE_LATENT_RMW_TPU_KERNEL, "kv_write.cu"),
     }

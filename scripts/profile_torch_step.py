@@ -73,8 +73,10 @@ OWN_KERNELS = {
     "gmm_bf16_kernel": "K10 gmm",
     "gmm_ws_kernel": "K10 gmm",
     "gmm_f32_kernel": "K10 gmm",
-    "mla_attention_tc_kernel<1": "K11a mla_decode_attention_write",
-    "mla_attention_tc_kernel<2": "K11b mla_prefill_attention_batched",
+    "mla_attention_tc_kernel<64": "K11a mla_decode_attention_write",
+    "mla_attention_tc_kernel<1": "K11a mla_decode_attention_write",  # a parent tree
+    "mla_prefill_kernel": "K11b mla_prefill_attention_batched",
+    "mla_attention_tc_kernel<2": "K11b mla_prefill_attention_batched",  # a parent tree
     "latent_write_rows_kernel": "K11c/K11d latent_write_rows",
     "qmm_s8_kernel": "K5 quant_matmul_int8",
     "quantize_rows_kernel": "K5 quantize_rows_int8",

@@ -206,14 +206,13 @@ def test_latent_writers_match_pallas(writer):
 @pytest.mark.parametrize("p,s,h", [(3, 2048, 16), (4, 512, 16), (3, 64, 16), (1, 64, 16),
                                    (3, 64, 20), (3, 64, 128)])
 def test_prefill_split_plan_covers_the_context(p, s, h):
-    """K11b's bf16 launch splits the context only when its row tiles give
-    few blocks; the splits are whole 64-token tiles, at most 32, and cover
-    the block table's 4,096 positions."""
-    n = ka.prefill_splits(p, s, h)
-    chunk, nsplit = ka.split_plan(4096, n)
-    assert 1 <= nsplit <= n <= 32 and chunk % 64 == 0 and chunk * nsplit >= 4096
-    blocks = p * -(-s * h // 32)
-    assert (n == 1) == (blocks >= 528)
+    """K11b's bf16 launch splits the context only when its 64-row tiles
+    give few blocks; the splits are whole 64-token tiles, at most 32, and
+    cover the block table's 4,096 positions."""
+    plan = ka.prefill_plan(p, s, h, 4096, 64)
+    assert 1 <= plan.nsplit <= 32 and plan.chunk % 64 == 0 and plan.chunk * plan.nsplit >= 4096
+    blocks = p * -(-s * h // 64)
+    assert (plan.nsplit == 1) == (blocks >= 264)
 
 
 def _fake_cuda(t: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,14 @@
-// K11a + K11b: latent (MLA) paged attention, decode and batched prefill.
+// K11a, and K11b / K11e with f32 q: latent (MLA) paged attention.
 //
-// Replaces two Pallas kernels of xllm_tpu/ops/pallas/mla_attention.py:
+// Replaces, with csrc/mla_prefill.cu, Pallas kernels of
+// xllm_tpu/ops/pallas/mla_attention.py:
 //   K11a mla_decode_attention_write_tpu: write each sequence's new latent
 //        row lat_new [B, Dk] at slot_mapping into the single-head cache
 //        [L, NB, 1, bs, Dk] (in place), then attend q [B, H, Dk] over
 //        seq_lens tokens -> [B, H, dv];
 //   K11b mla_prefill_attention_batched_tpu: P chunks q [P, S, H, Dk], causal
-//        at q_offsets[p] + t over kv_lens[p] tokens -> [P, S, H, dv].
+//        at q_offsets[p] + t over kv_lens[p] tokens -> [P, S, H, dv] (here
+//        with f32 q only; bf16 q runs csrc/mla_prefill.cu).
 // Absorbed MLA is an MQA over one latent head: the scores take all Dk lanes
 // of a cached row, the values its first dv lanes, so one row read feeds
 // both products. A row with kv_len 0 (a padded row) and a query row past
@@ -17,41 +19,37 @@
 // mla_prefill_attention_tpu's (K11e, counted apart by
 // ops/cuda/mla_attention.py).
 //
-// Both contracts run one kernel template. Its rows are the (token, head)
-// pairs of a chunk, token-major (row r = t * H + h, the layout of q), and a
-// decode step is a chunk of one token at q_offset = seq_len - 1. All H
-// heads of a token share the latent rows, so (tokens x heads) fold into the
-// M dimension of the products, as the TPU kernel's hg * tq rows do.
+// bf16 q on a prefill chunk runs csrc/mla_prefill.cu (wgmma + TMA); this
+// file keeps the bf16 decode kernel and the f32-q kernel of both contracts.
+// Rows are the (token, head) pairs of a chunk, token-major (row r = t * H +
+// h, the layout of q), and a decode step is a chunk of one token at
+// q_offset = seq_len - 1. All H heads of a token share the latent rows, so
+// (tokens x heads) fold into the M dimension of the products, as the TPU
+// kernel's hg * tq rows do.
 //
-// What bounds it. Decode, bytes: a step reads every live latent row once
-// (16 sequences x ~550 tokens x 640 lanes x 2 B = 11.3 MB a layer at
-// DeepSeek-V2-Lite's shapes) for ~2 x 16 x 1088 flops a row. Prefill,
-// operations: a 2048-token chunk does 16 heads x 2.1 M causal pairs x
-// (576 + 512) x 2 = 73 GFLOP over ~78 MB.
+// What bounds decode: bytes. A step reads every live latent row once (16
+// sequences x ~550 tokens x 640 lanes x 2 B = 11.3 MB a layer at
+// DeepSeek-V2-Lite's shapes) for ~2 x 16 x 1088 flops a row.
 //
-// Design, bf16 q (tensor cores; a bf16 or an fp8 latent cache): a block owns BM = 16 x MT rows and walks its
-// KV range KT tokens at a time through a two-stage cp.async ring in shared
-// memory: MT 1, KT 64 for decode (the 16 heads of one token are one m16
-// tile); MT 2, KT 64 for prefill (two tokens of 16 heads: each latent row
-// brought to the SM serves 32 query rows; at Dk 640 the Q tile and two
-// 64-row stages take 221 KB of the 227 KB a block may have). Per tile,
-// eight warps compute S = Q K^T with mma.sync
+// Design, bf16 q (decode, tensor cores; a bf16 or an fp8 latent cache): a
+// block owns 16 rows (one m16 tile: a token's 16 heads at V2-Lite) and
+// walks its KV range KT = 64 tokens at a time through a two-stage cp.async ring in
+// shared memory. Per tile, eight warps compute S = Q K^T with mma.sync
 // m16n8k16 (f32 accumulators; K rows feed the B operand through ldmatrix,
 // V the same rows through ldmatrix.trans), an online softmax in f32 per
-// row, P rounded to bf16 (below), and P V with the dv
-// columns split across the warps (64 each at dv 512, so a warp keeps MT x
-// 32 f32 accumulators). Decode splits each sequence's context across
-// blocks (as K1 does), since 16 sequences are far fewer blocks than the
-// card has SMs, and so does a prefill launch with few row tiles (a short
-// chunk deep in a prompt); the last split to finish merges the partial
-// (m, l, acc) with per-row weights computed once and 16-byte loads.
+// row, P rounded to bf16 (below), and P V with the dv columns split across
+// the warps (64 each at dv 512). Decode splits each sequence's context
+// across blocks (as K1 does), since 16 sequences are far fewer blocks than
+// the card has SMs; the last split to finish merges the partial (m, l,
+// acc) with per-row weights computed once and 16-byte loads.
 //
 // The new decode row: the tile loader takes position seq_len - 1 from
 // lat_new, never from the cache, and the block that owns that position
 // (row tile 0) stores the row into the cache. No block reads that cache row.
 //
-// f32 q (tests and the parity models; an f32 or an fp8 latent cache): the
-// same walk with FMA on the CUDA cores, no TF32, no context split.
+// f32 q (tests and the parity models; an f32 or an fp8 latent cache; decode
+// and prefill): the same walk with FMA on the CUDA cores, no TF32, no
+// context split.
 //
 // fp8 (e4m3) latent cache: its rows are upcast to bf16 (tensor cores) or
 // f32 on their way into shared memory, as the TPU kernels upcast pages
@@ -64,20 +62,18 @@
 // Rounding P, on every cache but f32: the TPU kernels round the
 // unnormalised P of each page to bf16 against the row's running maximum
 // after that page, in one walk from position 0. A launch of one context
-// split over pages no longer than its tile (prefill chunks of 512 tokens
-// and more at block_size <= 64) takes those maxima in its walk: each
-// tile's page maxima, prefix-maxed over the warp's lanes. Any other launch
-// (decode, which splits its context; short chunks deep in a prompt; pages
-// longer than the tile) runs two passes of one kernel template: pass 1
-// (PASS1) computes S as pass 2 does (the same code on the same data, so the
-// same bits) and writes the maximum of each (row, granule) of
-// min(block_size, tile) positions; pass 2 prefetches each tile's granules
-// with its latent rows and takes, for each key, the running maximum M at
-// the end of its page. Pages are at least 16 positions, so a page starts on
-// an m16n8k16 step: the tensor-core P V rescales the accumulators by
-// exp(M_prev - M) before each 16-key step where M moved, and l takes
-// exp(s - M) exp(M - M_tile). Pass 1 reads the latent rows a second time
-// and costs the Q K^T product once more.
+// split over pages no longer than its tile takes those maxima in its walk:
+// each tile's page maxima, prefix-maxed over the warp's lanes. Any other
+// launch (a decode that splits its context, pages longer than the tile)
+// runs two passes of one kernel template: pass 1 (PASS1) computes S as pass
+// 2 does (the same code on the same data, so the same bits) and writes the
+// maximum of each (row, granule) of min(block_size, tile) positions; pass 2
+// prefetches each tile's granules with its latent rows and takes, for each
+// key, the running maximum M at the end of its page. Pages are at least 16
+// positions, so a page starts on an m16n8k16 step: the tensor-core P V
+// rescales the accumulators by exp(M_prev - M) before each 16-key step
+// where M moved, and l takes exp(s - M) exp(M - M_tile). Pass 1 reads the
+// latent rows a second time and costs the Q K^T product once more.
 #include "common.cuh"
 
 namespace xllm {
@@ -113,23 +109,23 @@ __device__ __forceinline__ float latent_float(e4m3 x) {
   return __half2float(__half(h));
 }
 
-template <int MT, int KT>
+template <int KT>
 size_t tc_smem_bytes(int dk) {
-  constexpr int BM = 16 * MT;
+  constexpr int BM = 16;
   return (size_t)BM * (dk + kRowPad) * 2 + 2 * (size_t)KT * (dk + kRowPad) * 2 +
          (size_t)BM * (KT + kSPad) * 4 + (size_t)BM * (KT + kPPad) * 2 +
          (4 + KT / 16 + 2 * kTileGranules) * (size_t)BM * 4;
 }
 
-// C: the cache's element type (bf16 or e4m3); q and out are bf16.
-template <int MT, int KT, int DV, bool DECODE, bool PASS1, typename C>
+// Decode (K11a): a chunk of one token at q_offset = kv_len - 1. C: the
+// cache's element type (bf16 or e4m3); q and out are bf16.
+template <int KT, int DV, bool PASS1, typename C>
 __global__ void __launch_bounds__(kThreadsM)
     mla_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,  // [P, S*H, Dk]
                             const C* __restrict__ lat_new,        // [P, Dk]
                             C* cache,                             // [L, NB, 1, bs, Dk]
-                            const int* __restrict__ slot_mapping,  // [P] (decode)
+                            const int* __restrict__ slot_mapping,  // [P]
                             const int* __restrict__ block_tables,  // [P, nbmax]
-                            const int* __restrict__ q_offsets,     // [P] (prefill)
                             const int* __restrict__ kv_lens,       // [P]
                             float* gmax,                     // [P, S*H, ngran]
                             __nv_bfloat16* __restrict__ out,       // [P, S*H, DV]
@@ -138,6 +134,7 @@ __global__ void __launch_bounds__(kThreadsM)
                             int s, int h, int dk, int layer, int num_blocks,
                             int bs, int nbmax, float scale, int chunk,
                             int nsplit, int gran, int ngran, int in_walk) {
+  constexpr int MT = 1;  // m16 tiles a block: the 16 heads of one token
   constexpr int BM = 16 * MT;
   constexpr int WPM = kWarps / MT;     // warps per m16 tile in S = Q K^T
   constexpr int NPW = (KT / 8) / WPM;  // n8 tiles of S per warp
@@ -153,7 +150,7 @@ __global__ void __launch_bounds__(kThreadsM)
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int rows = s * h;
   const int kv_len = kv_lens[p];
-  const int q_offset = DECODE ? kv_len - 1 : q_offsets[p];
+  const int q_offset = kv_len - 1;
   const int rows_live = kv_len > 0 ? (kv_len - q_offset) * h : 0;
   const int r0 = rt * BM;
   const size_t row_base = (size_t)p * rows;
@@ -173,7 +170,7 @@ __global__ void __launch_bounds__(kThreadsM)
   const int gend = (kv_end + KT - 1) / KT * KT / gran;  // granules pass 1 writes
   const int* bt = block_tables + (size_t)p * nbmax;
 
-  if (!PASS1 && DECODE && rt == 0 && split == nsp - 1) {
+  if (!PASS1 && rt == 0 && split == nsp - 1) {
     const int slot = slot_mapping[p];
     C* dst = cache + latent_row(layer, num_blocks, bs, slot / bs, slot % bs, dk);
     for (int i = tid; i < dk; i += kThreadsM) dst[i] = lat_new[(size_t)p * dk + i];
@@ -207,7 +204,7 @@ __global__ void __launch_bounds__(kThreadsM)
       const bool ok = pos < t_end;
       const C* src = cache;
       if (ok)
-        src = DECODE && pos == kv_len - 1
+        src = pos == kv_len - 1
                   ? lat_new + (size_t)p * dk
                   : cache + latent_row(layer, num_blocks, bs, bt[pos / bs], pos % bs, dk);
       if constexpr (kBf16Cache) {
@@ -672,32 +669,32 @@ __global__ void __launch_bounds__(kThreadsM)
     o[i] = acc[i] / fmaxf(l_s[i / dv], 1e-30f);
 }
 
-template <int MT, int KT, int DV, bool DECODE, typename C>
+template <int KT, int DV, typename C>
 cudaError_t launch_tc(const void* q, const void* lat_new, void* cache, const int* sm,
-                      const int* bt, const int* qo, const int* kl, float* gmax,
-                      void* out, float* part, int* counters, int p, int s, int h, int dk,
-                      int layer, int num_blocks, int bs, int nbmax, float scale,
-                      int chunk, int nsplit, int gran, int ngran, cudaStream_t stream) {
-  const size_t smem = tc_smem_bytes<MT, KT>(dk);
-  const dim3 grid((s * h + 16 * MT - 1) / (16 * MT), nsplit, p);
+                      const int* bt, const int* kl, float* gmax, void* out, float* part,
+                      int* counters, int p, int s, int h, int dk, int layer, int num_blocks,
+                      int bs, int nbmax, float scale, int chunk, int nsplit, int gran,
+                      int ngran, cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes<KT>(dk);
+  const dim3 grid((s * h + 15) / 16, nsplit, p);
   auto run = [&](auto kernel, int in_walk) {
     cudaError_t e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return e;
     kernel<<<grid, kThreadsM, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const C*>(lat_new),
-        static_cast<C*>(cache), sm, bt, qo, kl, gmax,
-        static_cast<__nv_bfloat16*>(out), part, counters, s, h, dk, layer, num_blocks,
-        bs, nbmax, scale, chunk, nsplit, gran, ngran, in_walk);
+        static_cast<C*>(cache), sm, bt, kl, gmax, static_cast<__nv_bfloat16*>(out), part,
+        counters, s, h, dk, layer, num_blocks, bs, nbmax, scale, chunk, nsplit, gran, ngran,
+        in_walk);
     return cudaGetLastError();
   };
   // a launch of one split over pages of <= KT keys takes the page maxima
   // in its walk; any other reads the first pass's granules
   const int in_walk = nsplit == 1 && bs <= KT;
   if (!in_walk) {
-    cudaError_t e = run(mla_attention_tc_kernel<MT, KT, DV, DECODE, true, C>, 0);
+    cudaError_t e = run(mla_attention_tc_kernel<KT, DV, true, C>, 0);
     if (e != cudaSuccess) return e;
   }
-  return run(mla_attention_tc_kernel<MT, KT, DV, DECODE, false, C>, in_walk);
+  return run(mla_attention_tc_kernel<KT, DV, false, C>, in_walk);
 }
 
 template <bool DECODE, typename C>
@@ -730,11 +727,11 @@ cudaError_t launch_f32(const void* q, const void* lat_new, void* cache, const in
 }  // namespace xllm
 
 // decode != 0: K11a (s == 1, q_offsets unused, lat_new and slot_mapping
-// read); else K11b (lat_new and slot_mapping unused). qtype bf16 (tensor
-// cores) takes a bf16 or e4m3 cache, dk % 16 == 0 and dv in {128, 256,
-// 512}, and splits the context into nsplit <= 32 chunks of `chunk`
-// positions; qtype f32 takes an f32 or e4m3 cache, any dk and dv <= dk,
-// and does not split. Every cache but f32 needs gmax [P, S*H, ngran] with
+// read); else K11b with f32 q (lat_new and slot_mapping unused). qtype
+// bf16 (tensor cores, decode only) takes a bf16 or e4m3 cache, dk % 16 == 0
+// and dv in {128, 256, 512}, and splits the context into nsplit <= 32
+// chunks of `chunk` positions; qtype f32 takes an f32 or e4m3 cache, any dk
+// and dv <= dk, and does not split. Every cache but f32 needs gmax [P, S*H, ngran] with
 // gran = min(bs, tile) (tile 64 for bf16 q, 32 for f32), bs a divisor or
 // a multiple of the tile, and ngran >= ceil(nbmax * bs / tile) * tile / gran.
 extern "C" int xllm_mla_attention(int device, int decode, const void* q,
@@ -770,19 +767,13 @@ extern "C" int xllm_mla_attention(int device, int decode, const void* q,
   int* ct = static_cast<int*>(counters);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (qtype == XLLM_DTYPE_BF16) {
-    if (dk % 16 || bs < 16 || bs > kTileGranules * 64) return (int)cudaErrorInvalidValue;
+    if (!decode || s != 1 || dk % 16 || bs < 16 || bs > kTileGranules * 64)
+      return (int)cudaErrorInvalidValue;  // bf16 prefill: csrc/mla_prefill.cu
 #define XLLM_LAUNCH(C, DV)                                                             \
   if (dv == DV)                                                                       \
-    return decode ? (int)launch_tc<1, 64, DV, true, C>(q, lat_new, cache, sm, bt, qo, kl, \
-                                                       gm, out, pt, ct, p, s, h, dk,      \
-                                                       layer, num_blocks, bs, nbmax,      \
-                                                       scale, chunk, nsplit, gran, ngran, \
-                                                       st)                                \
-                  : (int)launch_tc<2, 64, DV, false, C>(q, lat_new, cache, sm, bt, qo,  \
-                                                        kl, gm, out, pt, ct, p, s, h, dk, \
-                                                        layer, num_blocks, bs, nbmax,     \
-                                                        scale, chunk, nsplit, gran,       \
-                                                        ngran, st);
+    return (int)launch_tc<64, DV, C>(q, lat_new, cache, sm, bt, kl, gm, out, pt, ct, p, s, \
+                                     h, dk, layer, num_blocks, bs, nbmax, scale, chunk,    \
+                                     nsplit, gran, ngran, st);
 #define XLLM_VALUE_DIMS(C) XLLM_LAUNCH(C, 512) XLLM_LAUNCH(C, 256) XLLM_LAUNCH(C, 128)
     if (dtype == XLLM_DTYPE_BF16) { XLLM_VALUE_DIMS(__nv_bfloat16) }
     if (dtype == XLLM_DTYPE_E4M3) { XLLM_VALUE_DIMS(xllm::e4m3) }

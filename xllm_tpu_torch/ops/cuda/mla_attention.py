@@ -1,6 +1,6 @@
-"""K11a + K11b: latent (MLA) paged attention (``csrc/mla_attention.cu``).
+"""K11a, K11b, K11e: latent (MLA) paged attention.
 
-- ``mla_decode_attention_write`` (K11a) replaces
+- ``mla_decode_attention_write`` (K11a, ``csrc/mla_attention.cu``) replaces
   ``xllm_tpu/ops/pallas/mla_attention.py`` ``mla_decode_attention_write_tpu``:
   write each sequence's new latent row ``lat_new [B, Dk]`` at
   ``slot_mapping`` into the single-head cache ``[L, NB, 1, bs, Dk]`` (in
@@ -25,14 +25,17 @@ them, in the kernels and their plain versions alike. A row with ``seq_len``/``kv
 0 (a padded row) and a query row past its chunk's ``kv_len - q_offset``
 (bucket padding) come out as zeros (the TPU kernels attend a padding
 row to all of ``[0, kv_len)``; nothing reads it). Bound on the card: bytes at decode,
-operations at prefill; the design notes are in the CUDA source. Decode
-splits each row's context across up to 32 blocks; prefill does too when
-its row tiles alone give few blocks (``prefill_splits``).
+operations at prefill; the design notes are in the CUDA sources. Decode
+splits each row's context across up to 32 blocks. A bf16-q prefill runs
+``csrc/mla_prefill.cu`` (wgmma + TMA, 64-row tiles), which splits the
+context when its row tiles alone give few blocks (``prefill_plan``). An
+f32-q prefill runs ``csrc/mla_attention.cu``'s f32 kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -52,6 +55,7 @@ ONE_PREFILL_TPU_KERNEL = (
     "xllm_tpu/ops/pallas/mla_attention.py:331 mla_prefill_attention_tpu"
 )
 _SOURCE = "mla_attention"
+_PREFILL_SOURCE = "mla_prefill"
 TC_VALUE_DIMS = (128, 256, 512)  # dv of the bf16 (tensor-core) builds
 
 
@@ -201,17 +205,63 @@ def split_plan(max_ctx: int, max_splits: int = _MAX_SPLITS) -> tuple[int, int]:
     return chunk, max(1, -(-max_ctx // chunk))
 
 
-_PREFILL_ROWS = 32  # rows (token, head pairs) of a bf16 prefill block
-_BUSY_BLOCKS = 528  # 4 blocks for each of an H100's 132 SMs
+# csrc/mla_prefill.cu: a block holds 64 (token, head) rows (one wgmma M
+# tile) and walks keys 64 at a time (two 32-key stages); Dk a multiple of
+# 16 up to 640 (column blocks of 64 lanes, the TMA boxes past Dk land as
+# zeros)
+_PREFILL_ROWS = 64
+_KEY_TILE = 64
+_PREFILL_MAX_DK = 640
+_BUSY_BLOCKS = 264  # two for each of an H100's 132 SMs (one fits an SM at a time)
+_MIN_SPLIT_KEYS = 256  # the last split merges every split's rows alone
 
 
-def prefill_splits(p: int, s: int, h: int) -> int:
-    """Context splits of a bf16 K11b launch: none while the row tiles alone
-    give ``_BUSY_BLOCKS`` blocks (every chunk of 512 tokens or more), else
-    enough to reach it (a short chunk deep in a prompt walks its whole
-    context in few blocks)."""
-    blocks = p * -(-s * h // _PREFILL_ROWS)
-    return min(_MAX_SPLITS, max(1, -(-_BUSY_BLOCKS // blocks)))
+@dataclass(frozen=True)
+class PrefillPlan:
+    """The shape of a bf16-q prefill launch (``prefill_plan``): ``row_tiles``
+    blocks of 64 rows a chunk, run longest walk first (block b holds row
+    tile ``row_tiles - 1 - b``); ``nsplit`` context splits of ``chunk``
+    positions (whole pages and key tiles); a first pass when the walk needs
+    maxima it cannot see (``first_pass``): each row's maximum over each
+    ``seg`` positions (a split, or a page longer than the key tile),
+    ``ngran`` of them a row."""
+
+    row_tiles: int
+    chunk: int
+    nsplit: int
+    seg: int
+    ngran: int
+    first_pass: bool
+
+
+def prefill_plan(p: int, s: int, h: int, width: int, bs: int) -> PrefillPlan:
+    """-> the plan of a bf16-q prefill launch, from shapes alone (the launch
+    reads nothing back from the card): P chunks of S tokens x H heads, a
+    block table of ``width`` positions, pages of ``bs``. No split while the
+    row tiles give ``_BUSY_BLOCKS`` blocks; else splits of whole units (a
+    64-key tile, or a page where pages are longer), at least
+    ``_MIN_SPLIT_KEYS`` long, enough of them (at most 32) to reach that
+    count. A split past a chunk's kv_len exits at once."""
+    row_tiles = -(-s * h // _PREFILL_ROWS)
+    blocks = p * row_tiles
+    want = 1 if blocks >= _BUSY_BLOCKS else min(_MAX_SPLITS, -(-_BUSY_BLOCKS // blocks))
+    return plan_splits(row_tiles, width, bs, want)
+
+
+def plan_splits(row_tiles: int, width: int, bs: int, want: int,
+                min_keys: int = _MIN_SPLIT_KEYS) -> PrefillPlan:
+    """-> the plan of ``row_tiles`` row tiles over a table of ``width``
+    positions in at most ``want`` splits of whole units (a 64-key tile, or
+    a page where pages are longer), each at least ``min_keys`` long (or the
+    whole table)."""
+    unit = max(_KEY_TILE, bs)
+    units = -(-width // unit)
+    min_units = max(1, min_keys // unit)
+    chunk = unit * max(-(-units // want), min(min_units, units))
+    nsplit = -(-width // chunk)
+    seg = bs if bs > _KEY_TILE else chunk
+    return PrefillPlan(row_tiles, chunk, nsplit, seg, -(-width // seg),
+                       nsplit > 1 or bs > _KEY_TILE)
 
 
 def _split_counters(device: torch.device, n: int) -> torch.Tensor:
@@ -368,30 +418,72 @@ def _launch_prefill(name, q, cache, layer_idx, block_tables, q_offsets, kv_lens,
         raise ValueError(f"{name}: unsupported device {q.device}")
     p, s, h, _ = q.shape
     work, dk = _check(name, q, cache, dv, (block_tables, q_offsets, kv_lens))
+    if work == torch.bfloat16 and dk > _PREFILL_MAX_DK:
+        raise NotImplementedError(f"{name}: the bf16 prefill kernel takes Dk up to "
+                                  f"{_PREFILL_MAX_DK} (its Q tile and three stages fill shared "
+                                  f"memory), not {dk}")
     if q.numel() == 0:
         return torch.empty(p, s, h, dv, dtype=q.dtype, device=q.device)
+    if work == torch.bfloat16:
+        return _launch_prefill_tc(name, q, cache, layer_idx, block_tables, q_offsets,
+                                  kv_lens, scale, dv)
     lib = _load()  # a failed build raises here, before any allocation
     out = torch.empty(p, s, h, dv, dtype=work, device=q.device)
     qk = q.to(work).contiguous()
     bs, nbmax = cache.shape[3], block_tables.shape[1]
-    chunk, nsplit = nbmax * bs, 1
-    if work == torch.bfloat16:
-        chunk, nsplit = split_plan(nbmax * bs, prefill_splits(p, s, h))
-    row_tiles = -(-s * h // _PREFILL_ROWS)
-    part = torch.empty(
-        (p, row_tiles, nsplit, _PREFILL_ROWS, 4 + dv) if nsplit > 1 else (1,),
-        dtype=torch.float32, device=q.device,
-    )
-    gmax, gran, ngran = _granules(work, cache, nbmax, p * s * h, nsplit, q.device)
-    counters = _split_counters(q.device, p * row_tiles)
+    gmax, gran, ngran = _granules(work, cache, nbmax, p * s * h, 1, q.device)
     _build.count_launch(name)  # one count for the op (one or two kernels)
     err = lib.xllm_mla_attention(
         q.device.index or 0, 0, _build.ptr(qk), None, _build.ptr(cache), None,
         _build.ptr(block_tables), _build.ptr(q_offsets), _build.ptr(kv_lens),
-        _build.ptr(gmax), _build.ptr(out), _build.ptr(part), _build.ptr(counters),
-        _build.dtype_code(cache.dtype), _build.dtype_code(work), p, s, h, dk, dv,
-        int(layer_idx), cache.shape[1], bs, nbmax, float(scale), chunk, nsplit, gran,
-        ngran, _build.stream_of(q),
+        _build.ptr(gmax), _build.ptr(out), None, None, _build.dtype_code(cache.dtype),
+        _build.dtype_code(work), p, s, h, dk, dv, int(layer_idx), cache.shape[1], bs, nbmax,
+        float(scale), nbmax * bs, 1, gran, ngran, _build.stream_of(q),
+    )
+    _build.check(lib, err, name)
+    return out.to(q.dtype)
+
+
+_prefill_lib = None
+
+
+def _load_prefill() -> ctypes.CDLL:
+    global _prefill_lib
+    if _prefill_lib is None:
+        lib = _build.load(_PREFILL_SOURCE)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.xllm_mla_prefill.argtypes = [
+            i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, ctypes.c_float,
+            i, i, i, i, p,
+        ]
+        lib.xllm_mla_prefill.restype = i
+        _prefill_lib = lib
+    return _prefill_lib
+
+
+def _launch_prefill_tc(name, q, cache, layer_idx, block_tables, q_offsets, kv_lens,
+                       scale, dv) -> torch.Tensor:
+    """bf16 q: ``csrc/mla_prefill.cu`` (one launch, two with a first pass),
+    counted once under ``name``."""
+    p, s, h, dk = q.shape
+    lib = _load_prefill()  # a failed build raises here, before any allocation
+    out = torch.empty(p, s, h, dv, dtype=torch.bfloat16, device=q.device)
+    qk = q.to(torch.bfloat16).contiguous()
+    bs, nbmax = cache.shape[3], block_tables.shape[1]
+    plan = prefill_plan(p, s, h, nbmax * bs, bs)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    gmax = (torch.empty(p, plan.row_tiles, _PREFILL_ROWS, plan.ngran, 2, **f32)
+            if plan.first_pass else torch.empty(1, **f32))
+    part = (torch.empty(p, plan.row_tiles, plan.nsplit, _PREFILL_ROWS, 4 + dv, **f32)
+            if plan.nsplit > 1 else torch.empty(1, **f32))
+    counters = _split_counters(q.device, p * plan.row_tiles)
+    _build.count_launch(name)  # one count for the op (one or two kernels)
+    err = lib.xllm_mla_prefill(
+        q.device.index or 0, _build.ptr(qk), _build.ptr(cache), _build.ptr(block_tables),
+        _build.ptr(q_offsets), _build.ptr(kv_lens), _build.ptr(gmax), _build.ptr(out),
+        _build.ptr(part), _build.ptr(counters), _build.dtype_code(cache.dtype), p, s, h, dk,
+        dv, int(layer_idx), cache.shape[0], cache.shape[1], bs, nbmax, float(scale),
+        plan.chunk, plan.nsplit, plan.seg, plan.ngran, _build.stream_of(q),
     )
     _build.check(lib, err, name)
     return out.to(q.dtype)
