@@ -2008,6 +2008,11 @@ def phase_quant_caches(rng, dev) -> dict:
                     f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
                     f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
             free_device_memory()
+    n = check_writer_pairs(rng, dev)
+    log(f"[kernels] the row scatter (K2, K4, K11c, K11d) at every source / cache dtype pair "
+        f"{[(str(a)[6:], str(b)[6:]) for a, b in WRITER_PAIRS]}, head_dim "
+        f"{WRITER_WIDTHS['kv']}, Dk {WRITER_WIDTHS['latent']}, sources off a 16-byte "
+        f"boundary, e4m3 edges, their negatives and a NaN: {n} checks, caches byte-equal")
     err = check_prefill_short_pages(rng, dev)
     log(f"[kernels] {k3.NAME} and {k3.ONE_NAME} on int8 and fp8 caches with block_size 16 "
         f"and 32 (P rounded against the running maximum after each page), bf16 and f32 q: "
@@ -2015,11 +2020,110 @@ def phase_quant_caches(rng, dev) -> dict:
     return out
 
 
+# The row scatter (K2, K4 and their twins, K8's and K9's prefill writers,
+# K11c-g) at every source / cache dtype pair it is handed: copies (bf16,
+# f32, int8 codes, e4m3 bytes), the pairs the wrapper casts with Tensor.to
+# (bf16 <-> f32), and bf16 / f32 rows the kernel casts to e4m3; at the GQA
+# head_dims and the latent widths the models use (Dk 640, and the parity
+# models' 144 and 80), from sources in the kernels' layouts, including a
+# slice that starts off a 16-byte boundary
+WRITER_PAIRS = [(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+                (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16),
+                (torch.int8, torch.int8), (torch.float8_e4m3fn, torch.float8_e4m3fn),
+                (torch.bfloat16, torch.float8_e4m3fn), (torch.float32, torch.float8_e4m3fn)]
+WRITER_WIDTHS = {"kv": (64, 128), "latent": (640, 144, 80)}
+# (S, chunks (q_offset, ntok)): the full-page writer from page starts, the
+# RMW writer from mid-page across a page boundary; a padded row each
+WRITER_CHUNKS = {False: (128, [(0, 100), (128, 28), (0, 0)]),
+                 True: (BS, [(37, 27), (100, 60), (0, 0)])}
+
+
+def writer_values(g, dev, shape, src, cache, offset: int = 0) -> torch.Tensor:
+    """Rows of dtype ``src`` bound for a ``cache`` of that dtype: int8
+    codes, e4m3 values, or values; rows the kernel casts to e4m3 start with
+    ``E4M3_EDGES``, their negatives and a NaN. ``offset``: a view that
+    starts that many elements into a wider tensor."""
+    wide = shape[:-1] + (shape[-1] + offset,)
+    if src == torch.int8:
+        x = torch.randint(-127, 128, wide, generator=g, device=dev, dtype=torch.int8)
+    elif src == torch.float8_e4m3fn:
+        x = to_e4m3(torch.randn(wide, generator=g, device=dev) * 2.0)
+    else:
+        x = (torch.randn(wide, generator=g, device=dev) * 2.0).to(src)
+    x = x[..., offset:]
+    if cache == torch.float8_e4m3fn and src != cache:
+        edges = E4M3_EDGES + [-e for e in E4M3_EDGES] + [float("nan")]
+        x[(0,) * (x.dim() - 1)][:len(edges)] = torch.tensor(edges, dtype=src, device=dev)
+    return x
+
+
+def cache_values(g, dev, shape, dtype) -> torch.Tensor:
+    if dtype == torch.int8:
+        return torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+    if dtype == torch.float8_e4m3fn:
+        return to_e4m3(torch.randn(shape, generator=g, device=dev))
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+def check_writer_pairs(rng, dev) -> int:
+    """The row scatter at ``WRITER_PAIRS`` x ``WRITER_WIDTHS``: K2 (head-major
+    source) and K4 (token-major, also a slice off a 16-byte boundary) into
+    a split cache of 2 kv heads, K11c and K11d (also off a boundary) into a
+    latent cache; each cache byte-equal to the plain version's -> the
+    number of checks."""
+    g = torch.Generator(device=dev).manual_seed(31)
+    done = 0
+    for src, cache in WRITER_PAIRS:
+        for rmw in (False, True):
+            s, rows = WRITER_CHUNKS[rmw]
+            nb, btt, qo, nt, _ = _chunk_tables(rng, rows, dev)
+            p = len(rows)
+            for d in WRITER_WIDTHS["kv"]:
+                for offset in ((0, 1) if rmw else (0,)):
+                    shape = (2, nb, 2, BS, d)
+                    kc, vc = cache_values(g, dev, shape, cache), cache_values(g, dev, shape, cache)
+                    src_shape = (p, s, 2, d) if rmw else (p, 2, s, d)
+                    kn = writer_values(g, dev, src_shape, src, cache, offset)
+                    vn = writer_values(g, dev, src_shape, src, cache, offset)
+                    fn, plain = writer_fns(rmw, False)
+                    kk, vk, kp, vp = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+                    fn(kn, vn, kk, vk, 1, btt, qo, nt)
+                    plain(kn, vn, kp, vp, 1, btt, qo, nt)
+                    sync()
+                    what = (f"{'K4' if rmw else 'K2'} {src} rows -> {cache} cache, D {d}, "
+                            f"offset {offset}")
+                    assert same_bytes(kk, kp) and same_bytes(vk, vp), f"{what}: caches differ"
+                    assert not same_bytes(kk, kc), f"{what}: nothing was written"
+                    done += 1
+            if cache == torch.int8:
+                continue  # the latent cache is bf16, f32 or fp8
+            for dk in WRITER_WIDTHS["latent"]:
+                for offset in (0, 1):
+                    c = cache_values(g, dev, (2, nb, 1, BS, dk), cache)
+                    rows_t = writer_values(g, dev, (p, s, dk), src, cache, offset)
+                    fn, plain = latent_writer_fns(rmw, False)
+                    ck, cp = c.clone(), c.clone()
+                    fn(rows_t, ck, 1, btt, qo, nt)
+                    plain(rows_t, cp, 1, btt, qo, nt)
+                    sync()
+                    what = (f"{'K11d' if rmw else 'K11c'} {src} rows -> {cache} cache, Dk {dk}, "
+                            f"offset {offset}")
+                    assert same_bytes(ck, cp), f"{what}: caches differ"
+                    assert not same_bytes(ck, c), f"{what}: nothing was written"
+                    done += 1
+    return done
+
+
 # the P-rounding repairs at every page size the kernels take: (sequence
 # lengths of a decode batch, prefill chunks (q_offset, ntok) in the 512
 # bucket and in the 64 bucket)
 PAGE_SIZES = (16, 32, 64, 128)
 PAGE_LENS = [1, 17, 100, 700, 2100, 65, 4095, 0]
+# K11a's: also 1,000 and 4,096 (the whole table); the batch's ~190 units
+# of 64 positions spread one a split over the grid, so the full table runs
+# in 64 splits and, at block_size 128, every split edge of the long rows
+# falls inside a page
+MLA_PAGE_LENS = [1, 17, 100, 700, 1000, 2100, 65, 4095, 4096, 0]
 PAGE_ROWS = {512: [(0, 300), (96, 100), (0, 0)], 64: [(2048, 52), (37, 27)]}
 
 
@@ -2110,22 +2214,26 @@ def check_page_sizes(rng, dev) -> dict:
         for dtype, cache in ((torch.bfloat16, None), (torch.bfloat16, "fp8_e4m3"),
                              (torch.float32, None), (torch.float32, "fp8_e4m3")):
             scale = grid_scale(cache, mla=True)
-            lens = [n for n in PAGE_LENS if n] + [0]
+            lens = MLA_PAGE_LENS
             bt, nb = _paged(rng, lens, bs, nbmax)
             c = mla_grid(g, dev, dtype, 2, nb, 1, bs, MLA_DK, cache=cache)
             b = len(lens)
-            q = mla_grid(g, dev, dtype, b, MLA_H, MLA_DK)
             ln = mla_grid(g, dev, dtype, b, MLA_DK)  # cast to e4m3 on an fp8 cache
             btt, sl = i32(bt, dev), i32(lens, dev)
             sm = i32([bt[i, (n - 1) // bs] * bs + (n - 1) % bs if n else 0
                       for i, n in enumerate(lens)], dev)
-            ck, cp = c.clone(), c.clone()
-            out = k11.mla_decode_attention_write(q, ln, ck, 1, sm, btt, sl, scale, MLA_DV)
-            ref = k11.mla_decode_attention_write_plain(q, ln, cp, 1, sm, btt, sl, scale, MLA_DV)
-            sync()
-            what = f"K11a bs {bs} {dtype} cache {cache or dtype}"
-            assert same_bytes(ck, cp), f"{what}: caches differ"
-            note(k11.DECODE_NAME, check_close(out, ref, what))
+            # K11a at 16 heads; bf16 q (the cluster kernel) also at 20 and 128
+            for h in (MLA_H, 20, 128) if dtype == torch.bfloat16 else (MLA_H,):
+                q = mla_grid(g, dev, dtype, b, h, MLA_DK)
+                ck, cp = c.clone(), c.clone()
+                out = k11.mla_decode_attention_write(q, ln, ck, 1, sm, btt, sl, scale, MLA_DV)
+                ref = k11.mla_decode_attention_write_plain(q, ln, cp, 1, sm, btt, sl, scale,
+                                                           MLA_DV)
+                sync()
+                what = f"K11a bs {bs} {dtype} cache {cache or dtype} H {h}"
+                assert same_bytes(ck, cp), f"{what}: caches differ"
+                assert not out[-1].float().abs().any(), f"{what}: the padded row is not zeros"
+                note(k11.DECODE_NAME, check_close(out, ref, what))
             # K11b / K11e at 16 and 20 heads, and 128 in the 64 bucket
             for s, rows, h in [(s, rows, h) for s, rows in PAGE_ROWS.items()
                                for h in (MLA_H, 20, 128) if h != 128 or s == 64]:

@@ -1,9 +1,22 @@
 #!/usr/bin/env python3
 """Quick check and timing of the MLA prefill kernel (K11b, K11e:
-``csrc/mla_prefill.cu``) on one GPU.
+``csrc/mla_prefill.cu``) or, with ``--kernel decode``, of the MLA decode
+kernel (K11a: ``csrc/mla_attention.cu`` ``mla_decode_kernel``) on one GPU.
 
-    python3 scripts/probe_mla_kernel.py [--check-only]
-    python3 scripts/probe_mla_kernel.py --compare PARENT_DIR
+    python3 scripts/probe_mla_kernel.py [--kernel decode] [--check-only]
+    python3 scripts/probe_mla_kernel.py [--kernel decode] --compare PARENT_DIR
+
+``--kernel decode``: prints what ptxas says of ``csrc/mla_attention.cu``
+(registers, spills a kernel instance), holds K11a to its plain version at
+16 sequences over ``chip_smoke.MLA_DECODE_LENS`` at 16, 20 and 128 heads on
+bf16 and fp8 latent caches within ``chip_smoke.MLA_TOL`` (caches
+byte-equal, padded rows zeros) and on grid inputs at block_size 16-128
+(16 and 20 heads, bf16 and fp8, contexts whose split edges fall inside a
+page) within ``chip_smoke.TOL``, then times it at 16, 20 and 128 heads beside
+SDPA's math backend over the gathered latent and the byte bound, and times
+the row-scatter writers (``csrc/kv_write.cu``: K2, K4, K2b, K4b, K8's and
+K9's, K11c, K11d, K11f, K11g) at the smoke's shapes on every cache they
+serve, each checked byte-equal first.
 
 Without ``--compare``: builds the kernels, prints what ptxas says of
 ``csrc/mla_prefill.cu`` (registers, spills), names the SDPA backends that
@@ -215,13 +228,14 @@ def time_shapes(cs, k11, dev, library: bool = True) -> list[dict]:
     return out
 
 
-def compare(parent: Path) -> dict:
+def compare(parent: Path, kernel: str) -> dict:
     """Parent, this tree, this tree, parent, each in its own process."""
     runs = {"parent": [], "this": []}
     for tag, root in (("parent", parent), ("this", ROOT), ("this", ROOT), ("parent", parent)):
         t0 = time.perf_counter()
         res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--time-root",
-                              str(root)], capture_output=True, text=True, timeout=1200)
+                              str(root), "--kernel", kernel], capture_output=True, text=True,
+                             timeout=1200)
         if res.returncode != 0:
             raise RuntimeError(f"{tag} run failed:\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
         runs[tag].append(json.loads(res.stdout.strip().splitlines()[-1]))
@@ -232,15 +246,135 @@ def compare(parent: Path) -> dict:
         now = min(r[i]["ms"] for r in runs["this"])
         table.append({"shape": row["shape"], "was_ms": was, "ms": now, "speedup": was / now,
                       "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                      "tflops": row["gflop"] / now, "peak_share": row["bound_ms"] / now})
+                      "tflops": row["gflop"] / now, "peak_share": row["bound_ms"] / now,
+                      "ms_runs": [r[i]["ms"] for r in runs["this"]],
+                      "was_ms_runs": [r[i]["ms"] for r in runs["parent"]]})
         print(f"{row['shape']}: parent {was:.4f} ms, this {now:.4f} ms ({was / now:.2f}x); "
               f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
               f"{row['gflop'] / now:.1f} TFLOP/s", flush=True)
     return {"compare": table, "runs": runs}
 
 
+# K11a: (label, heads), each at chip_smoke.MLA_DECODE_LENS (B 16)
+DECODE_SHAPES = [("K11a B 16, H 16", 16), ("K11a B 16, H 20", 20), ("K11a B 16, H 128", 128)]
+
+
+def decode_check(cs, k11, dev) -> float:
+    """K11a at every DECODE_SHAPES row and cache against the plain version
+    within MLA_TOL (chip_smoke.check_mla_decode: caches byte-equal, padded
+    rows zeros)."""
+    rng = np.random.default_rng(5)
+    worst = 0.0
+    for label, h in DECODE_SHAPES:
+        for cache in CACHES:
+            err = cs.check_mla_decode(rng, dev, torch.bfloat16, False, h=h,
+                                      cache=cache)["max_abs_err"]
+            print(f"{label}, cache {cache or 'bf16'}: max abs err {err:.3g}", flush=True)
+            worst = max(worst, err)
+            cs.free_device_memory()
+    return worst
+
+
+# grid contexts: seq_len 1, a new token that opens a page, lengths whose
+# split edges (64-position units over the cluster) fall inside pages of
+# 128, a full table, a padded row
+DECODE_GRID_LENS = [1, 65, 129, 700, 1000, 2100, 4095, 4096, 0]
+
+
+def decode_check_grid(cs, k11, dev) -> float:
+    """K11a on grid inputs (exact scores) at block_size 16-128, 16 and 20
+    heads, bf16 and fp8 latent caches, within TOL; caches byte-equal."""
+    worst = 0.0
+    g = torch.Generator(device=dev).manual_seed(23)
+    rng = np.random.default_rng(23)
+    lens = DECODE_GRID_LENS
+    for bs in cs.PAGE_SIZES:
+        nbmax = 4096 // bs
+        bt, nb = cs._paged(rng, lens, bs, nbmax)
+        btt, sl = cs.i32(bt, dev), cs.i32(lens, dev)
+        sm = cs.i32([bt[i, (n - 1) // bs] * bs + (n - 1) % bs if n else 0
+                     for i, n in enumerate(lens)], dev)
+        for cache in CACHES:
+            scale = cs.grid_scale(cache, mla=True)
+            c = cs.mla_grid(g, dev, torch.bfloat16, 2, nb, 1, bs, cs.MLA_DK, cache=cache)
+            for h in (16, 20):
+                q = cs.mla_grid(g, dev, torch.bfloat16, len(lens), h, cs.MLA_DK)
+                ln = cs.mla_grid(g, dev, torch.bfloat16, len(lens), cs.MLA_DK)
+                ck, cp = c.clone(), c.clone()
+                out = k11.mla_decode_attention_write(q, ln, ck, 1, sm, btt, sl, scale, cs.MLA_DV)
+                ref = k11.mla_decode_attention_write_plain(q, ln, cp, 1, sm, btt, sl, scale,
+                                                           cs.MLA_DV)
+                cs.sync()
+                what = f"K11a grid bs {bs} cache {cache or 'bf16'} H {h}"
+                assert cs.same_bytes(ck, cp), f"{what}: caches differ"
+                assert not out[-1].float().abs().any(), f"{what}: padded row not zeros"
+                worst = max(worst, cs.check_close(out, ref, what))
+            cs.free_device_memory()
+    return worst
+
+
+def writer_time(cs, dev) -> list[dict]:
+    """The row-scatter writers at the smoke's timed shapes, bf16 rows:
+    chip_smoke's writer checks (caches byte-equal to the plain versions,
+    then kernel, plain and index-assignment times)."""
+    rng = np.random.default_rng(7)
+    g = torch.Generator(device=dev).manual_seed(7)
+    bf = torch.bfloat16
+    rows = []
+    for c in (None, "int8", "fp8_e4m3"):
+        rows += [(f"K2 cache {c or 'bf16'}", lambda c=c: cs.check_writer(rng, dev, bf, True, False, cache=c)),
+                 (f"K4 cache {c or 'bf16'}", lambda c=c: cs.check_writer(rng, dev, bf, True, True, cache=c)),
+                 (f"K2b cache {c or 'bf16'}", lambda c=c: cs.check_single_writer(rng, dev, bf, True, False, cache=c)),
+                 (f"K4b cache {c or 'bf16'}", lambda c=c: cs.check_single_writer(rng, dev, bf, True, True, cache=c))]
+        for rmw in (False, True):
+            s_, chunks = cs.ILV_WRITES[rmw][0]
+            rows.append((f"K8 {'rmw' if rmw else 'prefill'} writer cache {c or 'bf16'}",
+                         lambda c=c, rmw=rmw, s_=s_, chunks=chunks: cs.check_ilv_writer(
+                             rng, dev, g, bf, c, rmw, False, s_, chunks, timed=True)))
+    for c in (None, "fp8_e4m3"):
+        s_, chunks = cs.ILV_WRITES[False][0]
+        rows += [(f"K9 prefill writer cache {c or 'bf16'}",
+                  lambda c=c, s_=s_, chunks=chunks: cs.check_ilv_writer(
+                      rng, dev, g, bf, c, False, True, s_, chunks, timed=True)),
+                 (f"K11c cache {c or 'bf16'}", lambda c=c: cs.check_latent_writer(rng, dev, bf, True, False, cache=c)),
+                 (f"K11d cache {c or 'bf16'}", lambda c=c: cs.check_latent_writer(rng, dev, bf, True, True, cache=c)),
+                 (f"K11f cache {c or 'bf16'}", lambda c=c: cs.check_single_latent_writer(rng, dev, bf, True, False, cache=c)),
+                 (f"K11g cache {c or 'bf16'}", lambda c=c: cs.check_single_latent_writer(rng, dev, bf, True, True, cache=c))]
+    out = []
+    for label, fn in rows:
+        r = fn()
+        out.append(dict(shape=label, ms=r["ms"], library_ms=r["library_ms"], plain_ms=r["plain_ms"],
+                        bound_ms=r["bound_ms"], bound_by=r["bound_by"], gflop=0.0))
+        print(f"{label}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, index assign "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+        cs.free_device_memory()
+    return out
+
+
+def decode_time(cs, k11, dev, library: bool = True) -> list[dict]:
+    """K11a at DECODE_SHAPES' 16, 20 and 128 heads on each cache
+    (chip_smoke.check_mla_decode's timing: kernel, plain, SDPA math), then
+    the writers (``writer_time``)."""
+    out = []
+    rng = np.random.default_rng(6)
+    for label, h in DECODE_SHAPES:
+        for cache in CACHES:
+            r = cs.check_mla_decode(rng, dev, torch.bfloat16, True, h=h, cache=cache)
+            lib = r["library_ms"] if library else None
+            row = dict(shape=f"{label}, cache {cache or 'bf16'}", ms=r["ms"], library_ms=lib,
+                       plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                       gflop=0.0)
+            out.append(row)
+            print(f"{row['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, SDPA "
+                  f"{lib} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+            cs.free_device_memory()
+    return out + writer_time(cs, dev)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=("prefill", "decode"), default="prefill",
+                    help="the prefill kernel (K11b, K11e) or the decode kernel (K11a)")
     ap.add_argument("--compare", type=Path, help="a checkout of another commit")
     ap.add_argument("--check-only", action="store_true", help="build and check, no timing")
     ap.add_argument("--time-root", type=Path, help=argparse.SUPPRESS)
@@ -249,21 +383,24 @@ def main() -> int:
         print("probe_mla_kernel: no CUDA card", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+    decode = args.kernel == "decode"
     if args.time_root is not None:  # one timing process of --compare
         cs, _build, k11 = _imports(args.time_root.resolve())
         _build.build_all()
-        print(json.dumps(time_shapes(cs, k11, dev, library=False)))
+        timer = decode_time if decode else time_shapes
+        print(json.dumps(timer(cs, k11, dev, library=False)))
         return 0
     cs, _build, k11 = _imports(ROOT)
     card = cs.card_line()
     print(card, flush=True)
     if args.compare is not None:
-        res = compare(args.compare.resolve())
+        res = compare(args.compare.resolve(), args.kernel)
     else:
         t0 = time.perf_counter()
         _build.build_all()
         print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
-        for line in _build.build_log.get("mla_prefill", "").splitlines():
+        source = "mla_attention" if decode else "mla_prefill"
+        for line in _build.build_log.get(source, "").splitlines():
             if "C7519" in line:  # wgmma fences the compiler placed: one line each
                 continue
             if any(w in line for w in ("registers", "spill", "warning", "error", "Compiling",
@@ -271,14 +408,19 @@ def main() -> int:
                 print(line.strip(), flush=True)
         backends = sdpa_backends(cs, dev)
         print(f"SDPA backends that take Dk {cs.MLA_DK} / dv {cs.MLA_DV}: {backends}", flush=True)
-        worst = check(cs, k11, dev)
-        print(f"checks passed: worst max-abs error {worst:.3g} ({cs.MLA_TOL})", flush=True)
-        grid = check_grid(cs, k11, dev)
+        if decode:
+            worst = decode_check(cs, k11, dev)
+            print(f"checks passed: worst max-abs error {worst:.3g} ({cs.MLA_TOL})", flush=True)
+            grid = decode_check_grid(cs, k11, dev)
+        else:
+            worst = check(cs, k11, dev)
+            print(f"checks passed: worst max-abs error {worst:.3g} ({cs.MLA_TOL})", flush=True)
+            grid = check_grid(cs, k11, dev)
         print(f"grid checks passed at block_size {cs.PAGE_SIZES}: worst {grid:.3g} "
               f"({cs.tol_text(torch.bfloat16)})", flush=True)
         res = {"worst_err": worst, "grid_err": grid, "sdpa_backends": backends}
         if not args.check_only:
-            res["timed"] = time_shapes(cs, k11, dev)
+            res["timed"] = (decode_time if decode else time_shapes)(cs, k11, dev)
     print(card)
     print(json.dumps(dict(res, card=card)))
     return 0

@@ -66,18 +66,19 @@ BATCH = 16
 # kernel-name fragments of the port's hand-written kernels (csrc/*.cu)
 OWN_KERNELS = {
     "decode_attention_kernel": "K1/K8/K9 decode_attention_write",
-    "kv_write_rows_kernel": "K2/K4/K8/K9 kv_write_rows",
+    "kv_write_rows_kernel": "K2/K4/K8/K9/K11c/K11d kv_write_rows",
     "kv_write_rmw_rm_kernel": "K9 kv_write_rmw_batched_rm",
     "prefill_attention_kernel": "K3/K8 prefill_attention",
     "prefill_tc_kernel": "K3/K8 prefill_attention",
     "gmm_bf16_kernel": "K10 gmm",
     "gmm_ws_kernel": "K10 gmm",
     "gmm_f32_kernel": "K10 gmm",
-    "mla_attention_tc_kernel<64": "K11a mla_decode_attention_write",
+    "mla_decode_kernel": "K11a mla_decode_attention_write",
+    "mla_attention_tc_kernel<64": "K11a mla_decode_attention_write",  # a parent tree
     "mla_attention_tc_kernel<1": "K11a mla_decode_attention_write",  # a parent tree
     "mla_prefill_kernel": "K11b mla_prefill_attention_batched",
     "mla_attention_tc_kernel<2": "K11b mla_prefill_attention_batched",  # a parent tree
-    "latent_write_rows_kernel": "K11c/K11d latent_write_rows",
+    "latent_write_rows_kernel": "K2/K4/K8/K9/K11c/K11d kv_write_rows",  # a parent tree
     "qmm_s8_kernel": "K5 quant_matmul_int8",
     "quantize_rows_kernel": "K5 quantize_rows_int8",
     "qmm_int8_kernel": "K5 quant_matmul_int8",  # before the s8 wgmma kernel (a parent tree)

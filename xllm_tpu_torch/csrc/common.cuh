@@ -69,24 +69,10 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// Cast of a new K/V row to the cache dtype: int8 rows arrive as integral
-// codes (exact); e4m3 rounds to nearest even and, without saturation, turns
-// a magnitude above 464 into NaN, as the JAX package's cast does.
-template <typename C>
-__device__ __forceinline__ C to_cache(float x);
-template <>
-__device__ __forceinline__ int8_t to_cache<int8_t>(float x) {
-  return static_cast<int8_t>(__float2int_rn(x));
-}
-template <>
-__device__ __forceinline__ e4m3 to_cache<e4m3>(float x) {
-  return e4m3{static_cast<uint8_t>(__nv_cvt_float_to_fp8(x, __NV_NOSAT, __NV_E4M3))};
-}
-
 // Two values -> two e4m3 bytes (a in the low byte) with the JAX package's
 // bytes, through the hardware's paired cast: cvt.rn.satfinite.e4m3x2.f32
 // rounds to nearest even and clamps to +-448 (PTX converts to e4m3 only
-// with .satfinite; to_cache's NOSAT form is a software sequence), then a
+// with .satfinite; the NOSAT form is a software sequence), then a
 // select writes the NaN byte 0x7f with the sign of x where the JAX
 // package's cast gives NaN: a magnitude above 464, infinities and NaN
 // inputs. ops/cuda/kv_write.e4m3_pair_model is this in PyTorch.

@@ -19,73 +19,97 @@
 // mla_prefill_attention_tpu's (K11e, counted apart by
 // ops/cuda/mla_attention.py).
 //
-// bf16 q on a prefill chunk runs csrc/mla_prefill.cu (wgmma + TMA); this
-// file keeps the bf16 decode kernel and the f32-q kernel of both contracts.
-// Rows are the (token, head) pairs of a chunk, token-major (row r = t * H +
-// h, the layout of q), and a decode step is a chunk of one token at
-// q_offset = seq_len - 1. All H heads of a token share the latent rows, so
-// (tokens x heads) fold into the M dimension of the products, as the TPU
-// kernel's hg * tq rows do.
-//
-// What bounds decode: bytes. A step reads every live latent row once (16
-// sequences x ~550 tokens x 640 lanes x 2 B = 11.3 MB a layer at
-// DeepSeek-V2-Lite's shapes) for ~2 x 16 x 1088 flops a row.
-//
-// Design, bf16 q (decode, tensor cores; a bf16 or an fp8 latent cache): a
-// block owns 16 rows (one m16 tile: a token's 16 heads at V2-Lite) and
-// walks its KV range KT = 64 tokens at a time through a two-stage cp.async ring in
-// shared memory. Per tile, eight warps compute S = Q K^T with mma.sync
-// m16n8k16 (f32 accumulators; K rows feed the B operand through ldmatrix,
-// V the same rows through ldmatrix.trans), an online softmax in f32 per
-// row, P rounded to bf16 (below), and P V with the dv columns split across
-// the warps (64 each at dv 512). Decode splits each sequence's context
-// across blocks (as K1 does), since 16 sequences are far fewer blocks than
-// the card has SMs; the last split to finish merges the partial (m, l,
-// acc) with per-row weights computed once and 16-byte loads.
-//
-// The new decode row: the tile loader takes position seq_len - 1 from
-// lat_new, never from the cache, and the block that owns that position
-// (row tile 0) stores the row into the cache. No block reads that cache row.
-//
-// f32 q (tests and the parity models; an f32 or an fp8 latent cache; decode
-// and prefill): the same walk with FMA on the CUDA cores, no TF32, no
-// context split.
-//
-// fp8 (e4m3) latent cache: its rows are upcast to bf16 (tensor cores) or
-// f32 on their way into shared memory, as the TPU kernels upcast pages
-// before both products; q and the output keep their own dtype. The
-// tensor-core tile loads then go through registers (16 bytes a lane,
-// converted, two 16-byte stores) rather than cp.async. The new decode row
-// arrives cast to e4m3 with the JAX package's bytes and is attended as
-// stored, as the TPU kernel attends the page it patched.
-//
 // Rounding P, on every cache but f32: the TPU kernels round the
 // unnormalised P of each page to bf16 against the row's running maximum
-// after that page, in one walk from position 0. A launch of one context
-// split over pages no longer than its tile takes those maxima in its walk:
-// each tile's page maxima, prefix-maxed over the warp's lanes. Any other
-// launch (a decode that splits its context, pages longer than the tile)
-// runs two passes of one kernel template: pass 1 (PASS1) computes S as pass
-// 2 does (the same code on the same data, so the same bits) and writes the
-// maximum of each (row, granule) of min(block_size, tile) positions; pass 2
-// prefetches each tile's granules with its latent rows and takes, for each
-// key, the running maximum M at the end of its page. Pages are at least 16
-// positions, so a page starts on an m16n8k16 step: the tensor-core P V
-// rescales the accumulators by exp(M_prev - M) before each 16-key step
-// where M moved, and l takes exp(s - M) exp(M - M_tile). Pass 1 reads the
-// latent rows a second time and costs the Q K^T product once more.
+// after that page, in one walk from position 0 (mla_attention.py:114-119:
+// m_new includes the page, p.astype(b.dtype)).
+//
+// K11a with bf16 q (bf16 or e4m3 latent cache; mla_decode_kernel below):
+// one launch a call, every latent row read from HBM once.
+//
+// What bounds it: bytes. A step reads every live latent row once (16
+// sequences x ~1,100 tokens x 640 lanes x 2 B = 18.5 MB a layer at
+// DeepSeek-V2-Lite's shapes; half on an e4m3 cache) for ~2 x 16 x 1088
+// flops a row (~27 flop/B at 16 heads, ~217 at DeepSeek-V3's 128). What
+// bounds it as built, measured on an H100 (per-phase clock counters in
+// scratch builds): a block's stream. An SM's TMA took a 16-row stage
+// (20 KB at bf16) every ~700 cycles (~25 B/cycle, with two blocks an SM),
+// and a block spent ~1,500-2,000 cycles of its own a stage, so one block
+// moves ~15-20 GB/s; a launch is as fast as its busiest block.
+//
+// Design:
+// - Balanced splits, one cooperative launch. Every (sequence, head group
+//   of 16 rows; 32 above 16 heads) pair is cut into splits of upr whole
+//   64-position units, upr the least with which the splits of all pairs
+//   fit the grid (two blocks an SM, all resident: a cooperative launch),
+//   computed in the kernel from the live seq_lens (split_units, locate;
+//   ops/cuda/mla_attention.decode_partition models it). A 4,096-token
+//   sequence beside short ones thus gets as many blocks as its units ask
+//   for, where a thread-block cluster of splits (K1's design, tried first:
+//   at most 16 blocks a sequence) left its 16 blocks streaming 330 KB each.
+//   Where even one split a pair is more than the grid (more pairs than
+//   blocks), each pair is one split and a block walks several.
+// - Loads: stages of 16 latent rows (one page segment: pages are whole
+//   multiples of 16), landed by TMA boxes of [16 rows, 128 B] (one a column
+//   block, thread 0 issues them) through a tensor map of the cache as
+//   [L * NB * bs, Dk] with the 128-byte swizzle, into a ring of stages (3
+//   at bf16 Dk 640, 5 at e4m3). An e4m3 cache lands raw (half the bytes);
+//   each stage is upcast once into a bf16 copy (integer ops, NaN bytes
+//   kept) that both products read. Every allowed block size (16, 32, 64,
+//   multiples of 64) is a whole number of stages or a divisor of 64, so
+//   TMA serves them all; there is no cp.async path (a scratch build with
+//   every stage by cp.async from all threads was 1.3-1.4x slower).
+// - Scores: Q K^T on mma.sync m16n8k16, q's A fragments kept in registers
+//   (warp w holds the k16 steps w, w + 8, ...: five at Dk 640), K by
+//   ldmatrix from the swizzled stage, each warp a partial over its steps.
+//   The partials go to one of two buffers and are summed in warp order one
+//   stage later, so a stage costs one barrier. A block keeps its split's
+//   scores [rows, positions] in f32 in shared memory (a global scratch
+//   when they outgrow 20 KB), and each granule's maximum (min(bs, 64)
+//   positions).
+// - P, rounded per page: each split publishes its maximum and granule
+//   maxima to global memory and counts itself on its pair's counter; once
+//   every split of the pair has (a spin on the counter), each stage takes
+//   the running maximum M at the end of its page: the earlier splits'
+//   maximum, its own prefix, and, where its last page runs past the split
+//   (bs > 64), the next splits' granules up to the page's end. P =
+//   bf16(exp(s - M)) replaces the score, from the same score bits, and l
+//   sums exp(s - M) exp(M - M_f) (M_f: the row's final maximum).
+// - Values: the first dv lanes of the split's rows, taken a second time
+//   by TMA right behind the scores in the same ring (the first V stages
+//   are fetched while the last K stages are scored). They come from L2:
+//   the split was just read, and a layer's latent at the engine's decode
+//   step (~18 MB) sits well inside the 50 MB L2, so each latent byte
+//   leaves HBM once. Keeping a split's rows resident instead would cost 20
+//   KB of shared memory per 16 rows. P V on mma.sync, warp w owning dv / 8
+//   value columns; the accumulators move from one stage's M to the next by
+//   exp(M_prev - M) (pages hold whole stages), and end in the final frame.
+// - Merge: each split writes its (l, acc) to global memory and counts
+//   itself; once all have, each split sums a share of the pair's outputs
+//   over the splits in split order. The last split to finish re-arms the
+//   pair's counters. A spin that outlives some seconds traps.
+// - The new row arrives in q's dtype (or f32). Split 0 of head group 0
+//   casts it (to_e4m3x2 on an e4m3 cache: the JAX package's bytes; a
+//   rounding copy on bf16) and stores it at its slot; the split that holds
+//   position seq_len - 1 writes the same bytes into its stage after the
+//   TMA lands, so the row is attended as stored and never read back from
+//   the cache. Rows of a V stage past the split's end are zeroed before P
+//   V (a cache row outside the walk may hold NaN bytes).
+//
+// f32 q (tests and the parity models; an f32 or an fp8 latent cache; decode
+// and prefill): one block per (chunk, 16-row tile) walks its rows' context
+// with FMA on the CUDA cores, no TF32, no context split. On an fp8 cache
+// with pages longer than its 32-key tile a first pass (PASS1: the same
+// score code on the same data, so the same bits) writes each row's maximum
+// per granule of min(bs, 32) positions, and the walk reads them back.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace xllm {
 namespace mla {
 
 constexpr int kWarps = 8;
 constexpr int kThreadsM = kWarps * 32;
-constexpr int kRowPad = 8;   // bf16 elements: rows 16 B apart mod 128 B
-constexpr int kSPad = 4;     // f32 score rows
-constexpr int kPPad = 8;     // bf16 probability rows
-constexpr int kMaxSplits = 32;  // context splits of one decode row tile
-constexpr int kTileGranules = 8;  // granules a tensor-core tile reads: pages of <= 512
 
 // Row limit of chunk row r: positions < limit are visible to it.
 __device__ __forceinline__ int row_limit(int r, int rows_live, int h, int kv_len,
@@ -103,414 +127,22 @@ __device__ __forceinline__ float rescale(float a, float b) {
   return b == -INFINITY ? 1.f : expf(a - b);
 }
 
+// a new f32 row's value as the cache stores it (e4m3: the JAX package's bytes)
+template <typename C>
+__device__ __forceinline__ C latent_cast(float x);
+template <>
+__device__ __forceinline__ float latent_cast<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ e4m3 latent_cast<e4m3>(float x) {
+  return e4m3{(uint8_t)(to_e4m3x2(x, 0.f) & 0xffu)};
+}
+
 __device__ __forceinline__ float latent_float(float x) { return x; }
 __device__ __forceinline__ float latent_float(e4m3 x) {
   const __half_raw h = __nv_cvt_fp8_to_halfraw((__nv_fp8_storage_t)x.bits, __NV_E4M3);
   return __half2float(__half(h));
 }
 
-template <int KT>
-size_t tc_smem_bytes(int dk) {
-  constexpr int BM = 16;
-  return (size_t)BM * (dk + kRowPad) * 2 + 2 * (size_t)KT * (dk + kRowPad) * 2 +
-         (size_t)BM * (KT + kSPad) * 4 + (size_t)BM * (KT + kPPad) * 2 +
-         (4 + KT / 16 + 2 * kTileGranules) * (size_t)BM * 4;
-}
-
-// Decode (K11a): a chunk of one token at q_offset = kv_len - 1. C: the
-// cache's element type (bf16 or e4m3); q and out are bf16.
-template <int KT, int DV, bool PASS1, typename C>
-__global__ void __launch_bounds__(kThreadsM)
-    mla_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,  // [P, S*H, Dk]
-                            const C* __restrict__ lat_new,        // [P, Dk]
-                            C* cache,                             // [L, NB, 1, bs, Dk]
-                            const int* __restrict__ slot_mapping,  // [P]
-                            const int* __restrict__ block_tables,  // [P, nbmax]
-                            const int* __restrict__ kv_lens,       // [P]
-                            float* gmax,                     // [P, S*H, ngran]
-                            __nv_bfloat16* __restrict__ out,       // [P, S*H, DV]
-                            float* part,    // [P, RT, nsplit, BM, 4 + DV]
-                            int* counters,  // [P * RT], 0 between launches
-                            int s, int h, int dk, int layer, int num_blocks,
-                            int bs, int nbmax, float scale, int chunk,
-                            int nsplit, int gran, int ngran, int in_walk) {
-  constexpr int MT = 1;  // m16 tiles a block: the 16 heads of one token
-  constexpr int BM = 16 * MT;
-  constexpr int WPM = kWarps / MT;     // warps per m16 tile in S = Q K^T
-  constexpr int NPW = (KT / 8) / WPM;  // n8 tiles of S per warp
-  constexpr int CW = DV / kWarps;      // P V columns per warp
-  constexpr int NT = CW / 8;           // n8 tiles of P V per warp
-  constexpr int CPL = KT / 32;           // softmax columns per lane
-  constexpr int KS = KT / 16;            // k16 steps of P V per tile
-  constexpr int PR = 4 + DV;  // a partial row of a split: m, l, two pad floats, acc
-  constexpr bool kBf16Cache = sizeof(C) == 2;
-  static_assert(NPW >= 1 && NT % 2 == 0 && KT == 64, "tile split");
-
-  const int rt = blockIdx.x, split = blockIdx.y, p = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int rows = s * h;
-  const int kv_len = kv_lens[p];
-  const int q_offset = kv_len - 1;
-  const int rows_live = kv_len > 0 ? (kv_len - q_offset) * h : 0;
-  const int r0 = rt * BM;
-  const size_t row_base = (size_t)p * rows;
-  __nv_bfloat16* o = out + (row_base + r0) * DV;
-  if (r0 >= rows_live) {  // padded row or bucket padding: zeros
-    if (!PASS1 && split == 0)
-      for (int i = tid; i < min(BM, rows - r0) * DV; i += kThreadsM)
-        o[i] = __float2bfloat16(0.f);
-    return;
-  }
-  const int r_last = min(r0 + BM, rows_live) - 1;
-  const int kv_end = min(kv_len, q_offset + r_last / h + 1);
-  const int nsp = (kv_end + chunk - 1) / chunk;  // splits with work
-  if (split >= nsp) return;
-  const int t_begin = split * chunk;
-  const int t_end = min(t_begin + chunk, kv_end);
-  const int gend = (kv_end + KT - 1) / KT * KT / gran;  // granules pass 1 writes
-  const int* bt = block_tables + (size_t)p * nbmax;
-
-  if (!PASS1 && rt == 0 && split == nsp - 1) {
-    const int slot = slot_mapping[p];
-    C* dst = cache + latent_row(layer, num_blocks, bs, slot / bs, slot % bs, dk);
-    for (int i = tid; i < dk; i += kThreadsM) dst[i] = lat_new[(size_t)p * dk + i];
-  }
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ldk = dk + kRowPad;
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* kvs0 = qs + BM * ldk;
-  __nv_bfloat16* kvs1 = kvs0 + KT * ldk;
-  float* ss = reinterpret_cast<float*>(kvs1 + KT * ldk);  // [BM, KT + kSPad]
-  __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(ss + BM * (KT + kSPad));
-  float* m_s = reinterpret_cast<float*>(ps + BM * (KT + kPPad));  // acc's frame
-  float* l_s = m_s + BM;
-  float* mrun_s = l_s + BM;  // running maximum before the tile (granules)
-  float* alpha_s = mrun_s + BM;  // [BM, KS] rescale before each k16 step
-  float* gt_s = alpha_s + BM * KS;  // [2, BM, kTileGranules] granules a tile reads
-  int* lim_s = reinterpret_cast<int*>(gt_s + 2 * BM * kTileGranules);
-  __shared__ int is_last;
-
-  const int dchunks = dk / 8;  // 16-byte pieces of a bf16 row
-  for (int c = tid; c < BM * dchunks; c += kThreadsM) {
-    const int r = c / dchunks, kc = (c % dchunks) * 8;
-    const bool ok = r0 + r < rows_live;
-    cp_async16(qs + r * ldk + kc, ok ? q + (row_base + r0 + r) * dk + kc : q, ok);
-  }
-  // one warp per row: the page lookup once a row, lanes on 16-byte pieces
-  auto load_tile = [&](__nv_bfloat16* dst, int t0) {
-    for (int j = warp; j < KT; j += kWarps) {
-      const int pos = t0 + j;
-      const bool ok = pos < t_end;
-      const C* src = cache;
-      if (ok)
-        src = pos == kv_len - 1
-                  ? lat_new + (size_t)p * dk
-                  : cache + latent_row(layer, num_blocks, bs, bt[pos / bs], pos % bs, dk);
-      if constexpr (kBf16Cache) {
-        for (int kc = lane * 8; kc < dk; kc += 32 * 8)
-          cp_async16(dst + j * ldk + kc, ok ? src + kc : cache, ok);  // rows past t_end: zeros
-      } else {  // 16 e4m3 values a lane, upcast through registers
-        for (int kc = lane * 16; kc < dk; kc += 32 * 16) {
-          const uint4 raw = ok ? *reinterpret_cast<const uint4*>(src + kc)
-                               : make_uint4(0u, 0u, 0u, 0u);
-          upcast16<C>(dst + j * ldk + kc, raw);
-        }
-      }
-    }
-  };
-  float* gm = gmax + (row_base + r0) * ngran;  // this tile's rows
-  // pass 2: each tile's granule maxima, prefetched with its latent rows
-  auto load_granules = [&](int buf, int t0) {
-    if (PASS1 || in_walk) return;
-    const int ng = tile_granules(t0, KT, bs, gran, gend);
-    for (int i = tid; i < BM * kTileGranules; i += kThreadsM) {
-      const int r = i / kTileGranules, k = i % kTileGranules;
-      const bool ok = r0 + r < rows && k < ng;
-      cp_async4(gt_s + buf * BM * kTileGranules + i,
-                ok ? gm + (size_t)r * ngran + t0 / gran + k : gmax, ok);
-    }
-  };
-  load_tile(kvs0, t_begin);
-  load_granules(0, t_begin);
-  cp_async_commit();
-  for (int r = tid; r < BM; r += kThreadsM) {
-    m_s[r] = -INFINITY;
-    l_s[r] = 0.f;
-    lim_s[r] = min(row_limit(r0 + r, rows_live, h, kv_len, q_offset), t_end);
-  }
-  if (!PASS1) {  // the running maximum before this split, per row (0 rows in the walk)
-    for (int r = warp; r < BM; r += kWarps) {
-      float m = -INFINITY;
-      if (r0 + r < rows)
-        for (int k = lane; k < t_begin / gran; k += 32) m = fmaxf(m, gm[(size_t)r * ngran + k]);
-      m = warp_max(m);
-      if (lane == 0) mrun_s[r] = m;
-    }
-  }
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
-
-  const int ntiles = (t_end - t_begin + KT - 1) / KT;
-  const int c0 = warp * CW;
-  for (int it = 0; it < ntiles; ++it) {
-    cp_async_wait<0>();
-    __syncthreads();  // tile it (and Q) landed; the other buffer is free
-    if (it + 1 < ntiles) {
-      load_tile((it & 1) ? kvs0 : kvs1, t_begin + (it + 1) * KT);
-      load_granules((it + 1) & 1, t_begin + (it + 1) * KT);
-    }
-    cp_async_commit();
-    const __nv_bfloat16* kv = (it & 1) ? kvs1 : kvs0;
-    const int t0 = t_begin + it * KT;
-
-    // S = Q K^T: warp (wm, wn) owns m16 tile wm and NPW n8 tiles; even
-    // and odd k steps go to two accumulator sets, so consecutive mma.sync
-    // do not wait on each other
-    {
-      const int wm = warp / WPM, wn = warp % WPM;
-      float sacc[2][NPW][4];
-#pragma unroll
-      for (int u = 0; u < 2; ++u)
-#pragma unroll
-        for (int j = 0; j < NPW; ++j)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) sacc[u][j][k] = 0.f;
-      const __nv_bfloat16* qrow = qs + (wm * 16 + (lane % 16)) * ldk + (lane / 16) * 8;
-      const __nv_bfloat16* krow = kv + (wn * NPW * 8 + (lane % 8)) * ldk + ((lane / 8) % 2) * 8;
-      auto k_step = [&](int kk, float (&acc_s)[NPW][4]) {
-        uint32_t a[4];
-        ldmatrix_x4(a, qrow + kk);
-#pragma unroll
-        for (int j = 0; j < NPW; ++j) {
-          uint32_t b[2];  // K rows are the n index, their lanes the k index
-          ldmatrix_x2(b, krow + j * 8 * ldk + kk);
-          mma_bf16(acc_s[j], a, b[0], b[1]);
-        }
-      };
-      int kk = 0;
-#pragma unroll 2
-      for (; kk + 32 <= dk; kk += 32) {
-        k_step(kk, sacc[0]);
-        k_step(kk + 16, sacc[1]);
-      }
-      if (kk < dk) k_step(kk, sacc[0]);
-#pragma unroll
-      for (int j = 0; j < NPW; ++j) {
-        const int r = wm * 16 + lane / 4, c = (wn * NPW + j) * 8 + (lane % 4) * 2;
-        *reinterpret_cast<float2*>(ss + r * (KT + kSPad) + c) =
-            make_float2(sacc[0][j][0] + sacc[1][j][0], sacc[0][j][1] + sacc[1][j][1]);
-        *reinterpret_cast<float2*>(ss + (r + 8) * (KT + kSPad) + c) =
-            make_float2(sacc[0][j][2] + sacc[1][j][2], sacc[0][j][3] + sacc[1][j][3]);
-      }
-    }
-    __syncthreads();
-
-    if constexpr (PASS1) {  // each granule's maximum, a warp a row
-      for (int r = warp; r < BM; r += kWarps) {
-        if (r0 + r >= rows) continue;
-        const int lim = lim_s[r];
-        float v[CPL];
-#pragma unroll
-        for (int u = 0; u < CPL; ++u) {
-          const int j = lane + 32 * u;
-          v[u] = t0 + j < lim ? ss[r * (KT + kSPad) + j] * scale : -INFINITY;
-        }
-        write_granules<CPL>(gm + (size_t)r * ngran, v, t0, gran, lane);
-      }
-      continue;  // the next iteration's barrier orders ss
-    }
-
-    // softmax, one warp per row, KT / 32 columns per lane: P against the
-    // running maximum at the end of each key's page (the walk's own page
-    // maxima, or the first pass's granules)
-    for (int r = warp; r < BM; r += kWarps) {
-      const int lim = lim_s[r];
-      const float* srow = ss + r * (KT + kSPad);
-      const bool has_rows = r0 + r < rows;
-      const float mrun = mrun_s[r];
-      float v[CPL], mk[CPL];
-#pragma unroll
-      for (int u = 0; u < CPL; ++u) {
-        const int j = lane + 32 * u;
-        v[u] = t0 + j < lim ? srow[j] * scale : -INFINITY;
-      }
-      float mt;  // the running maximum after this tile's granules
-      if (in_walk) {  // whole pages of <= KT keys, walked from position 0
-        walk_page_maxima<CPL>(v, mk, bs, lane);
-#pragma unroll
-        for (int u = 0; u < CPL; ++u) mk[u] = fmaxf(mk[u], mrun);
-        mt = __shfl_sync(0xffffffffu, mk[CPL - 1], 31);
-      } else {
-        const float* gt = gt_s + ((it & 1) * BM + r) * kTileGranules;
-        const float pre = has_rows ? granule_prefix(gt, mrun, t0, KT, bs, gran, gend, lane)
-                                   : -INFINITY;
-#pragma unroll
-        for (int u = 0; u < CPL; ++u)
-          mk[u] = __shfl_sync(0xffffffffu, pre, page_lane(t0, t0 + lane + 32 * u, bs, gran, gend));
-        mt = __shfl_sync(0xffffffffu, pre, tile_lane(t0, KT, gran, gend));
-        if (!has_rows) mt = -INFINITY;
-      }
-      // lane q < KS: the maximum at k16 step q (a page holds whole steps;
-      // step q starts at key 16 q, lane 16 (q % 2) of mk[q / 2]) and its
-      // rescale from step q - 1
-      const float ma = __shfl_sync(0xffffffffu, mk[0], (lane & 1) * 16);
-      const float mb = __shfl_sync(0xffffffffu, mk[CPL - 1], (lane & 1) * 16);
-      const float mstep = lane < 2 ? ma : mb;
-      const float m_old = m_s[r];
-      const float up = __shfl_up_sync(0xffffffffu, mstep, 1);
-      const float mprev = lane == 0 ? m_old : up;
-      if (lane < KS) alpha_s[r * KS + lane] = rescale(mprev, fmaxf(mprev, mstep));
-      const float m_new = fmaxf(m_old, __shfl_sync(0xffffffffu, mstep, KS - 1));
-      float psum = 0.f;
-#pragma unroll
-      for (int u = 0; u < CPL; ++u) {
-        const float pe = v[u] == -INFINITY ? 0.f : expf(v[u] - mk[u]);
-        ps[r * (KT + kPPad) + lane + 32 * u] = __float2bfloat16(pe);
-        psum += pe * rescale(mk[u], m_new);
-      }
-      const float sum = warp_sum(psum);
-      if (lane == 0) {
-        l_s[r] = l_s[r] * rescale(m_old, m_new) + sum;
-        m_s[r] = m_new;
-        mrun_s[r] = mt;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + P V over this warp's CW value columns, the
-    // accumulators rescaled before each k16 step
-#pragma unroll
-    for (int kk = 0; kk < KT; kk += 16) {
-      float lo[MT], hi[MT];
-      bool one = true;
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        lo[i] = alpha_s[(i * 16 + lane / 4) * KS + kk / 16];
-        hi[i] = alpha_s[(i * 16 + lane / 4 + 8) * KS + kk / 16];
-        one = one && lo[i] == 1.f && hi[i] == 1.f;
-      }
-      if (!__all_sync(0xffffffffu, one)) {  // within a page every step's is 1
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            acc[i][j][0] *= lo[i];
-            acc[i][j][1] *= lo[i];
-            acc[i][j][2] *= hi[i];
-            acc[i][j][3] *= hi[i];
-          }
-      }
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-        ldmatrix_x4(a[i], ps + (i * 16 + (lane % 16)) * (KT + kPPad) + kk + (lane / 16) * 8);
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t b[4];  // (k 0-7, k 8-15) of n8 tile j, then of tile j + 1
-        ldmatrix_x4_trans(b, kv + (kk + (lane % 16)) * ldk + c0 + j * 8 + (lane / 16) * 8);
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          mma_bf16(acc[i][j], a[i], b[0], b[1]);
-          mma_bf16(acc[i][j + 1], a[i], b[2], b[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-  if constexpr (PASS1) return;
-  __syncthreads();  // final m and l are visible to every warp
-  if (nsp == 1) {
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = i * 16 + lane / 4 + half * 8;
-        if (r0 + r >= rows) continue;
-        const float l = fmaxf(l_s[r], 1e-30f);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int c = c0 + j * 8 + (lane % 4) * 2;
-          *reinterpret_cast<__nv_bfloat162*>(o + (size_t)r * DV + c) =
-              __floats2bfloat162_rn(acc[i][j][2 * half] / l, acc[i][j][2 * half + 1] / l);
-        }
-      }
-    }
-    return;
-  }
-
-  // several splits: publish (m, l, acc); the last split to finish merges
-  // them and re-arms the counter (threadfence-reduction pattern, as K1)
-  float* pb = part + ((size_t)p * gridDim.x + rt) * nsplit * BM * PR;
-  float* pp = pb + (size_t)split * BM * PR;
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = i * 16 + lane / 4 + half * 8;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int c = c0 + j * 8 + (lane % 4) * 2;
-        *reinterpret_cast<float2*>(pp + (size_t)r * PR + 4 + c) =
-            make_float2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
-      }
-    }
-  }
-  for (int r = tid; r < BM; r += kThreadsM) {
-    pp[(size_t)r * PR] = m_s[r];
-    pp[(size_t)r * PR + 1] = l_s[r];
-  }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) is_last = atomicAdd(&counters[p * gridDim.x + rt], 1) == nsp - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-  // each split's weight exp(m_split - m) per row, once; then every four
-  // output columns are one weighted sum over the splits (16-byte loads,
-  // eight splits in flight)
-  __shared__ float w_s[BM * kMaxSplits];
-  __shared__ float lsum_s[BM];
-  for (int r = tid; r < BM; r += kThreadsM) {
-    float m = -INFINITY;
-    for (int sp = 0; sp < nsp; ++sp) m = fmaxf(m, __ldcg(pb + ((size_t)sp * BM + r) * PR));
-    float l = 0.f;
-    for (int sp = 0; sp < nsp; ++sp) {
-      const float* src = pb + ((size_t)sp * BM + r) * PR;
-      const float w = m == -INFINITY ? 0.f : expf(__ldcg(src) - m);
-      w_s[r * kMaxSplits + sp] = w;
-      l = fmaf(__ldcg(src + 1), w, l);
-    }
-    lsum_s[r] = fmaxf(l, 1e-30f);
-  }
-  __syncthreads();
-  for (int idx = tid; idx < BM * (DV / 4); idx += kThreadsM) {
-    const int r = idx / (DV / 4), c = (idx % (DV / 4)) * 4;
-    if (r0 + r >= rows) continue;
-    const float* src = pb + (size_t)r * PR + 4 + c;
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 8
-    for (int sp = 0; sp < nsp; ++sp) {
-      const float4 v = __ldcg(reinterpret_cast<const float4*>(src + (size_t)sp * BM * PR));
-      const float w = w_s[r * kMaxSplits + sp];
-      a.x = fmaf(v.x, w, a.x);
-      a.y = fmaf(v.y, w, a.y);
-      a.z = fmaf(v.z, w, a.z);
-      a.w = fmaf(v.w, w, a.w);
-    }
-    const float l = lsum_s[r];
-    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(o + (size_t)r * DV + c);
-    dst[0] = __floats2bfloat162_rn(a.x / l, a.y / l);
-    dst[1] = __floats2bfloat162_rn(a.z / l, a.w / l);
-  }
-  if (tid == 0) counters[p * gridDim.x + rt] = 0;
-}
 
 // ---------------------------------------------------------------------------
 // f32 q: FMA on the CUDA cores, one block per (chunk, 16-row tile)
@@ -527,7 +159,7 @@ size_t f32_smem_bytes(int dk, int dv) {
 // the page-wise running maximum; PASS1 then writes the granule maxima).
 template <bool DECODE, bool PASS1, typename C>
 __global__ void __launch_bounds__(kThreadsM)
-    mla_attention_f32_kernel(const float* __restrict__ q, const C* __restrict__ lat_new,
+    mla_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ lat_new,
                              C* cache, const int* __restrict__ slot_mapping,
                              const int* __restrict__ block_tables,
                              const int* __restrict__ q_offsets,
@@ -557,7 +189,7 @@ __global__ void __launch_bounds__(kThreadsM)
   if (!PASS1 && DECODE && rt == 0) {
     const int slot = slot_mapping[p];
     C* dst = cache + latent_row(layer, num_blocks, bs, slot / bs, slot % bs, dk);
-    for (int i = tid; i < dk; i += kThreadsM) dst[i] = lat_new[(size_t)p * dk + i];
+    for (int i = tid; i < dk; i += kThreadsM) dst[i] = latent_cast<C>(lat_new[(size_t)p * dk + i]);
   }
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -588,7 +220,7 @@ __global__ void __launch_bounds__(kThreadsM)
       const int j = i / dk, d = i % dk, pos = t0 + j;
       ks[j * (dk + 1) + d] = latent_float(
           DECODE && pos == kv_len - 1
-              ? lat_new[(size_t)p * dk + d]
+              ? latent_cast<C>(lat_new[(size_t)p * dk + d])
               : cache[latent_row(layer, num_blocks, bs, bt[pos / bs], pos % bs, dk) + d]);
     }
     __syncthreads();
@@ -669,34 +301,6 @@ __global__ void __launch_bounds__(kThreadsM)
     o[i] = acc[i] / fmaxf(l_s[i / dv], 1e-30f);
 }
 
-template <int KT, int DV, typename C>
-cudaError_t launch_tc(const void* q, const void* lat_new, void* cache, const int* sm,
-                      const int* bt, const int* kl, float* gmax, void* out, float* part,
-                      int* counters, int p, int s, int h, int dk, int layer, int num_blocks,
-                      int bs, int nbmax, float scale, int chunk, int nsplit, int gran,
-                      int ngran, cudaStream_t stream) {
-  const size_t smem = tc_smem_bytes<KT>(dk);
-  const dim3 grid((s * h + 15) / 16, nsplit, p);
-  auto run = [&](auto kernel, int in_walk) {
-    cudaError_t e = allow_smem(kernel, smem);
-    if (e != cudaSuccess) return e;
-    kernel<<<grid, kThreadsM, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const C*>(lat_new),
-        static_cast<C*>(cache), sm, bt, kl, gmax, static_cast<__nv_bfloat16*>(out), part,
-        counters, s, h, dk, layer, num_blocks, bs, nbmax, scale, chunk, nsplit, gran, ngran,
-        in_walk);
-    return cudaGetLastError();
-  };
-  // a launch of one split over pages of <= KT keys takes the page maxima
-  // in its walk; any other reads the first pass's granules
-  const int in_walk = nsplit == 1 && bs <= KT;
-  if (!in_walk) {
-    cudaError_t e = run(mla_attention_tc_kernel<KT, DV, true, C>, 0);
-    if (e != cudaSuccess) return e;
-  }
-  return run(mla_attention_tc_kernel<KT, DV, false, C>, in_walk);
-}
-
 template <bool DECODE, typename C>
 cudaError_t launch_f32(const void* q, const void* lat_new, void* cache, const int* sm,
                        const int* bt, const int* qo, const int* kl, float* gmax,
@@ -710,7 +314,7 @@ cudaError_t launch_f32(const void* q, const void* lat_new, void* cache, const in
     cudaError_t e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return e;
     kernel<<<grid, kThreadsM, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const C*>(lat_new),
+        static_cast<const float*>(q), static_cast<const float*>(lat_new),
         static_cast<C*>(cache), sm, bt, qo, kl, gmax, static_cast<float*>(out), s, h,
         dk, dv, layer, num_blocks, bs, nbmax, scale, gran, ngran, in_walk);
     return cudaGetLastError();
@@ -723,66 +327,824 @@ cudaError_t launch_f32(const void* q, const void* lat_new, void* cache, const in
   return run(mla_attention_f32_kernel<DECODE, false, C>, in_walk);
 }
 
+
 }  // namespace mla
+
+// ---------------------------------------------------------------------------
+// K11a with bf16 q: one cooperative launch, balanced context splits (head comment)
+// ---------------------------------------------------------------------------
+namespace mla_decode {
+
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kWarps = 8;
+constexpr int kRows = 16;        // latent rows a stage: a page segment, one k16 step of P V
+constexpr int kUnit = 64;        // positions of a split unit: splits are whole units
+constexpr int kMaxKs = 5;        // k16 steps of Q K^T a warp holds: Dk <= 640
+constexpr int kMaxDk = kMaxKs * kWarps * 16;
+constexpr int kMaxStages = 8;
+constexpr int kBox = kRows * 128;  // bytes of a [16 rows, 128 B] box
+constexpr int kAlign = 1024;       // the swizzled boxes' alignment
+constexpr int kSPad = 8;           // floats past a score row: paired loads on distinct banks
+constexpr int kSmemCap = kSmemMax - 1024;  // dynamic shared memory: the rest is static
+
+struct Args {
+  const __nv_bfloat16* q;  // [B, H, Dk]
+  const void* lat_new;     // [B, Dk] bf16, or f32 (new_f32)
+  void* cache;             // [L, NB, 1, bs, Dk] C
+  const int* slot_mapping;  // [B]
+  const int* block_tables;  // [B, nbmax]
+  const int* seq_lens;      // [B]
+  __nv_bfloat16* out;       // [B, H, dv]
+  float* scores;  // [grid, GM, chunk + 8] f32, or null: shared memory
+  float* pub;     // [pairs, nsp_max, (1 + chunk / gran) GM]: a split's maximum, its granules'
+  float* red;     // [pairs, nsp_max, GM (DV + 1)]: a split's acc (final frame), then its l
+  int* counters;  // [pairs, 3]: splits published, acc written, merged; 0 between launches
+  int batch, h, dk, layer, num_blocks, bs, nbmax;
+  int chunk;    // the most positions of a split (the plan's, from the table width)
+  int nsp_max;  // the most splits of a pair
+  int gran_log2;  // granule: min(bs, 64) positions
+  int stages;     // stages in the ring
+  int new_f32;
+  float scale;
+};
+
+// boxes of a stage row of n values of C (128 bytes a box)
+template <typename C>
+__host__ __device__ __forceinline__ int boxes(int n) {
+  return (n * (int)sizeof(C) + 127) / 128;
+}
+
+// Shared memory of a block: the ring; the stages' mbarriers; an e4m3
+// cache's stage upcast to bf16 [16, Dk]; the split's page rows (chunk / 16
+// + 2 ints); the warps' score partials of two stages [2, 8, GM, 16];
+// granule maxima and their prefix [chunk / gran, GM] each; each stage's
+// running maximum M and its weight exp(M - M_f) [chunk / 16, GM] each;
+// five per-row arrays and the warps' l partials [8, GM]; the scores [GM,
+// chunk + 8] (unless global). ops/cuda/mla_attention.decode_smem mirrors it.
+template <typename C, int GM>
+__host__ __device__ __forceinline__ size_t smem_bytes(int dk, int chunk, int gran_log2,
+                                                     int stages, bool smem_scores) {
+  return kAlign + (size_t)stages * boxes<C>(dk) * kBox + 8 * kMaxStages +
+         (sizeof(C) == 1 ? (size_t)boxes<__nv_bfloat16>(dk) * kBox : 0) +
+         4 * ((size_t)chunk / kRows + 2) +
+         sizeof(float) * (2 * (size_t)kWarps * GM * kRows + 2 * (size_t)(chunk >> gran_log2) * GM +
+                          2 * (size_t)(chunk / kRows) * GM + 5 * GM + kWarps * GM +
+                          (smem_scores ? (size_t)GM * (chunk + kSPad) : 0));
+}
+
+// byte offset of the 16-byte chunk c of stage row j: TMA's 128-byte
+// swizzle within each [16 rows, 128 B] box (chunk c ^ (j % 8) of its row)
+__device__ __forceinline__ int soff(int j, int c) {
+  return (c >> 3) * kBox + j * 128 + (((c & 7) ^ (j & 7)) << 4);
+}
+
+// Stage rows of an e4m3 cache (`width` values each, in soff's layout) ->
+// the same rows as bf16 in soff's layout at dst: 16 values a thread-step,
+// exact (e4m3x4_to_bf16; NaN bytes through upcast2).
+__device__ __forceinline__ void upcast_stage(const unsigned char* raw, unsigned char* dst,
+                                             int width, int tid, int nthreads) {
+  const int units = width / 16;  // 16 e4m3 values (16 bytes) a unit
+  for (int e = tid; e < kRows * units; e += nthreads) {
+    const int j = e / units, c = e % units;
+    const uint4 v = *reinterpret_cast<const uint4*>(raw + soff(j, c));
+    uint32_t o[8];
+    if (!hopper::e4m3_nan_bytes(v)) {
+      hopper::e4m3x4_to_bf16(v.x, o[0], o[1]);
+      hopper::e4m3x4_to_bf16(v.y, o[2], o[3]);
+      hopper::e4m3x4_to_bf16(v.z, o[4], o[5]);
+      hopper::e4m3x4_to_bf16(v.w, o[6], o[7]);
+    } else {
+      const uint32_t in[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        o[2 * k] = upcast2<e4m3>(in[k]);
+        o[2 * k + 1] = upcast2<e4m3>(in[k] >> 16);
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + soff(j, 2 * c)) = make_uint4(o[0], o[1], o[2], o[3]);
+    *reinterpret_cast<uint4*>(dst + soff(j, 2 * c + 1)) = make_uint4(o[4], o[5], o[6], o[7]);
+  }
+}
+
+// two values of the new row as the cache stores them (dst 2-element aligned)
+__device__ __forceinline__ void put_pair(__nv_bfloat16* dst, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void put_pair(e4m3* dst, float a, float b) {
+  *reinterpret_cast<uint16_t*>(dst) = (uint16_t)to_e4m3x2(a, b);
+}
+
+// Wait until *c reaches `target` (thread 0 polls, with acquire order; the
+// block then proceeds together). Every block of the launch is resident
+// (a cooperative launch), so the counts arrive; a wait of some 2^26 polls
+// (seconds) traps, so that a fault ends the launch with an error.
+__device__ __forceinline__ void wait_count(const int* c, int target) {
+  if (threadIdx.x == 0) {
+    uint32_t polls = 0;
+    while (true) {
+      int v;
+      asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(c) : "memory");
+      if (v >= target) break;
+      __nanosleep(100);
+      if (++polls == (1u << 26)) __trap();
+    }
+  }
+  __syncthreads();
+}
+// every thread's writes before it, then one count on *c -> the count
+// before it (thread 0; -1 elsewhere)
+__device__ __forceinline__ int signal_count(int* c) {
+  __threadfence();
+  __syncthreads();
+  return threadIdx.x == 0 ? atomicAdd(c, 1) : -1;
+}
+
+// The launch's splits: pair p = b * groups + hg has u_p = ceil(seq_len_b /
+// 64) 64-position units; every pair's splits hold upr units (the last may
+// hold fewer), upr the least with sum_p ceil(u_p / upr) <= gridDim.x, so
+// that the units spread evenly over the grid and every split of a pair is
+// resident at once. Where even one split a pair is more than the grid
+// (more pairs than blocks), each pair is one split and blocks take
+// several, one after another (no split waits on another then). Warp 0.
+__device__ __forceinline__ int split_units(const int* seq_lens, int pairs, int groups,
+                                           int max_len, int* total_splits) {
+  const int lane = threadIdx.x & 31;
+  auto units = [&](int p) {
+    const int n = min(seq_lens[p / groups], max_len);
+    return n > 0 ? (n + kUnit - 1) / kUnit : 0;
+  };
+  int total = 0, most = 0;
+  for (int p = lane; p < pairs; p += 32) {
+    total += units(p);
+    most = max(most, units(p));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    total += __shfl_xor_sync(0xffffffffu, total, o);
+    most = max(most, __shfl_xor_sync(0xffffffffu, most, o));
+  }
+  int upr = max(1, min((total + (int)gridDim.x - 1) / (int)gridDim.x, most));
+  while (true) {  // a few steps: sum ceil(u / upr) <= total / upr + pairs
+    int nsp = 0;
+    for (int p = lane; p < pairs; p += 32) nsp += (units(p) + upr - 1) / upr;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) nsp += __shfl_xor_sync(0xffffffffu, nsp, o);
+    if (nsp <= (int)gridDim.x || upr >= most) {
+      *total_splits = nsp;
+      return upr;
+    }
+    ++upr;
+  }
+}
+
+// Split `item` of the launch (splits numbered pair after pair) -> its pair
+// (-1: none), its index in the pair, the pair's splits. Warp 0.
+struct Part {
+  int pair, split, nsp;
+};
+__device__ __forceinline__ Part locate(const int* seq_lens, int pairs, int groups, int max_len,
+                                       int upr, int item) {
+  const int lane = threadIdx.x & 31;
+  int base = 0;
+  for (int p0 = 0; p0 < pairs; p0 += 32) {
+    const int p = p0 + lane;
+    const int n = p < pairs ? min(seq_lens[p / groups], max_len) : 0;
+    const int c = n > 0 ? ((n + kUnit - 1) / kUnit + upr - 1) / upr : 0;
+    int x = c;  // inclusive running count over the lanes
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    const int k = item - base;
+    const unsigned hit = __ballot_sync(0xffffffffu, c > 0 && k >= x - c && k < x);
+    if (hit) {
+      const int l = __ffs(hit) - 1;
+      const int xl = __shfl_sync(0xffffffffu, x, l), cl = __shfl_sync(0xffffffffu, c, l);
+      return Part{p0 + l, k - (xl - cl), cl};
+    }
+    base += __shfl_sync(0xffffffffu, x, 31);
+  }
+  return Part{-1, 0, 0};
+}
+
+// C: the cache's element type (bf16 or e4m3); MT m16 tiles of heads a
+// block (GM = 16 MT rows); DV value lanes.
+template <typename C, int MT, int DV>
+__global__ void __launch_bounds__(kThreads, 2)
+    mla_decode_kernel(const Args a,
+                      const __grid_constant__ CUtensorMap map) {  // the cache as [rows, Dk]
+  constexpr int GM = 16 * MT;
+  constexpr int CW = DV / kWarps;  // P V columns a warp
+  constexpr int NT = CW / 8;       // its n8 tiles
+  constexpr bool kBf16 = sizeof(C) == 2;
+  static_assert(NT % 2 == 0 && kThreads % GM == 0, "tile split");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + kAlign - 1) & ~uintptr_t(kAlign - 1));
+  __shared__ int plan_s[4];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g0 = lane >> 2, t4 = lane & 3;
+  const int groups = (a.h + GM - 1) / GM;
+  const int max_len = a.nbmax * a.bs;
+  if (blockIdx.x == 0)  // padded rows: no write, zeros
+    for (int b = 0; b < a.batch; ++b)
+      if (a.seq_lens[b] <= 0)
+        for (int i = tid; i < a.h * DV; i += kThreads)
+          a.out[(size_t)b * a.h * DV + i] = __float2bfloat16(0.f);
+  const int pairs = a.batch * groups;
+  if (warp == 0) {
+    int total;
+    const int upr = split_units(a.seq_lens, pairs, groups, max_len, &total);
+    if (lane == 0) {
+      plan_s[0] = upr;
+      plan_s[1] = total;
+    }
+  }
+  const int sbytes = boxes<C>(a.dk) * kBox;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + a.stages * sbytes);
+  if (tid == 0) {
+    for (int st = 0; st < a.stages; ++st) hopper::mbar_init(&full[st], 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  const int upr = plan_s[0], total_splits = plan_s[1];
+  int rb = 0;  // ring stages the block's earlier splits used (mbarrier phases run on)
+#pragma unroll 1
+  for (int item = blockIdx.x; item < total_splits; item += gridDim.x) {
+    if (warp == 0) {
+      const Part w = locate(a.seq_lens, pairs, groups, max_len, upr, item);
+      if (lane == 0) {
+        plan_s[2] = w.pair;
+        plan_s[3] = w.split * 65536 + w.nsp;
+      }
+    }
+    __syncthreads();
+    const Part pt{plan_s[2], plan_s[3] >> 16, plan_s[3] & 65535};
+    const int b = pt.pair / groups, hg = pt.pair % groups;
+    const int h0 = hg * GM, live = min(GM, a.h - h0);  // the group's heads
+    __nv_bfloat16* o = a.out + ((size_t)b * a.h + h0) * DV;
+    const int seq_len = min(a.seq_lens[b], max_len);
+
+    // the split: positions [cs, ce), upr units
+    const int bs = a.bs, gl = a.gran_log2, gran = 1 << gl;
+    const int chunk = upr * kUnit, nsp = pt.nsp, rank = pt.split;
+    const int cs = rank * chunk;                  // the split's first position
+    const int ce = min(cs + chunk, seq_len);      // and its end
+    const int n = (ce - cs + kRows - 1) / kRows;  // its stages
+    constexpr int kCols = 128 / (int)sizeof(C);    // values a column block
+    const int kb = boxes<C>(a.dk), vb = boxes<C>(DV);  // blocks of a K / a V stage
+    const int pg0 = cs / bs;                       // the split's first page
+    const int sp = a.chunk + kSPad;                // a score row's floats
+    const int ngr_max = a.chunk >> gl;             // granules of the largest split
+    const int pub_row = (1 + ngr_max) * GM;        // floats a split publishes
+    float* pub = a.pub + (size_t)pt.pair * a.nsp_max * pub_row;  // this pair's
+    float* red = a.red + (size_t)pt.pair * a.nsp_max * GM * (DV + 1);
+    int* cnt = a.counters + 3 * pt.pair;
+
+    // shared memory
+    unsigned char* ring = smem;
+    unsigned char* cbuf = reinterpret_cast<unsigned char*>(full + kMaxStages);  // e4m3: as bf16
+    int* prow = reinterpret_cast<int*>(cbuf + (kBf16 ? 0 : boxes<__nv_bfloat16>(a.dk) * kBox));
+    float* part = reinterpret_cast<float*>(prow + a.chunk / kRows + 2);  // [2, kWarps, GM, kRows]
+    float* gmx = part + 2 * kWarps * GM * kRows;  // [chunk / gran, GM] granule maxima
+    float* lp = gmx + ngr_max * GM;               // [chunk / gran, GM] their running prefix
+    float* mst = lp + ngr_max * GM;               // [chunk / 16, GM] each stage's M
+    float* wst = mst + (a.chunk / kRows) * GM;    // [chunk / 16, GM] exp(M - M_f)
+    float* smax = wst + (a.chunk / kRows) * GM;   // [GM] the split's maximum
+    float* mpre = smax + GM;                      // [GM] the maximum before the split
+    float* mfin = mpre + GM;                      // [GM] the row's final maximum
+    float* mover = mfin + GM;  // [GM] M of the split's last page where it runs past
+    float* ls = mover + GM;    // [GM] l
+    float* lpart = ls + GM;    // [kWarps, GM]
+    float* sc = a.scores ? a.scores + (size_t)blockIdx.x * GM * sp
+                         : lpart + kWarps * GM;  // [GM, chunk + 8] scores, then P
+
+    const int* bt = a.block_tables + (size_t)b * a.nbmax;
+    auto new_val = [&](int d) -> float {
+      const size_t i = (size_t)b * a.dk + d;
+      return a.new_f32 ? static_cast<const float*>(a.lat_new)[i]
+                       : __bfloat162float(static_cast<const __nv_bfloat16*>(a.lat_new)[i]);
+    };
+
+    // the cache row of each page of the split (read once from the block table)
+    for (int k = tid; k <= (ce - 1) / bs - pg0; k += kThreads)
+      prow[k] = (int)(((long long)a.layer * a.num_blocks + bt[pg0 + k]) * bs);
+    // q's A fragments: warp w holds k16 steps w, w + 8, ... (rows past the
+    // group's heads, and steps past Dk, are zeros)
+    const int nks = a.dk / 16;
+    uint32_t qa[MT][kMaxKs][4];
+    {
+      const __nv_bfloat16* qg = a.q + ((size_t)b * a.h + h0) * a.dk;
+      auto qpair = [&](int r, int col) -> uint32_t {
+        return r < live ? *reinterpret_cast<const uint32_t*>(qg + (size_t)r * a.dk + col) : 0u;
+      };
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int ii = 0; ii < kMaxKs; ++ii) {
+          const int ks = warp + kWarps * ii, r = mt * 16 + g0, col = ks * 16 + 2 * t4;
+          const bool ok = ks < nks;
+          qa[mt][ii][0] = ok ? qpair(r, col) : 0u;
+          qa[mt][ii][1] = ok ? qpair(r + 8, col) : 0u;
+          qa[mt][ii][2] = ok ? qpair(r, col + 8) : 0u;
+          qa[mt][ii][3] = ok ? qpair(r + 8, col + 8) : 0u;
+        }
+    }
+    // this lane's ldmatrix rows of a bf16 stage: K for Q K^T (key row lane %
+    // 8 + 8 (lane / 16), chunk half (lane / 8) % 2 of each k16 step; steps
+    // past Dk read a valid step, times q's zero fragment)
+    int koff[kMaxKs];
+#pragma unroll
+    for (int ii = 0; ii < kMaxKs; ++ii)
+      koff[ii] = soff((lane & 7) + 8 * (lane >> 4),
+                      2 * min(warp + kWarps * ii, nks - 1) + ((lane >> 3) & 1));
+    const int c0 = warp * CW;  // this warp's P V columns
+    __syncthreads();
+
+    // ring stage i: the split's K stage i (i < n; all Dk lanes), then its V
+    // stage i - n (the first DV lanes of the same rows): one 2-d box of [16
+    // rows, 128 B] a column block (lanes past Dk land as zeros), issued by
+    // thread 0
+    auto fetch = [&](int i) {
+      if (tid != 0 || i >= 2 * n) return;
+      const bool isv = i >= n;
+      const int t0 = cs + (isv ? i - n : i) * kRows;
+      const int slot = (rb + i) % a.stages;
+      unsigned char* dst = ring + slot * sbytes;
+      const int row = prow[t0 / bs - pg0] + t0 % bs;
+      const int nbx = isv ? vb : kb;
+      uint64_t* bar = &full[slot];
+      hopper::fence_async_shared();  // the slot's earlier reads before the copies' writes
+      hopper::mbar_expect_tx(bar, (uint32_t)nbx * kBox);
+      for (int bx = 0; bx < nbx; ++bx)
+        hopper::tma_load_2d(dst + bx * kBox, &map, bar, bx * kCols, row);
+    };
+    // ring stage i landed: the new row (position seq_len - 1) written in as
+    // stored (over the cache's old row the copies may bring); a V stage's
+    // rows past the split zeroed (P is 0 there, and a row may hold NaN);
+    // an e4m3 stage upcast into cbuf -> the stage as bf16
+    auto land = [&](int i) -> const unsigned char* {
+      hopper::mbar_wait(&full[(rb + i) % a.stages], ((rb + i) / a.stages) & 1);
+      const bool isv = i >= n;
+      const int t0 = cs + (isv ? i - n : i) * kRows;
+      unsigned char* st = ring + ((rb + i) % a.stages) * sbytes;
+      const int width = isv ? DV : a.dk;
+      const int j = seq_len - 1 - t0;
+      if (j >= 0 && j < kRows)
+        for (int d = 2 * tid; d < width; d += 2 * kThreads) {
+          const int byte = d * (int)sizeof(C);
+          put_pair(reinterpret_cast<C*>(st + soff(j, byte >> 4) + (byte & 15)), new_val(d),
+                   new_val(d + 1));
+        }
+      if (isv && t0 + kRows > ce) {
+        const int j0 = ce - t0, chunks = vb * 8;
+        for (int e = tid; e < (kRows - j0) * chunks; e += kThreads)
+          *reinterpret_cast<uint4*>(st + soff(j0 + e / chunks, e % chunks)) =
+              make_uint4(0u, 0u, 0u, 0u);
+      }
+      __syncthreads();  // the stage complete (and, e4m3, the last stage's bf16 copy read)
+      if constexpr (kBf16) {
+        return st;
+      } else {
+        upcast_stage(st, cbuf, (width + 15) / 16 * 16, tid, kThreads);
+        __syncthreads();
+        return cbuf;
+      }
+    };
+
+#pragma unroll 1
+    for (int s = 0; s < a.stages - 1; ++s) fetch(s);
+
+    if (rank == 0 && hg == 0) {  // write, then read: the new row at its slot
+      const int slot = a.slot_mapping[b];
+      C* dst = static_cast<C*>(a.cache) +
+               (((size_t)a.layer * a.num_blocks + slot / bs) * bs + slot % bs) * a.dk;
+      for (int d = 2 * tid; d < a.dk; d += 2 * kThreads)
+        put_pair(dst + d, new_val(d), new_val(d + 1));
+    }
+
+    // phase A: the scores of the split's K stages (-inf past its end), and
+    // the running maximum of each granule (a stage lies in one granule). One
+    // barrier a stage: the partials go to one of two buffers, and the sum of
+    // stage i - 1 runs after stage i's barrier, beside stage i's products
+    const int spg = gran / kRows;  // stages a granule
+    auto reduce = [&](int i) {  // stage i's partials -> its scores and granule maximum
+      const float* pp = part + (i & 1) * kWarps * GM * kRows;
+      const int t0 = cs + i * kRows;
+      const bool first = i % spg == 0;
+      float* gk = gmx + (i / spg) * GM;
+#pragma unroll
+      for (int e0 = 0; e0 < GM * kRows; e0 += kThreads) {  // 16 lanes a row, the same each stage
+        const int row = (e0 + tid) >> 4, key = tid & 15;
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) s += pp[(w * GM + row) * kRows + key];
+        const float x = t0 + key < ce ? s * a.scale : -INFINITY;
+        sc[row * sp + i * kRows + key] = x;
+        float m = x;
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+        if (key == 0) gk[row] = first ? m : fmaxf(gk[row], m);
+      }
+    };
+#pragma unroll 1
+    for (int i = 0; i < n; ++i) {
+      const unsigned char* st = land(i);
+      fetch(i + a.stages - 1);  // into stage i - 1's slot, consumed before land's barrier
+      float d[MT][2][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) d[mt][nt][e] = 0.f;
+      uint32_t kf[kMaxKs][4];  // (k 0-7, k 8-15) of keys 0-7, then of keys 8-15
+#pragma unroll
+      for (int ii = 0; ii < kMaxKs; ++ii) ldmatrix_x4(kf[ii], st + koff[ii]);
+#pragma unroll
+      for (int ii = 0; ii < kMaxKs; ++ii)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(d[mt][0], qa[mt][ii], kf[ii][0], kf[ii][1]);
+          mma_bf16(d[mt][1], qa[mt][ii], kf[ii][2], kf[ii][3]);
+        }
+      float* pp = part + (i & 1) * kWarps * GM * kRows;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          float* pw = pp + ((warp * GM + mt * 16 + g0) * kRows) + 8 * nt + 2 * t4;
+          *reinterpret_cast<float2*>(pw) = make_float2(d[mt][nt][0], d[mt][nt][1]);
+          *reinterpret_cast<float2*>(pw + 8 * kRows) = make_float2(d[mt][nt][2], d[mt][nt][3]);
+        }
+      if (i > 0) reduce(i - 1);  // its partials were complete at land's barrier
+    }
+    __syncthreads();
+    reduce(n - 1);
+
+    // the split's granule maxima: their running prefix, its maximum; both
+    // published with the granules for the pair's other splits
+    __syncthreads();
+    const int ng = (n + spg - 1) / spg;
+    for (int g = warp; g < GM; g += kWarps) {
+      float carry = -INFINITY;
+      for (int k0 = 0; k0 < ng; k0 += 32) {
+        float x = k0 + lane < ng ? gmx[(k0 + lane) * GM + g] : -INFINITY;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const float y = __shfl_up_sync(0xffffffffu, x, off);
+          if (lane >= off) x = fmaxf(x, y);
+        }
+        x = fmaxf(x, carry);
+        if (k0 + lane < ng) lp[(k0 + lane) * GM + g] = x;
+        carry = __shfl_sync(0xffffffffu, x, 31);
+      }
+      if (lane == 0) smax[g] = carry;
+    }
+    __syncthreads();
+    float* mine = pub + (size_t)rank * pub_row;
+    for (int i = tid; i < (1 + ng) * GM; i += kThreads) mine[i] = i < GM ? smax[i] : gmx[i - GM];
+    signal_count(&cnt[0]);
+    wait_count(&cnt[0], nsp);  // every split of the pair published
+
+    // per row: the maximum before the split, the final one, and M of the
+    // split's last page where it runs past the split (the next splits'
+    // granules up to the page's end)
+    const int e_over = min(((ce - 1) / bs + 1) * bs, seq_len);
+    for (int g = warp; g < GM; g += kWarps) {
+      float pre = -INFINITY, all = -INFINITY;
+      for (int s2 = lane; s2 < nsp; s2 += 32) {
+        const float m = __ldcg(pub + (size_t)s2 * pub_row + g);
+        all = fmaxf(all, m);
+        if (s2 < rank) pre = fmaxf(pre, m);
+      }
+      pre = warp_max(pre);
+      all = warp_max(all);
+      float over = -INFINITY;
+      for (int p = ce + (lane << gl); p < e_over; p += 32 << gl) {
+        const int s2 = p / chunk, k = (p - s2 * chunk) >> gl;
+        over = fmaxf(over, __ldcg(pub + (size_t)s2 * pub_row + GM + k * GM + g));
+      }
+      over = warp_max(over);
+      if (lane == 0) {
+        mpre[g] = pre;
+        mfin[g] = all;
+        mover[g] = fmaxf(fmaxf(pre, smax[g]), over);
+      }
+    }
+    __syncthreads();
+    // M of each stage: the running maximum at the end of its page; its weight
+    for (int idx = tid; idx < n * GM; idx += kThreads) {
+      const int u = idx / GM, g = idx % GM;
+      const int e = min(((cs + u * kRows) / bs + 1) * bs, seq_len);
+      const float m = e <= ce ? fmaxf(mpre[g], lp[(((e - cs + gran - 1) >> gl) - 1) * GM + g])
+                              : mover[g];
+      mst[idx] = m;
+      wst[idx] = expf(m - mfin[g]);
+    }
+    __syncthreads();
+    // P = bf16(exp(s - M)) in place of the scores; l in the final frame. A
+    // warp walks rows g = warp, warp + 8, ..., each lane a pair of positions
+#pragma unroll
+    for (int r = 0; r < GM / kWarps; ++r) {
+      const int g = warp + kWarps * r;
+      float* row = sc + g * sp;
+      float l = 0.f;
+      for (int p = 2 * lane; p < n * kRows; p += 64) {
+        const float m = mst[(p / kRows) * GM + g], w = wst[(p / kRows) * GM + g];
+        const float2 s2v = *reinterpret_cast<const float2*>(row + p);
+        const float pe0 = s2v.x == -INFINITY ? 0.f : expf(s2v.x - m);
+        const float pe1 = s2v.y == -INFINITY ? 0.f : expf(s2v.y - m);
+        l += (pe0 + pe1) * w;
+        *reinterpret_cast<float2*>(row + p) = make_float2(round_bf16(pe0), round_bf16(pe1));
+      }
+      l = warp_sum(l);
+      if (lane == 0) ls[g] = l;
+    }
+
+    // phase C: acc += P V over the split's V stages, warp w owning value
+    // columns [w CW, (w + 1) CW), each stage in its own page's frame
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+#pragma unroll 1
+    for (int i = n; i < 2 * n; ++i) {
+      const unsigned char* vs = land(i);
+      fetch(i + a.stages - 1);  // into stage i - 1's slot, consumed before land's barrier
+      const int u = i - n;
+      // the accumulators into this stage's frame (pages hold whole stages)
+      if (u > 0) {
+        float lo[MT], hi[MT];
+        bool one = true;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const float* m1 = mst + u * GM + mt * 16 + g0;
+          const float* m0 = m1 - GM;
+          lo[mt] = m0[0] == m1[0] ? 1.f : expf(m0[0] - m1[0]);
+          hi[mt] = m0[8] == m1[8] ? 1.f : expf(m0[8] - m1[8]);
+          one = one && lo[mt] == 1.f && hi[mt] == 1.f;
+        }
+        if (!__all_sync(0xffffffffu, one)) {
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+              acc[mt][j][0] *= lo[mt];
+              acc[mt][j][1] *= lo[mt];
+              acc[mt][j][2] *= hi[mt];
+              acc[mt][j][3] *= hi[mt];
+            }
+        }
+      }
+      // P's A fragments (bf16 values held in f32: exact)
+      uint32_t pa[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const float* pr = sc + (mt * 16 + g0) * sp + u * kRows + 2 * t4;
+        const float2 p00 = *reinterpret_cast<const float2*>(pr);
+        const float2 p10 = *reinterpret_cast<const float2*>(pr + 8 * sp);
+        const float2 p01 = *reinterpret_cast<const float2*>(pr + 8);
+        const float2 p11 = *reinterpret_cast<const float2*>(pr + 8 * sp + 8);
+        pa[mt][0] = bf16x2_bits(p00.x, p00.y);
+        pa[mt][1] = bf16x2_bits(p10.x, p10.y);
+        pa[mt][2] = bf16x2_bits(p01.x, p01.y);
+        pa[mt][3] = bf16x2_bits(p11.x, p11.y);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t bb[4];  // (k 0-7, k 8-15) of n8 tile j, then of tile j + 1
+        ldmatrix_x4_trans(bb, vs + soff(lane & 15, (c0 >> 3) + j + (lane >> 4)));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(acc[mt][j], pa[mt], bb[0], bb[1]);
+          mma_bf16(acc[mt][j + 1], pa[mt], bb[2], bb[3]);
+        }
+      }
+    }
+
+    // the split's acc [GM, DV] in the final frame, and its l, for the merge
+    float* myred = red + (size_t)rank * GM * (DV + 1);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = mt * 16 + g0 + 8 * half;
+        const float f = wst[(n - 1) * GM + r];
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          __stcg(reinterpret_cast<float2*>(myred + (size_t)r * DV + c0 + j * 8 + 2 * t4),
+                 make_float2(acc[mt][j][2 * half] * f, acc[mt][j][2 * half + 1] * f));
+      }
+    if (tid < GM) myred[GM * DV + tid] = ls[tid];
+    signal_count(&cnt[1]);
+    wait_count(&cnt[1], nsp);  // every split's (l, acc) written
+
+    // the merge, in split order: l per row once, then each split a share of
+    // the live rows' outputs, four at a time
+    if (tid < GM) {
+      float l = 0.f;
+      for (int s2 = 0; s2 < nsp; ++s2)
+        l += __ldcg(red + (size_t)s2 * GM * (DV + 1) + GM * DV + tid);
+      lpart[tid] = l;
+    }
+    __syncthreads();
+    const int total = live * (DV / 4), per = (total + nsp - 1) / nsp;
+    for (int i = rank * per + tid; i < min(total, (rank + 1) * per); i += kThreads) {
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int s2 = 0; s2 < nsp; ++s2) {
+        const float4 v =
+            __ldcg(reinterpret_cast<const float4*>(red + (size_t)s2 * GM * (DV + 1)) + i);
+        s.x += v.x;
+        s.y += v.y;
+        s.z += v.z;
+        s.w += v.w;
+      }
+      const float l = lpart[i / (DV / 4)];
+      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(o + (size_t)i * 4);
+      dst[0] = l > 0.f ? __floats2bfloat162_rn(s.x / l, s.y / l) : __floats2bfloat162_rn(0.f, 0.f);
+      dst[1] = l > 0.f ? __floats2bfloat162_rn(s.z / l, s.w / l) : __floats2bfloat162_rn(0.f, 0.f);
+    }
+    // the last split of the pair to finish re-arms its counters
+    if (signal_count(&cnt[2]) == nsp - 1) {
+      cnt[0] = 0;
+      cnt[1] = 0;
+      cnt[2] = 0;
+    }
+    rb += 2 * n;
+    __syncthreads();  // the split's shared memory read before the next one's
+  }
+}
+
+template <typename C, int MT, int DV>
+cudaError_t launch(const Args& a, int grid, long long rows, cudaStream_t stream) {
+  auto kernel = mla_decode_kernel<C, MT, DV>;
+  constexpr int kElem = (int)sizeof(C), kCols = 128 / kElem;
+  const CUtensorMapDataType type =
+      kElem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  CUtensorMap map{};
+  cudaError_t err = hopper::encode_2d_cached(&map, a.cache, type, kElem, rows, a.dk, kRows,
+                                             kCols, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  const size_t smem = smem_bytes<C, 16 * MT>(a.dk, a.chunk, a.gran_log2, a.stages,
+                                            a.scores == nullptr);
+  if (smem > (size_t)kSmemCap) return cudaErrorInvalidValue;
+  static AllowSmemOnce allow;  // the most, once
+  err = allow(kernel, kSmemCap);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  // every block resident: the splits of a pair wait on each other
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, a, map);  // a grid too large to be resident is refused
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// blocks of this instance an SM holds at once with `smem` bytes of shared
+// memory a block
+template <typename C, int MT, int DV>
+cudaError_t blocks_per_sm(size_t smem, int* out) {
+  auto kernel = mla_decode_kernel<C, MT, DV>;
+  static AllowSmemOnce allow;
+  cudaError_t err = allow(kernel, kSmemCap);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, kThreads, smem);
+}
+
+}  // namespace mla_decode
 }  // namespace xllm
 
-// decode != 0: K11a (s == 1, q_offsets unused, lat_new and slot_mapping
-// read); else K11b with f32 q (lat_new and slot_mapping unused). qtype
-// bf16 (tensor cores, decode only) takes a bf16 or e4m3 cache, dk % 16 == 0
-// and dv in {128, 256, 512}, and splits the context into nsplit <= 32
-// chunks of `chunk` positions; qtype f32 takes an f32 or e4m3 cache, any dk
-// and dv <= dk, and does not split. Every cache but f32 needs gmax [P, S*H, ngran] with
-// gran = min(bs, tile) (tile 64 for bf16 q, 32 for f32), bs a divisor or
-// a multiple of the tile, and ngran >= ceil(nbmax * bs / tile) * tile / gran.
+// K11a with bf16 q: dtype the cache's (bf16 or e4m3); lat_new bf16, or f32
+// (new_f32); gm 16 or 32 rows a block (heads in groups of gm); grid: the
+// blocks, at most those the card holds at once; chunk: the most positions
+// of a split, a multiple of 64 (the kernel cuts upr 64-position units a
+// split from the live lengths; upr * 64 <= chunk for any lengths up to
+// nbmax * bs); nsp_max: the most splits of a pair (>= the table's units,
+// or the grid); gran_log2: log2 of min(bs, 64); stages: 2-8 ring stages;
+// scores: [grid, gm, chunk + 8] f32, or null to keep the scores in shared
+// memory; pub [pairs, nsp_max, (1 + chunk / gran) gm] and red [pairs,
+// nsp_max, gm (dv + 1)] f32; counters [pairs, 3] int, zeros (the kernel
+// leaves them so). dk a multiple of 16 up to 640, dv 128, 256 or 512, bs a
+// multiple of 16 that divides 64 or is a multiple of it.
+extern "C" int xllm_mla_decode(int device, const void* q, const void* lat_new, void* cache,
+                               const void* slot_mapping, const void* block_tables,
+                               const void* seq_lens, void* out, void* scores, void* pub,
+                               void* red, void* counters, int dtype, int new_f32, int batch,
+                               int h, int dk, int dv, int layer, int num_layers,
+                               int num_blocks, int bs, int nbmax, float scale, int gm, int grid,
+                               int chunk, int nsp_max, int gran_log2, int stages, void* stream) {
+  using namespace xllm::mla_decode;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const long long rows = (long long)num_layers * num_blocks * bs;
+  if (grid < 1 || chunk <= 0 || chunk % kUnit || batch < 1 || h < 1 || dk % 16 ||
+      dk > kMaxDk || bs % kRows || (bs < kUnit ? kUnit % bs : bs % kUnit) || gran_log2 < 4 ||
+      (1 << gran_log2) != (bs < kUnit ? bs : kUnit) || stages < 2 || stages > kMaxStages ||
+      rows >= (1ll << 31) || (gm != 16 && gm != 32) || !pub || !red || !counters ||
+      nsp_max < 1)
+    return (int)cudaErrorInvalidValue;
+  xllm::mla_decode::Args a;
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.lat_new = lat_new;
+  a.cache = cache;
+  a.slot_mapping = static_cast<const int*>(slot_mapping);
+  a.block_tables = static_cast<const int*>(block_tables);
+  a.seq_lens = static_cast<const int*>(seq_lens);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.scores = static_cast<float*>(scores);
+  a.pub = static_cast<float*>(pub);
+  a.red = static_cast<float*>(red);
+  a.counters = static_cast<int*>(counters);
+  a.batch = batch;
+  a.h = h;
+  a.dk = dk;
+  a.layer = layer;
+  a.num_blocks = num_blocks;
+  a.bs = bs;
+  a.nbmax = nbmax;
+  a.chunk = chunk;
+  a.nsp_max = nsp_max;
+  a.gran_log2 = gran_log2;
+  a.stages = stages;
+  a.new_f32 = new_f32;
+  a.scale = scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define XLLM_LAUNCH(C, MT, DV) \
+  if (dv == DV) return (int)launch<C, MT, DV>(a, grid, rows, st);
+#define XLLM_VALUE_DIMS(C, MT) \
+  XLLM_LAUNCH(C, MT, 512) XLLM_LAUNCH(C, MT, 256) XLLM_LAUNCH(C, MT, 128)
+#define XLLM_GROUPS(C)                           \
+  if (gm == 16) { XLLM_VALUE_DIMS(C, 1) }        \
+  if (gm == 32) { XLLM_VALUE_DIMS(C, 2) }
+  if (dtype == XLLM_DTYPE_BF16) { XLLM_GROUPS(__nv_bfloat16) }
+  if (dtype == XLLM_DTYPE_E4M3) { XLLM_GROUPS(xllm::e4m3) }
+#undef XLLM_GROUPS
+#undef XLLM_VALUE_DIMS
+#undef XLLM_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// *out: the blocks of the instance (dtype, gm, dv) an SM holds at once,
+// each with `smem` bytes of shared memory
+extern "C" int xllm_mla_decode_blocks_per_sm(int device, int dtype, int gm, int dv,
+                                             long long smem, int* out) {
+  using namespace xllm::mla_decode;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+#define XLLM_QUERY(C, MT, DV) \
+  if (dv == DV) return (int)blocks_per_sm<C, MT, DV>((size_t)smem, out);
+#define XLLM_VALUE_DIMS(C, MT) \
+  XLLM_QUERY(C, MT, 512) XLLM_QUERY(C, MT, 256) XLLM_QUERY(C, MT, 128)
+#define XLLM_GROUPS(C)                    \
+  if (gm == 16) { XLLM_VALUE_DIMS(C, 1) } \
+  if (gm == 32) { XLLM_VALUE_DIMS(C, 2) }
+  if (dtype == XLLM_DTYPE_BF16) { XLLM_GROUPS(__nv_bfloat16) }
+  if (dtype == XLLM_DTYPE_E4M3) { XLLM_GROUPS(xllm::e4m3) }
+#undef XLLM_GROUPS
+#undef XLLM_VALUE_DIMS
+#undef XLLM_QUERY
+  return (int)cudaErrorInvalidValue;
+}
+
+// K11a / K11b with f32 q: decode != 0 is K11a (s == 1, q_offsets unused,
+// lat_new (f32, cast here) and slot_mapping read); else K11b
+// (lat_new and slot_mapping unused). The cache is f32 or e4m3; any dk and
+// dv <= dk; no context split. An e4m3 cache needs gmax [P, S*H, ngran] with
+// gran = min(bs, 32), bs a divisor or a multiple of 32, and ngran >=
+// ceil(nbmax * bs / 32) * 32 / gran.
 extern "C" int xllm_mla_attention(int device, int decode, const void* q,
                                   const void* lat_new, void* cache,
                                   const void* slot_mapping, const void* block_tables,
                                   const void* q_offsets, const void* kv_lens,
-                                  void* gmax, void* out, void* part, void* counters,
-                                  int dtype, int qtype, int p, int s, int h, int dk,
-                                  int dv, int layer, int num_blocks, int bs, int nbmax,
-                                  float scale, int chunk, int nsplit, int gran,
-                                  int ngran, void* stream) {
+                                  void* gmax, void* out, int dtype, int p, int s, int h,
+                                  int dk, int dv, int layer, int num_blocks, int bs,
+                                  int nbmax, float scale, int gran, int ngran, void* stream) {
   using namespace xllm::mla;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (p > 65535 || nsplit > kMaxSplits || chunk <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int tile = qtype == XLLM_DTYPE_BF16 ? 64 : kFT;
-  if (dtype != XLLM_DTYPE_F32 && dtype != XLLM_DTYPE_BF16 &&
-      (gran != (bs < tile ? bs : tile) || (bs < tile ? tile % bs : bs % tile) ||
-       (long long)ngran * gran < ((long long)nbmax * bs + tile - 1) / tile * tile))
-    return (int)cudaErrorInvalidValue;
-  if (dtype == XLLM_DTYPE_BF16 &&
-      (gran != (bs < tile ? bs : tile) || (bs < tile ? tile % bs : bs % tile) || bs < 16 ||
-       (qtype == XLLM_DTYPE_BF16 && bs > kTileGranules * tile) ||
-       (long long)ngran * gran < ((long long)nbmax * bs + tile - 1) / tile * tile))
+  if (p > 65535 || dv > dk) return (int)cudaErrorInvalidValue;
+  if (dtype == XLLM_DTYPE_E4M3 &&
+      (gran != (bs < kFT ? bs : kFT) || (bs < kFT ? kFT % bs : bs % kFT) ||
+       (long long)ngran * gran < ((long long)nbmax * bs + kFT - 1) / kFT * kFT))
     return (int)cudaErrorInvalidValue;
   const int* sm = static_cast<const int*>(slot_mapping);
   const int* bt = static_cast<const int*>(block_tables);
   const int* qo = static_cast<const int*>(q_offsets);
   const int* kl = static_cast<const int*>(kv_lens);
   float* gm = static_cast<float*>(gmax);
-  float* pt = static_cast<float*>(part);
-  int* ct = static_cast<int*>(counters);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (qtype == XLLM_DTYPE_BF16) {
-    if (!decode || s != 1 || dk % 16 || bs < 16 || bs > kTileGranules * 64)
-      return (int)cudaErrorInvalidValue;  // bf16 prefill: csrc/mla_prefill.cu
-#define XLLM_LAUNCH(C, DV)                                                             \
-  if (dv == DV)                                                                       \
-    return (int)launch_tc<64, DV, C>(q, lat_new, cache, sm, bt, kl, gm, out, pt, ct, p, s, \
-                                     h, dk, layer, num_blocks, bs, nbmax, scale, chunk,    \
-                                     nsplit, gran, ngran, st);
-#define XLLM_VALUE_DIMS(C) XLLM_LAUNCH(C, 512) XLLM_LAUNCH(C, 256) XLLM_LAUNCH(C, 128)
-    if (dtype == XLLM_DTYPE_BF16) { XLLM_VALUE_DIMS(__nv_bfloat16) }
-    if (dtype == XLLM_DTYPE_E4M3) { XLLM_VALUE_DIMS(xllm::e4m3) }
-#undef XLLM_VALUE_DIMS
-#undef XLLM_LAUNCH
-    return (int)cudaErrorInvalidValue;
-  }
-  if (qtype == XLLM_DTYPE_F32) {
-    if (dv > dk) return (int)cudaErrorInvalidValue;
 #define XLLM_LAUNCH(C)                                                                \
   return decode ? (int)launch_f32<true, C>(q, lat_new, cache, sm, bt, qo, kl, gm, out, p, \
                                            s, h, dk, dv, layer, num_blocks, bs, nbmax,    \
@@ -790,9 +1152,8 @@ extern "C" int xllm_mla_attention(int device, int decode, const void* q,
                 : (int)launch_f32<false, C>(q, lat_new, cache, sm, bt, qo, kl, gm, out, p, \
                                             s, h, dk, dv, layer, num_blocks, bs, nbmax,    \
                                             scale, gran, ngran, st);
-    if (dtype == XLLM_DTYPE_F32) { XLLM_LAUNCH(float) }
-    if (dtype == XLLM_DTYPE_E4M3) { XLLM_LAUNCH(xllm::e4m3) }
+  if (dtype == XLLM_DTYPE_F32) { XLLM_LAUNCH(float) }
+  if (dtype == XLLM_DTYPE_E4M3) { XLLM_LAUNCH(xllm::e4m3) }
 #undef XLLM_LAUNCH
-  }
   return (int)cudaErrorInvalidValue;
 }

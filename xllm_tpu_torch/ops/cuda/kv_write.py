@@ -56,9 +56,10 @@ whole pages.) Rows in another dtype than the cache's are cast to it: bf16
 or f32 rows bound for an fp8 cache by the kernel itself, with the JAX
 package's bytes (``ops.quant.to_e4m3`` in the plain version), any other
 pair by ``Tensor.to`` before the launch; int8 codes are copied as bytes.
-The RMW writer casts to e4m3 through the paired hardware cast and a NaN
-select (``e4m3_pair_model``). Bound on the card: bytes; see the CUDA
-source.
+Every writer casts to e4m3 through the paired hardware cast and a NaN
+select (``e4m3_pair_model``). The row scatter moves whole 16-byte units of
+a row, the values outside them one by one (``unit_partition``). Bound on
+the card: bytes; see the CUDA source.
 """
 
 from __future__ import annotations
@@ -134,6 +135,19 @@ def rmw_cluster_share(hkv: int, bs: int, head_dim: int, elem: int, w0: int,
     early = w < w0
     token_major = w * (2 * hkv * per_head) + c * per_head + u
     return i, (i - rank * per)[early], token_major[early]
+
+
+def unit_partition(offset: int, width: int, elem: int) -> tuple[int, int, int]:
+    """How the row scatter (csrc/kv_write.cu ``kv_write_rows_kernel``)
+    writes a cache row of ``width`` values of ``elem`` bytes that starts
+    ``offset`` bytes past a 16-byte boundary -> (head, units, tail): the
+    first ``head`` values one by one up to the next 16-byte boundary, then
+    ``units`` whole 16-byte units of 16 // elem values, then the last
+    ``tail`` values one by one."""
+    vec = 16 // elem
+    head = min(width, (16 - offset % 16) % 16 // elem)
+    units = (width - head) // vec
+    return head, units, width - head - units * vec
 
 
 def e4m3_pair_model(x: torch.Tensor) -> torch.Tensor:

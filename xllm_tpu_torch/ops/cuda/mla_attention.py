@@ -25,11 +25,16 @@ them, in the kernels and their plain versions alike. A row with ``seq_len``/``kv
 0 (a padded row) and a query row past its chunk's ``kv_len - q_offset``
 (bucket padding) come out as zeros (the TPU kernels attend a padding
 row to all of ``[0, kv_len)``; nothing reads it). Bound on the card: bytes at decode,
-operations at prefill; the design notes are in the CUDA sources. Decode
-splits each row's context across up to 32 blocks. A bf16-q prefill runs
-``csrc/mla_prefill.cu`` (wgmma + TMA, 64-row tiles), which splits the
-context when its row tiles alone give few blocks (``prefill_plan``). An
-f32-q prefill runs ``csrc/mla_attention.cu``'s f32 kernel.
+operations at prefill; the design notes are in the CUDA sources. A bf16-q
+decode is one cooperative launch of ``csrc/mla_attention.cu``'s
+``mla_decode_kernel``: the live 64-position units of every (sequence, head
+group) spread evenly over a grid of resident blocks, the splits of a pair
+exchanging maxima and merging through global memory (``decode_plan`` sizes
+the grid, ``decode_partition`` is the kernel's cut); the new row arrives
+uncast and is cast in the kernel. A bf16-q prefill runs ``csrc/mla_prefill.cu`` (wgmma + TMA,
+64-row tiles), which splits the context when its row tiles alone give few
+blocks (``prefill_plan``). An f32-q call (decode or prefill) runs
+``csrc/mla_attention.cu``'s f32 kernel.
 """
 
 from __future__ import annotations
@@ -175,8 +180,8 @@ def mla_prefill_attention_plain(
 
 
 _lib = None
-_TILE = 64  # KT of the decode build: a context split is a multiple of it
-_MAX_SPLITS = 32  # kMaxSplits of csrc/mla_attention.cu
+_TILE = 64  # the bf16 kernels' key tile: block sizes divide it or are multiples of it
+_MAX_SPLITS = 32  # kMaxSplits of csrc/mla_prefill.cu
 # per-device int32 split counters; the kernel leaves them at 0
 _counters: dict[torch.device, torch.Tensor] = {}
 
@@ -185,24 +190,136 @@ def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load(_SOURCE)
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.xllm_mla_attention.argtypes = [
-            i, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i,
-            ctypes.c_float, i, i, i, i, p,
+            i, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f, i, i, p,
         ]
         lib.xllm_mla_attention.restype = i
+        lib.xllm_mla_decode.argtypes = [
+            i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, f, i, i, i, i,
+            i, i, p,
+        ]
+        lib.xllm_mla_decode.restype = i
+        lib.xllm_mla_decode_blocks_per_sm.argtypes = [i, i, i, i, ctypes.c_longlong, p]
+        lib.xllm_mla_decode_blocks_per_sm.restype = i
         _lib = lib
     return _lib
 
 
-def split_plan(max_ctx: int, max_splits: int = _MAX_SPLITS) -> tuple[int, int]:
-    """-> (chunk, nsplit) of a launch: context splits of ``chunk``
-    positions, a multiple of the tile, at most ``max_splits`` of them over
-    ``max_ctx`` (sized from the block-table width, so the launch reads
-    nothing back from the card)."""
-    tiles = -(-max_ctx // _TILE)
-    chunk = _TILE * max(1, -(-tiles // max_splits))
-    return chunk, max(1, -(-max_ctx // chunk))
+# csrc/mla_attention.cu mla_decode_kernel (K11a, bf16 q): 256 threads, 16
+# or 32 head rows a block, stages of 16 latent rows in a ring, splits of
+# whole 64-position units
+_DECODE_ROWS = 16  # kRows: latent rows a stage
+_DECODE_UNIT = 64  # kUnit
+_DECODE_MAX_DK = 640  # kMaxDk: q's A fragments of five k16 steps a warp
+_DECODE_MAX_STAGES = 8  # kMaxStages
+_DECODE_RING = 80 * 1024  # the most bytes of ring a block takes
+# two blocks an SM: an H100 SM's 228 KB of shared memory, 1 KB reserved a
+# block, a few bytes of static shared memory
+_DECODE_SMEM_BLOCK = 233472 // 2 - 1024 - 128
+_DECODE_BLOCKS_PER_SM = 2  # the registers of 256 threads at 128 a thread allow two
+_DECODE_SCORE_SMEM = 20 * 1024  # a block keeps its scores in shared memory up to this
+_DECODE_SPAD = 8  # kSPad: floats past a score row
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    """A bf16-q K11a launch (``decode_plan``): heads in ``groups`` groups of
+    ``gm`` rows; ``grid`` blocks, all resident at once (a cooperative
+    launch), over which the kernel spreads the live 64-position units of
+    every (sequence, group) pair (``decode_partition``); splits of at most
+    ``chunk`` positions, at most ``nsp_max`` a pair; granules of ``gran``
+    positions; ``stages`` ring stages of 16 latent rows; the scores in
+    shared memory or (not ``smem_scores``) in a global scratch of ``gm *
+    (chunk + 8)`` floats a block; ``smem`` bytes of shared memory a block."""
+
+    gm: int
+    groups: int
+    grid: int
+    chunk: int
+    nsp_max: int
+    gran: int
+    stages: int
+    smem_scores: bool
+    smem: int
+
+
+def decode_gran(bs: int) -> int:
+    """Positions of a granule, the unit of the maxima a split publishes:
+    every page end and every split edge (64-position units) is a granule
+    boundary."""
+    return min(bs, _DECODE_UNIT)
+
+
+def decode_stage_bytes(dk: int, elem: int) -> int:
+    """A ring stage: 16 rows of ``dk`` values in 128-byte column blocks."""
+    return -(-dk * elem // 128) * _DECODE_ROWS * 128
+
+
+def decode_smem(dk: int, elem: int, gm: int, chunk: int, gran: int, stages: int,
+                smem_scores: bool) -> int:
+    """csrc mla_decode::smem_bytes: a block's shared memory."""
+    floats = (16 * gm * _DECODE_ROWS + 2 * (chunk // gran) * gm + 2 * (chunk // _DECODE_ROWS) * gm
+              + 5 * gm + 8 * gm + (gm * (chunk + _DECODE_SPAD) if smem_scores else 0))
+    upcast = decode_stage_bytes(dk, 2) if elem == 1 else 0  # an e4m3 stage as bf16
+    return (1024 + stages * decode_stage_bytes(dk, elem) + 8 * _DECODE_MAX_STAGES + upcast
+            + 4 * (chunk // _DECODE_ROWS + 2) + 4 * floats)
+
+
+def decode_plan(batch: int, h: int, width: int, bs: int, dk: int, dv: int, cache_dtype,
+                sms: int = 132, per_sm=None) -> DecodePlan:
+    """The launch of ``batch`` sequences of ``h`` heads over block tables of
+    ``width`` positions (pages of ``bs``), from shapes alone (no read of
+    seq_lens): head groups of 16 rows (32 above 16 heads, so that a latent
+    row feeds all of them); a grid of ``_DECODE_BLOCKS_PER_SM`` blocks an
+    SM (fewer where ``per_sm(gm, smem)``, the blocks an SM holds, says so);
+    splits sized for the worst case, every pair's table full: the least
+    units a split with which every pair's splits fit the grid (one split a
+    pair where the pairs outnumber the blocks); as many ring stages (2-8,
+    at most 80 KB) as leave two blocks an SM."""
+    gm = 16 if h <= 16 else 32
+    groups = -(-h // gm)
+    pairs = max(batch * groups, 1)
+    units = -(-width // _DECODE_UNIT)
+    gran = decode_gran(bs)
+    elem = torch.empty((), dtype=cache_dtype).element_size()
+    stage = decode_stage_bytes(dk, elem)
+    per = _DECODE_BLOCKS_PER_SM
+    while True:
+        grid = per * sms
+        upr = units if pairs > grid else -(-units // (grid // pairs))
+        chunk = upr * _DECODE_UNIT
+        smem_scores = gm * (chunk + _DECODE_SPAD) * 4 <= _DECODE_SCORE_SMEM
+        fixed = decode_smem(dk, elem, gm, chunk, gran, 0, smem_scores)
+        stages = max(2, min(_DECODE_MAX_STAGES, _DECODE_RING // stage,
+                            (_DECODE_SMEM_BLOCK - fixed) // stage))
+        smem = fixed + stages * stage
+        held = per if per_sm is None else min(per, per_sm(gm, smem))
+        if held >= per or per == 1:
+            return DecodePlan(gm, groups, grid, chunk, min(units, grid), gran, stages,
+                              smem_scores, smem)
+        per = max(1, held)
+
+
+def decode_partition(seq_lens, groups: int, grid: int,
+                     max_len: int) -> tuple[int, list[tuple[int, int, int]]]:
+    """The kernel's splits (csrc split_units, locate) -> (upr, [(pair,
+    split, splits of the pair)] in launch order): pair p = b * groups + hg
+    has ceil(min(seq_len_b, max_len) / 64) units, every split upr of them
+    (the last of a pair may hold fewer), upr the least with which the
+    splits fit ``grid`` blocks (or, where no upr does, one split a pair).
+    Split k of the list runs on block k % grid."""
+    units = [-(-min(int(n), max_len) // _DECODE_UNIT) if n > 0 else 0
+             for n in seq_lens for _ in range(groups)]
+    most = max(units, default=0)
+    upr = max(1, min(-(-sum(units) // grid), most))
+    while sum(-(-u // upr) for u in units) > grid and upr < most:
+        upr += 1
+    splits = []
+    for p, u in enumerate(units):
+        nsp = -(-u // upr)
+        splits += [(p, k, nsp) for k in range(nsp)]
+    return upr, splits
 
 
 # csrc/mla_prefill.cu: a block holds 64 (token, head) rows (one wgmma M
@@ -305,17 +422,15 @@ def _check(name, q, cache, dv, index_arrays) -> tuple[torch.dtype, int]:
     return work, dk
 
 
-def _granules(work, cache, nbmax: int, rows: int, nsplit: int,
-              device) -> tuple[torch.Tensor, int, int]:
-    """The first pass's per-(row, granule) maxima -> (gmax [rows, ngran]
-    f32, gran, ngran). A 1-element dummy where the kernel runs no first
-    pass: an f32 cache (no rounding), or one walk over pages no longer than
-    the tile (the walk takes its own page maxima)."""
+def _granules(cache, nbmax: int, rows: int, device) -> tuple[torch.Tensor, int, int]:
+    """The f32 kernel's first pass: per-(row, granule) maxima -> (gmax [rows,
+    ngran] f32, gran, ngran). A 1-element dummy where the kernel runs no
+    first pass: an f32 cache (no rounding), or pages no longer than its
+    tile (the walk takes its own page maxima)."""
     bs = cache.shape[3]
-    tile = _TILE if work == torch.bfloat16 else _F32_TILE
-    gran = min(bs, tile)
-    ngran = -(-nbmax * bs // tile) * tile // gran
-    if cache.dtype == torch.float32 or (nsplit == 1 and bs <= tile):
+    gran = min(bs, _F32_TILE)
+    ngran = -(-nbmax * bs // _F32_TILE) * _F32_TILE // gran
+    if cache.dtype == torch.float32 or bs <= _F32_TILE:
         return torch.empty(1, dtype=torch.float32, device=device), gran, ngran
     return torch.empty(rows, ngran, dtype=torch.float32, device=device), gran, ngran
 
@@ -345,33 +460,97 @@ def mla_decode_attention_write(
         raise ValueError(f"{DECODE_NAME}: lat_new {tuple(lat_new.shape)} is not [B, Dk]")
     if b == 0:
         return torch.empty(0, h, dv, dtype=q.dtype, device=q.device)
+    if work == torch.bfloat16:
+        return _launch_decode(q, lat_new, cache, layer_idx, slot_mapping, block_tables,
+                              seq_lens, scale, dv)
     lib = _load()  # a failed build raises here, before any allocation
     qk = q.to(work).contiguous()
-    ln = cast_to(lat_new, cache.dtype).contiguous()  # attended as stored
+    ln = lat_new.float().contiguous()  # cast to the cache's dtype in the kernel
     out = torch.empty(b, h, dv, dtype=work, device=q.device)
     bs, nbmax = cache.shape[3], block_tables.shape[1]
-    if work == torch.bfloat16:
-        chunk, nsplit = split_plan(nbmax * bs)
-        row_tiles = -(-h // 16)
-    else:  # the f32 kernel does not split the context
-        chunk, nsplit, row_tiles = nbmax * bs, 1, 0
-    part = torch.empty(
-        (b, row_tiles, nsplit, 16, 4 + dv) if nsplit > 1 else (1,),
-        dtype=torch.float32, device=q.device,
-    )
-    gmax, gran, ngran = _granules(work, cache, nbmax, b * h, nsplit, q.device)
-    counters = _split_counters(q.device, b * max(row_tiles, 1))
+    gmax, gran, ngran = _granules(cache, nbmax, b * h, q.device)
     _build.count_launch(DECODE_NAME)  # one count for the op (one or two kernels)
     err = lib.xllm_mla_attention(
         q.device.index or 0, 1, _build.ptr(qk), _build.ptr(ln), _build.ptr(cache),
-        _build.ptr(slot_mapping), _build.ptr(block_tables), None,
-        _build.ptr(seq_lens), _build.ptr(gmax), _build.ptr(out), _build.ptr(part),
-        _build.ptr(counters), _build.dtype_code(cache.dtype), _build.dtype_code(work),
-        b, 1, h, dk, dv, int(layer_idx), cache.shape[1], bs, nbmax, float(scale),
-        chunk, nsplit, gran, ngran, _build.stream_of(q),
+        _build.ptr(slot_mapping), _build.ptr(block_tables), None, _build.ptr(seq_lens),
+        _build.ptr(gmax), _build.ptr(out), _build.dtype_code(cache.dtype), b, 1, h, dk, dv,
+        int(layer_idx), cache.shape[1], bs, nbmax, float(scale), gran, ngran,
+        _build.stream_of(q),
     )
     _build.check(lib, err, DECODE_NAME)
     return out.to(q.dtype)
+
+
+def _launch_decode(q, lat_new, cache, layer_idx, slot_mapping, block_tables, seq_lens,
+                   scale, dv) -> torch.Tensor:
+    """bf16 q: ``mla_decode_kernel``, one launch. lat_new reaches it in its
+    own dtype (bf16 or f32) and is cast there as the cache stores it."""
+    b, h, dk = q.shape
+    if dk > _DECODE_MAX_DK:
+        raise NotImplementedError(f"{DECODE_NAME}: the bf16 decode kernel takes Dk up to "
+                                  f"{_DECODE_MAX_DK} (q's fragments in registers), not {dk}")
+    if lat_new.dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"{DECODE_NAME}: lat_new must be bfloat16 or float32, "
+                                  f"not {lat_new.dtype}")
+    lib = _load()  # a failed build raises here, before any allocation
+    nl, nb, _, bs, _ = cache.shape
+    nbmax = block_tables.shape[1]
+    dtype = _build.dtype_code(cache.dtype)
+    dev = q.device.index or 0
+
+    def per_sm(gm, smem):  # the card's answer, asked once a configuration
+        key = (dev, dtype, gm, dv, smem)
+        if key not in _blocks_per_sm:
+            n = ctypes.c_int(0)
+            _build.check(lib, lib.xllm_mla_decode_blocks_per_sm(dev, dtype, gm, dv, smem,
+                                                                ctypes.byref(n)), DECODE_NAME)
+            _blocks_per_sm[key] = n.value
+        return _blocks_per_sm[key]
+
+    plan = decode_plan(b, h, nbmax * bs, bs, dk, dv, cache.dtype, _build.device_sms(q.device),
+                       per_sm)
+    qk = q.to(torch.bfloat16).contiguous()
+    ln = lat_new.contiguous()
+    out = torch.empty(b, h, dv, dtype=torch.bfloat16, device=q.device)
+    pairs = b * plan.groups
+    f32 = dict(dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    scores = None if plan.smem_scores else _scratch(
+        q.device, stream, "scores", plan.grid * plan.gm * (plan.chunk + _DECODE_SPAD), f32)
+    pub = _scratch(q.device, stream, "pub",
+                   pairs * plan.nsp_max * (1 + plan.chunk // plan.gran) * plan.gm, f32)
+    red = _scratch(q.device, stream, "red", pairs * plan.nsp_max * plan.gm * (dv + 1), f32)
+    counters = _scratch(q.device, stream, "counters", 3 * pairs,
+                        dict(dtype=torch.int32, device=q.device))
+    _build.count_launch(DECODE_NAME)
+    err = lib.xllm_mla_decode(
+        dev, _build.ptr(qk), _build.ptr(ln), _build.ptr(cache), _build.ptr(slot_mapping),
+        _build.ptr(block_tables), _build.ptr(seq_lens), _build.ptr(out), _build.ptr(scores),
+        _build.ptr(pub), _build.ptr(red), _build.ptr(counters), dtype,
+        int(ln.dtype == torch.float32), b, h, dk, dv, int(layer_idx), nl, nb, bs, nbmax,
+        float(scale), plan.gm, plan.grid, plan.chunk, plan.nsp_max,
+        plan.gran.bit_length() - 1, plan.stages, _build.stream_of(q),
+    )
+    _build.check(lib, err, DECODE_NAME)
+    return out.to(q.dtype)
+
+
+def _scratch(device, stream: int, kind: str, n: int, like: dict) -> torch.Tensor:
+    """A buffer of at least ``n`` elements for decode launches on ``stream``
+    of ``device``, kept for later calls (zeros when made: the split counters
+    must start at 0, and the kernel leaves them so)."""
+    key = (device, stream, kind)
+    buf = _decode_scratch.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1), **like)
+        _decode_scratch[key] = buf
+    return buf
+
+
+# the decode kernel's workspaces by (device, stream, kind), grown on demand;
+# the blocks an SM holds, by (device, cache dtype, rows, dv, shared memory)
+_decode_scratch: dict[tuple, torch.Tensor] = {}
+_blocks_per_sm: dict[tuple, int] = {}
 
 
 def mla_prefill_attention(
@@ -431,14 +610,14 @@ def _launch_prefill(name, q, cache, layer_idx, block_tables, q_offsets, kv_lens,
     out = torch.empty(p, s, h, dv, dtype=work, device=q.device)
     qk = q.to(work).contiguous()
     bs, nbmax = cache.shape[3], block_tables.shape[1]
-    gmax, gran, ngran = _granules(work, cache, nbmax, p * s * h, 1, q.device)
+    gmax, gran, ngran = _granules(cache, nbmax, p * s * h, q.device)
     _build.count_launch(name)  # one count for the op (one or two kernels)
     err = lib.xllm_mla_attention(
         q.device.index or 0, 0, _build.ptr(qk), None, _build.ptr(cache), None,
         _build.ptr(block_tables), _build.ptr(q_offsets), _build.ptr(kv_lens),
-        _build.ptr(gmax), _build.ptr(out), None, None, _build.dtype_code(cache.dtype),
-        _build.dtype_code(work), p, s, h, dk, dv, int(layer_idx), cache.shape[1], bs, nbmax,
-        float(scale), nbmax * bs, 1, gran, ngran, _build.stream_of(q),
+        _build.ptr(gmax), _build.ptr(out), _build.dtype_code(cache.dtype), p, s, h, dk, dv,
+        int(layer_idx), cache.shape[1], bs, nbmax, float(scale), gran, ngran,
+        _build.stream_of(q),
     )
     _build.check(lib, err, name)
     return out.to(q.dtype)
