@@ -160,9 +160,33 @@ phase raises on failure, so a non-zero exit means a phase failed:
    the f32 parity qwen3 under each name, and at head_dim 64 (no attention
    kernel launched: fault F5).
 
+12. spec: the verify pass's kernels at its shape (16 rows, two padded, of
+   k + 1 = 4 queries over decode-length contexts of 66-4,096 tokens, three
+   rows crossing a page): K3 and K4 on bf16, int8 and fp8 caches at
+   qwen3-1.7B's heads, K11b and K11d on a bf16 latent cache at
+   DeepSeek-V2-Lite's, each against its plain version (the writers
+   byte-equal) and timed beside it, SDPA and its bound, and K1 / K11a at
+   the same contexts;
+13. spec engines: the qwen3-1.7B engine (full width and depth, bf16) with
+   suffix drafts (k = 3) and with an MTP head (k = 3), then
+   DeepSeek-V2-Lite cut to ``SPEC_MLA_LAYERS`` layers with an MTP head
+   (k = 2), each serving 16 greedy requests on repetitive prompts beside
+   its spec-off twin: every verify pass launches K3 and K4 once per layer
+   (K11b and K11d in the MLA model), under MTP also K1 k times and K3 and
+   K4 once more (the head); one verify dispatch of each runs under the
+   CUDA sync debug mode "error" up to its read-back; each prints its
+   spec_stats, accepted drafts a verify pass, wall ms a generated token
+   beside the spec-off engine and where its tokens first diverge from the
+   spec-off ones (bf16 verify and decode logits round differently). Then
+   card = CPU greedy tokens and spec-on = spec-off on each device for the
+   f32 parity qwen3, glm4_moe and deepseek_v2 with suffix and with MTP;
+   the int8 qwen3 (int8 KV) with suffix under ``XLLM_QMM_KERNEL=pallas``,
+   where those need not hold (``phase_spec_parity``), reported.
+
 ``python3 chip_smoke.py --phases kernels`` (a comma list of build, kernels,
 qkernels, engines, quant, parity, layouts, layout-engines, grammar,
-grammar-engines) runs a subset and prints no result line.
+grammar-engines, spec, spec-engines) runs a subset and prints no result
+line.
 
 The line before the last is ``{"kernels": [...]}`` (errors, times, bounds
 and launch counts); the last line is ``{"ok": true, "device": {...}}``.
@@ -533,10 +557,11 @@ def check_quant_close(out, ref, pv, what: str) -> float:
 # ---------------------------------------------------------------------------
 # phase 2: kernels
 # ---------------------------------------------------------------------------
-def check_decode(rng, dev, dtype, timed: bool, cache=None) -> dict:
-    """K1 at B=16: 14 live rows over the served context mix, 2 padded;
-    ``cache`` int8 / fp8_e4m3 for a quantized cache (q in ``dtype``)."""
-    lens = [56, 316, 716, 2116] * 3 + [56, 316] + [0, 0]
+def check_decode(rng, dev, dtype, timed: bool, cache=None, lens=None) -> dict:
+    """K1 at B=16: 14 live rows over the served context mix, 2 padded (or
+    the seq_lens ``lens``, the last two 0); ``cache`` int8 / fp8_e4m3 for a
+    quantized cache (q in ``dtype``)."""
+    lens = lens or [56, 316, 716, 2116] * 3 + [56, 316] + [0, 0]
     b = len(lens)
     nb = 1 + sum(-(-n // BS) for n in lens) + 8
     bt = page_tables(rng, lens, nb)
@@ -1244,11 +1269,12 @@ def sdpa_backend(call) -> str:
     return "none"
 
 
-def check_mla_decode(rng, dev, dtype, timed: bool, h: int = MLA_H, cache=None) -> dict:
-    """K11a at B=16 over ``MLA_DECODE_LENS``: the written caches byte-equal,
-    padded rows zeros; ``cache`` fp8_e4m3 for an fp8 latent cache (q in
-    ``dtype``)."""
-    lens = MLA_DECODE_LENS
+def check_mla_decode(rng, dev, dtype, timed: bool, h: int = MLA_H, cache=None,
+                     lens=None) -> dict:
+    """K11a at B=16 over ``MLA_DECODE_LENS`` (or ``lens``, the last two 0):
+    the written caches byte-equal, padded rows zeros; ``cache`` fp8_e4m3
+    for an fp8 latent cache (q in ``dtype``)."""
+    lens = lens or MLA_DECODE_LENS
     b = len(lens)
     nb = 1 + sum(-(-n // BS) for n in lens) + 8
     bt = page_tables(rng, lens, nb)
@@ -2838,7 +2864,8 @@ def warm_up(eng: LLMEngine, rng) -> None:
 
 def count_per_pass(runner) -> list[tuple[str, int, dict]]:
     """Wrap the runner's model passes (one prefill group, one decode batch,
-    one scored chunk, one embed request's final chunk) so that each appends
+    one scored chunk, one embed request's final chunk, one speculative
+    verify dispatch) so that each appends
     ``(kind, rows, launch-count delta)`` to the list returned; ``rows`` is
     the token count of the pass's hidden state, the row count of each of
     its projections. The engine calls them through the instance, so the
@@ -2874,6 +2901,8 @@ def count_per_pass(runner) -> list[tuple[str, int, dict]]:
     runner.run_decode = wrap(runner.run_decode, "decode")
     runner.run_score_chunk = wrap(runner.run_score_chunk, "score")
     runner.run_prefill_embed = wrap(runner.run_prefill_embed, "embed")
+    runner.run_verify_batched = wrap(runner.run_verify_batched, "verify")
+    runner.run_verify_mtp = wrap(runner.run_verify_mtp, "verify")
     return deltas
 
 
@@ -2936,21 +2965,29 @@ EMBED_LENS = (40, 700)
 def per_pass_summary(deltas, launches, want) -> dict:
     """Check each pass of a run against ``want`` and the run's counts
     against the passes: every kernel a pass of the run must launch was
-    launched, the same number of times in each pass that launched it, and
-    that times the passes is the run's count. -> {kernel: {launches_per_step,
-    passes}}."""
+    launched, the same number of times in each pass of one kind (prefill,
+    decode, verify) that launched it, and the sum over the passes is the
+    run's count. -> {kernel: {launches_per_step, passes, by_kind: {kind:
+    {launches_per_step, passes}}}}; ``launches_per_step`` is None where the
+    kinds differ (K1 in an MTP engine: k a verify pass, once per layer a
+    decode pass)."""
     check_passes(deltas, want)
-    per_pass = {}
-    expected = {k: n for kind, rows, _ in deltas for d in want(kind, rows)
-                for k, n in d.items()}
-    for name, per in expected.items():
+    out = {}
+    for name in sorted({n for kind, rows, _ in deltas for d in want(kind, rows) for n in d}):
         assert launches.get(name, 0) > 0, f"kernel {name} never launched: {launches}"
-        seen = sorted({d.get(name, 0) for _, _, d in deltas} - {0})
-        passes = sum(1 for _, _, d in deltas if d.get(name, 0))
-        assert seen == [per], f"{name}: launches per model pass {seen}, not [{per}]"
-        assert passes * per == launches[name], (name, passes, launches[name])
-        per_pass[name] = {"launches_per_step": seen[0], "passes": passes}
-    return per_pass
+        assert launches[name] == sum(d.get(name, 0) for _, _, d in deltas), (
+            name, launches[name])
+        by_kind = {}
+        for kind in sorted({kind for kind, _, _ in deltas}):
+            counts = [d[name] for k, _, d in deltas if k == kind and d.get(name, 0)]
+            if counts:
+                assert len(set(counts)) == 1, f"{name}: launches per {kind} pass {counts}"
+                by_kind[kind] = {"launches_per_step": counts[0], "passes": len(counts)}
+        per = {v["launches_per_step"] for v in by_kind.values()}
+        out[name] = {"launches_per_step": per.pop() if len(per) == 1 else None,
+                     "passes": sum(v["passes"] for v in by_kind.values()),
+                     "by_kind": by_kind}
+    return out
 
 
 def drive_scoring(eng: LLMEngine, rng, deltas, want, tag: str, score_lens,
@@ -3185,7 +3222,8 @@ PARITY_BF16_TOL = (2.0 ** -7, 2.0 ** -5)
 
 
 def parity_config(model_kw: dict, quant: str = "", kv_cache_dtype: str = "auto",
-                  kv_layout: str = "split"):
+                  kv_layout: str = "split", spec: str = ""):
+    """``spec``: a speculative method (k = ``SPEC_K``)."""
     cfg = EngineConfig(
         model=ModelConfig(**model_kw),
         cache=CacheConfig(block_size=16, num_blocks=128, kv_cache_dtype=kv_cache_dtype,
@@ -3196,6 +3234,8 @@ def parity_config(model_kw: dict, quant: str = "", kv_cache_dtype: str = "auto",
                                   decode_batch_buckets=[2, 4]),
     )
     cfg.quant.method = quant
+    if spec:
+        cfg.speculative.method, cfg.speculative.num_speculative_tokens = spec, SPEC_K
     return cfg
 
 
@@ -3270,13 +3310,17 @@ def parity_scores(eng: LLMEngine, rng_seed: int = 2) -> tuple[list, list]:
 
 def phase_parity(name: str, model_kw: dict, devices=("cuda", "cpu"), quant: str = "",
                  kv_cache_dtype: str = "auto", scores: bool = False,
-                 kv_layout: str = "split", resolved: str = "") -> int:
+                 kv_layout: str = "split", resolved: str = "", spec: str = "",
+                 traced: dict | None = None) -> dict:
     """Greedy tokens of the card equal the CPU's; with ``scores`` also the
     scores and embeddings of ``SCORE_PARITY``, within ``PARITY_SCORE_TOL``.
     ``kv_layout`` is asked for and must resolve to ``resolved`` (default:
-    itself) on both devices."""
+    itself) on both devices; ``spec`` serves with that speculative method.
+    ``traced`` receives ``compare_traces`` of the devices' passes, and the
+    caller judges the tokens (``check_spec_near_tie``). -> {device: greedy
+    tokens}."""
     def make():
-        return parity_config(model_kw, quant, kv_cache_dtype, kv_layout)
+        return parity_config(model_kw, quant, kv_cache_dtype, kv_layout, spec)
 
     tree = random_param_tree(make().model, seed=7)
     rng = np.random.default_rng(1)
@@ -3288,11 +3332,13 @@ def phase_parity(name: str, model_kw: dict, devices=("cuda", "cpu"), quant: str 
     # 10 and 70 -> S <= bs chunks (K4); 40, 100 -> K2, 100 chunked at 64
     prompts = [rng.integers(1, 1000, n).tolist() for n in (10, 40, 100, 70, 23, 5)]
     sp = SamplingParams(temperature=0.0, max_tokens=16, ignore_eos=True)
-    got, scored = {}, {}
+    got, scored, traces = {}, {}, {}
     for dev in devices:
         cfg = make()
         runner = ModelRunner(cfg, device=dev)
         runner.load_model(params=tree)
+        if traced is not None:
+            traces[dev] = trace_logits(runner.model)
         eng = LLMEngine(cfg, runner=runner)
         assert runner.model.kv_layout == (resolved or kv_layout), (
             f"{name}: kv_layout {kv_layout} resolved to {runner.model.kv_layout}")
@@ -3304,6 +3350,9 @@ def phase_parity(name: str, model_kw: dict, devices=("cuda", "cpu"), quant: str 
         if scores:
             scored[dev] = parity_scores(eng)
     a, b = (got[d] for d in devices)
+    if traced is not None:
+        traced.update(compare_traces(*(traces[d] for d in devices)))
+        return got
     assert a == b, f"{name}: greedy tokens differ:\n{a}\n{b}"
     if scores:
         errs = []
@@ -3316,9 +3365,66 @@ def phase_parity(name: str, model_kw: dict, devices=("cuda", "cpu"), quant: str 
             f"{PARITY_SCORE_TOL:g} (max abs diff {max(errs):.3g})")
     log(f"[parity] f32 {name} (2 layers, bs 16{', ' + quant + ' weights' if quant else ''}"
         f"{', ' + kv_cache_dtype + ' KV' if kv_cache_dtype != 'auto' else ''}"
-        f"{', ' + (resolved or kv_layout) + ' layout' if kv_layout != 'split' else ''}): "
+        f"{', ' + (resolved or kv_layout) + ' layout' if kv_layout != 'split' else ''}"
+        f"{', ' + spec + ' k ' + str(SPEC_K) if spec else ''}): "
         f"{len(prompts)} requests x 16 greedy tokens identical on {' and '.join(devices)}")
-    return len(prompts)
+    return got
+
+
+def trace_logits(model) -> list:
+    """Record, in call order, each pass's kind (prefill, verify, decode)
+    and input tokens, and each ``compute_logits`` output of ``model`` (on
+    the CPU, as f32) -> [("in", kind, tokens) or ("logits", kind, logits)]."""
+    events: list = []
+    prefill_batched, decode, logits = model.prefill_batched, model.decode, model.compute_logits
+
+    def traced_prefill(k_all, v_all, inp, *args, **kw):
+        kind = "verify" if kw.get("num_logits", 1) > 1 else "prefill"
+        events.append(("in", kind, inp.token_ids.cpu()))
+        return prefill_batched(k_all, v_all, inp, *args, **kw)
+
+    def traced_decode(k_all, v_all, inp, token_ids, *args, **kw):
+        events.append(("in", "decode", token_ids.cpu()))
+        return decode(k_all, v_all, inp, token_ids, *args, **kw)
+
+    def traced_logits(hidden):
+        out = logits(hidden)
+        events.append(("logits", events[-1][1], out.float().cpu()))
+        return out
+
+    model.prefill_batched, model.decode = traced_prefill, traced_decode
+    model.compute_logits = traced_logits
+    return events
+
+
+def compare_traces(card: list, cpu: list) -> dict:
+    """Two devices' traces (``trace_logits``) of one schedule, compared over
+    the passes whose inputs agree (up to the first pass that took a token
+    only one device picked) -> {"scale": the largest |logit|, "max_abs_diff":
+    {kind: the largest |card - cpu|}, "flips": the rows that pick another
+    argmax on each device, with each device's margin of its pick over the
+    other's}."""
+    diff: dict = {}
+    scale = 0.0
+    flips = []
+    for i, ((what, kind, x), (what_b, kind_b, y)) in enumerate(zip(card, cpu)):
+        assert (what, kind) == (what_b, kind_b) and x.shape == y.shape, (
+            f"event {i}: the schedules differ")
+        if what == "in":
+            if not torch.equal(x, y):
+                break
+            continue
+        x, y = x.reshape(-1, x.shape[-1]), y.reshape(-1, y.shape[-1])
+        live = torch.isfinite(x).all(-1) & torch.isfinite(y).all(-1)
+        x, y = x[live], y[live]
+        diff[kind] = max(diff.get(kind, 0.0), float((x - y).abs().max()))
+        scale = max(scale, float(x.abs().max()))
+        ax, ay = x.argmax(-1), y.argmax(-1)
+        for r in (ax != ay).nonzero().flatten().tolist():
+            flips.append({"event": i, "kind": kind, "row": r,
+                          "margin_card": float(x[r, ax[r]] - x[r, ay[r]]),
+                          "margin_cpu": float(y[r, ay[r]] - y[r, ax[r]])})
+    return {"scale": scale, "max_abs_diff": diff, "flips": flips}
 
 
 # deepseek_v2's parity shapes in bf16 (latent rows of 128 + 16 lanes padded
@@ -3382,7 +3488,7 @@ def free_device_memory() -> None:
 
 
 PHASES = ("build", "kernels", "qkernels", "engines", "quant", "parity", "layouts",
-          "layout-engines", "grammar", "grammar-engines")
+          "layout-engines", "grammar", "grammar-engines", "spec", "spec-engines")
 
 
 def phase_layout_parity() -> None:
@@ -3651,6 +3757,364 @@ def grammar_rows(gram: dict, runs: dict, rows: list) -> list[dict]:
     return new
 
 
+# ---------------------------------------------------------------------------
+# speculative decoding: the verify pass's kernel shapes and the spec engines
+# ---------------------------------------------------------------------------
+SPEC_K = 3  # draft tokens a verify row: S = SPEC_K + 1 queries
+# the contexts of a verify pass of 16 rows (two padded): K1's decode mix
+# after 32 new tokens, a full 4,096-token context, and three rows whose
+# k + 1 positions cross a page (66, 577, 2114 at block_size 64); each row's
+# k + 1 queries end at its context (q_offset = context - k - 1)
+VERIFY_LENS = [72, 332, 732, 2132] * 2 + [66, 577, 2114, NB_MAX * BS, 1000, 3000, 0, 0]
+VERIFY_ROWS = [(n - SPEC_K - 1, SPEC_K + 1) if n else (0, 0) for n in VERIFY_LENS]
+# the verify-shape checks: K3 / K4 (and K1 at the same contexts) on each
+# cache, K11b / K11d (and K11a) on a bf16 latent cache
+SPEC_CACHES = (None, "int8", "fp8_e4m3")
+
+
+def phase_spec_kernels(dev) -> dict:
+    """K3 and K4 at the verify pass's shape (B 16, S = k + 1 = 4, Hq 16 /
+    Hkv 8, D 128, bs 64, ``VERIFY_ROWS``) on bf16, int8 and fp8 caches, K1 at
+    the same contexts beside them, and K11b / K11d / K11a at
+    DeepSeek-V2-Lite's shapes on the same rows: each held to its plain
+    version (the writers byte-equal) and timed beside it, SDPA (index
+    assignment for the writers) and its bound; and K11a at 20 heads on bf16
+    and fp8 latent caches (the kernel table's SDPA time at that width).
+    -> {kernel: {cache: result}}."""
+    rng = np.random.default_rng(16)
+    out: dict = {}
+    s = SPEC_K + 1
+    for cache in SPEC_CACHES:
+        label = cache or "bf16"
+        out.setdefault(k3.NAME, {})[label] = check_prefill_shape(
+            rng, dev, torch.bfloat16, True, s, VERIFY_ROWS, cache=cache)
+        out.setdefault(k24.RMW_NAME, {})[label] = check_writer(
+            rng, dev, torch.bfloat16, True, True, cache, rows=VERIFY_ROWS, s=s)
+        out.setdefault(k1.NAME, {})[label] = check_decode(
+            rng, dev, torch.bfloat16, True, cache=cache, lens=VERIFY_LENS)
+    out[k11.PREFILL_NAME] = {"bf16": check_mla_prefill_shape(
+        rng, dev, torch.bfloat16, True, s, VERIFY_ROWS)}
+    out[k24.LATENT_RMW_NAME] = {"bf16": check_latent_writer(
+        rng, dev, torch.bfloat16, True, True, rows=VERIFY_ROWS, s=s)}
+    out[k11.DECODE_NAME] = {"bf16": check_mla_decode(
+        rng, dev, torch.bfloat16, True, lens=VERIFY_LENS)}
+    for label, r in out[k1.NAME].items():
+        r["verify"] = "decode at the verify contexts"
+    out[k11.DECODE_NAME]["bf16"]["verify"] = "decode at the verify contexts"
+    for name in (k3.NAME, k24.RMW_NAME, k11.PREFILL_NAME, k24.LATENT_RMW_NAME):
+        for r in out[name].values():
+            r["verify"] = f"S = {s}"
+    # K11a at GLM-4.7-Flash's 20 heads, its decode table's shape, timed for
+    # the kernel table's SDPA column (not a verify shape)
+    for cache in (None, "fp8_e4m3"):
+        r = check_mla_decode(rng, dev, torch.bfloat16, True, h=20, cache=cache)
+        r["verify"] = "no: H 20 at the decode table's contexts"
+        out[k11.DECODE_NAME][f"{cache or 'bf16'} H 20"] = r
+        log(f"[spec] K11a H 20 ({cache or 'bf16'} cache): {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f}, {r['library']} {r['library_ms']:.4f}, bound "
+            f"{r['bound_ms']:.4f} ms")
+    for verify, decode in ((k3.NAME, k1.NAME), (k11.PREFILL_NAME, k11.DECODE_NAME)):
+        for label, r in out[verify].items():
+            d = out[decode][label]  # the same cache at the same contexts
+            r["decode_ms"] = d["ms"]
+            r["over_decode"] = r["ms"] / d["ms"]
+            log(f"[spec] verify attention {verify} ({label} cache) {r['ms']:.4f} ms vs decode "
+                f"{decode} at the same contexts {d['ms']:.4f} ms: {r['over_decode']:.2f}x "
+                f"(plain {r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f}, bound "
+                f"{r['bound_ms']:.4f} ms by {r['bound_by']})")
+    for name in (k24.RMW_NAME, k24.LATENT_RMW_NAME):
+        for label, r in out[name].items():
+            log(f"[spec] verify writer {name} ({label} cache) byte-equal, {r['ms']:.4f} ms "
+                f"(plain {r['plain_ms']:.4f}, index assign {r['library_ms']:.4f}, bound "
+                f"{r['bound_ms']:.4f} ms)")
+    return out
+
+
+def spec_pass_launches(kind: str, layers: int, moe_layers: int, mla: bool, method: str,
+                       k: int) -> list[dict]:
+    """The launches a model pass of a speculative engine must make (one of
+    the dicts returned). A verify pass: K3 and K4 once per target layer
+    (K11b and K11d in an MLA model); under MTP also K1 k times (the head's
+    draft decodes) and K3 and K4 once more (the head's rewrite). A prefill
+    pass: ``pass_launches``'s, and under MTP the head's K3 and writer (K2 or
+    K4, as the chunk bucket picks for the target) once more. A decode pass
+    (rows without room for k + 1 tokens): ``pass_launches``'s. Every pass of
+    a MoE model also K10 twice per MoE layer."""
+    extra = {k10.NAME: 2 * moe_layers} if moe_layers else {}
+    head = 1 if method in ("mtp", "eagle3") else 0
+    if kind == "decode":
+        return pass_launches(layers, moe_layers, mla, kind, 0)
+    target = ((k11.PREFILL_NAME, (k24.LATENT_PREFILL_NAME, k24.LATENT_RMW_NAME)) if mla
+              else (k3.NAME, (k24.PREFILL_NAME, k24.RMW_NAME)))
+    if kind == "verify":
+        pairs = [(target[1][1], k24.RMW_NAME)]
+    else:
+        pairs = list(zip(target[1], (k24.PREFILL_NAME, k24.RMW_NAME)))
+    out = []
+    for tw, hw in pairs:
+        d = dict(extra)
+        for name, n in ((target[0], layers), (tw, layers), (k3.NAME, head), (hw, head)):
+            if n:
+                d[name] = d.get(name, 0) + n
+        if kind == "verify" and head:
+            d[k1.NAME] = k
+        out.append(d)
+    return out
+
+
+def spec_prompts(rng, vocab: int) -> list[list[int]]:
+    """16 repetitive prompts (a random 16-token segment repeated) of 40,
+    300, 700 and 2,100 tokens, so that the suffix drafter finds matches."""
+    out = []
+    for n in [40, 300, 700, 2100] * 4:
+        seg = rng.integers(1, vocab, 16).tolist()
+        out.append((seg * (n // 16 + 1))[:n])
+    return out
+
+
+def serve_spec(eng: LLMEngine, prompts, tag: str, max_tokens: int = 32):
+    """Serve ``prompts`` greedily, the counters and per-pass records zeroed
+    just before -> (tokens, wall s, launches, pass deltas)."""
+    sp = SamplingParams(temperature=0.0, max_tokens=max_tokens, ignore_eos=True)
+    deltas = count_per_pass(eng.runner)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    ids = [eng.add_request(prompt_token_ids=p, sampling_params=sp).request_id for p in prompts]
+    outs = {ro.request_id: ro.outputs[0].token_ids for ro in eng.generate_all()}
+    sync()
+    wall = time.perf_counter() - t0
+    assert eng.block_manager.num_used_blocks == 0, f"{tag}: KV blocks leaked"
+    toks = [outs[i] for i in ids]
+    assert all(len(t) == max_tokens for t in toks), tag
+    return toks, wall, dict(_build.launch_counts), list(deltas)
+
+
+def check_verify_no_host_sync(eng: LLMEngine, prompt, tag: str) -> None:
+    """One verify dispatch under the CUDA sync debug mode "error", up to
+    its one read-back of (tokens, num_accepted): drafting, the target's
+    verify pass, the rejection sampler and the head's rewrite must not read
+    back to the host."""
+    runner = eng.runner
+    read_back, checked = runner._read_back, []
+
+    def unchecked_read_back(tokens, num_acc):
+        torch.cuda.set_sync_debug_mode(0)
+        checked.append(True)
+        return read_back(tokens, num_acc)
+
+    def verify(fn):
+        def run(*a, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return run
+
+    runner._read_back = unchecked_read_back
+    names = ("run_verify_batched", "run_verify_mtp")
+    saved = {n: getattr(runner, n) for n in names}
+    for n in names:
+        setattr(runner, n, verify(saved[n]))
+    try:
+        eng.add_request(prompt_token_ids=prompt, sampling_params=SamplingParams(
+            temperature=0.0, max_tokens=2 * SPEC_K + 2, ignore_eos=True))
+        eng.generate_all()
+    finally:
+        runner._read_back = read_back
+        for n in names:
+            setattr(runner, n, saved[n])
+    assert checked, f"{tag}: no verify dispatch ran"
+    log(f"[spec] {tag}: {len(checked)} verify dispatches under the sync debug mode "
+        "'error' up to their read-back: no host sync")
+
+
+def first_divergence(a: list[list[int]], b: list[list[int]]) -> list:
+    """Per request, the first token index where ``a`` and ``b`` differ (None
+    where they agree)."""
+    return [next((i for i, (x, y) in enumerate(zip(p, q)) if x != y), None)
+            for p, q in zip(a, b)]
+
+
+def drive_spec_engine(model_kw, method: str, k: int, off, tag: str, num_blocks: int = 1024,
+                      seed: int = 0) -> tuple[dict, dict]:
+    """Serve ``spec_prompts`` on a ``method`` engine of ``model_kw`` (row
+    buckets to 16, so that a verify pass takes every row), beside ``off``:
+    the spec-off engine's (tokens, wall s). Every pass is held to
+    ``spec_pass_launches``. -> (launches, info)."""
+    cfg = engine_config(model_kw, num_blocks=num_blocks)
+    cfg.scheduler.prefill_row_buckets = [1, 2, 4, 8, 16]
+    cfg.speculative.method, cfg.speculative.num_speculative_tokens = method, k
+    t0 = time.perf_counter()
+    eng = LLMEngine(cfg, device="cuda")
+    sync()
+    built = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    warm_up(eng, rng)
+    check_verify_no_host_sync(eng, spec_prompts(rng, cfg.model.vocab_size)[0], tag)
+    prompts = spec_prompts(np.random.default_rng(seed + 100), cfg.model.vocab_size)
+    stats0 = list(eng.spec_stats)
+    toks, wall, launches, deltas = serve_spec(eng, prompts, tag)
+    stats = [a - b for a, b in zip(eng.spec_stats, stats0)]
+    layers = cfg.model.num_hidden_layers
+    moe_layers = (layers - cfg.model.first_k_dense_replace) if cfg.model.num_experts else 0
+    mla = cfg.model.kv_lora_rank > 0
+
+    def want(kind, rows):
+        return spec_pass_launches(kind, layers, moe_layers, mla, method, k)
+
+    per_pass = per_pass_summary(deltas, launches, want)
+    verify = [d for kind, _, d in deltas if kind == "verify"]
+    assert verify, f"{tag}: no verify pass ran"
+    off_toks, off_wall = off
+    gen = 32 * len(prompts)
+    div = first_divergence(toks, off_toks)
+    info = {
+        "model": model_kw["model_type"], "layers": layers, "method": method, "k": k,
+        "spec_stats": stats, "verify_passes": len(verify),
+        # accepted draft tokens per verify pass, and tokens emitted per
+        # drafted sequence-step (1 + its accepted drafts)
+        "accepted_per_verify_pass": stats[2] / len(verify),
+        "tokens_per_drafted_step": (stats[0] + stats[2]) / max(stats[0], 1),
+        "wall_s": wall, "ms_per_token": 1e3 * wall / gen,
+        "off_wall_s": off_wall, "off_ms_per_token": 1e3 * off_wall / gen,
+        "first_divergence": div,
+        "requests_differing": sum(d is not None for d in div),
+        "launches": launches, "per_pass": per_pass,
+    }
+    log(f"[spec] {tag}: {model_kw['model_type']} {layers} layers, {method} k {k}, built in "
+        f"{built:.1f} s: {len(prompts)} requests x 32 tokens, spec_stats {stats} ([drafted, "
+        f"plain, accepted]), {len(verify)} verify passes, "
+        f"{info['accepted_per_verify_pass']:.2f} accepted drafts a verify pass, "
+        f"{info['tokens_per_drafted_step']:.3f} tokens a drafted sequence-step; "
+        f"{info['ms_per_token']:.3f} ms wall a generated token vs {info['off_ms_per_token']:.3f} "
+        f"spec-off; first divergence from spec-off tokens {div} "
+        f"({info['requests_differing']} of {len(prompts)} requests differ: bf16 verify and "
+        f"decode logits round differently); {card_line()}; launches {launches}; per kernel "
+        f"{per_pass}")
+    del eng
+    free_device_memory()
+    return launches, info
+
+
+def spec_off_run(model_kw, tag: str, num_blocks: int = 1024, seed: int = 0):
+    """The spec-off engine of ``model_kw`` on ``spec_prompts`` -> (tokens,
+    wall s)."""
+    eng = LLMEngine(engine_config(model_kw, num_blocks=num_blocks), device="cuda")
+    rng = np.random.default_rng(seed)
+    warm_up(eng, rng)
+    prompts = spec_prompts(np.random.default_rng(seed + 100), eng.config.model.vocab_size)
+    toks, wall, _, _ = serve_spec(eng, prompts, tag)
+    log(f"[spec] {tag}: spec-off, {len(prompts)} requests x 32 tokens in {wall:.2f} s")
+    del eng
+    free_device_memory()
+    return toks, wall
+
+
+# DeepSeek-V2-Lite cut to 8 layers (the first dense, 7 MoE) for the MTP
+# engine and its spec-off twin: both fit the smoke's time
+SPEC_MLA_LAYERS = 8
+
+
+def phase_spec_engines() -> dict:
+    """The speculative engines on the card (see the module docstring)."""
+    runs = {}
+    off = spec_off_run(QWEN3_1P7B, "spec-off")
+    runs["suffix"] = drive_spec_engine(QWEN3_1P7B, "suffix", SPEC_K, off, "spec-suffix")
+    runs["mtp"] = drive_spec_engine(QWEN3_1P7B, "mtp", SPEC_K, off, "spec-mtp")
+    lite = dict(DEEPSEEK_V2_LITE, num_hidden_layers=SPEC_MLA_LAYERS)
+    off = spec_off_run(lite, "spec-off-mla", num_blocks=512)
+    runs["mla_mtp"] = drive_spec_engine(lite, "mtp", 2, off, "spec-mla-mtp", num_blocks=512)
+    return runs
+
+
+# a near-tie: the two top logits of a row within this share of the logits'
+# largest magnitude (P rounded to bf16, 8 bits, moves a logit by about as
+# much; a fault, a wrong scale, page or row, by the logits' own size)
+NEAR_TIE_REL = 2.0 ** -7
+
+
+def check_spec_near_tie(tag: str, on: dict, on_cmp: dict, off: dict, off_cmp: dict) -> None:
+    """A quantized parity model served by a spec engine and its spec-off
+    twin on the card and the CPU (``phase_parity``'s ``traced``). Its
+    w8a8 products quantize each activation row to int8 and its cache each
+    K / V row, so an f32 difference in the order of sums moves a value by
+    a step now and then, and logits differ between the devices by ~1% of
+    their scale with no kernel at fault. So: the spec-off tokens agree on
+    both devices; the spec engine's verify passes differ between the
+    devices by at most twice the spec-off passes' largest difference (the
+    verify shape is no worse than the path held to token parity); and the
+    spec engine's tokens agree, or where they differ a pass with the same
+    inputs on both devices picked another argmax, each device's margin
+    within ``NEAR_TIE_REL`` of the scale there (a near-tie)."""
+    assert off["cuda"] == off["cpu"], f"{tag}: spec-off greedy tokens differ"
+    assert "verify" in on_cmp["max_abs_diff"], f"{tag}: no verify pass before the tokens part"
+    worst_off = max(off_cmp["max_abs_diff"].values())
+    verify = on_cmp["max_abs_diff"]["verify"]
+    assert verify <= 2 * worst_off, (
+        f"{tag}: verify logits differ by {verify} across devices, spec-off's by {worst_off}")
+    flips = on_cmp["flips"]
+    div = first_divergence(on["cuda"], on["cpu"])
+    if on["cuda"] != on["cpu"]:
+        assert flips, f"{tag}: tokens differ, but no pass with the same inputs picked another"
+        tie = NEAR_TIE_REL * on_cmp["scale"]
+        for f in flips:
+            assert max(f["margin_card"], f["margin_cpu"]) <= tie, f"{tag}: not a near-tie: {f}"
+    log(f"[spec-parity] {tag}: card vs CPU first divergence per request {div}; logits across "
+        f"devices differ by {on_cmp['max_abs_diff']} (spec-off {off_cmp['max_abs_diff']}), "
+        f"scale {on_cmp['scale']:.4f}; rows picking another argmax (margins: card's pick over "
+        f"the CPU's on the card, and the reverse on the CPU) {flips}")
+
+
+def phase_spec_parity() -> None:
+    """Card = CPU greedy tokens with suffix and with MTP on the f32 parity
+    qwen3, glm4_moe and deepseek_v2 models, and spec-on = spec-off on each
+    device. The int8 qwen3 (int8 weights and KV cache, under
+    ``XLLM_QMM_KERNEL=pallas``) with suffix: ``check_spec_near_tie``;
+    spec-on vs spec-off is reported, not asserted: with a quantized cache
+    the verify pass rounds P to bf16 a page at a time (K3) where a decode
+    step rounds it a 4-page tile at a time (K1), as the TPU kernels do, so
+    a near-tie can go either way (the JAX package's own spec engine differs
+    from its spec-off one on an fp8 cache: tests/test_torch_spec.py
+    ``test_quantized_cache_suffix_engine_matches_jax``)."""
+    with environ(XLLM_QMM_KERNEL="pallas"):
+        for name in ("qwen3", "glm4_moe", "deepseek_v2"):
+            off = phase_parity(name, PARITY_MODELS[name])
+            for spec in ("suffix", "mtp"):
+                on = phase_parity(name, PARITY_MODELS[name], spec=spec)
+                for dev, toks in on.items():
+                    assert toks == off[dev], (
+                        f"{name} {spec} on {dev}: spec-on tokens differ from spec-off")
+                log(f"[spec-parity] {name} {spec}: spec-on = spec-off on cuda and cpu")
+        kw = {"quant": "int8", "kv_cache_dtype": "int8"}
+        off_cmp, on_cmp = {}, {}
+        off = phase_parity("qwen3", PARITY_DENSE, traced=off_cmp, **kw)
+        on = phase_parity("qwen3", PARITY_DENSE, spec="suffix", traced=on_cmp, **kw)
+    check_spec_near_tie("qwen3 int8 suffix", on, on_cmp, off, off_cmp)
+    for dev, toks in on.items():
+        log(f"[spec-parity] qwen3 int8 suffix on {dev}: spec-on vs spec-off first divergence "
+            f"per request {first_divergence(toks, off[dev])}")
+
+
+def add_spec_rows(rows: list[dict], spec_kern: dict, spec_runs: dict, keys) -> None:
+    """The kernels line's K1, K3, K4, K11a, K11b and K11d rows gain the
+    verify shapes under ``by_shape`` (``verify``: the verify pass's kernel,
+    or the decode kernel at the same contexts) and the spec engines'
+    launches (``launches_spec``: each run's count, counters zeroed just
+    before it, with its launches a pass and its passes)."""
+    for row in rows:
+        name = row["name"]
+        for label, r in spec_kern.get(name, {}).items():
+            row.setdefault("by_shape", []).append(dict(
+                {k: r[k] for k in keys if k in r}, cache=label,
+                **{k: r[k] for k in ("verify", "decode_ms", "over_decode") if k in r}))
+        spec = {run: {"launches": launches.get(name, 0),
+                      "by_pass": info["per_pass"].get(name, {}).get("by_kind", {})}
+                for run, (launches, info) in spec_runs.items() if launches.get(name, 0)}
+        if spec:
+            row["launches_spec"] = spec
+
+
 def timed_phase(label: str, fn, *args, **kw):
     t0 = time.perf_counter()
     out = fn(*args, **kw)
@@ -3816,6 +4280,12 @@ def main() -> int:
         gram = timed_phase("grammar", phase_grammar, dev)
     if "grammar-engines" in phases:
         gram_runs = timed_phase("grammar-engines", phase_grammar_engines)
+    spec_kern, spec_runs = {}, {}
+    if "spec" in phases:
+        spec_kern = timed_phase("spec", phase_spec_kernels, dev)
+    if "spec-engines" in phases:
+        spec_runs = timed_phase("spec-engines", phase_spec_engines)
+        timed_phase("spec-parity", phase_spec_parity)
     if phases != set(PHASES):
         log(card)
         log(f"chip_smoke: partial run ({', '.join(sorted(phases))}); no result line")
@@ -3923,6 +4393,7 @@ def main() -> int:
         rows.append(row)
     rows += ilv_rows(ilv, runs, keys)
     rows += grammar_rows(gram, gram_runs, rows)
+    add_spec_rows(rows, spec_kern, spec_runs, keys)
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -89,7 +89,9 @@ def test_imports_no_jax_no_reference_no_triton():
                 "xllm_tpu_torch.ops.cuda.mla_attention", "xllm_tpu_torch.ops.mla",
                 "xllm_tpu_torch.models.mla_decoder",
                 "xllm_tpu_torch.server.async_engine", "xllm_tpu_torch.common.metrics",
-                "xllm_tpu_torch.engine", "xllm_tpu_torch.llm"):
+                "xllm_tpu_torch.engine", "xllm_tpu_torch.llm",
+                "xllm_tpu_torch.runtime.rejection_sampler",
+                "xllm_tpu_torch.framework.suffix_cache", "xllm_tpu_torch.models.mtp_head"):
         assert mod in out["imported"]
 
 
@@ -137,7 +139,9 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         # ported they still raise, and an int8 latent cache raises as in JAX
         pytest.param({"model": _MLA, "quant": {"method": "int8"},
                       "cache": {"kv_cache_dtype": "int8"}}, id="int8_1"),
-        {"speculative": {"method": "suffix"}},
+        # speculative decoding serves (tests/test_torch_spec.py,
+        # tests/test_torch_mtp.py); a draft head checkpoint needs the loader
+        {"speculative": {"method": "mtp", "draft_model_path": "draft-head"}},
         {"parallel": {"tp_size": 2}},
         {"parallel": {"dp_size": 2}},
         {"parallel": {"cp_size": 2}},

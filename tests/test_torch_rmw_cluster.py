@@ -3,7 +3,7 @@
 The writer (``csrc/kv_write.cu`` ``kv_write_rmw_rm_kernel``) rewrites a
 completed page canonical in one launch: a cluster of blocks a page, each
 staging the earlier token-major rows of its share in shared memory, a
-cluster barrier, then each writing its share. ``rmw_cluster_share`` is
+cluster barrier, then each writing its share. ``cluster_share`` models
 that partition; for block sizes 16-128, Hkv 2-8, head_dim 64 / 128, 1-,
 2- and 4-byte caches and every first row w0 of the chunk in [0, bs):
 
@@ -32,34 +32,62 @@ from xllm_tpu_torch.ops.quant import to_e4m3
 SHAPES = [(bs, hkv, d) for bs in (16, 32, 64, 128) for hkv in (2, 4, 8) for d in (64, 128)]
 
 
+def cluster_share(hkv: int, bs: int, head_dim: int, elem: int, w0s: torch.Tensor,
+                  rank: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Block ``rank``'s part in rewriting a completed page canonical whose
+    first ``w0`` rows were written token-major before the chunk, in 16-byte
+    units of an ``elem``-byte cache, for each w0 of ``w0s``: -> (the
+    canonical units it writes, in order; the staging slots it fills; the
+    token-major unit each slot holds), the last two for every w0 in turn.
+    Canonical unit i is head c = i // (bs U), row w = i // U % bs, piece u =
+    i % U (U units a head row); its token-major place is w (2 Hkv U) + c U
+    + u. The block that writes i stages it in slot i - lo when w < w0."""
+    per_head = head_dim * elem // 16
+    total = 2 * hkv * bs * per_head
+    per = -(-total // kvw.RMW_CLUSTER)
+    i = torch.arange(rank * per, min(total, (rank + 1) * per))
+    c, w, u = i // (bs * per_head), i // per_head % bs, i % per_head
+    early = w[None, :] < w0s[:, None]
+    token_major = w * (2 * hkv * per_head) + c * per_head + u
+    return (i, (i - rank * per).expand_as(early)[early],
+            token_major.expand_as(early)[early])
+
+
 @pytest.mark.parametrize("bs, hkv, d", SHAPES)
 def test_rmw_cluster_partition(bs, hkv, d):
+    """Every w0 of a page at once: each block's share for all w0 in one
+    call, checked as [w0, unit] tables."""
+    w0s = torch.arange(bs)
     for elem in (1, 2, 4):
         per_head = d * elem // 16
         total = 2 * hkv * bs * per_head
-        assert kvw.rmw_cluster_smem(hkv, bs, d, elem) <= kvw.RMW_SMEM_MAX
+        smem = kvw.rmw_cluster_smem(hkv, bs, d, elem)
+        assert smem <= kvw.RMW_SMEM_MAX
         tok_w = torch.arange(total) // (2 * hkv * per_head)  # row of a token-major unit
-        for w0 in range(bs):
-            written, staged = [], []
-            for rank in range(kvw.RMW_CLUSTER):
-                canon, slots, tm = kvw.rmw_cluster_share(hkv, bs, d, elem, w0, rank)
-                written.append(canon)
-                staged.append(tm)
-                assert len(slots) * 16 <= kvw.rmw_cluster_smem(hkv, bs, d, elem)
-                # the reads of step 2: canonical i below w0 from this block's slot i - lo
-                lo = int(canon[0]) if len(canon) else 0
-                c = canon // (bs * per_head)
-                w, u = canon // per_head % bs, canon % per_head
-                need = w < w0
-                held = torch.full((max(len(canon), 1),), -1)
-                held[slots] = tm
-                want = (w * 2 * hkv * per_head + c * per_head + u)[need]
-                assert torch.equal(held[canon[need] - lo], want), (elem, w0, rank)
-            written = torch.cat(written)
-            assert torch.equal(written.sort().values, torch.arange(total)), (elem, w0)
-            staged = torch.cat(staged)
-            assert torch.equal(staged.sort().values,
-                               torch.nonzero(tok_w < w0).flatten()), (elem, w0)
+        staged = torch.zeros(bs, total, dtype=torch.int32)  # times each unit is staged
+        written = []
+        for rank in range(kvw.RMW_CLUSTER):
+            canon, slots, tm = cluster_share(hkv, bs, d, elem, w0s, rank)
+            written.append(canon)
+            c = canon // (bs * per_head)
+            w, u = canon // per_head % bs, canon % per_head
+            need = w[None, :] < w0s[:, None]  # [w0, unit]: staged before the chunk
+            counts = need.sum(dim=1)
+            assert int(counts.max()) * 16 <= smem
+            rows = torch.repeat_interleave(w0s, counts)
+            staged.index_put_((rows, tm), torch.ones_like(tm, dtype=torch.int32),
+                              accumulate=True)
+            # the reads of step 2: canonical i below w0 from this block's slot i - lo
+            lo = int(canon[0]) if len(canon) else 0
+            held = torch.full((bs, max(len(canon), 1)), -1)
+            held[rows, slots] = tm
+            want = (w * 2 * hkv * per_head + c * per_head + u).expand(bs, -1)[need]
+            assert torch.equal(held[:, canon - lo][need], want), (elem, rank)
+        written = torch.cat(written)
+        assert torch.equal(written.sort().values, torch.arange(total)), elem
+        # every token-major unit of a row before w0 staged exactly once, by
+        # the block that reads it back, and nothing else
+        assert torch.equal(staged, (tok_w[None, :] < w0s[:, None]).int()), elem
 
 
 def test_e4m3_pair_model_matches_to_e4m3():

@@ -252,8 +252,8 @@ __global__ void __launch_bounds__(kRowWarps * 32)
 // page's first w0 rows, token-major) in its shared memory, the cluster
 // meets at its barrier, and each block writes its share, earlier rows from
 // its own staging and the chunk's rows from the source. Every staged unit
-// is read back by the block that staged it (ops/cuda/kv_write.
-// rmw_cluster_share models the partition); the barrier orders every read
+// is read back by the block that staged it (tests/test_torch_rmw_cluster.py
+// models the partition); the barrier orders every read
 // of an old token-major unit before any canonical write over it. w0 = 0:
 // nothing staged, no barrier.
 constexpr int kRmwThreads = 256;

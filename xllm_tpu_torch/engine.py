@@ -3,8 +3,12 @@
 Counterpart of ``xllm_tpu/engine.py`` ``LLMEngine`` for the served paths:
 continuous batching with chunked, batched prefill and decode over the
 split paged KV cache; embed requests, whose final prompt chunk runs the
-single-chunk pass and returns a pooled vector; and prompt scoring
-(``score_prompt``), chunk by chunk on a throwaway sequence.
+single-chunk pass and returns a pooled vector; prompt scoring
+(``score_prompt``), chunk by chunk on a throwaway sequence; and speculative
+decoding (``speculative.method``): suffix / ngram drafts from the host's
+n-gram indexes, or MTP / Eagle3 drafts from the runner's draft head, each
+verified for a bucketful of sequences in one synchronous pass that yields
+1 to k+1 tokens a sequence.
 
 Async schedule overlap, as in the JAX engine: sampled tokens stay on the
 device in the runner's ``last_tokens`` ring and feed the next step
@@ -35,6 +39,7 @@ from xllm_tpu_torch.framework.request import (
     StoppingChecker,
 )
 from xllm_tpu_torch.framework.sampling_params import SamplingParams
+from xllm_tpu_torch.framework.suffix_cache import GlobalSuffixCache, SuffixProposer
 from xllm_tpu_torch.framework.tokenizer import IncrementalDecoder, Tokenizer
 from xllm_tpu_torch.runtime.input_builder import group_prefill_items
 from xllm_tpu_torch.runtime.model_runner import ModelRunner
@@ -126,6 +131,20 @@ class LLMEngine:
         self._step_no = 0
         self._last_prefill_step = -(1 << 30)
         self._free_slots = list(range(self.runner.max_slots - 1, -1, -1))
+        # speculative decoding: verification is synchronous (the multi-token
+        # yield takes the overlap's place), so overlap_depth is 0
+        method = config.speculative.method
+        self.spec_k = 0
+        self.spec_model_based = method in ("mtp", "eagle3")
+        if method in ("suffix", "ngram", "mtp", "eagle3"):
+            self.spec_k = max(config.speculative.num_speculative_tokens, 1)
+            self.overlap_depth = self.overlap_depth_prefill = 0
+        self._proposers: dict[int, SuffixProposer] = {}
+        # [drafted sequence-steps, plain sequence-steps, accepted draft tokens]
+        self.spec_stats = [0, 0, 0]
+        # cross-request drafts over finished generations (suffix / ngram)
+        self._global_suffix = (GlobalSuffixCache() if method in ("suffix", "ngram")
+                               else None)
 
     # ------------------------------------------------------------------
     # request intake
@@ -226,6 +245,7 @@ class LLMEngine:
             for seq in req.sequences:
                 self._release_slot(seq)
                 self._decoders.pop(seq.seq_id, None)
+                self._proposers.pop(seq.seq_id, None)
 
     def has_unfinished(self) -> bool:
         return self.scheduler.has_unfinished() or bool(self._pending)
@@ -304,7 +324,9 @@ class LLMEngine:
                 if sampling_seqs:
                     self._defer(sampling_seqs, tokens, logprobs, sample_rows, tops)
 
-        decode_seqs = out.decode_seqs
+        decode_seqs, verified = out.decode_seqs, []
+        if self.spec_k and decode_seqs:
+            decode_seqs, verified = self._spec_step(decode_seqs)
         if decode_seqs:
             window = self.config.model.sliding_window or 0
             for seq in decode_seqs:
@@ -318,7 +340,7 @@ class LLMEngine:
                 seq.append_placeholder()
             self._defer(decode_seqs, tokens, logprobs, rows, tops)
 
-        touched: list[Sequence] = embed_done
+        touched: list[Sequence] = verified + embed_done
         self._step_no += 1
         if out.prefill_items:
             self._last_prefill_step = self._step_no
@@ -347,6 +369,107 @@ class LLMEngine:
                 ):
                     self._release_slot(seq)
         return self._build_outputs(touched)
+
+    # ------------------------------------------------------------------
+    # speculative decoding
+    # ------------------------------------------------------------------
+    def _spec_step(self, seqs: list[Sequence]) -> tuple[list[Sequence], list[Sequence]]:
+        """Draft and verify every running sequence that can take k + 1
+        tokens, in dispatches of at most the largest row bucket (each one
+        synchronous) -> (sequences left to plain decode, verified ones)."""
+        plain, jobs = [], []
+        for seq in seqs:
+            self._assign_slot(seq)
+            if self.spec_model_based:
+                draft = [] if self._spec_capacity(seq) else None
+                self.spec_stats[0 if draft is not None else 1] += 1
+            else:
+                draft = self._propose_draft(seq)
+                self.spec_stats[0 if draft else 1] += 1
+            if draft is None:
+                plain.append(seq)
+            else:
+                jobs.append((seq, draft))
+        verified = []
+        max_rows = self.config.scheduler.prefill_row_buckets[-1]
+        for lo in range(0, len(jobs), max_rows):
+            grp = jobs[lo : lo + max_rows]
+            if self.spec_model_based:
+                tokens, num_acc, rows = self.runner.run_verify_mtp(
+                    [seq for seq, _ in grp], self.spec_k)
+            else:
+                tokens, num_acc, rows = self.runner.run_verify_batched(grp, self.spec_k)
+            for (seq, _), i in zip(grp, rows):
+                self._apply_verified(seq, tokens[i, : num_acc[i]])
+                verified.append(seq)
+        return plain, verified
+
+    def _spec_eligible(self, seq: Sequence) -> bool:
+        """Penalized rows (the rejection sampler has no penalty pass) and
+        sequences too near max_model_len for k + 1 positions take plain
+        decode."""
+        sp = seq.sampling_params
+        return (sp.repetition_penalty == 1.0 and sp.frequency_penalty == 0.0
+                and sp.presence_penalty == 0.0
+                and seq.num_fixed_tokens == seq.num_tokens
+                and seq.num_tokens + self.spec_k + 1 <= self.config.scheduler.max_model_len)
+
+    def _spec_capacity(self, seq: Sequence) -> bool:
+        """An MTP step's bounds and its k + 1 positions' blocks."""
+        if not self._spec_eligible(seq):
+            return False
+        if seq.num_generated_tokens + self.spec_k + 1 > seq.stopping.max_new_tokens:
+            return False
+        return self.block_manager.allocate(seq, self.spec_k + 1)
+
+    def _propose_draft(self, seq: Sequence) -> list[int] | None:
+        """spec_k draft tokens from the suffix proposers (fewer near
+        max_new_tokens; [] when nothing matches: the row rides the verify
+        pass as an exact decode), or None for plain decode. The verify chunk
+        writes spec_k + 1 positions whatever the draft's length."""
+        if not self._spec_eligible(seq):
+            return None
+        k = min(self.spec_k, seq.stopping.max_new_tokens - seq.num_generated_tokens - 1)
+        if k < 0 or not self.block_manager.allocate(seq, self.spec_k + 1):
+            return None
+        prop = self._proposers.get(seq.seq_id)
+        if prop is None:
+            prop = self._proposers[seq.seq_id] = SuffixProposer()
+        prop.extend(seq.token_ids, seq.num_fixed_tokens)
+        draft = prop.propose(seq.token_ids, k)
+        if not draft and self._global_suffix is not None:
+            draft = self._global_suffix.propose(seq.token_ids, k)
+        if not draft:
+            return []
+        while len(draft) < k:  # pad a short draft by repeating its tail
+            draft.append(draft[-1])
+        return draft
+
+    def _apply_verified(self, seq: Sequence, tokens) -> None:
+        """Append a verify pass's emitted tokens (accepted drafts and one
+        bonus or corrected token), stopping where the sequence finishes."""
+        self.spec_stats[2] += max(len(tokens) - 1, 0)
+        for tok in tokens:
+            seq.append_token(int(tok), 0.0)
+            seq.num_computed_tokens += 1
+            if not seq.is_finished:
+                seq.maybe_finish(int(tok), self.config.scheduler.max_model_len)
+            if seq.is_finished:
+                break
+        # sample-then-compute: the last token's KV is written by the next pass
+        seq.num_computed_tokens = min(seq.num_computed_tokens, seq.num_tokens - 1)
+        dec = self._decoders.get(seq.seq_id)
+        if dec is not None and (self.inline_detok or seq.stopping.stop_strings):
+            delta = dec.decode_new(seq.token_ids)
+            if delta:
+                seq.output_text += delta
+                if seq.stopping.stop_strings:
+                    cut = seq.stopping.check_stop_strings(seq.output_text)
+                    if cut >= 0:
+                        seq.output_text = seq.output_text[:cut]
+                        seq.finish(FinishReason.STOP)
+        if not seq.is_finished and self._cache_gate_bs:
+            self.block_manager.cache_computed_blocks(seq)
 
     def _process_pending(self, entry: _Pending) -> list[Sequence]:
         """Fix up placeholders with arrived tokens; run stop logic."""
@@ -450,6 +573,10 @@ class LLMEngine:
                 self._active_requests.pop(rid, None)
                 for seq in req.sequences:
                     self._decoders.pop(seq.seq_id, None)
+                    self._proposers.pop(seq.seq_id, None)
+                    if self._global_suffix is not None and not req.aborted:
+                        # finished generations feed the cross-request drafts
+                        self._global_suffix.add(seq.token_ids[: seq.num_fixed_tokens])
             outputs.append(ro)
         return outputs
 

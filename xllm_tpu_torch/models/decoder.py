@@ -276,9 +276,14 @@ class DenseDecoderModel(nn.Module):
         return self._linear(lp, "down_proj_w", act, x.dtype)
 
     def _attn_qkv(
-        self, lp: DecoderLayer, x: torch.Tensor, positions: torch.Tensor
+        self, lp: DecoderLayer, x: torch.Tensor, positions: torch.Tensor,
+        inv_freq: torch.Tensor | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``inv_freq``: the rope frequencies (default the model's; the
+        MTP head passes its own, which an MLA target does not share)."""
         c = self.cfg
+        if inv_freq is None:
+            inv_freq = self.inv_freq
         t = x.shape[0]
         hkv, dh = c.num_kv_heads, c.head_dim
         g = c.num_attention_heads // hkv
@@ -298,9 +303,9 @@ class DenseDecoderModel(nn.Module):
         if c.partial_rotary_factor < 1.0:
             partial = (apply_rope_partial_interleaved_cos if c.rope_interleaved
                        else apply_rope_partial)
-            q, k = partial(q, k, positions, self.inv_freq, self.rotary_dim)
+            q, k = partial(q, k, positions, inv_freq, self.rotary_dim)
         else:
-            q, k = apply_rope(q, k, positions, self.inv_freq)
+            q, k = apply_rope(q, k, positions, inv_freq)
         return q, k, v
 
     def _run_layers(
@@ -309,6 +314,8 @@ class DenseDecoderModel(nn.Module):
         positions: torch.Tensor,  # [T]
         attn_fn,  # (q, k, v, layer_idx) -> attn [T, Hq, D]
     ) -> torch.Tensor:
+        """-> the pre-final-norm states [T, D] (the MTP head's input); the
+        callers apply ``self.norm``."""
         c = self.cfg
         t = x.shape[0]
         for layer_idx, lp in enumerate(self.layers):
@@ -328,7 +335,7 @@ class DenseDecoderModel(nn.Module):
             if c.use_sandwich_norms:
                 mlp_out = rms_norm(mlp_out, lp.post_mlp_layernorm, c.rms_norm_eps)
             x = x + mlp_out
-        return rms_norm(x, self.norm, c.rms_norm_eps)
+        return x
 
     def prefill(
         self,
@@ -347,6 +354,7 @@ class DenseDecoderModel(nn.Module):
         are gathered on the device: nothing syncs."""
         x = self.embed_tokens[inp.token_ids.long()]
         x = self._run_layers(x, inp.positions, self._chunk_attn_fn(k_all, v_all, inp))
+        x = rms_norm(x, self.norm, self.cfg.rms_norm_eps)
         s = x.shape[0]
         if not 0 < num_logits <= s:
             raise ValueError(f"num_logits {num_logits} outside [1, {s}]")
@@ -360,21 +368,29 @@ class DenseDecoderModel(nn.Module):
         v_all: torch.Tensor,
         inp: BatchedPrefillInput,
         num_logits: int = 1,
-    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """-> (hidden [P, num_logits, D], k_all, v_all); the caches are
-        updated in place. P chunks from P sequences in one pass."""
+        return_hidden: bool = False,
+    ) -> tuple:
+        """-> (hidden [P, num_logits, D], k_all, v_all[, pre]); the caches
+        are updated in place. P chunks from P sequences in one pass.
+        ``num_logits`` > 1 is the speculative verify pass: rows
+        ``[logits_idx - num_logits + 1, logits_idx]`` of each chunk feed the
+        rejection sampler. ``return_hidden`` also returns ``pre`` [P, S, D],
+        every row's pre-final-norm state (the MTP head applies its own
+        norm)."""
         c = self.cfg
         p, s = inp.token_ids.shape
         attn_fn = self._prefill_attn_fn(k_all, v_all, inp)
         x = self.embed_tokens[inp.token_ids.reshape(-1).long()]
-        x = self._run_layers(x, inp.positions.reshape(-1), attn_fn)
-        x = x.reshape(p, s, -1)
+        pre = self._run_layers(x, inp.positions.reshape(-1), attn_fn).reshape(p, s, -1)
+        x = rms_norm(pre, self.norm, c.rms_norm_eps)
         idx = (
             inp.logits_idx.long()[:, None]
             - (num_logits - 1)
             + torch.arange(num_logits, device=x.device)[None, :]
         ).clamp(min=0)  # [P, num_logits]
         hidden = torch.gather(x, 1, idx[..., None].expand(-1, -1, c.hidden_size))
+        if return_hidden:
+            return hidden, k_all, v_all, pre
         return hidden, k_all, v_all
 
     def decode(
@@ -383,10 +399,16 @@ class DenseDecoderModel(nn.Module):
         v_all: torch.Tensor,
         inp: DecodeInput,
         token_ids: torch.Tensor,  # [B] (gathered from the last_tokens ring)
-    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """-> (hidden [B, D], k_all, v_all); the caches are updated in place."""
+        return_hidden: bool = False,
+    ) -> tuple:
+        """-> (hidden [B, D], k_all, v_all[, pre]); the caches are updated in
+        place. ``return_hidden`` also returns ``pre`` [B, D], the
+        pre-final-norm states (the MTP head's input)."""
         x = self.embed_tokens[token_ids.long()]
-        x = self._run_layers(x, inp.positions, self._decode_attn_fn(k_all, v_all, inp))
+        pre = self._run_layers(x, inp.positions, self._decode_attn_fn(k_all, v_all, inp))
+        x = rms_norm(pre, self.norm, self.cfg.rms_norm_eps)
+        if return_hidden:
+            return x, k_all, v_all, pre
         return x, k_all, v_all
 
     def _prefill_attn_fn(self, k_all, v_all, inp: BatchedPrefillInput):

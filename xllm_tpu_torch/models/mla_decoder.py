@@ -194,7 +194,8 @@ class MlaDecoderModel(DenseDecoderModel):
     _moe_block = MoeDecoderModel._moe_block
 
     def _run_layers(self, x, positions, attn_fn):
-        """attn_fn: (q_eff, lat_new, layer_idx) -> out_lat [T, H, dv]."""
+        """attn_fn: (q_eff, lat_new, layer_idx) -> out_lat [T, H, dv]. ->
+        the pre-final-norm states [T, D]."""
         c = self.cfg
         for layer_idx, lp in enumerate(self.layers):
             h = rms_norm(x, lp.input_layernorm, c.rms_norm_eps)
@@ -202,7 +203,7 @@ class MlaDecoderModel(DenseDecoderModel):
             x = x + self._mla_out(lp, attn_fn(q_eff, lat_new, layer_idx))
             h = rms_norm(x, lp.post_attention_layernorm, c.rms_norm_eps)
             x = x + self._mlp(lp, h)
-        return rms_norm(x, self.norm, c.rms_norm_eps)
+        return x
 
     def _prefill_attn_fn(self, k_all, v_all, inp: BatchedPrefillInput):
         p, s = inp.token_ids.shape

@@ -41,7 +41,7 @@ complete (``(page + 1) * bs > kv_len``) goes token-major, to row ``pos %
 bs`` of the page seen as ``[bs, 2 * Hkv, D]`` (K heads, then V heads), and
 a page the chunk completes is written canonical, its earlier token-major
 rows included (the RMW writer's own kernel: one launch, a thread-block
-cluster a page, ``rmw_cluster_share`` its partition).
+cluster a page; tests/test_torch_rmw_cluster.py models its partition).
 
 A single-chunk writer is its batched twin's kernel launched with one chunk
 (the contracts are the batched ones at P = 1): ``q_offset`` and ``ntok``
@@ -115,26 +115,6 @@ def rmw_cluster_smem(hkv: int, bs: int, head_dim: int, elem: int) -> int:
     at most: its share of the page's 16-byte units."""
     units = 2 * hkv * bs * head_dim * elem // 16
     return -(-units // RMW_CLUSTER) * 16
-
-
-def rmw_cluster_share(hkv: int, bs: int, head_dim: int, elem: int, w0: int,
-                      rank: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Block ``rank``'s part in rewriting a completed page canonical whose
-    first ``w0`` rows were written token-major before the chunk, in 16-byte
-    units of an ``elem``-byte cache: -> (the canonical units it writes, in
-    order; the staging slots it fills; the token-major unit each slot
-    holds). Canonical unit i is head c = i // (bs U), row w = i // U % bs,
-    piece u = i % U (U units a head row); its token-major place is w (2 Hkv
-    U) + c U + u. The block that writes i stages it in slot i - lo when w
-    < w0."""
-    per_head = head_dim * elem // 16
-    total = 2 * hkv * bs * per_head
-    per = -(-total // RMW_CLUSTER)
-    i = torch.arange(rank * per, min(total, (rank + 1) * per))
-    c, w, u = i // (bs * per_head), i // per_head % bs, i % per_head
-    early = w < w0
-    token_major = w * (2 * hkv * per_head) + c * per_head + u
-    return i, (i - rank * per)[early], token_major[early]
 
 
 def unit_partition(offset: int, width: int, elem: int) -> tuple[int, int, int]:

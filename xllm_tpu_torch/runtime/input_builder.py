@@ -7,8 +7,9 @@ inputs, padded to the same buckets so that both packages batch identically
 and the kernels see the padded rows (``seq_len``/``kv_len`` 0) their
 contract covers. Left out with the features that raise in this slice: the
 VLM fields and the context-parallel zigzag of batched prefill, the
-speculative-verify builder, and the decode page maps that only the TPU
-kernel's global page ring read.
+single-sequence speculative-verify builder (the JAX engine takes it only
+for a family without batched prefill, and the port has none), and the
+decode page maps that only the TPU kernel's global page ring read.
 """
 
 from __future__ import annotations
@@ -182,6 +183,67 @@ def build_batched_prefill_input(
         hist_pos=hist_pos,
     )
     return inp, samples_flags, rows
+
+
+def build_batched_verify_input(
+    pairs: list[tuple[Sequence, list[int]]],
+    spec_k: int,
+    block_size: int,
+    row_buckets: list[int],
+    num_block_table_cols: int,
+    trash_slot: int,
+) -> tuple[BatchedPrefillInput, np.ndarray, np.ndarray, list[int]]:
+    """Batched speculative-verify chunks: row i = [last_token, drafts_i...].
+
+    Every row has S = spec_k + 1 positions whatever its draft's length
+    (short drafts are padded with zeros; ``draft_lens`` 0 is an exact
+    decode through the verify pass). ``kv_lens = start + S`` and
+    ``q_offsets = start``, where ``start`` is the last sampled token's
+    position; padded rows keep ``kv_len`` 0 and the trash slot. Returns
+    (input, draft_tokens [P, k], draft_lens [P], rows)."""
+    rows, p_pad = _assign_rows([seq for seq, _ in pairs], row_buckets, 1)
+    s = spec_k + 1
+
+    token_ids = np.zeros((p_pad, s), np.int32)
+    positions = np.zeros((p_pad, s), np.int32)
+    slot_mapping = np.zeros((p_pad, s), np.int32)
+    block_tables = np.zeros((p_pad, num_block_table_cols), np.int32)
+    kv_lens = np.zeros(p_pad, np.int32)
+    q_offsets = np.zeros(p_pad, np.int32)
+    logits_idx = np.full(p_pad, s - 1, np.int32)
+    sample_slots = np.full(p_pad, trash_slot, np.int32)
+    hist_slots = np.full(p_pad, trash_slot, np.int32)
+    draft_tokens = np.zeros((p_pad, spec_k), np.int32)
+    draft_lens = np.zeros(p_pad, np.int32)
+    for (seq, draft), i in zip(pairs, rows):
+        start = seq.num_computed_tokens
+        assert start == seq.num_tokens - 1, "verify needs sample-then-compute"
+        assert len(draft) <= spec_k
+        draft_lens[i] = len(draft)
+        draft = list(draft) + [0] * (spec_k - len(draft))
+        token_ids[i] = [seq.token_ids[start], *draft]
+        pos = np.arange(start, start + s)
+        positions[i] = pos
+        blocks = np.asarray(seq.block_ids, np.int64)
+        slot_mapping[i] = blocks[pos // block_size] * block_size + pos % block_size
+        block_tables[i, : len(seq.block_ids)] = seq.block_ids
+        kv_lens[i] = start + s
+        q_offsets[i] = start
+        sample_slots[i] = seq.slot_id
+        hist_slots[i] = seq.slot_id
+        draft_tokens[i] = draft
+    inp = BatchedPrefillInput(
+        token_ids=token_ids,
+        positions=positions,
+        slot_mapping=slot_mapping,
+        block_tables=block_tables,
+        kv_lens=kv_lens,
+        q_offsets=q_offsets,
+        logits_idx=logits_idx,
+        sample_slots=sample_slots,
+        hist_slots=hist_slots,
+    )
+    return inp, draft_tokens, draft_lens, rows
 
 
 def build_decode_input(

@@ -2,9 +2,12 @@
 
 Counterpart of the subset of ``xllm_tpu/runtime/model_runner.py`` that
 serves the dense, MoE and MLA main paths on one device: ``load_model``, ``initialize_kv_cache``,
-``run_prefill_batched`` and ``run_decode``, and the single-chunk passes of
+``run_prefill_batched`` and ``run_decode``, the single-chunk passes of
 prompt scoring (``run_score_chunk``) and embeddings (``run_prefill_embed``),
-which read their result back synchronously, as the JAX runner does. The device-resident
+and speculative decoding's batched verify passes (``run_verify_batched``
+for the suffix / ngram drafts, ``run_verify_mtp`` for the MTP / Eagle3
+draft head, whose drafts never leave the device), all of which read their
+result back synchronously, as the JAX runner does. The device-resident
 ``last_tokens`` ring (each slot holds its sequence's last sampled token, so
 the next decode reads it without a host round trip) and the ``token_hist``
 ring (the sampler's penalty history) are kept. There is no jit, no warmup
@@ -30,10 +33,12 @@ from xllm_tpu_torch.runtime.forward_params import (
 from xllm_tpu_torch.runtime.input_builder import (
     DecodeStepCache,
     build_batched_prefill_input,
+    build_batched_verify_input,
     build_decode_input,
     build_prefill_input,
     build_sampling_input,
 )
+from xllm_tpu_torch.runtime.rejection_sampler import rejection_sample
 from xllm_tpu_torch.runtime.sampler import gumbel_noise, sample
 from xllm_tpu_torch.utils import cdiv, get_logger, next_bucket
 
@@ -70,8 +75,10 @@ def reject_unported(config: EngineConfig) -> None:
         )
     if c.quant.method not in ("", "int8", "fp8_e4m3"):
         raise ValueError(f"quant.method={c.quant.method!r}: one of '', int8, fp8_e4m3")
-    if c.speculative.method:
-        raise NotImplementedError("speculative decoding is not ported yet")
+    if c.speculative.draft_model_path:
+        raise NotImplementedError(
+            "loading a draft head checkpoint (speculative.draft_model_path) is not "
+            "ported yet; an MTP / Eagle3 head without one starts from random weights")
     p = c.parallel
     if max(p.dp_size, p.tp_size, p.cp_size, p.ep_size, p.num_nodes) > 1:
         raise NotImplementedError("parallelism (dp/tp/cp/ep, multi-node) is not ported yet")
@@ -137,16 +144,28 @@ class ModelRunner:
         self._gen.manual_seed(config.seed)
         self.last_tokens = None
         self.token_hist = None
+        # model-based speculative decoding (MTP / Eagle3): a draft head
+        # sharing the target's embedding and lm_head, its own one-layer
+        # cache, and a ring of each slot's last pre-norm hidden state
+        self.draft_head = None
+        self.dk_cache = self.dv_cache = self.hidden_ring = None
+        if config.speculative.method in ("mtp", "eagle3"):
+            from xllm_tpu_torch.models.mtp_head import MTPHead
+
+            self.draft_head = MTPHead(config.model, self.model)
 
     # ------------------------------------------------------------------
     # init
     # ------------------------------------------------------------------
-    def load_model(self, params: dict | None = None, seed: int | None = None) -> None:
+    def load_model(self, params: dict | None = None, seed: int | None = None,
+                   head_params: dict | None = None) -> None:
         """Load weights: a JAX-layout parameter tree (``weights.py``), or a
         random init from ``seed`` (default ``config.seed``). With
         ``quant.method`` set, a full-precision tree is quantized first, as
         the JAX runner does; a tree that is already quantized (int8 /
-        float8_e4m3fn stacks with their ``*_scale``) is carried as it is."""
+        float8_e4m3fn stacks with their ``*_scale``) is carried as it is.
+        An MTP / Eagle3 engine's draft head loads ``head_params`` (the JAX
+        head's tree), else a random init from ``config.seed + 1``."""
         if params is not None:
             from xllm_tpu_torch.weights import load_param_tree
 
@@ -169,6 +188,17 @@ class ModelRunner:
         self.token_hist = torch.zeros(
             (self.max_slots + 1, hist_cols), dtype=torch.int32, device=self.device
         )
+        if self.draft_head is not None:
+            if head_params is not None:
+                from xllm_tpu_torch.weights import load_mtp_head_params
+
+                load_mtp_head_params(self.draft_head, head_params)
+            else:
+                self.draft_head.init_random_(self.config.seed + 1)
+            self.hidden_ring = torch.zeros(
+                (self.max_slots + 1, self.config.model.hidden_size),
+                dtype=self.model.dtype, device=self.device,
+            )
 
     # matmul weights eligible for weight-only quantization (the JAX
     # runner's rule): every "*_proj_w" of a layer group but these, and the
@@ -232,6 +262,10 @@ class ModelRunner:
         self.k_cache, self.v_cache = self.model.new_kv_cache(
             self.num_blocks, self.block_size, kv_dtype
         )
+        if self.draft_head is not None:
+            self.dk_cache, self.dv_cache = self.draft_head.new_kv_cache(
+                self.num_blocks, self.block_size
+            )
         logger.info(
             "KV cache: %d blocks x %d tokens (%s, %s, %s layout)",
             self.num_blocks, self.block_size, kv_dtype, self.device, self.model.kv_layout,
@@ -246,7 +280,10 @@ class ModelRunner:
         multiple of 16 or does not divide ``block_size`` (its token-major
         row of ``[2 * Hkv, D]`` must tile the TPU page). The port's kernels
         have no such tile rule; the rules stay because the layout decides
-        the cache's bytes, which another JAX or CUDA node may read."""
+        the cache's bytes, which another JAX or CUDA node may read. A
+        speculative engine serves ``interleaved`` for ``interleaved_rm``:
+        its verify chunks write rows past the sequence's true length, and a
+        rejected draft would leave a page canonical too early."""
         layout = self.config.cache.kv_layout
         if not layout.startswith("interleaved"):
             return layout
@@ -254,6 +291,10 @@ class ModelRunner:
             logger.warning("kv_layout=%s unsupported for %s; using split", layout,
                            type(self.model).__name__)
             return "split"
+        if layout == "interleaved_rm" and self.config.speculative.method:
+            logger.info("kv_layout=interleaved_rm under speculative decoding; using "
+                        "interleaved")
+            return "interleaved"
         two_h = 2 * self.config.model.num_kv_heads
         if layout == "interleaved_rm" and (
             two_h % 16 or self.block_size % two_h or kv_dtype == torch.int8
@@ -365,7 +406,17 @@ class ModelRunner:
         noise = self._noise(si_np, p_pad)
 
         model = self.model
-        hidden, _, _ = model.prefill_batched(self.k_cache, self.v_cache, inp)
+        head = self.draft_head
+        if head is None:
+            hidden, _, _ = model.prefill_batched(self.k_cache, self.v_cache, inp)
+        else:
+            # the draft head advances its cache over the chunk, and each
+            # sampling row's last pre-norm state joins the hidden ring
+            hidden, _, _, pre = model.prefill_batched(self.k_cache, self.v_cache, inp,
+                                                      return_hidden=True)
+            head.prefill_batched(self.dk_cache, self.dv_cache, pre, inp)
+            last_pre = pre[torch.arange(p_pad, device=pre.device), inp.logits_idx.long()]
+            self.hidden_ring[inp.sample_slots.long()] = last_pre
         logits = model.compute_logits(hidden[:, 0])  # [P, V]
         # history ring: each real token at its absolute index; pad columns
         # go to column 0 of the trash row, which no real row reads
@@ -413,7 +464,12 @@ class ModelRunner:
         # record each row's input token (the previous sample) so the
         # history ring holds every position < num_tokens
         self.token_hist[slot_ids, inp.hist_positions.long()] = token_ids
-        hidden, _, _ = self.model.decode(self.k_cache, self.v_cache, inp, token_ids)
+        if self.hidden_ring is None:
+            hidden, _, _ = self.model.decode(self.k_cache, self.v_cache, inp, token_ids)
+        else:
+            hidden, _, _, pre = self.model.decode(self.k_cache, self.v_cache, inp,
+                                                  token_ids, return_hidden=True)
+            self.hidden_ring[slot_ids] = pre
         logits = self.model.compute_logits(hidden)
         hist = self.token_hist[slot_ids] if use_penalties else None
         num_top = self._num_top(seqs)
@@ -422,6 +478,93 @@ class ModelRunner:
         tops = out[2:] if num_top else (None, None)
         self.last_tokens[slot_ids] = tokens
         return tokens, logprobs, rows, tops
+
+    # ------------------------------------------------------------------
+    # speculative verify (synchronous: one read-back a dispatch)
+    # ------------------------------------------------------------------
+    def _verify_input(self, pairs, spec_k: int):
+        """The verify chunks of ``pairs`` on the device -> (input, drafts
+        [P, k], draft_lens [P], temperature [P], rows, sampled): one copy;
+        ``sampled`` is False when every row is greedy."""
+        inp_np, drafts, lens, rows = build_batched_verify_input(
+            pairs, spec_k, self.block_size, self.config.scheduler.prefill_row_buckets,
+            self.max_blocks_per_seq, self.trash_slot,
+        )
+        temperature = np.zeros(inp_np.kv_lens.shape[0], np.float32)
+        for (seq, _), i in zip(pairs, rows):
+            temperature[i] = seq.sampling_params.temperature
+        fields = {k: v for k, v in vars(inp_np).items() if v is not None}
+        dev = self._upload({**fields, "drafts": drafts, "draft_lens": lens,
+                            "temperature": temperature})
+        inp = BatchedPrefillInput(**{k: dev[k] for k in fields})
+        return (inp, dev["drafts"], dev["draft_lens"], dev["temperature"], rows,
+                bool(np.any(temperature > 0)))
+
+    def _verify_logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        p, n = hidden.shape[:2]
+        return self.model.compute_logits(hidden.reshape(p * n, -1)).reshape(p, n, -1)
+
+    @staticmethod
+    def _read_back(tokens: torch.Tensor, num_acc: torch.Tensor):
+        """-> (tokens [P, k+1], num_accepted [P]) as numpy, in one read."""
+        host = torch.cat([tokens, num_acc[:, None]], dim=1).cpu().numpy()
+        return host[:, :-1], host[:, -1]
+
+    @torch.inference_mode()
+    def run_verify_batched(self, pairs: list[tuple[Sequence, list[int]]], spec_k: int):
+        """Verify the host's drafts (suffix / ngram) of every sequence in
+        one pass: row i is [last token, drafts...], ``num_logits = k + 1``.
+        Returns (tokens [P, k+1], num_accepted [P], rows) on the host."""
+        inp, drafts, draft_lens, temperature, rows, sampled = self._verify_input(
+            pairs, spec_k)
+        hidden, _, _ = self.model.prefill_batched(self.k_cache, self.v_cache, inp,
+                                                  num_logits=spec_k + 1)
+        logits = self._verify_logits(hidden)
+        # only the row's first token (the previous sample) is history yet;
+        # accepted drafts are recorded by later steps' inputs
+        self.token_hist[inp.hist_slots.long(), inp.positions[:, 0].long()] = inp.token_ids[:, 0]
+        tokens, num_acc = rejection_sample(drafts, draft_lens, logits, temperature,
+                                           self._gen if sampled else None)
+        self._set_last(inp, tokens, num_acc)
+        return (*self._read_back(tokens, num_acc), rows)
+
+    @torch.inference_mode()
+    def run_verify_mtp(self, seqs: list[Sequence], spec_k: int):
+        """Draft (MTP head, k single-token decodes on the device), verify
+        and accept in one pass; then the head's cache is rewritten over the
+        verify chunk with the emitted tokens. Returns (tokens [P, k+1],
+        num_accepted [P], rows) on the host."""
+        pairs = [(seq, [0] * spec_k) for seq in seqs]  # the drafts come from the head
+        inp, _, _, temperature, rows, sampled = self._verify_input(pairs, spec_k)
+        head = self.draft_head
+        slots = inp.hist_slots.long()
+        last_tok = self.last_tokens[slots]
+        seq_base = torch.where(inp.kv_lens > 0, inp.kv_lens - spec_k, 0)  # num_tokens
+        drafts = head.draft_tokens(
+            self.dk_cache, self.dv_cache, self.hidden_ring[slots], last_tok,
+            inp.positions[:, 0], inp.slot_mapping[:, :spec_k], inp.block_tables, seq_base,
+            spec_k,
+        )
+        inp.token_ids = torch.cat([last_tok[:, None], drafts], dim=1)
+        hidden, _, _, pre = self.model.prefill_batched(
+            self.k_cache, self.v_cache, inp, num_logits=spec_k + 1, return_hidden=True)
+        logits = self._verify_logits(hidden)
+        draft_lens = torch.where(inp.kv_lens > 0, spec_k, 0)
+        tokens, num_acc = rejection_sample(drafts, draft_lens, logits, temperature,
+                                           self._gen if sampled else None)
+        # the head's rows over the chunk, from the true (hidden_t, token_t+1)
+        head.prefill_batched(self.dk_cache, self.dv_cache, pre, inp, tokens_next=tokens)
+        self._set_last(inp, tokens, num_acc)
+        last = (num_acc - 1).long()
+        self.hidden_ring[inp.sample_slots.long()] = pre[
+            torch.arange(pre.shape[0], device=pre.device), last]
+        self.token_hist[slots, inp.positions[:, 0].long()] = inp.token_ids[:, 0]
+        return (*self._read_back(tokens, num_acc), rows)
+
+    def _set_last(self, inp, tokens: torch.Tensor, num_acc: torch.Tensor) -> None:
+        """Each row's last emitted token into the last_tokens ring."""
+        final = torch.gather(tokens, 1, (num_acc - 1).long()[:, None])[:, 0]
+        self.last_tokens[inp.sample_slots.long()] = final
 
     def _chunk_input(self, seq: Sequence, num_new_tokens: int, **extra):
         """One sequence's next chunk as a device ``PrefillInput`` (and the

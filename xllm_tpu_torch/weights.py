@@ -28,7 +28,8 @@ A quantized tree (the JAX runner's ``_quantize_params``) holds int8 or
 float8_e4m3fn ``*_proj_w`` stacks beside f32 ``*_scale`` stacks (under fp8
 also the MoE groups' ``experts_gate_up`` / ``experts_down`` with their
 ``[L, E, N]`` scales); it loads into a model built with the same ``quant``
-method, byte for byte. numpy has
+method, byte for byte. The MTP draft head's tree (``load_mtp_head_params``)
+is unquantized and loads into ``models/mtp_head.MTPHead``. numpy has
 no float8 type of its own: a JAX float8 array arrives as an ml_dtypes array
 and is carried through its bytes, so the port never imports ml_dtypes.
 """
@@ -62,25 +63,10 @@ def as_tensor(a) -> torch.Tensor:
 def load_param_tree(model, tree: dict) -> None:
     """Copy a JAX-layout parameter tree into ``model`` in place (cast to
     the model's dtype, moved to its device)."""
-
-    def put(param: torch.Tensor, value) -> None:
-        value = as_tensor(value)
-        if tuple(value.shape) != tuple(param.shape):
-            raise ValueError(
-                f"shape {tuple(value.shape)} does not fit {tuple(param.shape)}"
-            )
-        if param.dtype in (torch.int8, torch.float8_e4m3fn):
-            # quantized weights carry their bytes; a cast would change them
-            if value.dtype != param.dtype:
-                raise ValueError(f"a {param.dtype} weight cannot load {value.dtype} values")
-            param.view(torch.uint8).copy_(value.view(torch.uint8).to(param.device))
-            return
-        param.copy_(value.to(device=param.device, dtype=param.dtype))
-
-    put(model.embed_tokens, tree["embed_tokens"])
-    put(model.norm, tree["norm"])
+    _put(model.embed_tokens, tree["embed_tokens"])
+    _put(model.norm, tree["norm"])
     if "lm_head" in tree:
-        put(model.lm_head, tree["lm_head"])
+        _put(model.lm_head, tree["lm_head"])
     n_dense = getattr(model, "n_dense", 0)
     groups = {"dense_layers": model.layers[:n_dense],
               getattr(model, "moe_group", "layers"): model.layers[n_dense:]}
@@ -101,7 +87,36 @@ def load_param_tree(model, tree: dict) -> None:
         for name, stack in stacks.items():
             stack = as_tensor(stack)
             for i, layer in enumerate(layers):
-                put(getattr(layer, name), stack[i])
+                _put(getattr(layer, name), stack[i])
+
+
+@torch.no_grad()
+def load_mtp_head_params(head, tree: dict) -> None:
+    """Copy the JAX ``MTPHead`` parameter tree (``enorm``, ``hnorm``,
+    ``eh_proj``, ``norm`` and the one-layer stacks under ``layers``, each
+    ``[1, ...]``) into the port's ``MTPHead`` in place."""
+    stacks = tree["layers"]
+    names = {n for n, _ in head.layer.named_parameters()}
+    if set(stacks) != names:
+        raise ValueError(f"head layer tensors {sorted(stacks)} != model's {sorted(names)}")
+    for name in ("enorm", "hnorm", "eh_proj", "norm"):
+        _put(getattr(head, name), tree[name])
+    for name, stack in stacks.items():
+        _put(getattr(head.layer, name), as_tensor(stack)[0])
+
+
+def _put(param: torch.Tensor, value) -> None:
+    """``param`` <- ``value`` (cast to its dtype, moved to its device)."""
+    value = as_tensor(value)
+    if tuple(value.shape) != tuple(param.shape):
+        raise ValueError(f"shape {tuple(value.shape)} does not fit {tuple(param.shape)}")
+    if param.dtype in (torch.int8, torch.float8_e4m3fn):
+        # quantized weights carry their bytes; a cast would change them
+        if value.dtype != param.dtype:
+            raise ValueError(f"a {param.dtype} weight cannot load {value.dtype} values")
+        param.view(torch.uint8).copy_(value.view(torch.uint8).to(param.device))
+        return
+    param.copy_(value.to(device=param.device, dtype=param.dtype))
 
 
 def random_param_tree(cfg: ModelConfig, seed: int) -> dict:
