@@ -183,10 +183,36 @@ phase raises on failure, so a non-zero exit means a phase failed:
    the int8 qwen3 (int8 KV) with suffix under ``XLLM_QMM_KERNEL=pallas``,
    where those need not hold (``phase_spec_parity``), reported.
 
+14. checkpoint: HF safetensors checkpoints, each written by the smoke's
+   own writer (``write_checkpoint``: bf16 shards of at most 2 GiB with their
+   index and config.json, tensors drawn on the card from a seed under the
+   published checkpoints' names, ``hf_tensors``; the free disk space
+   checked first) into a temporary directory, loaded, served and deleted,
+   each loaded engine beside a twin: the same config served from
+   ``params=``, the tree the port's loader reads on the host
+   (``loader.load_params``), quantized by ``_quantize_params`` on the card
+   where a method is set. (a) qwen3-1.7B at full width and depth (~4.1 GB)
+   through ``LLM(model=dir)``: ``load_model_config`` equals ``QWEN3_1P7B``,
+   every parameter byte-equal to the twin's, 16 greedy requests x 32 tokens
+   give the twin's tokens and launch counts (every pass held to
+   ``pass_launches``); (b) the same checkpoint with int8 and with fp8
+   weights quantized as they load, under ``XLLM_QMM_KERNEL=pallas``: codes
+   and scales byte-equal to the twin's, the load's extra device memory (peak
+   allocated less the model's bytes) within the largest bf16 stack (gate or
+   up, 705 MB), K5 / K6 launched, tokens equal; (e) an MTP head checkpoint
+   under ``mtp.`` as ``draft_model_path`` beside (a)'s target: the head's
+   parameters byte-equal to the tensors written, K1 k times a verify pass,
+   tokens and ``spec_stats`` equal to a twin given ``head_params=``; (c)
+   Qwen3-30B-A3B at full width cut to 2 layers (~3.7 GB, per-expert names),
+   fp8 as it loads (K10's fp8 instance, K6); (d) DeepSeek-V2-Lite at full
+   width cut to 2 layers (one dense, one MoE; ~2.2 GB), bf16 (K11a-d, K10).
+   Each load's seconds and GB/s (a warm page cache: the file was just
+   written) are printed with the card's name and power limit.
+
 ``python3 chip_smoke.py --phases kernels`` (a comma list of build, kernels,
 qkernels, engines, quant, parity, layouts, layout-engines, grammar,
-grammar-engines, spec, spec-engines) runs a subset and prints no result
-line.
+grammar-engines, spec, spec-engines, checkpoint) runs a subset and prints no
+result line.
 
 The line before the last is ``{"kernels": [...]}`` (errors, times, bounds
 and launch counts); the last line is ``{"ok": true, "device": {...}}``.
@@ -197,11 +223,16 @@ from __future__ import annotations
 import argparse
 import asyncio
 import contextlib
+import copy
 import gc
 import json
+import math
 import os
+import shutil
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -215,6 +246,9 @@ from xllm_tpu_torch.config import (
 )
 from xllm_tpu_torch.engine import LLMEngine
 from xllm_tpu_torch.framework.sampling_params import SamplingParams
+from xllm_tpu_torch.llm import LLM
+from xllm_tpu_torch.models import loader
+from xllm_tpu_torch.models.model_args import load_model_config
 from xllm_tpu_torch.ops.cuda import _build
 from xllm_tpu_torch.ops import attention, attention_ref, moe
 from xllm_tpu_torch.ops.cuda import decode_attention as k1
@@ -3488,7 +3522,7 @@ def free_device_memory() -> None:
 
 
 PHASES = ("build", "kernels", "qkernels", "engines", "quant", "parity", "layouts",
-          "layout-engines", "grammar", "grammar-engines", "spec", "spec-engines")
+          "layout-engines", "grammar", "grammar-engines", "spec", "spec-engines", "checkpoint")
 
 
 def phase_layout_parity() -> None:
@@ -4096,6 +4130,365 @@ def phase_spec_parity() -> None:
             f"per request {first_divergence(toks, off[dev])}")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: HF safetensors checkpoints
+# ---------------------------------------------------------------------------
+# Qwen3-30B-A3B and DeepSeek-V2-Lite at full width, cut to two layers (V2-Lite:
+# its dense first layer and one MoE layer), for the checkpoint phase
+CKPT_LAYERS = 2
+CKPT_SHARD_BYTES = 2 << 30
+CKPT_DISK_MARGIN = 1 << 30
+# the largest bf16 stack of qwen3-1.7B's JAX-layout tree (gate or up: 28 x
+# 2048 x 6144 x 2 B): the bound on a rolling load's extra device memory
+CKPT_EXTRA_BOUND = 28 * 2048 * 6144 * 2
+# HF config.json names of the smoke's config keys where they differ, by family
+_HF_KEYS = {"deepseek_v2": {"num_experts": "n_routed_experts"}}
+_HF_ARCH = {"qwen3": "Qwen3ForCausalLM", "qwen3_moe": "Qwen3MoeForCausalLM",
+            "deepseek_v2": "DeepseekV2ForCausalLM"}
+
+
+def hf_config(kw: dict) -> dict:
+    """A published-style config.json for the smoke's config ``kw``."""
+    rename = _HF_KEYS.get(kw["model_type"], {})
+    out = {"architectures": [_HF_ARCH[kw["model_type"]]], "model_type": kw["model_type"],
+           "torch_dtype": kw["dtype"]}
+    for k, v in kw.items():
+        if k not in ("model_type", "dtype", "qk_norm"):  # qwen3's qk norm is its arch's
+            out[rename.get(k, k)] = v
+    if out.get("q_lora_rank") == 0:
+        out["q_lora_rank"] = None  # DeepSeek-V2-Lite's config.json
+    return out
+
+
+def _layer_tensors(kw: dict, p: str, moe: bool) -> list[tuple[str, tuple]]:
+    """(HF name, shape) of one decoder layer under the prefix ``p``, as the
+    published checkpoints of qwen3, qwen3-moe and deepseek-v2 name them: the
+    smoke's own table, which shares nothing with the port's mapping."""
+    d, h = kw["hidden_size"], kw["num_attention_heads"]
+    out = [(p + "input_layernorm.weight", (d,)), (p + "post_attention_layernorm.weight", (d,))]
+    a = p + "self_attn."
+    if kw.get("kv_lora_rank"):
+        nope, rope, vh = kw["qk_nope_head_dim"], kw["qk_rope_head_dim"], kw["v_head_dim"]
+        kvr = kw["kv_lora_rank"]
+        out += [(a + "q_proj.weight", (h * (nope + rope), d)),
+                (a + "kv_a_proj_with_mqa.weight", (kvr + rope, d)),
+                (a + "kv_a_layernorm.weight", (kvr,)),
+                (a + "kv_b_proj.weight", (h * (nope + vh), kvr)),
+                (a + "o_proj.weight", (d, h * vh))]
+    else:
+        hkv, dh = kw["num_key_value_heads"], kw["head_dim"]
+        out += [(a + "q_proj.weight", (h * dh, d)), (a + "k_proj.weight", (hkv * dh, d)),
+                (a + "v_proj.weight", (hkv * dh, d)), (a + "o_proj.weight", (d, h * dh)),
+                (a + "q_norm.weight", (dh,)), (a + "k_norm.weight", (dh,))]
+
+    def mlp(q, inter):
+        return [(q + "gate_proj.weight", (inter, d)), (q + "up_proj.weight", (inter, d)),
+                (q + "down_proj.weight", (d, inter))]
+
+    if not moe:
+        return out + mlp(p + "mlp.", kw["intermediate_size"])
+    e, mi = kw["num_experts"], kw["moe_intermediate_size"]
+    out.append((p + "mlp.gate.weight", (e, d)))
+    for j in range(e):
+        out += mlp(p + f"mlp.experts.{j}.", mi)
+    if kw.get("n_shared_experts"):
+        out += mlp(p + "mlp.shared_experts.", kw["n_shared_experts"] * mi)
+    return out
+
+
+def hf_tensors(kw: dict) -> list[tuple[str, tuple]]:
+    """(HF name, shape) of every tensor of a checkpoint of ``kw``."""
+    d, v, n = kw["hidden_size"], kw["vocab_size"], kw["num_hidden_layers"]
+    dense = kw.get("first_k_dense_replace", 0) if kw.get("num_experts") else n
+    out = [("model.embed_tokens.weight", (v, d))]
+    for i in range(n):
+        out += _layer_tensors(kw, f"model.layers.{i}.", moe=i >= dense)
+    out.append(("model.norm.weight", (d,)))
+    if not kw["tie_word_embeddings"]:
+        out.append(("lm_head.weight", (v, d)))
+    return out
+
+
+def mtp_tensors(kw: dict, p: str = "mtp.") -> list[tuple[str, tuple]]:
+    """An MTP module at ``kw``'s width under ``p`` (MiMo / DeepSeek names:
+    ``enorm``, ``hnorm``, ``eh_proj``, one dense decoder layer,
+    ``shared_head.norm``)."""
+    d = kw["hidden_size"]
+    return ([(p + "enorm.weight", (d,)), (p + "hnorm.weight", (d,)),
+             (p + "eh_proj.weight", (d, 2 * d))]
+            + _layer_tensors(kw, p, moe=False) + [(p + "shared_head.norm.weight", (d,))])
+
+
+def write_checkpoint(path: str, kw: dict, tensors, seed: int, keep: str = "") -> tuple[int, dict]:
+    """``config.json``, bf16 shards ``model-0000i-of-0000n.safetensors`` of
+    at most ``CKPT_SHARD_BYTES`` and ``model.safetensors.index.json`` of a
+    checkpoint of ``kw`` with ``tensors`` ((name, shape) pairs), drawn on the
+    card from ``seed`` (norms 1 + N(0, 0.1), the rest N(0, 0.02)), written
+    with the format's own layout (an 8-byte header length, the JSON header,
+    the raw bytes). Raises if the disk has less than the checkpoint and
+    ``CKPT_DISK_MARGIN`` free. -> (bytes of tensors, the host tensors whose
+    names start with ``keep``)."""
+    os.makedirs(path)
+    sizes = [2 * math.prod(s) for _, s in tensors]
+    total = sum(sizes)
+    free = shutil.disk_usage(path).free
+    if free < total + CKPT_DISK_MARGIN:
+        raise RuntimeError(f"{path}: {free / 1e9:.2f} GB free on disk; the checkpoint needs "
+                           f"{total / 1e9:.2f} GB and a {CKPT_DISK_MARGIN / 1e9:.1f} GB margin")
+    shards, size = [[]], 0
+    for (name, shape), nbytes in zip(tensors, sizes):
+        if shards[-1] and size + nbytes > CKPT_SHARD_BYTES:
+            shards.append([])
+            size = 0
+        shards[-1].append((name, shape, nbytes))
+        size += nbytes
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    weight_map, kept = {}, {}
+    for k, shard in enumerate(shards):
+        fname = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
+        header, off = {}, 0
+        for name, shape, nbytes in shard:
+            header[name] = {"dtype": "BF16", "shape": list(shape),
+                            "data_offsets": [off, off + nbytes]}
+            off += nbytes
+        text = json.dumps(header).encode()
+        text += b" " * (-len(text) % 8)
+        with open(os.path.join(path, fname), "wb") as f:
+            f.write(struct.pack("<Q", len(text)) + text)
+            for name, shape, _ in shard:
+                x = torch.randn(shape, generator=g, device="cuda")
+                x = (1.0 + 0.1 * x if name.endswith("norm.weight") else 0.02 * x)
+                x = x.to(torch.bfloat16).cpu()
+                if keep and name.startswith(keep):
+                    kept[name] = x
+                f.write(x.reshape(-1).view(torch.int16).numpy())
+                weight_map[name] = fname
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_config(kw), f)
+    return total, kept
+
+
+def mtp_head_tree(kw: dict, t: dict, p: str = "mtp.") -> dict:
+    """The JAX ``MTPHead`` tree of the written MTP tensors ``t``, by the
+    smoke's own transform: projections transposed to ``[in, out]``, q / k
+    / v fused group-major (each KV head's G query heads, then its K and
+    its V), layer stacks ``[1, ...]``."""
+    hkv, dh = kw["num_key_value_heads"], kw["head_dim"]
+    g = kw["num_attention_heads"] // hkv
+    q, k, v = (t[p + f"self_attn.{x}_proj.weight"] for x in "qkv")
+    rows = []
+    for j in range(hkv):
+        rows += [q[j * g * dh:(j + 1) * g * dh], k[j * dh:(j + 1) * dh], v[j * dh:(j + 1) * dh]]
+    layer = {"input_layernorm": t[p + "input_layernorm.weight"],
+             "post_attention_layernorm": t[p + "post_attention_layernorm.weight"],
+             "qkv_proj_w": torch.cat(rows).T.contiguous(),
+             "o_proj_w": t[p + "self_attn.o_proj.weight"].T.contiguous(),
+             "q_norm": t[p + "self_attn.q_norm.weight"],
+             "k_norm": t[p + "self_attn.k_norm.weight"]}
+    for proj in ("gate", "up", "down"):
+        layer[f"{proj}_proj_w"] = t[p + f"mlp.{proj}_proj.weight"].T.contiguous()
+    return {"enorm": t[p + "enorm.weight"], "hnorm": t[p + "hnorm.weight"],
+            "eh_proj": t[p + "eh_proj.weight"].T.contiguous(),
+            "norm": t[p + "shared_head.norm.weight"],
+            "layers": {n: x[None] for n, x in layer.items()}}
+
+
+@contextlib.contextmanager
+def timed_checkpoint_loads():
+    """Time each ``ModelRunner._load_checkpoint`` call on the card (the
+    seconds appended to the list yielded)."""
+    times = []
+    load = ModelRunner._load_checkpoint
+
+    def timed(self):
+        sync()
+        t0 = time.perf_counter()
+        load(self)
+        sync()
+        times.append(time.perf_counter() - t0)
+
+    ModelRunner._load_checkpoint = timed
+    try:
+        yield times
+    finally:
+        ModelRunner._load_checkpoint = load
+
+
+def to_device(tree: dict) -> dict:
+    return {k: to_device(v) if isinstance(v, dict) else v.cuda() for k, v in tree.items()}
+
+
+def check_same_params(a, b, tag: str) -> int:
+    """Every parameter of modules ``a`` and ``b`` byte-equal -> their count."""
+    pa, pb = dict(a.named_parameters()), dict(b.named_parameters())
+    assert set(pa) == set(pb), f"{tag}: parameter names differ"
+    for name, p in pa.items():
+        assert same_bytes(p, pb[name]), f"{tag}: {name} differs from the twin's"
+    return len(pa)
+
+
+def serve_pair(eng: LLMEngine, twin: LLMEngine, want, tag: str) -> dict:
+    """16 greedy requests x 32 tokens (``spec_prompts``) on the loaded
+    engine and on its twin, counters zeroed just before each: tokens,
+    ``spec_stats`` and launches equal, every pass of the loaded engine held
+    to ``want`` -> its launches and per-pass summary."""
+    prompts = spec_prompts(np.random.default_rng(7), eng.config.model.vocab_size)
+    toks, wall, launches, deltas = serve_spec(eng, prompts, tag)
+    per_pass = per_pass_summary(deltas, launches, want)
+    twin_toks, twin_wall, twin_launches, _ = serve_spec(twin, prompts, tag + "-twin")
+    assert toks == twin_toks, f"{tag}: tokens differ from the twin's"
+    assert launches == twin_launches, f"{tag}: launches {launches} != twin's {twin_launches}"
+    assert list(eng.spec_stats) == list(twin.spec_stats), f"{tag}: spec_stats differ"
+    log(f"[checkpoint] {tag}: {len(prompts)} requests x 32 tokens in {wall:.2f} s (twin "
+        f"{twin_wall:.2f} s): tokens, launches and spec_stats {list(eng.spec_stats)} equal the "
+        f"twin's; launches {launches}; per kernel {per_pass}")
+    return {"launches": launches, "per_pass": per_pass}
+
+
+def twin_engine(cfg: EngineConfig, tree: dict, head_tree: dict | None = None) -> LLMEngine:
+    """``cfg`` without its checkpoint, served from ``params=tree`` (the
+    port's loader read on the host; quantized by ``_quantize_params`` on the
+    card where a method is set)."""
+    cfg = copy.deepcopy(cfg)
+    cfg.model.model_path = ""
+    cfg.speculative.draft_model_path = ""
+    runner = ModelRunner(cfg, device="cuda")
+    runner.load_model(params=to_device(tree) if cfg.quant.method else tree,
+                      head_params=head_tree)
+    return LLMEngine(cfg, runner=runner)
+
+
+def checkpoint_config(path: str, kw: dict, num_blocks: int = 1024, quant: str = "") -> EngineConfig:
+    cfg = engine_config(kw, num_blocks=num_blocks, quant=quant)
+    cfg.model = load_model_config(path)
+    return cfg
+
+
+def load_line(tag: str, nbytes: int, seconds: float) -> dict:
+    log(f"[checkpoint] {tag}: loaded {nbytes / 1e9:.3f} GB of bf16 checkpoint in "
+        f"{seconds:.3f} s ({nbytes / seconds / 1e9:.3f} GB/s, warm page cache); {card_line()}")
+    return {"bytes": nbytes, "load_s": seconds, "gb_per_s": nbytes / seconds / 1e9}
+
+
+def phase_checkpoint() -> dict:
+    """The checkpoint phase (see the module docstring): each checkpoint is
+    written to a temporary directory, loaded, served beside its twin and
+    deleted. -> {run: {launches, per_pass, load figures}}."""
+    runs = {}
+    root = tempfile.mkdtemp(prefix="xllm_ckpt_")
+    try:
+        # (a) qwen3-1.7B, bf16, through LLM(model=dir)
+        dense = os.path.join(root, "qwen3-1.7b")
+        nbytes, _ = write_checkpoint(dense, QWEN3_1P7B, hf_tensors(QWEN3_1P7B), seed=21)
+        mc = load_model_config(dense)
+        want_mc = ModelConfig(**QWEN3_1P7B, model_path=dense)
+        assert vars(mc) == vars(want_mc), (
+            f"config.json read as {vars(mc)}, not {vars(want_mc)}")
+        t0 = time.perf_counter()
+        tree = loader.load_params(mc, torch.bfloat16, device="cpu")
+        host_s = time.perf_counter() - t0
+        log(f"[checkpoint] qwen3-1.7B: {nbytes / 1e9:.3f} GB written; read on the host into "
+            f"the JAX-layout tree in {host_s:.2f} s")
+        sched = engine_config(QWEN3_1P7B).scheduler
+        with timed_checkpoint_loads() as secs:
+            llm = LLM(model=dense, device="cuda", block_size=BS, num_blocks=1024,
+                      **{k: getattr(sched, k) for k in (
+                          "max_seqs_per_batch", "max_model_len", "prefill_token_buckets",
+                          "max_tokens_per_chunk_for_prefill", "decode_batch_buckets")})
+        eng = llm.engine
+        twin = twin_engine(eng.config, tree)
+        n = check_same_params(eng.runner.model, twin.runner.model, "qwen3-1.7B")
+        runs["bf16"] = dict(load_line("qwen3-1.7B bf16 via LLM(model=dir)", nbytes, secs[0]),
+                            params=n, **serve_pair(eng, twin, lambda kind, rows: pass_launches(
+                                28, 0, False, kind, rows), "qwen3-1.7B"))
+        del llm, eng, twin
+        free_device_memory()
+
+        # (b) the same checkpoint, quantized as it loads
+        with environ(XLLM_QMM_KERNEL="pallas"):
+            for method, kernel in (("int8", qmm.W8A8_NAME), ("fp8_e4m3", qmm.FP8_NAME)):
+                cfg = checkpoint_config(dense, QWEN3_1P7B, quant=method)
+                sync()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                runner = ModelRunner(cfg, device="cuda")
+                with timed_checkpoint_loads() as secs:
+                    runner.load_model()
+                extra = torch.cuda.max_memory_allocated() - base - sum(
+                    p.numel() * p.element_size() for p in runner.model.parameters())
+                tag = f"qwen3-1.7B {method}"
+                log(f"[checkpoint] {tag}: rolling load's extra device memory {extra / 1e6:.1f} "
+                    f"MB (peak allocated over the load less the loaded model's bytes), bound "
+                    f"{CKPT_EXTRA_BOUND / 1e6:.1f} MB (the largest bf16 stack); {card_line()}")
+                assert extra <= CKPT_EXTRA_BOUND, f"{tag}: {extra} B of extra device memory"
+                eng = LLMEngine(cfg, runner=runner)
+                twin = twin_engine(cfg, tree)
+                n = check_same_params(runner.model, twin.runner.model, tag)
+                projections = sum(1 for name, _ in runner.model.named_parameters()
+                                  if name.endswith("_proj_w"))
+                runs[method] = dict(
+                    load_line(tag, nbytes, secs[0]), params=n, extra_bytes=extra,
+                    extra_bound_bytes=CKPT_EXTRA_BOUND, **serve_pair(
+                        eng, twin, lambda kind, rows, k=kernel, n=projections: pass_launches(
+                            28, 0, False, kind, rows, qmm_name=k, qmm_per_pass=n), tag))
+                del runner, eng, twin
+                free_device_memory()
+
+        # (e) an MTP draft head checkpoint beside (a)'s target
+        head_dir = os.path.join(root, "qwen3-1.7b-mtp")
+        _, written = write_checkpoint(head_dir, QWEN3_1P7B, mtp_tensors(QWEN3_1P7B), seed=22,
+                                      keep="mtp.")
+        htree = mtp_head_tree(QWEN3_1P7B, written)
+        cfg = checkpoint_config(dense, QWEN3_1P7B)
+        cfg.scheduler.prefill_row_buckets = [1, 2, 4, 8, 16]
+        cfg.speculative.method, cfg.speculative.num_speculative_tokens = "mtp", SPEC_K
+        cfg.speculative.draft_model_path = head_dir
+        eng = LLMEngine(cfg, device="cuda")
+        for name, p in eng.runner.draft_head.named_parameters():
+            want = (htree["layers"][name.removeprefix("layer.")][0] if name.startswith("layer.")
+                    else htree[name])
+            assert same_bytes(p, want.to(p.device)), f"MTP head: {name} != the tensor written"
+        twin = twin_engine(cfg, tree, head_tree=htree)
+        runs["mtp"] = serve_pair(eng, twin, lambda kind, rows: spec_pass_launches(
+            kind, 28, 0, False, "mtp", SPEC_K), "qwen3-1.7B + MTP head")
+        del eng, twin, tree
+        free_device_memory()
+        shutil.rmtree(dense)
+        shutil.rmtree(head_dir)
+
+        # (c) Qwen3-30B-A3B at full width, two layers, fp8 as it loads; (d)
+        # DeepSeek-V2-Lite at full width, two layers, bf16
+        for tag, kw, quant, seed in (("qwen3-30b-a3b", QWEN3_30B_A3B, "fp8_e4m3", 23),
+                                     ("deepseek-v2-lite", DEEPSEEK_V2_LITE, "", 24)):
+            kw = dict(kw, num_hidden_layers=CKPT_LAYERS)
+            path = os.path.join(root, tag)
+            nbytes, _ = write_checkpoint(path, kw, hf_tensors(kw), seed=seed)
+            cfg = checkpoint_config(path, kw, num_blocks=512, quant=quant)
+            tree = loader.load_params(cfg.model, torch.bfloat16, device="cpu")
+            mla = kw.get("kv_lora_rank", 0) > 0
+            moe = CKPT_LAYERS - kw.get("first_k_dense_replace", 0)
+            with environ(XLLM_QMM_KERNEL="pallas"):
+                with timed_checkpoint_loads() as secs:
+                    eng = LLMEngine(cfg, device="cuda")
+                twin = twin_engine(cfg, tree)
+                n = check_same_params(eng.runner.model, twin.runner.model, tag)
+                projections = sum(1 for name, _ in eng.runner.model.named_parameters()
+                                  if name.endswith("_proj_w")) if quant else 0
+                runs[tag] = dict(load_line(f"{tag} ({CKPT_LAYERS} layers) {quant or 'bf16'}",
+                                           nbytes, secs[0]), params=n, **serve_pair(
+                    eng, twin, lambda kind, rows, m=mla, e=moe, n=projections: pass_launches(
+                        CKPT_LAYERS, e, m, kind, rows,
+                        qmm_name=qmm.FP8_NAME if n else "", qmm_per_pass=n), tag))
+            del eng, twin, tree
+            free_device_memory()
+            shutil.rmtree(path)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return runs
+
+
 def add_spec_rows(rows: list[dict], spec_kern: dict, spec_runs: dict, keys) -> None:
     """The kernels line's K1, K3, K4, K11a, K11b and K11d rows gain the
     verify shapes under ``by_shape`` (``verify``: the verify pass's kernel,
@@ -4286,6 +4679,9 @@ def main() -> int:
     if "spec-engines" in phases:
         spec_runs = timed_phase("spec-engines", phase_spec_engines)
         timed_phase("spec-parity", phase_spec_parity)
+    ckpt_runs = {}
+    if "checkpoint" in phases:
+        ckpt_runs = timed_phase("checkpoint", phase_checkpoint)
     if phases != set(PHASES):
         log(card)
         log(f"chip_smoke: partial run ({', '.join(sorted(phases))}); no result line")
@@ -4394,6 +4790,11 @@ def main() -> int:
     rows += ilv_rows(ilv, runs, keys)
     rows += grammar_rows(gram, gram_runs, rows)
     add_spec_rows(rows, spec_kern, spec_runs, keys)
+    for row in rows:  # the checkpoint phase's runs that launched each kernel
+        by_run = {run: r["launches"][row["name"]] for run, r in ckpt_runs.items()
+                  if r["launches"].get(row["name"], 0)}
+        if by_run:
+            row["launches_checkpoint"] = by_run
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

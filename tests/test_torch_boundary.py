@@ -1,7 +1,8 @@
 """The port's boundaries: what it imports, where it runs, what it refuses.
 
 - ``xllm_tpu_torch`` and ``chip_smoke.py`` import neither jax nor
-  ``xllm_tpu`` (checked in a subprocess: this test process has jax loaded
+  ``xllm_tpu``, nor ``safetensors`` or ``transformers``, which the card's
+  machine lacks (checked in a subprocess: this test process has jax loaded
   by ``tests/conftest.py``), and every kernel module imports without nvcc
   or triton;
 - the entry points run on the card unless the caller asks for the CPU,
@@ -41,8 +42,9 @@ for m in pkgutil.walk_packages(xllm_tpu_torch.__path__, "xllm_tpu_torch."):
     names.append(m.name)
 import chip_smoke
 bad = sorted(n for n in sys.modules
-             if n in ("jax", "xllm_tpu", "triton")
-             or n.startswith(("jax.", "xllm_tpu.", "triton.")))
+             if n in ("jax", "xllm_tpu", "triton", "safetensors", "transformers")
+             or n.startswith(("jax.", "xllm_tpu.", "triton.", "safetensors.",
+                              "transformers.")))
 print(json.dumps({"imported": names, "bad": bad}))
 """
 
@@ -91,7 +93,8 @@ def test_imports_no_jax_no_reference_no_triton():
                 "xllm_tpu_torch.server.async_engine", "xllm_tpu_torch.common.metrics",
                 "xllm_tpu_torch.engine", "xllm_tpu_torch.llm",
                 "xllm_tpu_torch.runtime.rejection_sampler",
-                "xllm_tpu_torch.framework.suffix_cache", "xllm_tpu_torch.models.mtp_head"):
+                "xllm_tpu_torch.framework.suffix_cache", "xllm_tpu_torch.models.mtp_head",
+                "xllm_tpu_torch.models.loader"):
         assert mod in out["imported"]
 
 
@@ -140,8 +143,9 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         pytest.param({"model": _MLA, "quant": {"method": "int8"},
                       "cache": {"kv_cache_dtype": "int8"}}, id="int8_1"),
         # speculative decoding serves (tests/test_torch_spec.py,
-        # tests/test_torch_mtp.py); a draft head checkpoint needs the loader
-        {"speculative": {"method": "mtp", "draft_model_path": "draft-head"}},
+        # tests/test_torch_mtp.py), and a draft head checkpoint loads
+        # (tests/test_torch_loader.py); the mix scheduler is not ported
+        {"scheduler": {"policy": "mix"}},
         {"parallel": {"tp_size": 2}},
         {"parallel": {"dp_size": 2}},
         {"parallel": {"cp_size": 2}},

@@ -18,6 +18,8 @@ updated in place.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -75,10 +77,6 @@ def reject_unported(config: EngineConfig) -> None:
         )
     if c.quant.method not in ("", "int8", "fp8_e4m3"):
         raise ValueError(f"quant.method={c.quant.method!r}: one of '', int8, fp8_e4m3")
-    if c.speculative.draft_model_path:
-        raise NotImplementedError(
-            "loading a draft head checkpoint (speculative.draft_model_path) is not "
-            "ported yet; an MTP / Eagle3 head without one starts from random weights")
     p = c.parallel
     if max(p.dp_size, p.tp_size, p.cp_size, p.ep_size, p.num_nodes) > 1:
         raise NotImplementedError("parallelism (dp/tp/cp/ep, multi-node) is not ported yet")
@@ -159,13 +157,17 @@ class ModelRunner:
     # ------------------------------------------------------------------
     def load_model(self, params: dict | None = None, seed: int | None = None,
                    head_params: dict | None = None) -> None:
-        """Load weights: a JAX-layout parameter tree (``weights.py``), or a
-        random init from ``seed`` (default ``config.seed``). With
-        ``quant.method`` set, a full-precision tree is quantized first, as
-        the JAX runner does; a tree that is already quantized (int8 /
-        float8_e4m3fn stacks with their ``*_scale``) is carried as it is.
-        An MTP / Eagle3 engine's draft head loads ``head_params`` (the JAX
-        head's tree), else a random init from ``config.seed + 1``."""
+        """Load weights: a JAX-layout parameter tree (``weights.py``), the
+        HF checkpoint at ``model.model_path`` (``_load_checkpoint``; not
+        under ``load_format="dummy"``), or a random init from ``seed``
+        (default ``config.seed``). With ``quant.method`` set, a
+        full-precision tree is quantized first, as the JAX runner does; a
+        tree that is already quantized (int8 / float8_e4m3fn stacks with
+        their ``*_scale``) is carried as it is. An MTP / Eagle3 engine's
+        draft head loads ``head_params`` (the JAX head's tree), else a
+        random init from ``config.seed + 1`` over which a
+        ``speculative.draft_model_path`` checkpoint loads, best effort
+        (``loader.load_mtp_head``)."""
         if params is not None:
             from xllm_tpu_torch.weights import load_param_tree
 
@@ -173,10 +175,7 @@ class ModelRunner:
                 params = self._quantize_params(params)
             load_param_tree(self.model, params)
         elif self.config.model.model_path and self.config.load_format != "dummy":
-            raise NotImplementedError(
-                "loading HF safetensors is not ported yet; pass params= or "
-                "load_format='dummy'"
-            )
+            self._load_checkpoint()
         else:
             logger.info("no model_path: initializing random weights")
             self.model.init_random_(self.config.seed if seed is None else seed)
@@ -195,10 +194,76 @@ class ModelRunner:
                 load_mtp_head_params(self.draft_head, head_params)
             else:
                 self.draft_head.init_random_(self.config.seed + 1)
+                if self.config.speculative.draft_model_path:
+                    from xllm_tpu_torch.models.loader import load_mtp_head
+
+                    load_mtp_head(self.draft_head, self.config.speculative.draft_model_path,
+                                  self.config.model)
             self.hidden_ring = torch.zeros(
                 (self.max_slots + 1, self.config.model.hidden_size),
                 dtype=self.model.dtype, device=self.device,
             )
+
+    @torch.no_grad()
+    def _load_checkpoint(self) -> None:
+        """Stream the HF checkpoint at ``model.model_path`` into the model's
+        parameters (``models/loader.py``): the tensors outside the layers a
+        64 MB chunk at a time, then each stack one layer's slice at a time,
+        uploaded in the checkpoint's dtype, cast to the model dtype on the
+        device and copied into its layer, then freed. With ``quant.method``
+        set, each eligible slice is quantized on the device as it lands (the
+        JAX ``_rolling_quantize_transform``, a layer or an expert in place
+        of a stack: the scales are per layer and per expert, so the bytes
+        are those of the two-phase ``_quantize_params``), and the
+        full-precision model never sits on the device: the load's extra
+        device memory is one layer's slice and its quantizer's temporaries.
+        Every parameter of every layer must be written once."""
+        from xllm_tpu_torch.models import loader
+        from xllm_tpu_torch.weights import layer_groups, put_param
+
+        cfg, model, method = self.config.model, self.model, self.config.quant.method
+        groups = layer_groups(model)
+        written: dict[str, set] = {g: set() for g in groups}
+        t0 = time.perf_counter()
+        with loader.SafetensorsReader(cfg.model_path) as reader:
+            ts = loader.Tensors(reader, self.device)
+            for name, hf, transpose in loader.top_level(cfg):
+                loader.copy_rows(getattr(model, name), ts.host(hf), transpose)
+            for group, name, i, w in loader.layer_slices(cfg, ts):
+                if name != "expert_placement":  # the identity: EPLB is not ported
+                    layer = groups[group][i]
+                    w = loader.cast(w, model.dtype)
+                    if method and self.quant_eligible(name, method):
+                        self._quantize_into(layer, name, w)
+                        written[group].add(name + "_scale")
+                    else:
+                        put_param(getattr(layer, name), w)
+                    written[group].add(name)
+                del w  # freed before the next slice lands
+        for group, names in written.items():
+            want = {n for n, _ in groups[group][0].named_parameters()}
+            if names != want:
+                raise ValueError(f"{cfg.model_path}: {group} loaded {sorted(names)}, the "
+                                 f"model has {sorted(want)}")
+        logger.info("loaded %s in %.2f s%s", cfg.model_path, time.perf_counter() - t0,
+                    f" ({method} as it landed)" if method else "")
+
+    def _quantize_into(self, layer, name: str, w: torch.Tensor) -> None:
+        """``layer.<name>`` and ``<name>_scale`` <- ``w`` quantized one
+        ``[K, N]`` matrix at a time (an expert stack's scales are per
+        expert), so that the quantizer's temporaries stay a matrix's."""
+        from xllm_tpu_torch.ops.quant import QUANTIZERS
+        from xllm_tpu_torch.weights import put_param
+
+        param, scale = getattr(layer, name), getattr(layer, name + "_scale")
+        if w.shape != param.shape:
+            raise ValueError(f"{name}: shape {tuple(w.shape)} does not fit {tuple(param.shape)}")
+        mats = w.reshape(-1, *w.shape[-2:])
+        param, scale = param.view(mats.shape), scale.view(-1, scale.shape[-1])
+        for j in range(mats.shape[0]):
+            codes, s = QUANTIZERS[self.config.quant.method](mats[j])
+            put_param(param[j], codes)
+            put_param(scale[j], s)
 
     # matmul weights eligible for weight-only quantization (the JAX
     # runner's rule): every "*_proj_w" of a layer group but these, and the

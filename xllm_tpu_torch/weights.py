@@ -63,20 +63,15 @@ def as_tensor(a) -> torch.Tensor:
 def load_param_tree(model, tree: dict) -> None:
     """Copy a JAX-layout parameter tree into ``model`` in place (cast to
     the model's dtype, moved to its device)."""
-    _put(model.embed_tokens, tree["embed_tokens"])
-    _put(model.norm, tree["norm"])
+    put_param(model.embed_tokens, tree["embed_tokens"])
+    put_param(model.norm, tree["norm"])
     if "lm_head" in tree:
-        _put(model.lm_head, tree["lm_head"])
-    n_dense = getattr(model, "n_dense", 0)
-    groups = {"dense_layers": model.layers[:n_dense],
-              getattr(model, "moe_group", "layers"): model.layers[n_dense:]}
-    for group, layers in groups.items():
-        if not len(layers):
-            continue
+        put_param(model.lm_head, tree["lm_head"])
+    for group, layers in layer_groups(model).items():
         stacks = dict(tree[group])
         placement = stacks.pop("expert_placement", None)
         if placement is not None:
-            placement = np.asarray(as_tensor(placement))
+            placement = as_tensor(placement).cpu().numpy()
             if not (placement == np.arange(placement.shape[-1])).all():
                 raise NotImplementedError("EPLB placements are not ported yet")
         names = {n for n, _ in layers[0].named_parameters()}
@@ -87,7 +82,7 @@ def load_param_tree(model, tree: dict) -> None:
         for name, stack in stacks.items():
             stack = as_tensor(stack)
             for i, layer in enumerate(layers):
-                _put(getattr(layer, name), stack[i])
+                put_param(getattr(layer, name), stack[i])
 
 
 @torch.no_grad()
@@ -100,12 +95,23 @@ def load_mtp_head_params(head, tree: dict) -> None:
     if set(stacks) != names:
         raise ValueError(f"head layer tensors {sorted(stacks)} != model's {sorted(names)}")
     for name in ("enorm", "hnorm", "eh_proj", "norm"):
-        _put(getattr(head, name), tree[name])
+        put_param(getattr(head, name), tree[name])
     for name, stack in stacks.items():
-        _put(getattr(head.layer, name), as_tensor(stack)[0])
+        put_param(getattr(head.layer, name), as_tensor(stack)[0])
 
 
-def _put(param: torch.Tensor, value) -> None:
+def layer_groups(model) -> dict:
+    """The JAX tree's layer groups -> the model's layers they hold (groups
+    without layers left out): ``dense_layers`` the first ``model.n_dense``,
+    ``layers`` (``moe_layers`` in an MLA tree: ``model.moe_group``) the
+    rest."""
+    n_dense = getattr(model, "n_dense", 0)
+    groups = {"dense_layers": model.layers[:n_dense],
+              getattr(model, "moe_group", "layers"): model.layers[n_dense:]}
+    return {g: layers for g, layers in groups.items() if len(layers)}
+
+
+def put_param(param: torch.Tensor, value) -> None:
     """``param`` <- ``value`` (cast to its dtype, moved to its device)."""
     value = as_tensor(value)
     if tuple(value.shape) != tuple(param.shape):
