@@ -209,10 +209,44 @@ phase raises on failure, so a non-zero exit means a phase failed:
    Each load's seconds and GB/s (a warm page cache: the file was just
    written) are printed with the card's name and power limit.
 
+15. server: the OpenAI server (``server/api.py`` on the port's stdlib
+   transport ``server/http.py``) serving qwen3-1.7B at full width and
+   depth from a bf16 checkpoint written by ``write_checkpoint`` into a
+   temporary directory (deleted afterwards), driven only through
+   ``http.client``, text through the smoke's own word-level tokenizer
+   (``WordTokenizer``; the card's machine has no ``tokenizers``). (a)
+   ``APIServer(build_config(args))`` with ``--tool-call-parser hermes
+   --reasoning-parser`` (chunk buckets 64 / 512 / 2048, no prefix cache) on
+   127.0.0.1:0 beside a twin, ``LLM(model=dir)`` with the same scheduler
+   and cache settings: eight sequential completions (four prompts of
+   40-1,500 tokens, each non-stream then streamed; tokens equal to the
+   twin's for the prompt alone, the stream's text the non-stream text,
+   ``data: [DONE]`` last), 16 concurrent completions (32 tokens,
+   ``length``; decode passes of more than one row), a chat non-stream and
+   streamed (the ChatML fallback through jinja2; the twin's tokens on the
+   templated ids), ``/v1/sample`` (top 5; ``sample_slots`` on the twin),
+   model-scored ``/v1/rerank``, ``/v1/embeddings`` and echo + logprobs
+   scoring (within 1e-5 of the twin's ``score_prompt`` / embed requests),
+   ``/health``, ``/v1/models``, ``/metrics`` (empty without
+   prometheus_client); counters zeroed just before and read just after,
+   every pass held to ``pass_launches`` and K1-K4, K2b-K4b launched; then
+   the front's cost: each prompt streamed over HTTP and stepped alone on
+   the twin's engine, interleaved, three times, both timed the same way
+   (TTFT to the first token's arrival, TPOT first to last token); then
+   ``/start_profile``, two completions, ``/stop_profile``: the Chrome trace
+   names ``decode_attention_kernel``. (b) the same server under
+   ``--scheduler-policy mix --step-latency-budget-ms 50``: 16 concurrent
+   completions, half ``priority`` 1 and half ``offline``, all complete; the
+   ``ProfileManager`` has fitted both predictors (numpy's warnings of a fit
+   on one batch size counted and printed). (c) ``python -m
+   xllm_tpu_torch.server.api --model dir --port 0 ...`` as a process:
+   ``/health`` within 180 s, one completion equal to (a)'s tokens, exit
+   code 0 within 30 s of SIGINT.
+
 ``python3 chip_smoke.py --phases kernels`` (a comma list of build, kernels,
 qkernels, engines, quant, parity, layouts, layout-engines, grammar,
-grammar-engines, spec, spec-engines, checkpoint) runs a subset and prints no
-result line.
+grammar-engines, spec, spec-engines, checkpoint, server) runs a subset and
+prints no result line.
 
 The line before the last is ``{"kernels": [...]}`` (errors, times, bounds
 and launch counts); the last line is ``{"ok": true, "device": {...}}``.
@@ -225,19 +259,27 @@ import asyncio
 import contextlib
 import copy
 import gc
+import glob
+import http.client
 import json
 import math
 import os
+import re
 import shutil
+import signal
 import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from xllm_tpu_torch.common import metrics
 from xllm_tpu_torch.config import (
     CacheConfig,
     EngineConfig,
@@ -261,6 +303,8 @@ from xllm_tpu_torch.ops.kv_cache_ops import write_kv
 from xllm_tpu_torch.ops.quant import quantize_fp8, to_e4m3
 from xllm_tpu_torch.ops.rope import rope_mscale
 from xllm_tpu_torch.runtime.model_runner import ModelRunner
+from xllm_tpu_torch.server import http as web
+from xllm_tpu_torch.server.api import APIServer, build_config, parse_args
 from xllm_tpu_torch.server.async_engine import AsyncLLMEngine
 from xllm_tpu_torch.weights import random_param_tree
 
@@ -2897,8 +2941,8 @@ def warm_up(eng: LLMEngine, rng) -> None:
 
 
 def count_per_pass(runner) -> list[tuple[str, int, dict]]:
-    """Wrap the runner's model passes (one prefill group, one decode batch,
-    one scored chunk, one embed request's final chunk, one speculative
+    """Wrap the runner's model passes (one prefill group or ``/v1/sample``
+    pass, one decode batch, one scored chunk, one embed request's final chunk, one speculative
     verify dispatch) so that each appends
     ``(kind, rows, launch-count delta)`` to the list returned; ``rows`` is
     the token count of the pass's hidden state, the row count of each of
@@ -2932,6 +2976,7 @@ def count_per_pass(runner) -> list[tuple[str, int, dict]]:
         return counted
 
     runner.run_prefill_batched = wrap(runner.run_prefill_batched, "prefill")
+    runner.run_sample_slots = wrap(runner.run_sample_slots, "prefill")  # /v1/sample
     runner.run_decode = wrap(runner.run_decode, "decode")
     runner.run_score_chunk = wrap(runner.run_score_chunk, "score")
     runner.run_prefill_embed = wrap(runner.run_prefill_embed, "embed")
@@ -3522,7 +3567,8 @@ def free_device_memory() -> None:
 
 
 PHASES = ("build", "kernels", "qkernels", "engines", "quant", "parity", "layouts",
-          "layout-engines", "grammar", "grammar-engines", "spec", "spec-engines", "checkpoint")
+          "layout-engines", "grammar", "grammar-engines", "spec", "spec-engines", "checkpoint",
+          "server")
 
 
 def phase_layout_parity() -> None:
@@ -4222,8 +4268,8 @@ def mtp_tensors(kw: dict, p: str = "mtp.") -> list[tuple[str, tuple]]:
 def write_checkpoint(path: str, kw: dict, tensors, seed: int, keep: str = "") -> tuple[int, dict]:
     """``config.json``, bf16 shards ``model-0000i-of-0000n.safetensors`` of
     at most ``CKPT_SHARD_BYTES`` and ``model.safetensors.index.json`` of a
-    checkpoint of ``kw`` with ``tensors`` ((name, shape) pairs), drawn on the
-    card from ``seed`` (norms 1 + N(0, 0.1), the rest N(0, 0.02)), written
+    checkpoint of ``kw`` with ``tensors`` ((name, shape) pairs), drawn on
+    the card from ``seed`` (norms 1 + N(0, 0.1), the rest N(0, 0.02)), written
     with the format's own layout (an 8-byte header length, the JSON header,
     the raw bytes). Raises if the disk has less than the checkpoint and
     ``CKPT_DISK_MARGIN`` free. -> (bytes of tensors, the host tensors whose
@@ -4489,6 +4535,477 @@ def phase_checkpoint() -> dict:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# the server phase: the OpenAI server (server/api.py on server/http.py)
+# ---------------------------------------------------------------------------
+SERVER_FLAGS = ("--block-size", str(BS), "--num-blocks", "1024", "--max-seqs", "16",
+                "--max-model-len", "4096", "--max-prefill-chunk", "2048", "--no-prefix-cache")
+# the engine phases' chunk buckets: chunks of at most a page take K4
+SERVER_BUCKETS = [64, 512, 2048]
+SERVER_TOKENS = 32
+SERVER_LENS = (40, 300, 700, 1500)  # buckets 64 (K4), 512 and 2048 (K2)
+SERVER_TOL = 1e-5
+
+
+class WordTokenizer:
+    """The server phase's tokenizer, stdlib only (the card's machine has no
+    ``tokenizers``): ``w<i>`` <-> token i, any other word (split as HF's
+    Whitespace pre-tokenizer splits) the unknown id; decoding joins the
+    words with spaces, so generated text reads back to its ids."""
+
+    _WORD = re.compile(r"\w+|[^\w\s]+")
+
+    def __init__(self, vocab: int, unk: int = 1):
+        self.vocab, self.unk = vocab, unk
+
+    def encode(self, text: str) -> list[int]:
+        out = []
+        for w in self._WORD.findall(text):
+            i = int(w[1:]) if w[:1] == "w" and w[1:].isdigit() else -1
+            out.append(i if 0 <= i < self.vocab else self.unk)
+        return out
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        return " ".join(f"w{i}" for i in ids)
+
+    @property
+    def vocab_size(self) -> int:
+        return self.vocab
+
+
+def text_ids(text: str) -> list[int]:
+    return [int(w[1:]) for w in text.split()]
+
+
+class ServerThread:
+    """An ``APIServer``'s app on 127.0.0.1:0, its event loop in a thread."""
+
+    def __init__(self, api):
+        self.api = api
+        self.loop = asyncio.new_event_loop()
+        self.runner = web.AppRunner(api.app())
+        ready = threading.Event()
+
+        def run():
+            asyncio.set_event_loop(self.loop)
+            self.loop.run_until_complete(self.runner.setup())
+            self.site = web.TCPSite(self.runner, "127.0.0.1", 0)
+            self.loop.run_until_complete(self.site.start())
+            ready.set()
+            self.loop.run_forever()
+
+        self.thread = threading.Thread(target=run, daemon=True, name="http")
+        self.thread.start()
+        assert ready.wait(120), "the server did not start"
+        self.port = self.site.port
+
+    def close(self) -> None:
+        asyncio.run_coroutine_threadsafe(self.runner.cleanup(), self.loop).result(120)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(60)
+        self.loop.close()
+
+
+def http_call(port: int, method: str, path: str, body=None) -> tuple[int, bytes]:
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        c.request(method, path, body=None if body is None else json.dumps(body),
+                  headers={"Content-Type": "application/json"} if body is not None else {})
+        r = c.getresponse()
+        return r.status, r.read()
+    finally:
+        c.close()
+
+
+def http_json(port: int, method: str, path: str, body=None, status: int = 200):
+    got, raw = http_call(port, method, path, body)
+    assert got == status, f"{method} {path}: {got} {raw[:500]!r}"
+    return json.loads(raw)
+
+
+def http_stream(port: int, path: str, body: dict) -> tuple[list, list[float], float]:
+    """A streamed request -> (data events, arrival time of each, send
+    time), read line by line as the events arrive."""
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        t0 = time.perf_counter()
+        c.request("POST", path, body=json.dumps(body),
+                  headers={"Content-Type": "application/json"})
+        r = c.getresponse()
+        assert r.status == 200, f"{path}: {r.status} {r.read()[:500]!r}"
+        events, times = [], []
+        for line in r:
+            if line.startswith(b"data: "):
+                times.append(time.perf_counter())
+                data = line[6:].strip()
+                events.append(data.decode() if data == b"[DONE]" else json.loads(data))
+        return events, times, t0
+    finally:
+        c.close()
+
+
+def server_config(path: str, *flags: str) -> EngineConfig:
+    cfg = build_config(parse_args(["--model", path, *SERVER_FLAGS, *flags]))
+    cfg.scheduler.prefill_token_buckets = list(SERVER_BUCKETS)
+    return cfg
+
+
+def start_server(path: str, *flags: str, **api_kw):
+    """``APIServer(build_config(args))`` on the card over the smoke's word
+    tokenizer (``engine=``), on a socket -> (server, engine)."""
+    cfg = server_config(path, *flags)
+    eng = LLMEngine(cfg, tokenizer=WordTokenizer(cfg.model.vocab_size), device="cuda")
+    srv = ServerThread(APIServer(cfg, served_model_name="qwen3-1.7b", device="cuda",
+                                 engine=eng, **api_kw))
+    return srv, eng
+
+
+def completion(prompt, stream: bool = False, **kw) -> dict:
+    return dict({"prompt": prompt, "max_tokens": SERVER_TOKENS, "temperature": 0,
+                 "ignore_eos": True, "logprobs": 0, "stream": stream}, **kw)
+
+
+def twin_tokens(twin: LLM, ids, n: int = SERVER_TOKENS) -> list[int]:
+    """``ids`` served alone on the twin -> its tokens."""
+    sp = SamplingParams(temperature=0.0, max_tokens=n, ignore_eos=True)
+    return list(twin.generate(prompt_token_ids=[ids], sampling_params=sp)[0]
+                .outputs[0].token_ids)
+
+
+def post_all(port: int, bodies: list[dict]) -> list[dict]:
+    """The completions ``bodies`` sent together, one thread each."""
+    with ThreadPoolExecutor(len(bodies)) as pool:
+        return list(pool.map(lambda b: http_json(port, "POST", "/v1/completions", b), bodies))
+
+
+def twin_answers(twin: LLM, tok: WordTokenizer, template, prompts, rng) -> dict:
+    """What the twin gives for (a)'s requests, each alone, computed before
+    the server is driven (the launch counters are global): tokens of each
+    sequential prompt, the chat's tokens on the templated
+    ids, ``sample_slots``, the rerank pairs' scores, embeddings and an
+    echo-scored prompt."""
+    vocab, eng = tok.vocab, twin.engine
+    out = {"prompts": [(ids, twin_tokens(twin, ids)) for ids in prompts]}
+    messages = [{"role": "user", "content": " ".join(
+        f"w{i}" for i in rng.integers(2, vocab, 120))}]
+    out["chat"] = (messages, twin_tokens(
+        twin, tok.encode(template.apply(messages, add_generation_prompt=True))))
+    ids = rng.integers(10, vocab, 300)  # every "w9" is a slot
+    pos = [17, 120, 299]
+    ids[pos] = 9
+    out["sample"] = (ids.tolist(), eng.sample_slots(ids.tolist(), pos, temperature=0.0,
+                                                    num_top=5))
+    q = rng.integers(2, vocab, 30).tolist()
+    docs = [rng.integers(2, vocab, n).tolist() for n in (20, 45)]
+    out["rerank"] = (q, docs, [float(lp.sum() / len(lp)) for lp in (
+        eng.score_prompt(q + d)[len(q) - 1:] for d in docs)])
+    embeds = []
+    for n in EMBED_LENS:
+        ids = rng.integers(2, vocab, n).tolist()
+        eng.add_request(prompt_token_ids=ids, embed=True)
+        embeds.append((ids, np.asarray(eng.generate_all()[0].embedding)))
+    out["embed"] = embeds
+    ids = rng.integers(2, vocab, 300).tolist()
+    out["score"] = (ids, eng.score_prompt(ids))
+    assert eng.block_manager.num_used_blocks == 0
+    return out
+
+
+def server_sequential(port: int, want: list) -> dict:
+    """(a)'s eight sequential completions: each prompt non-stream, then
+    streamed; tokens equal to the twin's alone (``want``: (ids, tokens) a
+    prompt), the stream's text the non-stream text. -> {prompt
+    length: tokens}."""
+    out = {}
+    for ids, tokens in want:
+        full = http_json(port, "POST", "/v1/completions", completion(ids))
+        choice = full["choices"][0]
+        got = [int(t) for t in choice["logprobs"]["tokens"]]
+        assert got == tokens, f"{len(ids)}-token prompt: server {got} != twin {tokens}"
+        assert choice["finish_reason"] == "length" and text_ids(choice["text"]) == got
+        events, _, _ = http_stream(port, "/v1/completions", completion(ids, stream=True))
+        assert events[-1] == "[DONE]", events[-1:]
+        text = "".join(e["choices"][0]["text"] for e in events[:-1])
+        assert text == choice["text"], f"stream {text!r} != non-stream {choice['text']!r}"
+        out[len(ids)] = got
+    return out
+
+
+def client_stream(port: int, ids) -> tuple[list[int], list[float], float]:
+    """``ids`` streamed over HTTP -> (tokens, arrival time of each, send time)."""
+    events, times, t0 = http_stream(port, "/v1/completions", completion(ids, stream=True))
+    assert events[-1] == "[DONE]", events[-1:]
+    tokens, stamps = [], []
+    for e, t in zip(events[:-1], times):
+        new = text_ids(e["choices"][0]["text"])
+        tokens += new
+        stamps += [t] * len(new)
+    return tokens, stamps, t0
+
+
+def twin_stream(twin: LLM, ids) -> tuple[list[int], list[float], float]:
+    """``ids`` alone on the twin's engine, stepped here, each token stamped
+    when the step that fixes it returns -> (tokens, stamps, add time): the
+    client's TTFT and TPOT without the HTTP front."""
+    eng = twin.engine
+    sp = SamplingParams(temperature=0.0, max_tokens=SERVER_TOKENS, ignore_eos=True)
+    t0 = time.perf_counter()
+    eng.add_request(prompt_token_ids=list(ids), sampling_params=sp)
+    tokens, stamps = [], []
+    while eng.has_unfinished():
+        for ro in eng.step():
+            new = ro.outputs[0].token_ids[len(tokens):]
+            tokens += new
+            stamps += [time.perf_counter()] * len(new)
+    return tokens, stamps, t0
+
+
+def server_timing(port: int, twin: LLM, want: list, card: str, reps: int = 3) -> list[dict]:
+    """Client-side TTFT and TPOT of each sequential prompt streamed over
+    HTTP beside the same figures of the twin's engine stepped in process
+    (``twin_stream``), the two interleaved (their order flips every
+    repetition), ``reps`` times. -> a dict a prompt and repetition."""
+    timing = []
+    for rep in range(reps):
+        for ids, tokens in want:
+            runs = {}
+            for side in (("http", "twin") if rep % 2 == 0 else ("twin", "http")):
+                got, stamps, t0 = (client_stream(port, ids) if side == "http"
+                                   else twin_stream(twin, ids))
+                assert got == tokens, f"{side}, {len(ids)}-token prompt: {got} != {tokens}"
+                runs[side] = (1e3 * (stamps[0] - t0),
+                              1e3 * (stamps[-1] - stamps[0]) / (SERVER_TOKENS - 1))
+            (ttft, tpot), (twin_ttft, twin_tpot) = runs["http"], runs["twin"]
+            timing.append({"rep": rep, "prompt_len": len(ids), "ttft_ms": ttft,
+                           "tpot_ms": tpot, "twin_ttft_ms": twin_ttft,
+                           "twin_tpot_ms": twin_tpot})
+            log(f"[server] rep {rep}, {len(ids)}-token prompt: over HTTP TTFT {ttft:.2f} ms, "
+                f"TPOT {tpot:.3f} ms (client side); twin engine in process TTFT "
+                f"{twin_ttft:.2f} ms, TPOT {twin_tpot:.3f} ms; TPOT / twin "
+                f"{tpot / twin_tpot:.3f}, TTFT - twin {ttft - twin_ttft:.2f} ms; {card}")
+    ratios = sorted(t["tpot_ms"] / t["twin_tpot_ms"] for t in timing)
+    extra = sorted(t["ttft_ms"] - t["twin_ttft_ms"] for t in timing)
+    log(f"[server] HTTP front over {len(timing)} interleaved pairs: TPOT / twin median "
+        f"{ratios[len(ratios) // 2]:.3f} (range {ratios[0]:.3f} .. {ratios[-1]:.3f}), TTFT - "
+        f"twin median {extra[len(extra) // 2]:.2f} ms (range {extra[0]:.2f} .. "
+        f"{extra[-1]:.2f}); {card}")
+    return timing
+
+
+def server_twin_checks(port: int, tok: WordTokenizer, want: dict) -> None:
+    """(a)'s chat, /v1/sample, rerank, embeddings and echo-scoring requests
+    against the twin's answers ``want``."""
+    messages, tokens = want["chat"]
+    body = {"messages": messages, "max_tokens": SERVER_TOKENS, "temperature": 0,
+            "ignore_eos": True}
+    msg = http_json(port, "POST", "/v1/chat/completions", body)["choices"][0]["message"]
+    assert text_ids(msg["content"]) == tokens, "chat tokens differ from the twin's"
+    events, _, _ = http_stream(port, "/v1/chat/completions", dict(body, stream=True))
+    assert events[-1] == "[DONE]"
+    text = "".join(e["choices"][0]["delta"].get("content", "") for e in events[:-1]
+                   if e["choices"])
+    assert text_ids(text) == tokens, "streamed chat tokens differ from the twin's"
+    ids, slots = want["sample"]
+    res = http_json(port, "POST", "/v1/sample", {
+        "prompt": tok.decode(ids), "selector": {"type": "literal", "value": "w9"},
+        "temperature": 0.0, "top_logprobs": 5})
+    assert len(res["choices"]) == len(slots)
+    err = 0.0
+    for c, w in zip(res["choices"], slots):
+        assert c["logprobs"]["token_ids"] == w["top_ids"], "sample top ids differ"
+        # the sampled token (the text; bf16 logits tie often, so it need
+        # not be the first of the top ids)
+        assert text_ids(c["text"]) == [w["token_id"]], "sampled token differs"
+        err = max(err, *(abs(a - b) for a, b in zip(c["logprobs"]["token_logprobs"],
+                                                      w["top_logprobs"])))
+    q, docs, scores = want["rerank"]
+    res = http_json(port, "POST", "/v1/rerank", {"query": tok.decode(q),
+                                                 "documents": [tok.decode(d) for d in docs]})
+    for r in res["results"]:
+        err = max(err, abs(r["relevance_score"] - scores[r["index"]]))
+    res = http_json(port, "POST", "/v1/embeddings", {"input": [ids for ids, _ in want["embed"]]})
+    for (_, vec), d in zip(want["embed"], res["data"]):
+        err = max(err, float(np.abs(np.asarray(d["embedding"]) - vec).max()))
+    ids, lps = want["score"]
+    res = http_json(port, "POST", "/v1/completions", {
+        "prompt": ids, "max_tokens": 0, "echo": True, "logprobs": 1})
+    lp = res["choices"][0]["logprobs"]["token_logprobs"]
+    assert lp[0] is None and len(lp) == len(ids)
+    err = max(err, float(np.abs(np.asarray(lp[1:]) - lps).max()))
+    assert err <= SERVER_TOL, f"sample / rerank / embeddings / scoring differ by {err}"
+    log(f"[server] chat (non-stream and streamed), /v1/sample (3 slots, top 5), /v1/rerank, "
+        f"/v1/embeddings ({list(EMBED_LENS)} tokens) and echo scoring (300 tokens) equal the "
+        f"twin's (max abs diff {err:.3g})")
+
+
+def server_profile(port: int, prompt) -> str:
+    """/start_profile, two completions, /stop_profile -> the trace's path."""
+    start = http_json(port, "POST", "/start_profile")
+    http_json(port, "POST", "/start_profile", status=409)
+    for _ in range(2):
+        http_json(port, "POST", "/v1/completions", completion(prompt, max_tokens=4))
+    assert http_json(port, "POST", "/stop_profile") == {"status": "stopped"}
+    traces = sorted(glob.glob(os.path.join(start["dir"], "xllm_trace_*.json")),
+                    key=os.path.getmtime)
+    assert traces, f"no trace in {start['dir']}"
+    with open(traces[-1]) as f:
+        text = f.read()
+    assert "decode_attention_kernel" in text, (
+        f"the trace {traces[-1]} does not name decode_attention_kernel")
+    return traces[-1]
+
+
+def phase_server(model_kw=QWEN3_1P7B, seed: int = 31) -> dict:
+    """The server phase (see the module docstring) -> {launches, per_pass,
+    timing, ...}."""
+    card = card_line()
+    rng = np.random.default_rng(seed)
+    vocab = model_kw["vocab_size"]
+    root = tempfile.mkdtemp(prefix="xllm_server_")
+    result = {}
+    try:
+        path = os.path.join(root, "model")
+        write_checkpoint(path, model_kw, hf_tensors(model_kw), seed=seed)
+        # (a) the in-process server and its twin
+        srv, eng = start_server(path, "--tool-call-parser", "hermes",
+                                "--reasoning-parser", "--profile-dir",
+                                os.path.join(root, "trace"))
+        tok = eng.tokenizer
+        cfg = eng.config
+        twin = LLM(model=path, device="cuda", **vars(cfg.scheduler), **vars(cfg.cache))
+        assert twin.engine.config.scheduler == cfg.scheduler
+        assert twin.engine.config.cache == cfg.cache
+        prompts = [rng.integers(2, vocab, n).tolist() for n in SERVER_LENS]
+        for ids in prompts[:2]:  # first calls: CUDA modules, GEMM choices
+            http_json(srv.port, "POST", "/v1/completions", completion(ids, max_tokens=2))
+            twin_tokens(twin, ids, 2)
+        want = twin_answers(twin, tok, srv.api.chat_template, prompts, rng)
+        deltas = count_per_pass(eng.runner)
+        sync()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        tokens = server_sequential(srv.port, want["prompts"])
+        bodies = [completion(rng.integers(2, vocab, int(n)).tolist())
+                  for n in rng.integers(20, 600, 16)]
+        outs = post_all(srv.port, bodies)
+        for o in outs:
+            c = o["choices"][0]
+            assert c["finish_reason"] == "length" and len(c["logprobs"]["tokens"]) == SERVER_TOKENS
+        rows = [r for kind, r, _ in deltas if kind == "decode"]
+        assert max(rows) > 1, f"decode passes of {sorted(set(rows))} rows: no batching"
+        server_twin_checks(srv.port, tok, want)
+        assert http_json(srv.port, "GET", "/health") == {"status": "ok"}
+        assert http_json(srv.port, "GET", "/v1/models")["data"][0]["id"] == "qwen3-1.7b"
+        status, body = http_call(srv.port, "GET", "/metrics")
+        # empty without prometheus_client (the card's machine), as in JAX
+        assert status == 200 and (body == b"") == (not metrics._HAVE_PROM)
+        sync()
+        launches = dict(_build.launch_counts)
+        wall = time.perf_counter() - t0
+        per_pass = per_pass_summary(deltas, launches, lambda kind, rows: pass_launches(
+            model_kw["num_hidden_layers"], 0, False, kind, rows))
+        for name in (k1.NAME, k24.PREFILL_NAME, k3.NAME, k24.RMW_NAME, k24.ONE_PREFILL_NAME,
+                     k3.ONE_NAME, k24.ONE_RMW_NAME):
+            assert launches.get(name, 0) > 0, f"{name} not launched through the server"
+        log(f"[server] (a) 8 sequential and 16 concurrent completions (decode passes of up "
+            f"to {max(rows)} rows), chats, /v1/sample, rerank, embeddings and scoring over "
+            f"HTTP in {wall:.1f} s; launches {launches}; per kernel {per_pass}; /metrics "
+            f"{len(body)} bytes; {card}")
+        # the front's cost, after the launches are read (the twin's count too)
+        timing = server_timing(srv.port, twin, want["prompts"], card)
+        trace = server_profile(srv.port, prompts[1])
+        log(f"[server] /start_profile .. /stop_profile: {trace} "
+            f"({os.path.getsize(trace) / 1e6:.1f} MB) names the decode kernel")
+        srv.close()
+        assert eng.block_manager.num_used_blocks == 0
+        result.update(launches=launches, per_pass=per_pass, timing=timing)
+        del srv, eng, twin
+        free_device_memory()
+
+        # (b) the mix policy under a step latency budget
+        # the predictors refit every 32 steps, and numpy warns at each fit
+        # whose samples share one batch size: counted and shown in (b)'s line
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            srv, eng = start_server(path, "--scheduler-policy", "mix",
+                                    "--step-latency-budget-ms", "50")
+            assert type(eng.scheduler).__name__ == "MixScheduler"
+            for ids in prompts:  # one at a time: prefill-only steps feed the model
+                http_json(srv.port, "POST", "/v1/completions", completion(ids, max_tokens=8))
+            bodies = [completion(rng.integers(2, vocab, int(n)).tolist(),
+                                 **({"priority": 1} if i % 2 else {"offline": True}))
+                      for i, n in enumerate(rng.integers(20, 1200, 16))]
+            t0 = time.perf_counter()
+            outs = post_all(srv.port, bodies)
+            mix_s = time.perf_counter() - t0
+            for o in outs:
+                c = o["choices"][0]
+                assert (c["finish_reason"] == "length"
+                        and len(c["logprobs"]["tokens"]) == SERVER_TOKENS)
+            pm = eng.profile_manager
+            assert pm.predict_prefill_s(512) is not None and pm.predict_tpot_s(16) is not None, (
+                "the ProfileManager did not fit")
+        polyfit = [str(w.message) for w in caught if "Polyfit" in str(w.message)]
+        sizes = sorted({int(x) for x, _ in pm.decode._samples})
+        log(f"[server] (b) mix, 50 ms step budget: 16 concurrent completions (8 priority 1, 8 "
+            f"offline) in {mix_s:.2f} s; fitted prefill {1e3 * pm.predict_prefill_s(512):.2f} "
+            f"ms at 512 tokens, decode {1e3 * pm.predict_tpot_s(1):.2f} / "
+            f"{1e3 * pm.predict_tpot_s(16):.2f} ms at 1 / 16 rows ({pm.prefill.num_samples} / "
+            f"{pm.decode.num_samples} samples; decode batch sizes seen {sizes}; "
+            f"{len(polyfit)} numpy warnings {polyfit[:1]}); {card}")
+        srv.close()
+        result.update(mix_s=mix_s, polyfit_warnings=len(polyfit))
+        del srv, eng, pm
+        free_device_memory()
+
+        # (c) the command line
+        result["cli"] = server_cli(path, prompts[1], tokens[len(prompts[1])])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return result
+
+
+def server_cli(path: str, prompt, want) -> dict:
+    """``python -m xllm_tpu_torch.server.api --model dir`` as a process:
+    /health within 180 s, one completion equal to ``want``, exit code 0
+    within 30 s of SIGINT."""
+    cmd = [sys.executable, "-m", "xllm_tpu_torch.server.api", "--model", path, "--host",
+           "127.0.0.1", "--port", "0", *SERVER_FLAGS]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = []
+    try:
+        port = None
+        while port is None and time.perf_counter() - t0 < 180:
+            line = proc.stdout.readline()
+            assert line, "the server exited:\n" + "".join(lines[-40:])
+            lines.append(line)
+            if "Running on http://" in line:
+                port = int(line.split("Running on http://")[1].split()[0].rsplit(":", 1)[1])
+        assert port is not None, "no listening line within 180 s"
+        drain = threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True)
+        drain.start()
+        while http_call(port, "GET", "/health")[0] != 200:
+            assert time.perf_counter() - t0 < 180, "/health did not answer within 180 s"
+            time.sleep(1)
+        up = time.perf_counter() - t0
+        got = http_json(port, "POST", "/v1/completions", completion(prompt))
+        got = [int(t) for t in got["choices"][0]["logprobs"]["tokens"]]
+        assert got == want, f"the command line's tokens {got} != (a)'s {want}"
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=30)
+        assert rc == 0, f"exit code {rc} after SIGINT:\n" + "".join(lines[-40:])
+        drain.join(10)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log(f"[server] (c) {' '.join(cmd[1:4])} ...: answering in {up:.1f} s, tokens equal to "
+        f"(a)'s, exit code 0 on SIGINT")
+    return {"ready_s": up}
+
+
 def add_spec_rows(rows: list[dict], spec_kern: dict, spec_runs: dict, keys) -> None:
     """The kernels line's K1, K3, K4, K11a, K11b and K11d rows gain the
     verify shapes under ``by_shape`` (``verify``: the verify pass's kernel,
@@ -4682,6 +5199,9 @@ def main() -> int:
     ckpt_runs = {}
     if "checkpoint" in phases:
         ckpt_runs = timed_phase("checkpoint", phase_checkpoint)
+    server = {}
+    if "server" in phases:
+        server = timed_phase("server", phase_server)
     if phases != set(PHASES):
         log(card)
         log(f"chip_smoke: partial run ({', '.join(sorted(phases))}); no result line")
@@ -4795,6 +5315,12 @@ def main() -> int:
                   if r["launches"].get(row["name"], 0)}
         if by_run:
             row["launches_checkpoint"] = by_run
+        if server.get("launches", {}).get(row["name"], 0):
+            # the server phase's (a), counters zeroed just before it
+            row["launches_server"] = server["launches"][row["name"]]
+            if row["name"] in server["per_pass"]:
+                row["launches_server_per_step"] = server["per_pass"][row["name"]][
+                    "launches_per_step"]
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """The port's boundaries: what it imports, where it runs, what it refuses.
 
 - ``xllm_tpu_torch`` and ``chip_smoke.py`` import neither jax nor
-  ``xllm_tpu``, nor ``safetensors`` or ``transformers``, which the card's
-  machine lacks (checked in a subprocess: this test process has jax loaded
+  ``xllm_tpu``, nor ``safetensors``, ``transformers`` or ``aiohttp``, which
+  the card's machine lacks (checked in a subprocess: this test process has jax loaded
   by ``tests/conftest.py``), and every kernel module imports without nvcc
   or triton;
 - the entry points run on the card unless the caller asks for the CPU,
@@ -42,9 +42,10 @@ for m in pkgutil.walk_packages(xllm_tpu_torch.__path__, "xllm_tpu_torch."):
     names.append(m.name)
 import chip_smoke
 bad = sorted(n for n in sys.modules
-             if n in ("jax", "xllm_tpu", "triton", "safetensors", "transformers")
+             if n in ("jax", "xllm_tpu", "triton", "safetensors", "transformers",
+                      "aiohttp")
              or n.startswith(("jax.", "xllm_tpu.", "triton.", "safetensors.",
-                              "transformers.")))
+                              "transformers.", "aiohttp.")))
 print(json.dumps({"imported": names, "bad": bad}))
 """
 
@@ -94,7 +95,14 @@ def test_imports_no_jax_no_reference_no_triton():
                 "xllm_tpu_torch.engine", "xllm_tpu_torch.llm",
                 "xllm_tpu_torch.runtime.rejection_sampler",
                 "xllm_tpu_torch.framework.suffix_cache", "xllm_tpu_torch.models.mtp_head",
-                "xllm_tpu_torch.models.loader"):
+                "xllm_tpu_torch.models.loader", "xllm_tpu_torch.server.http",
+                "xllm_tpu_torch.server.api", "xllm_tpu_torch.server.registry",
+                "xllm_tpu_torch.parser.function_call",
+                "xllm_tpu_torch.parser.reasoning_parser",
+                "xllm_tpu_torch.framework.chat_template",
+                "xllm_tpu_torch.scheduler.mix", "xllm_tpu_torch.scheduler.profile",
+                "xllm_tpu_torch.common.interruption", "xllm_tpu_torch.common.health",
+                "xllm_tpu_torch.common.rate_limiter"):
         assert mod in out["imported"]
 
 
@@ -143,9 +151,11 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         pytest.param({"model": _MLA, "quant": {"method": "int8"},
                       "cache": {"kv_cache_dtype": "int8"}}, id="int8_1"),
         # speculative decoding serves (tests/test_torch_spec.py,
-        # tests/test_torch_mtp.py), and a draft head checkpoint loads
-        # (tests/test_torch_loader.py); the mix scheduler is not ported
-        {"scheduler": {"policy": "mix"}},
+        # tests/test_torch_mtp.py), a draft head checkpoint loads
+        # (tests/test_torch_loader.py), and the mix scheduler serves
+        # (tests/test_torch_mix_scheduler.py); the native block manager
+        # is not ported
+        {"cache": {"block_backend": "native"}},
         {"parallel": {"tp_size": 2}},
         {"parallel": {"dp_size": 2}},
         {"parallel": {"cp_size": 2}},

@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import tempfile
 from dataclasses import dataclass, field
 
 
@@ -338,9 +339,10 @@ class EngineConfig:
     # "auto": load safetensors from model_path; "dummy": random init (tests,
     # synthetic benchmarks — reference --load_format dummy equivalent)
     load_format: str = "auto"
-    # online profiler output dir (reference --enable_online_profile +
-    # /start_profile RPC; here a jax.profiler trace directory)
-    profile_dir: str = "/tmp/xllm_trace"
+    # where the server's /stop_profile writes its torch.profiler Chrome
+    # trace (under the temporary directory by default)
+    profile_dir: str = field(
+        default_factory=lambda: os.path.join(tempfile.gettempdir(), "xllm_trace"))
 
     def __post_init__(self) -> None:
         if self.scheduler.max_model_len == 0:

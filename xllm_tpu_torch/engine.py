@@ -8,7 +8,11 @@ single-chunk pass and returns a pooled vector; prompt scoring
 decoding (``speculative.method``): suffix / ngram drafts from the host's
 n-gram indexes, or MTP / Eagle3 drafts from the runner's draft head, each
 verified for a bucketful of sequences in one synchronous pass that yields
-1 to k+1 tokens a sequence.
+1 to k+1 tokens a sequence; multi-position sampling (``sample_slots``, the
+server's ``/v1/sample``); and the scheduler policies: ``policy="mix"``
+(``scheduler/mix.py``) and ``ttft_budget_ms``, both fed by a
+``ProfileManager`` fitted from step wall times, and forward interruption
+(``interruption_bus``, consumed at the step boundary).
 
 Async schedule overlap, as in the JAX engine: sampled tokens stay on the
 device in the runner's ``last_tokens`` ring and feed the next step
@@ -28,6 +32,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from xllm_tpu_torch.common.interruption import InterruptionBus
 from xllm_tpu_torch.config import EngineConfig
 from xllm_tpu_torch.framework.block_manager import BlockManager
 from xllm_tpu_torch.framework.request import (
@@ -44,6 +49,8 @@ from xllm_tpu_torch.framework.tokenizer import IncrementalDecoder, Tokenizer
 from xllm_tpu_torch.runtime.input_builder import group_prefill_items
 from xllm_tpu_torch.runtime.model_runner import ModelRunner
 from xllm_tpu_torch.scheduler.continuous import ContinuousScheduler
+from xllm_tpu_torch.scheduler.mix import MixScheduler
+from xllm_tpu_torch.scheduler.profile import ProfileManager
 from xllm_tpu_torch.utils import get_logger
 
 logger = get_logger(__name__)
@@ -111,7 +118,21 @@ class LLMEngine:
             config.cache.block_size
             if config.cache.enable_prefix_cache else 0
         )
-        self.scheduler = ContinuousScheduler(config.scheduler, self.block_manager)
+        # step-time models feed latency-aware budgeting (the mix policy's
+        # step budget, ``ttft_budget_ms``'s prefill cap), fitted from the
+        # engine step's wall time
+        self.profile_manager = None
+        sc = config.scheduler
+        if sc.policy == "mix" or sc.ttft_budget_ms > 0:
+            self.profile_manager = ProfileManager()
+        if sc.policy == "mix":
+            self.scheduler = MixScheduler(sc, self.block_manager, self.profile_manager)
+        else:
+            self.scheduler = ContinuousScheduler(sc, self.block_manager,
+                                                 self.profile_manager)
+        # forward interruption: a published signal is consumed at the next
+        # step boundary, which preempts the running offline requests
+        self.interruption_bus = InterruptionBus()
         self._decoders: dict[int, IncrementalDecoder] = {}
         # detokenize in the step loop; AsyncLLMEngine clears it and
         # detokenizes on its response thread instead (except sequences with
@@ -162,7 +183,8 @@ class LLMEngine:
         videos: list | None = None,
     ) -> Request:
         if images or videos:
-            raise NotImplementedError("image and video inputs are not ported yet")
+            raise NotImplementedError(
+                "image and video inputs are not ported yet (ROADMAP item 13)")
         if prompt_token_ids is None:
             if prompt is None or self.tokenizer is None:
                 raise ValueError("need prompt_token_ids or (prompt + tokenizer)")
@@ -177,7 +199,8 @@ class LLMEngine:
             )
         sampling_params = sampling_params or SamplingParams()
         if sampling_params.use_beam_search:
-            raise NotImplementedError("beam search is not ported yet")
+            raise NotImplementedError(
+                "beam search is not ported yet (ROADMAP item 11)")
         if embed:  # one pooled vector, no generated token
             sampling_params = SamplingParams(max_tokens=1)
         request_id = request_id or f"req-{uuid.uuid4().hex[:16]}"
@@ -238,6 +261,64 @@ class LLMEngine:
             self.block_manager.free(seq)
         return np.concatenate(lps)[: n - 1]
 
+    def sample_slots(
+        self,
+        prompt_token_ids: list[int],
+        slot_positions: list[int],
+        temperature: float = 0.0,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        seed: int = -1,
+        num_top: int = 0,
+    ) -> list[dict]:
+        """Multi-position sampling (``/v1/sample``): the slot at position
+        p draws from the logits after ``prompt[:p]``, every slot from ONE
+        batched prefill pass over the prompt. Synchronous; runs between
+        engine steps (the async engine's ``call``). -> one dict a slot:
+        {token_id, logprob[, top_ids, top_logprobs]}."""
+        n = len(prompt_token_ids)
+        if not slot_positions:
+            return []
+        if any(p < 1 or p >= n for p in slot_positions):
+            # p = 0 has no prefix to condition on
+            raise ValueError("slot position out of range (must be in [1, n))")
+        max_chunk = max(self.config.scheduler.prefill_token_buckets)
+        if n > max_chunk:
+            raise ValueError(
+                f"prompt length {n} exceeds the single-dispatch sample "
+                f"limit {max_chunk}"
+            )
+        seq = Sequence(
+            prompt_token_ids=list(prompt_token_ids),
+            sampling_params=SamplingParams(max_tokens=1, ignore_eos=True),
+            stopping=StoppingChecker(
+                max_new_tokens=1,
+                max_model_len=self.config.scheduler.max_model_len,
+                ignore_eos=True,
+            ),
+        )
+        seq.slot_id = self.runner.trash_slot
+        if not self.block_manager.allocate(seq, n):
+            raise RuntimeError("KV pool exhausted for sample request")
+        try:
+            rows = np.asarray([p - 1 for p in slot_positions], np.int32)
+            tokens, lps, top_ids, top_lps = self.runner.run_sample_slots(
+                seq, rows, temperature, top_k, top_p, seed, num_top
+            )
+            # the pass wrote every prompt token's KV: computed, so freeing
+            # may donate the blocks to the prefix cache
+            seq.num_computed_tokens = n
+        finally:
+            self.block_manager.free(seq)
+        out = []
+        for j in range(len(slot_positions)):
+            item = {"token_id": int(tokens[j]), "logprob": float(lps[j])}
+            if top_ids is not None:
+                item["top_ids"] = [int(t) for t in top_ids[j]]
+                item["top_logprobs"] = [float(x) for x in top_lps[j]]
+            out.append(item)
+        return out
+
     def abort_request(self, request_id: str) -> None:
         req = self._active_requests.pop(request_id, None)
         if req is not None:
@@ -280,6 +361,12 @@ class LLMEngine:
     # the engine step
     # ------------------------------------------------------------------
     def step(self) -> list[RequestOutput]:
+        t_step0 = time.perf_counter() if self.profile_manager else 0.0
+        if (self.config.scheduler.enable_forward_interruption
+                and self.interruption_bus.consume()):
+            for req in self.scheduler.handle_prefill_interruption():
+                for seq in req.sequences:
+                    self._release_slot(seq)
         out = self.scheduler.schedule()
         for req in out.preempted_requests:
             for seq in req.sequences:
@@ -368,6 +455,16 @@ class LLMEngine:
                     and not seq.has_unfixed_tokens
                 ):
                     self._release_slot(seq)
+        if self.profile_manager is not None and not out.is_empty:
+            # only unmixed steps feed the models, so each stays clean; under
+            # schedule overlap the step blocks on an earlier step's
+            # read-back, so steady-state wall time tracks device time
+            dt = time.perf_counter() - t_step0
+            if out.prefill_items and not out.decode_seqs:
+                self.profile_manager.observe_prefill(
+                    sum(n for _, n in out.prefill_items), dt)
+            elif out.decode_seqs and not out.prefill_items:
+                self.profile_manager.observe_decode(len(out.decode_seqs), dt)
         return self._build_outputs(touched)
 
     # ------------------------------------------------------------------

@@ -4,10 +4,11 @@ Counterpart of the subset of ``xllm_tpu/runtime/model_runner.py`` that
 serves the dense, MoE and MLA main paths on one device: ``load_model``, ``initialize_kv_cache``,
 ``run_prefill_batched`` and ``run_decode``, the single-chunk passes of
 prompt scoring (``run_score_chunk``) and embeddings (``run_prefill_embed``),
-and speculative decoding's batched verify passes (``run_verify_batched``
+speculative decoding's batched verify passes (``run_verify_batched``
 for the suffix / ngram drafts, ``run_verify_mtp`` for the MTP / Eagle3
-draft head, whose drafts never leave the device), all of which read their
-result back synchronously, as the JAX runner does. The device-resident
+draft head, whose drafts never leave the device) and multi-position
+sampling (``run_sample_slots``), all of which read their result back
+synchronously, as the JAX runner does. The device-resident
 ``last_tokens`` ring (each slot holds its sequence's last sampled token, so
 the next decode reads it without a host round trip) and the ``token_hist``
 ring (the sampler's penalty history) are kept. There is no jit, no warmup
@@ -26,6 +27,7 @@ import torch
 from xllm_tpu_torch.config import EngineConfig
 from xllm_tpu_torch.framework.request import Sequence
 from xllm_tpu_torch.models.registry import MLA_FAMILIES, MOE_FAMILIES, create_model
+from xllm_tpu_torch.ops.norms import rms_norm
 from xllm_tpu_torch.runtime.forward_params import (
     BatchedPrefillInput,
     DecodeInput,
@@ -86,13 +88,6 @@ def reject_unported(config: EngineConfig) -> None:
         raise NotImplementedError("host / global KV tiers are not ported yet")
     if c.cache.block_backend == "native":
         raise NotImplementedError("the native block manager is not ported yet")
-    s = c.scheduler
-    if s.policy != "continuous":
-        raise NotImplementedError(f"scheduler policy {s.policy!r} is not ported yet")
-    if s.ttft_budget_ms > 0:
-        raise NotImplementedError("latency-aware scheduling is not ported yet")
-    if s.enable_forward_interruption:
-        raise NotImplementedError("forward interruption is not ported yet")
     if c.model.vision:
         raise NotImplementedError("VLM families are not ported yet")
     if c.model.num_experts > 0 and c.model.model_type not in MOE_FAMILIES + MLA_FAMILIES:
@@ -625,6 +620,55 @@ class ModelRunner:
             torch.arange(pre.shape[0], device=pre.device), last]
         self.token_hist[slots, inp.positions[:, 0].long()] = inp.token_ids[:, 0]
         return (*self._read_back(tokens, num_acc), rows)
+
+    @torch.inference_mode()
+    def run_sample_slots(
+        self,
+        seq: Sequence,
+        source_rows: np.ndarray,  # [n] prompt rows whose logits to sample
+        temperature: float,
+        top_k: int,
+        top_p: float,
+        seed: int,
+        num_top: int = 0,
+    ):
+        """Multi-position sampling over ONE prompt pass (``/v1/sample``):
+        the batched prefill with every row's pre-norm state returned, the
+        slot rows gathered, then the final norm, the lm_head and the
+        sampler on f32 logits. A seed >= 0 draws slot j's noise from the
+        sampler's seeded stream at (seed, j); otherwise from the runner's
+        generator. Synchronous read-back. -> (tokens [n], logprobs [n],
+        top_ids [n, num_top] | None, top_lps [n, num_top] | None)."""
+        sc = self.config.scheduler
+        inp_np, _, rows = build_batched_prefill_input(
+            [(seq, seq.num_tokens)], self.block_size, sc.prefill_token_buckets,
+            sc.prefill_row_buckets, self.max_blocks_per_seq, self.trash_slot,
+        )
+        n = len(source_rows)
+        si_np = {"temperature": np.full(n, temperature, np.float32),
+                 "top_k": np.full(n, top_k, np.int32),
+                 "top_p": np.full(n, top_p, np.float32),
+                 "srows": np.asarray(source_rows, np.int32)}
+        dev = self._upload({**vars(inp_np), **si_np})
+        inp = BatchedPrefillInput(**{k: dev[k] for k in vars(inp_np)})
+        si = SamplingInput(key=self._gen,
+                           **{k: dev[k] for k in ("temperature", "top_k", "top_p")})
+        model = self.model
+        _, _, _, pre = model.prefill_batched(self.k_cache, self.v_cache, inp,
+                                             return_hidden=True)
+        hidden = rms_norm(pre[rows[0]][dev["srows"].long()], model.norm,
+                          self.config.model.rms_norm_eps)
+        logits = model.compute_logits(hidden).float()
+        noise = None
+        if temperature > 0:
+            k = min(_PRUNE_K, self.config.model.vocab_size)
+            noise = gumbel_noise(n, k, self._gen, self.device,
+                                 [seed] * n if seed >= 0 else None, range(n))
+        out = sample(logits, si, None, num_top, True, gumbel=noise)
+        host = [x.cpu().numpy() for x in out]
+        if num_top:
+            return tuple(host)
+        return host[0], host[1], None, None
 
     def _set_last(self, inp, tokens: torch.Tensor, num_acc: torch.Tensor) -> None:
         """Each row's last emitted token into the last_tokens ring."""

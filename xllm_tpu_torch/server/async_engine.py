@@ -5,13 +5,15 @@ engine and steps it continuously; results cross into the asyncio world
 through per-request queues, and a response thread detokenizes off the step
 loop. ``generate(embed=True)`` serves embeddings, and ``call("score_prompt",
 ids)`` runs prompt scoring on the engine thread between steps: the paths of
-the OpenAI server's ``/v1/embeddings``, ``/v1/rerank`` and echo+logprobs.
-It imports no HTTP framework.
+the OpenAI server's ``/v1/embeddings``, ``/v1/rerank`` and echo+logprobs;
+``call("sample_slots", ...)`` that of ``/v1/sample``. It imports no HTTP
+framework.
 """
 
 from __future__ import annotations
 
 import asyncio
+import functools
 import queue as _queue
 import threading
 import time
@@ -153,9 +155,11 @@ class AsyncLLMEngine:
             with self._streams_lock:
                 self._streams.pop(req_id, None)
 
-    async def call(self, method: str, *args, **kwargs):
+    async def call(self, method, *args, **kwargs):
         """Run an engine method on the engine thread (e.g. sample_slots,
-        sleep/wakeup) serialized against steps."""
+        score_prompt) serialized against steps. ``method`` is the engine's
+        method name, or a callable that takes the engine first (the
+        server's profiler start and stop)."""
         loop = asyncio.get_running_loop()
         done = loop.create_future()
         self._intake.put(("call", (method, args, kwargs, loop), None, done))
@@ -187,7 +191,9 @@ class AsyncLLMEngine:
                     # steps) and resolve the caller's future
                     method, args, kwargs, loop = payload
                     try:
-                        result = getattr(eng, method)(*args, **kwargs)
+                        fn = (getattr(eng, method) if isinstance(method, str)
+                              else functools.partial(method, eng))
+                        result = fn(*args, **kwargs)
                         loop.call_soon_threadsafe(done.set_result, result)
                     except Exception as e:
                         loop.call_soon_threadsafe(done.set_exception, e)
