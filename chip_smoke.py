@@ -243,10 +243,39 @@ phase raises on failure, so a non-zero exit means a phase failed:
    ``/health`` within 180 s, one completion equal to (a)'s tokens, exit
    code 0 within 30 s of SIGINT.
 
+16. pd_tiers: PD disaggregation and the KV tiers at qwen3-1.7B's full
+   width and depth (bf16, chunks of ``PD_CHUNK``), each compared with an
+   engine that runs the same passes. (a) an engine with 96 device blocks and
+   256 host blocks (float16, pinned) beside a twin with 1,024 blocks and no
+   tier: four prompts on a 1,024-token prefix, eight distinct 1,024-token
+   prompts that evict it, the four again, each served alone: offloads, at
+   least 16 fetches, the twin's tokens, the prefix's pages back on the card
+   as the float16 round trip of the pages offloaded, K3 once per layer in
+   the first pass over them; a page's swap-out and swap-in timed. (b) a
+   prefill engine and a decode engine beside a mixed engine serving each
+   prompt alone: 16 prompts of 100-2,048 tokens through ``PDOrchestrator``,
+   through ``AsyncPrefillInstance`` (pages pushed while later chunks
+   compute) and over HTTP (the decode app and the prefill front on the
+   port's transport at port 0): the mixed engine's tokens, every injected
+   page byte-equal to the bytes handed over, every prefill-node pass K2 /
+   K4 and K3 once per layer and every decode-node pass K1 once per layer;
+   the 2,048-token handoff's extract, wire and inject timed; a prefill
+   engine at block_size 128 handing off to the decode engine at 64 (the
+   re-paged blocks byte-equal; token agreement reported: bf16 P rounds per
+   page); int8 and fp8 KV pairs (same scales on both nodes), tokens equal
+   and pages byte-equal. (d) PD-OOC on (b)'s pair: four offline 2,048-token
+   prompts in flight, four online prompts preempt them through the
+   interruption bus, the decode node pulls the offline handoffs, all eight
+   finish. (c) a global store app on localhost: engine A's prefix reaches
+   engine B, whose tokens equal A's over the same fetched prefix; a page's
+   put + get timed. (e) DeepSeek-V2-Lite's width cut to ``MLA_PD_LAYERS``
+   layers, bf16 and fp8 latent caches: PD tokens equal the mixed engine's
+   (K11b / K11c-d and K10 a prefill pass, K11a and K10 a decode pass).
+
 ``python3 chip_smoke.py --phases kernels`` (a comma list of build, kernels,
 qkernels, engines, quant, parity, layouts, layout-engines, grammar,
-grammar-engines, spec, spec-engines, checkpoint, server) runs a subset and
-prints no result line.
+grammar-engines, spec, spec-engines, checkpoint, server, pd_tiers) runs a
+subset and prints no result line.
 
 The line before the last is ``{"kernels": [...]}`` (errors, times, bounds
 and launch counts); the last line is ``{"ok": true, "device": {...}}``.
@@ -286,7 +315,9 @@ from xllm_tpu_torch.config import (
     ModelConfig,
     SchedulerConfig,
 )
+from xllm_tpu_torch.disagg import kv_store, ooc, pd, service
 from xllm_tpu_torch.engine import LLMEngine
+from xllm_tpu_torch.framework.block_manager import hash_block
 from xllm_tpu_torch.framework.sampling_params import SamplingParams
 from xllm_tpu_torch.llm import LLM
 from xllm_tpu_torch.models import loader
@@ -3568,7 +3599,7 @@ def free_device_memory() -> None:
 
 PHASES = ("build", "kernels", "qkernels", "engines", "quant", "parity", "layouts",
           "layout-engines", "grammar", "grammar-engines", "spec", "spec-engines", "checkpoint",
-          "server")
+          "server", "pd_tiers")
 
 
 def phase_layout_parity() -> None:
@@ -4578,12 +4609,13 @@ def text_ids(text: str) -> list[int]:
 
 
 class ServerThread:
-    """An ``APIServer``'s app on 127.0.0.1:0, its event loop in a thread."""
+    """An ``APIServer``'s app (or ``app``) on 127.0.0.1:0, its event loop in
+    a thread."""
 
-    def __init__(self, api):
+    def __init__(self, api, app=None):
         self.api = api
         self.loop = asyncio.new_event_loop()
-        self.runner = web.AppRunner(api.app())
+        self.runner = web.AppRunner(api.app() if app is None else app)
         ready = threading.Event()
 
         def run():
@@ -5006,6 +5038,438 @@ def server_cli(path: str, prompt, want) -> dict:
     return {"ready_s": up}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: PD disaggregation and the host / global KV tiers
+# ---------------------------------------------------------------------------
+PD_TOKENS = 8  # greedy tokens a request of the PD phase (a decode step is ~35 ms of host time)
+PD_CHUNK = 512  # the PD engines' prefill chunk: a 2,048-token prompt in 4
+# 100 and 300 tokens one chunk (K2), 560 = 512 + 48 (K2, then K4), 2,048
+# four chunks of 512 (K2)
+PD_LENS = (100, 300, 560, 2048) * 4
+TIER_PREFIX = 1024  # the shared prefix of (a) and (c): 16 pages
+TIER_SUFFIX = 100
+TIER_DEVICE_BLOCKS = 96
+TIER_HOST_BLOCKS = 256
+TIER_CHURN = 8  # distinct 1,024-token prompts that evict the prefix
+MLA_PD_LAYERS = 4
+
+
+def pd_config(model_kw=QWEN3_1P7B, num_blocks: int = 256, prefix_cache: bool = False,
+              block_size: int = BS, **cache_kw) -> EngineConfig:
+    """``engine_config`` with chunks of ``PD_CHUNK`` and no prefix cache
+    unless asked (a PD node's second sight of a prompt must not change its
+    passes); ``cache_kw`` set on the cache group."""
+    cfg = engine_config(model_kw, num_blocks=num_blocks)
+    cfg.scheduler.max_tokens_per_chunk_for_prefill = PD_CHUNK
+    cfg.cache.block_size = block_size
+    cfg.cache.enable_prefix_cache = prefix_cache
+    for k, v in cache_kw.items():
+        setattr(cfg.cache, k, v)
+    return cfg
+
+
+def pd_sp(n: int = PD_TOKENS) -> SamplingParams:
+    return SamplingParams(temperature=0.0, max_tokens=n, ignore_eos=True)
+
+
+def serve_alone(eng: LLMEngine, prompts) -> list[list[int]]:
+    """Each prompt served alone, in order: the passes a PD node runs for it."""
+    out = []
+    for p in prompts:
+        eng.add_request(prompt_token_ids=list(p), sampling_params=pd_sp())
+        out.append(eng.generate_all()[0].outputs[0].token_ids)
+    assert eng.block_manager.num_used_blocks == 0, "KV blocks leaked"
+    return out
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.uint8)
+
+
+class Moves:
+    """Times the runner's block moves of a PD pair (synchronized host clock
+    around each call) and checks that every injected block holds the bytes
+    handed to ``inject_blocks``."""
+
+    def __init__(self, pre: LLMEngine, dec: LLMEngine):
+        self.extract, self.inject = [], []
+        self.checked = 0
+        extract, inject = pre.runner.extract_blocks, dec.runner.inject_blocks
+        runner = dec.runner
+
+        def timed_extract(ids):
+            sync()
+            t0 = time.perf_counter()
+            k, v = extract(ids)
+            self.extract.append((k.nbytes + v.nbytes, time.perf_counter() - t0))
+            return k, v
+
+        def timed_inject(k, v, ids):
+            sync()
+            t0 = time.perf_counter()
+            inject(k, v, ids)
+            sync()
+            self.inject.append((k.nbytes + v.nbytes, time.perf_counter() - t0))
+            idx = torch.as_tensor(ids, device=runner.device)
+            got = runner.k_cache.index_select(1, idx).transpose(0, 1).cpu()
+            assert torch.equal(bits(got), bits(k.to(got.dtype))), "injected K differs"
+            if runner.v_cache.ndim == 5:
+                got = runner.v_cache.index_select(1, idx).transpose(0, 1).cpu()
+                assert torch.equal(bits(got), bits(v.to(got.dtype))), "injected V differs"
+            self.checked += len(ids)
+
+        pre.runner.extract_blocks = timed_extract
+        runner.inject_blocks = timed_inject
+
+    @staticmethod
+    def largest(samples) -> tuple[int, float]:
+        """(bytes, median seconds) of the largest moves."""
+        nbytes = max(b for b, _ in samples)
+        times = sorted(t for b, t in samples if b == nbytes)
+        return nbytes, times[len(times) // 2]
+
+    @staticmethod
+    def rate(samples) -> str:
+        nbytes, s = Moves.largest(samples)
+        return f"{s * 1e3:.2f} ms, {nbytes / s / 1e9:.2f} GB/s for {nbytes / 1e6:.1f} MB"
+
+
+def pd_engines(model_kw=QWEN3_1P7B, num_blocks: int = 256, **cache_kw):
+    """(mixed, prefill, decode) engines of one config on the card, each
+    from the same seed."""
+    return tuple(LLMEngine(pd_config(model_kw, num_blocks, **cache_kw), device="cuda")
+                 for _ in range(3))
+
+
+def pd_orchestrated(pre: LLMEngine, dec: LLMEngine, prompts) -> list[list[int]]:
+    orch = pd.PDOrchestrator(pd.PrefillInstance(pre), pd.DecodeInstance(dec))
+    out = [orch.generate(list(p), pd_sp()).outputs[0].token_ids for p in prompts]
+    assert pre.block_manager.num_used_blocks == dec.block_manager.num_used_blocks == 0
+    return out
+
+
+def pd_async(pre: LLMEngine, dec: LLMEngine, prompts) -> tuple[list[list[int]], int]:
+    """Each prompt through ``AsyncPrefillInstance`` (its full pages pushed
+    while later chunks compute), the handoff over the wire to the decode
+    node -> (tokens, pages pushed before the first token)."""
+    node, dnode = pd.AsyncPrefillInstance(pre), pd.DecodeInstance(dec)
+    out, early = [], 0
+    for p in prompts:
+        got = {}
+        node.submit(list(p), pd_sp(), lambda h: got.update(h=h))
+        while node.busy:
+            node.pump()
+            if "h" not in got:
+                early = max(early, sum(n for parts in node._partial.values()
+                                       for _, _, n in parts))
+        req = dnode.accept(pd.PrefillHandoff.from_bytes(got["h"].to_bytes()))
+        while dec.has_unfinished():
+            dec.step()
+        seq = req.sequences[0]
+        out.append(seq.token_ids[seq.num_prompt_tokens:])
+    assert pre.block_manager.num_used_blocks == dec.block_manager.num_used_blocks == 0
+    return out, early
+
+
+def pd_over_http(pre: LLMEngine, dec: LLMEngine, prompts) -> list[list[int]]:
+    """The decode app and the prefill front on the port's transport at port
+    0, each prompt posted to the front."""
+    dsrv = ServerThread(None, service.make_decode_app(pd.DecodeInstance(dec)))
+    fsrv = ServerThread(None, service.make_prefill_app(
+        pd.PrefillInstance(pre), f"http://127.0.0.1:{dsrv.port}"))
+    try:
+        out = []
+        for p in prompts:
+            r = http_json(fsrv.port, "POST", "/v1/completions",
+                          {"prompt": list(p), "max_tokens": PD_TOKENS, "temperature": 0,
+                           "ignore_eos": True})
+            out.append(r["choices"][0]["token_ids"])
+    finally:
+        fsrv.close()
+        dsrv.close()
+    return out
+
+
+def pd_checked_passes(eng: LLMEngine, kind: str):
+    """``count_per_pass`` on ``eng``'s runner and the check that each of its
+    passes is of ``kind`` and launches what ``pass_launches`` says."""
+    m = eng.config.model
+    moe_layers = (m.num_hidden_layers - m.first_k_dense_replace) if m.num_experts else 0
+    deltas = count_per_pass(eng.runner)
+
+    def check():
+        assert deltas and all(k == kind for k, _, _ in deltas), (
+            f"{kind} node ran {sorted({k for k, _, _ in deltas})} passes")
+        check_passes(deltas, lambda k, rows: pass_launches(
+            m.num_hidden_layers, moe_layers, m.kv_lora_rank > 0, k, rows))
+        n = len(deltas)
+        del deltas[:]
+        return n
+    return check
+
+
+def phase_pd_tiers(seed: int = 41) -> dict:
+    """The PD and KV-tier phase (see the module docstring) -> figures."""
+    card = card_line()
+    rng = np.random.default_rng(seed)
+    vocab = QWEN3_1P7B["vocab_size"]
+    layers = QWEN3_1P7B["num_hidden_layers"]
+    out = {}
+    at_start = dict(_build.launch_counts)
+
+    # (a) the host tier beside a twin without it
+    prefix = rng.integers(1, vocab, TIER_PREFIX).tolist()
+    firsts = [prefix + rng.integers(1, vocab, TIER_SUFFIX).tolist() for _ in range(4)]
+    churn = [rng.integers(1, vocab, TIER_PREFIX).tolist() for _ in range(TIER_CHURN)]
+    tier = LLMEngine(pd_config(num_blocks=TIER_DEVICE_BLOCKS, prefix_cache=True,
+                               num_host_blocks=TIER_HOST_BLOCKS), device="cuda")
+    twin = LLMEngine(pd_config(num_blocks=1024, prefix_cache=True), device="cuda")
+    bm, hier = tier.block_manager, tier.block_manager.hierarchy
+    assert tier.runner.host_k.is_pinned() and tier.runner._decode_cache is None
+    want = serve_alone(twin, firsts + churn)
+    got = serve_alone(tier, firsts)
+    hashes, parent = [], 0
+    for i in range(TIER_PREFIX // BS):
+        parent = hash_block(parent, prefix[i * BS:(i + 1) * BS])
+        hashes.append(parent)
+    before = [bm.cached_blocks[h] for h in hashes]
+    page_k = tier.runner.k_cache[:, before].clone()
+    page_v = tier.runner.v_cache[:, before].clone()
+    got += serve_alone(tier, churn)
+    assert hier.offloads > 0 and all(h not in bm.cached_blocks for h in hashes), (
+        "the prefix was not evicted")
+    offloads = hier.offloads
+    deltas = count_per_pass(tier.runner)
+    want += serve_alone(twin, firsts)
+    got += serve_alone(tier, firsts)
+    assert got == want, f"host tier: tokens differ from the twin's {first_divergence(got, want)}"
+    assert hier.fetches >= TIER_PREFIX // BS, f"{hier.fetches} fetches"
+    after = [bm.cached_blocks[h] for h in hashes]
+    host_dt = tier.runner.host_k.dtype  # float16 for a bf16 model, as in JAX
+    for cache, page in ((tier.runner.k_cache, page_k), (tier.runner.v_cache, page_v)):
+        assert torch.equal(bits(cache[:, after]), bits(page.to(host_dt).to(page.dtype))), (
+            "a fetched page is not the host round trip of the page offloaded")
+    pre_fetch = [d for k, _, d in deltas if k == "prefill"][0]
+    assert pre_fetch.get(k3.NAME, 0) == layers, f"first pass over fetched pages: {pre_fetch}"
+    # swap-out / swap-in of one page, host clock around each, synchronized
+    r = tier.runner
+    page_bytes = r.host_k[0].nbytes + r.host_v[0].nbytes
+    t_out, t_in = [], []
+    for i in range(10):
+        sync()
+        t0 = time.perf_counter()
+        r.swap_out_block(before[0], 0)
+        r._wait_host_slot(0)
+        t_out.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        r.swap_in_block(0, before[0])
+        sync()
+        t_in.append(time.perf_counter() - t0)
+    so, si = sorted(t_out)[5], sorted(t_in)[5]
+    out["tier"] = dict(offloads=offloads, fetches=hier.fetches, page_bytes=page_bytes,
+                       swap_out_ms=so * 1e3, swap_in_ms=si * 1e3)
+    log(f"[pd_tiers] (a) host tier: {TIER_DEVICE_BLOCKS} device blocks, {TIER_HOST_BLOCKS} "
+        f"host blocks ({r.host_k.dtype}, pinned, {TIER_HOST_BLOCKS * page_bytes / 1e9:.2f} GB); "
+        f"4 prompts on a {TIER_PREFIX}-token prefix, {TIER_CHURN} distinct ones, the 4 again: "
+        f"{offloads} offloads, {hier.fetches} fetches, tokens equal the twin's (no tier, 1024 "
+        f"blocks), the prefix's 16 pages back as their f16 round trip, the first pass over "
+        f"them {pre_fetch.get(k3.NAME)} K3 launches; a page ({page_bytes / 1e6:.2f} MB) "
+        f"swap-out {so * 1e3:.3f} ms ({page_bytes / so / 1e9:.2f} GB/s), swap-in "
+        f"{si * 1e3:.3f} ms ({page_bytes / si / 1e9:.2f} GB/s), median of 10; {card}")
+    del tier, twin, r, page_k, page_v
+    free_device_memory()
+
+    # (b) PD pairs beside a mixed engine
+    prompts = [rng.integers(1, vocab, n).tolist() for n in PD_LENS]
+    mixed, pre, dec = pd_engines()
+    serve_alone(mixed, prompts[:2])  # first calls, uncounted
+    serve_alone(pre, prompts[:1])
+    want = serve_alone(mixed, prompts)
+    moves = Moves(pre, dec)
+    pre_check, dec_check = pd_checked_passes(pre, "prefill"), pd_checked_passes(dec, "decode")
+    sync()
+    before = dict(_build.launch_counts)
+    t0 = time.perf_counter()
+    got = pd_orchestrated(pre, dec, prompts)
+    orch_s = time.perf_counter() - t0
+    launches = {k: v - before.get(k, 0) for k, v in _build.launch_counts.items()
+                if v - before.get(k, 0)}
+    assert got == want, f"PDOrchestrator: {first_divergence(got, want)}"
+    passes = (pre_check(), dec_check())
+    for name in (k24.PREFILL_NAME, k3.NAME, k24.RMW_NAME, k1.NAME):
+        assert launches.get(name, 0) > 0, f"{name} not launched on the PD path"
+    big = max(range(len(prompts)), key=lambda i: len(prompts[i]))
+    h = pd.PrefillInstance(pre).prefill(prompts[big], pd_sp())
+    wire = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        raw = h.to_bytes()
+        pd.PrefillHandoff.from_bytes(raw)
+        wire.append(time.perf_counter() - t0)
+    wire_s = sorted(wire)[1]
+    got_async, early = pd_async(pre, dec, prompts)
+    assert got_async == want, f"AsyncPrefillInstance: {first_divergence(got_async, want)}"
+    assert early > 0, "no page was pushed before a first token"
+    got_http = pd_over_http(pre, dec, prompts)
+    assert got_http == want, f"over HTTP: {first_divergence(got_http, want)}"
+    pre_check(), dec_check()
+    out["pd"] = dict(launches=launches, passes=passes, orchestrator_s=orch_s,
+                     extract=Moves.largest(moves.extract),
+                     inject=Moves.largest(moves.inject),
+                     wire_s=wire_s, wire_bytes=len(raw), early_pages=early)
+    log(f"[pd_tiers] (b) qwen3-1.7B prefill + decode engines ({layers} layers, bf16, chunks "
+        f"of {PD_CHUNK}, 256 blocks each): {len(prompts)} prompts of {sorted(set(PD_LENS))} "
+        f"tokens x {PD_TOKENS} through PDOrchestrator ({orch_s:.2f} s), "
+        f"AsyncPrefillInstance (up to {early} pages pushed before a first token) and "
+        f"HTTP (both apps at port 0): tokens equal the mixed engine's; "
+        f"{moves.checked} injected pages byte-equal; {passes[0]} prefill passes (K2 / K3 / "
+        f"K4) and {passes[1]} decode passes (K1) checked; launches {launches}")
+    log(f"[pd_tiers] (b) the {len(prompts[big])}-token handoff: extract "
+        f"{Moves.rate(moves.extract)}, wire (npz out and in) {wire_s * 1e3:.2f} ms, "
+        f"{len(raw) / wire_s / 1e9:.2f} GB/s for {len(raw) / 1e6:.1f} MB, inject "
+        f"{Moves.rate(moves.inject)}; {card}")
+
+    # the prefill node at block_size 128, the decode node at 64
+    pre128 = LLMEngine(pd_config(num_blocks=128, block_size=128), device="cuda")
+    moves128 = Moves(pre128, dec)
+    got128 = pd_orchestrated(pre128, dec, prompts[:4])
+    div = first_divergence(got128, want[:4])
+    assert all(len(t) == PD_TOKENS for t in got128) and moves128.checked > 0
+    log(f"[pd_tiers] (b) prefill at block_size 128 -> decode at 64: 4 requests, "
+        f"{moves128.checked} re-paged blocks byte-equal; first divergence from the mixed "
+        f"engine's tokens (64-token pages) {div} (bf16 P rounds after each page, so pages "
+        f"of 128 give other bits)")
+    out["pd"]["cross_page_divergence"] = div
+    del mixed, pre128, moves128
+
+    # (d) PD-OOC on the same pair: online preempts offline through the bus
+    pre.config.scheduler.enable_forward_interruption = True
+    preempted = []
+    handle = pre.scheduler.handle_prefill_interruption
+
+    def counted():
+        reqs = handle()
+        preempted.extend(r.request_id for r in reqs)
+        return reqs
+
+    pre.scheduler.handle_prefill_interruption = counted
+    pnode = ooc.OOCPrefillNode(pd.AsyncPrefillInstance(pre))
+    dnode = ooc.OOCDecodeNode(pd.DecodeInstance(dec), tpot_budget_s=0.05)
+    reqs, accept = [], dnode.accept
+
+    def tracked(h, offline=False):
+        reqs.append(accept(h, offline))
+        return reqs[-1]
+
+    dnode.accept = tracked
+    for i in range(4):
+        pnode.submit_offline(rng.integers(1, vocab, 2048).tolist(), pd_sp(),
+                             request_id=f"off-{i}")
+    statuses = []
+    for _ in range(2):
+        pnode.pump()
+        statuses.append(pnode.last_status.value)
+    online = []
+    for i in range(4):
+        pnode.submit_online(rng.integers(1, vocab, 300).tolist(), pd_sp(), online.append,
+                            request_id=f"on-{i}")
+    t0 = time.perf_counter()
+    for _ in range(5000):
+        pnode.pump()
+        statuses.append(pnode.last_status.value)
+        while online:
+            dnode.accept(online.pop(0))
+        dnode.pump(pnode)
+        if (len(reqs) == 8 and not dec.has_unfinished() and not pre.has_unfinished()
+                and not pnode.prefill.busy):
+            break
+    ooc_s = time.perf_counter() - t0
+    assert preempted, "no offline request was preempted"
+    assert statuses[0] == "offline_prefill" and "online_prefill" in statuses
+    assert len(reqs) == 8 and all(r.is_finished and r.sequences[0].num_generated_tokens
+                                  == PD_TOKENS for r in reqs), "OOC: not every request finished"
+    assert dnode.pulls == 4
+    assert pre.block_manager.num_used_blocks == dec.block_manager.num_used_blocks == 0
+    out["ooc"] = dict(preempted=len(preempted), pulls=dnode.pulls, seconds=ooc_s)
+    log(f"[pd_tiers] (d) PD-OOC: 4 offline 2,048-token prompts in flight, 4 online ones "
+        f"arrive: {len(preempted)} offline preemptions through the bus, {dnode.pulls} "
+        f"offline handoffs pulled, all 8 finished ({PD_TOKENS} tokens) in {ooc_s:.2f} s")
+    del pre, dec, pnode, dnode, reqs
+    free_device_memory()
+
+    # int8 and fp8 KV caches: the same scales on both nodes
+    for kv in ("int8", "fp8_e4m3"):
+        mixed, pre, dec = pd_engines(kv_cache_dtype=kv)
+        moves = Moves(pre, dec)
+        sel = prompts[2:4]
+        want_q = serve_alone(mixed, sel)
+        got_q = pd_orchestrated(pre, dec, sel)
+        assert got_q == want_q, f"{kv} PD: {first_divergence(got_q, want_q)}"
+        log(f"[pd_tiers] (b) {kv} KV: {len(sel)} prompts, tokens equal the mixed engine's, "
+            f"{moves.checked} injected pages byte-equal to the extracted ones")
+        del mixed, pre, dec, moves
+        free_device_memory()
+
+    # (c) the global store on localhost: B reuses A's prefix
+    ssrv = ServerThread(None, kv_store.make_kv_store_app(max_blocks=256))
+    url = f"http://127.0.0.1:{ssrv.port}"
+    try:
+        p = firsts[0]
+        a = LLMEngine(pd_config(num_blocks=TIER_DEVICE_BLOCKS, prefix_cache=True,
+                                num_host_blocks=8, kv_store_url=url), device="cuda")
+        serve_alone(a, [p] + churn)
+        assert a.block_manager.hierarchy.store_puts > 0
+        again = serve_alone(a, [p])
+        b = LLMEngine(pd_config(num_blocks=TIER_DEVICE_BLOCKS, prefix_cache=True,
+                                num_host_blocks=32, kv_store_url=url), device="cuda")
+        got_b = serve_alone(b, [p])
+        hb = b.block_manager.hierarchy
+        assert hb.store_fetches > 0 and got_b == again, (
+            f"store: {hb.store_fetches} fetches, {first_divergence(got_b, again)}")
+        client = kv_store.KVStoreClient(url)
+        k, v = b.runner.read_host_block(0)
+        rt = []
+        for i in range(5):
+            t0 = time.perf_counter()
+            client.batch_put({1 << 40 | i: (k, v)})
+            client.batch_get([1 << 40 | i])
+            rt.append(time.perf_counter() - t0)
+        rt_s = sorted(rt)[2]
+        out["store"] = dict(puts=a.block_manager.hierarchy.store_puts,
+                            fetches=hb.store_fetches, round_trip_ms=rt_s * 1e3)
+        log(f"[pd_tiers] (c) global store on localhost: A pushed "
+            f"{a.block_manager.hierarchy.store_puts} pages, B fetched {hb.store_fetches} and "
+            f"gave A's tokens over the same fetched prefix; a page's put + get "
+            f"({(k.nbytes + v.nbytes) / 1e6:.2f} MB) {rt_s * 1e3:.1f} ms, median of 5; {card}")
+        del a, b
+    finally:
+        ssrv.close()
+    free_device_memory()
+
+    # (e) MLA at DeepSeek-V2-Lite's width, cut to MLA_PD_LAYERS layers
+    mla_kw = dict(DEEPSEEK_V2_LITE, num_hidden_layers=MLA_PD_LAYERS)
+    for kv in ("auto", "fp8_e4m3"):
+        mixed, pre, dec = pd_engines(mla_kw, kv_cache_dtype=kv)
+        moves = Moves(pre, dec)
+        sel = [rng.integers(1, mla_kw["vocab_size"], n).tolist() for n in (100, 560, 2048)]
+        want_m = serve_alone(mixed, sel)
+        pc, dc = pd_checked_passes(pre, "prefill"), pd_checked_passes(dec, "decode")
+        got_m = pd_orchestrated(pre, dec, sel)
+        assert got_m == want_m, f"MLA {kv} PD: {first_divergence(got_m, want_m)}"
+        n = (pc(), dc())
+        log(f"[pd_tiers] (e) DeepSeek-V2-Lite width, {MLA_PD_LAYERS} layers, {kv} latent "
+            f"cache: {len(sel)} prompts through PDOrchestrator equal the mixed engine's; "
+            f"{moves.checked} injected pages byte-equal; {n[0]} prefill (K11b, K11c / K11d, "
+            f"K10) and {n[1]} decode passes (K11a, K10) checked")
+        del mixed, pre, dec, moves
+        free_device_memory()
+    sync()
+    out["launches"] = {k: v - at_start.get(k, 0) for k, v in _build.launch_counts.items()
+                       if v - at_start.get(k, 0)}
+    log(f"[pd_tiers] launches over the phase {out['launches']}; {card}")
+    return out
+
+
 def add_spec_rows(rows: list[dict], spec_kern: dict, spec_runs: dict, keys) -> None:
     """The kernels line's K1, K3, K4, K11a, K11b and K11d rows gain the
     verify shapes under ``by_shape`` (``verify``: the verify pass's kernel,
@@ -5202,6 +5666,9 @@ def main() -> int:
     server = {}
     if "server" in phases:
         server = timed_phase("server", phase_server)
+    pd_tiers = {}
+    if "pd_tiers" in phases:
+        pd_tiers = timed_phase("pd_tiers", phase_pd_tiers)
     if phases != set(PHASES):
         log(card)
         log(f"chip_smoke: partial run ({', '.join(sorted(phases))}); no result line")
@@ -5321,6 +5788,9 @@ def main() -> int:
             if row["name"] in server["per_pass"]:
                 row["launches_server_per_step"] = server["per_pass"][row["name"]][
                     "launches_per_step"]
+        if pd_tiers["launches"].get(row["name"], 0):
+            # the pd_tiers phase, (a)-(e), counted from its start
+            row["launches_pd"] = pd_tiers["launches"][row["name"]]
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """The port's boundaries: what it imports, where it runs, what it refuses.
 
 - ``xllm_tpu_torch`` and ``chip_smoke.py`` import neither jax nor
-  ``xllm_tpu``, nor ``safetensors``, ``transformers`` or ``aiohttp``, which
-  the card's machine lacks (checked in a subprocess: this test process has jax loaded
+  ``xllm_tpu``, nor ``safetensors``, ``transformers``, ``aiohttp`` or
+  ``ml_dtypes``, which the card's machine lacks (checked in a subprocess: this test process has jax loaded
   by ``tests/conftest.py``), and every kernel module imports without nvcc
   or triton;
 - the entry points run on the card unless the caller asks for the CPU,
@@ -43,9 +43,9 @@ for m in pkgutil.walk_packages(xllm_tpu_torch.__path__, "xllm_tpu_torch."):
 import chip_smoke
 bad = sorted(n for n in sys.modules
              if n in ("jax", "xllm_tpu", "triton", "safetensors", "transformers",
-                      "aiohttp")
+                      "aiohttp", "ml_dtypes")
              or n.startswith(("jax.", "xllm_tpu.", "triton.", "safetensors.",
-                              "transformers.", "aiohttp.")))
+                              "transformers.", "aiohttp.", "ml_dtypes.")))
 print(json.dumps({"imported": names, "bad": bad}))
 """
 
@@ -102,7 +102,9 @@ def test_imports_no_jax_no_reference_no_triton():
                 "xllm_tpu_torch.framework.chat_template",
                 "xllm_tpu_torch.scheduler.mix", "xllm_tpu_torch.scheduler.profile",
                 "xllm_tpu_torch.common.interruption", "xllm_tpu_torch.common.health",
-                "xllm_tpu_torch.common.rate_limiter"):
+                "xllm_tpu_torch.common.rate_limiter", "xllm_tpu_torch.framework.host_kv",
+                "xllm_tpu_torch.disagg.pd", "xllm_tpu_torch.disagg.kv_store",
+                "xllm_tpu_torch.disagg.service", "xllm_tpu_torch.disagg.ooc"):
         assert mod in out["imported"]
 
 

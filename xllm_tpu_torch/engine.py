@@ -12,7 +12,10 @@ verified for a bucketful of sequences in one synchronous pass that yields
 server's ``/v1/sample``); and the scheduler policies: ``policy="mix"``
 (``scheduler/mix.py``) and ``ttft_budget_ms``, both fed by a
 ``ProfileManager`` fitted from step wall times, and forward interruption
-(``interruption_bus``, consumed at the step boundary).
+(``interruption_bus``, consumed at the step boundary). Below the block
+manager sit the host KV tier (``cache.num_host_blocks``) and the global
+KV store (``cache.kv_store_url``); ``disagg/`` serves an engine as a
+prefill or a decode instance.
 
 Async schedule overlap, as in the JAX engine: sampled tokens stay on the
 device in the runner's ``last_tokens`` ring and feed the next step
@@ -35,6 +38,7 @@ import torch
 from xllm_tpu_torch.common.interruption import InterruptionBus
 from xllm_tpu_torch.config import EngineConfig
 from xllm_tpu_torch.framework.block_manager import BlockManager
+from xllm_tpu_torch.framework.host_kv import HierarchyController, HostKVPool
 from xllm_tpu_torch.framework.request import (
     FinishReason,
     Request,
@@ -108,11 +112,7 @@ class LLMEngine:
             self.runner.load_model()
         if self.runner.k_cache is None:
             self.runner.initialize_kv_cache()
-        self.block_manager = BlockManager(
-            num_blocks=self.runner.num_blocks,
-            block_size=config.cache.block_size,
-            enable_prefix_cache=config.cache.enable_prefix_cache,
-        )
+        self.block_manager = self._make_block_manager()
         # boundary gate for per-fixup prefix-cache registration (0 = off)
         self._cache_gate_bs = (
             config.cache.block_size
@@ -166,6 +166,35 @@ class LLMEngine:
         # cross-request drafts over finished generations (suffix / ngram)
         self._global_suffix = (GlobalSuffixCache() if method in ("suffix", "ngram")
                                else None)
+
+    def _make_block_manager(self) -> BlockManager:
+        """The block manager, with the host KV tier below it when
+        ``cache.num_host_blocks > 0`` (a ``HierarchyController``) and the
+        global store below that when ``cache.kv_store_url`` is set too (a
+        ``GlobalKVController``), as the JAX engine builds it."""
+        config = self.config
+        hierarchy = None
+        if config.cache.num_host_blocks > 0:
+            runner = self.runner
+            runner.init_host_kv(config.cache.num_host_blocks)
+            pool = HostKVPool(config.cache.num_host_blocks)
+            if config.cache.kv_store_url:
+                from xllm_tpu_torch.disagg.kv_store import GlobalKVController, KVStoreClient
+
+                hierarchy = GlobalKVController(
+                    pool, swap_out=runner.swap_out_block, swap_in=runner.swap_in_block,
+                    store=KVStoreClient(config.cache.kv_store_url),
+                    read_host=runner.read_host_block, write_host=runner.write_host_block,
+                )
+            else:
+                hierarchy = HierarchyController(pool, swap_out=runner.swap_out_block,
+                                                swap_in=runner.swap_in_block)
+        return BlockManager(
+            num_blocks=self.runner.num_blocks,
+            block_size=config.cache.block_size,
+            enable_prefix_cache=config.cache.enable_prefix_cache,
+            hierarchy=hierarchy,
+        )
 
     # ------------------------------------------------------------------
     # request intake

@@ -84,8 +84,6 @@ def reject_unported(config: EngineConfig) -> None:
         raise NotImplementedError("parallelism (dp/tp/cp/ep, multi-node) is not ported yet")
     if c.eplb.enable_eplb or c.eplb.redundant_experts > 0:
         raise NotImplementedError("EPLB and redundant experts are not ported yet")
-    if c.cache.num_host_blocks > 0 or c.cache.kv_store_url:
-        raise NotImplementedError("host / global KV tiers are not ported yet")
     if c.cache.block_backend == "native":
         raise NotImplementedError("the native block manager is not ported yet")
     if c.model.vision:
@@ -95,6 +93,50 @@ def reject_unported(config: EngineConfig) -> None:
             f"MoE family {c.model.model_type!r} is not ported yet; "
             f"ported: {MOE_FAMILIES + MLA_FAMILIES}"
         )
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """``t`` viewed as integers of its width: the block gathers and scatters
+    move bytes, whatever the cache's dtype (fp8 included)."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+class HostStream:
+    """The device's stream as the host-memory copies see it: ``run`` queues
+    copies (on the card they run in stream order, after every pass queued
+    before them, while the host goes on), ``event`` marks the point
+    reached, and ``event.synchronize()`` waits for it. On the CPU both are
+    immediate (``event`` is None). ``tests/test_torch_kv_tiers.py`` puts a
+    deferred model of the card's stream in its place."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+
+    def run(self, fn) -> None:
+        fn()
+
+    def event(self):
+        if not self.cuda:
+            return None
+        ev = torch.cuda.Event()
+        ev.record()
+        return ev
+
+
+class BlockCopy:
+    """A gather of KV blocks on its way into pinned host memory
+    (``ModelRunner.extract_blocks_async``); ``wait()`` returns the host
+    tensor once its copy has landed, by waiting on the copy's event."""
+
+    def __init__(self, host: torch.Tensor, event=None):
+        self.host = host
+        self.event = event
+
+    def wait(self) -> torch.Tensor:
+        if self.event is not None:
+            self.event.synchronize()
+            self.event = None
+        return self.host
 
 
 class ModelRunner:
@@ -127,16 +169,22 @@ class ModelRunner:
             self.nb_buckets.append(nb)
             nb *= 2
         self.nb_buckets.append(self.max_blocks_per_seq)
-        # incremental decode-input assembly; a sliding window may repoint
-        # table entries at the null block without changing their count
+        # incremental decode-input assembly; off, as in JAX, under a sliding
+        # window (it may repoint table entries at the null block without
+        # changing their count) and with the host KV tier
         self._decode_cache = (
-            None if config.model.sliding_window else DecodeStepCache()
+            None if config.model.sliding_window or config.cache.num_host_blocks > 0
+            else DecodeStepCache()
         )
         # unseeded sampling rows draw their noise from this stream
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(config.seed)
         self.last_tokens = None
         self.token_hist = None
+        # host KV tier (``init_host_kv``): pinned slots, and the stream its
+        # copies are queued on
+        self.host_k = self.host_v = None
+        self.host_stream = HostStream(self.device)
         # model-based speculative decoding (MTP / Eagle3): a draft head
         # sharing the target's embedding and lm_head, its own one-layer
         # cache, and a ring of each slot's last pre-norm hidden state
@@ -732,3 +780,145 @@ class ModelRunner:
             (seq.sampling_params.logprobs or 0) for seq in seqs
         ) if seqs else 0
         return 20 if want > 0 else 0
+
+    # ------------------------------------------------------------------
+    # host-DRAM KV tier (the JAX runner's init_host_kv, swap_out_block,
+    # write_host_block and swap_in_block)
+    # ------------------------------------------------------------------
+    def init_host_kv(self, num_host_blocks: int) -> None:
+        """Allocate the host tier's slots. Their shapes follow the live
+        cache (``(L,) + shape[2:]`` a block), so MLA's 1-d dummy v slot and
+        the interleaved layouts' 6-d pages ride the tier unchanged; their
+        dtype is JAX's: float32 for an f32 model, else float16, for bf16,
+        int8 and fp8 caches alike (the global store ships these arrays). On
+        the card they are pinned. Each slot keeps the event of the last
+        copy queued on it; the host waits on it before it reads or writes
+        the slot (``_wait_host_slot``)."""
+        host_dt = torch.float32 if self.model.dtype == torch.float32 else torch.float16
+        pin = self.device.type == "cuda"
+        k_shape = (self.k_cache.shape[0],) + tuple(self.k_cache.shape[2:])
+        self.host_k = torch.zeros((num_host_blocks,) + k_shape, dtype=host_dt,
+                                  pin_memory=pin)
+        self._paged_v = self.v_cache.ndim == 5
+        v_shape = ((self.v_cache.shape[0],) + tuple(self.v_cache.shape[2:])
+                   if self._paged_v else (0,))
+        self.host_v = torch.zeros((num_host_blocks,) + v_shape, dtype=host_dt,
+                                  pin_memory=pin)
+        self._host_events: list = [None] * num_host_blocks
+        logger.info("host KV tier: %d blocks (%s, %.1f MB a block)", num_host_blocks,
+                    host_dt, (self.host_k[0].nbytes + self.host_v[0].nbytes) / 1e6)
+
+    def _wait_host_slot(self, host_idx: int) -> None:
+        """Wait for the copies queued on a host slot before the host reads
+        or writes it: a swap-out into it must have landed before it is read,
+        and a swap-in from it must have read it before it is rewritten (a
+        store fetch, or an LRU reuse's push upstream)."""
+        ev = self._host_events[host_idx]
+        if ev is not None:
+            ev.synchronize()
+            self._host_events[host_idx] = None
+
+    def _queue_host_copy(self, host_idx: int, copy) -> None:
+        self.host_stream.run(copy)
+        self._host_events[host_idx] = self.host_stream.event()
+
+    @torch.no_grad()
+    def swap_out_block(self, dev_block: int, host_idx: int) -> None:
+        """HBM block -> host slot: cast on the device, then a non-blocking
+        copy into the pinned slot, queued after every pass already queued
+        (so it reads the block as they leave it) and before any that later
+        rewrites it."""
+        def copy():
+            self.host_k[host_idx].copy_(self.k_cache[:, dev_block].to(self.host_k.dtype),
+                                        non_blocking=True)
+            if self._paged_v:
+                self.host_v[host_idx].copy_(
+                    self.v_cache[:, dev_block].to(self.host_v.dtype), non_blocking=True)
+
+        self._queue_host_copy(host_idx, copy)
+
+    def read_host_block(self, host_idx: int) -> tuple[np.ndarray, np.ndarray]:
+        """A host slot's (k, v) as numpy views, once its copies have landed
+        (the global store's ``read_host``)."""
+        self._wait_host_slot(host_idx)
+        return self.host_k[host_idx].numpy(), self.host_v[host_idx].numpy()
+
+    def write_host_block(self, host_idx: int, k_block, v_block) -> None:
+        """Fill a host slot from wire arrays (a global store fetch), after
+        the copies queued on it have run."""
+        self._wait_host_slot(host_idx)
+        self.host_k[host_idx].copy_(torch.as_tensor(np.asarray(k_block)))
+        if self._paged_v:
+            self.host_v[host_idx].copy_(torch.as_tensor(np.asarray(v_block)))
+
+    @torch.no_grad()
+    def swap_in_block(self, host_idx: int, dev_block: int) -> None:
+        """Host slot -> HBM block: a non-blocking copy from the pinned slot,
+        then the cast into the cache on the device, queued before the pass
+        that reads the block."""
+        def copy():
+            self.k_cache[:, dev_block].copy_(
+                self.host_k[host_idx].to(self.device, non_blocking=True))
+            if self._paged_v:
+                self.v_cache[:, dev_block].copy_(
+                    self.host_v[host_idx].to(self.device, non_blocking=True))
+
+        self._queue_host_copy(host_idx, copy)
+
+    # ------------------------------------------------------------------
+    # PD-disaggregation block moves (the JAX runner's extract_blocks_async,
+    # extract_blocks, inject_blocks and seed_last_token). JAX pads block
+    # counts to powers of two to bound its jit shapes; the port moves
+    # exactly the blocks asked for.
+    # ------------------------------------------------------------------
+    def _gather_to_host(self, cache: torch.Tensor, ids: torch.Tensor | None) -> BlockCopy:
+        """One ``index_select`` gather of blocks ``ids`` as [n, L, ...] (the
+        whole tensor when ``ids`` is None: MLA's dummy v slot), of the
+        cache's bits, and one non-blocking copy into a pinned buffer, with
+        its event."""
+        src = cache if ids is None else _bits(cache).transpose(0, 1).index_select(
+            0, ids).view(cache.dtype)
+        if self.device.type != "cuda":
+            return BlockCopy(src.clone() if ids is None else src)
+        host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        host.copy_(src, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return BlockCopy(host, ev)
+
+    @torch.no_grad()
+    def extract_blocks_async(self, block_ids: list[int]) -> tuple[BlockCopy, BlockCopy, int]:
+        """Start the copy of KV blocks to the host: (k, v, n), where ``k``
+        and ``v`` are ``BlockCopy`` handles of [n, L, ...] blocks (``v``
+        the dummy slot itself in an MLA model, whose latent pages hold K
+        and V). Queued on the current stream after the passes that wrote
+        the blocks; serving goes on while the copy lands."""
+        ids = torch.as_tensor(np.asarray(block_ids, np.int64)).to(self.device)
+        k = self._gather_to_host(self.k_cache, ids)
+        v = self._gather_to_host(self.v_cache, ids if self.v_cache.ndim == 5 else None)
+        return k, v, len(block_ids)
+
+    def extract_blocks(self, block_ids: list[int]) -> tuple[torch.Tensor, torch.Tensor]:
+        """Device KV blocks -> host tensors [n, L, Hkv, bs, D]."""
+        k, v, n = self.extract_blocks_async(block_ids)
+        return k.wait()[:n], v.wait()[:n]
+
+    @torch.no_grad()
+    def inject_blocks(self, k_blocks: torch.Tensor, v_blocks: torch.Tensor,
+                      block_ids: list[int]) -> None:
+        """Host blocks [n, L, ...] -> device blocks ``block_ids``: one
+        non-blocking copy each through pinned memory and one ``index_copy_``
+        scatter, cast to the cache's dtype on the device. MLA's dummy v
+        slot is left as it is."""
+        ids = torch.as_tensor(np.asarray(block_ids, np.int64)).to(self.device)
+        pairs = [(self.k_cache, k_blocks)]
+        if self.v_cache.ndim == 5:
+            pairs.append((self.v_cache, v_blocks))
+        for cache, blocks in pairs:
+            if self.device.type == "cuda":
+                blocks = blocks.pin_memory().to(self.device, non_blocking=True)
+            _bits(cache).transpose(0, 1).index_copy_(0, ids, _bits(blocks.to(cache.dtype)))
+
+    def seed_last_token(self, slot: int, token: int) -> None:
+        """Write a token into the device ring (the PD accept path)."""
+        self.last_tokens[slot] = token

@@ -19,8 +19,10 @@ under the same names, and the handlers read as the JAX package's do:
 
 Connections persist (HTTP/1.1 keep-alive; HTTP/1.0 on request). Request
 bodies come with ``Content-Length`` or ``Transfer-Encoding: chunked``; an
-``Expect: 100-continue`` is answered once the route is known; a body of 1
-MiB or more is refused with 413 (aiohttp's default ``client_max_size``).
+``Expect: 100-continue`` is answered once the route is known; a body of
+the application's ``client_max_size`` or more (aiohttp's default, 1 MiB,
+unless ``Application(client_max_size=...)`` asks for another, as
+aiohttp's does) is refused with 413. A body is read into one buffer.
 An unknown path answers 404, a known path with another method 405, a
 malformed request line 400, and a handler that raises 500 (or, once its
 stream has started, a closed connection). When the peer has gone,
@@ -114,10 +116,12 @@ class _Router:
 
 
 class Application(dict):
-    """Routes, startup / cleanup hooks and shared state (item access)."""
+    """Routes, startup / cleanup hooks and shared state (item access);
+    bodies of ``client_max_size`` bytes or more are refused with 413."""
 
-    def __init__(self):
+    def __init__(self, client_max_size: int = CLIENT_MAX_SIZE):
         super().__init__()
+        self.client_max_size = client_max_size
         self.router = _Router()
         self.on_startup: list = []
         self.on_cleanup: list = []
@@ -324,7 +328,7 @@ class _Connection:
         if not length.isdigit():
             raise HTTPError(400, "bad Content-Length")
         n = int(length)
-        if n >= CLIENT_MAX_SIZE:
+        if n >= self.app.client_max_size:
             if req.headers.get("Expect", "").lower() != "100-continue":
                 await self._discard(n)  # the peer is sending it: read it first
             raise HTTPError(413)
@@ -362,7 +366,7 @@ class _Connection:
                 while await self._line():  # trailers
                     pass
                 return bytes(body)
-            if len(body) + size >= CLIENT_MAX_SIZE:
+            if len(body) + size >= self.app.client_max_size:
                 await self._discard(size + 2)
                 raise HTTPError(413)
             try:
