@@ -666,7 +666,8 @@ def check_quant_close(out, ref, pv, what: str) -> float:
 # ---------------------------------------------------------------------------
 # phase 2: kernels
 # ---------------------------------------------------------------------------
-def check_decode(rng, dev, dtype, timed: bool, cache=None, lens=None) -> dict:
+def check_decode(rng, dev, dtype, timed: bool, cache=None, lens=None, hq: int = HQ,
+                 hkv: int = HKV, d: int = D) -> dict:
     """K1 at B=16: 14 live rows over the served context mix, 2 padded (or
     the seq_lens ``lens``, the last two 0); ``cache`` int8 / fp8_e4m3 for a
     quantized cache (q in ``dtype``)."""
@@ -677,14 +678,14 @@ def check_decode(rng, dev, dtype, timed: bool, cache=None, lens=None) -> dict:
     slots = [bt[i, (n - 1) // BS] * BS + (n - 1) % BS if n else 0
              for i, n in enumerate(lens)]
     g = torch.Generator(device=dev).manual_seed(1)
-    shape = (LAYERS, nb, HKV, BS, D)
+    shape = (LAYERS, nb, hkv, BS, d)
     kc = kv_tensor(g, dev, shape, dtype, cache)
     vc = kv_tensor(g, dev, shape, dtype, cache)
-    q = (torch.randn(b, HQ, D, generator=g, device=dev) * q_scale(cache)).to(dtype)
-    kn = new_rows(g, dev, (b, HKV, D), dtype, cache)
-    vn = new_rows(g, dev, (b, HKV, D), dtype, cache)
+    q = (torch.randn(b, hq, d, generator=g, device=dev) * q_scale(cache)).to(dtype)
+    kn = new_rows(g, dev, (b, hkv, d), dtype, cache)
+    vn = new_rows(g, dev, (b, hkv, d), dtype, cache)
     sm, btt, sl = i32(slots, dev), i32(bt, dev), i32(lens, dev)
-    scale = D ** -0.5
+    scale = d ** -0.5
     layer = 3
 
     kk, vk = kc.clone(), vc.clone()
@@ -706,7 +707,7 @@ def check_decode(rng, dev, dtype, timed: bool, cache=None, lens=None) -> dict:
     if cache == "fp8_e4m3":
         # the in-kernel e4m3 cast of a new row gives the JAX package's bytes,
         # NaN beyond 464 included
-        big = (torch.randn(b, HKV, D, generator=g, device=dev) * 300).to(dtype)
+        big = (torch.randn(b, hkv, d, generator=g, device=dev) * 300).to(dtype)
         kk, kp = kc.clone(), kc.clone()
         k1.paged_decode_attention_write(q, big, big, kk, vk, layer, sm, btt, sl, scale)
         k1.paged_decode_attention_write_plain(q, big, big, kp, vp, layer, sm, btt, sl, scale)
@@ -717,16 +718,16 @@ def check_decode(rng, dev, dtype, timed: bool, cache=None, lens=None) -> dict:
 
     q_el, c_el, n_el = q.element_size(), kc.element_size(), kn.element_size()
     ntok = sum(lens)
-    nbytes = 2 * b * HQ * D * q_el + 2 * b * HKV * D * (n_el + c_el) + 2 * ntok * HKV * D * c_el
-    flops = 4.0 * ntok * HQ * D
+    nbytes = 2 * b * hq * d * q_el + 2 * b * hkv * d * (n_el + c_el) + 2 * ntok * hkv * d * c_el
+    flops = 4.0 * ntok * hq * d
     # library yardstick: SDPA over K/V gathered into contiguous tensors (a
     # quantized cache upcast to q's dtype)
     lmax = -(-max(lens) // BS) * BS
     ctx = bt[:, : lmax // BS]
     idx = i32(ctx, dev).long()
-    kg = [kc[l][idx].permute(0, 2, 1, 3, 4).reshape(b, HKV, lmax, D).to(dtype)
+    kg = [kc[l][idx].permute(0, 2, 1, 3, 4).reshape(b, hkv, lmax, d).to(dtype)
           for l in range(LAYERS)]
-    vg = [vc[l][idx].permute(0, 2, 1, 3, 4).reshape(b, HKV, lmax, D).to(dtype)
+    vg = [vc[l][idx].permute(0, 2, 1, 3, 4).reshape(b, hkv, lmax, d).to(dtype)
           for l in range(LAYERS)]
     mask = (torch.arange(lmax, device=dev)[None, :] < sl[:, None].long())[:, None, None, :]
     q4 = q[:, :, None, :]
@@ -739,7 +740,7 @@ def check_decode(rng, dev, dtype, timed: bool, cache=None, lens=None) -> dict:
         plain_iters=10,
     ))
     res["shape"] = (f"B={b} (2 padded), seq_lens {sorted(set(lens) - {0})}, "
-                    f"Hq {HQ}, Hkv {HKV}, D {D}, bs {BS}")
+                    f"Hq {hq}, Hkv {hkv}, D {d}, bs {BS}")
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops)
     return res
 
@@ -753,13 +754,13 @@ DECODE_VARIANTS = [(128, 16, 8, 64, 64, 100), (64, 8, 2, 16, 40, 37),
                    (128, 32, 4, 64, 512, 0)]
 
 
-def check_decode_variants(rng, dev, dtype) -> float:
+def check_decode_variants(rng, dev, dtype, variants=DECODE_VARIANTS) -> float:
     """K1 against its plain version with sliding windows, head_dim 64 and
     contexts up to 8,192 tokens, three launches in a row (the split
     counters must re-arm), on grid inputs within ``TOL`` -> the largest
     max-abs error."""
     worst = 0.0
-    for d, hq, hkv, bs, nbmax, window in DECODE_VARIANTS:
+    for d, hq, hkv, bs, nbmax, window in variants:
         lens = rng.integers(0, nbmax * bs + 1, 24)
         lens[:3] = [1, nbmax * bs, 0]
         nb = 1 + sum(-(-int(n) // bs) for n in lens) + 4
@@ -851,7 +852,7 @@ def prefill_fns(single: bool):
 
 def check_prefill_shape(rng, dev, dtype, timed: bool, s: int, rows,
                         hq: int = HQ, hkv: int = HKV, cache=None, single: bool = False,
-                        window: int = 0, grid: bool = False) -> dict:
+                        window: int = 0, grid: bool = False, d: int = D) -> dict:
     """K3 over P chunks, or K3b (``single``) over one chunk of ``rows``;
     ``grid``: on grid inputs, within ``TOL``."""
     p = len(rows)
@@ -859,17 +860,17 @@ def check_prefill_shape(rng, dev, dtype, timed: bool, s: int, rows,
     kernel, plain = prefill_fns(single)
     nb, btt, qo, _, kvl = _chunk_tables(rng, rows, dev)
     g = torch.Generator(device=dev).manual_seed(2)
-    shape = (LAYERS, nb, hkv, BS, D)
+    shape = (LAYERS, nb, hkv, BS, d)
     if grid:
         kc = grid_tensor(g, dev, shape, dtype, cache)
         vc = grid_values(g, dev, shape, dtype, cache)
-        q = grid_tensor(g, dev, (p, s, hq, D), dtype)
+        q = grid_tensor(g, dev, (p, s, hq, d), dtype)
         scale = grid_scale(cache)
     else:
         kc = kv_tensor(g, dev, shape, dtype, cache)
         vc = kv_tensor(g, dev, shape, dtype, cache)
-        q = (torch.randn(p, s, hq, D, generator=g, device=dev) * q_scale(cache)).to(dtype)
-        scale = D ** -0.5
+        q = (torch.randn(p, s, hq, d, generator=g, device=dev) * q_scale(cache)).to(dtype)
+        scale = d ** -0.5
     out = kernel(q, kc, vc, 5, btt, qo, kvl, scale, window)
     ref = plain(q, kc, vc, 5, btt, qo, kvl, scale, window)
     sync()
@@ -894,17 +895,17 @@ def check_prefill_shape(rng, dev, dtype, timed: bool, s: int, rows,
     kv_rows = sum(qo_ + n for qo_, n in rows if n)
     pairs = sum(sum(min(qo_ + i + 1, window or qo_ + i + 1) for i in range(n))
                 for qo_, n in rows)
-    nbytes = 2 * ntok * hq * D * q_el + 2 * kv_rows * hkv * D * c_el
-    flops = 4.0 * pairs * hq * D
+    nbytes = 2 * ntok * hq * d * q_el + 2 * kv_rows * hkv * d * c_el
+    flops = 4.0 * pairs * hq * d
     # library yardstick: one SDPA call over K/V gathered contiguous, with the
     # causal + kv_len mask of each chunk (a quantized cache upcast to q's
     # dtype)
     lmax = max(qo_ + n for qo_, n in rows)
     lmax = -(-lmax // BS) * BS
     idx = btt[:, : lmax // BS].long()
-    kg = [kc[l][idx].permute(0, 2, 1, 3, 4).reshape(p, hkv, lmax, D).to(dtype)
+    kg = [kc[l][idx].permute(0, 2, 1, 3, 4).reshape(p, hkv, lmax, d).to(dtype)
           for l in range(LAYERS)]
-    vg = [vc[l][idx].permute(0, 2, 1, 3, 4).reshape(p, hkv, lmax, D).to(dtype)
+    vg = [vc[l][idx].permute(0, 2, 1, 3, 4).reshape(p, hkv, lmax, d).to(dtype)
           for l in range(LAYERS)]
     qpos = qo.long()[:, None] + torch.arange(s, device=dev)[None, :]
     kvi = torch.arange(lmax, device=dev)
@@ -920,7 +921,7 @@ def check_prefill_shape(rng, dev, dtype, timed: bool, s: int, rows,
         plain_iters=5,
     ))
     res["shape"] = (f"{'one chunk' if single else f'P={p} chunks'} of S={s} (q_offset, "
-                    f"ntok) {rows}, Hq {hq}, Hkv {hkv}, D {D}, bs {BS}"
+                    f"ntok) {rows}, Hq {hq}, Hkv {hkv}, D {d}, bs {BS}"
                     + (f", window {window}" if window else ""))
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops)
     return res
@@ -1001,7 +1002,7 @@ def check_single_writer(rng, dev, dtype, timed: bool, rmw: bool, cache=None) -> 
 
 
 def check_writer(rng, dev, dtype, timed: bool, rmw: bool, cache=None, rows=None,
-                 s: int = 0, single: bool = False) -> dict:
+                 s: int = 0, single: bool = False, hkv: int = HKV, d: int = D) -> dict:
     """K2 (head-major, page-aligned, S=512) or K4 (token-major, S=64,
     mid-page starts), or with ``single`` K2b / K4b over the one chunk of
     ``rows``; into a quantized cache from int8 codes or from ``dtype`` rows
@@ -1011,10 +1012,10 @@ def check_writer(rng, dev, dtype, timed: bool, rmw: bool, cache=None, rows=None,
     p = len(rows)
     nb, btt, qo, nt, _ = _chunk_tables(rng, rows, dev)
     g = torch.Generator(device=dev).manual_seed(3)
-    shape = (LAYERS, nb, HKV, BS, D)
+    shape = (LAYERS, nb, hkv, BS, d)
     kc = kv_tensor(g, dev, shape, dtype, cache)
     vc = kv_tensor(g, dev, shape, dtype, cache)
-    src_shape = (p, s, HKV, D) if rmw else (p, HKV, s, D)
+    src_shape = (p, s, hkv, d) if rmw else (p, hkv, s, d)
     kn = new_rows(g, dev, src_shape, dtype, cache)
     vn = new_rows(g, dev, src_shape, dtype, cache)
     if cache == "fp8_e4m3":  # the kernel's cast where torch's own differs
@@ -1040,7 +1041,7 @@ def check_writer(rng, dev, dtype, timed: bool, rmw: bool, cache=None, rows=None,
 
     ntok = sum(n for _, n in rows)
     # K and V rows read once (as given), written once (in the cache dtype)
-    nbytes = 2 * ntok * HKV * D * (kn.element_size() + kc.element_size())
+    nbytes = 2 * ntok * hkv * d * (kn.element_size() + kc.element_size())
     # library yardstick: one advanced-index row assignment per cache with
     # the row indices computed beforehand
     pos = [(i, qo_ + j) for i, (qo_, n) in enumerate(rows) for j in range(n)]
@@ -1072,7 +1073,7 @@ def check_writer(rng, dev, dtype, timed: bool, rmw: bool, cache=None, rows=None,
         plain_iters=40,
     ))
     res["shape"] = (f"{'one chunk' if single else f'P={p} chunks'} of S={s} (q_offset, "
-                    f"ntok) {rows}, {'token' if rmw else 'head'}-major, Hkv {HKV}, D {D}, "
+                    f"ntok) {rows}, {'token' if rmw else 'head'}-major, Hkv {hkv}, D {d}, "
                     f"bs {BS}")
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 0.0)
     return res
@@ -1142,13 +1143,14 @@ def gmm_instances(dev, lhs, rhs, offs, what: str) -> tuple[dict, float]:
     return times, worst
 
 
-def check_gmm(dev, g, model: str) -> tuple[list[dict], float]:
+def check_gmm(dev, g, model: str, spec: dict | None = None) -> tuple[list[dict], float]:
     """K10 at ``model``'s served shapes (decode and each prefill bucket x
     gate_up / down): rows of random tokens sorted by the experts a random
     router picks for them, as the MoE block sorts them; bf16 (timed, with
     every row tile as well) and f32 (the same values) against the plain
-    version -> (one result per shape, worst f32 error)."""
-    spec = GMM_MODELS[model]
+    version -> (one result per shape, worst f32 error). ``spec``: the
+    model's experts, top-k and weights when ``GMM_MODELS`` has no entry."""
+    spec = spec or GMM_MODELS[model]
     e, topk, weights = spec["experts"], spec["topk"], spec["weights"]
     w = moe_weights(dev, g, spec)
     results = []
@@ -3233,6 +3235,8 @@ def phase_engine(model_kw=QWEN3_1P7B, num_blocks: int = 1024,
     # twice per MoE layer)
     layers = cfg.model.num_hidden_layers
     moe_layers = (layers - cfg.model.first_k_dense_replace) if cfg.model.num_experts else 0
+    if eng.hybrid:  # attention in one layer of each full_attention_interval
+        layers //= cfg.model.full_attention_interval
     mla = cfg.model.kv_lora_rank > 0
     projections = sum(1 for n, _ in eng.runner.model.named_parameters()
                       if n.endswith("_proj_w"))
@@ -3473,7 +3477,8 @@ def phase_parity(name: str, model_kw: dict, devices=("cuda", "cpu"), quant: str 
         log(f"[parity] f32 {name}: scores of {SCORE_PARITY['score']} tokens and embeddings "
             f"of {SCORE_PARITY['embed']} on {' and '.join(devices)} within "
             f"{PARITY_SCORE_TOL:g} (max abs diff {max(errs):.3g})")
-    log(f"[parity] f32 {name} (2 layers, bs 16{', ' + quant + ' weights' if quant else ''}"
+    log(f"[parity] f32 {name} ({model_kw['num_hidden_layers']} layers, bs 16"
+        f"{', ' + quant + ' weights' if quant else ''}"
         f"{', ' + kv_cache_dtype + ' KV' if kv_cache_dtype != 'auto' else ''}"
         f"{', ' + (resolved or kv_layout) + ' layout' if kv_layout != 'split' else ''}"
         f"{', ' + spec + ' k ' + str(SPEC_K) if spec else ''}): "
@@ -3599,7 +3604,7 @@ def free_device_memory() -> None:
 
 PHASES = ("build", "kernels", "qkernels", "engines", "quant", "parity", "layouts",
           "layout-engines", "grammar", "grammar-engines", "spec", "spec-engines", "checkpoint",
-          "server", "pd_tiers")
+          "server", "pd_tiers", "qwen3_next")
 
 
 def phase_layout_parity() -> None:
@@ -5470,6 +5475,200 @@ def phase_pd_tiers(seed: int = 41) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase qwen3_next: the hybrid GatedDeltaNet / full-attention family
+# ---------------------------------------------------------------------------
+# Qwen3-Next-80B-A3B (the published config.json of
+# Qwen/Qwen3-Next-80B-A3B-Instruct) at its full width and 8 of its 48
+# layers (2 groups of 3 GatedDeltaNet layers and 1 full-attention layer):
+# 512 experts of width 512, top-10, a gated shared expert of 512; ~27.5 GB of
+# random bf16 weights (48 layers would not fit 80 GB)
+QWEN3_NEXT = dict(
+    model_type="qwen3_next",
+    dtype="bfloat16",
+    vocab_size=151936,
+    hidden_size=2048,
+    intermediate_size=5120,
+    num_hidden_layers=8,
+    num_attention_heads=16,
+    num_key_value_heads=2,
+    head_dim=256,
+    partial_rotary_factor=0.25,
+    rope_theta=10000000.0,
+    rms_norm_eps=1e-6,
+    tie_word_embeddings=False,
+    max_position_embeddings=262144,
+    full_attention_interval=4,
+    linear_conv_kernel_dim=4,
+    linear_key_head_dim=128,
+    linear_num_key_heads=16,
+    linear_value_head_dim=128,
+    linear_num_value_heads=32,
+    num_experts=512,
+    num_experts_per_tok=10,
+    moe_intermediate_size=512,
+    shared_expert_intermediate_size=512,
+    norm_topk_prob=True,
+)
+NEXT_HEADS = dict(hq=16, hkv=2, d=256)  # its full-attention layers' heads
+NEXT_GMM = dict(experts=512, topk=10,  # its expert GEMMs (K10)
+                weights={"gate_up": (2048, 2 * 512), "down": (512, 2048)})
+# an f32 qwen3-next at head_dim 256 (the f32 D-256 instances of K1, K3 and
+# the writers): card tokens must equal the CPU's
+PARITY_QWEN3_NEXT = dict(
+    model_type="qwen3_next", dtype="float32", vocab_size=1000, hidden_size=256,
+    intermediate_size=512, num_hidden_layers=4, num_attention_heads=4,
+    num_key_value_heads=2, head_dim=256, partial_rotary_factor=0.25,
+    max_position_embeddings=512, full_attention_interval=2, linear_conv_kernel_dim=4,
+    linear_key_head_dim=32, linear_num_key_heads=2, linear_value_head_dim=32,
+    linear_num_value_heads=4, num_experts=8, num_experts_per_tok=2,
+    moe_intermediate_size=64, shared_expert_intermediate_size=64, norm_topk_prob=True,
+)
+# K1 at D 256 on grid inputs: block_size 64, a window at block_size 16,
+# a table of 8,192 positions (16 splits at one sequence a head)
+NEXT_DECODE_VARIANTS = [(256, 16, 2, 64, 64, 0), (256, 16, 2, 16, 40, 37),
+                        (256, 16, 2, 64, 128, 0)]
+
+
+def check_next_kernels(rng, dev) -> dict:
+    """K1, K3, K2 and K4 at Qwen3-Next's full-attention heads (Hq 16 / Hkv
+    2 / D 256, block_size 64) and K10 at its 512 experts, top-10: each held
+    to its plain version on the card (bf16 timed, f32 checked; K1 and K3
+    also on grid inputs within ``TOL``) -> {name: result}."""
+    bf, f32 = torch.bfloat16, torch.float32
+    out = {}
+    res = check_decode(rng, dev, bf, True, **NEXT_HEADS)
+    res["max_abs_err_f32"] = check_decode(rng, dev, f32, False, **NEXT_HEADS)["max_abs_err"]
+    res["max_abs_err_grid"] = max(check_decode_variants(rng, dev, dt, NEXT_DECODE_VARIANTS)
+                                  for dt in (bf, f32))
+    out[k1.NAME] = res
+    hq, hkv, d = NEXT_HEADS["hq"], NEXT_HEADS["hkv"], NEXT_HEADS["d"]
+    shapes = [check_prefill_shape(rng, dev, bf, True, s, rows, hq=hq, hkv=hkv, d=d)
+              for s, rows in K3_SHAPES.items()]
+    res = dict(shapes[0], by_shape=shapes)
+    res["max_abs_err"] = max(r["max_abs_err"] for r in shapes)
+    res["max_abs_err_f32"] = max(
+        check_prefill_shape(rng, dev, f32, False, s, rows, hq=hq, hkv=hkv, d=d)["max_abs_err"]
+        for s, rows in K3_SHAPES.items())
+    res["max_abs_err_grid"] = max(
+        check_prefill_shape(rng, dev, dt, False, s, rows, hq=hq, hkv=hkv, d=d, grid=True,
+                            window=w)["max_abs_err"]
+        for dt in (bf, f32) for s, rows, w in ((2048, K3_SHAPES[2048], 0),
+                                               (64, K3_SHAPES[64], 0),
+                                               (PREFILL_S, PREFILL_ROWS, 100)))
+    out[k3.NAME] = res
+    for rmw, name in ((False, k24.PREFILL_NAME), (True, k24.RMW_NAME)):
+        res = check_writer(rng, dev, bf, True, rmw, hkv=hkv, d=d)
+        res["max_abs_err_f32"] = check_writer(rng, dev, f32, False, rmw, hkv=hkv,
+                                              d=d)["max_abs_err"]
+        out[name] = res
+    g = torch.Generator(device=dev).manual_seed(23)
+    shapes, worst_f32 = check_gmm(dev, g, "Qwen3-Next-80B-A3B", NEXT_GMM)
+    res = dict(shapes[0], by_shape=shapes, max_abs_err_f32=worst_f32)
+    res["max_abs_err"] = max(r["max_abs_err"] for r in shapes)
+    out[k10.NAME] = res
+    for name, r in out.items():
+        log(f"[qwen3_next] {name} at {r['shape']}: max abs err {r['max_abs_err']:.3g} "
+            f"(f32 {r['max_abs_err_f32']:.3g}), {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+            f"ms, library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    return out
+
+
+def next_server_completion(eng: LLMEngine, rng) -> dict:
+    """One OpenAI completion through ``server/api.py`` on the served
+    qwen3-next engine (token ids in, ids read back from ``logprobs``):
+    its tokens equal the engine's own for the prompt served alone."""
+    ids = rng.integers(1, eng.config.model.vocab_size, 300).tolist()
+    sp = SamplingParams(temperature=0.0, max_tokens=SERVER_TOKENS, ignore_eos=True)
+    eng.add_request(prompt_token_ids=ids, sampling_params=sp)
+    want = [list(ro.outputs[0].token_ids) for ro in eng.generate_all()][0]
+    eng.tokenizer = WordTokenizer(eng.config.model.vocab_size)
+    _build.reset_launch_counts()
+    srv = ServerThread(APIServer(eng.config, served_model_name="qwen3-next", device="cuda",
+                                 engine=eng))
+    try:
+        t0 = time.perf_counter()
+        full = http_json(srv.port, "POST", "/v1/completions", completion(ids))
+        wall = time.perf_counter() - t0
+    finally:
+        srv.close()
+    launches = dict(_build.launch_counts)
+    got = [int(t) for t in full["choices"][0]["logprobs"]["tokens"]]
+    assert got == want, f"server {got} != engine {want}"
+    assert launches.get(k3.NAME, 0) and launches.get(k1.NAME, 0), launches
+    log(f"[qwen3_next] one completion of {SERVER_TOKENS} tokens over HTTP in {wall:.2f} s, "
+        f"tokens equal to the engine's; launches {launches}")
+    return {"launches": launches, "wall_s": wall}
+
+
+def phase_qwen3_next(dev) -> dict:
+    """Qwen3-Next on the card: its kernels (``check_next_kernels``), the
+    8-layer engine at full width serving 16 greedy requests x 32 tokens
+    (``phase_engine``: K1 and K3 once a pass for each full-attention layer,
+    one of K2 / K4 once a prefill pass for each, K10 twice a pass for each
+    layer), one completion through the server, and card = CPU greedy tokens
+    on the f32 head_dim-256 parity model."""
+    kern = check_next_kernels(np.random.default_rng(23), dev)
+    free_device_memory()
+    t0 = time.perf_counter()
+    eng = LLMEngine(engine_config(QWEN3_NEXT, num_blocks=1024), device="cuda")
+    sync()
+    log(f"[qwen3-next-engine] {QWEN3_NEXT['num_hidden_layers']} layers at Qwen3-Next-80B-"
+        f"A3B's width, random bf16 weights, 1024 KV blocks: built in "
+        f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
+        "allocated")
+    launches, info = phase_engine(QWEN3_NEXT, engine=eng, tag="qwen3-next-engine", seed=5)
+    server = next_server_completion(eng, np.random.default_rng(6))
+    del eng
+    free_device_memory()
+    phase_parity("qwen3_next", PARITY_QWEN3_NEXT)
+    return {"kernels": kern, "run": (launches, info), "server": server}
+
+
+def qwen3_next_rows(nxt: dict, keys) -> list[dict]:
+    """The kernels line's rows of this family's instances: K1, K3, K2 and
+    K4 at head_dim 256, K10 at 512 experts; times from
+    ``check_next_kernels``, launches from the qwen3-next engine's run
+    (counters zeroed just before it)."""
+    meta = {
+        k1.NAME: (k1.TPU_KERNEL, "decode_attention.cu", "head_dim 256"),
+        k3.NAME: (k3.TPU_KERNEL, "prefill_attention.cu", "head_dim 256"),
+        k24.PREFILL_NAME: (k24.PREFILL_TPU_KERNEL, "kv_write.cu", "head_dim 256"),
+        k24.RMW_NAME: (k24.RMW_TPU_KERNEL, "kv_write.cu", "head_dim 256"),
+        k10.NAME: (k10.TPU_KERNEL, "gmm.cu", "512 experts"),
+    }
+    launches, info = nxt["run"]
+    rows = []
+    for name, res in nxt["kernels"].items():
+        tpu, src, inst = meta[name]
+        where, func = tpu.split()
+        per = info["per_pass"][name]
+        row = {
+            "name": f"{name} ({inst})",
+            "route": "cuda",
+            "source": f"xllm_tpu_torch/csrc/{src}",
+            "replaces": where,
+            "tpu_counterpart": func,
+            "launches": launches[name],
+            "launches_engine": "qwen3_next (Qwen3-Next-80B-A3B width, 8 layers)",
+            "launches_per_step": per["launches_per_step"],
+            "passes": per["passes"],
+            "by_kind": per["by_kind"],
+            "launches_server": nxt["server"]["launches"].get(name, 0),
+            **{k: res[k] for k in ("max_abs_err", "max_abs_err_f32", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms", "shape")},
+            "library": ("SDPA" if "attention" in name else
+                        "torch._grouped_mm" if name == k10.NAME else "index assign"),
+        }
+        if "max_abs_err_grid" in res:
+            row["max_abs_err_grid"] = res["max_abs_err_grid"]
+        if "by_shape" in res:
+            row["by_shape"] = [{k: r[k] for k in keys if k in r} for r in res["by_shape"]]
+        rows.append(row)
+    return rows
+
+
 def add_spec_rows(rows: list[dict], spec_kern: dict, spec_runs: dict, keys) -> None:
     """The kernels line's K1, K3, K4, K11a, K11b and K11d rows gain the
     verify shapes under ``by_shape`` (``verify``: the verify pass's kernel,
@@ -5669,6 +5868,9 @@ def main() -> int:
     pd_tiers = {}
     if "pd_tiers" in phases:
         pd_tiers = timed_phase("pd_tiers", phase_pd_tiers)
+    nxt = {}
+    if "qwen3_next" in phases:
+        nxt = timed_phase("qwen3_next", phase_qwen3_next, dev)
     if phases != set(PHASES):
         log(card)
         log(f"chip_smoke: partial run ({', '.join(sorted(phases))}); no result line")
@@ -5775,6 +5977,7 @@ def main() -> int:
                 for cache, r in qcache[name].items()}
         rows.append(row)
     rows += ilv_rows(ilv, runs, keys)
+    rows += qwen3_next_rows(nxt, keys)
     rows += grammar_rows(gram, gram_runs, rows)
     add_spec_rows(rows, spec_kern, spec_runs, keys)
     for row in rows:  # the checkpoint phase's runs that launched each kernel

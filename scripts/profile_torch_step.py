@@ -3,7 +3,7 @@
 
     python3 scripts/profile_torch_step.py
         [--model qwen3-1.7b|qwen3-30b-a3b|deepseek-v2-lite|qwen3-8b|qwen3-8b-int8|qwen3-8b-fp8
-                 |qwen3-30b-a3b-fp8|deepseek-v2-lite-fp8]
+                 |qwen3-30b-a3b-fp8|deepseek-v2-lite-fp8|qwen3-next]
         [--prompt-len 512] [--steps 16]
         [--kv-layout split|interleaved|interleaved_rm[,...]]
         [--qmm default,pallas] [--bf16-mm default|pallas] [--requests 16]
@@ -13,7 +13,9 @@ layers; Qwen3-30B-A3B, 48 layers with 128 experts; DeepSeek-V2-Lite, 27
 MLA layers with 64 experts; Qwen3-8B, 36 layers, with bf16 weights, or
 int8 weights and an int8 KV cache, or fp8 weights and an fp8 KV cache;
 Qwen3-30B-A3B with fp8 weights, experts included, and an fp8 KV cache;
-DeepSeek-V2-Lite with fp8 weights and an fp8 latent cache; random weights) through ``xllm_tpu_torch.engine.LLMEngine`` on the card.
+DeepSeek-V2-Lite with fp8 weights and an fp8 latent cache; Qwen3-Next-80B-A3B's
+width at 8 layers, 6 of them GatedDeltaNet; random weights) through
+``xllm_tpu_torch.engine.LLMEngine`` on the card.
 A quantized model runs twice, one engine after the other in one process:
 with the dequant default, then with ``XLLM_QMM_KERNEL=pallas`` (K5 / K6);
 ``--qmm pallas`` keeps the second only. ``--bf16-mm pallas`` serves a bf16
@@ -28,7 +30,9 @@ turns, on one card). Each engine:
 warm-up requests (first calls load CUDA modules and pick GEMM algorithms). Two windows are
 traced with ``torch.profiler``:
 
-- prefill: from the first step until every prompt has been computed;
+- prefill: from the first step until every prompt has been computed (the
+  same number of new prompts is then prefilled untraced, on the host
+  clock: ``host_ms_per_step_untraced``);
 - decode: ``--steps`` steady decode steps (every request running, the
   decode batch padded to 16 rows),
   after a few warm-up steps.
@@ -39,7 +43,11 @@ union of the kernel and copy intervals on the trace), the device idle
 share, and the device time per step by kernel group: the port's
 hand-written kernels by name, GEMMs, and everything else. The last line
 of the output is one JSON object with those numbers (by variant) and the
-card's name and power limit. Needs one CUDA card and nvcc; imports
+card's name and power limit. For qwen3-next each window also reports the
+GatedDeltaNet layers' share (``gdn``): the device and host time per step
+inside ``Qwen3NextModel._lin_layer`` (a whole GDN layer but its MLP) and
+inside its recurrence ``ops/gdn.gdn_scan``, and the kernel launches a step
+of each, from ``record_function`` ranges this script wraps around them. Needs one CUDA card and nvcc; imports
 neither jax nor ``xllm_tpu``.
 """
 
@@ -97,8 +105,46 @@ MODELS = {
     "qwen3-8b-fp8": (chip_smoke.QWEN3_8B, 1024, "fp8_e4m3", "fp8_e4m3"),
     "qwen3-30b-a3b-fp8": (chip_smoke.QWEN3_30B_A3B, 512, "fp8_e4m3", "fp8_e4m3"),
     "deepseek-v2-lite-fp8": (chip_smoke.DEEPSEEK_V2_LITE, 512, "fp8_e4m3", "fp8_e4m3"),
+    "qwen3-next": (chip_smoke.QWEN3_NEXT, 1024, "", "auto"),
 }
+# the ranges the GDN share is read from (``ranged``)
+GDN_RANGES = ("gdn_layer", "gdn_scan")
 GEMM_MARKS = ("gemm", "xmma", "cutlass", "cublas", "sm90_", "nvjet")
+
+
+def ranged(obj, attr: str, label: str) -> None:
+    """Wrap ``obj.<attr>`` in a ``torch.profiler.record_function`` range."""
+    fn = getattr(obj, attr)
+    if getattr(fn, "ranged", False):  # wrapped by an earlier engine of the run
+        return
+
+    def wrapped(*args, **kw):
+        with torch.profiler.record_function(label):
+            return fn(*args, **kw)
+
+    wrapped.ranged = True
+    setattr(obj, attr, wrapped)
+
+
+def range_breakdown(prof, steps: int) -> dict:
+    """Per step: the device and host time inside each of ``GDN_RANGES`` and
+    the kernels launched inside it."""
+    out = {}
+    for e in prof.events():
+        if e.name not in GDN_RANGES or e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        r = out.setdefault(e.name, {"device_ms": 0.0, "host_ms": 0.0, "launches": 0,
+                                    "calls": 0})
+        r["device_ms"] += getattr(e, "device_time_total", 0.0) / 1e3
+        r["host_ms"] += e.cpu_time_total / 1e3
+        r["calls"] += 1
+        todo = list(e.cpu_children)
+        while todo:
+            c = todo.pop()
+            r["launches"] += "LaunchKernel" in c.name
+            todo.extend(c.cpu_children)
+    return {name: {f"{k}_per_step": v / steps for k, v in r.items()}
+            for name, r in out.items()}
 
 
 def kernel_group(name: str) -> str:
@@ -115,8 +161,8 @@ def device_breakdown(prof, steps: int) -> dict:
     """Per-step device numbers from a profiler trace."""
     spans, by_name, launches = [], {}, {}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.name in GDN_RANGES:
+            continue  # a range's span on the device timeline is not a kernel
         t0, t1 = e.time_range.start, e.time_range.end
         spans.append((t0, t1))
         by_name[e.name] = by_name.get(e.name, 0.0) + (t1 - t0)
@@ -173,6 +219,13 @@ def traced(eng: LLMEngine, n_steps: int | None, until=None) -> dict:
            "launches": dict(_build.launch_counts)}
     out.update(device_breakdown(prof, steps))
     out["device_idle_share"] = 1.0 - out["device_busy_ms_per_step"] / out["host_ms_per_step_traced"]
+    gdn = range_breakdown(prof, steps)
+    if gdn:
+        out["gdn"] = gdn
+        out["gdn"]["layer_share_of_device_busy"] = (
+            gdn["gdn_layer"]["device_ms_per_step"] / out["device_busy_ms_per_step"])
+        out["gdn"]["layer_share_of_host_step"] = (
+            gdn["gdn_layer"]["host_ms_per_step"] / out["host_ms_per_step_traced"])
     return out
 
 
@@ -183,6 +236,11 @@ def profile_engine(args, model: str, kv_layout: str = "split") -> dict:
     cfg = chip_smoke.engine_config(model_kw, batch=BATCH, num_blocks=num_blocks,
                                    quant=quant, kv_cache_dtype=kv, kv_layout=kv_layout)
     eng = LLMEngine(cfg, device="cuda")
+    if eng.hybrid:  # the GDN layers' share, from ranges around them
+        from xllm_tpu_torch.models import qwen3_next
+
+        ranged(eng.runner.model, "_lin_layer", "gdn_layer")
+        ranged(qwen3_next, "gdn_scan", "gdn_scan")
     rng = np.random.default_rng(0)
     chip_smoke.warm_up(eng, rng)
     # enough tokens that every sequence still decodes through both windows
@@ -194,8 +252,10 @@ def profile_engine(args, model: str, kv_layout: str = "split") -> dict:
             for _ in range(args.requests)]
     seqs = [r.sequences[0] for r in reqs]
 
-    prefill = traced(eng, None, until=lambda: all(
-        s.num_computed_tokens >= s.num_prompt_tokens for s in seqs))
+    def computed(seqs):
+        return lambda: all(s.num_computed_tokens >= s.num_prompt_tokens for s in seqs)
+
+    prefill = traced(eng, None, until=computed(seqs))
     prefill["prompt_tokens"] = args.requests * args.prompt_len
     for _ in range(8):  # past the prefill-drain depth, steady decode
         eng.step()
@@ -210,6 +270,24 @@ def profile_engine(args, model: str, kv_layout: str = "split") -> dict:
     decode["tok_per_s_untraced"] = args.requests / host_ms * 1e3
     decode["device_idle_share_untraced"] = 1.0 - decode["device_busy_ms_per_step"] / host_ms
     decode["context_tokens_at_end"] = sorted({int(s.num_computed_tokens) for s in seqs})
+    while eng.has_unfinished():
+        eng.step()
+    # the same prefill again, untraced (the profiler's own cost grows with
+    # the launches, which a GDN prefill has by the ten thousand)
+    again = [eng.add_request(prompt_token_ids=rng.integers(1, cfg.model.vocab_size,
+                                                           args.prompt_len).tolist(),
+                             sampling_params=SamplingParams(max_tokens=1, ignore_eos=True))
+             for _ in range(args.requests)]
+    until, steps = computed([r.sequences[0] for r in again]), 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while not until():
+        eng.step()
+        steps += 1
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / steps * 1e3
+    prefill["host_ms_per_step_untraced"] = host_ms
+    prefill["device_idle_share_untraced"] = 1.0 - prefill["device_busy_ms_per_step"] / host_ms
     while eng.has_unfinished():
         eng.step()
     assert eng.block_manager.num_used_blocks == 0, "KV blocks leaked"
@@ -259,8 +337,7 @@ def main() -> int:
             torch.cuda.empty_cache()
             for name in ("prefill", "decode"):
                 res = results[variant][name]
-                untraced = (f", untraced {res['host_ms_per_step_untraced']:.3f} ms/step"
-                            if name == "decode" else "")
+                untraced = f", untraced {res['host_ms_per_step_untraced']:.3f} ms/step"
                 print(f"[{variant} {name}] {res['steps']} steps: host "
                       f"{res['host_ms_per_step_traced']:.3f} ms/step (traced){untraced}, "
                       f"device busy {res['device_busy_ms_per_step']:.3f} ms/step, idle "
@@ -272,6 +349,8 @@ def main() -> int:
                 for op, ms, n in res["top_host_ops_ms_per_step"]:
                     print(f"[{variant} {name}]   host {op}: {ms:.4f} ms/step over "
                           f"{n:.0f} calls", flush=True)
+                for rng_name, r in res.get("gdn", {}).items():
+                    print(f"[{variant} {name}]   {rng_name}: {r}", flush=True)
     print(card, flush=True)
     print(json.dumps({"card": card, "model": args.model, "batch": BATCH,
                       "requests": args.requests,

@@ -11,7 +11,7 @@ Nothing is downloaded: the checkpoints are written here, from seeds.
   streams the checkpoint into, equal to JAX's tree in f32 and byte-equal in
   bf16, the router's correction bias included (JAX rounds it through the
   model dtype). qwen2, qwen3, llama, mistral, glm4, qwen3_moe, glm4_moe,
-  deepseek_v2 and deepseek_v3 are written by transformers
+  deepseek_v2, deepseek_v3 and qwen3_next are written by transformers
   (``tests/test_model_parity.py``'s builder, f32, a non-zero correction
   bias); mimo, minimax_m2, kimi_k2, glm4_moe_lite and a qwen3_moe in the
   batched-experts convention by ``safetensors`` under the names JAX reads;
@@ -27,7 +27,10 @@ Nothing is downloaded: the checkpoints are written here, from seeds.
   unreadable path warn and keep the init;
 - refusals: an e4m3 weight (a pre-quantized checkpoint) raises
   ``NotImplementedError``, a directory without a checkpoint
-  ``FileNotFoundError``; qwen3-next, VLM and DSA checkpoints raise.
+  ``FileNotFoundError``; VLM and DSA checkpoints raise;
+- qwen3.5's split-projection layout under ``model.language_model.``:
+  JAX's tree, the qwen3-next checkpoint's tree and its greedy tokens; the
+  hybrid family's int8 load (the runner's catch-all quantizer).
 
 The JAX engines run in threads of a module fixture (XLA compiles outside
 the GIL).
@@ -37,6 +40,7 @@ import os
 
 os.environ.setdefault("USE_TF", "0")  # transformers without TensorFlow's import time
 
+import dataclasses
 import json
 import logging
 from concurrent.futures import ThreadPoolExecutor
@@ -265,7 +269,7 @@ def _mistral(path) -> str:
 
 
 TRANSFORMERS_FAMILIES = ("qwen2", "qwen3", "llama", "glm4", "qwen3_moe", "glm4_moe",
-                         "deepseek_v2", "deepseek_v3")
+                         "deepseek_v2", "deepseek_v3", "qwen3_next")
 WRITTEN_FAMILIES = ("mimo", "minimax_m2", "kimi_k2", "glm4_moe_lite", "qwen3_moe_batched")
 FAMILIES = TRANSFORMERS_FAMILIES + ("mistral",) + WRITTEN_FAMILIES
 
@@ -616,10 +620,9 @@ def test_no_checkpoint_raises_and_dummy_keeps_random(checkpoints, tmp_path):
 
 
 @pytest.mark.parametrize("over", [
-    {"model_type": "qwen3_next"},
     {"vision": {"depth": 2}},
     {"model_type": "deepseek_v32", "kv_lora_rank": 32, "index_topk": 8},
-], ids=["qwen3_next", "vision", "dsa"])
+], ids=["vision", "dsa"])
 def test_unported_checkpoints_raise(checkpoints, over):
     mc = tmodel_config(checkpoints["qwen3"])
     for k, v in over.items():
@@ -628,3 +631,57 @@ def test_unported_checkpoints_raise(checkpoints, over):
         loader.load_params(mc)
     with pytest.raises(NotImplementedError):
         TRunner(tcfg.EngineConfig(model=mc), device="cpu").load_model()
+
+
+def test_qwen3_5_split_layout_loads_as_qwen3_next(checkpoints, tmp_path):
+    """qwen3.5's on-disk convention (tests/test_qwen3_5.py's rewrite of the
+    qwen3-next checkpoint: split ``in_proj_qkv / z / b / a``, the LM under
+    ``model.language_model.``, the config nested under ``text_config``)
+    loads to JAX's tree for it and to the qwen3-next checkpoint's tree, and
+    serves the same greedy tokens."""
+    from types import SimpleNamespace
+
+    from test_qwen3_5 import _rewrite_as_qwen3_5
+
+    next_path = checkpoints["qwen3_next"]
+    with open(os.path.join(next_path, "config.json")) as f:
+        hf_cfg = SimpleNamespace(**json.load(f))
+    q35 = str(tmp_path / "q35")
+    _rewrite_as_qwen3_5(next_path, q35, hf_cfg)
+    set_torch_dtype(q35, "float32")
+    mc = tmodel_config(q35)
+    assert mc.model_type == "qwen3_5"
+    assert dataclasses.asdict(mc) == dataclasses.asdict(jmodel_config(q35))  # text_config
+    assert type(tcreate(mc)).__name__ == "Qwen3NextModel"
+    got = flat(loader.load_params(mc, torch.float32))
+    want = _jax_tree(q35, "f32")
+    assert set(got) == set(want)
+    for name in want:
+        assert_same_bytes(got[name], want[name], f"qwen3_5 {name}")
+    base = flat(loader.load_params(tmodel_config(next_path), torch.float32))
+    for name, t in base.items():
+        assert torch.equal(got[name], t), name
+    prompts = _prompts(3, VOCAB)
+    tokens = [_llm_tokens(TLLM(model=p, device="cpu", **LLM_KW), TSP, prompts)
+              for p in (next_path, q35)]
+    assert tokens[0] == tokens[1] and all(len(t) == 8 for t in tokens[0])
+
+
+def test_qwen3_next_checkpoint_quantized_load(checkpoints):
+    """The hybrid family's checkpoint with ``quant.method="int8"``: the
+    runner's catch-all quantizes the group stacks the JAX runner does (the
+    shared expert's ``*_proj_w``) to the bytes of ``_quantize_params`` on
+    the loaded tree, and leaves the rest in the model dtype."""
+    mc = tmodel_config(checkpoints["qwen3_next"])
+    cfg = tcfg.EngineConfig(model=mc)
+    cfg.quant.method = "int8"
+    runner = TRunner(cfg, device="cpu")
+    runner.load_model()
+    want = runner._quantize_params(loader.load_params(mc, runner.model.dtype))["groups"]
+    gp = runner.model.groups
+    assert gp.shared_up_proj_w.dtype == torch.int8 and gp.full_q_w.dtype == torch.float32
+    assert set(n for n, _ in gp.named_parameters()) == set(want)
+    for name, t in want.items():
+        assert torch.equal(getattr(gp, name).view(torch.uint8)
+                           if t.dtype == torch.int8 else getattr(gp, name),
+                           t.view(torch.uint8) if t.dtype == torch.int8 else t), name

@@ -258,8 +258,15 @@ __host__ __device__ __forceinline__ size_t decode_smem_bytes(int chunk, int gran
          16;
 }
 
+// blocks an SM the registers must allow: kMinBlocks (128 registers a
+// thread) up to head_dim 128; at 256 the ring and q take ~100 KB of shared
+// memory (two blocks an SM at most), and q's A fragments alone hold 64
+// registers, so the cap lifts
+template <int D>
+constexpr int min_blocks = D > 128 ? 1 : kMinBlocks;
+
 template <typename T, typename C, int D, int GMAX>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kThreads, min_blocks<D>)
     decode_attention_kernel(const DecodeArgs a,
                             const __grid_constant__ CUtensorMap kmap,   // [rows, D] of K
                             const __grid_constant__ CUtensorMap vmap) {  // and of V
@@ -922,8 +929,12 @@ extern "C" int xllm_decode_attention_write(
 #define XLLM_HEAD_DIMS(T, C)                                                  \
   if (head_dim == 128) return (int)xllm::launch_group<T, C, 128>(a, batch, krows, vrows, s); \
   if (head_dim == 64) return (int)xllm::launch_group<T, C, 64>(a, batch, krows, vrows, s);
+  // head_dim 256 (qwen3-next's full-attention layers): bf16 and f32 caches
+  // in their own dtype only, the pairs a served model reaches
 #define XLLM_CACHES(T, TCODE)                                       \
   if (qtype == TCODE) {                                             \
+    if (dtype == TCODE && head_dim == 256)                          \
+      return (int)xllm::launch_group<T, T, 256>(a, batch, krows, vrows, s); \
     if (dtype == TCODE) { XLLM_HEAD_DIMS(T, T) }                    \
     if (dtype == XLLM_DTYPE_I8) { XLLM_HEAD_DIMS(T, int8_t) }       \
     if (dtype == XLLM_DTYPE_E4M3) { XLLM_HEAD_DIMS(T, xllm::e4m3) } \

@@ -384,33 +384,48 @@ cudaError_t launch_prefill(const void* q, const void* k_cache,
 
 
 // ---------------------------------------------------------------------------
-// bf16 q, head_dim 128: tensor cores (mma.sync), a cp.async K/V ring, page-
-// exact P rounding in the fragments, an optional context split
+// bf16 q, head_dim 128 or 256: tensor cores (mma.sync), a cp.async K/V ring,
+// page-exact P rounding in the fragments, an optional context split
 // ---------------------------------------------------------------------------
 namespace tc {
 
-constexpr int kD = 128;
-constexpr int kLd = kD + 8;      // bf16 elements a shared row: 272 B, ldmatrix conflict-free
-constexpr int kRawLd = kD + 16;  // bytes a shared row of a 1-byte cache stage
 constexpr int kMaxSplits = 32;
-constexpr int kPR = 4 + kD;  // a published row of a split: m, l, two pad floats, acc
 constexpr unsigned kFull = 0xffffffffu;
-
-constexpr int kWarps = 8;         // warps of 16 query rows a block
-constexpr int BR = 16 * kWarps;   // query rows a block
+constexpr int kWarps = 8;         // warps a block
 constexpr int NTH = 32 * kWarps;  // threads a block
+constexpr int kDW = 128;          // output columns a warp accumulates
+
+// The block's geometry at head_dim D. A warp holds 16 query rows and the
+// P V accumulators of kDW = 128 output columns (64 f32 registers a
+// thread). At D 128 the eight warps take eight row groups (128 rows); at
+// D 256 they pair up: warps w and w + 4 hold the same 16 rows, each
+// computes their S = Q K^T over all of D (the same bits, so the same P
+// and maxima) and P V into its own half of the columns, so a thread's
+// accumulators stay those of D 128 and the block holds 64 rows.
+template <int D>
+struct Geo {
+  static_assert(D % kDW == 0 && kWarps % (D / kDW) == 0, "head_dim");
+  static constexpr int kLd = D + 8;      // bf16 elements a shared row: ldmatrix conflict-free
+  static constexpr int kRawLd = D + 16;  // bytes a shared row of a 1-byte cache stage
+  static constexpr int kCH = D / kDW;    // warps sharing a row group (column halves)
+  static constexpr int kRowWarps = kWarps / kCH;
+  static constexpr int BR = 16 * kRowWarps;  // query rows a block
+  static constexpr int kPR = 4 + D;  // a published row of a split: m, l, two pad floats, acc
+};
 
 // Shared memory of a block: the Q tile, a ring of K/V stages (three, two at
-// 128-key tiles), and for a 1-byte cache the bf16 K and V tiles a stage
-// converts into.
-template <typename C, int KT>
+// 128-key tiles or head_dim 256), and for a 1-byte cache the bf16 K and V
+// tiles a stage converts into.
+template <typename C, int KT, int D>
 struct Layout {
+  using G = Geo<D>;
   static constexpr bool kQuant = sizeof(C) == 1;
-  static constexpr int kStages = KT == 128 ? 2 : 3;
-  static constexpr size_t kQ = (size_t)BR * kLd * 2;
+  static constexpr int kStages = KT == 128 || D > 128 ? 2 : 3;
+  static constexpr size_t kQ = (size_t)G::BR * G::kLd * 2;
   // one ring stage: K then V, as stored
-  static constexpr size_t kStage = kQuant ? 2 * (size_t)KT * kRawLd : 2 * (size_t)KT * kLd * 2;
-  static constexpr size_t kTiles = kQuant ? 2 * (size_t)KT * kLd * 2 : 0;
+  static constexpr size_t kStage =
+      kQuant ? 2 * (size_t)KT * G::kRawLd : 2 * (size_t)KT * G::kLd * 2;
+  static constexpr size_t kTiles = kQuant ? 2 * (size_t)KT * G::kLd * 2 : 0;
   static constexpr size_t kBytes = kQ + kStages * kStage + kTiles;
 };
 
@@ -430,16 +445,12 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// The key tile of a page of PG keys: 128 for pages of 128, else 64.
-template <int PG>
-constexpr int key_tile = PG == 128 ? 128 : 64;
-
 // C: the cache's element type (bf16, int8 or e4m3); PG: a page's keys in a
-// key tile (16, 32, 64, 128; 64 also for pages longer than 128, whose
+// key tile (16, 32, 64, 128; 64 also for pages longer than the tile, whose
 // maxima come from the first pass; 0 for pages of 1-8 keys, whose length
 // the walk reads at run time); PASS1: write the first pass's maxima instead
-// of attending.
-template <typename C, int PG, bool PASS1>
+// of attending; D: the head_dim (128, or 256 on a bf16 cache).
+template <typename C, int PG, bool PASS1, int D>
 __global__ void __launch_bounds__(NTH)
     prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,  // [P, S, Hq, D]
                       const C* k_cache, const C* v_cache,   // pages: PageLayout
@@ -453,20 +464,24 @@ __global__ void __launch_bounds__(NTH)
                       int layer, int num_blocks, int hkv, int bs, int nbmax, int seq,
                       int group, int tq, float scale, int window, long long page, int rm,
                       int chunk, int nsplit, int seg, int ngran) {
-  constexpr int KT = key_tile<PG>;
-  using L = Layout<C, KT>;
+  constexpr int KT = PG == 128 && D == 128 ? 128 : 64;  // the key tile
+  using L = Layout<C, KT, D>;
+  constexpr int BR = Geo<D>::BR, kLd = Geo<D>::kLd, kPR = Geo<D>::kPR;
   constexpr bool kQuant = L::kQuant;
   constexpr int NT = KT / 8;   // n8 tiles of S a warp
   constexpr int KS = KT / 16;  // k16 steps of P V a tile
-  constexpr int DT = kD / 8;   // n8 tiles of the output
-  constexpr int QK = kD / 16;  // k16 steps of Q K^T
-  constexpr int RLD = kQuant ? kRawLd : kLd;  // elements a stage row
+  constexpr int DT = kDW / 8;  // n8 tiles of a warp's output columns
+  constexpr int QK = D / 16;   // k16 steps of Q K^T
+  constexpr int RLD = kQuant ? Geo<D>::kRawLd : kLd;  // elements a stage row
   constexpr int kVec = 16 / sizeof(C);        // elements a 16-byte copy
-  constexpr int kChunks = kD / kVec;          // 16-byte copies a row
+  constexpr int kChunks = D / kVec;           // 16-byte copies a row
 
   const int h = blockIdx.x % hkv, split = blockIdx.x / hkv, p = blockIdx.y;
   const int rt = gridDim.z - 1 - blockIdx.z;  // the longest walks first
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, lane = tid % 32;
+  // this warp's row group and its output columns [col0, col0 + kDW)
+  const int warp = tid / 32 % Geo<D>::kRowWarps, col0 = tid / 32 / Geo<D>::kRowWarps * kDW;
+  const bool lead = col0 == 0;  // the warp that publishes its rows' maxima
   const int g = lane / 4, t4 = lane % 4;
   const int hq = hkv * group, rows = group * tq, s0 = rt * tq;
   const int q_offset = q_offsets[p], kv_len = kv_lens[p];
@@ -474,15 +489,15 @@ __global__ void __launch_bounds__(NTH)
   const int nvalid = kv_len > 0 ? min(tq, min(seq, kv_len - q_offset) - s0) : 0;
   const size_t tile_id = ((size_t)p * hkv + h) * gridDim.z + rt;
   auto row_off = [&](int r) -> size_t {  // q and out share [P, S, Hq, D]
-    return (((size_t)p * seq + s0 + r / group) * hq + (size_t)h * group + r % group) * kD;
+    return (((size_t)p * seq + s0 + r / group) * hq + (size_t)h * group + r % group) * D;
   };
   auto row_out = [&](int r) { return r < rows && s0 + r / group < seq; };
   if (nvalid <= 0) {  // a padded row or bucket padding: zeros
     if (!PASS1 && split == 0)
-      for (int i = tid; i < BR * (kD / 2); i += NTH) {
-        const int r = i / (kD / 2);
+      for (int i = tid; i < BR * (D / 2); i += NTH) {
+        const int r = i / (D / 2);
         if (row_out(r))
-          reinterpret_cast<uint32_t*>(out + row_off(r))[i % (kD / 2)] = 0u;
+          reinterpret_cast<uint32_t*>(out + row_off(r))[i % (D / 2)] = 0u;
       }
     return;
   }
@@ -511,8 +526,8 @@ __global__ void __launch_bounds__(NTH)
   // k 2t..), (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..) come through
   // ldmatrix at each k16 step
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  for (int idx = tid; idx < BR * (kD / 8); idx += NTH) {
-    const int r = idx / (kD / 8), c = (idx % (kD / 8)) * 8;
+  for (int idx = tid; idx < BR * (D / 8); idx += NTH) {
+    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
     const bool ok = row_pos(r) >= 0;
     cp_async16(qs + r * kLd + c, q + (ok ? row_off(r) + c : 0), ok);
   }
@@ -530,7 +545,7 @@ __global__ void __launch_bounds__(NTH)
       const bool ok = pos >= t_begin && pos < t_end;
       const C *krow = k_cache, *vrow = v_cache;
       if (ok)
-        kv_rows(lay, k_cache, v_cache, layer, num_blocks, hkv, bs, kD, bt[pos / bs], h, pos,
+        kv_rows(lay, k_cache, v_cache, layer, num_blocks, hkv, bs, D, bt[pos / bs], h, pos,
                 krow, vrow);
       cp_async16(ks + j * RLD + c, krow + (ok ? c : 0), ok);
       if (!PASS1) cp_async16(vs + j * RLD + c, vrow + (ok ? c : 0), ok);
@@ -541,10 +556,10 @@ __global__ void __launch_bounds__(NTH)
   auto convert = [&](int stage) {
     if constexpr (kQuant) {
     const unsigned char* raw = ring + stage * L::kStage;
-    for (int idx = tid; idx < (PASS1 ? 1 : 2) * KT * (kD / 16); idx += NTH) {
-      const int which = idx / (KT * (kD / 16)), rem = idx % (KT * (kD / 16));
-      const int j = rem / (kD / 16), c = (rem % (kD / 16)) * 16;
-      const uint4 v = *reinterpret_cast<const uint4*>(raw + (which * KT + j) * kRawLd + c);
+    for (int idx = tid; idx < (PASS1 ? 1 : 2) * KT * (D / 16); idx += NTH) {
+      const int which = idx / (KT * (D / 16)), rem = idx % (KT * (D / 16));
+      const int j = rem / (D / 16), c = (rem % (D / 16)) * 16;
+      const uint4 v = *reinterpret_cast<const uint4*>(raw + (which * KT + j) * RLD + c);
       const uint32_t w[4] = {v.x, v.y, v.z, v.w};
       uint32_t o[8];
 #pragma unroll
@@ -606,7 +621,7 @@ __global__ void __launch_bounds__(NTH)
 #pragma unroll
     for (int j = 0; j < DT; j += 2) {
       uint32_t b[4];  // (k 0-7, k 8-15) of n8 tile j, then of tile j + 1
-      ldmatrix_x4_trans(b, vt + (16 * ks + (lane % 16)) * kLd + 8 * j + (lane / 16) * 8);
+      ldmatrix_x4_trans(b, vt + (16 * ks + (lane % 16)) * kLd + col0 + 8 * j + (lane / 16) * 8);
       float d0[4] = {0.f, 0.f, 0.f, 0.f}, d1[4] = {0.f, 0.f, 0.f, 0.f};
       mma_bf16(d0, a, b[0], b[1]);
       mma_bf16(d1, a, b[2], b[3]);
@@ -687,7 +702,7 @@ __global__ void __launch_bounds__(NTH)
       if ((t0 + KT) % seg == 0 || t0 + KT >= t_end) {
         x_a = quad_max(x_a);
         x_b = quad_max(x_b);
-        if (t4 == 0) {
+        if (t4 == 0 && lead) {
           float* dst = gmax + tile_id * BR * ngran + t0 / seg;
           dst[ra * ngran] = x_a;
           dst[rb * ngran] = x_b;
@@ -769,7 +784,7 @@ __global__ void __launch_bounds__(NTH)
       if (!row_out(r)) continue;
       const bool live = (half ? pb : pa) >= 0;
       const float l = half ? l_b : l_a;
-      uint32_t* o = reinterpret_cast<uint32_t*>(out + row_off(r) + 2 * t4);
+      uint32_t* o = reinterpret_cast<uint32_t*>(out + row_off(r) + col0 + 2 * t4);
 #pragma unroll
       for (int j = 0; j < DT; ++j)
         o[4 * j] = live ? pack_bf16(acc[j][2 * half] / l, acc[j][2 * half + 1] / l) : 0u;
@@ -786,9 +801,9 @@ __global__ void __launch_bounds__(NTH)
     float* row = pp + (size_t)(half ? rb : ra) * kPR;
 #pragma unroll
     for (int j = 0; j < DT; ++j)
-      *reinterpret_cast<float2*>(row + 4 + 8 * j + 2 * t4) =
+      *reinterpret_cast<float2*>(row + 4 + col0 + 8 * j + 2 * t4) =
           make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
-    if (t4 == 0) {
+    if (t4 == 0 && lead) {
       row[0] = half ? m_b : m_a;
       row[1] = half ? l_b : l_a;
     }
@@ -819,8 +834,8 @@ __global__ void __launch_bounds__(NTH)
     lsum_s[r] = l;
   }
   __syncthreads();
-  for (int idx = tid; idx < BR * (kD / 4); idx += NTH) {
-    const int r = idx / (kD / 4), c = (idx % (kD / 4)) * 4;
+  for (int idx = tid; idx < BR * (D / 4); idx += NTH) {
+    const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
     if (!row_out(r)) continue;
     uint2 v = make_uint2(0u, 0u);
     if (row_pos(r) >= 0) {
@@ -843,15 +858,15 @@ __global__ void __launch_bounds__(NTH)
   if (tid == 0) counters[tile_id] = 0;
 }
 
-template <typename C, int PG>
+template <typename C, int PG, int D>
 cudaError_t launch(const void* q, const void* k_cache, const void* v_cache, const int* bt,
                    const int* qo, const int* kl, float* gmax, void* out, float* part,
                    int* counters, int p, int seq, int layer, int num_blocks, int hkv, int bs,
                    int nbmax, int group, float scale, int window, long long page, int rm,
                    int chunk, int nsplit, int seg, int ngran, cudaStream_t stream) {
-  constexpr int KT = key_tile<PG>;
-  const size_t smem = Layout<C, KT>::kBytes;
-  const int tq = BR / group;
+  constexpr int KT = PG == 128 && D == 128 ? 128 : 64;
+  const size_t smem = Layout<C, KT, D>::kBytes;
+  const int tq = Geo<D>::BR / group;
   const dim3 grid(hkv * nsplit, p, (seq + tq - 1) / tq);
   auto run = [&](auto kernel) {
     cudaError_t e = allow_smem(kernel, smem);
@@ -866,24 +881,26 @@ cudaError_t launch(const void* q, const void* k_cache, const void* v_cache, cons
   // the first pass (one instance a key tile): split maxima, or the maxima
   // of pages longer than the tile
   if (nsplit > 1 || bs > KT) {
-    cudaError_t e = run(prefill_tc_kernel<C, KT, true>);
+    cudaError_t e = run(prefill_tc_kernel<C, KT, true, D>);
     if (e != cudaSuccess) return e;
   }
-  return run(prefill_tc_kernel<C, PG, false>);
+  return run(prefill_tc_kernel<C, PG, false, D>);
 }
 
 }  // namespace tc
 }  // namespace xllm
 
-// qtype bf16 at head_dim 128: the tensor-core kernel over a bf16, int8 or
-// e4m3 cache, with nsplit <= 32 context splits of `chunk` positions (a
-// multiple of the key tile, max(64, bs) up to bs 128, and of bs) and, when
-// it splits or bs > 128, gmax [tiles * 128, ngran] first-pass maxima per
-// `seg` positions (bs if bs > 128, else chunk), part [tiles, nsplit, 128,
-// 4 + D] and counters [tiles] (tiles = P * Hkv * ceil(S / (128 / group)),
-// 0 between launches). Else (f32 q, or head_dim 64) the CUDA-core kernel,
-// which takes no split (gmax, part, counters unused). bs divides 64 or is
-// a multiple of it.
+// qtype bf16 at head_dim 128 (a bf16, int8 or e4m3 cache) or 256 (a bf16
+// cache): the tensor-core kernel, BR = 128 query rows a block at head_dim
+// 128 and 64 at 256, with nsplit <= 32 context splits of `chunk`
+// positions (a multiple of the key tile, max(64, bs) up to bs 128 at
+// head_dim 128 and 64 at 256, and of bs) and, when it splits or bs
+// outgrows the key tile, gmax [tiles * BR, ngran] first-pass maxima per
+// `seg` positions (bs if bs > the key tile, else chunk), part [tiles,
+// nsplit, BR, 4 + D] and counters [tiles] (tiles = P * Hkv * ceil(S / (BR
+// / group)), 0 between launches). Else (f32 q, or head_dim 64) the
+// CUDA-core kernel, which takes no split (gmax, part, counters unused).
+// bs divides 64 or is a multiple of it.
 extern "C" int xllm_prefill_attention(int device, const void* q, const void* k_cache,
                                       const void* v_cache, const void* block_tables,
                                       const void* q_offsets, const void* kv_lens, void* gmax,
@@ -903,8 +920,9 @@ extern "C" int xllm_prefill_attention(int device, const void* q, const void* k_c
   const int* qo = static_cast<const int*>(q_offsets);
   const int* kl = static_cast<const int*>(kv_lens);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (qtype == XLLM_DTYPE_BF16 && head_dim == 128) {
-    const int kt = bs == 128 ? 128 : 64;
+  if (qtype == XLLM_DTYPE_BF16 &&
+      (head_dim == 128 || (head_dim == 256 && dtype == XLLM_DTYPE_BF16))) {
+    const int kt = bs == 128 && head_dim == 128 ? 128 : 64;
     const long long width = (long long)nbmax * bs;
     if (nsplit < 1 || nsplit > xllm::tc::kMaxSplits || chunk <= 0 || chunk % kt ||
         chunk % bs || (long long)chunk * nsplit < width || seg <= 0 ||
@@ -913,21 +931,30 @@ extern "C" int xllm_prefill_attention(int device, const void* q, const void* k_c
     float* gm = static_cast<float*>(gmax);
     float* pt = static_cast<float*>(part);
     int* ct = static_cast<int*>(counters);
-#define XLLM_TC(C, PG)                                                                  \
-  return (int)xllm::tc::launch<C, PG>(q, k_cache, v_cache, bt, qo, kl, gm, out, pt, ct, p, \
-                                      seq, layer, num_blocks, hkv, bs, nbmax, group,      \
-                                      scale, window, page, rm, chunk, nsplit, seg, ngran, s)
+#define XLLM_TC_D(C, PG, D)                                                             \
+  return (int)xllm::tc::launch<C, PG, D>(q, k_cache, v_cache, bt, qo, kl, gm, out, pt, ct, \
+                                         p, seq, layer, num_blocks, hkv, bs, nbmax, group,  \
+                                         scale, window, page, rm, chunk, nsplit, seg,       \
+                                         ngran, s)
+#define XLLM_TC(C, PG) XLLM_TC_D(C, PG, 128)
 #define XLLM_TC_TILES(C)                   \
   if (bs == 16) XLLM_TC(C, 16);            \
   if (bs == 32) XLLM_TC(C, 32);            \
   if (bs == 128) XLLM_TC(C, 128);          \
   if (bs < 16) XLLM_TC(C, 0);              \
   XLLM_TC(C, 64);
+    if (head_dim == 256) {  // bf16 cache; pages past 64 keys take the first pass
+      if (bs == 16) XLLM_TC_D(__nv_bfloat16, 16, 256);
+      if (bs == 32) XLLM_TC_D(__nv_bfloat16, 32, 256);
+      if (bs < 16) XLLM_TC_D(__nv_bfloat16, 0, 256);
+      XLLM_TC_D(__nv_bfloat16, 64, 256);
+    }
     if (dtype == XLLM_DTYPE_BF16) { XLLM_TC_TILES(__nv_bfloat16) }
     if (dtype == XLLM_DTYPE_I8) { XLLM_TC_TILES(int8_t) }
     if (dtype == XLLM_DTYPE_E4M3) { XLLM_TC_TILES(xllm::e4m3) }
 #undef XLLM_TC_TILES
 #undef XLLM_TC
+#undef XLLM_TC_D
     return (int)cudaErrorInvalidValue;
   }
 #define XLLM_LAUNCH(T, C, D)                                                        \
@@ -943,6 +970,10 @@ extern "C" int xllm_prefill_attention(int device, const void* q, const void* k_c
     if (dtype == XLLM_DTYPE_I8) { XLLM_HEAD_DIMS(T, int8_t) }       \
     if (dtype == XLLM_DTYPE_E4M3) { XLLM_HEAD_DIMS(T, xllm::e4m3) } \
   }
+  // head_dim 256 on the CUDA cores: f32 q on an f32 cache (bf16 takes the
+  // tensor cores above)
+  if (qtype == XLLM_DTYPE_F32 && dtype == XLLM_DTYPE_F32 && head_dim == 256)
+    XLLM_LAUNCH(float, float, 256);
   XLLM_CACHES(__nv_bfloat16, XLLM_DTYPE_BF16)
   XLLM_CACHES(float, XLLM_DTYPE_F32)
 #undef XLLM_CACHES

@@ -12,7 +12,10 @@ verified for a bucketful of sequences in one synchronous pass that yields
 server's ``/v1/sample``); and the scheduler policies: ``policy="mix"``
 (``scheduler/mix.py``) and ``ttft_budget_ms``, both fed by a
 ``ProfileManager`` fitted from step wall times, and forward interruption
-(``interruption_bus``, consumed at the step boundary). Below the block
+(``interruption_bus``, consumed at the step boundary); the hybrid
+linear-attention family (qwen3-next, qwen3.5) under the JAX engine's rules
+(no speculative decoding, beam search or context parallelism; the prefix
+cache off). Below the block
 manager sit the host KV tier (``cache.num_host_blocks``) and the global
 KV store (``cache.kv_store_url``); ``disagg/`` serves an engine as a
 prefill or a decode instance.
@@ -50,6 +53,7 @@ from xllm_tpu_torch.framework.request import (
 from xllm_tpu_torch.framework.sampling_params import SamplingParams
 from xllm_tpu_torch.framework.suffix_cache import GlobalSuffixCache, SuffixProposer
 from xllm_tpu_torch.framework.tokenizer import IncrementalDecoder, Tokenizer
+from xllm_tpu_torch.models.registry import HYBRID_FAMILIES
 from xllm_tpu_torch.runtime.input_builder import group_prefill_items
 from xllm_tpu_torch.runtime.model_runner import ModelRunner
 from xllm_tpu_torch.scheduler.continuous import ContinuousScheduler
@@ -107,6 +111,19 @@ class LLMEngine:
             except Exception as e:  # tokenizer-less (token id I/O only) is fine
                 logger.warning("no tokenizer loaded: %s", e)
 
+        self.hybrid = config.model.model_type in HYBRID_FAMILIES
+        if self.hybrid:
+            # linear-attention state cannot rewind (spec rejection), fork
+            # (beam), be rebuilt from shared pages (prefix cache), or split
+            # its token scan across cp ranks: the JAX engine's rules
+            if config.speculative.method:
+                raise NotImplementedError(
+                    "speculative decoding is unsupported for hybrid "
+                    "linear-attention models")
+            if config.parallel.cp_size > 1:
+                raise NotImplementedError(
+                    "context parallelism is unsupported for hybrid models")
+            config.cache.enable_prefix_cache = False
         self.runner = runner or ModelRunner(config, device=device)
         if not self.runner.weights_loaded:
             self.runner.load_model()
@@ -227,9 +244,17 @@ class LLMEngine:
                 f"{max_len} (need room for at least one generated token)"
             )
         sampling_params = sampling_params or SamplingParams()
+        if sampling_params.use_beam_search and self.hybrid:
+            raise ValueError(
+                "beam search is unsupported for hybrid linear-attention "
+                "models (state cannot fork)")
         if sampling_params.use_beam_search:
             raise NotImplementedError(
                 "beam search is not ported yet (ROADMAP item 11)")
+        if embed and self.hybrid:
+            raise NotImplementedError(
+                "embeddings need the single-sequence prefill pass, which hybrid "
+                "linear-attention models do not have")
         if embed:  # one pooled vector, no generated token
             sampling_params = SamplingParams(max_tokens=1)
         request_id = request_id or f"req-{uuid.uuid4().hex[:16]}"

@@ -21,9 +21,12 @@ parameter tree's names and layouts, which the port's modules keep
   checkpoint, e.g. DeepSeek-V3's e4m3 weights with ``weight_scale_inv``)
   raises ``NotImplementedError``: the JAX loader has no such ingestion
   either, and codes are never loaded as weights.
-- qwen3-next / qwen3.5 and the vision towers are not ported (they raise);
-  neither is the DSA lightning indexer (``self_attn.indexer.*``), whose
-  families ``models/registry.py`` refuses.
+- qwen3-next / qwen3.5 (``load_qwen3_next_params``, the JAX family
+  loader) build their group-stacked tree on the host, whole, as the JAX
+  loader does; the runner copies it in and quantizes it with its
+  catch-all. The vision towers are not ported (they raise); neither is the
+  DSA lightning indexer (``self_attn.indexer.*``), whose families
+  ``models/registry.py`` refuses.
 """
 
 from __future__ import annotations
@@ -177,9 +180,6 @@ class Tensors:
 
 def check_family(cfg: ModelConfig) -> None:
     """The JAX loader's families that are not ported raise."""
-    if cfg.model_type in ("qwen3_next", "qwen3_5", "qwen3_5_text", "qwen3_5_moe_text"):
-        raise NotImplementedError(f"loading {cfg.model_type} (hybrid linear attention) "
-                                  "is not ported yet")
     if cfg.vision:
         raise NotImplementedError("loading a vision tower (VLM families) is not ported yet")
     if cfg.index_topk > 0:
@@ -418,6 +418,10 @@ def load_params(cfg: ModelConfig, dtype: torch.dtype | None = None, device="cpu"
     the cast to ``dtype`` (default bf16), the same bytes), its tensors on
     ``device``. ``ModelRunner.load_model(params=...)`` serves it."""
     check_family(cfg)
+    from xllm_tpu_torch.models.registry import HYBRID_FAMILIES
+
+    if cfg.model_type in HYBRID_FAMILIES:
+        return load_qwen3_next_params(cfg, dtype, device)
     dtype = dtype or torch.bfloat16
     tree: dict = {}
     with SafetensorsReader(cfg.model_path) as reader:
@@ -431,6 +435,131 @@ def load_params(cfg: ModelConfig, dtype: torch.dtype | None = None, device="cpu"
         for (group, name), ts_ in stacks.items():
             tree.setdefault(group, {})[name] = torch.stack(ts_)
     return tree
+
+
+def load_qwen3_next_params(cfg: ModelConfig, dtype: torch.dtype | None = None,
+                           device="cpu") -> dict:
+    """An HF Qwen3Next (or qwen3.5) checkpoint -> the group-stacked hybrid
+    tree of ``models/qwen3_next.py`` (the JAX ``load_qwen3_next_params``):
+
+    - layers regroup as [G, interval] with the full-attention layer last in
+      each group: ``lin_*`` stacks [G, I1, ...], ``full_*`` [G, ...], the
+      MLPs [G, interval, ...];
+    - the centered RMSNorms (applied as 1 + w) fold into plain weights by
+      adding 1 (input / post layernorms, q / k norms, the final norm; not
+      the gated GDN norm);
+    - the fused ``in_proj_qkvz`` / ``in_proj_ba`` (per key head [q | k | v |
+      z], [b | a]), or qwen3.5's split ``in_proj_qkv`` / ``z`` / ``b`` /
+      ``a`` merged into that layout (a fixed permutation of output
+      channels); the LM under ``model.language_model.`` (the reader's
+      alias);
+    - ``lin_A_log`` and ``lin_dt_bias`` stay f32; every other tensor is
+      cast to ``dtype`` (default bf16) from f32, rounding to nearest even."""
+    dtype = dtype or torch.bfloat16
+    L, interval = cfg.num_hidden_layers, cfg.full_attention_interval
+    G, I1 = L // interval, interval - 1
+    hk, hv = cfg.linear_num_key_heads, cfg.linear_num_value_heads
+    dk, dv = cfg.linear_key_head_dim, cfg.linear_value_head_dim
+    r = hv // hk
+    key_dim = hk * dk
+    with SafetensorsReader(cfg.model_path) as reader:
+        ts = Tensors(reader, "cpu")
+
+        def g(name: str) -> torch.Tensor:
+            return ts.host("model." + name).float()
+
+        def centered(name: str) -> torch.Tensor:
+            return g(name) + 1.0
+
+        def fused_qkvz(i: int) -> torch.Tensor:  # [out, D]
+            base = f"layers.{i}.linear_attn."
+            if "model." + base + "in_proj_qkvz.weight" in ts:
+                return g(base + "in_proj_qkvz.weight")
+            qkv, z = g(base + "in_proj_qkv.weight"), g(base + "in_proj_z.weight")
+            d = qkv.shape[1]
+            q = qkv[:key_dim].reshape(hk, dk, d)
+            k = qkv[key_dim:2 * key_dim].reshape(hk, dk, d)
+            v = qkv[2 * key_dim:].reshape(hk, r * dv, d)
+            return torch.cat([q, k, v, z.reshape(hk, r * dv, d)], dim=1).reshape(-1, d)
+
+        def fused_ba(i: int) -> torch.Tensor:
+            base = f"layers.{i}.linear_attn."
+            if "model." + base + "in_proj_ba.weight" in ts:
+                return g(base + "in_proj_ba.weight")
+            b, a = g(base + "in_proj_b.weight"), g(base + "in_proj_a.weight")
+            d = b.shape[1]
+            return torch.cat([b.reshape(hk, r, d), a.reshape(hk, r, d)], dim=1).reshape(-1, d)
+
+        lin_ids = [i for i in range(L) if (i + 1) % interval != 0]
+        full_ids = [i for i in range(L) if (i + 1) % interval == 0]
+
+        def stack(ids, fn) -> torch.Tensor:
+            return torch.stack([fn(i) for i in ids])
+
+        def lin(fn) -> torch.Tensor:  # [G * I1, ...] -> [G, I1, ...]
+            t = stack(lin_ids, fn)
+            return t.reshape(G, I1, *t.shape[1:])
+
+        def mlp(fn) -> torch.Tensor:  # every layer, [G, interval, ...]
+            t = stack(range(L), fn)
+            return t.reshape(G, interval, *t.shape[1:])
+
+        def attn(i: int, rest: str) -> str:
+            return f"layers.{i}.{rest}"
+
+        gp = {
+            "lin_input_layernorm": lin(lambda i: centered(attn(i, "input_layernorm.weight"))),
+            "lin_post_layernorm": lin(
+                lambda i: centered(attn(i, "post_attention_layernorm.weight"))),
+            "lin_qkvz_w": lin(lambda i: fused_qkvz(i).T),
+            "lin_ba_w": lin(lambda i: fused_ba(i).T),
+            "lin_conv_w": lin(lambda i: g(attn(i, "linear_attn.conv1d.weight"))[:, 0, :]),
+            "lin_dt_bias": lin(lambda i: g(attn(i, "linear_attn.dt_bias"))),
+            "lin_A_log": lin(lambda i: g(attn(i, "linear_attn.A_log"))),
+            "lin_norm_w": lin(lambda i: g(attn(i, "linear_attn.norm.weight"))),
+            "lin_out_w": lin(lambda i: g(attn(i, "linear_attn.out_proj.weight")).T),
+            "full_input_layernorm": stack(
+                full_ids, lambda i: centered(attn(i, "input_layernorm.weight"))),
+            "full_post_layernorm": stack(
+                full_ids, lambda i: centered(attn(i, "post_attention_layernorm.weight"))),
+            "full_q_norm": stack(full_ids,
+                                 lambda i: centered(attn(i, "self_attn.q_norm.weight"))),
+            "full_k_norm": stack(full_ids,
+                                 lambda i: centered(attn(i, "self_attn.k_norm.weight"))),
+        }
+        for p in "qkvo":
+            gp[f"full_{p}_w"] = stack(
+                full_ids, lambda i, p=p: g(attn(i, f"self_attn.{p}_proj.weight")).T)
+        if cfg.num_experts > 0:
+            def proj(i, rest):
+                return g(attn(i, f"mlp.{rest}.weight")).T
+
+            gp["router_w"] = mlp(lambda i: proj(i, "gate"))
+            gp["experts_gate_up"] = mlp(lambda i: torch.stack([
+                torch.cat([proj(i, f"experts.{j}.gate_proj"), proj(i, f"experts.{j}.up_proj")],
+                          dim=1) for j in range(cfg.num_experts)]))
+            gp["experts_down"] = mlp(lambda i: torch.stack([
+                proj(i, f"experts.{j}.down_proj") for j in range(cfg.num_experts)]))
+            for p in ("gate", "up", "down"):
+                gp[f"shared_{p}_proj_w"] = mlp(
+                    lambda i, p=p: proj(i, f"shared_expert.{p}_proj"))
+            gp["shared_gate_w"] = mlp(lambda i: g(attn(i, "mlp.shared_expert_gate.weight"))[0])
+        else:
+            for p in ("gate", "up", "down"):
+                gp[f"{p}_proj_w"] = mlp(lambda i, p=p: g(attn(i, f"mlp.{p}_proj.weight")).T)
+        tree = {"embed_tokens": g("embed_tokens.weight"), "norm": centered("norm.weight"),
+                "groups": gp}
+        if not cfg.tie_word_embeddings:
+            tree["lm_head"] = ts.host("lm_head.weight").float().T
+
+    def put(name: str, t: torch.Tensor) -> torch.Tensor:
+        keep = name in ("lin_A_log", "lin_dt_bias")  # the exp / softplus path stays f32
+        return (t if keep else cast(t, dtype)).contiguous().to(device)
+
+    out = {k: put(k, v) for k, v in tree.items() if k != "groups"}
+    out["groups"] = {k: put(k, v) for k, v in gp.items()}
+    logger.info("loaded qwen3-next: %d groups x %d layers", G, interval)
+    return out
 
 
 # where an MTP module's tensors may sit: a dedicated head checkpoint

@@ -1,7 +1,8 @@
 """Model registry (counterpart of ``xllm_tpu/models/registry.py``).
 
-The dense GQA families, the GQA MoE families and the MLA families; every
-other family of the JAX registry raises until its slice is ported.
+The dense GQA families, the GQA MoE families, the MLA families and the
+hybrid linear-attention families (qwen3-next, qwen3.5); every other family
+of the JAX registry raises until its slice is ported.
 """
 
 from __future__ import annotations
@@ -20,6 +21,9 @@ MOE_FAMILIES = ("qwen3_moe", "glm4_moe", "minimax_m2")
 # deepseek v2/v3, kimi-k2 (the v3 architecture) and glm4-moe-lite (MLA with
 # rotate-half rope)
 MLA_FAMILIES = ("deepseek_v2", "deepseek_v3", "kimi_k2", "glm4_moe_lite")
+# hybrid GatedDeltaNet / full attention + routed and shared experts
+# (models/qwen3_next.py)
+HYBRID_FAMILIES = ("qwen3_next", "qwen3_5", "qwen3_5_text", "qwen3_5_moe_text")
 # MLA + the DSA lightning indexer (deepseek-v3.2, glm5): not ported yet
 DSA_FAMILIES = ("deepseek_v32", "glm_moe_dsa")
 
@@ -55,6 +59,7 @@ def get_model_class(model_type: str) -> type:
     from xllm_tpu_torch.models.decoder import DenseDecoderModel
     from xllm_tpu_torch.models.mla_decoder import Glm4MoeLiteModel, MlaDecoderModel
     from xllm_tpu_torch.models.moe_decoder import MoeDecoderModel
+    from xllm_tpu_torch.models.qwen3_next import Qwen3NextModel
 
     for name in DENSE_FAMILIES:
         ModelRegistry._registry.setdefault(name, DenseDecoderModel)
@@ -64,6 +69,8 @@ def get_model_class(model_type: str) -> type:
         ModelRegistry._registry.setdefault(
             name, Glm4MoeLiteModel if name == "glm4_moe_lite" else MlaDecoderModel
         )
+    for name in HYBRID_FAMILIES:
+        ModelRegistry._registry.setdefault(name, Qwen3NextModel)
     return ModelRegistry.get(model_type)
 
 

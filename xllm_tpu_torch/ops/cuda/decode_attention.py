@@ -329,6 +329,8 @@ _SPLIT_TILES = 6
 _SCORE_SMEM = 32 * 1024  # a block keeps its scores in shared memory up to this
 _RING_BYTES = 32 * 1024  # csrc kRingBytes: a block's ring of 64-row K / V tiles
 _SMEM_MAX = 232448  # csrc kSmemMax: an H100 block's dynamic shared memory
+_SMEM_SM = 233472  # an H100 SM's shared memory (228 KB)
+_PORTABLE_CLUSTER = 8  # the cluster size every GPC holds at one block an SM
 _INT_MAX = 2 ** 31 - 1
 # per-device-and-stream workspaces, grown on demand and reused by every
 # call on that stream: K9's per-sequence counters (the kernel leaves them
@@ -449,11 +451,17 @@ def plan(nbmax: int, bs: int, group: int, head_dim: int, cache_dtype, rm: bool =
     ``cluster_cap`` blocks, whose splits hold at least ``_SPLIT_TILES``
     tiles beyond ``cluster_floor`` blocks (one pair: up to 16 blocks,
     however short their splits)."""
-    chunk, cluster = _split_plan(nbmax * bs, cluster_cap(heads, sms), _SPLIT_TILES,
-                                 cluster_floor(heads, sms))
     gran = granule(bs, rm, pages, cache_dtype != torch.float32)
     gmax = group_rows(group)
     elem = torch.empty((), dtype=cache_dtype).element_size()
+    cap, floor = cluster_cap(heads, sms), cluster_floor(heads, sms)
+    # a block whose ring and q alone fill more than half an SM (an f32 ring
+    # at head_dim 256) runs one a SM: a cluster must then fit the SMs of one
+    # GPC, so it keeps to the portable size
+    if 2 * (ring_stages(head_dim, elem) * _stage_bytes(head_dim, elem)
+            + 4 * gmax * head_dim) > _SMEM_SM:
+        cap, floor = min(cap, _PORTABLE_CLUSTER), min(floor, _PORTABLE_CLUSTER)
+    chunk, cluster = _split_plan(nbmax * bs, cap, _SPLIT_TILES, floor)
     smem_scores = chunk * gmax * 4 <= _SCORE_SMEM
     smem = smem_bytes(elem, head_dim, group, chunk, gran, smem_scores)
     if smem > _SMEM_MAX:
@@ -782,11 +790,11 @@ def _launch(name, q, k_new, v_new, k_base, v_base, v_off: int, nb: int, hkv: int
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     b, hq, d = q.shape
-    _build.check_head_dim(d)
     dtype = _build.dtype_code(k_base.dtype)
     # q, the new rows and the output in the cache dtype; on a quantized
     # cache in q's own (bf16 or f32; int8 codes are exact in either)
     work = q.dtype if _build.is_quantized(k_base.dtype) else k_base.dtype
+    _build.check_head_dim(d, work, k_base.dtype, name)
     qtype = _build.dtype_code(work)
     if _build.is_quantized(work):
         raise ValueError(f"{name}: q must be bfloat16 or float32, not {q.dtype}")

@@ -35,8 +35,8 @@ unnormalised P of each page against the running maximum after that page.
   single-chunk passes of the interleaved layouts run this kernel with P =
   1, as the JAX package runs its batched kernels.
 
-Two kernels, chosen by q's dtype: bf16 q at head_dim 128 runs on the
-tensor cores and, where its (chunk, kv head, row tile) blocks are too few
+Two kernels, chosen by q's dtype: bf16 q at head_dim 128 (and at 256 on a
+bf16 cache, with row tiles of 64) runs on the tensor cores and, where its (chunk, kv head, row tile) blocks are too few
 for the card, splits each chunk's key range (``split_plan``, from shapes
 alone) and merges the splits; f32 q and head_dim 64 run on the CUDA cores.
 Bound on the card: operations for long chunks (S = 2048), bytes for
@@ -68,7 +68,7 @@ ILV_TPU_KERNEL = (
 _SOURCE = "prefill_attention"
 _MAX_GROUP = 64  # query rows per block of the CUDA-core kernel
 _TILE = 64  # KV positions per shared-memory tile in the kernel
-_TC_ROWS = 128  # query rows per block of the tensor-core kernel
+_TC_ROWS = {128: 128, 256: 64}  # query rows a block of the tensor-core kernel, by head_dim
 _MAX_SPLITS = 32  # kMaxSplits of csrc/prefill_attention.cu
 _BUSY_BLOCKS = 256  # about two blocks for each of an H100's 132 SMs
 _MIN_SPLIT_UNITS = 4  # key tiles (or pages, if longer) a split walks at least
@@ -244,26 +244,34 @@ def _load() -> ctypes.CDLL:
     return _lib
 
 
-def key_tile(block_size: int) -> int:
+def key_tile(block_size: int, head_dim: int = 128) -> int:
     """Key positions per tile of the tensor-core kernel: a page never spans
-    two tiles up to block_size 128; longer pages take their maxima from a
-    first pass."""
-    return 128 if block_size == 128 else _TILE
+    two tiles up to block_size 128 (64 at head_dim 256); longer pages take
+    their maxima from a first pass."""
+    return 128 if block_size == 128 and head_dim == 128 else _TILE
+
+
+def tensor_cores(work_dtype, cache_dtype, head_dim: int) -> bool:
+    """Whether a launch takes the tensor-core kernel: bf16 q at head_dim
+    128 (any cache) or 256 (a bf16 cache)."""
+    return work_dtype == torch.bfloat16 and (
+        head_dim == 128 or (head_dim == 256 and cache_dtype == torch.bfloat16))
 
 
 def split_plan(p: int, s: int, hq: int, hkv: int, width: int,
-               block_size: int) -> tuple[int, int]:
+               block_size: int, head_dim: int = 128) -> tuple[int, int]:
     """-> (chunk, nsplit) of a tensor-core launch, from shapes alone (the
     launch reads nothing back from the card): P chunks of S query tokens,
     Hq / Hkv heads, a block table of ``width`` positions. No split while
-    the (chunk, kv head, 128-row tile) blocks number about two for each
+    the (chunk, kv head, row tile) blocks number about two for each
     streaming multiprocessor (a chunk of 2048 tokens, or four of 512, at
     qwen3's groups); else splits of ``chunk`` positions, a multiple of the
     key tile and of the page, enough of them (at most ``_MAX_SPLITS``, each
     at least four tiles long) to reach that count over the whole table
-    width. A split past a chunk's kv_len exits at once."""
-    blocks = p * hkv * -(-s // (_TC_ROWS // (hq // hkv)))
-    unit = max(key_tile(block_size), block_size)
+    width. A split past a chunk's kv_len exits at once. Row tiles are of
+    ``_TC_ROWS[head_dim]`` query rows."""
+    blocks = p * hkv * -(-s // (_TC_ROWS[head_dim] // (hq // hkv)))
+    unit = max(key_tile(block_size, head_dim), block_size)
     units = -(-width // unit)
     want = 1 if blocks >= _BUSY_BLOCKS else min(_MAX_SPLITS, -(-_BUSY_BLOCKS // blocks))
     # at least _MIN_SPLIT_UNITS units a split: the last split merges every
@@ -391,10 +399,10 @@ def _launch(name, q, k_base, v_base, v_off: int, nb: int, hkv: int, bs: int,
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     p, s, hq, d = q.shape
-    _build.check_head_dim(d)
     dtype = _build.dtype_code(k_base.dtype)
     # q and the output in the cache dtype; on a quantized cache in q's own
     work = q.dtype if _build.is_quantized(k_base.dtype) else k_base.dtype
+    _build.check_head_dim(d, work, k_base.dtype, name)
     qtype = _build.dtype_code(work)
     if _build.is_quantized(work):
         raise ValueError(f"{name}: q must be bfloat16 or float32, not {q.dtype}")
@@ -420,16 +428,16 @@ def _launch(name, q, k_base, v_base, v_off: int, nb: int, hkv: int, bs: int,
     # placeholders where a launch reads none: the CUDA-core kernel, or one
     # tensor-core walk over pages no longer than its tile
     gmax = part = counters = out
-    if work == torch.bfloat16 and d == 128:  # the tensor-core kernel
-        kt = key_tile(bs)
-        chunk, nsplit = split_plan(p, s, hq, hkv, width, bs)
+    if tensor_cores(work, k_base.dtype, d):
+        kt, br = key_tile(bs, d), _TC_ROWS[d]
+        chunk, nsplit = split_plan(p, s, hq, hkv, width, bs, d)
         seg = bs if bs > kt else chunk  # the first pass's maxima: per page or per split
-        rows = p * hkv * -(-s // (_TC_ROWS // (hq // hkv))) * _TC_ROWS  # every block's
+        rows = p * hkv * -(-s // (br // (hq // hkv))) * br  # every block's
         if nsplit > 1 or bs > kt:
             gmax = torch.empty(rows, -(-width // seg), dtype=torch.float32, device=q.device)
         if nsplit > 1:
             part = torch.empty(rows, nsplit, 4 + d, dtype=torch.float32, device=q.device)
-            counters = _split_counters(q.device, rows // _TC_ROWS)
+            counters = _split_counters(q.device, rows // br)
     _build.count_launch(name)  # one count for the op (one or two kernels)
     err = lib.xllm_prefill_attention(
         q.device.index or 0, _build.ptr(qk), _build.ptr(k_base),

@@ -83,6 +83,20 @@ def quantize_fp8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 QUANTIZERS = {"int8": quantize_int8, "fp8_e4m3": quantize_fp8}
 
+# matmul weights eligible for weight-only quantization (the JAX runner's
+# rule): every "*_proj_w" of a layer group but these, and the routed expert
+# stacks under fp8 only (int8 experts would need int8 activations through
+# the grouped GEMM; fp8 ones are upcast in K10)
+_QUANT_SKIP = ("router_w", "merger_proj_w")
+_EXPERT_STACKS = ("experts_gate_up", "experts_down")
+
+
+def quant_eligible(name: str, method: str) -> bool:
+    """Whether the JAX runner quantizes a tree's stack ``name``."""
+    is_expert = name in _EXPERT_STACKS
+    return ((name.endswith("_proj_w") or (is_expert and method != "int8"))
+            and name not in _QUANT_SKIP)
+
 
 def _kernel_switch() -> bool:
     return os.environ.get("XLLM_QMM_KERNEL", "") == "pallas"

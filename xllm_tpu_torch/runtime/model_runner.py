@@ -1,7 +1,7 @@
 """Device execution: forward steps + sampling, eagerly in PyTorch.
 
 Counterpart of the subset of ``xllm_tpu/runtime/model_runner.py`` that
-serves the dense, MoE and MLA main paths on one device: ``load_model``, ``initialize_kv_cache``,
+serves the dense, MoE, MLA and hybrid (qwen3-next) main paths on one device: ``load_model``, ``initialize_kv_cache``,
 ``run_prefill_batched`` and ``run_decode``, the single-chunk passes of
 prompt scoring (``run_score_chunk``) and embeddings (``run_prefill_embed``),
 speculative decoding's batched verify passes (``run_verify_batched``
@@ -26,8 +26,14 @@ import torch
 
 from xllm_tpu_torch.config import EngineConfig
 from xllm_tpu_torch.framework.request import Sequence
-from xllm_tpu_torch.models.registry import MLA_FAMILIES, MOE_FAMILIES, create_model
+from xllm_tpu_torch.models.registry import (
+    HYBRID_FAMILIES,
+    MLA_FAMILIES,
+    MOE_FAMILIES,
+    create_model,
+)
 from xllm_tpu_torch.ops.norms import rms_norm
+from xllm_tpu_torch.ops.quant import quant_eligible
 from xllm_tpu_torch.runtime.forward_params import (
     BatchedPrefillInput,
     DecodeInput,
@@ -88,11 +94,10 @@ def reject_unported(config: EngineConfig) -> None:
         raise NotImplementedError("the native block manager is not ported yet")
     if c.model.vision:
         raise NotImplementedError("VLM families are not ported yet")
-    if c.model.num_experts > 0 and c.model.model_type not in MOE_FAMILIES + MLA_FAMILIES:
+    moe = MOE_FAMILIES + MLA_FAMILIES + HYBRID_FAMILIES
+    if c.model.num_experts > 0 and c.model.model_type not in moe:
         raise NotImplementedError(
-            f"MoE family {c.model.model_type!r} is not ported yet; "
-            f"ported: {MOE_FAMILIES + MLA_FAMILIES}"
-        )
+            f"MoE family {c.model.model_type!r} is not ported yet; ported: {moe}")
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -265,6 +270,14 @@ class ModelRunner:
         from xllm_tpu_torch.weights import layer_groups, put_param
 
         cfg, model, method = self.config.model, self.model, self.config.quant.method
+        if getattr(model, "is_hybrid", False):
+            # the JAX family loader: the whole tree on the host, then the
+            # runner's catch-all quantizer, as the JAX runner does
+            from xllm_tpu_torch.weights import load_param_tree
+
+            tree = loader.load_qwen3_next_params(cfg, model.dtype, "cpu")
+            load_param_tree(model, self._quantize_params(tree) if method else tree)
+            return
         groups = layer_groups(model)
         written: dict[str, set] = {g: set() for g in groups}
         t0 = time.perf_counter()
@@ -308,19 +321,7 @@ class ModelRunner:
             put_param(param[j], codes)
             put_param(scale[j], s)
 
-    # matmul weights eligible for weight-only quantization (the JAX
-    # runner's rule): every "*_proj_w" of a layer group but these, and the
-    # routed expert stacks under fp8 only (int8 experts would need int8
-    # activations through the grouped GEMM; fp8 ones are upcast in K10)
-    _QUANT_SKIP = ("router_w", "merger_proj_w")
-    _EXPERT_STACKS = ("experts_gate_up", "experts_down")
-
-    @classmethod
-    def quant_eligible(cls, name: str, method: str) -> bool:
-        """Whether the JAX runner quantizes a tree's stack ``name``."""
-        is_expert = name in cls._EXPERT_STACKS
-        return ((name.endswith("_proj_w") or (is_expert and method != "int8"))
-                and name not in cls._QUANT_SKIP)
+    quant_eligible = staticmethod(quant_eligible)
 
     def _quantize_params(self, params: dict) -> dict:
         """Quantize every eligible bf16 / f32 stack of a JAX-layout tree
@@ -367,6 +368,8 @@ class ModelRunner:
             cc = self.config.cache
             self.model.set_kv_scales(cc.kv_scale_k, cc.kv_scale_v)
         self.model.kv_layout = self.resolve_kv_layout(kv_dtype)
+        # the hybrid family's linear-state rows: one a slot, and the trash row
+        self.model.num_state_slots = self.max_slots
         self.k_cache, self.v_cache = self.model.new_kv_cache(
             self.num_blocks, self.block_size, kv_dtype
         )
@@ -438,6 +441,9 @@ class ModelRunner:
             return 512
         free, total = torch.cuda.mem_get_info(self.device)
         budget = total * cfg.cache.memory_utilization - (total - free)
+        if getattr(self.model, "is_hybrid", False):  # the linear state comes first
+            self.model.num_state_slots = self.max_slots
+            budget -= self.model.state_bytes()
         return max(int(budget // per_block), 16)
 
     # ------------------------------------------------------------------
@@ -794,6 +800,7 @@ class ModelRunner:
         the card they are pinned. Each slot keeps the event of the last
         copy queued on it; the host waits on it before it reads or writes
         the slot (``_wait_host_slot``)."""
+        self._refuse_hybrid("the host KV tier")
         host_dt = torch.float32 if self.model.dtype == torch.float32 else torch.float16
         pin = self.device.type == "cuda"
         k_shape = (self.k_cache.shape[0],) + tuple(self.k_cache.shape[2:])
@@ -807,6 +814,17 @@ class ModelRunner:
         self._host_events: list = [None] * num_host_blocks
         logger.info("host KV tier: %d blocks (%s, %.1f MB a block)", num_host_blocks,
                     host_dt, (self.host_k[0].nbytes + self.host_v[0].nbytes) / 1e6)
+
+    def _refuse_hybrid(self, what: str) -> None:
+        """The host tier and PD move KV pages only. For a hybrid model the
+        JAX runner fails at the same points (its ``v_cache.ndim`` check
+        meets the (pages, conv state, recurrent state) tuple), and neither
+        package ships the GDN state, without which the pages serve nothing:
+        refused."""
+        if getattr(self.model, "is_hybrid", False):
+            raise NotImplementedError(
+                f"{what} is unsupported for hybrid linear-attention models: it moves KV "
+                "pages but not the GatedDeltaNet state")
 
     def _wait_host_slot(self, host_idx: int) -> None:
         """Wait for the copies queued on a host slot before the host reads
@@ -893,6 +911,7 @@ class ModelRunner:
         the dummy slot itself in an MLA model, whose latent pages hold K
         and V). Queued on the current stream after the passes that wrote
         the blocks; serving goes on while the copy lands."""
+        self._refuse_hybrid("PD block transfer")
         ids = torch.as_tensor(np.asarray(block_ids, np.int64)).to(self.device)
         k = self._gather_to_host(self.k_cache, ids)
         v = self._gather_to_host(self.v_cache, ids if self.v_cache.ndim == 5 else None)
@@ -910,6 +929,7 @@ class ModelRunner:
         non-blocking copy each through pinned memory and one ``index_copy_``
         scatter, cast to the cache's dtype on the device. MLA's dummy v
         slot is left as it is."""
+        self._refuse_hybrid("PD block transfer")
         ids = torch.as_tensor(np.asarray(block_ids, np.int64)).to(self.device)
         pairs = [(self.k_cache, k_blocks)]
         if self.v_cache.ndim == 5:

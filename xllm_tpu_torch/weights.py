@@ -24,6 +24,13 @@ are ``kv_a_proj_w``, ``kv_a_norm``, ``kv_b_nope_w [H, kvr, nope]``,
 ``kv_b_v_w [H, kvr, vh]``, ``o_proj_w`` and either ``q_proj_w`` or
 ``q_a_proj_w`` / ``q_a_norm`` / ``q_b_proj_w``.
 
+A hybrid tree (``xllm_tpu/models/qwen3_next.py``) holds every layer's
+tensors under ``groups``, stacked ``[G, I1, ...]`` (the linear sublayers'
+``lin_*``, with the f32 ``lin_A_log`` and ``lin_dt_bias``), ``[G, ...]``
+(the full-attention layers' ``full_*``) and ``[G, interval, ...]`` (every
+layer's MLP); the port's ``Qwen3NextModel`` keeps the stacks as they are
+(``model.groups``), so they are copied whole.
+
 A quantized tree (the JAX runner's ``_quantize_params``) holds int8 or
 float8_e4m3fn ``*_proj_w`` stacks beside f32 ``*_scale`` stacks (under fp8
 also the MoE groups' ``experts_gate_up`` / ``experts_down`` with their
@@ -67,6 +74,14 @@ def load_param_tree(model, tree: dict) -> None:
     put_param(model.norm, tree["norm"])
     if "lm_head" in tree:
         put_param(model.lm_head, tree["lm_head"])
+    if getattr(model, "is_hybrid", False):
+        stacks = tree["groups"]
+        names = {n for n, _ in model.groups.named_parameters()}
+        if set(stacks) != names:
+            raise ValueError(f"groups tensors {sorted(stacks)} != model's {sorted(names)}")
+        for name, stack in stacks.items():
+            put_param(getattr(model.groups, name), stack)
+        return
     for group, layers in layer_groups(model).items():
         stacks = dict(tree[group])
         placement = stacks.pop("expert_placement", None)
@@ -137,6 +152,10 @@ def random_param_tree(cfg: ModelConfig, seed: int) -> dict:
 
     if cfg.kv_lora_rank > 0:
         return _random_mla_tree(cfg, w)
+    from xllm_tpu_torch.models.registry import HYBRID_FAMILIES
+
+    if cfg.model_type in HYBRID_FAMILIES:
+        return _random_hybrid_tree(cfg, w)
     hq, hkv, dh = cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim
     g = hq // hkv
     L, D, I, V = (cfg.num_hidden_layers, cfg.hidden_size,
@@ -231,4 +250,28 @@ def _random_mla_tree(cfg: ModelConfig, w) -> dict:
     if L > n_dense:
         tree["moe_layers"] = moe = attn(L - n_dense)
         _add_experts(moe, cfg, L - n_dense, w)
+    return tree
+
+
+def _random_hybrid_tree(cfg: ModelConfig, w) -> dict:
+    """The JAX ``Qwen3NextModel.init_params`` tree's shapes and rule: norms,
+    the gated norm and ``lin_dt_bias`` 1, ``lin_A_log`` 0 (both f32), the
+    conv N(0, 0.3), every other weight N(0, 0.02)."""
+    from xllm_tpu_torch.models import qwen3_next as qn
+
+    groups = {}
+    for name, shape in qn.Qwen3NextModel(cfg, device="meta").stack_shapes().items():
+        if name in qn.INIT_ZEROS:
+            groups[name] = np.zeros(shape, np.float32)
+        elif name in qn.INIT_ONES:
+            groups[name] = np.ones(shape, np.float32)
+        elif name == "lin_conv_w":
+            groups[name] = w(*shape) * np.float32(qn.CONV_SCALE / 0.02)
+        else:
+            groups[name] = w(*shape)
+    D = cfg.hidden_size
+    tree = {"embed_tokens": w(cfg.vocab_size, D), "norm": np.ones((D,), np.float32),
+            "groups": groups}
+    if not cfg.tie_word_embeddings:
+        tree["lm_head"] = w(D, cfg.vocab_size)
     return tree
