@@ -272,10 +272,30 @@ phase raises on failure, so a non-zero exit means a phase failed:
    layers, bf16 and fp8 latent caches: PD tokens equal the mixed engine's
    (K11b / K11c-d and K10 a prefill pass, K11a and K10 a decode pass).
 
+17. qwen3_next: the hybrid GatedDeltaNet / full-attention family at
+   Qwen3-Next-80B-A3B's width, 8 of its 48 layers. K1, K3, K2 and K4 at its
+   full-attention heads (Hq 16, Hkv 2, head_dim 256) on bf16 and e4m3
+   caches (bf16 q timed, f32 q checked; K1 also on grid inputs with windows
+   and a 16-split table, K3 on grid inputs at every bucket and with a
+   window, the writers' e4m3 edge values and RMW rows across a page) and
+   K10 at its 512 experts, top-10, with bf16 and fp8 expert stacks; one
+   GatedDeltaNet layer at its width over 4,096 tokens, the card's f32
+   output held to the CPU's (``GDN_DRIFT_TOL``) and the bf16 layer's error
+   against f32 reported at tokens 64, 512 and 4,096. Then the bf16 engine
+   and the fp8 engine (fp8 weights under ``XLLM_QMM_KERNEL=pallas``: K6
+   for the shared experts' projections, K10's fp8 instance for the routed
+   ones; an fp8 KV cache) each serve 16 greedy requests (every pass: K1,
+   or K3 and one of K2 / K4, once a full-attention layer; K10 twice a
+   layer; K6 once a quantized projection) and one completion through the
+   server; card = CPU greedy tokens on an f32 qwen3-next at head_dim 256
+   with an f32 and an fp8 KV cache, the latter also with int8 weights (the
+   dequant default) and fp8 weights (K6); with int8 weights through K5
+   (w8a8) the tokens agree up to near-ties (``check_parity_near_tie``).
+
 ``python3 chip_smoke.py --phases kernels`` (a comma list of build, kernels,
 qkernels, engines, quant, parity, layouts, layout-engines, grammar,
-grammar-engines, spec, spec-engines, checkpoint, server, pd_tiers) runs a
-subset and prints no result line.
+grammar-engines, spec, spec-engines, checkpoint, server, pd_tiers,
+qwen3_next) runs a subset and prints no result line.
 
 The line before the last is ``{"kernels": [...]}`` (errors, times, bounds
 and launch counts); the last line is ``{"ok": true, "device": {...}}``.
@@ -339,11 +359,13 @@ from xllm_tpu_torch.server.api import APIServer, build_config, parse_args
 from xllm_tpu_torch.server.async_engine import AsyncLLMEngine
 from xllm_tpu_torch.weights import random_param_tree
 
-# published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
-# dense bf16 tensor-core FLOP/s, dense int8 tensor-core OP/s
+# published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s,
+# dense bf16 tensor-core FLOP/s, dense int8 tensor-core OP/s, and f32
+# FLOP/s outside the tensor cores (the f32-q attention kernels' FMAs)
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
+PEAK_F32 = 67e12
 # SM clock of an H100 SXM at its highest boost; torch.cuda._sleep counts
 # SM cycles, so at a lower clock the sleep only lasts longer
 SLEEP_CYCLES_PER_S = 1.98e9
@@ -741,7 +763,8 @@ def check_decode(rng, dev, dtype, timed: bool, cache=None, lens=None, hq: int = 
     ))
     res["shape"] = (f"B={b} (2 padded), seq_lens {sorted(set(lens) - {0})}, "
                     f"Hq {hq}, Hkv {hkv}, D {d}, bs {BS}")
-    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops)
+    res["bound_ms"], res["bound_by"] = bound_ms(
+        nbytes, flops, PEAK_F32 if dtype == torch.float32 else PEAK_BF16)
     return res
 
 
@@ -754,11 +777,11 @@ DECODE_VARIANTS = [(128, 16, 8, 64, 64, 100), (64, 8, 2, 16, 40, 37),
                    (128, 32, 4, 64, 512, 0)]
 
 
-def check_decode_variants(rng, dev, dtype, variants=DECODE_VARIANTS) -> float:
+def check_decode_variants(rng, dev, dtype, variants=DECODE_VARIANTS, cache=None) -> float:
     """K1 against its plain version with sliding windows, head_dim 64 and
     contexts up to 8,192 tokens, three launches in a row (the split
-    counters must re-arm), on grid inputs within ``TOL`` -> the largest
-    max-abs error."""
+    counters must re-arm), on grid inputs within ``TOL`` (``cache``
+    "fp8_e4m3": on an e4m3 cache) -> the largest max-abs error."""
     worst = 0.0
     for d, hq, hkv, bs, nbmax, window in variants:
         lens = rng.integers(0, nbmax * bs + 1, 24)
@@ -771,20 +794,21 @@ def check_decode_variants(rng, dev, dtype, variants=DECODE_VARIANTS) -> float:
         slots = [bt[i, (n - 1) // bs] * bs + (n - 1) % bs if n else 0
                  for i, n in enumerate(lens)]
         g = torch.Generator(device=dev).manual_seed(4)
-        kc = grid_tensor(g, dev, (2, nb, hkv, bs, d), dtype)
-        vc = grid_values(g, dev, (2, nb, hkv, bs, d), dtype)
+        kc = grid_tensor(g, dev, (2, nb, hkv, bs, d), dtype, cache)
+        vc = grid_values(g, dev, (2, nb, hkv, bs, d), dtype, cache)
         q, kn = (grid_tensor(g, dev, (len(lens), h, d), dtype) for h in (hq, hkv))
         vn = grid_values(g, dev, (len(lens), hkv, d), dtype)
-        args = (1, i32(slots, dev), i32(bt, dev), i32(lens, dev), grid_scale(), window)
+        args = (1, i32(slots, dev), i32(bt, dev), i32(lens, dev), grid_scale(cache), window)
         kk, vk = kc.clone(), vc.clone()
         for _ in range(3):
             out = k1.paged_decode_attention_write(q, kn, vn, kk, vk, *args)
         kp, vp = kc.clone(), vc.clone()
         ref = k1.paged_decode_attention_write_plain(q, kn, vn, kp, vp, *args)
         sync()
-        what = f"K1 {dtype} d={d} hq={hq} hkv={hkv} bs={bs} ctx={nbmax * bs} window={window}"
+        what = (f"K1 {dtype} cache {cache or dtype} d={d} hq={hq} hkv={hkv} bs={bs} "
+                f"ctx={nbmax * bs} window={window}")
         err = check_close(out, ref, what)
-        assert torch.equal(kk, kp) and torch.equal(vk, vp), f"{what}: caches differ"
+        assert same_bytes(kk, kp) and same_bytes(vk, vp), f"{what}: caches differ"
         worst = max(worst, err)
     return worst
 
@@ -923,7 +947,8 @@ def check_prefill_shape(rng, dev, dtype, timed: bool, s: int, rows,
     res["shape"] = (f"{'one chunk' if single else f'P={p} chunks'} of S={s} (q_offset, "
                     f"ntok) {rows}, Hq {hq}, Hkv {hkv}, D {d}, bs {BS}"
                     + (f", window {window}" if window else ""))
-    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops)
+    res["bound_ms"], res["bound_by"] = bound_ms(
+        nbytes, flops, PEAK_F32 if dtype == torch.float32 else PEAK_BF16)
     return res
 
 
@@ -1195,13 +1220,16 @@ def check_gmm(dev, g, model: str, spec: dict | None = None) -> tuple[list[dict],
     return results, worst_f32
 
 
-def check_gmm_fp8(dev, g, model: str) -> list[dict]:
+def check_gmm_fp8(dev, g, model: str, spec: dict | None = None) -> list[dict]:
     """K10 with fp8 expert stacks (float8_e4m3fn, quantized per (expert,
     channel) as the model stores them) at ``model``'s served shapes: bf16
     lhs timed, f32 lhs checked, both against the plain version. Yardstick:
     the weights upcast to bf16, then ``torch._grouped_mm`` (one upcast and
-    one grouped GEMM). Bound: the bytes with the weights at one byte."""
-    spec = GMM_MODELS[model]
+    one grouped GEMM). Bound: the bytes with the weights at one byte.
+    ``spec``: the model's experts, top-k and weights when ``GMM_MODELS``
+    has no entry."""
+    known = spec is None
+    spec = spec or GMM_MODELS[model]
     e, topk, weights = spec["experts"], spec["topk"], spec["weights"]
     w = moe_weights(dev, g, spec)
     w8 = {name: quantize_fp8(w[name])[0] for name in weights}
@@ -1241,7 +1269,8 @@ def check_gmm_fp8(dev, g, model: str) -> list[dict]:
             res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 2.0 * m * k * n)
             results.append(res)
     # ... and the e4m3-rhs ones (128-row tiles at the 512-token chunks)
-    assert {r["instance"] for r in results} == set(GMM_BF16_INSTANCES), results
+    if known:
+        assert {r["instance"] for r in results} == set(GMM_BF16_INSTANCES), results
     return results
 
 
@@ -3238,7 +3267,9 @@ def phase_engine(model_kw=QWEN3_1P7B, num_blocks: int = 1024,
     if eng.hybrid:  # attention in one layer of each full_attention_interval
         layers //= cfg.model.full_attention_interval
     mla = cfg.model.kv_lora_rank > 0
-    projections = sum(1 for n, _ in eng.runner.model.named_parameters()
+    # a hybrid model's ``*_proj_w`` are stacks [G, I, K, N] (a projection a layer)
+    projections = sum(math.prod(p.shape[:-2]) if eng.hybrid else 1
+                      for n, p in eng.runner.model.named_parameters()
                       if n.endswith("_proj_w"))
 
     def want(kind, rows):
@@ -4150,6 +4181,19 @@ def phase_spec_engines() -> dict:
 NEAR_TIE_REL = 2.0 ** -7
 
 
+def assert_near_ties(tag: str, got: dict, cmp: dict) -> None:
+    """Card and CPU greedy tokens (``got``) agree, or where they part a
+    pass with the same inputs on both devices picked another argmax, each
+    device's margin within ``NEAR_TIE_REL`` of the scale there (``cmp``:
+    ``compare_traces``)."""
+    if got["cuda"] != got["cpu"]:
+        assert cmp["flips"], (
+            f"{tag}: tokens differ, but no pass with the same inputs picked another")
+        tie = NEAR_TIE_REL * cmp["scale"]
+        for f in cmp["flips"]:
+            assert max(f["margin_card"], f["margin_cpu"]) <= tie, f"{tag}: not a near-tie: {f}"
+
+
 def check_spec_near_tie(tag: str, on: dict, on_cmp: dict, off: dict, off_cmp: dict) -> None:
     """A quantized parity model served by a spec engine and its spec-off
     twin on the card and the CPU (``phase_parity``'s ``traced``). Its
@@ -4171,15 +4215,37 @@ def check_spec_near_tie(tag: str, on: dict, on_cmp: dict, off: dict, off_cmp: di
         f"{tag}: verify logits differ by {verify} across devices, spec-off's by {worst_off}")
     flips = on_cmp["flips"]
     div = first_divergence(on["cuda"], on["cpu"])
-    if on["cuda"] != on["cpu"]:
-        assert flips, f"{tag}: tokens differ, but no pass with the same inputs picked another"
-        tie = NEAR_TIE_REL * on_cmp["scale"]
-        for f in flips:
-            assert max(f["margin_card"], f["margin_cpu"]) <= tie, f"{tag}: not a near-tie: {f}"
+    assert_near_ties(tag, on, on_cmp)
     log(f"[spec-parity] {tag}: card vs CPU first divergence per request {div}; logits across "
         f"devices differ by {on_cmp['max_abs_diff']} (spec-off {off_cmp['max_abs_diff']}), "
         f"scale {on_cmp['scale']:.4f}; rows picking another argmax (margins: card's pick over "
         f"the CPU's on the card, and the reverse on the CPU) {flips}")
+
+
+# a w8a8 parity model's logits across the devices differ by ~1% of their
+# scale (``check_spec_near_tie``); at most this share of it
+W8A8_LOGIT_REL = 2.0 ** -5
+
+
+def check_parity_near_tie(tag: str, got: dict, cmp: dict) -> dict:
+    """Card vs CPU greedy tokens of a parity model with int8 weights under
+    ``XLLM_QMM_KERNEL=pallas`` (``phase_parity``'s ``traced``): K5
+    quantizes each activation row to int8, so an f32 difference in the
+    order of sums moves a code by a step now and then, with no kernel at
+    fault (K5 is bit-equal to its plain version on the same inputs). So:
+    the passes with the same inputs on both devices differ by at most
+    ``W8A8_LOGIT_REL`` of the logits' scale, and the tokens agree up to
+    near-ties (``assert_near_ties``) -> the comparison, with the first
+    divergence per request."""
+    worst = max(cmp["max_abs_diff"].values())
+    assert worst <= W8A8_LOGIT_REL * cmp["scale"], (
+        f"{tag}: logits differ by {worst} across devices, scale {cmp['scale']}")
+    assert_near_ties(tag, got, cmp)
+    res = dict(cmp, first_divergence=first_divergence(got["cuda"], got["cpu"]))
+    log(f"[parity] {tag}: card vs CPU first divergence per request {res['first_divergence']}; "
+        f"logits across devices differ by {cmp['max_abs_diff']}, scale {cmp['scale']:.4f}; "
+        f"rows picking another argmax (margins) {cmp['flips']}")
+    return res
 
 
 def phase_spec_parity() -> None:
@@ -5530,49 +5596,167 @@ NEXT_DECODE_VARIANTS = [(256, 16, 2, 64, 64, 0), (256, 16, 2, 16, 40, 37),
                         (256, 16, 2, 64, 128, 0)]
 
 
-def check_next_kernels(rng, dev) -> dict:
+def check_next_kernels(rng, dev, cache=None) -> dict:
     """K1, K3, K2 and K4 at Qwen3-Next's full-attention heads (Hq 16 / Hkv
     2 / D 256, block_size 64) and K10 at its 512 experts, top-10: each held
     to its plain version on the card (bf16 timed, f32 checked; K1 and K3
-    also on grid inputs within ``TOL``) -> {name: result}."""
+    also on grid inputs within ``TOL``). ``cache`` "fp8_e4m3": the e4m3
+    instances of K1-K4 (``QUANT_TOL`` on random inputs, the writers
+    byte-equal with e4m3 edge values; K1 and K3 with f32 q timed too) and
+    K10 with fp8 expert stacks -> {name: result}."""
     bf, f32 = torch.bfloat16, torch.float32
+    times = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape")
     out = {}
-    res = check_decode(rng, dev, bf, True, **NEXT_HEADS)
-    res["max_abs_err_f32"] = check_decode(rng, dev, f32, False, **NEXT_HEADS)["max_abs_err"]
-    res["max_abs_err_grid"] = max(check_decode_variants(rng, dev, dt, NEXT_DECODE_VARIANTS)
-                                  for dt in (bf, f32))
+    res = check_decode(rng, dev, bf, True, cache=cache, **NEXT_HEADS)
+    r32 = check_decode(rng, dev, f32, cache is not None, cache=cache, **NEXT_HEADS)
+    res["max_abs_err_f32"] = r32["max_abs_err"]
+    if cache is not None:  # the f32-q instance, timed too
+        res["f32"] = {k: r32[k] for k in times}
+    res["max_abs_err_grid"] = max(
+        check_decode_variants(rng, dev, dt, NEXT_DECODE_VARIANTS, cache=cache)
+        for dt in (bf, f32))
     out[k1.NAME] = res
     hq, hkv, d = NEXT_HEADS["hq"], NEXT_HEADS["hkv"], NEXT_HEADS["d"]
-    shapes = [check_prefill_shape(rng, dev, bf, True, s, rows, hq=hq, hkv=hkv, d=d)
+    shapes = [check_prefill_shape(rng, dev, bf, True, s, rows, hq=hq, hkv=hkv, d=d,
+                                  cache=cache)
               for s, rows in K3_SHAPES.items()]
     res = dict(shapes[0], by_shape=shapes)
     res["max_abs_err"] = max(r["max_abs_err"] for r in shapes)
-    res["max_abs_err_f32"] = max(
-        check_prefill_shape(rng, dev, f32, False, s, rows, hq=hq, hkv=hkv, d=d)["max_abs_err"]
-        for s, rows in K3_SHAPES.items())
+    r32 = [check_prefill_shape(rng, dev, f32, cache is not None, s, rows, hq=hq, hkv=hkv,
+                               d=d, cache=cache)
+           for s, rows in K3_SHAPES.items()]
+    res["max_abs_err_f32"] = max(r["max_abs_err"] for r in r32)
+    if cache is not None:
+        res["f32_by_shape"] = [{k: r[k] for k in times} for r in r32]
     res["max_abs_err_grid"] = max(
         check_prefill_shape(rng, dev, dt, False, s, rows, hq=hq, hkv=hkv, d=d, grid=True,
-                            window=w)["max_abs_err"]
+                            window=w, cache=cache)["max_abs_err"]
         for dt in (bf, f32) for s, rows, w in ((2048, K3_SHAPES[2048], 0),
                                                (64, K3_SHAPES[64], 0),
                                                (PREFILL_S, PREFILL_ROWS, 100)))
     out[k3.NAME] = res
     for rmw, name in ((False, k24.PREFILL_NAME), (True, k24.RMW_NAME)):
-        res = check_writer(rng, dev, bf, True, rmw, hkv=hkv, d=d)
-        res["max_abs_err_f32"] = check_writer(rng, dev, f32, False, rmw, hkv=hkv,
-                                              d=d)["max_abs_err"]
+        res = check_writer(rng, dev, bf, True, rmw, cache=cache, hkv=hkv, d=d)
+        res["max_abs_err_f32"] = check_writer(rng, dev, f32, False, rmw, cache=cache,
+                                              hkv=hkv, d=d)["max_abs_err"]
         out[name] = res
     g = torch.Generator(device=dev).manual_seed(23)
-    shapes, worst_f32 = check_gmm(dev, g, "Qwen3-Next-80B-A3B", NEXT_GMM)
+    if cache is None:
+        shapes, worst_f32 = check_gmm(dev, g, "Qwen3-Next-80B-A3B", NEXT_GMM)
+    else:
+        shapes = check_gmm_fp8(dev, g, "Qwen3-Next-80B-A3B", NEXT_GMM)
+        worst_f32 = max(r["max_abs_err_f32"] for r in shapes)
     res = dict(shapes[0], by_shape=shapes, max_abs_err_f32=worst_f32)
     res["max_abs_err"] = max(r["max_abs_err"] for r in shapes)
     out[k10.NAME] = res
     for name, r in out.items():
-        log(f"[qwen3_next] {name} at {r['shape']}: max abs err {r['max_abs_err']:.3g} "
-            f"(f32 {r['max_abs_err_f32']:.3g}), {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-            f"ms, library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
+        log(f"[qwen3_next] {name} ({cache or 'bf16'} cache / experts) at {r['shape']}: max "
+            f"abs err {r['max_abs_err']:.3g} (f32 {r['max_abs_err_f32']:.3g}), "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
+            f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return out
+
+
+# One GatedDeltaNet layer at Qwen3-Next's width over one sequence of 4,096
+# tokens from a zero state. The recurrence contracts (exp(g) < 1, and the
+# delta rule's I - beta k k^T with a unit k and beta in (0, 1)), so a
+# rounding error of one token does not grow along the sequence: the card's
+# f32 layer, whose products and sums run in another order than the CPU's,
+# stays within GDN_DRIFT_TOL of each token's largest output magnitude, for
+# the recurrence's output and for the layer's (its residual taken out).
+GDN_TOKENS = 4096
+GDN_DRIFT_TOL = 1e-4
+# the bf16 recurrence's error against f32 over the 64 tokens up to each mark
+GDN_MARKS = (64, 512, 4096)
+GDN_WINDOW = 64
+
+
+def gdn_layer_run(model, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Layer (0, 0) of ``model`` (a one-group ``Qwen3NextModel``) over the
+    rows ``x`` [T, D] as one sequence from a zero state -> (the recurrence's
+    output [T, Hv, Dv] f32, the layer's output minus its input [T, D] f32)."""
+    from xllm_tpu_torch.models import qwen3_next as qn
+
+    dev = x.device
+    conv = torch.zeros(2, model.conv_dim, model.conv_k - 1, device=dev)
+    rec = torch.zeros(2, model.hv, model.dk_lin, model.dv_lin, device=dev)
+    seen = []
+    scan = qn.gdn_scan
+
+    def kept(*a, **k):
+        res = scan(*a, **k)
+        seen.append(res[0])
+        return res
+
+    qn.gdn_scan = kept
+    try:
+        with torch.no_grad():
+            y = model._lin_layer(qn._Slice(model.groups, (0, 0)), x, (1, x.shape[0]),
+                                 torch.zeros(1, dtype=torch.long, device=dev),
+                                 torch.ones(1, dtype=torch.bool, device=dev),
+                                 torch.full((1,), x.shape[0], dtype=torch.int32, device=dev),
+                                 conv, rec)
+    finally:
+        qn.gdn_scan = scan
+    return seen[0][0].float(), y.float() - x.float()
+
+
+def check_gdn_drift(dev) -> dict:
+    """The GatedDeltaNet layer of ``GDN_TOKENS`` tokens (see above): the
+    card's f32 outputs against the CPU's within ``GDN_DRIFT_TOL`` at every
+    token; the bf16 layer's recurrence output against the card's f32 at
+    ``GDN_MARKS`` (the relative rms error over the ``GDN_WINDOW`` tokens up
+    to each) reported, not gated (the bf16 layer's own output is left out:
+    its residual add rounds x to bf16, an error larger than the layer's
+    contribution). Weights: the JAX init rule, with ``lin_A_log`` log
+    U(0.01, 16) as the HF model draws A (heads of long and short memory).
+    -> {errors, seconds}."""
+    from xllm_tpu_torch.models.qwen3_next import Qwen3NextModel
+
+    t0 = time.perf_counter()
+    kw = dict(QWEN3_NEXT, num_hidden_layers=QWEN3_NEXT["full_attention_interval"],
+              num_experts=0, intermediate_size=64, vocab_size=256)
+    cpu = Qwen3NextModel(ModelConfig(**dict(kw, dtype="float32")), device="cpu")
+    cpu.init_random_(11)
+    a = np.random.default_rng(11).uniform(0.01, 16.0, cpu.groups.lin_A_log.shape)
+    cpu.groups.lin_A_log.data.copy_(torch.from_numpy(np.log(a)).float())
+    state = cpu.state_dict()
+    x = torch.randn(GDN_TOKENS, kw["hidden_size"], generator=torch.Generator().manual_seed(12))
+    want = gdn_layer_run(cpu, x)
+    t_cpu = time.perf_counter() - t0
+    got = {}
+    for dtype in ("float32", "bfloat16"):
+        m = Qwen3NextModel(ModelConfig(**dict(kw, dtype=dtype)), device=dev)
+        m.load_state_dict(state)
+        t1 = time.perf_counter()
+        got[dtype] = [t.cpu() for t in gdn_layer_run(m, x.to(dev, m.dtype))]
+        sync()
+        got[dtype + "_s"] = time.perf_counter() - t1
+        del m
+    res = {"tokens": GDN_TOKENS, "cpu_s": t_cpu, "card_f32_s": got["float32_s"],
+           "card_bf16_s": got["bfloat16_s"]}
+
+    def rel(a, b):  # per token: max |a - b| / max |b| -> [T]
+        dims = tuple(range(1, b.dim()))
+        return (a - b).abs().amax(dims) / b.abs().amax(dims).clamp_min(1e-30)
+
+    for i, what in enumerate(("scan", "layer")):
+        r = rel(got["float32"][i], want[i])
+        worst = float(r.max())
+        assert worst <= GDN_DRIFT_TOL, (
+            f"GDN {what}: card f32 vs CPU f32 {worst:.3g} of the output scale at token "
+            f"{int(r.argmax()) + 1} (bound {GDN_DRIFT_TOL:g})")
+        res[f"{what}_f32_card_vs_cpu_max"] = worst
+        res[f"{what}_f32_card_vs_cpu_at"] = {t: float(r[t - 1]) for t in GDN_MARKS}
+    a, b = got["bfloat16"][0], got["float32"][0]
+    res["scan_bf16_vs_f32_rms_at"] = {
+        t: float((a[t - GDN_WINDOW:t] - b[t - GDN_WINDOW:t]).norm()
+                 / b[t - GDN_WINDOW:t].norm()) for t in GDN_MARKS}
+    res["scan_bf16_vs_f32_max_at"] = {t: float(rel(a, b)[t - 1]) for t in GDN_MARKS}
+    log(f"[qwen3_next] GDN layer at Qwen3-Next's width over {GDN_TOKENS} tokens: card f32 "
+        f"vs CPU f32 within {GDN_DRIFT_TOL:g} of each token's scale ({res}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    return res
 
 
 def next_server_completion(eng: LLMEngine, rng) -> dict:
@@ -5602,35 +5786,66 @@ def next_server_completion(eng: LLMEngine, rng) -> dict:
     return {"launches": launches, "wall_s": wall}
 
 
-def phase_qwen3_next(dev) -> dict:
-    """Qwen3-Next on the card: its kernels (``check_next_kernels``), the
-    8-layer engine at full width serving 16 greedy requests x 32 tokens
-    (``phase_engine``: K1 and K3 once a pass for each full-attention layer,
-    one of K2 / K4 once a prefill pass for each, K10 twice a pass for each
-    layer), one completion through the server, and card = CPU greedy tokens
-    on the f32 head_dim-256 parity model."""
-    kern = check_next_kernels(np.random.default_rng(23), dev)
-    free_device_memory()
+def next_engine(tag: str, seed: int, quant: str = "", kv_cache_dtype: str = "auto") -> dict:
+    """Build the ``QWEN3_NEXT`` engine (``quant`` weights, a
+    ``kv_cache_dtype`` cache), serve 16 greedy requests x 32 tokens through
+    ``phase_engine`` (under fp8 weights every pass also launches K6 once a
+    quantized projection) and one completion through the server, then free
+    it -> {"run": (launches, info), "server": ...}."""
     t0 = time.perf_counter()
-    eng = LLMEngine(engine_config(QWEN3_NEXT, num_blocks=1024), device="cuda")
+    eng = LLMEngine(engine_config(QWEN3_NEXT, num_blocks=1024, quant=quant,
+                                  kv_cache_dtype=kv_cache_dtype), device="cuda")
     sync()
-    log(f"[qwen3-next-engine] {QWEN3_NEXT['num_hidden_layers']} layers at Qwen3-Next-80B-"
-        f"A3B's width, random bf16 weights, 1024 KV blocks: built in "
-        f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
-        "allocated")
-    launches, info = phase_engine(QWEN3_NEXT, engine=eng, tag="qwen3-next-engine", seed=5)
-    server = next_server_completion(eng, np.random.default_rng(6))
+    log(f"[{tag}] {QWEN3_NEXT['num_hidden_layers']} layers at Qwen3-Next-80B-A3B's width, "
+        f"random {quant or 'bf16'} weights, {kv_cache_dtype} KV cache of 1024 blocks: built "
+        f"in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    run = phase_engine(QWEN3_NEXT, engine=eng, tag=tag, seed=seed, quant=quant,
+                       kv_cache_dtype=kv_cache_dtype,
+                       qmm_name=qmm.FP8_NAME if quant == "fp8_e4m3" else "")
+    server = next_server_completion(eng, np.random.default_rng(seed + 1))
     del eng
     free_device_memory()
+    return {"run": run, "server": server}
+
+
+def phase_qwen3_next(dev) -> dict:
+    """Qwen3-Next on the card: its kernels on bf16 and e4m3 caches
+    (``check_next_kernels``), the GatedDeltaNet layer over 4,096 tokens
+    (``check_gdn_drift``), the 8-layer engine at full width with bf16
+    weights and again with fp8 weights and an fp8 KV cache under
+    ``XLLM_QMM_KERNEL=pallas`` (``next_engine``: K1, or K3 and one of K2 /
+    K4, once a pass for each full-attention layer, K10 twice a pass for
+    each layer, K6 once for each quantized projection), and card = CPU
+    greedy tokens on the f32 head_dim-256 parity model with an f32 and an
+    fp8 KV cache, the latter also with int8 weights (the dequant default)
+    and fp8 weights (K6); with int8 weights through K5 (w8a8) the tokens
+    agree up to near-ties (``check_parity_near_tie``)."""
+    kern = check_next_kernels(np.random.default_rng(23), dev)
+    fp8_kern = check_next_kernels(np.random.default_rng(24), dev, cache="fp8_e4m3")
+    drift = check_gdn_drift(dev)
+    free_device_memory()
+    out = {"kernels": kern, "fp8_kernels": fp8_kern, "gdn_drift": drift}
+    out.update(next_engine("qwen3-next-engine", 5))
+    with environ(XLLM_QMM_KERNEL="pallas"):
+        out["fp8"] = next_engine("qwen3-next-fp8-engine", 7, "fp8_e4m3", "fp8_e4m3")
     phase_parity("qwen3_next", PARITY_QWEN3_NEXT)
-    return {"kernels": kern, "run": (launches, info), "server": server}
+    fp8_kv = dict(kv_cache_dtype="fp8_e4m3")
+    phase_parity("qwen3_next", PARITY_QWEN3_NEXT, **fp8_kv)
+    phase_parity("qwen3_next", PARITY_QWEN3_NEXT, quant="int8", **fp8_kv)  # dequant default
+    with environ(XLLM_QMM_KERNEL="pallas"):
+        phase_parity("qwen3_next", PARITY_QWEN3_NEXT, quant="fp8_e4m3", **fp8_kv)
+        cmp: dict = {}
+        got = phase_parity("qwen3_next", PARITY_QWEN3_NEXT, quant="int8", traced=cmp, **fp8_kv)
+    out["w8a8_parity"] = check_parity_near_tie("qwen3_next int8 weights (K5), fp8 KV", got, cmp)
+    return out
 
 
 def qwen3_next_rows(nxt: dict, keys) -> list[dict]:
     """The kernels line's rows of this family's instances: K1, K3, K2 and
-    K4 at head_dim 256, K10 at 512 experts; times from
-    ``check_next_kernels``, launches from the qwen3-next engine's run
-    (counters zeroed just before it)."""
+    K4 at head_dim 256 on bf16 and e4m3 caches, K10 at 512 experts with
+    bf16 and fp8 expert stacks; times from ``check_next_kernels``, launches
+    from the bf16 and fp8 engines' runs (counters zeroed just before each)."""
     meta = {
         k1.NAME: (k1.TPU_KERNEL, "decode_attention.cu", "head_dim 256"),
         k3.NAME: (k3.TPU_KERNEL, "prefill_attention.cu", "head_dim 256"),
@@ -5638,34 +5853,41 @@ def qwen3_next_rows(nxt: dict, keys) -> list[dict]:
         k24.RMW_NAME: (k24.RMW_TPU_KERNEL, "kv_write.cu", "head_dim 256"),
         k10.NAME: (k10.TPU_KERNEL, "gmm.cu", "512 experts"),
     }
-    launches, info = nxt["run"]
     rows = []
-    for name, res in nxt["kernels"].items():
-        tpu, src, inst = meta[name]
-        where, func = tpu.split()
-        per = info["per_pass"][name]
-        row = {
-            "name": f"{name} ({inst})",
-            "route": "cuda",
-            "source": f"xllm_tpu_torch/csrc/{src}",
-            "replaces": where,
-            "tpu_counterpart": func,
-            "launches": launches[name],
-            "launches_engine": "qwen3_next (Qwen3-Next-80B-A3B width, 8 layers)",
-            "launches_per_step": per["launches_per_step"],
-            "passes": per["passes"],
-            "by_kind": per["by_kind"],
-            "launches_server": nxt["server"]["launches"].get(name, 0),
-            **{k: res[k] for k in ("max_abs_err", "max_abs_err_f32", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms", "shape")},
-            "library": ("SDPA" if "attention" in name else
-                        "torch._grouped_mm" if name == k10.NAME else "index assign"),
-        }
-        if "max_abs_err_grid" in res:
-            row["max_abs_err_grid"] = res["max_abs_err_grid"]
-        if "by_shape" in res:
-            row["by_shape"] = [{k: r[k] for k in keys if k in r} for r in res["by_shape"]]
-        rows.append(row)
+    for kern, engine, fp8 in ((nxt["kernels"], nxt, False),
+                              (nxt["fp8_kernels"], nxt["fp8"], True)):
+        launches, info = engine["run"]
+        for name, res in kern.items():
+            tpu, src, inst = meta[name]
+            if fp8:
+                inst += ", fp8 rhs" if name == k10.NAME else ", e4m3 cache"
+            where, func = tpu.split()
+            per = info["per_pass"][name]
+            row = {
+                "name": f"{name} ({inst})",
+                "route": "cuda",
+                "source": f"xllm_tpu_torch/csrc/{src}",
+                "replaces": where,
+                "tpu_counterpart": func,
+                "launches": launches[name],
+                "launches_engine": ("qwen3_next (Qwen3-Next-80B-A3B width, 8 layers"
+                                    + (", fp8 weights + fp8 KV)" if fp8 else ")")),
+                "launches_per_step": per["launches_per_step"],
+                "passes": per["passes"],
+                "by_kind": per["by_kind"],
+                "launches_server": engine["server"]["launches"].get(name, 0),
+                **{k: res[k] for k in ("max_abs_err", "max_abs_err_f32", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms", "shape")},
+                "library": ("SDPA" if "attention" in name else
+                            ("rhs.to(bfloat16) + " if fp8 else "") + "torch._grouped_mm"
+                            if name == k10.NAME else "index assign"),
+            }
+            for k in ("max_abs_err_grid", "f32", "f32_by_shape"):
+                if k in res:
+                    row[k] = res[k]
+            if "by_shape" in res:
+                row["by_shape"] = [{k: r[k] for k in keys if k in r} for r in res["by_shape"]]
+            rows.append(row)
     return rows
 
 

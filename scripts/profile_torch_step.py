@@ -3,7 +3,7 @@
 
     python3 scripts/profile_torch_step.py
         [--model qwen3-1.7b|qwen3-30b-a3b|deepseek-v2-lite|qwen3-8b|qwen3-8b-int8|qwen3-8b-fp8
-                 |qwen3-30b-a3b-fp8|deepseek-v2-lite-fp8|qwen3-next]
+                 |qwen3-30b-a3b-fp8|deepseek-v2-lite-fp8|qwen3-next|qwen3-next-fp8]
         [--prompt-len 512] [--steps 16]
         [--kv-layout split|interleaved|interleaved_rm[,...]]
         [--qmm default,pallas] [--bf16-mm default|pallas] [--requests 16]
@@ -14,7 +14,9 @@ MLA layers with 64 experts; Qwen3-8B, 36 layers, with bf16 weights, or
 int8 weights and an int8 KV cache, or fp8 weights and an fp8 KV cache;
 Qwen3-30B-A3B with fp8 weights, experts included, and an fp8 KV cache;
 DeepSeek-V2-Lite with fp8 weights and an fp8 latent cache; Qwen3-Next-80B-A3B's
-width at 8 layers, 6 of them GatedDeltaNet; random weights) through
+width at 8 layers, 6 of them GatedDeltaNet, with bf16 weights, or fp8
+weights (the shared experts' projections and the routed experts) and an
+fp8 KV cache; random weights) through
 ``xllm_tpu_torch.engine.LLMEngine`` on the card.
 A quantized model runs twice, one engine after the other in one process:
 with the dequant default, then with ``XLLM_QMM_KERNEL=pallas`` (K5 / K6);
@@ -43,9 +45,10 @@ union of the kernel and copy intervals on the trace), the device idle
 share, and the device time per step by kernel group: the port's
 hand-written kernels by name, GEMMs, and everything else. The last line
 of the output is one JSON object with those numbers (by variant) and the
-card's name and power limit. For qwen3-next each window also reports the
-GatedDeltaNet layers' share (``gdn``): the device and host time per step
-inside ``Qwen3NextModel._lin_layer`` (a whole GDN layer but its MLP) and
+card's name and power limit. For qwen3-next (and its fp8 twin) each
+window also reports the GatedDeltaNet layers' share (``gdn``): the device
+and host time per step inside ``Qwen3NextModel._lin_layer`` (a whole GDN
+layer but its MLP) and
 inside its recurrence ``ops/gdn.gdn_scan``, and the kernel launches a step
 of each, from ``record_function`` ranges this script wraps around them. Needs one CUDA card and nvcc; imports
 neither jax nor ``xllm_tpu``.
@@ -106,6 +109,7 @@ MODELS = {
     "qwen3-30b-a3b-fp8": (chip_smoke.QWEN3_30B_A3B, 512, "fp8_e4m3", "fp8_e4m3"),
     "deepseek-v2-lite-fp8": (chip_smoke.DEEPSEEK_V2_LITE, 512, "fp8_e4m3", "fp8_e4m3"),
     "qwen3-next": (chip_smoke.QWEN3_NEXT, 1024, "", "auto"),
+    "qwen3-next-fp8": (chip_smoke.QWEN3_NEXT, 1024, "fp8_e4m3", "fp8_e4m3"),
 }
 # the ranges the GDN share is read from (``ranged``)
 GDN_RANGES = ("gdn_layer", "gdn_scan")

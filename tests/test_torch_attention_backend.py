@@ -41,6 +41,7 @@ from xllm_tpu.ops import mla as jmla
 from xllm_tpu_torch.ops import attention as tattention
 from xllm_tpu_torch.ops import mla as tmla
 from xllm_tpu_torch.ops.cuda import _build
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 

@@ -24,6 +24,7 @@ import xxhash
 from xllm_tpu.framework import block_manager as jbm
 from xllm_tpu_torch.framework import block_manager as bm
 from xllm_tpu_torch.utils.xxh64 import xxh64
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 IMPLS = {"xxhash": bm._xxh64, "stdlib": bm._xxh64_stdlib}

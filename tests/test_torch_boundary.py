@@ -30,6 +30,7 @@ from xllm_tpu_torch.framework.sampling_params import SamplingParams
 from xllm_tpu_torch.llm import LLM
 from xllm_tpu_torch.ops.cuda import _build
 from xllm_tpu_torch.runtime.model_runner import ModelRunner
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

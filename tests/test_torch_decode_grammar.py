@@ -54,6 +54,7 @@ from xllm_tpu_torch.ops.cuda import _build
 from xllm_tpu_torch.ops.cuda import decode_attention as tdecode
 from xllm_tpu_torch.runtime.model_runner import ModelRunner as TRunner
 from xllm_tpu_torch.weights import random_param_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 

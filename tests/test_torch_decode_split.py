@@ -29,6 +29,7 @@ from xllm_tpu.ops.pallas import decode_attention as jdecode
 from xllm_tpu.ops.pallas.legacy import decode_attention as jlegacy
 from xllm_tpu_torch.ops import attention as tattention
 from xllm_tpu_torch.ops.cuda import decode_attention as tdecode
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 

@@ -49,6 +49,7 @@ from xllm_tpu_torch.runtime.model_runner import ModelRunner as TRunner
 from xllm_tpu_torch.scheduler.profile import ProfileManager as TProfile
 from xllm_tpu_torch.server import http as tweb
 from xllm_tpu_torch.weights import random_param_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 J = SimpleNamespace(name="jax", cfg=jcfg, pd=jpd, ooc=jooc, SP=JSP, Profile=JProfile)
 T = SimpleNamespace(name="port", cfg=tcfg, pd=tpd, ooc=tooc, SP=TSP, Profile=TProfile)

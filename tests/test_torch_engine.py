@@ -21,6 +21,7 @@ from xllm_tpu.runtime.model_runner import ModelRunner as JRunner
 from xllm_tpu_torch.framework.sampling_params import SamplingParams as TSP
 from xllm_tpu_torch.llm import LLM
 from xllm_tpu_torch.weights import random_param_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def tiny_config(c):

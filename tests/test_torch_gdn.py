@@ -19,6 +19,7 @@ import torch
 
 from xllm_tpu.ops import gdn as jgdn
 from xllm_tpu_torch.ops import gdn as tgdn
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 

@@ -33,6 +33,7 @@ import torch
 
 from xllm_tpu.ops.pallas.gmm import gmm as pallas_gmm
 from xllm_tpu_torch.ops.cuda import gmm as k10
+from torch_threads import one_torch_thread  # noqa: F401
 
 K, N, TN = 32, 192, 64  # N 192: one full and one part 128-column tile
 MODELS = {"Qwen3-30B-A3B": (128, 8), "DeepSeek-V2-Lite": (64, 6)}  # experts, top-k

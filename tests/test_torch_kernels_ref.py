@@ -33,6 +33,7 @@ from xllm_tpu_torch.ops.cuda.kv_write import (
 from xllm_tpu_torch.ops.cuda.prefill_attention import (
     paged_attention_prefill_batched_plain,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 L, BS, D = 2, 16, 64
 TOL = 1e-5  # f32 on both sides; summation order only

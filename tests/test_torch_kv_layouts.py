@@ -41,6 +41,7 @@ from xllm_tpu_torch.ops.cuda import kv_write as tkv
 from xllm_tpu_torch.ops.cuda import prefill_attention as tprefill
 from xllm_tpu_torch.runtime.model_runner import ModelRunner as TRunner
 from xllm_tpu_torch.weights import random_param_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 

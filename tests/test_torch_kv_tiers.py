@@ -48,6 +48,7 @@ from xllm_tpu_torch.framework.sampling_params import SamplingParams as TSP
 from xllm_tpu_torch.runtime.model_runner import ModelRunner as TRunner
 from xllm_tpu_torch.server import http as tweb
 from xllm_tpu_torch.weights import random_param_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 PKGS = {"jax": (jcfg, JEngine, JSP), "port": (tcfg, TEngine, TSP)}
 

@@ -73,6 +73,7 @@ from xllm_tpu_torch.models.mtp_head import MTPHead
 from xllm_tpu_torch.models.registry import create_model as tcreate
 from xllm_tpu_torch.runtime.model_runner import ModelRunner as TRunner
 from xllm_tpu_torch.weights import load_param_tree, random_param_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 DTYPES = {"f32": (jnp.float32, torch.float32, "float32"),
           "bf16": (jnp.bfloat16, torch.bfloat16, "bfloat16")}

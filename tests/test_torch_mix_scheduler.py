@@ -45,6 +45,7 @@ from xllm_tpu_torch.runtime.model_runner import ModelRunner as TRunner
 from xllm_tpu_torch.scheduler.mix import MixScheduler as TMix
 from xllm_tpu_torch.scheduler.profile import ProfileManager as TPM
 from xllm_tpu_torch.weights import random_param_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 PKGS = {
     "jax": types.SimpleNamespace(cfg=jcfg, req=jreq, BM=JBM, Mix=JMix, PM=JPM, SP=JSP),

@@ -58,6 +58,7 @@ from xllm_tpu_torch.ops.cuda import kv_write as kw
 from xllm_tpu_torch.ops.cuda import mla_attention as ka
 from xllm_tpu_torch.runtime import forward_params as tfp
 from xllm_tpu_torch.weights import load_param_tree, random_param_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -33,6 +33,7 @@ from test_torch_p_rounding import (ATOL, BF16_RTOL, QUANT_ATOL, _assert_within, 
 from xllm_tpu.ops.pallas import mla_attention as jmla
 from xllm_tpu_torch.ops.cuda import kv_write as tkv
 from xllm_tpu_torch.ops.cuda import mla_attention as tmla
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 

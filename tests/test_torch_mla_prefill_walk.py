@@ -37,6 +37,7 @@ import torch
 from test_torch_p_rounding import _assert_within, _grid, _pair
 from xllm_tpu.ops.pallas import mla_attention as jmla
 from xllm_tpu_torch.ops.cuda import mla_attention as ka
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 

@@ -22,6 +22,7 @@ from xllm_tpu_torch.config import ModelConfig as TModelConfig
 from xllm_tpu_torch.models.decoder import DenseDecoderModel as TModel
 from xllm_tpu_torch.runtime import forward_params as tfp
 from xllm_tpu_torch.weights import load_param_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 BS, NB, NBMAX = 4, 32, 8
 MODEL_KW = dict(

@@ -45,6 +45,7 @@ from xllm_tpu_torch.ops import rope as trope
 from xllm_tpu_torch.ops.cuda.gmm import gmm, gmm_plain, plan
 from xllm_tpu_torch.runtime import forward_params as tfp
 from xllm_tpu_torch.weights import load_param_tree, random_param_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -27,6 +27,7 @@ import torch
 import xllm_tpu.config as jcfg
 import xllm_tpu_torch.config as tcfg
 from test_torch_spec import MODELS, mtp_prompts, run_pairs, spec_config
+from torch_threads import one_torch_thread  # noqa: F401
 from xllm_tpu.framework.request import Sequence as JSeq
 from xllm_tpu.framework.request import StoppingChecker as JStop
 from xllm_tpu.framework.sampling_params import SamplingParams as JSP

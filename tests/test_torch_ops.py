@@ -24,6 +24,7 @@ from xllm_tpu_torch.ops import attention_ref as tref
 from xllm_tpu_torch.ops import kv_cache_ops as tkv
 from xllm_tpu_torch.ops import norms as tnorms
 from xllm_tpu_torch.ops import rope as trope
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 L, BS, D = 2, 16, 64

@@ -41,6 +41,7 @@ from xllm_tpu_torch.ops.cuda.prefill_attention import (
     paged_attention_prefill_batched_plain,
     paged_attention_prefill_plain,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 

@@ -23,6 +23,7 @@ from xllm_tpu.parser import function_call as jfc
 from xllm_tpu.parser import reasoning_parser as jrp
 from xllm_tpu_torch.parser import function_call as tfc
 from xllm_tpu_torch.parser import reasoning_parser as trp
+from torch_threads import one_torch_thread  # noqa: F401
 
 FORMATS = sorted(jfc._DETECTORS)
 

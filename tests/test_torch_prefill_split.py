@@ -25,6 +25,7 @@ from test_torch_p_rounding import _assert_within, _grid, _pair
 from xllm_tpu.ops.pallas import prefill_attention as jprefill
 from xllm_tpu_torch.ops.cuda import _build
 from xllm_tpu_torch.ops.cuda import prefill_attention as tprefill
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 

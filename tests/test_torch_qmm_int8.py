@@ -26,6 +26,7 @@ import xllm_tpu.ops.pallas.quant_matmul as jqmm
 from xllm_tpu.ops import quant as jquant
 from xllm_tpu_torch.ops.cuda import quant_matmul as tqmm
 from xllm_tpu_torch.weights import as_tensor
+from torch_threads import one_torch_thread  # noqa: F401
 
 # (projection, K, N) of each model's int8 linear layers
 PROJ = {

@@ -27,6 +27,7 @@ from xllm_tpu.ops import quant as jquant
 from xllm_tpu_torch.ops import quant as tquant
 from xllm_tpu_torch.ops.cuda import quant_matmul as tqmm
 from xllm_tpu_torch.weights import as_tensor
+from torch_threads import one_torch_thread  # noqa: F401
 
 KINDS = ("bf16", "fp8_e4m3")
 PROJ_1P7B = [("qkv", 2048, 4096), ("o", 2048, 2048), ("gate_up", 2048, 6144),

@@ -49,6 +49,7 @@ from xllm_tpu_torch.ops.cuda.kv_write import kv_write_prefill_batched, kv_write_
 from xllm_tpu_torch.ops.cuda.prefill_attention import paged_attention_prefill_batched_plain
 from xllm_tpu_torch.runtime.model_runner import ModelRunner as TRunner
 from xllm_tpu_torch.weights import as_tensor, random_param_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 F8 = jnp.float8_e4m3fn
 JQUANT = {"int8": jax.jit(jquant.quantize_int8), "fp8_e4m3": jax.jit(jquant.quantize_fp8)}

@@ -46,6 +46,7 @@ from xllm_tpu_torch.ops.cuda import mla_attention as tmla
 from xllm_tpu_torch.ops.cuda.gmm import gmm_plain
 from xllm_tpu_torch.runtime.model_runner import ModelRunner as TRunner
 from xllm_tpu_torch.weights import as_tensor, load_param_tree, random_param_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 

@@ -15,7 +15,8 @@ qwen3.5) against the JAX package's, on the CPU, from numpy seeds.
 - the plain versions of K1 and K3 at head_dim 256 (Hq 4 / Hkv 2,
   block_size 16) against the Pallas kernels in interpret mode, within
   PERF.md section 2's P-rounding tolerance on grid inputs;
-- the head_dim rules of the kernel wrappers and the D-256 launch plans
+- the head_dim rules of the kernel wrappers (at 256: bf16 and f32 q on a
+  cache of their own dtype or e4m3, never int8) and the D-256 launch plans
   (pure Python).
 
 The JAX engine runs once, in a module fixture.
@@ -47,6 +48,7 @@ from xllm_tpu_torch.ops.cuda import prefill_attention as tprefill
 from xllm_tpu_torch.runtime import forward_params as tfp
 from xllm_tpu_torch.runtime.model_runner import ModelRunner as TRunner
 from xllm_tpu_torch.weights import load_param_tree, random_param_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -421,8 +423,9 @@ def test_prefill_plain_matches_pallas_at_head_dim_256(dtype):
 @pytest.mark.parametrize("d,work,cache,ok", [
     (128, torch.bfloat16, torch.int8, True), (64, torch.float32, torch.float8_e4m3fn, True),
     (256, torch.bfloat16, torch.bfloat16, True), (256, torch.float32, torch.float32, True),
-    (256, torch.bfloat16, torch.int8, False), (256, torch.bfloat16, torch.float8_e4m3fn, False),
+    (256, torch.bfloat16, torch.int8, False), (256, torch.bfloat16, torch.float8_e4m3fn, True),
     (256, torch.float32, torch.bfloat16, False), (192, torch.bfloat16, torch.bfloat16, False),
+    (256, torch.float32, torch.float8_e4m3fn, True), (256, torch.float32, torch.int8, False),
 ])
 def test_check_head_dim_per_dtype_pair(d, work, cache, ok):
     if ok:

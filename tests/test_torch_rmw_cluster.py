@@ -28,6 +28,7 @@ import torch
 from chip_smoke import E4M3_EDGES
 from xllm_tpu_torch.ops.cuda import kv_write as kvw
 from xllm_tpu_torch.ops.quant import to_e4m3
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHAPES = [(bs, hkv, d) for bs in (16, 32, 64, 128) for hkv in (2, 4, 8) for d in (64, 128)]
 

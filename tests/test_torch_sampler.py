@@ -19,6 +19,7 @@ from xllm_tpu.runtime import forward_params as jfp
 from xllm_tpu.runtime import sampler as jsampler
 from xllm_tpu_torch.runtime import forward_params as tfp
 from xllm_tpu_torch.runtime import sampler as tsampler
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, V, T, K = 6, 500, 32, 64
 

@@ -65,6 +65,7 @@ from xllm_tpu_torch.runtime.input_builder import build_prefill_input
 from xllm_tpu_torch.runtime.model_runner import ModelRunner as TRunner
 from xllm_tpu_torch.server.async_engine import AsyncLLMEngine
 from xllm_tpu_torch.weights import as_tensor, load_param_tree, random_param_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 F8 = jnp.float8_e4m3fn
 

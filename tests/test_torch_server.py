@@ -55,6 +55,7 @@ from xllm_tpu_torch.server import http as web
 from xllm_tpu_torch.server.api import APIServer as TServer
 from xllm_tpu_torch.server.api import check_unported, parse_args
 from xllm_tpu_torch.server.registry import InstanceClient, make_registry_app
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-5

@@ -69,6 +69,7 @@ from xllm_tpu_torch.runtime.input_builder import build_batched_verify_input
 from xllm_tpu_torch.runtime.model_runner import ModelRunner as TRunner
 from xllm_tpu_torch.runtime.rejection_sampler import rejection_sample
 from xllm_tpu_torch.weights import random_param_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 # tests/test_mtp.py's model widths and its MLA configuration (:127); the
 # glm4_moe model adds sigmoid routing in two groups, a shared expert, a

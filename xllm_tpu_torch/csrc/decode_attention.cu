@@ -259,9 +259,11 @@ __host__ __device__ __forceinline__ size_t decode_smem_bytes(int chunk, int gran
 }
 
 // blocks an SM the registers must allow: kMinBlocks (128 registers a
-// thread) up to head_dim 128; at 256 the ring and q take ~100 KB of shared
-// memory (two blocks an SM at most), and q's A fragments alone hold 64
-// registers, so the cap lifts
+// thread) up to head_dim 128; at 256 a bf16 ring and q take ~100 KB of
+// shared memory (two blocks an SM at most; an e4m3 ring is half as large,
+// and its 139-206 registers with bf16 q up to 16 rows let two or three
+// blocks share an SM), and q's A fragments alone hold 64 registers, so
+// the cap lifts
 template <int D>
 constexpr int min_blocks = D > 128 ? 1 : kMinBlocks;
 
@@ -929,12 +931,15 @@ extern "C" int xllm_decode_attention_write(
 #define XLLM_HEAD_DIMS(T, C)                                                  \
   if (head_dim == 128) return (int)xllm::launch_group<T, C, 128>(a, batch, krows, vrows, s); \
   if (head_dim == 64) return (int)xllm::launch_group<T, C, 64>(a, batch, krows, vrows, s);
-  // head_dim 256 (qwen3-next's full-attention layers): bf16 and f32 caches
-  // in their own dtype only, the pairs a served model reaches
+  // head_dim 256 (qwen3-next's full-attention layers): a cache in q's own
+  // dtype or e4m3, the pairs a served model reaches (the family takes no
+  // int8 KV)
 #define XLLM_CACHES(T, TCODE)                                       \
   if (qtype == TCODE) {                                             \
     if (dtype == TCODE && head_dim == 256)                          \
       return (int)xllm::launch_group<T, T, 256>(a, batch, krows, vrows, s); \
+    if (dtype == XLLM_DTYPE_E4M3 && head_dim == 256)                \
+      return (int)xllm::launch_group<T, xllm::e4m3, 256>(a, batch, krows, vrows, s); \
     if (dtype == TCODE) { XLLM_HEAD_DIMS(T, T) }                    \
     if (dtype == XLLM_DTYPE_I8) { XLLM_HEAD_DIMS(T, int8_t) }       \
     if (dtype == XLLM_DTYPE_E4M3) { XLLM_HEAD_DIMS(T, xllm::e4m3) } \

@@ -24,7 +24,9 @@
 // Two kernels, chosen by q's dtype and head_dim in the C entry:
 //
 // 1. bf16 q at head_dim 128 (every served bf16 model, on a bf16, int8 or
-//    fp8 cache): tensor cores, prefill_tc_kernel below.
+//    fp8 cache) and 256 (qwen3-next's full-attention layers, on a bf16 or
+//    fp8 cache: 64 rows a block, see Geo below): tensor cores,
+//    prefill_tc_kernel below.
 //    - A block holds 128 query rows, 8 warps x 16: the G query heads of one
 //      kv head x 128 / G positions, token-major (row r = position r / G,
 //      head r % G), so a K/V tile in shared memory serves every head that
@@ -449,7 +451,7 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
 // key tile (16, 32, 64, 128; 64 also for pages longer than the tile, whose
 // maxima come from the first pass; 0 for pages of 1-8 keys, whose length
 // the walk reads at run time); PASS1: write the first pass's maxima instead
-// of attending; D: the head_dim (128, or 256 on a bf16 cache).
+// of attending; D: the head_dim (128, or 256 on a bf16 or e4m3 cache).
 template <typename C, int PG, bool PASS1, int D>
 __global__ void __launch_bounds__(NTH)
     prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,  // [P, S, Hq, D]
@@ -891,8 +893,8 @@ cudaError_t launch(const void* q, const void* k_cache, const void* v_cache, cons
 }  // namespace xllm
 
 // qtype bf16 at head_dim 128 (a bf16, int8 or e4m3 cache) or 256 (a bf16
-// cache): the tensor-core kernel, BR = 128 query rows a block at head_dim
-// 128 and 64 at 256, with nsplit <= 32 context splits of `chunk`
+// or e4m3 cache): the tensor-core kernel, BR = 128 query rows a block at
+// head_dim 128 and 64 at 256, with nsplit <= 32 context splits of `chunk`
 // positions (a multiple of the key tile, max(64, bs) up to bs 128 at
 // head_dim 128 and 64 at 256, and of bs) and, when it splits or bs
 // outgrows the key tile, gmax [tiles * BR, ngran] first-pass maxima per
@@ -921,7 +923,8 @@ extern "C" int xllm_prefill_attention(int device, const void* q, const void* k_c
   const int* kl = static_cast<const int*>(kv_lens);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (qtype == XLLM_DTYPE_BF16 &&
-      (head_dim == 128 || (head_dim == 256 && dtype == XLLM_DTYPE_BF16))) {
+      (head_dim == 128 ||
+       (head_dim == 256 && (dtype == XLLM_DTYPE_BF16 || dtype == XLLM_DTYPE_E4M3)))) {
     const int kt = bs == 128 && head_dim == 128 ? 128 : 64;
     const long long width = (long long)nbmax * bs;
     if (nsplit < 1 || nsplit > xllm::tc::kMaxSplits || chunk <= 0 || chunk % kt ||
@@ -943,15 +946,19 @@ extern "C" int xllm_prefill_attention(int device, const void* q, const void* k_c
   if (bs == 128) XLLM_TC(C, 128);          \
   if (bs < 16) XLLM_TC(C, 0);              \
   XLLM_TC(C, 64);
-    if (head_dim == 256) {  // bf16 cache; pages past 64 keys take the first pass
-      if (bs == 16) XLLM_TC_D(__nv_bfloat16, 16, 256);
-      if (bs == 32) XLLM_TC_D(__nv_bfloat16, 32, 256);
-      if (bs < 16) XLLM_TC_D(__nv_bfloat16, 0, 256);
-      XLLM_TC_D(__nv_bfloat16, 64, 256);
+#define XLLM_TC_256(C)                     \
+  if (bs == 16) XLLM_TC_D(C, 16, 256);     \
+  if (bs == 32) XLLM_TC_D(C, 32, 256);     \
+  if (bs < 16) XLLM_TC_D(C, 0, 256);       \
+  XLLM_TC_D(C, 64, 256);
+    if (head_dim == 256) {  // bf16 or e4m3 cache; pages past 64 keys take the first pass
+      if (dtype == XLLM_DTYPE_BF16) { XLLM_TC_256(__nv_bfloat16) }
+      XLLM_TC_256(xllm::e4m3)
     }
     if (dtype == XLLM_DTYPE_BF16) { XLLM_TC_TILES(__nv_bfloat16) }
     if (dtype == XLLM_DTYPE_I8) { XLLM_TC_TILES(int8_t) }
     if (dtype == XLLM_DTYPE_E4M3) { XLLM_TC_TILES(xllm::e4m3) }
+#undef XLLM_TC_256
 #undef XLLM_TC_TILES
 #undef XLLM_TC
 #undef XLLM_TC_D
@@ -970,10 +977,12 @@ extern "C" int xllm_prefill_attention(int device, const void* q, const void* k_c
     if (dtype == XLLM_DTYPE_I8) { XLLM_HEAD_DIMS(T, int8_t) }       \
     if (dtype == XLLM_DTYPE_E4M3) { XLLM_HEAD_DIMS(T, xllm::e4m3) } \
   }
-  // head_dim 256 on the CUDA cores: f32 q on an f32 cache (bf16 takes the
-  // tensor cores above)
-  if (qtype == XLLM_DTYPE_F32 && dtype == XLLM_DTYPE_F32 && head_dim == 256)
-    XLLM_LAUNCH(float, float, 256);
+  // head_dim 256 on the CUDA cores: f32 q on an f32 or e4m3 cache (bf16
+  // takes the tensor cores above)
+  if (qtype == XLLM_DTYPE_F32 && head_dim == 256) {
+    if (dtype == XLLM_DTYPE_F32) XLLM_LAUNCH(float, float, 256);
+    if (dtype == XLLM_DTYPE_E4M3) XLLM_LAUNCH(float, xllm::e4m3, 256);
+  }
   XLLM_CACHES(__nv_bfloat16, XLLM_DTYPE_BF16)
   XLLM_CACHES(float, XLLM_DTYPE_F32)
 #undef XLLM_CACHES

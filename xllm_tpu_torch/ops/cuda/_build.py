@@ -191,15 +191,20 @@ def is_quantized(dtype) -> bool:
 def check_head_dim(d: int, work_dtype, cache_dtype, what: str = "CUDA kernels") -> None:
     """The head_dims the attention kernels and their cache writers are built
     for: 64 and 128 for every (q, cache) dtype pair; 256 (qwen3-next's
-    full-attention layers) for the pairs a served model reaches, bf16 q on a
-    bf16 cache and f32 q on an f32 cache. Anything else raises."""
+    full-attention layers) for the pairs a served model reaches: bf16 q on
+    a bf16 or float8_e4m3fn cache, f32 q on an f32 or float8_e4m3fn cache.
+    An int8 cache at 256 stays refused (the family takes no int8 KV).
+    Anything else raises."""
     import torch
 
     if d in (64, 128):
         return
-    pairs = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32))
+    e4m3 = torch.float8_e4m3fn
+    pairs = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+             (torch.bfloat16, e4m3), (torch.float32, e4m3))
     if d == 256 and (work_dtype, cache_dtype) in pairs:
         return
     raise NotImplementedError(
-        f"{what}: built for head_dim 64 and 128 (256 for bf16 / bf16 and f32 / f32 "
-        f"q / cache pairs), not {d} with {work_dtype} q on a {cache_dtype} cache")
+        f"{what}: built for head_dim 64 and 128 (256 for bf16 q on a bf16 or e4m3 "
+        f"cache and f32 q on an f32 or e4m3 cache), not {d} with {work_dtype} q on a "
+        f"{cache_dtype} cache")

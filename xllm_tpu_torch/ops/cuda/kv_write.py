@@ -216,7 +216,9 @@ def _launch(name, k_rows, v_rows, k_all, v_all, layer_idx, block_tables,
         if k_all.dtype != v_all.dtype or not v_all.is_contiguous():
             raise ValueError(f"{name}: K and V caches must share a dtype and be contiguous")
     dtype = _build.dtype_code(k_all.dtype)
-    _build.check_head_dim(d_c, k_all.dtype, k_all.dtype, name)
+    # the rows' dtype on a 1-byte cache (an e4m3 cache casts bf16 / f32 rows)
+    work = k_rows.dtype if _build.is_quantized(k_all.dtype) else k_all.dtype
+    _build.check_head_dim(d_c, work, k_all.dtype, name)
     if (hkv, d) != (hkv_c, d_c) or v_rows.shape != k_rows.shape:
         raise ValueError(f"{name}: rows {tuple(k_rows.shape)} vs cache {tuple(k_all.shape)}")
     if not k_all.is_contiguous():

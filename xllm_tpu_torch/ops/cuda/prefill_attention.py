@@ -36,7 +36,8 @@ unnormalised P of each page against the running maximum after that page.
   1, as the JAX package runs its batched kernels.
 
 Two kernels, chosen by q's dtype: bf16 q at head_dim 128 (and at 256 on a
-bf16 cache, with row tiles of 64) runs on the tensor cores and, where its (chunk, kv head, row tile) blocks are too few
+bf16 or e4m3 cache, with row tiles of 64) runs on the tensor cores and,
+where its (chunk, kv head, row tile) blocks are too few
 for the card, splits each chunk's key range (``split_plan``, from shapes
 alone) and merges the splits; f32 q and head_dim 64 run on the CUDA cores.
 Bound on the card: operations for long chunks (S = 2048), bytes for
@@ -253,9 +254,10 @@ def key_tile(block_size: int, head_dim: int = 128) -> int:
 
 def tensor_cores(work_dtype, cache_dtype, head_dim: int) -> bool:
     """Whether a launch takes the tensor-core kernel: bf16 q at head_dim
-    128 (any cache) or 256 (a bf16 cache)."""
+    128 (any cache) or 256 (a bf16 or float8_e4m3fn cache)."""
     return work_dtype == torch.bfloat16 and (
-        head_dim == 128 or (head_dim == 256 and cache_dtype == torch.bfloat16))
+        head_dim == 128
+        or (head_dim == 256 and cache_dtype in (torch.bfloat16, torch.float8_e4m3fn)))
 
 
 def split_plan(p: int, s: int, hq: int, hkv: int, width: int,
